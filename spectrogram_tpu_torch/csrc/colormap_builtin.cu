@@ -16,8 +16,10 @@
 //   stereo = tab[3]; x = stereo ? xv : xu
 //   rgb = two-tap linear read of tab[t*4 + c]; alpha = stereo ? xu/(R-1) : 1
 //   word = q(r) | q(g) << 8 | q(b) << 16 | q(a) << 24, q(v) = clamp(rint(255v))
-// with the row's table tab = tables[n % n_tables] (n_tables = S: per-stream
-// tables over window-major rows; n_tables = 1: one palette for all rows).
+// with the row's table tab = tables[(n / rows_per_table) % n_tables]:
+// rows_per_table = 1 and n_tables = S for per-stream tables over the push's
+// window-major rows, rows_per_table = R' for the viewport's stream-major
+// rows (R' rows per stream), n_tables = 1 for one palette for all rows.
 //
 // Every multiply and add is written with the _rn intrinsics so that nvcc does
 // not contract them into FMAs: the plain PyTorch version rounds each one, and
@@ -51,8 +53,8 @@ __global__ void __launch_bounds__(kThreads) colormap_builtin_kernel(
     int rows, int bins, const int* __restrict__ j0,
     const int* __restrict__ j1, const float* __restrict__ w0,
     const float* __restrict__ w1, int h, const float* __restrict__ tables,
-    int n_tables, int res, float min_db, float db_range, float db_eps,
-    float inv_res1, unsigned* __restrict__ out) {
+    int n_tables, int rows_per_table, int res, float min_db, float db_range,
+    float db_eps, float inv_res1, unsigned* __restrict__ out) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= h) return;
   const int a = j0[p], b = j1[p];
@@ -71,7 +73,8 @@ __global__ void __launch_bounds__(kThreads) colormap_builtin_kernel(
     const float xu = texel(mag, fres);
     const float xv = texel(pan, fres);
 
-    const float* tab = tables + static_cast<size_t>(row % n_tables) * (res * 4);
+    const int table = (row / rows_per_table) % n_tables;
+    const float* tab = tables + static_cast<size_t>(table) * (res * 4);
     const bool stereo = tab[3] != 0.f;
     const float x = stereo ? xv : xu;
     const float f0 = floorf(x);
@@ -100,14 +103,16 @@ SPK_EXPORT int spk_colormap_builtin(const float* mag_l, const float* mag_r,
                                     int rows, int bins, const int* j0,
                                     const int* j1, const float* w0,
                                     const float* w1, int h,
-                                    const float* tables, int n_tables, int res,
+                                    const float* tables, int n_tables,
+                                    int rows_per_table, int res,
                                     float min_db, float db_range, float db_eps,
                                     float inv_res1, int* out, void* stream) {
   const dim3 grid((h + kThreads - 1) / kThreads,
                   rows < kMaxGridY ? rows : kMaxGridY);
   colormap_builtin_kernel<<<grid, kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
-      mag_l, mag_r, rows, bins, j0, j1, w0, w1, h, tables, n_tables, res,
-      min_db, db_range, db_eps, inv_res1, reinterpret_cast<unsigned*>(out));
+      mag_l, mag_r, rows, bins, j0, j1, w0, w1, h, tables, n_tables,
+      rows_per_table, res, min_db, db_range, db_eps, inv_res1,
+      reinterpret_cast<unsigned*>(out));
   return static_cast<int>(cudaGetLastError());
 }

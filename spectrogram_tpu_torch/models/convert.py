@@ -1,10 +1,11 @@
 """Carry a JAX `StreamState` into the PyTorch port and back, as numpy arrays.
 
 This system has no weights: what a running deployment holds is its stream
-state (the sample carry, palette ids, counters and the pre-picked palette
-tables).  `state_from_jax` takes that state as a dict of numpy arrays — e.g.
-`{k: np.asarray(v) for k, v in jax_state._asdict().items()}`, with `tables`
-a tuple of arrays — and `state_to_numpy` gives the same form back.
+state (the sample carry, the bf16 row ring with its cursor, palette ids, the
+row count and the pre-picked palette tables).  `state_from_jax` takes that
+state as a dict of numpy arrays — e.g. `{k: np.asarray(v) for k, v in
+jax_state._asdict().items()}`, with `tables` a tuple of arrays — and
+`state_to_numpy` gives the same form back.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from spectrogram_tpu_torch.models.spectrogram import StreamState
+from spectrogram_tpu_torch.models.spectrogram import StreamState, default_device
 
 _FIELDS = ("carry", "ring", "cursor", "palette_id", "row_count")
 
@@ -26,7 +27,9 @@ def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 def state_from_jax(state: dict, device=None) -> StreamState:
-    """A `StreamState` on `device` from a JAX state's numpy arrays.
+    """A `StreamState` on `device` (default: the card) from a JAX state's
+    numpy arrays.  The ring ([S, R, 2, B], R = 0 without store_ring) arrives
+    as bf16 or f32 values and is stored as bf16.
 
     Only the layout this port pushes is accepted: an f32 [S, 2, C] carry and
     external stream order.  The JAX pipeline's zero-size blockwise marker is
@@ -47,6 +50,7 @@ def state_from_jax(state: dict, device=None) -> StreamState:
             f"{[t.shape for t in tables]} (sorted or generic states are "
             "not ported)"
         )
+    device = default_device(device)
     return StreamState(
         carry=_tensor(carry, torch.float32, device),
         ring=_tensor(state["ring"], torch.bfloat16, device),

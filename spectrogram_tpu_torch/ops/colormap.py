@@ -91,6 +91,22 @@ def resample_matrix_full(cfg: SpectrogramConfig, height: int | None = None) -> n
     return m
 
 
+def time_resample_matrix(rows: int, width: int) -> np.ndarray:
+    """[rows, width] two-tap bilinear time-resample matrix implementing the
+    GL texel sampling law: output column j reads continuous coordinate
+    x = (j + 0.5) / width * rows, i.e. lerp(texel floor(x-.5), next, frac)
+    with clamp-to-edge taps (gpu_spectrogram.rs:166-174 + DESIGN D2).
+    Works for both minification and magnification, like the GL sampler."""
+    x = (np.arange(width) + 0.5) / width * rows - 0.5
+    i0 = np.floor(x).astype(int)
+    w = (x - i0).astype(np.float32)
+    cols = np.arange(width)
+    m = np.zeros((rows, width), np.float32)
+    np.add.at(m, (np.clip(i0, 0, rows - 1), cols), 1.0 - w)
+    np.add.at(m, (np.clip(i0 + 1, 0, rows - 1), cols), w)
+    return m
+
+
 def resample_rows(rows: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
     """[..., B, 2] magnitude rows -> [..., H, 2] log-frequency pixels, in
     true f32 (TF32 would cost three decimal digits)."""
@@ -149,6 +165,18 @@ def sample_lut_factored(
         cu = torch.einsum("s...t,stc->s...c", wu, u_table)
         cv = torch.einsum("s...t,stc->s...c", wv, v_table)
     return cu * cv
+
+
+def composite_over_background(rgba: torch.Tensor,
+                              background_rgb: torch.Tensor) -> torch.Tensor:
+    """Alpha-blend f32 RGBA over an opaque background: the reference's frame
+    clear to the palette background plus GL alpha blending
+    (gpu_spectrogram.rs:278-293).  background_rgb is u8 [3] or [..., 3];
+    returns u8 RGB."""
+    a = rgba[..., 3:4]
+    bg = background_rgb.to(torch.float32) / 255.0
+    rgb = rgba[..., :3] * a + bg * (1.0 - a)
+    return rgba_f32_to_u8(rgb)
 
 
 def rgba_f32_to_u8(rgba: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Build, load and count the hand-written CUDA kernels.
 
-The sources in `spectrogram_tpu_torch/csrc/` have a plain C interface: `nvcc`
-compiles them, for `sm_90a` (Hopper), into one shared library, and `ctypes`
+The sources in `spectrogram_tpu_torch/csrc/` have a plain C interface: one
+`nvcc` per source, all started together, compiles each for `sm_90a`
+(Hopper); one more links the objects into a shared library, and `ctypes`
 loads it.  No PyTorch header is compiled, so a cold build takes seconds.  The
 library lands in `build/kernels/` beside the package (a directory git
 ignores) and is rebuilt whenever the sources or flags change.
@@ -26,10 +27,9 @@ PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 LIBRARY_NAME = "libspectrogram_kernels.so"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-c")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,8 +37,11 @@ _F = ctypes.c_float
 # name -> ctypes argtypes of its C entry point (see csrc/*.cu).
 KERNELS = {
     "spk_stft_packed": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "spk_stft_mixed": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "spk_stft_allk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "spk_colormap_builtin": (
-        _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F, _P, _P,
+        _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _F, _F, _F, _F, _P,
+        _P,
     ),
 }
 
@@ -62,11 +65,24 @@ def _sources() -> list[pathlib.Path]:
 
 
 def _source_digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()
+
+
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands at once; raise with the output of the first that
+    fails."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outputs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
 
 
 def build(build_dir: pathlib.Path = BUILD_DIR) -> tuple[pathlib.Path, float]:
@@ -79,21 +95,22 @@ def build(build_dir: pathlib.Path = BUILD_DIR) -> tuple[pathlib.Path, float]:
     digest = _source_digest()
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
         return lib, 0.0
-    tmp = build_dir / f"{LIBRARY_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC_DIR.glob("*.cu")))]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    objects = [build_dir / f"{src.stem}.{tag}.o" for src in sources]
+    tmp = build_dir / f"{LIBRARY_NAME}.{tag}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)      # atomic: a concurrent loader sees old or new
+    try:
+        _run([[nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)]
+              for src, obj in zip(sources, objects)])
+        _run([[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objects)]])
+        os.replace(tmp, lib)      # atomic: a concurrent loader sees old or new
+    finally:
+        for path in (*objects, tmp):
+            path.unlink(missing_ok=True)
     stamp.write_text(digest)
-    return lib, seconds
+    return lib, time.perf_counter() - t0
 
 
 class KernelLibrary:

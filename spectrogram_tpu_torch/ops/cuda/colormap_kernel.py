@@ -4,8 +4,10 @@ Replaces `spectrogram_tpu/ops/pallas/colormap_kernel.py`
 `colormap_planes_banded` with the per-row body `_builtin_kernel` (via
 `_builtin_word_tile`, `_resample_and_laws` and `_tent_lut_channels`), and
 covers the uniform single-table read too (`tables` with one row).  Input:
-the [rows, N/2] magnitude planes of kernel A.  Output: [rows, H] int32
-RGBA8888, R in byte 0.
+the [rows, N/2] magnitude planes of kernel A with taps from
+`resample_matrix_full`, or the viewport's [rows, B] ring planes (bins 1 ..
+W-1) with taps from `resample_matrix`.  Output: [rows, H] int32 RGBA8888, R
+in byte 0.
 
 The TPU kernel needed a banded matmul for the two-tap resample, a tent basis
 for the LUT read and SMEM tables, all to avoid gathers.  Here the resample is
@@ -137,12 +139,14 @@ def unpack_rgba_device(packed: torch.Tensor) -> torch.Tensor:
     )
 
 
-def _row_tables(tables: torch.Tensor, rows: int) -> torch.Tensor:
-    """Row n's table is tables[n % T]: [rows, R*4] (or [1, R*4] to broadcast)."""
+def _row_tables(tables: torch.Tensor, rows: int,
+                rows_per_table: int = 1) -> torch.Tensor:
+    """Row n's table is tables[(n // rows_per_table) % T]: [rows, R*4] (or
+    [1, R*4] to broadcast)."""
     t = tables.shape[0]
-    if t in (1, rows):
+    if t == 1 or (t == rows and rows_per_table == 1):
         return tables
-    idx = torch.arange(rows, device=tables.device) % t
+    idx = (torch.arange(rows, device=tables.device) // rows_per_table) % t
     return tables.index_select(0, idx)
 
 
@@ -153,7 +157,8 @@ def _quantize(v: torch.Tensor) -> torch.Tensor:
 
 def colormap_builtin_plain(mag_l: torch.Tensor, mag_r: torch.Tensor,
                            taps: ResampleTaps, tables: torch.Tensor,
-                           cfg: SpectrogramConfig) -> torch.Tensor:
+                           cfg: SpectrogramConfig,
+                           rows_per_table: int = 1) -> torch.Tensor:
     """The plain PyTorch version: the same laws, one rounding per op."""
     rows = mag_l.shape[0]
     res = tables.shape[1] // 4
@@ -162,7 +167,7 @@ def colormap_builtin_plain(mag_l: torch.Tensor, mag_r: torch.Tensor,
     pr = taps.w0 * mag_r.index_select(1, j0) + taps.w1 * mag_r.index_select(1, j1)
     xu = cmap_ops.texel_coord(cmap_ops.db_normalize(pl, pr, cfg), res)
     xv = cmap_ops.texel_coord(cmap_ops.pan_fraction(pl, pr), res)
-    tab = _row_tables(tables, rows)                         # [rows|1, R*4]
+    tab = _row_tables(tables, rows, rows_per_table)         # [rows|1, R*4]
     stereo = tab[:, 3:4] != 0.0
     x = torch.where(stereo, xv, xu)
     f0 = torch.floor(x)
@@ -183,9 +188,12 @@ def colormap_builtin_plain(mag_l: torch.Tensor, mag_r: torch.Tensor,
 
 def colormap_builtin(mag_l: torch.Tensor, mag_r: torch.Tensor,
                      taps: ResampleTaps, tables: torch.Tensor,
-                     cfg: SpectrogramConfig) -> torch.Tensor:
+                     cfg: SpectrogramConfig,
+                     rows_per_table: int = 1) -> torch.Tensor:
     """[rows, B] f32 magnitude planes -> [rows, H] int32 RGBA8888, row n
-    colored with tables[n % T] ([T, R*4] f32, built-in layout).
+    colored with tables[(n // rows_per_table) % T] ([T, R*4] f32, built-in
+    layout): rows_per_table 1 for the push's window-major rows, R' for a
+    viewport's R' rows per stream.
 
     CPU tensors take the plain version; CUDA tensors take the kernel."""
     rows, bins = mag_l.shape
@@ -194,13 +202,16 @@ def colormap_builtin(mag_l: torch.Tensor, mag_r: torch.Tensor,
     if (mag_r.shape != mag_l.shape or taps.bins > bins
             or any(t.shape != (h,) for t in taps[:4])
             or tables.ndim != 2 or tables.shape[0] < 1
-            or tables.shape[1] % 4 or tables.shape[1] < 8):
+            or tables.shape[1] % 4 or tables.shape[1] < 8
+            or rows_per_table < 1):
         raise ValueError(
             f"planes {tuple(mag_l.shape)}/{tuple(mag_r.shape)}, taps for "
-            f"{taps.bins} bins and tables {tuple(tables.shape)} do not fit"
+            f"{taps.bins} bins, tables {tuple(tables.shape)} and "
+            f"rows_per_table={rows_per_table} do not fit"
         )
     if mag_l.device.type == "cpu":
-        return colormap_builtin_plain(mag_l, mag_r, taps, tables, cfg)
+        return colormap_builtin_plain(mag_l, mag_r, taps, tables, cfg,
+                                      rows_per_table)
     if mag_l.device.type != "cuda":
         raise ValueError(f"no colormap kernel for device {mag_l.device}")
     checks = (
@@ -225,7 +236,8 @@ def colormap_builtin(mag_l: torch.Tensor, mag_r: torch.Tensor,
             _build.library().launch(
                 KERNEL, mag_l.data_ptr(), mag_r.data_ptr(), rows, bins,
                 taps.j0.data_ptr(), taps.j1.data_ptr(), taps.w0.data_ptr(),
-                taps.w1.data_ptr(), h, tables.data_ptr(), tables.shape[0], res,
+                taps.w1.data_ptr(), h, tables.data_ptr(), tables.shape[0],
+                rows_per_table, res,
                 cfg.min_db, cfg.max_db - cfg.min_db, cfg.db_epsilon,
                 1.0 / (res - 1), out.data_ptr(), stream,
             )

@@ -1,4 +1,5 @@
-"""Test signals made with numpy from a seed, and the RGBA comparison rule.
+"""Test signals made with numpy from a seed, and the comparison rules for
+RGBA rows and for the bf16 row ring.
 
 Tonal content is the precision probe: noise has no spectral-leakage floors,
 so it hides FFT precision faults that a chirp exposes (the JAX package's
@@ -8,6 +9,7 @@ so it hides FFT precision faults that a chirp exposes (the JAX package's
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def chirp_tone(n_streams: int, n_samples: int, sample_rate: float,
@@ -42,16 +44,47 @@ def make(kind: str, n_streams: int, n_samples: int, sample_rate: float,
     raise ValueError(f"unknown signal {kind!r}")
 
 
-def rgba_u8_diff(a: np.ndarray, b: np.ndarray) -> int:
+def rgba_u8_diff(a, b) -> int:
     """Largest per-channel difference between two [..., 4] u8 RGBA images
-    over what they show: alpha everywhere, and r, g, b wherever either
-    image's alpha is nonzero.
+    (numpy arrays, or tensors on one device) over what they show: alpha
+    everywhere, and r, g, b wherever either image's alpha is nonzero.
 
     A stereo palette colors a pixel by its pan, r/(l+r), and sets alpha from
     its level.  Below the dB floor (alpha 0) both magnitudes are the FFT's
     f32 rounding noise, so their pan, and with it r, g, b, differs between
     any two FFT implementations, while the pixel stays fully transparent.
     """
+    if isinstance(a, torch.Tensor):       # on the tensors' device
+        d = (a.to(torch.int32) - b.to(torch.int32)).abs()
+        shown = (a[..., 3] > 0) | (b[..., 3] > 0)
+        worst = [d[..., 3].flatten(), d[shown].flatten(), d.new_zeros(1)]
+        return int(torch.cat(worst).max())
     d = np.abs(a.astype(np.int32) - b.astype(np.int32))
     shown = (a[..., 3] > 0) | (b[..., 3] > 0)
     return int(max(d[..., 3].max(initial=0), d[shown].max(initial=0)))
+
+
+def _f32(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(torch.float32)
+    return torch.from_numpy(np.asarray(x, np.float32))
+
+
+def bf16_ulps(a, b, atol: float = 0.0) -> float:
+    """Largest difference between two rings of bf16 values (arrays, or
+    tensors on one device), in bf16 ulps at the larger magnitude of each
+    pair, after forgiving `atol` of absolute difference.
+
+    Two f32 STFTs that agree to within atol round to bf16 values at most one
+    ulp apart, except where the values are so small that atol spans many
+    ulps: those lie far below the dB floor and show nothing.
+    """
+    a, b = _f32(a), _f32(b)
+    if a.shape != b.shape:
+        raise ValueError(f"shapes differ: {tuple(a.shape)} vs {tuple(b.shape)}")
+    if not a.numel():
+        return 0.0
+    _, exp = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    ulp = torch.ldexp(torch.ones_like(a), exp - 8)   # 8 significant bits
+    excess = ((a - b).abs() - atol).clamp(min=0.0)
+    return float((excess / ulp).max())

@@ -49,7 +49,7 @@ def _run_both(jp, tp, cfg, kind, n_pushes=3):
     js = jp.set_palette(jp.init_state(s), IDS)
     carry = testing.make(kind, s, jp.carry_size, cfg.sample_rate, seed=9)
     js = js._replace(carry=jnp.asarray(carry.transpose(0, 2, 1).copy()))
-    ts = state_from_jax(_np_state(js))
+    ts = state_from_jax(_np_state(js), device="cpu")
     pcm = testing.make(kind, s, n_pushes * jp.chunk_size, cfg.sample_rate, seed=1)
     jrows, trows = [], []
     for i in range(n_pushes):
@@ -77,7 +77,8 @@ def test_push_matches_jax_pallas_small(kind, plan):
         jp.override_plan(FftPlan(512, 4, 128, 64))
         assert jp.stft_packed and jp.cmap_segments_full is not None
     cfg = SpectrogramConfig(**SMALL)
-    want, got = _run_both(jp, SpectrogramPipeline(cfg), cfg, kind)
+    tp = SpectrogramPipeline(cfg, store_ring=False, device="cpu")
+    want, got = _run_both(jp, tp, cfg, kind)
     assert got.shape == want.shape == (len(IDS), 3, cfg.viewport_height, 4)
     assert testing.rgba_u8_diff(got, want) <= 1
 
@@ -88,7 +89,8 @@ def test_push_matches_jax_xla_bench(kind):
         jcfg.BENCH_CONFIG, chunk_hops=1, store_ring=False, packed_output=True,
         stft_backend="xla", colormap_backend="xla",
     )
-    want, got = _run_both(jp, SpectrogramPipeline(BENCH_CONFIG), BENCH_CONFIG, kind)
+    tp = SpectrogramPipeline(BENCH_CONFIG, store_ring=False, device="cpu")
+    want, got = _run_both(jp, tp, BENCH_CONFIG, kind)
     assert got.shape == want.shape == (len(IDS), 3, BENCH_CONFIG.viewport_height, 4)
     assert testing.rgba_u8_diff(got, want) <= 1
     # mono rows have alpha 255 everywhere, so every channel is held there
@@ -101,7 +103,7 @@ def test_streamed_equals_one_shot(ids):
     """Pushing T samples hop by hop gives exactly the rows of process() on
     the same PCM with C leading zeros standing in for the initial carry."""
     cfg = SpectrogramConfig(**SMALL)
-    p = SpectrogramPipeline(cfg)
+    p = SpectrogramPipeline(cfg, device="cpu")
     s, n = len(IDS), 5
     state = p.set_palette(p.init_state(s), ids)
     pcm = testing.chirp_tone(s, n * p.chunk_size, cfg.sample_rate, seed=4)
@@ -120,7 +122,7 @@ def test_streamed_equals_one_shot(ids):
 
 def test_int16_and_planar_pushes():
     cfg = SpectrogramConfig(**SMALL)
-    p = SpectrogramPipeline(cfg)
+    p = SpectrogramPipeline(cfg, device="cpu")
     rng = np.random.default_rng(2)
     words = rng.integers(-32768, 32767, (3, p.chunk_size, 2), dtype=np.int16)
     s0 = p.init_state(3)
@@ -139,8 +141,8 @@ def test_int16_and_planar_pushes():
 def test_unpacked_output_is_the_packed_bytes():
     cfg = SpectrogramConfig(**SMALL)
     chunk = torch.from_numpy(testing.noise(2, cfg.hop_size, seed=6))
-    packed = SpectrogramPipeline(cfg)
-    loose = SpectrogramPipeline(cfg, packed_output=False)
+    packed = SpectrogramPipeline(cfg, device="cpu")
+    loose = SpectrogramPipeline(cfg, packed_output=False, device="cpu")
     _, rp = packed.push(packed.init_state(2), chunk)
     _, ru = loose.push(loose.init_state(2), chunk)
     assert ru.dtype == torch.uint8 and ru.shape == (2, 1, cfg.viewport_height, 4)
@@ -148,7 +150,7 @@ def test_unpacked_output_is_the_packed_bytes():
 
 
 def test_set_palette():
-    p = SpectrogramPipeline(SpectrogramConfig(**SMALL))
+    p = SpectrogramPipeline(SpectrogramConfig(**SMALL), device="cpu")
     s = p.init_state(4)
     assert s.tables[0].shape == (4, 128)
     one = p.set_palette(s, 3)
@@ -162,12 +164,13 @@ def test_set_palette():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(chunk_hops=2), dict(store_ring=True), dict(static_palette=1),
-    dict(i16_planes=True), dict(presorted_input=True), dict(sorted_output=True),
+    dict(ring_dtype=torch.float16), dict(ring_dtype=torch.float32),
+    dict(static_palette=1), dict(i16_planes=True), dict(presorted_input=True),
+    dict(sorted_output=True),
 ])
 def test_arguments_outside_the_slice_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SpectrogramPipeline(SpectrogramConfig(**SMALL), **kwargs)
+        SpectrogramPipeline(SpectrogramConfig(**SMALL), device="cpu", **kwargs)
 
 
 class _SeparableScheme:
@@ -185,11 +188,12 @@ def test_scheme_registries():
 
     cfg = SpectrogramConfig(**SMALL)
     grey = ColorScheme("grey", "", gradient_fn=lambda t: np.stack([t, t, t], -1))
-    p = SpectrogramPipeline(cfg, schemes=[grey, ColorScheme("s", "COOL", (0, 0, 0))])
+    p = SpectrogramPipeline(cfg, schemes=[grey, ColorScheme("s", "COOL", (0, 0, 0))],
+                            device="cpu")
     assert p.builtin_tables.shape == (2, 128)
     assert p.builtin_tables[0, 3] == 0.0 and p.builtin_tables[1, 3] == 1.0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SpectrogramPipeline(cfg, schemes=[_SeparableScheme()])
+        SpectrogramPipeline(cfg, schemes=[_SeparableScheme()], device="cpu")
 
 
 def test_state_round_trip():
@@ -197,11 +201,11 @@ def test_state_round_trip():
                      store_ring=False, packed_output=True, palette_sort=False)
     js = jp.set_palette(jp.init_state(3), np.array([4, 0, 9]))
     d = _np_state(js)
-    back = state_to_numpy(state_from_jax(d))
+    back = state_to_numpy(state_from_jax(d, device="cpu"))
     for k in ("carry", "ring", "cursor", "palette_id", "row_count"):
         np.testing.assert_array_equal(back[k], np.asarray(d[k], back[k].dtype))
     np.testing.assert_array_equal(back["tables"][0], d["tables"][0])
     bad = dict(d, carry=d["carry"].astype(np.int16))
     with pytest.raises(ValueError, match="carry"):
-        state_from_jax(bad)
+        state_from_jax(bad, device="cpu")
     assert jax.default_backend() == "cpu"

@@ -108,8 +108,9 @@ def test_wrapper_refuses_other_devices_and_sizes():
     tw = torch.empty((256, 2), device="meta")
     with pytest.raises(ValueError, match="no STFT kernel"):
         tsk.stft_mag_packed(meta, meta, hann, tw)
-    for n in (4800, 128, 32768):
+    # odd, a prime factor of 7, out of range
+    for n in (4801, 4802, 128, 32768):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tsk.check_fft_size(n)
-    for n in (256, 4096, 16384):
+    for n in (256, 480, 4096, 4800, 9600, 16384):
         tsk.check_fft_size(n)

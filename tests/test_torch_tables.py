@@ -119,10 +119,28 @@ def test_hann_copies(w):
     np.testing.assert_array_equal(jh.reshape(-1), tsk.packed_hann(w))
 
 
+@pytest.mark.parametrize("rows,width", [(2048, 2048), (2048, 800), (6, 9), (16, 24)])
+def test_time_resample_matrix_copy(rows, width):
+    from spectrogram_tpu.models.spectrogram import _time_resample_matrix
+
+    m = tcm.time_resample_matrix(rows, width)
+    np.testing.assert_array_equal(_time_resample_matrix(rows, width), m)
+    # every column is a one- or two-tap read, as the viewport's taps assume
+    taps = tck.resample_taps(m.T)
+    assert taps.bins == rows and taps.j0.shape == (width,)
+
+
+def test_config_default_geometry():
+    """The reference geometry the display path runs at (fft.rs:33,44,65)."""
+    cfg = tcfg.DEFAULT_CONFIG
+    assert (cfg.window_size, cfg.padded_size, cfg.hop_size, cfg.num_bins) == (
+        2400, 4800, 58, 2399)
+
+
 def test_twiddle_table():
     n = 512
     tw = tsk.twiddle_table(n)
-    k = np.arange(n // 2)
+    k = np.arange(n)
     ref = np.exp(-2j * np.pi * k / n)
     np.testing.assert_array_equal(tw[:, 0], ref.real.astype(np.float32))
     np.testing.assert_array_equal(tw[:, 1], ref.imag.astype(np.float32))
@@ -132,6 +150,8 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, spectrogram_tpu_torch\n"
         "import spectrogram_tpu_torch.models.convert\n"
+        "import spectrogram_tpu_torch.profile_push\n"
+        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'spectrogram_tpu' or m.startswith('spectrogram_tpu.')]\n"
         "assert not bad, bad\n"
