@@ -12,8 +12,9 @@ Phases, each of which fails the run with a non-zero exit:
      chirp+tone and of noise at BENCH_CONFIG: atol 3e-5 / rtol 1e-4.
   4. kernel B (built-in colormap) against its plain version on those planes
      with scattered per-row palettes: at most 1 u8 per channel.
-  5. the k=1 main path: SpectrogramPipeline(BENCH_CONFIG, device="cuda",
-     store_ring=False), 4096 streams, palettes arange(S) % 19, 4 pushes of
+  5. the k=1 main path: SpectrogramPipeline(BENCH_CONFIG, chunk_hops=1,
+     store_ring=False, packed_output=True, device="cuda"), 4096 streams,
+     palettes arange(S) % 19 (which the palette sort declines), 4 pushes of
      chirp+tone.  Both kernels' launch counts must rise; the rows must equal
      process() on the same PCM exactly, and the same push on the plain
      versions within 1 u8 on what the image shows; the next carry exactly.
@@ -28,8 +29,9 @@ Phases, each of which fails the run with a non-zero exit:
      streams, BENCH_CONFIG (buffers [4096, 7648]) and DEFAULT_CONFIG, phase
      3's bar.
   9. the display path, at BENCH_CONFIG and at DEFAULT_CONFIG:
-     SpectrogramPipeline(cfg, chunk_hops=8, device="cuda") with its ring
-     (R=2048), 256 streams, palettes arange(S) % 19, 260 pushes of
+     SpectrogramPipeline(cfg, chunk_hops=8, packed_output=True,
+     device="cuda") with its ring (R=2048), 256 streams, palettes
+     arange(S) % 19, 260 pushes of
      chirp+tone (the ring wraps), process() of the same PCM, and
      render_viewport at R and at width 800.  The launch counts of the
      all-windows kernel, kernel A (process) and kernel B must rise; the
@@ -39,10 +41,35 @@ Phases, each of which fails the run with a non-zero exit:
      within 1 u8 of the plain render of the same state.
  10. timing with CUDA events after a warm-up: the k=8 push at BENCH_CONFIG,
      4096 streams, no ring; the display push and render_viewport at 256
-     streams; each new kernel against its plain version; peak device memory.
+     streams; each new kernel against its plain version, and torch.fft.fft
+     on the all-windows rows at DEFAULT_CONFIG; peak device memory.
+ 11. the serving mode's kernels: the blockwise colormap at 10,240 rows of
+     BENCH_CONFIG, on sorted tables (uniform blocks) and scattered ones
+     (mixed blocks), bit for bit kernel B and within 1 u8 of its plain
+     version; the int16 forms of kernel A (N=4096, N=4800) and of the
+     all-windows kernel (k=8, 4096 streams) on chirp+tone PCM words, bit for
+     bit the f32 kernels on x/32768 and within phase 3's bar of plain.
+ 12. the multi-tenant serving path, SpectrogramPipeline(BENCH_CONFIG,
+     chunk_hops=1, store_ring=False, packed_output=True), palettes
+     arange(S) % 19, 3 pushes, at 10,240 streams (the block-relative sort)
+     and 16,384 (the global sort over 4096-stream sort blocks): the sorted
+     push with the defaults, then the full serving mode (i16_planes,
+     presorted_input, sorted_output) with int16 chunks in input_perm order.
+     The blockwise and int16 kernels' launch counts must rise; sorted rows
+     must equal per-row rows (palette_sort=False) exactly and the plain
+     kernels' within 1 u8; rows[output_perm] of the full serving mode must
+     equal the f32 sorted rows exactly; carry[inv] the per-row carry.  Then
+     int16 planes through the other STFT kernels: DEFAULT_CONFIG at k=1 and
+     BENCH_CONFIG at k=8, 4096 streams, bit for bit the f32 pipeline.
+ 13. timing with CUDA events after a warm-up: ms/push and rows/s of the
+     per-row, sorted and full-serving pipelines at both populations (in
+     turns: a b c c b a); each new kernel against its plain version, the f32
+     kernel beside each int16 one, kernel B beside the blockwise one, and
+     the blockwise kernel at 32, 64 and 128 rows per CTA; peak device
+     memory.
 
 The second-to-last line is {"kernels": [...]}: each kernel's launches on the
-main paths (phases 5 and 9), its largest error against its plain version,
+main paths (phases 5, 9 and 12), its largest error against its plain version,
 its time, its plain version's, the library call's where one computes the
 same transform, and its bound: the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its f32 operations over
@@ -73,6 +100,8 @@ STFT_ATOL, STFT_RTOL = 3e-5, 1e-4
 TIMED_ITERS = 20
 K = 8                       # chunk_hops of the display path
 DISPLAY_STREAMS = 256
+SERVING_STREAMS = (10240, 16384)   # the JAX package's serving populations
+SERVING_PUSHES = 3
 DISPLAY_PUSHES = 260        # > 2048 / 8: the ring wraps
 RENDER_WIDTH = 800
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
@@ -96,6 +125,23 @@ KERNELS = {
         name="colormap_builtin",
         source="spectrogram_tpu_torch/csrc/colormap_builtin.cu",
         replaces="spectrogram_tpu/ops/pallas/colormap_kernel.py:1072",
+    ),
+    ck.BLOCKWISE_KERNEL: dict(
+        name="colormap_blockwise",
+        source="spectrogram_tpu_torch/csrc/colormap_blockwise.cu",
+        replaces="spectrogram_tpu/ops/pallas/colormap_kernel.py:536",
+    ),
+    sk.KERNEL_I16: dict(
+        name="stft_packed_i16", source="spectrogram_tpu_torch/csrc/stft_packed.cu",
+        replaces="spectrogram_tpu/ops/pallas/stft_kernel.py:509",
+    ),
+    sk.MIXED_KERNEL_I16: dict(
+        name="stft_mixed_i16", source="spectrogram_tpu_torch/csrc/stft_mixed.cu",
+        replaces="spectrogram_tpu/ops/pallas/stft_kernel.py:509",
+    ),
+    sk.ALLK_KERNEL_I16: dict(
+        name="stft_allk_i16", source="spectrogram_tpu_torch/csrc/stft_allk.cu",
+        replaces="spectrogram_tpu/ops/pallas/stft_kernel.py:894",
     ),
 }
 
@@ -143,12 +189,14 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def stft_work(rows: int, n_fft: int, w: int, input_floats: int) -> tuple[float, float]:
+def stft_work(rows: int, n_fft: int, w: int, input_floats: int,
+              sample_bytes: int = 4) -> tuple[float, float]:
     """(bytes, flops) of packed STFT magnitudes for `rows` windows: the two
-    input channels' `input_floats` samples, hann, the N/2 twiddles the
-    stages read, two [rows, N/2] outputs; 5 N log2 N operations per complex
-    FFT plus the window multiply and the unpack."""
-    nbytes = 4 * (2 * input_floats + w + n_fft) + 4 * 2 * rows * (n_fft // 2)
+    input channels' `input_floats` samples (4 bytes each, 2 as int16), hann,
+    the N/2 twiddles the stages read, two [rows, N/2] outputs; 5 N log2 N
+    operations per complex FFT plus the window multiply and the unpack."""
+    nbytes = (2 * sample_bytes * input_floats + 4 * (w + n_fft)
+              + 4 * 2 * rows * (n_fft // 2))
     flops = rows * (5 * n_fft * np.log2(n_fft) + 2 * w + 12 * (n_fft // 2))
     return nbytes, flops
 
@@ -190,7 +238,8 @@ def main() -> int:
     log(f"[2] build: {path} (nvcc {nvcc_s:.2f} s, with load {time.perf_counter() - t0:.2f} s)")
 
     # -- 3. kernel A against torch.fft ---------------------------------------
-    p = SpectrogramPipeline(cfg, store_ring=False, device=dev)
+    p = SpectrogramPipeline(cfg, chunk_hops=1, store_ring=False, packed_output=True,
+                            device=dev)
     stats = {name: 0.0 for name in KERNELS}
     planes = {}
     for kind in ("chirp_tone", "noise"):
@@ -300,7 +349,8 @@ def main() -> int:
 
     # -- 7. the mixed-radix kernel A --------------------------------------------
     dcfg = DEFAULT_CONFIG
-    pd = SpectrogramPipeline(dcfg, store_ring=False, device=dev)
+    pd = SpectrogramPipeline(dcfg, chunk_hops=1, store_ring=False, packed_output=True,
+                             device=dev)
     for kind in ("chirp_tone", "noise"):
         dl, dr = windows(dcfg, kind, STREAMS, dev)
         got = sk.stft_mag_packed(dl, dr, pd.hann, pd.twiddles)
@@ -367,16 +417,22 @@ def main() -> int:
     dplain = time_ms(lambda: sk.stft_mag_packed_allk_plain(
         dbl, dbr, dpp.hann, dcfg.padded_size, K, dcfg.hop_size))
     dbound = bound(*stft_work(K * STREAMS, dcfg.padded_size, dcfg.window_size, dbl.numel()))
+    z = torch.complex(torch.randn(K * STREAMS, dcfg.padded_size, device=dev),
+                      torch.randn(K * STREAMS, dcfg.padded_size, device=dev))
+    dlib = time_ms(lambda: torch.fft.fft(z))
+    del z
     for name in (sk.MIXED_KERNEL, sk.ALLK_KERNEL):
         log(f"[10] {KERNELS[name]['name']}: {ms[name]:.4f} ms (plain {plain_ms[name]:.4f} ms, "
             f"torch.fft.fft {library_ms[name]:.4f} ms, bound {bounds[name][0]:.4f} ms by "
             f"{bounds[name][1]})")
     log(f"[10] stft_allk k={K} at DEFAULT_CONFIG, {STREAMS} streams: {dms:.4f} ms "
-        f"(plain {dplain:.4f} ms, bound {dbound[0]:.4f} ms by {dbound[1]})")
+        f"(plain {dplain:.4f} ms, torch.fft.fft [{K * STREAMS}, {dcfg.padded_size}] "
+        f"{dlib:.4f} ms, bound {dbound[0]:.4f} ms by {dbound[1]})")
     del allk_inputs, bl, br, dbl, dbr
 
     # the JAX bench's BENCH_CHUNK_HOPS=8 mode: 4096 streams, no ring
-    pk = SpectrogramPipeline(cfg, chunk_hops=K, store_ring=False, device=dev)
+    pk = SpectrogramPipeline(cfg, chunk_hops=K, store_ring=False, packed_output=True,
+                             device=dev)
     kstate = [pk.set_palette(pk.init_state(STREAMS), pid)]
     kchunk = torch.from_numpy(
         testing.chirp_tone(STREAMS, pk.chunk_size, cfg.sample_rate, seed=4)).to(dev)
@@ -399,6 +455,13 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[10] peak device memory over phases 9-10: {peak:.2f} GiB; card {power_line}")
 
+    # -- 11-13. the serving mode ---------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    serving_kernels(dev, stats, ms, plain_ms, bounds, library_ms)
+    serving = {s: serving_path(s, dev, lib, main_launches) for s in SERVING_STREAMS}
+    i16_paths(dev, lib, main_launches)
+    serving_timing(serving, power_line)
+
     print(power_line)
     print(json.dumps({"kernels": [
         dict(meta, route="cuda", launches=main_launches[k], max_abs_err=stats[k],
@@ -417,7 +480,7 @@ def display_path(cfg, dev, lib, main_launches: dict) -> dict:
     """Phase 9 at one geometry; adds its launch counts to `main_launches`
     and returns its timings (phase 10)."""
     n = cfg.padded_size
-    p = SpectrogramPipeline(cfg, chunk_hops=K, device=dev)
+    p = SpectrogramPipeline(cfg, chunk_hops=K, packed_output=True, device=dev)
     s, t = DISPLAY_STREAMS, p.chunk_size
     pid = np.arange(s) % len(p.schemes)
     state = p.set_palette(p.init_state(s), pid)
@@ -504,6 +567,257 @@ def display_path(cfg, dev, lib, main_launches: dict) -> dict:
     )
     del box, state, pcm, padded
     return timings
+
+
+def serving_kernels(dev, stats, ms, plain_ms, bounds, library_ms) -> None:
+    """Phase 11, and phase 13's kernel times: the blockwise colormap at
+    10,240 rows of BENCH_CONFIG on sorted tables (uniform blocks) and on
+    scattered ones (mixed blocks), bit for bit kernel B and within 1 u8 of
+    its plain version; the int16 forms of kernel A (N=4096, N=4800) and of
+    the all-windows kernel (k=8, 4096 streams), bit for bit the f32 kernels
+    on x / 32768 and within phase 3's bar of their plain versions."""
+    cfg = BENCH_CONFIG
+    rows = SERVING_STREAMS[0]
+    p = SpectrogramPipeline(cfg, chunk_hops=1, store_ring=False, packed_output=True,
+                            device=dev)
+    left, right = windows(cfg, "chirp_tone", rows, dev)
+    ml, mr = sk.stft_mag_packed(left, right, p.hann, p.twiddles)
+    ts = p._cmap_ts(rows)
+    name = ck.BLOCKWISE_KERNEL
+    for layout, ids in (("sorted", np.sort(np.arange(rows) % 19)),
+                        ("scattered", np.arange(rows) % 19)):
+        tables = p.builtin_tables.index_select(0, torch.from_numpy(ids).to(dev)).contiguous()
+        got = ck.colormap_blockwise(ml, mr, p.taps, tables, cfg, block_rows=ts)
+        same = torch.equal(got, ck.colormap_builtin(ml, mr, p.taps, tables, cfg))
+        diff = testing.rgba_u8_diff(
+            ck.unpack_rgba_device(got),
+            ck.unpack_rgba_device(ck.colormap_blockwise_plain(ml, mr, p.taps, tables, cfg)))
+        blocks = [ids[b : b + ts] for b in range(0, rows, ts)]
+        uniform = sum(int((b == b[0]).all()) for b in blocks)
+        log(f"[11] colormap_blockwise, {rows} rows, {layout} tables: {uniform} of "
+            f"{len(blocks)} {ts}-row blocks uniform; {'equals' if same else 'DIFFERS from'} "
+            f"kernel B; max u8 diff {diff} against the plain version (bar 1)")
+        if not same or diff > 1:
+            fail("colormap_blockwise disagrees with kernel B or its plain version")
+        stats[name] = max(stats.get(name, 0), diff)
+        if layout == "sorted":
+            b_ms = time_ms(lambda: ck.colormap_builtin(ml, mr, p.taps, tables, cfg))
+            ms[name] = time_ms(lambda: ck.colormap_blockwise(ml, mr, p.taps, tables, cfg,
+                                                             block_rows=ts))
+            plain_ms[name] = time_ms(
+                lambda: ck.colormap_blockwise_plain(ml, mr, p.taps, tables, cfg), iters=5)
+            bounds[name] = bound(*cmap_work(rows, p.taps, tables))
+            library_ms[name] = None
+            log(f"[13] colormap_blockwise, {rows} rows, sorted tables: {ms[name]:.4f} ms "
+                f"(kernel B on the same tables {b_ms:.4f} ms; plain {plain_ms[name]:.4f} ms; "
+                f"bound {bounds[name][0]:.4f} ms by {bounds[name][1]})")
+            # the rows a CTA covers change no output; what they cost here
+            sweep = {br: time_ms(lambda: ck.colormap_blockwise(ml, mr, p.taps, tables, cfg,
+                                                               block_rows=br))
+                     for br in (32, 64, 128)}
+            one = p.builtin_tables[:1].contiguous()
+            one_ms = time_ms(lambda: ck.colormap_builtin(ml, mr, p.taps, one, cfg))
+            log("[13] colormap_blockwise by rows per CTA: " + ", ".join(
+                f"{br}: {t:.4f} ms" for br, t in sweep.items())
+                + f"; kernel B with one table for all rows {one_ms:.4f} ms")
+    del left, right, ml, mr, tables, got
+
+    hop = cfg.hop_size
+    cases = (
+        (sk.KERNEL_I16, sk.KERNEL, cfg, (STREAMS, cfg.window_size), None),
+        (sk.MIXED_KERNEL_I16, sk.MIXED_KERNEL, DEFAULT_CONFIG,
+         (STREAMS, DEFAULT_CONFIG.window_size), None),
+        (sk.ALLK_KERNEL_I16, sk.ALLK_KERNEL, cfg,
+         (STREAMS, cfg.window_size + (K - 1) * hop), K),
+    )
+    for name, f32_name, c, shape, k in cases:
+        pp = SpectrogramPipeline(c, chunk_hops=1, store_ring=False, packed_output=True,
+                                 device=dev)
+        pcm = testing.chirp_tone(shape[0], shape[1], c.sample_rate, seed=13)
+        words = [torch.from_numpy(np.ascontiguousarray(
+            np.round(pcm[..., ch] * 32767.0).astype(np.int16))).to(dev) for ch in range(2)]
+        scaled = [w.to(torch.float32) / 32768.0 for w in words]
+        if k is None:
+            def kernel(x, hann):
+                return sk.stft_mag_packed(*x, hann, pp.twiddles)
+
+            def plain():
+                return sk.stft_mag_packed_plain(*words, pp.hann_i16, c.padded_size)
+            rows_out = shape[0]
+        else:
+            def kernel(x, hann):
+                return sk.stft_mag_packed_allk(*x, hann, pp.twiddles, k, hop)
+
+            def plain():
+                return sk.stft_mag_packed_allk_plain(*words, pp.hann_i16, c.padded_size, k, hop)
+            rows_out = k * shape[0]
+        got = kernel(words, pp.hann_i16)
+        same = all(torch.equal(g, x) for g, x in zip(got, kernel(scaled, pp.hann)))
+        err, rel, ok = stft_errors(got, plain())
+        log(f"[11] {KERNELS[name]['name']} N={c.padded_size} planes {tuple(words[0].shape)} int16: "
+            f"{'equals' if same else 'DIFFERS from'} {KERNELS[f32_name]['name']} on x/32768; "
+            f"against plain: max abs err {err:.3e}, max rel err {rel:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not same or not ok:
+            fail(f"{KERNELS[name]['name']} disagrees with the f32 kernel or its plain version")
+        stats[name] = err
+        f32_ms = time_ms(lambda: kernel(scaled, pp.hann))
+        ms[name] = time_ms(lambda: kernel(words, pp.hann_i16))
+        plain_ms[name] = time_ms(plain, iters=5)
+        bounds[name] = bound(*stft_work(rows_out, c.padded_size, c.window_size,
+                                        words[0].numel(), sample_bytes=2))
+        library_ms[name] = library_ms[f32_name]
+        log(f"[13] {KERNELS[name]['name']}: {ms[name]:.4f} ms (the f32 kernel on the same "
+            f"samples {f32_ms:.4f} ms; plain {plain_ms[name]:.4f} ms; torch.fft.fft "
+            f"{library_ms[name]:.4f} ms; bound {bounds[name][0]:.4f} ms by {bounds[name][1]})")
+        del words, scaled, got
+
+
+def serving_path(s: int, dev, lib, main_launches: dict) -> dict:
+    """Phase 12 at S streams of BENCH_CONFIG (k=1, no ring), palettes
+    arange(S) % 19: the sorted push and the full serving mode, launch counts
+    added to `main_launches`; returns phase 13's timings."""
+    cfg = BENCH_CONFIG
+    kw = dict(chunk_hops=1, store_ring=False, packed_output=True, device=dev)
+    p = SpectrogramPipeline(cfg, **kw)                         # palette_sort on
+    per_row = SpectrogramPipeline(cfg, palette_sort=False, **kw)
+    full = SpectrogramPipeline(cfg, i16_planes=True, presorted_input=True,
+                               sorted_output=True, **kw)
+    ids = np.arange(s) % len(p.schemes)
+    state = p.set_palette(p.init_state(s), ids)
+    blocks = p._push_block_streams(s)
+    # from 12,288 streams: 4096-stream sort blocks, inside which 19 palettes
+    # run too short for the colormap's blocks, so the sort is global
+    want = ((4, p._STREAM_BLOCK_SIZE) if s >= p._STREAM_BLOCK_AUTO_MIN else (3, 0))
+    log(f"[12] {s} streams: tables {[tuple(t.shape) for t in state.tables]}, sort blocks "
+        f"{blocks or 'none'}, blockwise {p._state_blockwise(state)}")
+    if (len(state.tables), blocks) != want or not p._state_blockwise(state):
+        fail(f"the {s}-stream layout did not take the expected palette sort")
+    rstate = per_row.set_palette(per_row.init_state(s), ids)
+    fstate = full.set_palette(full.init_state(s), ids)
+    plain, pstate = p.with_plain_kernels(), state
+    t = p.chunk_size
+    pcm = testing.chirp_tone(s, SERVING_PUSHES * t, cfg.sample_rate, seed=14)
+    words = np.round(pcm * 32767.0).astype(np.int16)
+    perm, out = full.input_perm(fstate), torch.from_numpy(full.output_perm(fstate)).to(dev)
+    wire = [torch.from_numpy(words[:, i * t : (i + 1) * t]).to(dev) for i in range(SERVING_PUSHES)]
+    f32 = [w.to(torch.float32) / 32768.0 for w in wire]
+    presorted = [w.index_select(0, torch.from_numpy(perm).to(dev)) for w in wire]
+    del pcm, words
+
+    # the main path: the sorted push, then the full serving mode
+    torch.cuda.synchronize()
+    lib.reset_launches()
+    sorted_rows = []
+    for c in f32:
+        state, r = p.push(state, c)
+        sorted_rows.append(r)
+    torch.cuda.synchronize()
+    launches = {"sorted": dict(lib.launches)}
+    lib.reset_launches()
+    full_rows = []
+    for c in presorted:
+        fstate, r = full.push(fstate, c)
+        full_rows.append(r)
+    torch.cuda.synchronize()
+    launches["full"] = dict(lib.launches)
+    for counts in launches.values():
+        for n, v in counts.items():
+            main_launches[n] = main_launches.get(n, 0) + v
+    log(f"[12] {s} streams, launches: sorted "
+        f"{ {n: v for n, v in launches['sorted'].items() if v} }; full serving mode "
+        f"{ {n: v for n, v in launches['full'].items() if v} }")
+    if not (launches["sorted"][ck.BLOCKWISE_KERNEL] and launches["sorted"][sk.KERNEL]
+            and launches["full"][ck.BLOCKWISE_KERNEL] and launches["full"][sk.KERNEL_I16]):
+        fail("the serving path did not launch the blockwise and int16 kernels")
+
+    worst, equal_rows, equal_full = 0, True, True
+    for i, c in enumerate(f32):
+        rstate, rr = per_row.push(rstate, c)
+        pstate, pr = plain.push(pstate, c)
+        equal_rows &= torch.equal(sorted_rows[i], rr)
+        equal_full &= torch.equal(full_rows[i].index_select(0, out), sorted_rows[i])
+        worst = max(worst, testing.rgba_u8_diff(ck.unpack_rgba_device(sorted_rows[i]),
+                                                ck.unpack_rgba_device(pr)))
+    ginv = p._global_perms(state)[1]
+    carry_ok = (torch.equal(state.carry.index_select(0, ginv), rstate.carry)
+                and torch.equal(pstate.carry, state.carry)
+                and torch.equal(fstate.carry.to(torch.float32) / 32768.0, state.carry))
+    log(f"[12] {s} streams, {SERVING_PUSHES} pushes: sorted rows "
+        f"{'equal' if equal_rows else 'DIFFER from'} per-row rows; full serving mode "
+        f"rows[output_perm] {'equal' if equal_full else 'DIFFER from'} the f32 sorted rows; "
+        f"max u8 diff {worst} against the plain kernels (bar 1); carries "
+        f"{'exact' if carry_ok else 'DIFFER'} (carry[inv] = per-row carry)")
+    if not (equal_rows and equal_full and carry_ok) or worst > 1:
+        fail(f"the {s}-stream serving path disagrees")
+    del sorted_rows, full_rows, pstate
+
+    box = {"per_row": rstate, "sorted": state, "full": fstate}
+    pipes = {"per_row": (per_row, f32[0]), "sorted": (p, f32[0]), "full": (full, presorted[0])}
+
+    def push(key):
+        pipe, chunk = pipes[key]
+        box[key], _ = pipe.push(box[key], chunk)
+
+    timings = {key: [] for key in pipes}
+    for key in (*pipes, *reversed(pipes)):       # in turns: a b c c b a
+        timings[key].append(time_ms(lambda: push(key)))
+    return timings
+
+
+def i16_paths(dev, lib, main_launches: dict) -> None:
+    """Phase 12, int16 planes on the other STFT kernels: DEFAULT_CONFIG at
+    k=1 (the mixed-radix int16 kernel) and BENCH_CONFIG at k=8 (the int16
+    all-windows kernel), 4096 streams, no ring, palettes arange(S) % 19, two
+    pushes of int16 chunks: rows and carries bit for bit the f32 pipeline's
+    on the same chunks (scaled by 1/32768 on the device)."""
+    for cfg, k, name in ((DEFAULT_CONFIG, 1, sk.MIXED_KERNEL_I16),
+                         (BENCH_CONFIG, K, sk.ALLK_KERNEL_I16)):
+        kw = dict(chunk_hops=k, store_ring=False, packed_output=True, device=dev)
+        p16 = SpectrogramPipeline(cfg, i16_planes=True, **kw)
+        p32 = SpectrogramPipeline(cfg, **kw)
+        ids = np.arange(STREAMS) % len(p16.schemes)
+        s16 = p16.set_palette(p16.init_state(STREAMS), ids)
+        s32 = p32.set_palette(p32.init_state(STREAMS), ids)
+        t = p16.chunk_size
+        words = np.round(testing.chirp_tone(STREAMS, 2 * t, cfg.sample_rate, seed=15)
+                         * 32767.0).astype(np.int16)
+        chunks = [torch.from_numpy(words[:, i * t : (i + 1) * t]).to(dev) for i in range(2)]
+        del words
+        torch.cuda.synchronize()
+        lib.reset_launches()
+        rows16 = []
+        for c in chunks:
+            s16, r = p16.push(s16, c)
+            rows16.append(r)
+        torch.cuda.synchronize()
+        launches = {n: v for n, v in lib.launches.items() if v}
+        for n, v in launches.items():
+            main_launches[n] += v
+        same = True
+        for c, r16 in zip(chunks, rows16):
+            s32, r32 = p32.push(s32, c)
+            same &= torch.equal(r16, r32)
+        carry_ok = torch.equal(s16.carry.to(torch.float32) / 32768.0, s32.carry)
+        log(f"[12] i16_planes at N={cfg.padded_size}, k={k}, {STREAMS} streams: launches "
+            f"{launches}; rows {'equal' if same else 'DIFFER from'} the f32 pipeline's, "
+            f"carry {'exact' if carry_ok else 'DIFFERS'}")
+        if not launches.get(name) or not same or not carry_ok:
+            fail(f"the int16 path through {KERNELS[name]['name']} disagrees")
+        del chunks, rows16, s16, s32
+
+
+def serving_timing(serving: dict, power_line: str) -> None:
+    """Phase 13: ms/push and rows/s of the three serving pipelines."""
+    for s, timings in serving.items():
+        for key, label in (("per_row", "per-row (palette_sort=False)"),
+                           ("sorted", "sorted (the defaults)"),
+                           ("full", "full serving mode (i16 + presorted + sorted_output)")):
+            runs = " / ".join(f"{t:.4f}" for t in timings[key])
+            rates = " / ".join(f"{s / t * 1e3:.1f}" for t in timings[key])
+            log(f"[13] {s} streams, {label}: {runs} ms/push = {rates} rows/s")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[13] peak device memory over phases 11-13: {peak:.2f} GiB; card {power_line}")
 
 
 if __name__ == "__main__":

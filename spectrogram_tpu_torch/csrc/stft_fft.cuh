@@ -222,9 +222,15 @@ static inline bool make_mixed_radix(int n, MixedRadix* plan) {
 // One window row: load l, r through hann into `buf` in the body's input
 // order, transform, unpack both channels' magnitudes into ol, orr [N/2].
 // The caller's block has blockDim.x threads and N complex f32 of `buf`.
-template <class Body>
+//
+// Samples are f32, or int16 PCM words (T = short, the i16_planes wire mode:
+// half the bytes read).  A word converts to f32 exactly, and its 1/32768
+// wire scale arrives folded into `hann` (an exact exponent shift, as the TPU
+// kernels did), so the one rounding of x * (hann * 2^-15) gives the bits of
+// (x / 32768) * hann: the int16 row equals the f32 row of x / 32768 exactly.
+template <class Body, class T>
 __device__ __forceinline__ void stft_packed_row(
-    const Body& body, const float* __restrict__ l, const float* __restrict__ r,
+    const Body& body, const T* __restrict__ l, const T* __restrict__ r,
     const float* __restrict__ hann, const float2* __restrict__ tw, int w,
     float* __restrict__ ol, float* __restrict__ orr, float2* buf) {
   const int n = body.size();
@@ -233,7 +239,8 @@ __device__ __forceinline__ void stft_packed_row(
     float2 z = make_float2(0.f, 0.f);
     if (i < w) {
       const float h = hann[i];
-      z = make_float2(__fmul_rn(l[i], h), __fmul_rn(r[i], h));
+      z = make_float2(__fmul_rn(static_cast<float>(l[i]), h),
+                      __fmul_rn(static_cast<float>(r[i]), h));
     }
     buf[body.slot(i)] = z;
   }

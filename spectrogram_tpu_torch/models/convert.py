@@ -6,6 +6,13 @@ row count and the pre-picked palette tables).  `state_from_jax` takes that
 state as a dict of numpy arrays — e.g. `{k: np.asarray(v) for k, v in
 jax_state._asdict().items()}`, with `tables` a tuple of arrays — and
 `state_to_numpy` gives the same form back.
+
+The tables tuple keeps the JAX package's structure, which says what kind of
+state it is: ([S|1, R*4],) per-row or one palette, with a zero-size int32
+marker appended for the blockwise colormap; palette-sorted (t_sorted, perm,
+inv) with block-relative int32 perm and inv, or (t_sorted, perm, inv,
+marker) with global ones.  So a state of a default JAX pipeline serving many
+tenants carries across as it is, in either direction.
 """
 
 from __future__ import annotations
@@ -26,44 +33,60 @@ def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True)).to(device, dtype)
 
 
+def _tables(tables: tuple, device) -> tuple:
+    """The tables tuple on `device`: 2-D tables as f32, 1-D perm, inv and
+    marker as int32.  Raises for a layout the port does not push (the
+    generic registry's (u, v) pair)."""
+    arrays = [np.asarray(t) for t in tables]
+    two_d = [a.ndim == 2 for a in arrays]
+    is_marker = [a.ndim == 1 and a.size == 0 for a in arrays]
+    n = len(arrays)
+    ok = n >= 1 and two_d[0] and (
+        (n == 1)
+        or (n == 2 and is_marker[1])
+        or (n in (3, 4) and all(a.ndim == 1 and a.size for a in arrays[1:3])
+            and (n == 3 or is_marker[3]))
+    )
+    if not ok:
+        raise ValueError(
+            "expected ([S|1, R*4],), with a blockwise marker, or a "
+            "palette-sorted (t_sorted, perm, inv[, marker]) tuple; got "
+            f"shapes {[a.shape for a in arrays]} (generic (u, v) tables are "
+            "not ported)"
+        )
+    return tuple(_tensor(a, torch.float32 if d else torch.int32, device)
+                 for a, d in zip(arrays, two_d))
+
+
 def state_from_jax(state: dict, device=None) -> StreamState:
     """A `StreamState` on `device` (default: the card) from a JAX state's
-    numpy arrays.  The ring ([S, R, 2, B], R = 0 without store_ring) arrives
-    as bf16 or f32 values and is stored as bf16.
-
-    Only the layout this port pushes is accepted: an f32 [S, 2, C] carry and
-    external stream order.  The JAX pipeline's zero-size blockwise marker is
-    dropped (a TPU kernel choice); a palette-sorted state (perm/inv in its
-    tables) raises — build the JAX pipeline with palette_sort=False.
-    """
+    numpy arrays.  The carry is [S, 2, C] f32, or int16 from an i16_planes
+    pipeline; the ring ([S, R, 2, B], R = 0 without store_ring) arrives as
+    bf16 or f32 values and is stored as bf16; the tables tuple keeps its
+    structure.  The transposed carry ([S, 2, n1, C/n1]) is not ported and
+    raises."""
     carry = np.asarray(state["carry"])
-    if carry.ndim != 3 or carry.dtype != np.float32:
+    if carry.ndim != 3 or carry.dtype not in (np.float32, np.int16):
         raise ValueError(
-            f"carry must be an f32 [S, 2, C] array; got {carry.dtype} "
-            f"{carry.shape} (int16 and transposed carries are not ported)"
-        )
-    tables = tuple(np.asarray(t) for t in state.get("tables", ()))
-    tables = tuple(t for t in tables if not (t.ndim == 1 and t.size == 0))
-    if len(tables) != 1 or tables[0].ndim != 2:
-        raise ValueError(
-            "expected one [S or 1, R*4] built-in table array; got shapes "
-            f"{[t.shape for t in tables]} (sorted or generic states are "
-            "not ported)"
+            f"carry must be an f32 or int16 [S, 2, C] array; got {carry.dtype} "
+            f"{carry.shape} (the transposed carry is not ported)"
         )
     device = default_device(device)
     return StreamState(
-        carry=_tensor(carry, torch.float32, device),
+        carry=_tensor(carry, torch.int16 if carry.dtype == np.int16
+                      else torch.float32, device),
         ring=_tensor(state["ring"], torch.bfloat16, device),
         cursor=_tensor(state["cursor"], torch.int32, device),
         palette_id=_tensor(state["palette_id"], torch.int32, device),
         row_count=_tensor(state["row_count"], torch.int32, device),
-        tables=(_tensor(tables[0], torch.float32, device),),
+        tables=_tables(tuple(state.get("tables", ())), device),
     )
 
 
 def state_to_numpy(state: StreamState) -> dict:
     """The state as a dict of numpy arrays (`tables` a tuple).  The bf16
-    ring comes back as f32, which holds its values exactly."""
+    ring comes back as f32, which holds its values exactly; the carry keeps
+    its dtype."""
     def arr(t: torch.Tensor) -> np.ndarray:
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:

@@ -11,11 +11,40 @@ chunk -> per-channel sample buffers, and the next carry), then two kernels:
      r*S + s is window r of stream s): `stft_mag_packed` over the one window
      per stream at k=1, `stft_mag_packed_allk` over the k windows of the
      buffers at k>1 (the windows are never materialized on the card)
-  B. `colormap_builtin`: two-tap log-frequency resample, dB and pan laws,
-     per-stream built-in palette -> [k*S, H] int32 RGBA8888
+  B. the colormap: two-tap log-frequency resample, dB and pan laws,
+     per-stream built-in palette -> [k*S, H] int32 RGBA8888, by
+     `colormap_builtin` (per-row tables) or `colormap_blockwise` (a block of
+     rows with one palette reads one table)
 
 and, with the ring, a bf16 copy of bins 1..W-1 of the planes into it.
-`render_viewport` runs kernel B again, over the ring's rows.
+`render_viewport` runs the colormap again, over the ring's rows.
+
+The multi-tenant serving mode is the JAX package's:
+
+  * blockwise palettes ("auto"): a state whose palette layout leaves at
+    least half the colormap's row blocks single-palette carries a zero-size
+    marker in its tables tuple, and its pushes take the blockwise colormap;
+  * `palette_sort`: a scattered layout whose stable argsort passes that test
+    is stored sorted, (t_sorted, perm, inv) with perm/inv relative to the
+    stream blocks of `stream_blocks`, or (t_sorted, perm, inv, marker) with a
+    global perm where only a whole-state sort passes.  Without a ring the
+    carry lives in sorted order (carry-sort mode): each push permutes the
+    chunk into it and unpermutes the rows.  With a ring the magnitude planes
+    are permuted into sorted order for the colormap (the mag-bridge) and the
+    ring stays in external order.  Sorted rows equal per-row rows exactly;
+  * `sorted_output` and `presorted_input` leave the row unpermute and the
+    chunk permute to the host: `output_perm`, `input_perm` and `input_dest`
+    say where each stream's rows and samples are; `unsort_state` leaves the
+    sorted class;
+  * `i16_planes`: carry, chunks and kernel operands stay int16 PCM words,
+    half the bytes; rows equal the f32 pipeline's on x/32768 exactly.
+
+Palette ids are always concrete here: `set_palette` reads them to the host,
+so every layout decision inspects real ids.  The JAX rules for ids traced
+under `jit` (keep the previous state's sortedness or marker) have no
+counterpart.  `stream_blocks` only sets the sort-block layout: a push runs
+all streams at once, with the block-relative permutations made global,
+which gives the rows the JAX package's blocked push gives.
 
 On a CPU device the kernels run as their plain PyTorch versions; on a CUDA
 device as the hand-written kernels in `csrc/`.  There is no fallback from one
@@ -23,8 +52,7 @@ to the other.  Without a `device`, the pipeline runs on the card.
 
 What the JAX pipeline offers beyond this port raises NotImplementedError
 naming the ROADMAP.md item that brings it: static palettes, generic
-(non-built-in) scheme registries, i16_planes, presorted_input,
-sorted_output, and a ring dtype other than bfloat16.
+(non-built-in) scheme registries, and a ring dtype other than bfloat16.
 """
 
 from __future__ import annotations
@@ -48,13 +76,16 @@ class StreamState(NamedTuple):
     """Per-batch state.  Tensors lead with the stream axis except the
     scalars shared by the lockstep batch; the layout is the JAX package's."""
 
-    carry: torch.Tensor       # [S, 2, window-hop] f32 planar sample history
+    carry: torch.Tensor       # [S, 2, window-hop] f32 (int16 with i16_planes)
     ring: torch.Tensor        # [S, R, 2, B] bf16 magnitude rows (R = 0: no ring)
     cursor: torch.Tensor      # [] int32 — next ring row
     palette_id: torch.Tensor  # [S] int32 — per-stream palette index
     row_count: torch.Tensor   # [] int32 — rows produced since init
     # Pre-picked kernel tables, refreshed by init_state/set_palette and not
-    # by a push: ([S, R*4],) per stream, or ([1, R*4],) for one palette.
+    # by a push: ([S, R*4],) per stream or ([1, R*4],) for one palette, plus
+    # a zero-size int32 marker for the blockwise colormap; palette-sorted:
+    # (t_sorted [S, R*4], perm [S], inv [S]) or, with a global perm,
+    # (t_sorted, perm, inv, marker).
     tables: tuple = ()
 
 
@@ -62,6 +93,10 @@ def _not_in_slice(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md, modules to port: {item})"
     )
+
+
+def _is_marker(t: torch.Tensor) -> bool:
+    return t.ndim == 1 and t.numel() == 0
 
 
 def default_device(device=None) -> torch.device:
@@ -95,8 +130,28 @@ class SpectrogramPipeline:
       precision_profile: "exact" or "fast".  Both compute the resample in
         true f32: "fast" relaxed only a TPU matrix-unit pass, and this port
         has no such pass.  Kept for API parity.
+      sanitize_input: zero non-finite samples of float chunks (and of
+        process()'s PCM) at the ingestion edge, so that one producer's NaN
+        cannot poison its stream's carry.
       schemes: palette registry (default the 19 built-ins); every scheme must
         fit the built-in mono/stereo structure.
+      blockwise_palettes: "auto" marks states whose palette layout leaves at
+        least half the colormap row blocks single-palette, and their pushes
+        take the blockwise colormap; True always takes it, False never
+        (sorted states take it regardless).  The rows are the same.
+      stream_blocks: "auto" (4096-stream sort blocks from 12,288 streams in
+        the k=1 streaming mode without a ring), an int (blocks of that many
+        streams) or 0 (one block): the blocks within which palette_sort
+        sorts.
+      palette_sort: sort scattered per-stream palette layouts where the
+        sorted layout passes the blockwise test (see the module docstring).
+      sorted_output: with palette_sort, emit the rows of a sorted state in
+        sorted stream order; `output_perm(state)` indexes them.
+      presorted_input: without a ring and with palette_sort, take the chunk
+        of a sorted state in sorted stream order: row i carries external
+        stream `input_perm(state)[i]` (`input_dest` is the inverse).
+      i16_planes: keep carry, chunks and kernel operands int16 PCM words;
+        pushes then take int16 chunks only.
       device: where state, constants and kernels live: "cuda" (the default)
         runs the kernels, "cpu" their plain versions.
     """
@@ -104,31 +159,29 @@ class SpectrogramPipeline:
     def __init__(
         self,
         cfg: SpectrogramConfig,
-        chunk_hops: int = 1,
+        chunk_hops: int = 8,
         viewport_rows: Optional[int] = None,
         ring_dtype=torch.bfloat16,
         lut_resolution: Optional[int] = None,
         store_ring: bool = True,
-        packed_output: bool = True,
+        packed_output: bool = False,
         precision_profile: str = "exact",
+        sanitize_input: bool = False,
         schemes=None,
-        device=None,
         static_palette=None,
-        i16_planes: bool = False,
-        presorted_input: bool = False,
+        blockwise_palettes="auto",
+        stream_blocks="auto",
+        palette_sort: bool = True,
         sorted_output: bool = False,
+        presorted_input: bool = False,
+        i16_planes: bool = False,
+        device=None,
     ):
         cfg.validate()
         if ring_dtype != torch.bfloat16:
             raise _not_in_slice(f"ring_dtype={ring_dtype}", "6, pipeline completion")
         if static_palette is not None:
             raise _not_in_slice("static_palette", "6, pipeline completion")
-        if i16_planes:
-            raise _not_in_slice("i16_planes", "6, pipeline completion")
-        if presorted_input or sorted_output:
-            raise _not_in_slice(
-                "presorted_input / sorted_output", "6, pipeline completion"
-            )
         if int(chunk_hops) < 1:
             raise ValueError(f"chunk_hops must be >= 1; got {chunk_hops}")
         if precision_profile not in ("exact", "fast"):
@@ -136,6 +189,21 @@ class SpectrogramPipeline:
         if cfg.pad_factor < 2:
             # the half-spectrum covers bins 1..W-1 only when W <= N/2
             raise ValueError(f"the packed STFT needs pad_factor >= 2, got {cfg}")
+        if blockwise_palettes not in (False, True, "auto"):
+            raise ValueError(
+                "blockwise_palettes must be False, True or 'auto'; got "
+                f"{blockwise_palettes!r}"
+            )
+        if stream_blocks != "auto" and not isinstance(stream_blocks, int):
+            raise ValueError(f"stream_blocks must be 'auto' or int, got "
+                             f"{stream_blocks!r}")
+        if sorted_output and not palette_sort:
+            raise ValueError("sorted_output requires palette_sort=True")
+        if presorted_input and not (palette_sort and not store_ring):
+            raise ValueError(
+                "presorted_input requires the sorted-carry streaming mode "
+                "(palette_sort=True and store_ring=False)"
+            )
         from spectrogram_tpu_torch.color.colorscheme import (
             DEFAULT_COLOR_SCHEMES,
             stacked_backgrounds,
@@ -154,6 +222,16 @@ class SpectrogramPipeline:
         self.store_ring = bool(store_ring)
         self.packed_output = bool(packed_output)
         self.precision_profile = precision_profile
+        self.sanitize_input = bool(sanitize_input)
+        self.blockwise_palettes = blockwise_palettes
+        self.stream_blocks = stream_blocks
+        self.palette_sort = bool(palette_sort)
+        # without a ring the carry lives in sorted stream order
+        self.carry_sort_mode = self.palette_sort and not self.store_ring
+        self.sorted_output = bool(sorted_output)
+        self.presorted_input = bool(presorted_input)
+        self.i16_planes = bool(i16_planes)
+        self.carry_dtype = torch.int16 if self.i16_planes else torch.float32
         self.schemes = tuple(schemes) if schemes is not None else DEFAULT_COLOR_SCHEMES
         res = lut_resolution or cfg.lut_resolution
         try:
@@ -171,17 +249,28 @@ class SpectrogramPipeline:
             stacked_backgrounds(self.schemes)).to(dev)                # [P, 3] u8
         self.hann = torch.from_numpy(
             stft_kernel.packed_hann(cfg.window_size)).to(dev)         # [W]
+        self.hann_i16 = torch.from_numpy(
+            stft_kernel.packed_hann_i16(cfg.window_size)).to(dev)     # [W]
         self.twiddles = torch.from_numpy(
             stft_kernel.twiddle_table(cfg.padded_size)).to(dev)       # [N, 2]
         # the push reads [N/2] planes (bin k at k); the ring holds bins 1..W-1
-        self.taps = colormap_kernel.resample_taps(
-            cmap_ops.resample_matrix_full(cfg), dev)                  # [H] x 4
+        full = cmap_ops.resample_matrix_full(cfg)                     # [H, N/2]
+        self.taps = colormap_kernel.resample_taps(full, dev)          # [H] x 4
         self.ring_taps = colormap_kernel.resample_taps(
             cmap_ops.resample_matrix(cfg), dev)                       # [H] x 4
+        # the bin band the JAX colormap's row block is sized for (its banded
+        # plan, or the whole matrix where banding does not pay)
+        segs = colormap_kernel.band_segments(full.T)
+        self._cmap_band = (
+            max(hi - lo for _, _, lo, hi in segs)
+            if colormap_kernel._banded_worthwhile(segs, *full.T.shape)
+            else full.shape[1]
+        )
         self._time_taps = {}
         self._stft = stft_kernel.stft_mag_packed
         self._stft_allk = stft_kernel.stft_mag_packed_allk
         self._colormap = colormap_kernel.colormap_builtin
+        self._colormap_bw = colormap_kernel.colormap_blockwise
 
     def with_plain_kernels(self) -> "SpectrogramPipeline":
         """This pipeline with the plain PyTorch versions in place of its
@@ -194,46 +283,61 @@ class SpectrogramPipeline:
             stft_kernel.stft_mag_packed_allk_plain(
                 buf_l, buf_r, hann, tw.shape[0], k, hop))
         twin._colormap = colormap_kernel.colormap_builtin_plain
+        twin._colormap_bw = lambda *args, block_rows: (
+            colormap_kernel.colormap_blockwise_plain(*args))
         return twin
 
     # ------------------------------------------------------------------ state
 
     def init_state(self, n_streams: int, palette_id: int = 1) -> StreamState:
         """Fresh state for S streams.  Default palette 1 = Magma, the
-        reference widget's default (gpu_spectrogram.rs:88)."""
+        reference widget's default (gpu_spectrogram.rs:88).  Under
+        blockwise_palettes="auto" the one-palette layout is marked."""
         self._check_ids(np.asarray(palette_id))
         dev = self.device
         pid = torch.full((n_streams,), int(palette_id), dtype=torch.int32, device=dev)
         ring_rows = self.viewport_rows if self.store_ring else 0
+        tables = (self._pick_tables(pid),)
+        if self.blockwise_palettes == "auto" and n_streams:
+            tables += (self._bw_marker(),)     # one palette: every block uniform
         return StreamState(
-            carry=torch.zeros((n_streams, 2, self.carry_size), dtype=torch.float32,
-                              device=dev),
+            carry=torch.zeros((n_streams, 2, self.carry_size),
+                              dtype=self.carry_dtype, device=dev),
             ring=torch.zeros((n_streams, ring_rows, 2, self.cfg.num_bins),
                              dtype=self.ring_dtype, device=dev),
             cursor=torch.zeros((), dtype=torch.int32, device=dev),
             palette_id=pid,
             row_count=torch.zeros((), dtype=torch.int32, device=dev),
-            tables=(self._pick_tables(pid),),
+            tables=tables,
         )
 
     def set_palette(self, state: StreamState, palette_id) -> StreamState:
         """Runtime palette switch, per stream ([S] ids) or for all streams
         (a scalar id): a state update that re-picks the kernel tables, so a
         push never touches the registry.  A scalar id stores one [1, R*4]
-        table that every row reads."""
+        table that every row reads.  Per-stream ids are sorted (palette_sort)
+        or marked (blockwise "auto") where that pays, and in carry-sort mode
+        the carry follows the new stream order."""
         if isinstance(palette_id, torch.Tensor):
             ids = palette_id.detach().cpu().numpy()
         else:
             ids = np.asarray(palette_id)
         self._check_ids(ids)
         s = state.palette_id.shape[0]
-        pid = torch.from_numpy(
-            np.broadcast_to(ids.astype(np.int32), (s,)).copy()).to(self.device)
+        layout = np.broadcast_to(ids.astype(np.int32), (s,)).copy()
+        pid = torch.from_numpy(layout).to(self.device)
         if ids.ndim == 0:
-            picked = self._pick_tables(pid[:1])
+            tables = (self._pick_tables(pid[:1]),)
         else:
-            picked = self._pick_tables(pid)
-        return state._replace(palette_id=pid, tables=(picked,))
+            tables = (self._pick_tables(pid),)
+            if self._blockwise_auto_decision(layout):
+                # already clustered: the marker, and no sort
+                if self.blockwise_palettes == "auto":
+                    tables += (self._bw_marker(),)
+            elif self.palette_sort:
+                tables = self._sorted_tables(tables, layout) or tables
+        return state._replace(palette_id=pid, tables=tables,
+                              carry=self._resorted_carry(state, tables))
 
     def _check_ids(self, ids: np.ndarray) -> None:
         if ids.size and (ids.min() < 0 or ids.max() >= len(self.schemes)):
@@ -244,19 +348,225 @@ class SpectrogramPipeline:
     def _pick_tables(self, pid: torch.Tensor) -> torch.Tensor:
         return self.builtin_tables.index_select(0, pid.to(torch.int64)).contiguous()
 
+    # --------------------------------------------------------- blockwise auto
+
+    def _bw_marker(self) -> torch.Tensor:
+        """The zero-size 1-D int32 tensor that marks a state for the
+        blockwise colormap (real tables are 2-D, so it is unambiguous)."""
+        return torch.zeros((0,), dtype=torch.int32, device=self.device)
+
+    def _cmap_ts(self, n_rows: int) -> int:
+        """The JAX colormap's row-block size for n_rows rows (its
+        `_auto_blocks` over the band, with the n % block fallback): the
+        granularity at which palette uniformity is counted, and the rows a
+        blockwise CTA covers."""
+        block_rows, _ = colormap_kernel._auto_blocks(self._cmap_band, None, None)
+        return min(block_rows, n_rows) if n_rows % block_rows else block_rows
+
+    # Blockwise economics threshold: engage when at least this fraction of
+    # the colormap's row blocks are single-palette (the JAX package's value).
+    _BW_AUTO_FRAC = 0.5
+
+    def _blockwise_auto_decision(self, ids: np.ndarray) -> bool:
+        """True when >= `_BW_AUTO_FRAC` of the row blocks of this per-stream
+        palette layout are single-palette."""
+        s = int(ids.shape[0])
+        ts = self._cmap_ts(s * self.chunk_hops)
+        nb = s // ts
+        if nb == 0:
+            return bool(ids.size) and bool((ids == ids.flat[0]).all())
+        head = ids[: nb * ts].reshape(nb, ts)
+        uniform = (head == head[:, :1]).all(axis=1)
+        return float(uniform.mean()) >= self._BW_AUTO_FRAC
+
+    def _state_blockwise(self, state: StreamState) -> bool:
+        """Whether this state's pushes take the blockwise colormap: forced
+        on, palette-sorted (the sort exists to feed it), or marked."""
+        if self.blockwise_palettes is True or self._state_perm(state) is not None:
+            return True
+        return (self.blockwise_palettes == "auto" and bool(state.tables)
+                and _is_marker(state.tables[-1]))
+
+    # ----------------------------------------------------------- palette sort
+
+    def _sorted_tables(self, tables: tuple, layout: np.ndarray):
+        """Stable argsort within each sort block (the stream blocks of
+        `stream_blocks`): (t_sorted, perm, inv) with block-relative perm and
+        inv.  Where that sorted layout fails the blockwise test, the global
+        sort (`_global_sorted_tables`), or None."""
+        s = int(layout.shape[0])
+        bs = self._push_block_streams(s) or s
+        perm = np.empty(s, np.int32)
+        inv = np.empty(s, np.int32)
+        sorted_layout = np.empty_like(layout)
+        for b0 in range(0, s, bs):
+            b1 = min(b0 + bs, s)
+            p = np.argsort(layout[b0:b1], kind="stable").astype(np.int32)
+            perm[b0:b1] = p
+            inv[b0:b1][p] = np.arange(b1 - b0, dtype=np.int32)
+            sorted_layout[b0:b1] = layout[b0:b1][p]
+        if not self._blockwise_auto_decision(sorted_layout):
+            return self._global_sorted_tables(tables, layout, bs)
+        gp = perm + (np.arange(s, dtype=np.int32) // bs) * bs
+        return (tables[0].index_select(0, self._device_index(gp)),
+                self._device_index(perm), self._device_index(inv))
+
+    def _global_sorted_tables(self, tables: tuple, layout: np.ndarray, bs: int):
+        """One whole-state stable argsort, (t_sorted, perm, inv, marker)
+        with global perm and inv, where the sort blocks are smaller than the
+        state (so the block sort was tried), in carry-sort mode, and the
+        sorted layout passes the blockwise test; else None."""
+        s = int(layout.shape[0])
+        if (bs >= s or not self.carry_sort_mode
+                or self.blockwise_palettes not in ("auto", True)):
+            return None
+        perm = np.argsort(layout, kind="stable").astype(np.int32)
+        if not self._blockwise_auto_decision(layout[perm]):
+            return None
+        inv = np.empty(s, np.int32)
+        inv[perm] = np.arange(s, dtype=np.int32)
+        return (tables[0].index_select(0, self._device_index(perm)),
+                self._device_index(perm), self._device_index(inv),
+                self._bw_marker())
+
+    def _device_index(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(self.device)
+
+    @staticmethod
+    def _tables_perm(t: tuple):
+        """(perm, inv) of a palette-sorted tables tuple, else None: only
+        sorted tuples have length 3, or 4 with a trailing marker."""
+        if (len(t) in (3, 4) and t[1].ndim == 1 and t[1].numel()
+                and t[2].ndim == 1 and t[2].numel()
+                and (len(t) == 3 or _is_marker(t[3]))):
+            return t[1], t[2]
+        return None
+
+    @staticmethod
+    def _tables_perm_global(t: tuple) -> bool:
+        """True when a sorted tables tuple holds a global permutation (the
+        length-4 form)."""
+        return len(t) == 4 and SpectrogramPipeline._tables_perm(t) is not None
+
+    def _state_perm(self, state: StreamState):
+        return self._tables_perm(state.tables)
+
+    _STREAM_BLOCK_AUTO_MIN = 12288
+    _STREAM_BLOCK_SIZE = 4096
+
+    def _push_block_streams(self, s: int) -> int:
+        """Sort-block size for S streams (0 = one block): "auto" gives
+        4096-stream blocks from 12,288 streams in the k=1 streaming mode
+        without a ring, as the JAX package's stream-blocked push does."""
+        sb = self.stream_blocks
+        if sb == "auto":
+            if (self.chunk_hops == 1 and not self.store_ring
+                    and s >= self._STREAM_BLOCK_AUTO_MIN):
+                return self._STREAM_BLOCK_SIZE
+            return 0
+        return sb if 0 < sb < s else 0
+
+    def _global_perm(self, perm: torch.Tensor, s: int,
+                     glob: bool = False) -> torch.Tensor:
+        """A block-relative perm (or inv) as global stream indices; a
+        global one (`glob`, the length-4 form) as it is."""
+        bs = self._push_block_streams(s) or s
+        if glob or bs >= s:
+            return perm
+        off = torch.arange(s, dtype=torch.int32, device=perm.device) // bs * bs
+        return off + perm
+
+    def _global_perms(self, state: StreamState):
+        """(perm, inv) of a sorted state as global stream indices, or None:
+        sorted[i] = external[perm[i]], external[e] = sorted[inv[e]]."""
+        pi = self._state_perm(state)
+        if pi is None:
+            return None
+        s = state.palette_id.shape[0]
+        glob = self._tables_perm_global(state.tables)
+        return self._global_perm(pi[0], s, glob), self._global_perm(pi[1], s, glob)
+
+    def _resorted_carry(self, prev_state: StreamState,
+                        new_tables: tuple) -> torch.Tensor:
+        """Carry-sort mode: the carry in the stream order of `new_tables`,
+        from the order of the previous state's (back to external order when
+        leaving the sorted class, into the new order when entering or
+        changing it)."""
+        carry = prev_state.carry
+        if not self.carry_sort_mode:
+            return carry
+        old = self._global_perms(prev_state)
+        if old is not None:
+            carry = carry.index_select(0, old[1])
+        new = self._global_perms(prev_state._replace(tables=new_tables))
+        if new is not None:
+            carry = carry.index_select(0, new[0])
+        return carry
+
+    @staticmethod
+    def _row_perm(perm: torch.Tensor, s: int, k: int) -> torch.Tensor:
+        """A [S] stream permutation extended to the window-major [k*S] rows
+        (row r*S + s_)."""
+        if k == 1:
+            return perm
+        off = torch.arange(k, dtype=torch.int32, device=perm.device)[:, None] * s
+        return (off + perm[None, :]).reshape(-1)
+
+    # ------------------------------------------------- host-side stream order
+
+    def output_perm(self, state: StreamState):
+        """For `sorted_output` pipelines: when not None,
+        `rows[output_perm(state)[e]]` are external stream e's rows in the
+        push output.  None when the state is unsorted (the output is then in
+        external order) or the pipeline does not sort its output.  numpy."""
+        if not self.sorted_output:
+            return None
+        perms = self._global_perms(state)
+        return None if perms is None else perms[1].cpu().numpy()
+
+    def input_perm(self, state: StreamState):
+        """For `presorted_input` pipelines: when not None, row i of a pushed
+        chunk must carry external stream input_perm(state)[i]'s samples.
+        None when the state is unsorted (deliver external order).  Query it
+        again after every set_palette: the order changes with the layout.
+        numpy."""
+        perms = self._global_perms(state)
+        return None if perms is None else perms[0].cpu().numpy()
+
+    def input_dest(self, state: StreamState):
+        """The chunk row external stream e's samples go to,
+        input_dest(state)[e]: the inverse of `input_perm`, uint64 for the
+        drain layer's destination rows; None when the state is unsorted."""
+        p = self.input_perm(state)
+        return None if p is None else np.argsort(p).astype(np.uint64)
+
+    def unsort_state(self, state: StreamState) -> StreamState:
+        """`state` in external stream order with the palette sort dropped
+        (the same state when unsorted): per-row tables, and in carry-sort
+        mode the carry unpermuted."""
+        perms = self._global_perms(state)
+        if perms is None:
+            return state
+        inv = perms[1]
+        carry = state.carry.index_select(0, inv) if self.carry_sort_mode else state.carry
+        return state._replace(carry=carry,
+                              tables=(state.tables[0].index_select(0, inv),))
+
     # ------------------------------------------------------------------- push
 
     def push(self, state: StreamState, chunk: torch.Tensor):
         """Advance all streams by k hops.  chunk: [S, k*hop, 2] f32 PCM, or
-        int16 PCM words scaled by 1/32768 on the device.  Returns
-        (new_state, rows): [S, k, H] int32 RGBA8888 when packed_output, else
-        [S, k, H, 4] u8.  With store_ring the push writes its rows into the
-        ring in place: the ring tensor is shared by the old and new state."""
+        int16 PCM words (scaled by 1/32768 on the device; with i16_planes
+        kept int16, and then required).  Returns (new_state, rows): [S, k, H]
+        int32 RGBA8888 when packed_output, else [S, k, H, 4] u8, in external
+        stream order unless sorted_output (see output_perm).  With
+        store_ring the push writes its rows into the ring in place: the ring
+        tensor is shared by the old and new state."""
         if chunk.ndim != 3 or tuple(chunk.shape[1:]) != (self.chunk_size, 2):
             raise ValueError(
                 f"chunk must be [S, {self.chunk_size}, 2]; got {tuple(chunk.shape)}"
             )
-        return self._push_core(state, self._chunk_f32(chunk).transpose(1, 2))
+        return self._push_core(state, self._chunk_in(chunk).transpose(1, 2))
 
     def push_planar(self, state: StreamState, chunk_planar: torch.Tensor):
         """As push, with the chunk channels-planar: [S, 2, k*hop]."""
@@ -265,20 +575,30 @@ class SpectrogramPipeline:
                 f"planar chunk must be [S, 2, {self.chunk_size}]; got "
                 f"{tuple(chunk_planar.shape)}"
             )
-        return self._push_core(state, self._chunk_f32(chunk_planar))
+        return self._push_core(state, self._chunk_in(chunk_planar))
 
-    def _chunk_f32(self, chunk: torch.Tensor) -> torch.Tensor:
-        """Wire-dtype edge: int16 PCM words scale by 1/32768 on the device
-        (the JAX pipeline's `_chunk_f32`); floats cast to f32."""
+    def _chunk_in(self, chunk: torch.Tensor) -> torch.Tensor:
+        """Wire-dtype edge: i16_planes pipelines keep int16 words (and take
+        nothing else: a silent cast would be lossy); others convert to f32,
+        int16 words scaled by 1/32768 on the device (the JAX pipeline's
+        `_chunk_f32`)."""
         chunk = chunk.to(self.device)
+        if self.i16_planes:
+            if chunk.dtype != torch.int16:
+                raise ValueError(
+                    "i16_planes pipelines require int16 chunks (the wire "
+                    f"dtype); got {chunk.dtype}"
+                )
+            return chunk
         if chunk.dtype == torch.int16:
             return chunk.to(torch.float32) * (1.0 / 32768.0)
         return chunk.to(torch.float32)
 
     def frame_buffers(self, state: StreamState, chunk_pl: torch.Tensor):
         """Split-channel framing of one push: (buf_l, buf_r, new_carry) with
-        buf_l/buf_r the [S, C + k*hop] f32 sample planes of carry + chunk
-        and new_carry their last C samples, built from the sources."""
+        buf_l/buf_r the [S, C + k*hop] sample planes of carry + chunk (f32,
+        or int16 with i16_planes) and new_carry their last C samples, built
+        from the sources."""
         c, t = self.carry_size, self.chunk_size
         buf_l = torch.cat([state.carry[:, 0, :], chunk_pl[:, 0, :]], dim=1)
         buf_r = torch.cat([state.carry[:, 1, :], chunk_pl[:, 1, :]], dim=1)
@@ -290,22 +610,44 @@ class SpectrogramPipeline:
 
     def frame_windows(self, state: StreamState, chunk_pl: torch.Tensor):
         """k=1 framing: (left, right, new_carry) with left/right the [S, W]
-        f32 window planes."""
+        window planes."""
         buf_l, buf_r, new_carry = self.frame_buffers(state, chunk_pl)
         w = self.cfg.window_size
         return buf_l[:, :w].contiguous(), buf_r[:, :w].contiguous(), new_carry
 
     def _push_core(self, state: StreamState, chunk_pl: torch.Tensor):
+        if state.carry.dtype != self.carry_dtype:
+            raise ValueError(
+                f"the state's carry is {state.carry.dtype}; this pipeline "
+                f"keeps {self.carry_dtype} (i16_planes={self.i16_planes})"
+            )
+        if self.sanitize_input and chunk_pl.dtype == torch.float32:
+            # int16 words cannot carry NaN or inf: nothing to scrub
+            chunk_pl = torch.where(torch.isfinite(chunk_pl), chunk_pl, 0.0)
         s, k = chunk_pl.shape[0], self.chunk_hops
+        perms = self._global_perms(state)
+        if perms is not None and self.carry_sort_mode and not self.presorted_input:
+            # the carry is at rest in sorted order: bring the chunk into it
+            chunk_pl = chunk_pl.index_select(0, perms[0])
+        hann = self.hann_i16 if chunk_pl.dtype == torch.int16 else self.hann
         if k == 1:
             left, right, new_carry = self.frame_windows(state, chunk_pl)
-            mag_l, mag_r = self._stft(left, right, self.hann, self.twiddles)
+            mag_l, mag_r = self._stft(left, right, hann, self.twiddles)
         else:
             buf_l, buf_r, new_carry = self.frame_buffers(state, chunk_pl)
-            mag_l, mag_r = self._stft_allk(buf_l, buf_r, self.hann, self.twiddles,
+            mag_l, mag_r = self._stft_allk(buf_l, buf_r, hann, self.twiddles,
                                            k, self.cfg.hop_size)
+        cm_l, cm_r = mag_l, mag_r
+        if perms is not None and not self.carry_sort_mode:
+            # the mag-bridge: the planes come in external order (the ring
+            # keeps it); the sorted tables want them sorted
+            rp = self._row_perm(perms[0], s, k)
+            cm_l, cm_r = mag_l.index_select(0, rp), mag_r.index_select(0, rp)
         # window-major rows r*S + s take table (r*S + s) % S = s
-        rows = self._colormap(mag_l, mag_r, self.taps, state.tables[0], self.cfg)
+        rows = self._run_colormap(cm_l, cm_r, self.taps, state.tables[0],
+                                  self._state_blockwise(state))
+        if perms is not None and not self.sorted_output:
+            rows = rows.index_select(0, self._row_perm(perms[1], s, k))
         if self.store_ring:
             self._write_ring(state, mag_l, mag_r)
         new_state = StreamState(
@@ -317,6 +659,17 @@ class SpectrogramPipeline:
             tables=state.tables,
         )
         return new_state, self._output(rows.view(k, s, -1).transpose(0, 1))
+
+    def _run_colormap(self, mag_l: torch.Tensor, mag_r: torch.Tensor, taps,
+                      tables: torch.Tensor, blockwise: bool,
+                      rows_per_table: int = 1) -> torch.Tensor:
+        """The blockwise colormap for a blockwise state with per-row tables,
+        kernel B otherwise (one table is uniform everywhere)."""
+        if blockwise and tables.shape[0] > 1:
+            return self._colormap_bw(mag_l, mag_r, taps, tables, self.cfg,
+                                     rows_per_table,
+                                     block_rows=self._cmap_ts(mag_l.shape[0]))
+        return self._colormap(mag_l, mag_r, taps, tables, self.cfg, rows_per_table)
 
     def _write_ring(self, state: StreamState, mag_l: torch.Tensor,
                     mag_r: torch.Tensor) -> None:
@@ -354,10 +707,16 @@ class SpectrogramPipeline:
         the colormap, with clamped edges (DESIGN.md D2).  Reads the bf16
         ring, so output precision matches the texture path, not the f32
         streaming path.  Works through blocks of streams to bound memory;
-        the output is the same."""
+        the output is the same.  The ring is in external stream order, so a
+        sorted state's viewport re-picks per-row tables from its ids."""
         if not self.store_ring:
             raise ValueError("this pipeline keeps no ring (store_ring=False)")
-        ring, tables = state.ring, state.tables[0]
+        ring = state.ring
+        if self._state_perm(state) is not None:
+            tables = self._pick_tables(state.palette_id)
+            blockwise = self.blockwise_palettes is True
+        else:
+            tables, blockwise = state.tables[0], self._state_blockwise(state)
         s, r, _, b = ring.shape
         out_rows = r if width is None else int(width)
         j0, j1, w0, w1 = self._time_resample_taps(r, out_rows)
@@ -375,8 +734,8 @@ class SpectrogramPipeline:
                     x = w0 * x + w1 * y
                 planes.append(x.reshape(-1, b))
             tab = tables if tables.shape[0] == 1 else tables[s0 : s0 + block]
-            packed = self._colormap(planes[0], planes[1], self.ring_taps, tab,
-                                    self.cfg, rows_per_table=out_rows)
+            packed = self._run_colormap(planes[0], planes[1], self.ring_taps, tab,
+                                        blockwise, rows_per_table=out_rows)
             out.append(packed.view(-1, out_rows, packed.shape[1]))
         return self._output(torch.cat(out))
 
@@ -415,6 +774,10 @@ class SpectrogramPipeline:
         if squeeze:
             pcm = pcm[None]
         pcm = pcm.to(device=self.device, dtype=torch.float32)
+        if self.sanitize_input:
+            # the push's ingestion-edge guard, so that process() keeps
+            # matching push()
+            pcm = torch.where(torch.isfinite(pcm), pcm, 0.0)
         frames = stft_ops.frame_signal(pcm, self.cfg)      # [S, n, W, 2]
         s, n, w = frames.shape[:3]
         left = frames[..., 0].reshape(s * n, w).contiguous()

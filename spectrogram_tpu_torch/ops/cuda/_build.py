@@ -35,13 +35,22 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # name -> ctypes argtypes of its C entry point (see csrc/*.cu).
+_STFT = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P)
+_ALLK = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 KERNELS = {
-    "spk_stft_packed": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "spk_stft_mixed": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "spk_stft_allk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "spk_stft_packed": _STFT,
+    "spk_stft_packed_i16": _STFT,
+    "spk_stft_mixed": _STFT,
+    "spk_stft_mixed_i16": _STFT,
+    "spk_stft_allk": _ALLK,
+    "spk_stft_allk_i16": _ALLK,
     "spk_colormap_builtin": (
         _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _F, _F, _F, _F, _P,
         _P,
+    ),
+    "spk_colormap_blockwise": (
+        _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _F, _F, _F,
+        _P, _P,
     ),
 }
 

@@ -1,6 +1,6 @@
-"""Kernel B: the per-row built-in colormap, and its plain version.
+"""Kernel B, the per-row built-in colormap, and the blockwise colormap.
 
-Replaces `spectrogram_tpu/ops/pallas/colormap_kernel.py`
+Kernel B replaces `spectrogram_tpu/ops/pallas/colormap_kernel.py`
 `colormap_planes_banded` with the per-row body `_builtin_kernel` (via
 `_builtin_word_tile`, `_resample_and_laws` and `_tent_lut_channels`), and
 covers the uniform single-table read too (`tables` with one row).  Input:
@@ -9,15 +9,24 @@ the [rows, N/2] magnitude planes of kernel A with taps from
 W-1) with taps from `resample_matrix`.  Output: [rows, H] int32 RGBA8888, R
 in byte 0.
 
+The blockwise colormap, `colormap_blockwise`, replaces the same entry's
+`_blockwise_builtin_kernel` (with `_blockwise_operands`): it computes kernel
+B's function, and a block of rows whose tables are all equal reads one
+staged table.  Its plain version is `colormap_builtin_plain` itself, since
+the function is the same (`colormap_blockwise_plain` names it so).
+
 The TPU kernel needed a banded matmul for the two-tap resample, a tent basis
 for the LUT read and SMEM tables, all to avoid gathers.  Here the resample is
 a tap table (`resample_taps`) and each pixel reads its two bins and its two
 LUT entries directly; the laws and their rounding are the JAX kernel's.
 
 Host helpers (`builtin_color_tables`, `generic_color_tables`,
-`unpack_rgba`) are copies of the JAX module's, pinned by the tests.
-`colormap_builtin` takes a CPU tensor to `colormap_builtin_plain` and a CUDA
-tensor to the kernel in `csrc/colormap_builtin.cu`, never one for the other.
+`unpack_rgba`, and `_auto_blocks`, `band_segments`, `_banded_worthwhile`,
+which give the row block the palette-sort economics are counted in) are
+copies of the JAX module's, pinned by the tests.  `colormap_builtin` and
+`colormap_blockwise` take a CPU tensor to `colormap_builtin_plain` and a
+CUDA tensor to their kernel (`csrc/colormap_builtin.cu`,
+`csrc/colormap_blockwise.cu`), never one for the other.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from spectrogram_tpu_torch.config import SpectrogramConfig
 from spectrogram_tpu_torch.ops import colormap as cmap_ops
 
 KERNEL = "spk_colormap_builtin"
+BLOCKWISE_KERNEL = "spk_colormap_blockwise"
 
 
 class ResampleTaps(NamedTuple):
@@ -124,6 +134,66 @@ def generic_color_tables(resolution: int = 32, schemes=None):
     )
 
 
+def _auto_blocks(b: int, block_rows, block_cols) -> tuple[int, int]:
+    """The JAX colormap kernels' default (row, column) tile for a band of b
+    bins: both shrink as b grows.  Explicit values override either."""
+    if b <= 2560:
+        auto = (128, 128)
+    elif b <= 5120:
+        auto = (64, 128)
+    elif b <= 10240:
+        auto = (32, 64)
+    elif b <= 20480:
+        auto = (16, 32)
+    else:
+        raise ValueError(
+            f"{b} bins exceeds the supported colormap-kernel tiling; "
+            "reduce the window size or use the XLA colormap backend"
+        )
+    return (block_rows or auto[0], block_cols or auto[1])
+
+
+def band_segments(
+    matrix_t: np.ndarray,   # [B, H] numpy resample matrix (transposed)
+    tile_px: int = 128,
+    lane: int = 128,
+) -> tuple[tuple[int, int, int, int], ...]:
+    """The JAX kernels' banding plan of a two-tap [B, H] resample matrix:
+    ((px_lo, px_hi, bin_lo, bin_hi), ...), per `tile_px`-wide pixel tile the
+    lane-aligned band of bins with any nonzero weight, adjacent tiles merged
+    greedily whenever merging does not increase total band*pixels work."""
+    b, h = matrix_t.shape
+    nz_any = matrix_t != 0.0
+    tiles = []
+    for p0 in range(0, h, tile_px):
+        p1 = min(p0 + tile_px, h)
+        nz = np.nonzero(nz_any[:, p0:p1].any(axis=1))[0]
+        if nz.size == 0:
+            lo, hi = 0, min(lane, b)
+        else:
+            lo = int(nz.min()) // lane * lane
+            hi = min(-(-int(nz.max() + 1) // lane) * lane, b)
+        tiles.append((p0, p1, lo, hi))
+    segs = [tiles[0]]
+    for p0, p1, lo, hi in tiles[1:]:
+        sp0, sp1, slo, shi = segs[-1]
+        mlo, mhi = min(slo, lo), max(shi, hi)
+        merged = (mhi - mlo) * (p1 - sp0)
+        split = (shi - slo) * (sp1 - sp0) + (hi - lo) * (p1 - p0)
+        if merged <= split:
+            segs[-1] = (sp0, p1, mlo, mhi)
+        else:
+            segs.append((p0, p1, lo, hi))
+    return tuple(segs)
+
+
+def _banded_worthwhile(segments, b: int, h: int, threshold: float = 0.75) -> bool:
+    """True when the banding plan's sum of band*pixels is below `threshold`
+    of the dense B*H product."""
+    banded = sum((hi - lo) * (p1 - p0) for p0, p1, lo, hi in segments)
+    return banded < threshold * b * h
+
+
 def unpack_rgba(packed) -> np.ndarray:
     """Host-side: [..., H] i32 RGBA8888 -> [..., H, 4] u8 (zero-copy view)."""
     if isinstance(packed, torch.Tensor):
@@ -186,20 +256,15 @@ def colormap_builtin_plain(mag_l: torch.Tensor, mag_r: torch.Tensor,
     return torch.where(word >= 2**31, word - 2**32, word).to(torch.int32)
 
 
-def colormap_builtin(mag_l: torch.Tensor, mag_r: torch.Tensor,
-                     taps: ResampleTaps, tables: torch.Tensor,
-                     cfg: SpectrogramConfig,
-                     rows_per_table: int = 1) -> torch.Tensor:
-    """[rows, B] f32 magnitude planes -> [rows, H] int32 RGBA8888, row n
-    colored with tables[(n // rows_per_table) % T] ([T, R*4] f32, built-in
-    layout): rows_per_table 1 for the push's window-major rows, R' for a
-    viewport's R' rows per stream.
+# the blockwise kernel's plain version: the function is kernel B's
+colormap_blockwise_plain = colormap_builtin_plain
 
-    CPU tensors take the plain version; CUDA tensors take the kernel."""
-    rows, bins = mag_l.shape
+
+def _check(mag_l, mag_r, taps, tables, rows_per_table) -> None:
+    """Raise unless the planes, taps and tables fit: the kernels index planes
+    by tap and tables by row unchecked."""
     h = taps.j0.shape[0]
-    # the kernel indexes planes by tap and tables by row % T unchecked
-    if (mag_r.shape != mag_l.shape or taps.bins > bins
+    if (mag_r.shape != mag_l.shape or taps.bins > mag_l.shape[1]
             or any(t.shape != (h,) for t in taps[:4])
             or tables.ndim != 2 or tables.shape[0] < 1
             or tables.shape[1] % 4 or tables.shape[1] < 8
@@ -209,9 +274,12 @@ def colormap_builtin(mag_l: torch.Tensor, mag_r: torch.Tensor,
             f"{taps.bins} bins, tables {tuple(tables.shape)} and "
             f"rows_per_table={rows_per_table} do not fit"
         )
-    if mag_l.device.type == "cpu":
-        return colormap_builtin_plain(mag_l, mag_r, taps, tables, cfg,
-                                      rows_per_table)
+
+
+def _launch(name: str, mag_l, mag_r, taps, tables, cfg, rows_per_table,
+            *extra) -> torch.Tensor:
+    """Launch colormap kernel `name` on CUDA tensors; `extra` are the int
+    arguments its C entry takes after `res`."""
     if mag_l.device.type != "cuda":
         raise ValueError(f"no colormap kernel for device {mag_l.device}")
     checks = (
@@ -220,12 +288,14 @@ def colormap_builtin(mag_l: torch.Tensor, mag_r: torch.Tensor,
         ("w0", taps.w0, torch.float32), ("w1", taps.w1, torch.float32),
         ("tables", tables, torch.float32),
     )
-    for name, t, dtype in checks:
+    for name_, t, dtype in checks:
         if t.dtype != dtype or not t.is_contiguous() or t.device != mag_l.device:
             raise ValueError(
-                f"{name} must be contiguous {dtype} on {mag_l.device}; got "
+                f"{name_} must be contiguous {dtype} on {mag_l.device}; got "
                 f"{t.dtype} on {t.device}, contiguous={t.is_contiguous()}"
             )
+    rows, bins = mag_l.shape
+    h = taps.j0.shape[0]
     out = torch.empty((rows, h), dtype=torch.int32, device=mag_l.device)
     if rows and h:
         from spectrogram_tpu_torch.ops.cuda import _build
@@ -234,11 +304,56 @@ def colormap_builtin(mag_l: torch.Tensor, mag_r: torch.Tensor,
         with torch.cuda.device(mag_l.device):
             stream = torch.cuda.current_stream().cuda_stream
             _build.library().launch(
-                KERNEL, mag_l.data_ptr(), mag_r.data_ptr(), rows, bins,
+                name, mag_l.data_ptr(), mag_r.data_ptr(), rows, bins,
                 taps.j0.data_ptr(), taps.j1.data_ptr(), taps.w0.data_ptr(),
                 taps.w1.data_ptr(), h, tables.data_ptr(), tables.shape[0],
-                rows_per_table, res,
+                rows_per_table, res, *extra,
                 cfg.min_db, cfg.max_db - cfg.min_db, cfg.db_epsilon,
                 1.0 / (res - 1), out.data_ptr(), stream,
             )
     return out
+
+
+def colormap_builtin(mag_l: torch.Tensor, mag_r: torch.Tensor,
+                     taps: ResampleTaps, tables: torch.Tensor,
+                     cfg: SpectrogramConfig,
+                     rows_per_table: int = 1) -> torch.Tensor:
+    """[rows, B] f32 magnitude planes -> [rows, H] int32 RGBA8888, row n
+    colored with tables[(n // rows_per_table) % T] ([T, R*4] f32, built-in
+    layout): rows_per_table 1 for the push's window-major rows, R' for a
+    viewport's R' rows per stream.
+
+    CPU tensors take the plain version; CUDA tensors take kernel B."""
+    _check(mag_l, mag_r, taps, tables, rows_per_table)
+    if mag_l.device.type == "cpu":
+        return colormap_builtin_plain(mag_l, mag_r, taps, tables, cfg,
+                                      rows_per_table)
+    return _launch(KERNEL, mag_l, mag_r, taps, tables, cfg, rows_per_table)
+
+
+# a uniform block stages its table in at most 48 KB of shared memory
+MAX_BLOCKWISE_RES = 48 * 1024 // 16
+
+
+def colormap_blockwise(mag_l: torch.Tensor, mag_r: torch.Tensor,
+                       taps: ResampleTaps, tables: torch.Tensor,
+                       cfg: SpectrogramConfig, rows_per_table: int = 1,
+                       block_rows: int = 128) -> torch.Tensor:
+    """`colormap_builtin`'s function, with the rows taken in blocks of
+    `block_rows`: a block whose rows all read equal tables reads that one
+    table, staged once; a mixed block reads per-row tables.  The output is
+    kernel B's, bit for bit.
+
+    CPU tensors take the plain version; CUDA tensors take the blockwise
+    kernel."""
+    _check(mag_l, mag_r, taps, tables, rows_per_table)
+    if block_rows < 1 or tables.shape[1] // 4 > MAX_BLOCKWISE_RES:
+        raise ValueError(
+            f"block_rows={block_rows} and {tables.shape[1] // 4}-entry tables "
+            f"do not fit the blockwise kernel (at most {MAX_BLOCKWISE_RES})"
+        )
+    if mag_l.device.type == "cpu":
+        return colormap_blockwise_plain(mag_l, mag_r, taps, tables, cfg,
+                                        rows_per_table)
+    return _launch(BLOCKWISE_KERNEL, mag_l, mag_r, taps, tables, cfg,
+                   rows_per_table, block_rows)

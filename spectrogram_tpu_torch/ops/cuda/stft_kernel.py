@@ -20,9 +20,17 @@ computes): it reads the k hop-shifted windows of each stream straight out of
 the carry+chunk sample planes and writes their magnitudes in window-major
 order, row r*S + s (`csrc/stft_allk.cu`, both FFT bodies).
 
+Both take f32 sample planes, or the int16 PCM words of the i16_planes wire
+mode (the TPU kernels' int16 operand form): an int16 plane reads half the
+bytes, converts exactly to f32 in the kernel, and takes its 1/32768 wire
+scale from the window, `packed_hann_i16` = `packed_hann` * 2^-15, an exact
+exponent shift.  So an int16 row is bitwise the f32 row of x / 32768, in the
+kernels and in the plain versions alike.
+
 Each wrapper takes a CPU tensor to its plain version (torch.fft) and a CUDA
-tensor to its kernel.  There is no fallback between the two: a CUDA tensor
-a kernel cannot take raises.
+tensor to its kernel: an f32 plane to the f32 kernel, an int16 plane to the
+int16 kernel.  There is no fallback between the two, and no cast: a CUDA
+tensor a kernel cannot take raises.
 """
 
 from __future__ import annotations
@@ -35,6 +43,13 @@ from spectrogram_tpu_torch.ops.stft import hann_window_np
 KERNEL = "spk_stft_packed"
 MIXED_KERNEL = "spk_stft_mixed"
 ALLK_KERNEL = "spk_stft_allk"
+KERNEL_I16 = "spk_stft_packed_i16"
+MIXED_KERNEL_I16 = "spk_stft_mixed_i16"
+ALLK_KERNEL_I16 = "spk_stft_allk_i16"
+# each f32 kernel's int16 form
+_I16_KERNELS = {KERNEL: KERNEL_I16, MIXED_KERNEL: MIXED_KERNEL_I16,
+                ALLK_KERNEL: ALLK_KERNEL_I16}
+WIRE_SCALE = 2.0 ** -15   # an int16 PCM word x stands for x * WIRE_SCALE
 MIN_FFT, MAX_FFT = 256, 16384  # one block's shared memory holds N complex f32
 
 
@@ -42,6 +57,12 @@ def packed_hann(window_size: int) -> np.ndarray:
     """[W] f32 periodic Hann times 2/W times 1/2 (the TPU kernel's
     `_packed_hann`; exact scalings for power-of-two windows)."""
     return hann_window_np(window_size) * (2.0 / window_size) * 0.5
+
+
+def packed_hann_i16(window_size: int) -> np.ndarray:
+    """`packed_hann` with the int16 wire scale 2^-15 folded in: the window
+    of int16 sample planes."""
+    return packed_hann(window_size) * np.float32(WIRE_SCALE)
 
 
 def twiddle_table(n_fft: int) -> np.ndarray:
@@ -73,8 +94,9 @@ def check_fft_size(n_fft: int) -> None:
 
 def stft_mag_packed_plain(left: torch.Tensor, right: torch.Tensor,
                           hann: torch.Tensor, n_fft: int):
-    """The plain PyTorch version: torch.fft on complex64, same unpack."""
-    z = torch.complex(left * hann, right * hann)
+    """The plain PyTorch version: torch.fft on complex64, same unpack.
+    int16 planes convert exactly to f32 first (`hann` then carries 2^-15)."""
+    z = torch.complex(left.to(torch.float32) * hann, right.to(torch.float32) * hann)
     x = torch.fft.fft(z, n=n_fft)
     half = n_fft // 2
     k = torch.arange(half, device=left.device)
@@ -94,16 +116,26 @@ def stft_mag_packed_allk_plain(buf_l: torch.Tensor, buf_r: torch.Tensor,
     return stft_mag_packed_plain(left, right, hann, n_fft)
 
 
-def _check_cuda(first: torch.Tensor, **tensors) -> None:
-    """Raise unless every tensor is contiguous f32 on first's CUDA device."""
+def _cuda_kernel(name: str, samples: tuple, **consts) -> str:
+    """Kernel `name` for f32 sample planes, its int16 form for int16
+    planes; raise unless the planes are contiguous f32 or int16 of one type
+    on one CUDA device and the constants contiguous f32 there."""
+    first = samples[0]
     if first.device.type != "cuda":
         raise ValueError(f"no STFT kernel for device {first.device}")
-    for name, t in tensors.items():
-        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != first.device:
+    if first.dtype not in (torch.float32, torch.int16):
+        raise ValueError(
+            f"sample planes must be float32 or int16 (the i16_planes wire "
+            f"mode); got {first.dtype}")
+    named = [("samples", t, first.dtype) for t in samples]
+    named += [(arg, t, torch.float32) for arg, t in consts.items()]
+    for arg, t, dtype in named:
+        if t.dtype != dtype or not t.is_contiguous() or t.device != first.device:
             raise ValueError(
-                f"{name} must be contiguous f32 on {first.device}; got "
+                f"{arg} must be contiguous {dtype} on {first.device}; got "
                 f"{t.dtype} on {t.device}, contiguous={t.is_contiguous()}"
             )
+    return name if first.dtype == torch.float32 else _I16_KERNELS[name]
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -116,8 +148,9 @@ def _launch(name: str, device: torch.device, *args) -> None:
 
 def stft_mag_packed(left: torch.Tensor, right: torch.Tensor,
                     hann: torch.Tensor, twiddles: torch.Tensor):
-    """(mag_l, mag_r) [rows, N/2] f32 of the [rows, W] f32 window planes,
-    with N = twiddles.shape[0] (`twiddle_table(N)` on the same device).
+    """(mag_l, mag_r) [rows, N/2] f32 of the [rows, W] f32 or int16 window
+    planes, with N = twiddles.shape[0] (`twiddle_table(N)` on the same
+    device) and hann `packed_hann(W)`, or `packed_hann_i16(W)` for int16.
 
     CPU tensors take the plain version; CUDA tensors take kernel A."""
     n_fft = twiddles.shape[0]
@@ -130,15 +163,15 @@ def stft_mag_packed(left: torch.Tensor, right: torch.Tensor,
         )
     if left.device.type == "cpu":
         return stft_mag_packed_plain(left, right, hann, n_fft)
-    _check_cuda(left, left=left, right=right, hann=hann, twiddles=twiddles)
+    if _is_power_of_two(n_fft):
+        name, size = KERNEL, n_fft.bit_length() - 1
+    else:
+        name, size = MIXED_KERNEL, n_fft
+    name = _cuda_kernel(name, (left, right), hann=hann, twiddles=twiddles)
     check_fft_size(n_fft)
     out_l = torch.empty((rows, n_fft // 2), dtype=torch.float32, device=left.device)
     out_r = torch.empty_like(out_l)
     if rows:
-        if _is_power_of_two(n_fft):
-            name, size = KERNEL, n_fft.bit_length() - 1
-        else:
-            name, size = MIXED_KERNEL, n_fft
         _launch(name, left.device, left.data_ptr(), right.data_ptr(),
                 hann.data_ptr(), twiddles.data_ptr(), out_l.data_ptr(),
                 out_r.data_ptr(), rows, w, size)
@@ -149,8 +182,9 @@ def stft_mag_packed_allk(buf_l: torch.Tensor, buf_r: torch.Tensor,
                          hann: torch.Tensor, twiddles: torch.Tensor,
                          k: int, hop: int):
     """(mag_l, mag_r) [k*S, N/2] f32 of the k windows buf[s, r*hop : r*hop+W]
-    of the [S, L] f32 sample buffers (L >= W + (k-1)*hop), with row r*S + s
-    holding window r of stream s, W = hann.shape[0] and N = twiddles.shape[0].
+    of the [S, L] f32 or int16 sample buffers (L >= W + (k-1)*hop), with row
+    r*S + s holding window r of stream s, W = hann.shape[0] and N =
+    twiddles.shape[0]; hann as for `stft_mag_packed`.
 
     CPU tensors take the plain version; CUDA tensors take the all-windows
     kernel, which never materializes the windows."""
@@ -166,13 +200,13 @@ def stft_mag_packed_allk(buf_l: torch.Tensor, buf_r: torch.Tensor,
         )
     if buf_l.device.type == "cpu":
         return stft_mag_packed_allk_plain(buf_l, buf_r, hann, n_fft, k, hop)
-    _check_cuda(buf_l, buf_l=buf_l, buf_r=buf_r, hann=hann, twiddles=twiddles)
+    name = _cuda_kernel(ALLK_KERNEL, (buf_l, buf_r), hann=hann, twiddles=twiddles)
     check_fft_size(n_fft)
     out_l = torch.empty((k * s, n_fft // 2), dtype=torch.float32,
                         device=buf_l.device)
     out_r = torch.empty_like(out_l)
     if s:
-        _launch(ALLK_KERNEL, buf_l.device, buf_l.data_ptr(), buf_r.data_ptr(),
+        _launch(name, buf_l.device, buf_l.data_ptr(), buf_r.data_ptr(),
                 hann.data_ptr(), twiddles.data_ptr(), out_l.data_ptr(),
                 out_r.data_ptr(), s, length, k, hop, w, n_fft)
     return out_l, out_r

@@ -8,7 +8,11 @@ Profiles, each with torch.profiler over a steady window after a warm-up:
      BENCH_CHUNK_HOPS=8 mode);
   2. the display push (k=8, ring R=2048, 256 streams, palettes
      arange(S) % 19) at BENCH_CONFIG and at DEFAULT_CONFIG;
-  3. render_viewport of that display state.
+  3. render_viewport of that display state;
+  4. the multi-tenant serving push at BENCH_CONFIG, k=1, no ring, 10,240
+     streams, palettes arange(S) % 19: per-row (palette_sort=False), sorted
+     (the defaults), and the full serving mode (i16_planes, presorted_input,
+     sorted_output, int16 chunks in input_perm order).
 
 For each it prints the host wall time per call over the window (ended by a
 synchronize), the device busy time per call (the sum of its kernels), the
@@ -78,7 +82,8 @@ def main(argv=None) -> int:
     print("card:", subprocess.run(smi, capture_output=True, text=True).stdout.strip())
     dev = torch.device("cuda", 0)
 
-    p = SpectrogramPipeline(BENCH_CONFIG, chunk_hops=8, store_ring=False, device=dev)
+    p = SpectrogramPipeline(BENCH_CONFIG, chunk_hops=8, store_ring=False,
+                            packed_output=True, device=dev)
     state = [p.set_palette(p.init_state(4096), np.arange(4096) % 19)]
     chunk = torch.from_numpy(testing.chirp_tone(4096, p.chunk_size, 48000.0, seed=4)).to(dev)
 
@@ -89,7 +94,7 @@ def main(argv=None) -> int:
     del state, chunk
 
     for name, cfg in (("BENCH_CONFIG", BENCH_CONFIG), ("DEFAULT_CONFIG", DEFAULT_CONFIG)):
-        p = SpectrogramPipeline(cfg, chunk_hops=8, device=dev)
+        p = SpectrogramPipeline(cfg, chunk_hops=8, packed_output=True, device=dev)
         state = [p.set_palette(p.init_state(256), np.arange(256) % 19)]
         chunk = torch.from_numpy(
             testing.chirp_tone(256, p.chunk_size, cfg.sample_rate, seed=5)).to(dev)
@@ -98,6 +103,23 @@ def main(argv=None) -> int:
         profile(f"render_viewport, {name}, 256 streams",
                 lambda: p.render_viewport(state[0]), args.renders)
         del state, chunk
+
+    s = 10240
+    ids = np.arange(s) % 19
+    words = np.round(testing.chirp_tone(s, BENCH_CONFIG.hop_size, 48000.0, seed=6)
+                     * 32767.0).astype(np.int16)
+    for label, kw in (("per-row (palette_sort=False)", dict(palette_sort=False)),
+                      ("sorted", {}),
+                      ("full serving mode", dict(i16_planes=True, presorted_input=True,
+                                                 sorted_output=True))):
+        p = SpectrogramPipeline(BENCH_CONFIG, chunk_hops=1, store_ring=False,
+                                packed_output=True, device=dev, **kw)
+        state = [p.set_palette(p.init_state(s), ids)]
+        perm = p.input_perm(state[0]) if p.presorted_input else None
+        wire = torch.from_numpy(words if perm is None else words[perm]).to(dev)
+        chunk = wire if p.i16_planes else wire.to(torch.float32) / 32768.0
+        profile(f"serving push, BENCH_CONFIG, k=1, {s} streams, {label}", push, args.pushes)
+        del state, chunk, wire
     print("card:", subprocess.run(smi, capture_output=True, text=True).stdout.strip())
     return 0
 

@@ -1,14 +1,15 @@
 // The STFT kernels' row code (stft_fft.cuh) as a host library: one call
-// runs `rows` window rows through the Radix2 (mixed = 0) or MixedRadix
-// (mixed = 1) body, as one thread block per row would.
+// runs `rows` window rows of f32 or int16 samples through the Radix2
+// (mixed = 0) or MixedRadix (mixed = 1) body, as one thread block per row
+// would.
 #include <vector>
 
 #include "stft_fft.cuh"
 
-extern "C" int stft_host_rows(int mixed, int n, int rows, int w,
-                              const float* l, const float* r,
-                              const float* hann, const float* twiddles,
-                              float* out_l, float* out_r) {
+template <class T>
+static int host_rows(int mixed, int n, int rows, int w, const T* l,
+                     const T* r, const float* hann, const float* twiddles,
+                     float* out_l, float* out_r) {
   std::vector<float2> buf(n);
   const auto* tw = reinterpret_cast<const float2*>(twiddles);
   spk::MixedRadix plan;
@@ -31,6 +32,21 @@ extern "C" int stft_host_rows(int mixed, int n, int rows, int w,
     }
   }
   return 0;
+}
+
+extern "C" int stft_host_rows(int mixed, int n, int rows, int w,
+                              const float* l, const float* r,
+                              const float* hann, const float* twiddles,
+                              float* out_l, float* out_r) {
+  return host_rows(mixed, n, rows, w, l, r, hann, twiddles, out_l, out_r);
+}
+
+// The same with int16 sample planes (hann carrying the 2^-15 wire scale).
+extern "C" int stft_host_rows_i16(int mixed, int n, int rows, int w,
+                                  const short* l, const short* r,
+                                  const float* hann, const float* twiddles,
+                                  float* out_l, float* out_r) {
+  return host_rows(mixed, n, rows, w, l, r, hann, twiddles, out_l, out_r);
 }
 
 // The radices of n's mixed-radix plan into `radix`; their count, or -1.

@@ -145,8 +145,10 @@ def test_rows_per_table_matches_plain(cuda):
 def test_pipeline_on_card_matches_cpu_and_one_shot(cuda, k):
     cfg = SMALL
     ids = np.array([0, 1, 3, 8, 12])
-    gpu = SpectrogramPipeline(cfg, chunk_hops=k, viewport_rows=16, device=cuda)
-    cpu = SpectrogramPipeline(cfg, chunk_hops=k, viewport_rows=16, device="cpu")
+    gpu = SpectrogramPipeline(cfg, chunk_hops=k, viewport_rows=16, packed_output=True,
+                              device=cuda)
+    cpu = SpectrogramPipeline(cfg, chunk_hops=k, viewport_rows=16, packed_output=True,
+                              device="cpu")
     sg = gpu.set_palette(gpu.init_state(len(ids)), ids)
     sc = cpu.set_palette(cpu.init_state(len(ids)), ids)
     t = gpu.chunk_size
@@ -176,8 +178,10 @@ def test_pipeline_on_card_matches_cpu_and_one_shot(cuda, k):
 
 def test_k8_push_equals_eight_k1_pushes_on_card(cuda):
     cfg = BENCH_CONFIG
-    p8 = SpectrogramPipeline(cfg, chunk_hops=8, viewport_rows=16, device=cuda)
-    p1 = SpectrogramPipeline(cfg, chunk_hops=1, viewport_rows=16, device=cuda)
+    p8 = SpectrogramPipeline(cfg, chunk_hops=8, viewport_rows=16, packed_output=True,
+                             device=cuda)
+    p1 = SpectrogramPipeline(cfg, chunk_hops=1, viewport_rows=16, packed_output=True,
+                             device=cuda)
     a, b = p8.init_state(6), p1.init_state(6)
     pcm = torch.from_numpy(testing.chirp_tone(6, 2 * p8.chunk_size, cfg.sample_rate, seed=5)).to(cuda)
     for i in range(2):
@@ -203,3 +207,98 @@ def test_card_refuses_other_sizes(cuda):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SpectrogramPipeline(SpectrogramConfig(sample_rate=7000.0, window_period=0.35),
                             device=cuda)
+
+
+@pytest.mark.parametrize("layout", ["uniform", "mixed", "ragged"])
+def test_blockwise_kernel_equals_kernel_b(cuda, layout):
+    """The blockwise colormap gives kernel B's bits whichever arm a block
+    takes: sorted runs (uniform blocks), scattered palettes (mixed blocks),
+    and a row count that is no multiple of the block (a short last block)."""
+    cfg = BENCH_CONFIG
+    rows = 1000 if layout == "ragged" else 1024
+    left, right = _windows(cfg, "chirp_tone", rows, cuda)
+    hann = torch.from_numpy(sk.packed_hann(cfg.window_size)).to(cuda)
+    ml, mr = sk.stft_mag_packed_plain(left, right, hann, cfg.padded_size)
+    ids = {"uniform": np.sort(np.arange(rows) % 4), "mixed": np.arange(rows) % 19,
+           "ragged": (np.arange(rows) // 100) % 19}[layout]
+    tables = torch.from_numpy(ck.builtin_color_tables()[ids]).to(cuda)
+    taps = ck.resample_taps(cmap_ops.resample_matrix_full(cfg), cuda)
+    lib = _build.library()
+    before = lib.launches[ck.BLOCKWISE_KERNEL]
+    got = ck.colormap_blockwise(ml, mr, taps, tables, cfg, block_rows=128)
+    torch.cuda.synchronize()
+    assert lib.launches[ck.BLOCKWISE_KERNEL] == before + 1
+    torch.testing.assert_close(got, ck.colormap_builtin(ml, mr, taps, tables, cfg),
+                               atol=0, rtol=0)
+    want = ck.colormap_blockwise_plain(ml, mr, taps, tables, cfg)
+    assert testing.rgba_u8_diff(ck.unpack_rgba_device(got), ck.unpack_rgba_device(want)) <= 1
+    # stream-major rows, as a viewport of blockwise-marked streams reads them
+    got = ck.colormap_blockwise(ml, mr, taps, tables[::8].contiguous(), cfg,
+                                rows_per_table=8, block_rows=128)
+    torch.testing.assert_close(
+        got, ck.colormap_builtin(ml, mr, taps, tables[::8].contiguous(), cfg,
+                                 rows_per_table=8), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("geometry", ["bench", "default"])
+def test_int16_kernels_equal_f32_kernels(cuda, geometry):
+    """Kernel A and the all-windows kernel on int16 planes give the bits of
+    the f32 kernels on x / 32768, and match the plain version."""
+    cfg = GEOMETRIES[geometry]
+    w, h, k = cfg.window_size, cfg.hop_size, 8
+    rng = np.random.default_rng(5)
+    hann16 = torch.from_numpy(sk.packed_hann_i16(w)).to(cuda)
+    hann = torch.from_numpy(sk.packed_hann(w)).to(cuda)
+    tw = torch.from_numpy(sk.twiddle_table(cfg.padded_size)).to(cuda)
+    lib = _build.library()
+    for shape, call in (((256, w), lambda a, b, hn: sk.stft_mag_packed(a, b, hn, tw)),
+                        ((64, w + (k - 1) * h),
+                         lambda a, b, hn: sk.stft_mag_packed_allk(a, b, hn, tw, k, h))):
+        words = [torch.from_numpy(rng.integers(-32768, 32768, shape, dtype=np.int16)).to(cuda)
+                 for _ in range(2)]
+        before = dict(lib.launches)
+        got = call(*words, hann16)
+        torch.cuda.synchronize()
+        i16 = [n for n in lib.launches if lib.launches[n] != before[n]]
+        assert len(i16) == 1 and i16[0].endswith("_i16")
+        scaled = [x.to(torch.float32) / 32768.0 for x in words]
+        for g, x in zip(got, call(*scaled, hann)):
+            torch.testing.assert_close(g, x, atol=0, rtol=0)
+        plain = (sk.stft_mag_packed_plain(*words, hann16, cfg.padded_size) if shape[0] == 256
+                 else sk.stft_mag_packed_allk_plain(*words, hann16, cfg.padded_size, k, h))
+        for g, x in zip(got, plain):
+            torch.testing.assert_close(g, x, atol=ATOL, rtol=RTOL)
+    doubles = torch.zeros((4, w), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="float32 or int16"):
+        sk.stft_mag_packed(doubles, doubles, hann, tw)
+
+
+def test_serving_pipeline_on_card(cuda):
+    """The full serving mode on the card: sorted rows equal per-row rows,
+    and match the CPU run of the same pushes."""
+    cfg, s = SMALL, 256
+    ids = np.arange(s) % 2
+    kw = dict(chunk_hops=1, store_ring=False, packed_output=True)
+    full = SpectrogramPipeline(cfg, i16_planes=True, presorted_input=True,
+                               sorted_output=True, device=cuda, **kw)
+    per_row = SpectrogramPipeline(cfg, palette_sort=False, device=cuda, **kw)
+    cpu = SpectrogramPipeline(cfg, i16_planes=True, presorted_input=True,
+                              sorted_output=True, device="cpu", **kw)
+    fs, ps = full.set_palette(full.init_state(s), ids), per_row.set_palette(per_row.init_state(s), ids)
+    cs = cpu.set_palette(cpu.init_state(s), ids)
+    perm, out = full.input_perm(fs), torch.from_numpy(full.output_perm(fs)).long()
+    rng = np.random.default_rng(9)
+    lib = _build.library()
+    before = dict(lib.launches)
+    for _ in range(3):
+        words = torch.from_numpy(rng.integers(-32768, 32768, (s, full.chunk_size, 2),
+                                              dtype=np.int16))
+        fs, fr = full.push(fs, words[perm].to(cuda))
+        ps, pr = per_row.push(ps, words.to(cuda))
+        cs, cr = cpu.push(cs, words[perm])
+        torch.testing.assert_close(fr[out.to(cuda)], pr, atol=0, rtol=0)
+        assert testing.rgba_u8_diff(ck.unpack_rgba(fr), ck.unpack_rgba(cr)) <= 1
+        torch.testing.assert_close(fs.carry.cpu(), cs.carry, atol=0, rtol=0)
+    torch.cuda.synchronize()
+    for name in (sk.KERNEL_I16, ck.BLOCKWISE_KERNEL):
+        assert lib.launches[name] > before[name], name

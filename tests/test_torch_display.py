@@ -179,7 +179,8 @@ def test_display_path_matches_jax_pallas_small(kind, plan):
         jp.override_plan(PACKED_PLAN)
         assert jp.stft_packed and jp.allk_framing
     cfg = SpectrogramConfig(**SMALL)
-    tp = SpectrogramPipeline(cfg, chunk_hops=3, viewport_rows=6, device="cpu")
+    tp = SpectrogramPipeline(cfg, chunk_hops=3, viewport_rows=6, packed_output=True,
+                             device="cpu")
     # each width compiles its own interpret-mode render (~3 s): magnify on
     # the tonal input, minify on noise
     widths = (None, 9) if kind == "chirp_tone" else (4,)
@@ -193,7 +194,8 @@ def test_display_path_matches_jax_xla(geometry):
     jp = JaxPipeline(jc, chunk_hops=8, viewport_rows=16, store_ring=True,
                      packed_output=True, stft_backend="xla",
                      colormap_backend="xla", palette_sort=False)
-    tp = SpectrogramPipeline(cfg, chunk_hops=8, viewport_rows=16, device="cpu")
+    tp = SpectrogramPipeline(cfg, chunk_hops=8, viewport_rows=16, packed_output=True,
+                             device="cpu")
     # 2 streams: one stereo, one mono
     _run_both(jp, tp, cfg, "chirp_tone", n_pushes=3, widths=(None, 24), ids=IDS[:2])
 
@@ -203,7 +205,8 @@ def test_display_path_matches_jax_xla(geometry):
 @pytest.mark.parametrize("geometry", ["small", "default"])
 def test_streamed_k8_equals_one_shot(geometry):
     cfg = SpectrogramConfig(**SMALL) if geometry == "small" else DEFAULT_CONFIG
-    p = SpectrogramPipeline(cfg, chunk_hops=8, viewport_rows=16, device="cpu")
+    p = SpectrogramPipeline(cfg, chunk_hops=8, viewport_rows=16, packed_output=True,
+                            device="cpu")
     s, n = 3, 3
     state = p.set_palette(p.init_state(s), IDS[:s])
     pcm = testing.chirp_tone(s, n * p.chunk_size, cfg.sample_rate, seed=4)
@@ -221,8 +224,10 @@ def test_streamed_k8_equals_one_shot(geometry):
 
 def test_k8_push_equals_eight_k1_pushes():
     cfg = SpectrogramConfig(**SMALL)
-    p8 = SpectrogramPipeline(cfg, chunk_hops=8, viewport_rows=16, device="cpu")
-    p1 = SpectrogramPipeline(cfg, chunk_hops=1, viewport_rows=16, device="cpu")
+    p8 = SpectrogramPipeline(cfg, chunk_hops=8, viewport_rows=16, packed_output=True,
+                             device="cpu")
+    p1 = SpectrogramPipeline(cfg, chunk_hops=1, viewport_rows=16, packed_output=True,
+                             device="cpu")
     s = 3
     a = p8.set_palette(p8.init_state(s), IDS[:s])
     b = p1.set_palette(p1.init_state(s), IDS[:s])
@@ -274,7 +279,7 @@ def test_render_blocks_and_wrap(monkeypatch):
 def test_composite_matches_jax(shape):
     jp = JaxPipeline(jcfg.SpectrogramConfig(**SMALL), chunk_hops=1,
                      store_ring=False, palette_sort=False)
-    tp = SpectrogramPipeline(SpectrogramConfig(**SMALL), device="cpu")
+    tp = SpectrogramPipeline(SpectrogramConfig(**SMALL), chunk_hops=1, device="cpu")
     rng = np.random.default_rng(8)
     dims = (4, 3, 16) if shape == "rows" else (4, 16)
     rgba = rng.integers(0, 256, dims + (4,), dtype=np.uint8)
@@ -294,7 +299,8 @@ def test_ringed_state_cross_loads_both_ways():
     jp = JaxPipeline(jc, chunk_hops=3, viewport_rows=6, store_ring=True,
                      packed_output=True, stft_backend="xla",
                      colormap_backend="xla", palette_sort=False)
-    tp = SpectrogramPipeline(cfg, chunk_hops=3, viewport_rows=6, device="cpu")
+    tp = SpectrogramPipeline(cfg, chunk_hops=3, viewport_rows=6, packed_output=True,
+                             device="cpu")
     s, t = len(IDS), jp.chunk_size
     pcm = testing.chirp_tone(s, 5 * t, cfg.sample_rate, seed=12)
     chunks = [pcm[:, i * t : (i + 1) * t] for i in range(5)]

@@ -41,8 +41,9 @@ def host_lib(tmp_path_factory):
     )
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.stft_host_rows.argtypes = (i, i, i, i, p, p, p, p, p, p)
-    lib.stft_host_rows.restype = i
+    for fn in (lib.stft_host_rows, lib.stft_host_rows_i16):
+        fn.argtypes = (i, i, i, i, p, p, p, p, p, p)
+        fn.restype = i
     lib.stft_host_plan.argtypes = (i, p)
     lib.stft_host_plan.restype = i
     return lib
@@ -92,3 +93,32 @@ def test_mixed_radix_plans_agree_with_the_size_check(host_lib):
         assert (stages > 0) == taken, n
         if taken:
             assert int(np.prod(list(radix)[:stages])) == n
+
+
+def _host_rows(host_lib, fn, mixed, n_fft, left, right, hann):
+    rows, w = left.shape
+    tw = tsk.twiddle_table(n_fft)
+    out_l = np.zeros((rows, n_fft // 2), np.float32)
+    out_r = np.zeros_like(out_l)
+    assert fn(mixed, n_fft, rows, w, left.ctypes.data, right.ctypes.data,
+              hann.ctypes.data, tw.ctypes.data, out_l.ctypes.data,
+              out_r.ctypes.data) == 0
+    return out_l, out_r
+
+
+@pytest.mark.parametrize("n_fft,mixed", [(4096, 0), (4800, 1)])
+def test_int16_rows_equal_f32_rows_of_x_over_32768(host_lib, n_fft, mixed):
+    """The int16 load (exact conversion, 2^-15 folded into the window) gives
+    the bits of the f32 load of x / 32768, full-scale words included."""
+    rows, w = 3, n_fft // 2
+    rng = np.random.default_rng(n_fft)
+    words = rng.integers(-32768, 32768, (2, rows, w), dtype=np.int16)
+    words[0, 0, :4] = (-32768, 32767, 0, -1)
+    got = _host_rows(host_lib, host_lib.stft_host_rows_i16, mixed, n_fft,
+                     words[0], words[1], tsk.packed_hann_i16(w))
+    scaled = words.astype(np.float32) / np.float32(32768.0)
+    want = _host_rows(host_lib, host_lib.stft_host_rows, mixed, n_fft,
+                      np.ascontiguousarray(scaled[0]), np.ascontiguousarray(scaled[1]),
+                      tsk.packed_hann(w))
+    for g, x in zip(got, want):
+        np.testing.assert_array_equal(g, x)

@@ -104,6 +104,26 @@ def test_resample_matrices_copy(name):
     np.testing.assert_array_equal(dense, full)
 
 
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_band_plan_copies(name):
+    """The colormap's banding plan and row-block choice, which the
+    palette-sort economics count in, are the JAX kernel module's."""
+    j, t = _configs(name)
+    full_t = tcm.resample_matrix_full(t).T
+    for m in (full_t, tcm.resample_matrix(t).T):
+        for tile in (64, 128):
+            segs = tck.band_segments(m, tile_px=tile)
+            assert segs == jck.band_segments(m, tile_px=tile)
+            for threshold in (0.25, 0.75):
+                assert (tck._banded_worthwhile(segs, *m.shape, threshold)
+                        == jck._banded_worthwhile(segs, *m.shape, threshold))
+    for b in (1, 2560, 2561, 5120, 5121, 10240, 10241, 20480):
+        for rows, cols in ((None, None), (8, None), (None, 16)):
+            assert tck._auto_blocks(b, rows, cols) == jck._auto_blocks(b, rows, cols)
+    with pytest.raises(ValueError, match="exceeds"):
+        tck._auto_blocks(20481, None, None)
+
+
 @pytest.mark.parametrize("w", [256, 2048, 2400])
 def test_hann_copies(w):
     np.testing.assert_array_equal(jstft.hann_window_np(w), tstft.hann_window_np(w))
@@ -117,6 +137,10 @@ def test_hann_copies(w):
     n1 = 16 if w % 16 == 0 else 8
     jh = jsk._packed_hann(w, w // n1, n1, transposed=False)[: w // n1]
     np.testing.assert_array_equal(jh.reshape(-1), tsk.packed_hann(w))
+    # the int16 planes' window: the wire scale folded in, as the TPU kernel
+    # folds it for int16 operands
+    np.testing.assert_array_equal(
+        (jh * np.float32(2.0 ** -15)).reshape(-1), tsk.packed_hann_i16(w))
 
 
 @pytest.mark.parametrize("rows,width", [(2048, 2048), (2048, 800), (6, 9), (16, 24)])
