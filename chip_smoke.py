@@ -67,14 +67,39 @@ Phases, each of which fails the run with a non-zero exit:
      kernel beside each int16 one, kernel B beside the blockwise one, and
      the blockwise kernel at 32, 64 and 128 rows per CTA; peak device
      memory.
+ 14. the palette kernels, on 4096 rows of BENCH_CONFIG planes of chirp+tone
+     and of noise (H=1024), each within 1 u8 of its plain version over what
+     the image shows (noise: every channel everywhere): the generic colormap
+     over the registry (smoke-custom, a FactoredScheme outside the built-in
+     structure, + 3 built-ins) with per-row tables arange(S) % 4 and with one
+     table; the static colormap on Magma, on "Blue-Yellow-Red (Stereo)" and
+     on smoke-custom.  Bit for bit: static built-in == kernel B with that
+     one table, static generic == the generic kernel with one table.
+ 15. the palette paths, through SpectrogramPipeline: static_palette="Magma"
+     at k=1, 4096 streams, no ring (the JAX bench's BENCH_STATIC_PALETTE
+     mode); the stereo static palette at k=8, 256 streams, no ring (the JAX
+     smoke's class_static); the generic registry at k=1, 4096 streams, ids
+     arange(S) % 4 and then a scalar set_palette; the generic registry at
+     k=8 with the ring (R=2048), 256 streams, 260 pushes, render_viewport at
+     R and at 800.  Each passes when the new kernel's launch count rises
+     (and the blockwise kernel's does not), streamed rows equal process()
+     exactly, and rows, carry and renders match the same calls on the plain
+     versions (phase 14's bar; carry exactly); set_palette on a static
+     pipeline raises ValueError.
+ 16. timing with CUDA events after a warm-up: ms/push and rows/s at 4096
+     streams, k=1, in turns (a b c d e f f e d c b a): built-in per-row,
+     built-in uniform, static built-in, generic per-row, generic uniform,
+     static generic; each new kernel beside its plain version, kernel B
+     and its bound, as device time (`device_ms`: the card held while the
+     host enqueues) and back to back as the other phases time kernels.
 
 The second-to-last line is {"kernels": [...]}: each kernel's launches on the
-main paths (phases 5, 9 and 12), its largest error against its plain version,
-its time, its plain version's, the library call's where one computes the
-same transform, and its bound: the larger of its bytes (each input read
-once, each output written once) over 3.35 TB/s and its f32 operations over
-67 TFLOP/s, the H100 SXM's published peaks.  The last line is
-{"ok": true, ...}.
+main paths (phases 5, 9, 12 and 15), its largest error against its plain
+version, its time, its plain version's, the library call's where one
+computes the same transform, and its bound: the larger of its bytes (each
+input read once, each output written once) over 3.35 TB/s and its f32
+operations over 67 TFLOP/s, the H100 SXM's published peaks.  The last line
+is {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -107,6 +132,11 @@ RENDER_WIDTH = 800
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 F32_FLOPS_PER_S = 67e12     # float32 outside the tensor cores
 CMAP_OPS_PER_PIXEL = 50     # kernel B's f32 operations per pixel, from its source
+# the generic kernel's: kernel B's with generic_word's 68 operations (two
+# texel tap pairs, 8 reads, 4 products, 4 quantizations) in place of
+# builtin_word's 38 (colormap_common.cuh)
+CMAP_OPS_PER_PIXEL_GENERIC = CMAP_OPS_PER_PIXEL - 38 + 68
+PALETTE_REGISTRY = 4        # smoke-custom + 3 built-ins
 
 KERNELS = {
     sk.KERNEL: dict(
@@ -142,6 +172,14 @@ KERNELS = {
     sk.ALLK_KERNEL_I16: dict(
         name="stft_allk_i16", source="spectrogram_tpu_torch/csrc/stft_allk.cu",
         replaces="spectrogram_tpu/ops/pallas/stft_kernel.py:894",
+    ),
+    ck.GENERIC_KERNEL: dict(
+        name="colormap_generic", source="spectrogram_tpu_torch/csrc/colormap_generic.cu",
+        replaces="spectrogram_tpu/ops/pallas/colormap_kernel.py:352",
+    ),
+    ck.STATIC_KERNEL: dict(
+        name="colormap_static", source="spectrogram_tpu_torch/csrc/colormap_static.cu",
+        replaces="spectrogram_tpu/ops/pallas/colormap_kernel.py:637",
     ),
 }
 
@@ -182,6 +220,30 @@ def time_ms(fn, iters: int = TIMED_ITERS) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = TIMED_ITERS) -> float:
+    """Mean device time of fn() over `iters` calls, after one warm-up, with
+    the card held by a spin kernel while the host enqueues the calls: host
+    time between launches (the wrappers' checks, the allocator) does not
+    count.  The spin is lengthened until it outlasts the enqueueing."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 24
+    while True:
+        hold, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        hold.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if hold.elapsed_time(start) > 1.2 * enqueue_ms:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """(least ms the card could take, "bytes" or "operations")."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -201,13 +263,15 @@ def stft_work(rows: int, n_fft: int, w: int, input_floats: int,
     return nbytes, flops
 
 
-def cmap_work(rows: int, taps: ck.ResampleTaps, tables: torch.Tensor) -> tuple[float, float]:
-    """(bytes, flops) of kernel B: the plane bins its taps touch, the taps,
-    the tables, the [rows, H] i32 output."""
+def cmap_work(rows: int, taps: ck.ResampleTaps, table_floats: int,
+              ops_per_pixel: int = CMAP_OPS_PER_PIXEL) -> tuple[float, float]:
+    """(bytes, flops) of a colormap kernel: the plane bins its taps touch,
+    the taps, the device tables it reads (`table_floats` f32, 0 for the
+    static kernel), the [rows, H] i32 output."""
     touched = torch.unique(torch.cat([taps.j0, taps.j1])).numel()
     h = taps.j0.numel()
-    nbytes = 4 * 2 * rows * touched + 16 * h + 4 * tables.numel() + 4 * rows * h
-    return nbytes, rows * h * CMAP_OPS_PER_PIXEL
+    nbytes = 4 * 2 * rows * touched + 16 * h + 4 * table_floats + 4 * rows * h
+    return nbytes, rows * h * ops_per_pixel
 
 
 def windows(cfg, kind: str, rows: int, dev):
@@ -327,7 +391,7 @@ def main() -> int:
     bounds = {
         sk.KERNEL: bound(*stft_work(STREAMS, cfg.padded_size, cfg.window_size,
                                     STREAMS * cfg.window_size)),
-        ck.KERNEL: bound(*cmap_work(STREAMS, p.taps, tables)),
+        ck.KERNEL: bound(*cmap_work(STREAMS, p.taps, tables.numel())),
     }
     push_state = [state]
 
@@ -461,6 +525,12 @@ def main() -> int:
     serving = {s: serving_path(s, dev, lib, main_launches) for s in SERVING_STREAMS}
     i16_paths(dev, lib, main_launches)
     serving_timing(serving, power_line)
+
+    # -- 14-16. user-defined and static palettes ---------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    palette_kernels(dev, stats, ms, plain_ms, bounds, library_ms)
+    palette_paths(dev, lib, main_launches)
+    palette_timing(dev, power_line)
 
     print(power_line)
     print(json.dumps({"kernels": [
@@ -606,7 +676,7 @@ def serving_kernels(dev, stats, ms, plain_ms, bounds, library_ms) -> None:
                                                              block_rows=ts))
             plain_ms[name] = time_ms(
                 lambda: ck.colormap_blockwise_plain(ml, mr, p.taps, tables, cfg), iters=5)
-            bounds[name] = bound(*cmap_work(rows, p.taps, tables))
+            bounds[name] = bound(*cmap_work(rows, p.taps, tables.numel()))
             library_ms[name] = None
             log(f"[13] colormap_blockwise, {rows} rows, sorted tables: {ms[name]:.4f} ms "
                 f"(kernel B on the same tables {b_ms:.4f} ms; plain {plain_ms[name]:.4f} ms; "
@@ -818,6 +888,246 @@ def serving_timing(serving: dict, power_line: str) -> None:
             log(f"[13] {s} streams, {label}: {runs} ms/push = {rates} rows/s")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[13] peak device memory over phases 11-13: {peak:.2f} GiB; card {power_line}")
+
+
+def registry():
+    """smoke-custom (`testing.custom_scheme`, outside the built-in
+    structure) + 3 built-ins: a generic registry."""
+    from spectrogram_tpu_torch.color.colorscheme import DEFAULT_COLOR_SCHEMES
+
+    return (testing.custom_scheme(),) + DEFAULT_COLOR_SCHEMES[:PALETTE_REGISTRY - 1]
+
+
+def u8_diff(got: torch.Tensor, want: torch.Tensor, everywhere: bool) -> int:
+    """Largest u8 difference of two packed images: every channel everywhere,
+    or over what the image shows (testing.rgba_u8_diff)."""
+    a, b = ck.unpack_rgba_device(got), ck.unpack_rgba_device(want)
+    if everywhere:
+        return int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
+    return testing.rgba_u8_diff(a, b)
+
+
+def palette_kernels(dev, stats, ms, plain_ms, bounds, library_ms) -> None:
+    """Phase 14, and phase 16's kernel times: the generic and static
+    colormaps against their plain versions, and the static kernel's two
+    identities, at 4096 rows of BENCH_CONFIG."""
+    from spectrogram_tpu_torch.color.colorscheme import scheme_index
+
+    cfg = BENCH_CONFIG
+    p = SpectrogramPipeline(cfg, chunk_hops=1, store_ring=False, packed_output=True,
+                            device=dev)
+    pg = SpectrogramPipeline(cfg, chunk_hops=1, store_ring=False, packed_output=True,
+                             schemes=registry(), device=dev)
+    if pg.generic_tables is None:
+        fail("the custom registry did not take the generic tables")
+    taps = p.taps
+    ids = torch.arange(STREAMS, device=dev) % PALETTE_REGISTRY
+    u, v = (t.index_select(0, ids).contiguous() for t in pg.generic_tables)
+    u1, v1 = (t[:1].contiguous() for t in pg.generic_tables)
+    gu, gv = ck.generic_color_tables(32, registry())
+    builtin = ck.builtin_color_tables(32)
+    statics = {"Magma": builtin[scheme_index("Magma")],
+               "Blue-Yellow-Red (Stereo)": builtin[scheme_index("Blue-Yellow-Red (Stereo)")],
+               "smoke-custom": (gu[0], gv[0])}
+    gen, sta = ck.GENERIC_KERNEL, ck.STATIC_KERNEL
+    planes = {}
+    for kind in ("chirp_tone", "noise"):
+        left, right = windows(cfg, kind, STREAMS, dev)
+        ml, mr = sk.stft_mag_packed(left, right, p.hann, p.twiddles)
+        planes[kind] = (ml, mr)
+        everywhere = kind == "noise"
+        for label, (a, b) in (("per-row tables arange(S) % 4", (u, v)), ("one table", (u1, v1))):
+            got = ck.colormap_generic(ml, mr, taps, a, b, cfg)
+            diff = u8_diff(got, ck.colormap_generic_plain(ml, mr, taps, a, b, cfg), everywhere)
+            log(f"[14] colormap_generic {kind}, {label}: max u8 diff {diff} against the "
+                f"plain version (bar 1) {'ok' if diff <= 1 else 'FAIL'}")
+            if diff > 1:
+                fail("colormap_generic disagrees with its plain version")
+            stats[gen] = max(stats.get(gen, 0), diff)
+        for name, table in statics.items():
+            got = ck.colormap_static(ml, mr, taps, table, cfg)
+            diff = u8_diff(got, ck.colormap_static_plain(ml, mr, taps, table, cfg), everywhere)
+            if isinstance(table, tuple):
+                one = ck.colormap_generic(ml, mr, taps, u1, v1, cfg)
+                twin = "the generic kernel with one table"
+            else:
+                one = ck.colormap_builtin(
+                    ml, mr, taps, torch.from_numpy(table[None]).to(dev), cfg)
+                twin = "kernel B with one table"
+            same = torch.equal(got, one)
+            log(f"[14] colormap_static {kind}, {name}: {'equals' if same else 'DIFFERS from'} "
+                f"{twin} bit for bit; max u8 diff {diff} against the plain version (bar 1)")
+            if not same or diff > 1:
+                fail(f"colormap_static disagrees on {name}")
+            stats[sta] = max(stats.get(sta, 0), diff)
+
+    ml, mr = planes["chirp_tone"]
+    magma, custom = statics["Magma"], statics["smoke-custom"]
+    one_b = p.builtin_tables[1:2].contiguous()
+    per_row_b = p.builtin_tables.index_select(0, torch.arange(STREAMS, device=dev) % 19).contiguous()
+    calls = {
+        "generic per-row": lambda: ck.colormap_generic(ml, mr, taps, u, v, cfg),
+        "generic one table": lambda: ck.colormap_generic(ml, mr, taps, u1, v1, cfg),
+        "static Magma": lambda: ck.colormap_static(ml, mr, taps, magma, cfg),
+        "static smoke-custom": lambda: ck.colormap_static(ml, mr, taps, custom, cfg),
+        "kernel B per-row": lambda: ck.colormap_builtin(ml, mr, taps, per_row_b, cfg),
+        "kernel B one table": lambda: ck.colormap_builtin(ml, mr, taps, one_b, cfg),
+    }
+    torch.cuda.empty_cache()
+    # device time, and the back-to-back time of the other phases beside it
+    t = {k: device_ms(fn) for k, fn in calls.items()}
+    back_to_back = {k: time_ms(fn) for k, fn in calls.items()}
+    ms[gen], ms[sta] = t["generic per-row"], t["static Magma"]
+    plain_ms[gen] = time_ms(lambda: ck.colormap_generic_plain(ml, mr, taps, u, v, cfg), iters=5)
+    plain_ms[sta] = time_ms(lambda: ck.colormap_static_plain(ml, mr, taps, magma, cfg), iters=5)
+    plain_one_b = time_ms(lambda: ck.colormap_builtin_plain(ml, mr, taps, one_b, cfg), iters=5)
+    plain_one_g = time_ms(lambda: ck.colormap_generic_plain(ml, mr, taps, u1, v1, cfg), iters=5)
+    plain_static_g = time_ms(lambda: ck.colormap_static_plain(ml, mr, taps, custom, cfg), iters=5)
+    one_g_bound = bound(*cmap_work(STREAMS, taps, u1.numel() + v1.numel(),
+                                   CMAP_OPS_PER_PIXEL_GENERIC))
+    bounds[gen] = bound(*cmap_work(STREAMS, taps, u.numel() + v.numel(),
+                                   CMAP_OPS_PER_PIXEL_GENERIC))
+    bounds[sta] = bound(*cmap_work(STREAMS, taps, 0))
+    static_generic_bound = bound(*cmap_work(STREAMS, taps, 0, CMAP_OPS_PER_PIXEL_GENERIC))
+    library_ms[gen] = library_ms[sta] = None
+    log(f"[16] colormap kernels, {STREAMS} rows, chirp+tone, device time (back to back): "
+        + "; ".join(f"{k} {x:.4f} ({back_to_back[k]:.4f}) ms" for k, x in t.items()))
+    log(f"[16] colormap_generic (per-row): {ms[gen]:.4f} ms (plain {plain_ms[gen]:.4f} ms, "
+        f"bound {bounds[gen][0]:.4f} ms by {bounds[gen][1]}); colormap_static (Magma): "
+        f"{ms[sta]:.4f} ms (plain {plain_ms[sta]:.4f} ms, bound {bounds[sta][0]:.4f} ms by "
+        f"{bounds[sta][1]}); static generic: plain {plain_static_g:.4f} ms, bound "
+        f"{static_generic_bound[0]:.4f} ms; generic with one table: plain {plain_one_g:.4f} ms, "
+        f"bound {one_g_bound[0]:.4f} ms; kernel B with one table: plain {plain_one_b:.4f} ms")
+    del planes, ml, mr, u, v
+
+
+def palette_paths(dev, lib, main_launches: dict) -> None:
+    """Phase 15: the static and generic paths through SpectrogramPipeline,
+    launch counts added to `main_launches`."""
+    cfg = BENCH_CONFIG
+    reg = registry()
+    paths = (
+        ("static Magma, k=1", dict(chunk_hops=1, store_ring=False,
+                                   static_palette="Magma"), STREAMS, None, 4),
+        ("static stereo, k=8", dict(chunk_hops=K, store_ring=False,
+                                    static_palette="Blue-Yellow-Red (Stereo)"),
+         DISPLAY_STREAMS, None, 2),
+        ("generic, k=1", dict(chunk_hops=1, store_ring=False, schemes=reg), STREAMS,
+         "scattered, then one", 4),
+        ("generic, k=8, ring", dict(chunk_hops=K, schemes=reg), DISPLAY_STREAMS,
+         "scattered", DISPLAY_PUSHES),
+    )
+    for label, kw, s, layout, n in paths:
+        p = SpectrogramPipeline(cfg, packed_output=True, device=dev, **kw)
+        name = ck.STATIC_KERNEL if p.static_table is not None else ck.GENERIC_KERNEL
+        state = p.init_state(s)
+        if layout is not None:
+            state = p.set_palette(state, np.arange(s) % PALETTE_REGISTRY)
+        else:
+            try:
+                p.set_palette(state, 2)
+                fail("set_palette on a static pipeline did not raise")
+            except ValueError:
+                pass
+        t = p.chunk_size
+        pcm = torch.from_numpy(testing.chirp_tone(s, n * t, cfg.sample_rate, seed=16)).to(dev)
+        plain = p.with_plain_kernels()
+        plain_state = state._replace(ring=state.ring.clone())
+        start = state
+        torch.cuda.synchronize()
+        lib.reset_launches()
+        rows, states = [], []
+        for i in range(n):
+            if layout == "scattered, then one" and i == n // 2:
+                state = p.set_palette(state, 0)          # generic, one (u, v) pair
+                states.append(state)
+            state, r = p.push(state, pcm[:, i * t : (i + 1) * t])
+            rows.append(r)
+        views = ({w: p.render_viewport(state, w) for w in (None, RENDER_WIDTH)}
+                 if p.store_ring else {})
+        torch.cuda.synchronize()
+        launches = dict(lib.launches)
+        for k_, v in launches.items():
+            main_launches[k_] = main_launches.get(k_, 0) + v
+        log(f"[15] {label}, {s} streams, {n} pushes: tables "
+            f"{[tuple(x.shape) for x in state.tables]}; launches "
+            f"{ {k_: v for k_, v in launches.items() if v} }")
+        if not launches[name] or launches[ck.BLOCKWISE_KERNEL]:
+            fail(f"{label}: the {KERNELS[name]['name']} kernel did not launch, or the "
+                 "blockwise kernel did")
+        if states and states[0].tables[0].shape[0] != 1:
+            fail("a scalar set_palette on the generic registry kept per-row tables")
+
+        # streamed == process(), per palette and per stretch of one layout
+        streamed = torch.cat(rows, dim=1)
+        padded = torch.cat([torch.zeros(s, p.carry_size, 2, device=dev), pcm], dim=1)
+        k = p.chunk_hops
+        stretch = n // 2 if states else n
+        ids = start.palette_id.cpu().numpy()
+        for palette in np.unique(ids):
+            sel = torch.from_numpy(np.flatnonzero(ids == palette)).to(dev)
+            one = p.process(padded.index_select(0, sel), palette_id=int(palette))
+            if not torch.equal(one[:, : stretch * k], streamed.index_select(0, sel)[:, : stretch * k]):
+                fail(f"{label}: streamed rows differ from process() for palette {palette}")
+        if states:
+            one = p.process(padded, palette_id=0)
+            if not torch.equal(one[:, stretch * k :], streamed[:, stretch * k :]):
+                fail(f"{label}: streamed rows differ from process() after set_palette")
+        del padded
+
+        worst = 0
+        for i in range(n):
+            if states and i == n // 2:
+                plain_state = plain_state._replace(tables=states[0].tables)
+            plain_state, r = plain.push(plain_state, pcm[:, i * t : (i + 1) * t])
+            worst = max(worst, u8_diff(rows[i], r, everywhere=False))
+        carry_ok = torch.equal(plain_state.carry, state.carry)
+        view_diff = max((u8_diff(view, plain.render_viewport(state, w), everywhere=False)
+                         for w, view in views.items()), default=0)
+        log(f"[15] {label}: streamed rows equal process() exactly; against the plain "
+            f"path: rows max u8 diff {worst}, next carry {'equal' if carry_ok else 'DIFFERS'}"
+            + (f", render_viewport at {p.viewport_rows} and {RENDER_WIDTH} max u8 diff "
+               f"{view_diff}" if views else "") + " (bar 1)")
+        if worst > 1 or view_diff > 1 or not carry_ok:
+            fail(f"{label}: the path disagrees with its plain version")
+        del rows, states, streamed, views, pcm, state, plain_state, start
+
+
+def palette_timing(dev, power_line: str) -> None:
+    """Phase 16: ms/push and rows/s of the six table kinds at 4096 streams,
+    k=1, no ring, in turns."""
+    cfg = BENCH_CONFIG
+    kw = dict(chunk_hops=1, store_ring=False, packed_output=True, device=dev)
+    reg = registry()
+    s = STREAMS
+    setups = {
+        "built-in per-row": (dict(), np.arange(s) % 19),
+        "built-in uniform": (dict(), 1),
+        "static built-in (Magma)": (dict(static_palette="Magma"), None),
+        "generic per-row": (dict(schemes=reg), np.arange(s) % PALETTE_REGISTRY),
+        "generic uniform": (dict(schemes=reg), 0),
+        "static generic (smoke-custom)": (dict(schemes=reg, static_palette=0), None),
+    }
+    chunk = torch.from_numpy(testing.chirp_tone(s, cfg.hop_size, cfg.sample_rate, seed=17)).to(dev)
+    box = {}
+    for label, (extra, ids) in setups.items():
+        p = SpectrogramPipeline(cfg, **kw, **extra)
+        state = p.init_state(s)
+        box[label] = [p, state if ids is None else p.set_palette(state, ids)]
+
+    def push(label):
+        p, state = box[label]
+        box[label][1], _ = p.push(state, chunk)
+
+    timings = {label: [] for label in setups}
+    for label in (*setups, *reversed(setups)):       # in turns: a b ... b a
+        timings[label].append(time_ms(lambda: push(label)))
+    for label, runs in timings.items():
+        log(f"[16] k=1 push, {s} streams, {label}: "
+            + " / ".join(f"{x:.4f}" for x in runs) + " ms/push = "
+            + " / ".join(f"{s / x * 1e3:.1f}" for x in runs) + " rows/s")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[16] peak device memory over phases 14-16: {peak:.2f} GiB; card {power_line}")
 
 
 if __name__ == "__main__":

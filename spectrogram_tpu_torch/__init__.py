@@ -11,6 +11,7 @@ from spectrogram_tpu_torch.config import BENCH_CONFIG, DEFAULT_CONFIG, Spectrogr
 from spectrogram_tpu_torch.color.colorscheme import (
     DEFAULT_COLOR_SCHEMES,
     ColorScheme,
+    FactoredScheme,
     scheme_by_name,
     scheme_index,
 )
@@ -25,6 +26,7 @@ __all__ = [
     "SpectrogramConfig",
     "DEFAULT_COLOR_SCHEMES",
     "ColorScheme",
+    "FactoredScheme",
     "scheme_by_name",
     "scheme_index",
     "SpectrogramPipeline",

@@ -2,8 +2,9 @@
 
 A numpy-only copy of the part of `spectrogram_tpu/color/colorscheme.py` that
 the streaming push needs (the JAX package's module cannot be imported without
-JAX): `ColorScheme` with its rank-1 LUT factors, the 19 named palettes of the
-reference (colorscheme.rs:125-151), and the stacked tables built from them.
+JAX): `ColorScheme` with its rank-1 LUT factors, `FactoredScheme` (a palette
+given as its factors), the 19 named palettes of the reference
+(colorscheme.rs:125-151), and the stacked tables built from them.
 The reference quirks are reproduced exactly: channels are divided by **256**
 (not 255), and the pan axis is stored reversed (`pan = 1 - j/(res-1)`).
 `tests/test_torch_tables.py` pins every table against the JAX package's.
@@ -71,6 +72,59 @@ class ColorScheme:
         else:
             u[:, :3] = eval_u8(self.gradient, i).astype(np.float32) / 256.0
         return u, v
+
+
+@dataclasses.dataclass(frozen=True)
+class FactoredScheme:
+    """A palette given directly as rank-1 LUT factors U[res, 4], V[res, 4]
+    with LUT[i, j, c] = U[i, c] * V[j, c] (i = magnitude axis, j = pan axis,
+    reversed like the reference's table, colorscheme.rs:81).
+
+    Any separable 2D response (e.g. hue from pan and brightness from
+    magnitude) expressed exactly.  Schemes that happen to match the built-in
+    mono/stereo shape are detected and take the built-in colormap; a
+    registry holding any other scheme takes the generic two-table colormap.
+    """
+
+    name: str
+    u: tuple          # nested tuple [res][4] (hashable; np arrays accepted in ctor)
+    v: tuple
+    background: tuple[int, int, int] = (0, 0, 0)
+
+    def __init__(self, name, u, v, background=(0, 0, 0)):
+        u = np.asarray(u, dtype=np.float32)
+        v = np.asarray(v, dtype=np.float32)
+        if u.ndim != 2 or u.shape[1] != 4 or u.shape != v.shape:
+            raise ValueError(
+                f"factored tables must be [res, 4] and same-shape; got "
+                f"{u.shape} and {v.shape}"
+            )
+        object.__setattr__(self, "name", name)
+        object.__setattr__(self, "u", tuple(map(tuple, u.tolist())))
+        object.__setattr__(self, "v", tuple(map(tuple, v.tolist())))
+        object.__setattr__(self, "background", tuple(background))
+
+    @property
+    def is_stereo(self) -> bool:
+        # pan-sensitive iff V varies along the pan axis
+        v = np.asarray(self.v, dtype=np.float32)
+        return bool(np.any(v != v[0]))
+
+    def background_color(self) -> tuple[int, int, int]:
+        return self.background
+
+    def factored_tables(self, resolution: int = 32) -> tuple[np.ndarray, np.ndarray]:
+        u = np.asarray(self.u, dtype=np.float32)
+        if u.shape[0] != resolution:
+            raise ValueError(
+                f"{self.name}: tables have res {u.shape[0]}, pipeline wants "
+                f"{resolution}"
+            )
+        return u, np.asarray(self.v, dtype=np.float32)
+
+    def lookup_table(self, resolution: int = 32) -> np.ndarray:
+        u, v = self.factored_tables(resolution)
+        return (u[:, None, :] * v[None, :, :]).astype(np.float32)
 
 
 _BLACK = (0, 0, 0)

@@ -11,8 +11,10 @@ The tables tuple keeps the JAX package's structure, which says what kind of
 state it is: ([S|1, R*4],) per-row or one palette, with a zero-size int32
 marker appended for the blockwise colormap; palette-sorted (t_sorted, perm,
 inv) with block-relative int32 perm and inv, or (t_sorted, perm, inv,
-marker) with global ones.  So a state of a default JAX pipeline serving many
-tenants carries across as it is, in either direction.
+marker) with global ones; a generic registry's (u, v) pair of [S|1, R*4]
+factor tables; () for a static_palette pipeline.  So a state of a default
+JAX pipeline serving many tenants, or of one with user-defined or static
+palettes, carries across as it is, in either direction.
 """
 
 from __future__ import annotations
@@ -35,24 +37,24 @@ def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
 
 def _tables(tables: tuple, device) -> tuple:
     """The tables tuple on `device`: 2-D tables as f32, 1-D perm, inv and
-    marker as int32.  Raises for a layout the port does not push (the
-    generic registry's (u, v) pair)."""
+    marker as int32.  Raises for a layout no pipeline pushes."""
     arrays = [np.asarray(t) for t in tables]
     two_d = [a.ndim == 2 for a in arrays]
     is_marker = [a.ndim == 1 and a.size == 0 for a in arrays]
     n = len(arrays)
-    ok = n >= 1 and two_d[0] and (
+    ok = n == 0 or (two_d[0] and (
         (n == 1)
         or (n == 2 and is_marker[1])
+        or (n == 2 and two_d[1] and arrays[1].shape == arrays[0].shape)
         or (n in (3, 4) and all(a.ndim == 1 and a.size for a in arrays[1:3])
             and (n == 3 or is_marker[3]))
-    )
+    ))
     if not ok:
         raise ValueError(
-            "expected ([S|1, R*4],), with a blockwise marker, or a "
-            "palette-sorted (t_sorted, perm, inv[, marker]) tuple; got "
-            f"shapes {[a.shape for a in arrays]} (generic (u, v) tables are "
-            "not ported)"
+            "expected () (static_palette), ([S|1, R*4],), with a blockwise "
+            "marker, a generic (u, v) pair of same-shape [S|1, R*4] tables, or "
+            "a palette-sorted (t_sorted, perm, inv[, marker]) tuple; got "
+            f"shapes {[a.shape for a in arrays]}"
         )
     return tuple(_tensor(a, torch.float32 if d else torch.int32, device)
                  for a, d in zip(arrays, two_d))

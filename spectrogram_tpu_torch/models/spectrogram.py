@@ -12,9 +12,13 @@ chunk -> per-channel sample buffers, and the next carry), then two kernels:
      per stream at k=1, `stft_mag_packed_allk` over the k windows of the
      buffers at k>1 (the windows are never materialized on the card)
   B. the colormap: two-tap log-frequency resample, dB and pan laws,
-     per-stream built-in palette -> [k*S, H] int32 RGBA8888, by
-     `colormap_builtin` (per-row tables) or `colormap_blockwise` (a block of
-     rows with one palette reads one table)
+     per-stream palette -> [k*S, H] int32 RGBA8888, by the kernel the
+     state's tables pick: `colormap_builtin` (built-in tables, per row or
+     one for all rows), `colormap_blockwise` (a block of rows with one
+     palette reads one table), `colormap_generic` (a registry with a
+     `FactoredScheme` outside the built-in mono/stereo structure: two
+     factor tables per row) or `colormap_static` (`static_palette=`: one
+     palette, passed to the kernel by value)
 
 and, with the ring, a bf16 copy of bins 1..W-1 of the planes into it.
 `render_viewport` runs the colormap again, over the ring's rows.
@@ -46,13 +50,20 @@ counterpart.  `stream_blocks` only sets the sort-block layout: a push runs
 all streams at once, with the block-relative permutations made global,
 which gives the rows the JAX package's blocked push gives.
 
+Palette registries are the JAX package's: schemes that fit the built-in
+mono/stereo structure share [P, R*4] built-in tables; a registry holding any
+other `FactoredScheme` keeps (U, V) factor tables for all its schemes, and its
+states carry a (u, v) pair.  `static_palette` pins one scheme: its states
+carry no tables, `set_palette` raises, and every row takes the static
+colormap.  Neither a generic nor a static state is marked for the blockwise
+colormap or palette-sorted (the JAX package gates both on built-in tables).
+
 On a CPU device the kernels run as their plain PyTorch versions; on a CUDA
 device as the hand-written kernels in `csrc/`.  There is no fallback from one
 to the other.  Without a `device`, the pipeline runs on the card.
 
 What the JAX pipeline offers beyond this port raises NotImplementedError
-naming the ROADMAP.md item that brings it: static palettes, generic
-(non-built-in) scheme registries, and a ring dtype other than bfloat16.
+naming the ROADMAP.md item that brings it: a ring dtype other than bfloat16.
 """
 
 from __future__ import annotations
@@ -85,7 +96,8 @@ class StreamState(NamedTuple):
     # by a push: ([S, R*4],) per stream or ([1, R*4],) for one palette, plus
     # a zero-size int32 marker for the blockwise colormap; palette-sorted:
     # (t_sorted [S, R*4], perm [S], inv [S]) or, with a global perm,
-    # (t_sorted, perm, inv, marker).
+    # (t_sorted, perm, inv, marker).  A generic registry's (u, v), each
+    # [S|1, R*4]; () for a static_palette pipeline.
     tables: tuple = ()
 
 
@@ -133,8 +145,14 @@ class SpectrogramPipeline:
       sanitize_input: zero non-finite samples of float chunks (and of
         process()'s PCM) at the ingestion edge, so that one producer's NaN
         cannot poison its stream's carry.
-      schemes: palette registry (default the 19 built-ins); every scheme must
-        fit the built-in mono/stereo structure.
+      schemes: palette registry (default the 19 built-ins): `ColorScheme`s
+        and `FactoredScheme`s.  Where every scheme fits the built-in
+        mono/stereo structure the built-in colormap serves them; otherwise
+        the generic two-table colormap serves the whole registry.
+      static_palette: a scheme name or index: every stream takes that one
+        palette, passed to the static colormap by value (the JAX package
+        bakes it into its kernel); `set_palette` then raises.  At most
+        `colormap_kernel.MAX_STATIC_RES` LUT entries.
       blockwise_palettes: "auto" marks states whose palette layout leaves at
         least half the colormap row blocks single-palette, and their pushes
         take the blockwise colormap; True always takes it, False never
@@ -180,8 +198,6 @@ class SpectrogramPipeline:
         cfg.validate()
         if ring_dtype != torch.bfloat16:
             raise _not_in_slice(f"ring_dtype={ring_dtype}", "6, pipeline completion")
-        if static_palette is not None:
-            raise _not_in_slice("static_palette", "6, pipeline completion")
         if int(chunk_hops) < 1:
             raise ValueError(f"chunk_hops must be >= 1; got {chunk_hops}")
         if precision_profile not in ("exact", "fast"):
@@ -233,18 +249,47 @@ class SpectrogramPipeline:
         self.i16_planes = bool(i16_planes)
         self.carry_dtype = torch.int16 if self.i16_planes else torch.float32
         self.schemes = tuple(schemes) if schemes is not None else DEFAULT_COLOR_SCHEMES
+        self.scheme_names = tuple(s.name for s in self.schemes)
         res = lut_resolution or cfg.lut_resolution
-        try:
-            tables = colormap_kernel.builtin_color_tables(res, self.schemes)
-        except ValueError as e:
-            raise _not_in_slice(
-                "a generic (non-built-in) scheme registry",
-                "6, pipeline completion (generic palettes)",
-            ) from e
         self.chunk_size = k * cfg.hop_size
         self.carry_size = stft_ops.carry_size(cfg)
         dev = self.device
-        self.builtin_tables = torch.from_numpy(tables).to(dev)       # [P, R*4]
+        # the registry's kind: built-in tables where every scheme fits the
+        # built-in structure, else (U, V) factor tables for all of them
+        try:
+            tables = colormap_kernel.builtin_color_tables(res, self.schemes)
+        except ValueError:
+            tables = None
+        if tables is not None:
+            self.builtin_tables = torch.from_numpy(tables).to(dev)    # [P, R*4]
+            self.generic_tables = None
+        else:
+            self.builtin_tables = None
+            self.generic_tables = tuple(
+                torch.from_numpy(t).to(dev)
+                for t in colormap_kernel.generic_color_tables(res, self.schemes))
+        # static_palette: one scheme's table (or its (u, v) factors), kept on
+        # the host as numpy: the static colormap takes it by value
+        self.static_table = None
+        self.static_palette_id = None
+        if static_palette is not None:
+            pid = (static_palette if isinstance(static_palette, int)
+                   else self.scheme_names.index(static_palette))
+            if not 0 <= pid < len(self.schemes):
+                raise ValueError(f"static_palette {static_palette!r} out of range")
+            if res > colormap_kernel.MAX_STATIC_RES:
+                raise ValueError(
+                    f"static_palette takes at most "
+                    f"{colormap_kernel.MAX_STATIC_RES} LUT entries (the static "
+                    f"colormap receives its table as a kernel parameter); "
+                    f"lut_resolution is {res}"
+                )
+            self.static_palette_id = int(pid)
+            if tables is not None:
+                self.static_table = tables[pid].copy()
+            else:
+                gu, gv = colormap_kernel.generic_color_tables(res, self.schemes)
+                self.static_table = (gu[pid].copy(), gv[pid].copy())
         self.backgrounds = torch.from_numpy(
             stacked_backgrounds(self.schemes)).to(dev)                # [P, 3] u8
         self.hann = torch.from_numpy(
@@ -271,6 +316,8 @@ class SpectrogramPipeline:
         self._stft_allk = stft_kernel.stft_mag_packed_allk
         self._colormap = colormap_kernel.colormap_builtin
         self._colormap_bw = colormap_kernel.colormap_blockwise
+        self._colormap_generic = colormap_kernel.colormap_generic
+        self._colormap_static = colormap_kernel.colormap_static
 
     def with_plain_kernels(self) -> "SpectrogramPipeline":
         """This pipeline with the plain PyTorch versions in place of its
@@ -285,20 +332,25 @@ class SpectrogramPipeline:
         twin._colormap = colormap_kernel.colormap_builtin_plain
         twin._colormap_bw = lambda *args, block_rows: (
             colormap_kernel.colormap_blockwise_plain(*args))
+        twin._colormap_generic = colormap_kernel.colormap_generic_plain
+        twin._colormap_static = colormap_kernel.colormap_static_plain
         return twin
 
     # ------------------------------------------------------------------ state
 
     def init_state(self, n_streams: int, palette_id: int = 1) -> StreamState:
         """Fresh state for S streams.  Default palette 1 = Magma, the
-        reference widget's default (gpu_spectrogram.rs:88).  Under
-        blockwise_palettes="auto" the one-palette layout is marked."""
+        reference widget's default (gpu_spectrogram.rs:88); a static_palette
+        pipeline pins its own.  Under blockwise_palettes="auto" the
+        one-palette layout of built-in tables is marked."""
+        if self.static_palette_id is not None:
+            palette_id = self.static_palette_id    # pinned by construction
         self._check_ids(np.asarray(palette_id))
         dev = self.device
         pid = torch.full((n_streams,), int(palette_id), dtype=torch.int32, device=dev)
         ring_rows = self.viewport_rows if self.store_ring else 0
-        tables = (self._pick_tables(pid),)
-        if self.blockwise_palettes == "auto" and n_streams:
+        tables = self.state_tables_for(pid)
+        if self.blockwise_palettes == "auto" and len(tables) == 1 and n_streams:
             tables += (self._bw_marker(),)     # one palette: every block uniform
         return StreamState(
             carry=torch.zeros((n_streams, 2, self.carry_size),
@@ -315,9 +367,17 @@ class SpectrogramPipeline:
         """Runtime palette switch, per stream ([S] ids) or for all streams
         (a scalar id): a state update that re-picks the kernel tables, so a
         push never touches the registry.  A scalar id stores one [1, R*4]
-        table that every row reads.  Per-stream ids are sorted (palette_sort)
-        or marked (blockwise "auto") where that pays, and in carry-sort mode
-        the carry follows the new stream order."""
+        table (or one (u, v) pair) that every row reads.  Per-stream ids on
+        built-in tables are sorted (palette_sort) or marked (blockwise
+        "auto") where that pays, and in carry-sort mode the carry follows the
+        new stream order.  A static_palette pipeline raises ValueError."""
+        if self.static_table is not None:
+            raise ValueError(
+                "this pipeline bakes static_palette="
+                f"{self.scheme_names[self.static_palette_id]!r} into its "
+                "kernels; runtime switching needs a pipeline without "
+                "static_palette (or a new pipeline per palette)"
+            )
         if isinstance(palette_id, torch.Tensor):
             ids = palette_id.detach().cpu().numpy()
         else:
@@ -326,10 +386,10 @@ class SpectrogramPipeline:
         s = state.palette_id.shape[0]
         layout = np.broadcast_to(ids.astype(np.int32), (s,)).copy()
         pid = torch.from_numpy(layout).to(self.device)
-        if ids.ndim == 0:
-            tables = (self._pick_tables(pid[:1]),)
-        else:
-            tables = (self._pick_tables(pid),)
+        tables = self.state_tables_for(pid[:1] if ids.ndim == 0 else pid)
+        # per-stream built-in tables only: a generic (u, v) pair is neither
+        # marked nor sorted, as in JAX
+        if ids.ndim and len(tables) == 1:
             if self._blockwise_auto_decision(layout):
                 # already clustered: the marker, and no sort
                 if self.blockwise_palettes == "auto":
@@ -345,8 +405,22 @@ class SpectrogramPipeline:
                 f"palette_id out of range 0..{len(self.schemes) - 1}: {ids!r}"
             )
 
-    def _pick_tables(self, pid: torch.Tensor) -> torch.Tensor:
-        return self.builtin_tables.index_select(0, pid.to(torch.int64)).contiguous()
+    def state_tables_for(self, palette_id: torch.Tensor) -> tuple:
+        """The kernel-table tuple for [S] (or [1]) palette ids: () for a
+        static_palette pipeline, ([S, R*4],) for built-in tables, (u, v)
+        for a generic registry."""
+        if self.static_table is not None:
+            return ()
+        idx = palette_id.to(torch.int64)
+        registry = ((self.builtin_tables,) if self.builtin_tables is not None
+                    else self.generic_tables)
+        return tuple(t.index_select(0, idx).contiguous() for t in registry)
+
+    @staticmethod
+    def _colormap_tables(tables: tuple) -> tuple:
+        """A state's colormap operands: its 2-D tables (a sorted tuple's
+        t_sorted; perm, inv and the marker are 1-D)."""
+        return tuple(t for t in tables if t.ndim == 2)
 
     # --------------------------------------------------------- blockwise auto
 
@@ -644,7 +718,8 @@ class SpectrogramPipeline:
             rp = self._row_perm(perms[0], s, k)
             cm_l, cm_r = mag_l.index_select(0, rp), mag_r.index_select(0, rp)
         # window-major rows r*S + s take table (r*S + s) % S = s
-        rows = self._run_colormap(cm_l, cm_r, self.taps, state.tables[0],
+        rows = self._run_colormap(cm_l, cm_r, self.taps,
+                                  self._colormap_tables(state.tables),
                                   self._state_blockwise(state))
         if perms is not None and not self.sorted_output:
             rows = rows.index_select(0, self._row_perm(perms[1], s, k))
@@ -661,15 +736,23 @@ class SpectrogramPipeline:
         return new_state, self._output(rows.view(k, s, -1).transpose(0, 1))
 
     def _run_colormap(self, mag_l: torch.Tensor, mag_r: torch.Tensor, taps,
-                      tables: torch.Tensor, blockwise: bool,
+                      tables: tuple, blockwise: bool,
                       rows_per_table: int = 1) -> torch.Tensor:
-        """The blockwise colormap for a blockwise state with per-row tables,
+        """The colormap the tables pick: the static colormap for a
+        static_palette pipeline, the generic one for a (u, v) pair, else the
+        blockwise colormap for a blockwise state with per-row tables and
         kernel B otherwise (one table is uniform everywhere)."""
-        if blockwise and tables.shape[0] > 1:
-            return self._colormap_bw(mag_l, mag_r, taps, tables, self.cfg,
-                                     rows_per_table,
+        cfg = self.cfg
+        if self.static_table is not None:
+            return self._colormap_static(mag_l, mag_r, taps, self.static_table, cfg)
+        if len(tables) == 2:
+            return self._colormap_generic(mag_l, mag_r, taps, *tables, cfg,
+                                          rows_per_table)
+        (t,) = tables
+        if blockwise and t.shape[0] > 1:
+            return self._colormap_bw(mag_l, mag_r, taps, t, cfg, rows_per_table,
                                      block_rows=self._cmap_ts(mag_l.shape[0]))
-        return self._colormap(mag_l, mag_r, taps, tables, self.cfg, rows_per_table)
+        return self._colormap(mag_l, mag_r, taps, t, cfg, rows_per_table)
 
     def _write_ring(self, state: StreamState, mag_l: torch.Tensor,
                     mag_r: torch.Tensor) -> None:
@@ -713,10 +796,11 @@ class SpectrogramPipeline:
             raise ValueError("this pipeline keeps no ring (store_ring=False)")
         ring = state.ring
         if self._state_perm(state) is not None:
-            tables = self._pick_tables(state.palette_id)
+            tables = self.state_tables_for(state.palette_id)
             blockwise = self.blockwise_palettes is True
         else:
-            tables, blockwise = state.tables[0], self._state_blockwise(state)
+            tables = self._colormap_tables(state.tables)
+            blockwise = self._state_blockwise(state)
         s, r, _, b = ring.shape
         out_rows = r if width is None else int(width)
         j0, j1, w0, w1 = self._time_resample_taps(r, out_rows)
@@ -733,7 +817,7 @@ class SpectrogramPipeline:
                     y = rows[:, :, c].index_select(1, i1).to(torch.float32)
                     x = w0 * x + w1 * y
                 planes.append(x.reshape(-1, b))
-            tab = tables if tables.shape[0] == 1 else tables[s0 : s0 + block]
+            tab = tuple(t if t.shape[0] == 1 else t[s0 : s0 + block] for t in tables)
             packed = self._run_colormap(planes[0], planes[1], self.ring_taps, tab,
                                         blockwise, rows_per_table=out_rows)
             out.append(packed.view(-1, out_rows, packed.shape[1]))
@@ -763,12 +847,17 @@ class SpectrogramPipeline:
 
     # ------------------------------------------------------------ one-shot API
 
-    def process(self, pcm: torch.Tensor, palette_id: int = 1) -> torch.Tensor:
+    def process(self, pcm: torch.Tensor, palette_id: Optional[int] = None) -> torch.Tensor:
         """Non-streaming form: [S, T, 2] (or [T, 2]) PCM -> rows for all
         complete windows, [S, rows, H] int32 (or [S, rows, H, 4] u8), every
-        stream on one palette.  Kernel A on the framed windows, then kernel
-        B, so pushing the same samples in chunks gives the same rows
-        exactly."""
+        stream on one palette: `palette_id`, by default the pinned
+        static_palette where there is one, else 1 (Magma).  A static_palette
+        pipeline colors with its static table whatever the id.  Kernel A on
+        the framed windows, then the colormap the push takes, so pushing the
+        same samples in chunks gives the same rows exactly."""
+        if palette_id is None:
+            palette_id = (self.static_palette_id
+                          if self.static_palette_id is not None else 1)
         self._check_ids(np.asarray(palette_id))
         squeeze = pcm.ndim == 2
         if squeeze:
@@ -784,7 +873,7 @@ class SpectrogramPipeline:
         right = frames[..., 1].reshape(s * n, w).contiguous()
         pid = torch.tensor([palette_id], dtype=torch.int32, device=self.device)
         mag_l, mag_r = self._stft(left, right, self.hann, self.twiddles)
-        rows = self._colormap(mag_l, mag_r, self.taps, self._pick_tables(pid),
-                              self.cfg)
+        rows = self._run_colormap(mag_l, mag_r, self.taps,
+                                  self.state_tables_for(pid), blockwise=False)
         out = self._output(rows.reshape(s, n, -1))
         return out[0] if squeeze else out

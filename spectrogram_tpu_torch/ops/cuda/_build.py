@@ -52,6 +52,15 @@ KERNELS = {
         _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _F, _F, _F,
         _P, _P,
     ),
+    "spk_colormap_generic": (
+        _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _F, _F, _F,
+        _P, _P,
+    ),
+    # the two table pointers are host memory, copied into the kernel's
+    # parameters (the second null for a built-in table)
+    "spk_colormap_static": (
+        _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _F, _F, _F, _F, _P, _P,
+    ),
 }
 
 

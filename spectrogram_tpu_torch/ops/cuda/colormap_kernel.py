@@ -1,4 +1,5 @@
-"""Kernel B, the per-row built-in colormap, and the blockwise colormap.
+"""The colormap kernels: kernel B (per-row built-in tables), the blockwise
+colormap, the generic two-table colormap and the static colormap.
 
 Kernel B replaces `spectrogram_tpu/ops/pallas/colormap_kernel.py`
 `colormap_planes_banded` with the per-row body `_builtin_kernel` (via
@@ -15,18 +16,29 @@ B's function, and a block of rows whose tables are all equal reads one
 staged table.  Its plain version is `colormap_builtin_plain` itself, since
 the function is the same (`colormap_blockwise_plain` names it so).
 
-The TPU kernel needed a banded matmul for the two-tap resample, a tent basis
-for the LUT read and SMEM tables, all to avoid gathers.  Here the resample is
-a tap table (`resample_taps`) and each pixel reads its two bins and its two
-LUT entries directly; the laws and their rounding are the JAX kernel's.
+The generic colormap, `colormap_generic`, replaces the bodies
+`_generic_kernel` (per-row tables) and `_uniform_generic_kernel` (one table):
+any rank-1 factored palette, LUT[i, j, c] = U[i, c] * V[j, c], read as two
+4-channel two-tap lookups, U at the magnitude coordinate and V at the pan
+coordinate.  The static colormap, `colormap_static`, replaces
+`_static_builtin_kernel` and `_static_generic_kernel`: one palette for all
+rows, held by the caller as a host (numpy) table and passed to the kernel by
+value, at most `MAX_STATIC_RES` entries.
+
+The TPU kernels needed a banded matmul for the two-tap resample, a tent
+basis for the LUT read and SMEM or compile-time tables, all to avoid
+gathers.  Here the resample is a tap table (`resample_taps`) and each pixel
+reads its two bins and its LUT entries directly; the laws and their rounding
+are the JAX kernels'.
 
 Host helpers (`builtin_color_tables`, `generic_color_tables`,
 `unpack_rgba`, and `_auto_blocks`, `band_segments`, `_banded_worthwhile`,
 which give the row block the palette-sort economics are counted in) are
-copies of the JAX module's, pinned by the tests.  `colormap_builtin` and
-`colormap_blockwise` take a CPU tensor to `colormap_builtin_plain` and a
-CUDA tensor to their kernel (`csrc/colormap_builtin.cu`,
-`csrc/colormap_blockwise.cu`), never one for the other.
+copies of the JAX module's, pinned by the tests.  Every wrapper takes a CPU
+tensor to its plain version and a CUDA tensor to its kernel
+(`csrc/colormap_builtin.cu`, `csrc/colormap_blockwise.cu`,
+`csrc/colormap_generic.cu`, `csrc/colormap_static.cu`), never one for the
+other.
 """
 
 from __future__ import annotations
@@ -41,6 +53,11 @@ from spectrogram_tpu_torch.ops import colormap as cmap_ops
 
 KERNEL = "spk_colormap_builtin"
 BLOCKWISE_KERNEL = "spk_colormap_blockwise"
+GENERIC_KERNEL = "spk_colormap_generic"
+STATIC_KERNEL = "spk_colormap_static"
+# a static table is a kernel parameter: at most this many LUT entries
+# (csrc/colormap_static.cu's kMaxRes)
+MAX_STATIC_RES = 64
 
 
 class ResampleTaps(NamedTuple):
@@ -225,6 +242,38 @@ def _quantize(v: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(v * 255.0), 0.0, 255.0).to(torch.int64)
 
 
+def _pack(channels) -> torch.Tensor:
+    """Four [rows, H] f32 channels -> [rows, H] int32 RGBA8888 words."""
+    word = _quantize(channels[0])
+    for c in range(1, 4):
+        word |= _quantize(channels[c]) << (8 * c)
+    # two's complement into int32, as the kernel's packed word
+    return torch.where(word >= 2**31, word - 2**32, word).to(torch.int32)
+
+
+def _texels(mag_l: torch.Tensor, mag_r: torch.Tensor, taps: ResampleTaps,
+            cfg: SpectrogramConfig, res: int):
+    """(xu, xv): every pixel's magnitude and pan texel coordinates."""
+    j0, j1 = taps.j0.long(), taps.j1.long()
+    pl = taps.w0 * mag_l.index_select(1, j0) + taps.w1 * mag_l.index_select(1, j1)
+    pr = taps.w0 * mag_r.index_select(1, j0) + taps.w1 * mag_r.index_select(1, j1)
+    xu = cmap_ops.texel_coord(cmap_ops.db_normalize(pl, pr, cfg), res)
+    xv = cmap_ops.texel_coord(cmap_ops.pan_fraction(pl, pr), res)
+    return xu, xv
+
+
+def _lut_read(tab: torch.Tensor, x: torch.Tensor, res: int, channels) -> list:
+    """Clamped-linear reads of the [rows, R*4] tables at texel x ([rows, H]):
+    wlo * tab[t0*4 + c] + whi * tab[t1*4 + c] for each channel c."""
+    f0 = torch.floor(x)
+    t0 = f0.to(torch.int64)
+    t1 = torch.clamp(t0 + 1, max=res - 1)
+    wlo = torch.clamp(1.0 - torch.abs(x - f0), 0.0, 1.0)
+    whi = torch.clamp(1.0 - torch.abs(x - (f0 + 1.0)), 0.0, 1.0)
+    return [wlo * tab.gather(1, t0 * 4 + c) + whi * tab.gather(1, t1 * 4 + c)
+            for c in channels]
+
+
 def colormap_builtin_plain(mag_l: torch.Tensor, mag_r: torch.Tensor,
                            taps: ResampleTaps, tables: torch.Tensor,
                            cfg: SpectrogramConfig,
@@ -232,37 +281,64 @@ def colormap_builtin_plain(mag_l: torch.Tensor, mag_r: torch.Tensor,
     """The plain PyTorch version: the same laws, one rounding per op."""
     rows = mag_l.shape[0]
     res = tables.shape[1] // 4
-    j0, j1 = taps.j0.long(), taps.j1.long()
-    pl = taps.w0 * mag_l.index_select(1, j0) + taps.w1 * mag_l.index_select(1, j1)
-    pr = taps.w0 * mag_r.index_select(1, j0) + taps.w1 * mag_r.index_select(1, j1)
-    xu = cmap_ops.texel_coord(cmap_ops.db_normalize(pl, pr, cfg), res)
-    xv = cmap_ops.texel_coord(cmap_ops.pan_fraction(pl, pr), res)
+    xu, xv = _texels(mag_l, mag_r, taps, cfg, res)
     tab = _row_tables(tables, rows, rows_per_table)         # [rows|1, R*4]
     stereo = tab[:, 3:4] != 0.0
-    x = torch.where(stereo, xv, xu)
-    f0 = torch.floor(x)
-    t0 = f0.to(torch.int64)
-    t1 = torch.clamp(t0 + 1, max=res - 1)
-    wlo = torch.clamp(1.0 - torch.abs(x - f0), 0.0, 1.0)
-    whi = torch.clamp(1.0 - torch.abs(x - (f0 + 1.0)), 0.0, 1.0)
-    tab = tab.expand(rows, -1)
-    word = torch.zeros(x.shape, dtype=torch.int64, device=x.device)
-    for c in range(3):
-        v = wlo * tab.gather(1, t0 * 4 + c) + whi * tab.gather(1, t1 * 4 + c)
-        word |= _quantize(v) << (8 * c)
+    rgb = _lut_read(tab.expand(rows, -1), torch.where(stereo, xv, xu), res, range(3))
     alpha = torch.where(stereo, xu * np.float32(1.0 / (res - 1)), 1.0)
-    word |= _quantize(alpha) << 24
-    # two's complement into int32, as the kernel's packed word
-    return torch.where(word >= 2**31, word - 2**32, word).to(torch.int32)
+    return _pack([*rgb, alpha])
+
+
+def colormap_generic_plain(mag_l: torch.Tensor, mag_r: torch.Tensor,
+                           taps: ResampleTaps, u: torch.Tensor, v: torch.Tensor,
+                           cfg: SpectrogramConfig,
+                           rows_per_table: int = 1) -> torch.Tensor:
+    """The generic colormap's plain version: channel c of a pixel is
+    q(U(xu)[c] * V(xv)[c]), the product rounded before the scale by 255."""
+    rows = mag_l.shape[0]
+    res = u.shape[1] // 4
+    xu, xv = _texels(mag_l, mag_r, taps, cfg, res)
+    cu = _lut_read(_row_tables(u, rows, rows_per_table).expand(rows, -1), xu, res, range(4))
+    cv = _lut_read(_row_tables(v, rows, rows_per_table).expand(rows, -1), xv, res, range(4))
+    return _pack([a * b for a, b in zip(cu, cv)])
 
 
 # the blockwise kernel's plain version: the function is kernel B's
 colormap_blockwise_plain = colormap_builtin_plain
 
 
+def static_arrays(table) -> tuple:
+    """A static table as the kernel takes it: (t,) for a built-in [R*4]
+    table, (u, v) for a generic palette's two [R*4] factors, each a
+    contiguous f32 numpy array.  Raises unless 2 <= R <= MAX_STATIC_RES."""
+    arrays = table if isinstance(table, tuple) else (table,)
+    arrays = tuple(np.ascontiguousarray(a, np.float32).reshape(-1) for a in arrays)
+    n = arrays[0].size if arrays else 0
+    if (len(arrays) not in (1, 2) or any(a.size != n for a in arrays)
+            or n % 4 or not 2 <= n // 4 <= MAX_STATIC_RES):
+        raise ValueError(
+            f"a static table is one [R*4] table or a (u, v) pair of them with "
+            f"2 <= R <= {MAX_STATIC_RES} (the kernel takes it as a parameter); "
+            f"got sizes {[a.size for a in arrays]}"
+        )
+    return arrays
+
+
+def colormap_static_plain(mag_l: torch.Tensor, mag_r: torch.Tensor,
+                          taps: ResampleTaps, table,
+                          cfg: SpectrogramConfig) -> torch.Tensor:
+    """The static colormap's plain version: the one-table (uniform) plain
+    version of kernel B, or of the generic colormap for a (u, v) table, with
+    the table as a [1, R*4] tensor."""
+    rows = [torch.from_numpy(a[None]).to(mag_l.device) for a in static_arrays(table)]
+    if len(rows) == 2:
+        return colormap_generic_plain(mag_l, mag_r, taps, *rows, cfg)
+    return colormap_builtin_plain(mag_l, mag_r, taps, rows[0], cfg)
+
+
 def _check(mag_l, mag_r, taps, tables, rows_per_table) -> None:
-    """Raise unless the planes, taps and tables fit: the kernels index planes
-    by tap and tables by row unchecked."""
+    """Raise unless the planes, taps and tables ([T, R*4], tensor or numpy)
+    fit: the kernels index planes by tap and tables by row unchecked."""
     h = taps.j0.shape[0]
     if (mag_r.shape != mag_l.shape or taps.bins > mag_l.shape[1]
             or any(t.shape != (h,) for t in taps[:4])
@@ -276,17 +352,19 @@ def _check(mag_l, mag_r, taps, tables, rows_per_table) -> None:
         )
 
 
-def _launch(name: str, mag_l, mag_r, taps, tables, cfg, rows_per_table,
-            *extra) -> torch.Tensor:
-    """Launch colormap kernel `name` on CUDA tensors; `extra` are the int
-    arguments its C entry takes after `res`."""
+def _launch(name: str, mag_l, mag_r, taps, cfg, res: int, tables: tuple,
+            *table_args) -> torch.Tensor:
+    """Launch colormap kernel `name` on CUDA tensors.  `tables` are the
+    device tensors among its operands (checked as the planes are);
+    `table_args` the arguments its C entry takes between `h` and
+    `min_db`."""
     if mag_l.device.type != "cuda":
         raise ValueError(f"no colormap kernel for device {mag_l.device}")
     checks = (
         ("mag_l", mag_l, torch.float32), ("mag_r", mag_r, torch.float32),
         ("j0", taps.j0, torch.int32), ("j1", taps.j1, torch.int32),
         ("w0", taps.w0, torch.float32), ("w1", taps.w1, torch.float32),
-        ("tables", tables, torch.float32),
+        *(("tables", t, torch.float32) for t in tables),
     )
     for name_, t, dtype in checks:
         if t.dtype != dtype or not t.is_contiguous() or t.device != mag_l.device:
@@ -300,14 +378,12 @@ def _launch(name: str, mag_l, mag_r, taps, tables, cfg, rows_per_table,
     if rows and h:
         from spectrogram_tpu_torch.ops.cuda import _build
 
-        res = tables.shape[1] // 4
         with torch.cuda.device(mag_l.device):
             stream = torch.cuda.current_stream().cuda_stream
             _build.library().launch(
                 name, mag_l.data_ptr(), mag_r.data_ptr(), rows, bins,
                 taps.j0.data_ptr(), taps.j1.data_ptr(), taps.w0.data_ptr(),
-                taps.w1.data_ptr(), h, tables.data_ptr(), tables.shape[0],
-                rows_per_table, res, *extra,
+                taps.w1.data_ptr(), h, *table_args,
                 cfg.min_db, cfg.max_db - cfg.min_db, cfg.db_epsilon,
                 1.0 / (res - 1), out.data_ptr(), stream,
             )
@@ -328,7 +404,9 @@ def colormap_builtin(mag_l: torch.Tensor, mag_r: torch.Tensor,
     if mag_l.device.type == "cpu":
         return colormap_builtin_plain(mag_l, mag_r, taps, tables, cfg,
                                       rows_per_table)
-    return _launch(KERNEL, mag_l, mag_r, taps, tables, cfg, rows_per_table)
+    res = tables.shape[1] // 4
+    return _launch(KERNEL, mag_l, mag_r, taps, cfg, res, (tables,),
+                   tables.data_ptr(), tables.shape[0], rows_per_table, res)
 
 
 # a uniform block stages its table in at most 48 KB of shared memory
@@ -347,13 +425,57 @@ def colormap_blockwise(mag_l: torch.Tensor, mag_r: torch.Tensor,
     CPU tensors take the plain version; CUDA tensors take the blockwise
     kernel."""
     _check(mag_l, mag_r, taps, tables, rows_per_table)
-    if block_rows < 1 or tables.shape[1] // 4 > MAX_BLOCKWISE_RES:
+    res = tables.shape[1] // 4
+    if block_rows < 1 or res > MAX_BLOCKWISE_RES:
         raise ValueError(
-            f"block_rows={block_rows} and {tables.shape[1] // 4}-entry tables "
+            f"block_rows={block_rows} and {res}-entry tables "
             f"do not fit the blockwise kernel (at most {MAX_BLOCKWISE_RES})"
         )
     if mag_l.device.type == "cpu":
         return colormap_blockwise_plain(mag_l, mag_r, taps, tables, cfg,
                                         rows_per_table)
-    return _launch(BLOCKWISE_KERNEL, mag_l, mag_r, taps, tables, cfg,
-                   rows_per_table, block_rows)
+    return _launch(BLOCKWISE_KERNEL, mag_l, mag_r, taps, cfg, res, (tables,),
+                   tables.data_ptr(), tables.shape[0], rows_per_table, res,
+                   block_rows)
+
+
+def colormap_generic(mag_l: torch.Tensor, mag_r: torch.Tensor,
+                     taps: ResampleTaps, u: torch.Tensor, v: torch.Tensor,
+                     cfg: SpectrogramConfig,
+                     rows_per_table: int = 1) -> torch.Tensor:
+    """[rows, B] f32 magnitude planes -> [rows, H] int32 RGBA8888 through a
+    generic palette: row n reads the factors u[(n // rows_per_table) % T]
+    and v[...] ([T, R*4] f32 each, entries t*4+c), as `colormap_builtin`
+    reads its tables.
+
+    CPU tensors take the plain version; CUDA tensors take the generic
+    kernel."""
+    _check(mag_l, mag_r, taps, u, rows_per_table)
+    if v.shape != u.shape:
+        raise ValueError(f"u {tuple(u.shape)} and v {tuple(v.shape)} differ")
+    if mag_l.device.type == "cpu":
+        return colormap_generic_plain(mag_l, mag_r, taps, u, v, cfg, rows_per_table)
+    res = u.shape[1] // 4
+    return _launch(GENERIC_KERNEL, mag_l, mag_r, taps, cfg, res, (u, v),
+                   u.data_ptr(), v.data_ptr(), u.shape[0], rows_per_table, res)
+
+
+def colormap_static(mag_l: torch.Tensor, mag_r: torch.Tensor,
+                    taps: ResampleTaps, table,
+                    cfg: SpectrogramConfig) -> torch.Tensor:
+    """[rows, B] f32 magnitude planes -> [rows, H] int32 RGBA8888, every row
+    colored with one palette held on the host: `table` a built-in [R*4]
+    numpy table, or a (u, v) pair of a generic palette's [R*4] factors (see
+    `static_arrays`).  The output is `colormap_builtin`'s (or
+    `colormap_generic`'s) with that one table.
+
+    CPU tensors take the plain version; CUDA tensors take the static
+    kernel, which receives the table by value."""
+    arrays = static_arrays(table)
+    _check(mag_l, mag_r, taps, arrays[0][None], 1)
+    if mag_l.device.type == "cpu":
+        return colormap_static_plain(mag_l, mag_r, taps, arrays, cfg)
+    res = arrays[0].size // 4
+    v_host = arrays[1].ctypes.data if len(arrays) == 2 else None
+    return _launch(STATIC_KERNEL, mag_l, mag_r, taps, cfg, res, (),
+                   arrays[0].ctypes.data, v_host, res)

@@ -12,7 +12,11 @@ Profiles, each with torch.profiler over a steady window after a warm-up:
   4. the multi-tenant serving push at BENCH_CONFIG, k=1, no ring, 10,240
      streams, palettes arange(S) % 19: per-row (palette_sort=False), sorted
      (the defaults), and the full serving mode (i16_planes, presorted_input,
-     sorted_output, int16 chunks in input_perm order).
+     sorted_output, int16 chunks in input_perm order);
+  5. the k=1 push at BENCH_CONFIG, 4096 streams, no ring, by palette kind:
+     built-in per-row (arange(S) % 19), static_palette="Magma", and a
+     generic registry (a FactoredScheme outside the built-in structure + 3
+     built-ins) per-row (arange(S) % 4) and with one palette.
 
 For each it prints the host wall time per call over the window (ended by a
 synchronize), the device busy time per call (the sum of its kernels), the
@@ -120,6 +124,21 @@ def main(argv=None) -> int:
         chunk = wire if p.i16_planes else wire.to(torch.float32) / 32768.0
         profile(f"serving push, BENCH_CONFIG, k=1, {s} streams, {label}", push, args.pushes)
         del state, chunk, wire
+
+    from spectrogram_tpu_torch.color.colorscheme import DEFAULT_COLOR_SCHEMES
+
+    registry = (testing.custom_scheme(),) + DEFAULT_COLOR_SCHEMES[:3]
+    s = 4096
+    chunk = torch.from_numpy(testing.chirp_tone(s, BENCH_CONFIG.hop_size, 48000.0, seed=7)).to(dev)
+    for label, kw, ids in (("built-in per-row", {}, np.arange(s) % 19),
+                           ("static_palette=Magma", dict(static_palette="Magma"), None),
+                           ("generic per-row", dict(schemes=registry), np.arange(s) % 4),
+                           ("generic, one palette", dict(schemes=registry), 0)):
+        p = SpectrogramPipeline(BENCH_CONFIG, chunk_hops=1, store_ring=False,
+                                packed_output=True, device=dev, **kw)
+        state = [p.init_state(s) if ids is None else p.set_palette(p.init_state(s), ids)]
+        profile(f"k=1 push, BENCH_CONFIG, {s} streams, {label}", push, args.pushes)
+        del state
     print("card:", subprocess.run(smi, capture_output=True, text=True).stdout.strip())
     return 0
 

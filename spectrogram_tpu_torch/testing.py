@@ -1,5 +1,5 @@
-"""Test signals made with numpy from a seed, and the comparison rules for
-RGBA rows and for the bf16 row ring.
+"""Test signals made with numpy from a seed, a user-defined test palette,
+and the comparison rules for RGBA rows and for the bf16 row ring.
 
 Tonal content is the precision probe: noise has no spectral-leakage floors,
 so it hides FFT precision faults that a chirp exposes (the JAX package's
@@ -44,6 +44,24 @@ def make(kind: str, n_streams: int, n_samples: int, sample_rate: float,
     raise ValueError(f"unknown signal {kind!r}")
 
 
+def custom_factors(resolution: int = 32) -> tuple[np.ndarray, np.ndarray]:
+    """(U, V) [R, 4] factors of a palette outside the built-in mono/stereo
+    structure, the JAX package's on-chip gate's (`spectrogram_tpu/smoke.py`
+    class_generic): r, g, b from magnitude and pan, alpha from magnitude."""
+    ramp = np.linspace(0.0, 1.0, resolution, dtype=np.float32)
+    one = np.ones(resolution, np.float32)
+    u = np.stack([ramp, ramp**2, np.sqrt(ramp), ramp], axis=1)
+    v = np.stack([1 - 0.3 * ramp, one, 0.5 + 0.5 * ramp, one], axis=1)
+    return u, v
+
+
+def custom_scheme():
+    """`custom_factors` as the FactoredScheme "smoke-custom"."""
+    from spectrogram_tpu_torch.color.colorscheme import FactoredScheme
+
+    return FactoredScheme("smoke-custom", *custom_factors(), background=(10, 10, 10))
+
+
 def rgba_u8_diff(a, b) -> int:
     """Largest per-channel difference between two [..., 4] u8 RGBA images
     (numpy arrays, or tensors on one device) over what they show: alpha
@@ -64,10 +82,42 @@ def rgba_u8_diff(a, b) -> int:
     return int(max(d[..., 3].max(initial=0), d[shown].max(initial=0)))
 
 
+def magnitude_texels(planes, cfg) -> np.ndarray:
+    """[..., 2, B] magnitude rows of bins 1..W-1 (either package's STFT;
+    numpy or a tensor) -> [..., H] each pixel's coordinate on the LUT's
+    magnitude axis, in texels, by the colormap's resample and dB laws: 0 at
+    and below the dB floor."""
+    from spectrogram_tpu_torch.ops import colormap as cmap_ops
+
+    rows = _f32(planes).transpose(-1, -2)                      # [..., B, 2]
+    px = cmap_ops.resample_rows(rows, torch.from_numpy(cmap_ops.resample_matrix(cfg)))
+    mag = cmap_ops.db_normalize(px[..., 0], px[..., 1], cfg)
+    return cmap_ops.texel_coord(mag, cfg.lut_resolution).numpy()
+
+
+def rgba_u8_diff_above_floor(a, b, texels_a, texels_b) -> int:
+    """Largest per-channel difference between two [..., H, 4] u8 RGBA images
+    over the pixels whose magnitude texel coordinate (`magnitude_texels` of
+    each image's own STFT) is above 0 in both: every channel there, nothing
+    below the dB floor.
+
+    `rgba_u8_diff` forgives r, g, b where alpha is 0, which covers the
+    built-in palettes, whose alpha is 0 below the floor.  A generic palette
+    can make alpha, or any channel, depend on pan: in a scheme with alpha =
+    0.25 + 0.75 pan, a pixel below the floor is shown, colored by the pan of
+    two magnitudes that are f32 rounding noise and differ between any two
+    FFTs.  Such pixels say nothing about the port, so this reading holds
+    the pixels both STFTs put above the floor, all four channels.
+    """
+    a, b = np.asarray(a).astype(np.int32), np.asarray(b).astype(np.int32)
+    shown = (np.asarray(texels_a) > 0) & (np.asarray(texels_b) > 0)
+    return int(np.abs(a - b)[shown].max(initial=0))
+
+
 def _f32(x) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.detach().to(torch.float32)
-    return torch.from_numpy(np.asarray(x, np.float32))
+    return torch.from_numpy(np.array(x, np.float32))
 
 
 def bf16_ulps(a, b, atol: float = 0.0) -> float:

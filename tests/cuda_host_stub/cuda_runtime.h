@@ -1,7 +1,7 @@
-// Host stand-in for the CUDA runtime: just enough for the STFT device code
-// (spectrogram_tpu_torch/csrc/stft_fft.cuh) to compile with a C++ compiler
-// and run on the CPU as one thread per block (threadIdx.x = 0,
-// blockDim.x = 1).  The _rn intrinsics round as the card does when the host
+// Host stand-in for the CUDA runtime: just enough for the STFT and colormap
+// device code (spectrogram_tpu_torch/csrc/stft_fft.cuh, colormap_common.cuh)
+// to compile with a C++ compiler and run on the CPU as one thread per block
+// (threadIdx.x = 0, blockDim.x = 1).  The _rn intrinsics round as the card does when the host
 // compiler contracts nothing (-ffp-contract=off).
 #pragma once
 
@@ -21,6 +21,8 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline int min(int a, int b) { return a < b ? a : b; }
 
 inline unsigned __brev(unsigned v) {
   unsigned r = 0;

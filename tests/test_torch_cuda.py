@@ -7,8 +7,11 @@ without a card they skip.  On the card:
 
 Tolerances: the STFT kernels atol 3e-5 / rtol 1e-4 against torch.fft (two
 f32 FFTs of different factorizations), and bitwise against each other (they
-share their device code); kernel B 1 u8 per channel on the same planes
-(log10f and the plain path's division may round differently).
+share their device code); the colormap kernels 1 u8 per channel on the
+same planes (log10f and the plain path's division may round differently),
+and bitwise against each other where they share a per-pixel body (the
+blockwise kernel against kernel B, the static kernel against kernel B and
+the generic kernel with one table).
 """
 
 import numpy as np
@@ -302,3 +305,120 @@ def test_serving_pipeline_on_card(cuda):
     torch.cuda.synchronize()
     for name in (sk.KERNEL_I16, ck.BLOCKWISE_KERNEL):
         assert lib.launches[name] > before[name], name
+
+
+def _custom_factors():
+    """`testing.custom_factors` as [1, R*4] tables."""
+    return tuple(t.reshape(1, -1) for t in testing.custom_factors())
+
+
+@pytest.mark.parametrize("layout", ["per_row", "one_table", "rows_per_table"])
+def test_generic_kernel_matches_plain(cuda, layout):
+    cfg = BENCH_CONFIG
+    rows = 256
+    left, right = _windows(cfg, "chirp_tone", rows, cuda)
+    hann = torch.from_numpy(sk.packed_hann(cfg.window_size)).to(cuda)
+    ml, mr = sk.stft_mag_packed_plain(left, right, hann, cfg.padded_size)
+    gu, gv = ck.generic_color_tables()
+    cu, cv = _custom_factors()
+    u = torch.from_numpy(np.concatenate([cu, gu])).to(cuda)
+    v = torch.from_numpy(np.concatenate([cv, gv])).to(cuda)
+    rpt = 1
+    if layout == "per_row":
+        idx = torch.arange(rows, device=cuda) % 20
+    elif layout == "one_table":
+        idx = torch.tensor([0], device=cuda)
+    else:
+        idx, rpt = torch.arange(8, device=cuda) % 20, rows // 8
+    u, v = u[idx].contiguous(), v[idx].contiguous()
+    taps = ck.resample_taps(cmap_ops.resample_matrix_full(cfg), cuda)
+    lib = _build.library()
+    before = lib.launches[ck.GENERIC_KERNEL]
+    got = ck.colormap_generic(ml, mr, taps, u, v, cfg, rows_per_table=rpt)
+    torch.cuda.synchronize()
+    assert lib.launches[ck.GENERIC_KERNEL] == before + 1
+    want = ck.colormap_generic_plain(ml, mr, taps, u, v, cfg, rows_per_table=rpt)
+    assert testing.rgba_u8_diff(ck.unpack_rgba_device(got), ck.unpack_rgba_device(want)) <= 1
+    diff = (ck.unpack_rgba_device(got).int() - ck.unpack_rgba_device(want).int()).abs()
+    assert int(diff.max()) <= 1
+
+
+@pytest.mark.parametrize("palette", ["Magma", "Blue-Yellow-Red (Stereo)", "generic"])
+def test_static_kernel_equals_one_table_kernels(cuda, palette):
+    """The static kernel gives, bit for bit, kernel B's output with that one
+    table (built-in palettes) or the generic kernel's (a generic palette),
+    and stays within 1 u8 of its plain version."""
+    from spectrogram_tpu_torch.color.colorscheme import scheme_index
+
+    cfg = BENCH_CONFIG
+    left, right = _windows(cfg, "chirp_tone", 300, cuda)
+    hann = torch.from_numpy(sk.packed_hann(cfg.window_size)).to(cuda)
+    ml, mr = sk.stft_mag_packed_plain(left, right, hann, cfg.padded_size)
+    taps = ck.resample_taps(cmap_ops.resample_matrix_full(cfg), cuda)
+    if palette == "generic":
+        u, v = _custom_factors()
+        table = (u[0], v[0])
+        one = ck.colormap_generic(ml, mr, taps, torch.from_numpy(u).to(cuda),
+                                  torch.from_numpy(v).to(cuda), cfg)
+    else:
+        table = ck.builtin_color_tables()[scheme_index(palette)]
+        one = ck.colormap_builtin(ml, mr, taps, torch.from_numpy(table[None]).to(cuda), cfg)
+    lib = _build.library()
+    before = lib.launches[ck.STATIC_KERNEL]
+    got = ck.colormap_static(ml, mr, taps, table, cfg)
+    torch.cuda.synchronize()
+    assert lib.launches[ck.STATIC_KERNEL] == before + 1
+    torch.testing.assert_close(got, one, atol=0, rtol=0)
+    want = ck.colormap_static_plain(ml, mr, taps, table, cfg)
+    diff = (ck.unpack_rgba_device(got).int() - ck.unpack_rgba_device(want).int()).abs()
+    assert int(diff.max()) <= 1
+    with pytest.raises(ValueError, match="R <= 64"):
+        ck.colormap_static(ml, mr, taps, np.zeros(65 * 4, np.float32), cfg)
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_generic_and_static_pipelines_on_card(cuda, k):
+    """A generic registry (per-row, then one palette) and a static pipeline
+    on the card: rows match the CPU run within 1 u8, streamed rows equal
+    process(), and the blockwise kernel never launches."""
+    from spectrogram_tpu_torch.color.colorscheme import DEFAULT_COLOR_SCHEMES
+
+    cfg = SMALL
+    schemes = (testing.custom_scheme(),) + DEFAULT_COLOR_SCHEMES[:3]
+    s = 4
+    t_pcm = testing.chirp_tone(s, 4 * k * cfg.hop_size, cfg.sample_rate, seed=8)
+    lib = _build.library()
+    for kw, ids in ((dict(schemes=schemes), np.arange(s)), (dict(schemes=schemes), 2),
+                    (dict(static_palette="Magma"), None),
+                    (dict(schemes=schemes, static_palette=0), None)):
+        args = dict(chunk_hops=k, viewport_rows=16, packed_output=True, **kw)
+        gpu = SpectrogramPipeline(cfg, device=cuda, **args)
+        cpu = SpectrogramPipeline(cfg, device="cpu", **args)
+        sg, sc = gpu.init_state(s), cpu.init_state(s)
+        if ids is not None:
+            sg, sc = gpu.set_palette(sg, ids), cpu.set_palette(sc, ids)
+        before = dict(lib.launches)
+        t = gpu.chunk_size
+        rows = []
+        for i in range(4):
+            chunk = torch.from_numpy(t_pcm[:, i * t : (i + 1) * t])
+            sg, rg = gpu.push(sg, chunk.to(cuda))
+            sc, rc = cpu.push(sc, chunk)
+            torch.testing.assert_close(sg.carry.cpu(), sc.carry, atol=0, rtol=0)
+            assert testing.rgba_u8_diff(ck.unpack_rgba(rg), ck.unpack_rgba(rc)) <= 1
+            rows.append(rg)
+        torch.cuda.synchronize()
+        name = ck.STATIC_KERNEL if gpu.static_table is not None else ck.GENERIC_KERNEL
+        assert lib.launches[name] > before[name]
+        assert lib.launches[ck.BLOCKWISE_KERNEL] == before[ck.BLOCKWISE_KERNEL]
+        padded = np.concatenate([np.zeros((s, gpu.carry_size, 2), np.float32), t_pcm], 1)
+        pid = int(sg.palette_id[0])
+        one = gpu.process(torch.from_numpy(padded).to(cuda), palette_id=pid)
+        streamed = torch.cat(rows, dim=1)
+        same = torch.from_numpy(np.flatnonzero(sg.palette_id.cpu().numpy() == pid)).to(cuda)
+        torch.testing.assert_close(one.index_select(0, same), streamed.index_select(0, same),
+                                   atol=0, rtol=0)
+        for width in (None, 24):
+            assert testing.rgba_u8_diff(
+                ck.unpack_rgba(gpu.render_viewport(sg, width)),
+                ck.unpack_rgba(gpu.with_plain_kernels().render_viewport(sg, width))) <= 1

@@ -168,12 +168,19 @@ def test_set_palette():
 
 @pytest.mark.parametrize("kwargs", [
     dict(ring_dtype=torch.float16), dict(ring_dtype=torch.float32),
-    dict(static_palette=1), dict(ring_dtype=torch.float64),
-    dict(static_palette="Magma"), dict(static_palette=0, i16_planes=True),
+    dict(ring_dtype=torch.float16, static_palette=1), dict(ring_dtype=torch.float64),
+    dict(ring_dtype=torch.float32, static_palette="Magma"),
+    dict(ring_dtype=torch.float16, static_palette=0, i16_planes=True),
 ])
 def test_arguments_outside_the_slice_raise(kwargs):
+    """A ring dtype other than bfloat16 is not ported; static palettes are
+    (tests/test_torch_palettes.py), and do not hide the refusal."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SpectrogramPipeline(SpectrogramConfig(**SMALL), device="cpu", **kwargs)
+    static = {k: v for k, v in kwargs.items() if k != "ring_dtype"}
+    if static:
+        p = SpectrogramPipeline(SpectrogramConfig(**SMALL), device="cpu", **static)
+        assert p.static_palette_id == (1 if static["static_palette"] in (1, "Magma") else 0)
 
 
 class _SeparableScheme:
@@ -185,6 +192,9 @@ class _SeparableScheme:
         return (np.full((resolution, 4), 0.5, np.float32),
                 np.full((resolution, 4), 0.25, np.float32))
 
+    def background_color(self):
+        return (0, 0, 0)
+
 
 def test_scheme_registries():
     from spectrogram_tpu_torch.color.colorscheme import ColorScheme
@@ -193,10 +203,15 @@ def test_scheme_registries():
     grey = ColorScheme("grey", "", gradient_fn=lambda t: np.stack([t, t, t], -1))
     p = SpectrogramPipeline(cfg, schemes=[grey, ColorScheme("s", "COOL", (0, 0, 0))],
                             device="cpu")
-    assert p.builtin_tables.shape == (2, 128)
+    assert p.builtin_tables.shape == (2, 128) and p.generic_tables is None
     assert p.builtin_tables[0, 3] == 0.0 and p.builtin_tables[1, 3] == 1.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SpectrogramPipeline(cfg, schemes=[_SeparableScheme()], device="cpu")
+    # a scheme outside the built-in structure: the whole registry is generic
+    g = SpectrogramPipeline(cfg, schemes=[_SeparableScheme(), grey], device="cpu")
+    assert g.builtin_tables is None
+    u, v = g.generic_tables
+    assert u.shape == v.shape == (2, 128) and float(u[0, 0]) == 0.5 and float(v[0, 0]) == 0.25
+    state = g.set_palette(g.init_state(3), np.array([0, 1, 0]))
+    assert [t.shape for t in state.tables] == [(3, 128), (3, 128)]
 
 
 def test_state_round_trip():

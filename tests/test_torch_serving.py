@@ -140,6 +140,12 @@ def test_constructor_defaults_equal_jax():
         assert tsig[name].default == jsig[name].default, name
     assert str(tsig["ring_dtype"].default) == "torch." + jnp.dtype(
         jsig["ring_dtype"].default).name
+    # process(): the pinned static palette, else Magma, when no id is given
+    for method in ("process", "init_state"):
+        jm = inspect.signature(getattr(JaxPipeline, method)).parameters
+        tm = inspect.signature(getattr(SpectrogramPipeline, method)).parameters
+        assert tm["palette_id"].default == jm["palette_id"].default, method
+    assert tsig["static_palette"].default is None
 
 
 def test_serving_arguments_are_checked_as_in_jax():

@@ -85,6 +85,41 @@ def test_palette_tables_copy(res):
     assert tcs.scheme_index(name) == jcs.scheme_index(name)
 
 
+def test_factored_scheme_copy():
+    """FactoredScheme: validation, factors, is_stereo, background and LUT as
+    the JAX package's, and the registry kind both packages detect."""
+    rng = np.random.default_rng(3)
+    u, v = rng.random((2, 32, 4)).astype(np.float32)
+    flat_v = np.ones((32, 4), np.float32)
+    for args in ((u, v, (1, 2, 3)), (u, flat_v)):
+        j, t = jcs.FactoredScheme("x", *args), tcs.FactoredScheme("x", *args)
+        assert (t.name, t.u, t.v, t.background) == (j.name, j.u, j.v, j.background)
+        assert t.is_stereo == j.is_stereo
+        assert t.background_color() == j.background_color()
+        np.testing.assert_array_equal(t.lookup_table(32), j.lookup_table(32))
+        for a, b in zip(t.factored_tables(32), j.factored_tables(32)):
+            np.testing.assert_array_equal(a, b)
+        with pytest.raises(ValueError, match="res 32"):
+            t.factored_tables(16)
+    assert tcs.FactoredScheme("x", u, v).is_stereo and not tcs.FactoredScheme("x", u, flat_v).is_stereo
+    for bad in ((u, v[:16]), (u[:, :3], v[:, :3])):
+        with pytest.raises(ValueError, match="same-shape"):
+            tcs.FactoredScheme("bad", *bad)
+    schemes = [tcs.FactoredScheme("x", u, v)] + list(tcs.DEFAULT_COLOR_SCHEMES[:2])
+    jschemes = [jcs.FactoredScheme("x", u, v)] + list(jcs.DEFAULT_COLOR_SCHEMES[:2])
+    with pytest.raises(ValueError):
+        tck.builtin_color_tables(32, schemes)
+    for a, b in zip(tck.generic_color_tables(32, schemes), jck.generic_color_tables(32, jschemes)):
+        np.testing.assert_array_equal(a, b)
+    # a FactoredScheme of a built-in's own factors is detected as built-in
+    fs = tcs.FactoredScheme("m", *tcs.DEFAULT_COLOR_SCHEMES[1].factored_tables(32))
+    np.testing.assert_array_equal(tck.builtin_color_tables(32, [fs]),
+                                  tck.builtin_color_tables(32)[1:2])
+    from spectrogram_tpu_torch import FactoredScheme
+
+    assert FactoredScheme is tcs.FactoredScheme
+
+
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_resample_matrices_copy(name):
     j, t = _configs(name)
