@@ -93,8 +93,34 @@ Phases, each of which fails the run with a non-zero exit:
      and its bound, as device time (`device_ms`: the card held while the
      host enqueues) and back to back as the other phases time kernels.
 
+ 17. the split-real STFT kernels against their plain versions (phase 3's
+     bar), on chirp+tone: the window-plane kernel at 4096 rows of
+     BENCH_CONFIG (N=4096) and of DEFAULT_CONFIG (N=4800), the all-windows
+     kernel at k=8 with 4096 streams, the transposed kernel at 4096 rows and
+     the tsplit kernel at 4096 streams of BENCH_CONFIG.  Bit for bit: the
+     transposed rows, the tsplit rows and the all-windows rows equal the
+     window-plane kernel's on the same windows, and tsplit's next carry the
+     transposed framing's.  Device time of each (`device_ms`), its plain
+     version's, and torch.fft.rfft over the same 2 x rows real rows of
+     length N as the library call.
+ 18. the split-real paths through SpectrogramPipeline, palettes arange(S) %
+     19: stft_packed=False at k=1 (4096 streams of BENCH_CONFIG and of
+     DEFAULT_CONFIG) and at k=8 (4096 streams, no ring); transposed_carry at
+     k=1 (4096 streams, no ring) and at k=8 with the ring (R=2048, 256
+     streams, 260 pushes, render_viewport at R and at 800);
+     framing="tsplit" at k=1 with 4096 streams, with 10,240 streams (the
+     palette sort passes: carry-sort mode on the transposed carry) and with
+     presorted_input + sorted_output.  Each passes when its kernel's launch
+     count rises, streamed rows equal process() exactly, rows and carry
+     match the same pushes on the plain versions (1 u8 over what the image
+     shows; exactly), sorted rows equal the per-row pipeline's exactly, and
+     rows lie within 1 u8 of the default packed pipeline's over what the
+     image shows.
+ 19. ms/push of each split-real push beside the default push of the same
+     configuration, in turns (a b c ... c b a), as device time.
+
 The second-to-last line is {"kernels": [...]}: each kernel's launches on the
-main paths (phases 5, 9, 12 and 15), its largest error against its plain
+main paths (phases 5, 9, 12, 15 and 18), its largest error against its plain
 version, its time, its plain version's, the library call's where one
 computes the same transform, and its bound: the larger of its bytes (each
 input read once, each output written once) over 3.35 TB/s and its f32
@@ -181,6 +207,22 @@ KERNELS = {
         name="colormap_static", source="spectrogram_tpu_torch/csrc/colormap_static.cu",
         replaces="spectrogram_tpu/ops/pallas/colormap_kernel.py:637",
     ),
+    sk.SPLIT_KERNEL: dict(
+        name="stft_split", source="spectrogram_tpu_torch/csrc/stft_split.cu",
+        replaces="spectrogram_tpu/ops/pallas/stft_kernel.py:230",
+    ),
+    sk.SPLIT_ALLK_KERNEL: dict(
+        name="stft_split_allk", source="spectrogram_tpu_torch/csrc/stft_split.cu",
+        replaces="spectrogram_tpu/ops/pallas/stft_kernel.py:787",
+    ),
+    sk.SPLIT_T_KERNEL: dict(
+        name="stft_split_t", source="spectrogram_tpu_torch/csrc/stft_split.cu",
+        replaces="spectrogram_tpu/ops/pallas/stft_kernel.py:692",
+    ),
+    sk.SPLIT_TSPLIT_KERNEL: dict(
+        name="stft_split_tsplit", source="spectrogram_tpu_torch/csrc/stft_split.cu",
+        replaces="spectrogram_tpu/ops/pallas/stft_kernel.py:1467",
+    ),
 }
 
 
@@ -241,6 +283,8 @@ def device_ms(fn, iters: int = TIMED_ITERS) -> float:
         torch.cuda.synchronize()
         if hold.elapsed_time(start) > 1.2 * enqueue_ms:
             return start.elapsed_time(end) / iters
+        if cycles > 1 << 34:
+            fail("device_ms: the timed calls wait for the card")
         cycles *= 4
 
 
@@ -531,6 +575,12 @@ def main() -> int:
     palette_kernels(dev, stats, ms, plain_ms, bounds, library_ms)
     palette_paths(dev, lib, main_launches)
     palette_timing(dev, power_line)
+
+    # -- 17-19. the split-real STFT family ---------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    split_kernels(dev, stats, ms, plain_ms, bounds, library_ms)
+    layout_paths(dev, lib, main_launches)
+    layout_timing(dev, power_line)
 
     print(power_line)
     print(json.dumps({"kernels": [
@@ -1128,6 +1178,276 @@ def palette_timing(dev, power_line: str) -> None:
             + " / ".join(f"{s / x * 1e3:.1f}" for x in runs) + " rows/s")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[16] peak device memory over phases 14-16: {peak:.2f} GiB; card {power_line}")
+
+
+# -- 17-19. the split-real STFT family ------------------------------------------
+
+SPLIT_SERVING = SERVING_STREAMS[0]
+
+
+def split_kernels(dev, stats, ms, plain_ms, bounds, library_ms) -> None:
+    """Phase 17: the four split-real kernels at the paths' shapes against
+    their plain versions, their three bitwise identities with the
+    window-plane kernel, tsplit's next carry, and their times."""
+    from spectrogram_tpu_torch.ops import fft_plan
+
+    names = (sk.SPLIT_KERNEL, sk.SPLIT_ALLK_KERNEL, sk.SPLIT_T_KERNEL, sk.SPLIT_TSPLIT_KERNEL)
+
+    def check(name, label, got, want):
+        err, rel, ok = stft_errors(got, want)
+        log(f"[17] {KERNELS[name]['name']} {label}: max abs err {err:.3e}, max rel err "
+            f"{rel:.3e} (bar atol {STFT_ATOL} rtol {STFT_RTOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{KERNELS[name]['name']} disagrees with its plain version")
+        stats[name] = max(stats.get(name, 0.0), err)
+
+    def identity(label, got, want):
+        same = all(torch.equal(g, x) for g, x in zip(got, want))
+        log(f"[17] {label}: {'equal' if same else 'DIFFER'} bit for bit")
+        if not same:
+            fail(f"{label}: not bit for bit")
+
+    for c in (DEFAULT_CONFIG, BENCH_CONFIG):       # BENCH's inputs stay for timing
+        n, w = c.padded_size, c.window_size
+        hann = torch.from_numpy(sk.split_hann(w)).to(dev)
+        tw = torch.from_numpy(sk.twiddle_table(n)).to(dev)
+        left, right = windows(c, "chirp_tone", STREAMS, dev)
+        planes = sk.stft_mag_split(left, right, hann, tw)
+        check(sk.SPLIT_KERNEL, f"{STREAMS} rows, N={n}", planes,
+              sk.stft_mag_split_plain(left, right, hann, n))
+    plan = fft_plan.make_plan(BENCH_CONFIG)
+    n1, m, hop = plan.n1, plan.m, BENCH_CONFIG.hop_size
+    t_cols = hop // n1
+    x = torch.stack([left, right], 1).reshape(STREAMS, 2, m, n1).transpose(2, 3).contiguous()
+    t_mags = sk.stft_mag_split_t(x, hann, tw)
+    check(sk.SPLIT_T_KERNEL, f"[{STREAMS}, 2, {n1}, {m}]", t_mags,
+          sk.stft_mag_split_t_plain(x, hann, n))
+    identity("stft_split_t == stft_split on the same windows", t_mags, planes)
+    carry = x[..., : m - t_cols].contiguous()
+    chunk = x[..., m - t_cols :].contiguous()
+    ts = sk.stft_mag_split_tsplit(carry, chunk, hann, tw)
+    check(sk.SPLIT_TSPLIT_KERNEL, f"carry {tuple(carry.shape)} + chunk {tuple(chunk.shape)}",
+          ts[:2], sk.stft_mag_split_tsplit_plain(carry, chunk, hann, n)[:2])
+    identity("stft_split_tsplit == stft_split on the same windows", ts[:2], planes)
+    framed = torch.cat([carry, chunk], dim=3)[..., t_cols:]     # the torch framing
+    identity("stft_split_tsplit's next carry == the transposed framing's", ts[2:], (framed,))
+    length = BENCH_CONFIG.window_size + (K - 1) * hop
+    buf = testing.chirp_tone(STREAMS, length, BENCH_CONFIG.sample_rate, seed=3)
+    bl, br = (torch.from_numpy(np.ascontiguousarray(buf[..., ch])).to(dev) for ch in range(2))
+    allk = sk.stft_mag_split_allk(bl, br, hann, tw, K, hop)
+    check(sk.SPLIT_ALLK_KERNEL, f"k={K}, buffers {tuple(bl.shape)}", allk,
+          sk.stft_mag_split_allk_plain(bl, br, hann, n, K, hop))
+    w = BENCH_CONFIG.window_size
+    wl, wr = (torch.cat([b[:, r * hop : r * hop + w] for r in range(K)]) for b in (bl, br))
+    identity("stft_split_allk == stft_split on the extracted windows", allk,
+             sk.stft_mag_split(wl, wr, hann, tw))
+    torch.cuda.synchronize()
+    del t_mags, ts, framed, allk, wl, wr, planes
+
+    calls = {
+        sk.SPLIT_KERNEL: (lambda: sk.stft_mag_split(left, right, hann, tw),
+                          lambda: sk.stft_mag_split_plain(left, right, hann, n), STREAMS),
+        sk.SPLIT_T_KERNEL: (lambda: sk.stft_mag_split_t(x, hann, tw),
+                            lambda: sk.stft_mag_split_t_plain(x, hann, n), STREAMS),
+        sk.SPLIT_TSPLIT_KERNEL: (lambda: sk.stft_mag_split_tsplit(carry, chunk, hann, tw),
+                                 lambda: sk.stft_mag_split_tsplit_plain(carry, chunk, hann, n),
+                                 STREAMS),
+        sk.SPLIT_ALLK_KERNEL: (lambda: sk.stft_mag_split_allk(bl, br, hann, tw, K, hop),
+                               lambda: sk.stft_mag_split_allk_plain(bl, br, hann, n, K, hop),
+                               K * STREAMS),
+    }
+    torch.cuda.empty_cache()
+    packed_hann = torch.from_numpy(sk.packed_hann(w)).to(dev)
+    packed_ms = device_ms(lambda: sk.stft_mag_packed(left, right, packed_hann, tw))
+    for name, (kernel, plain, rows) in calls.items():
+        ms[name] = device_ms(kernel)
+        plain_ms[name] = time_ms(plain, iters=5)
+        nbytes, flops = stft_work(rows, n, w, rows * w)
+        if name == sk.SPLIT_TSPLIT_KERNEL:
+            nbytes += 4 * carry.numel()          # the next carry it writes
+        if name == sk.SPLIT_ALLK_KERNEL:
+            nbytes, flops = stft_work(rows, n, w, bl.numel())
+        bounds[name] = bound(nbytes, flops)
+        real = torch.randn(2 * rows, n, device=dev)
+        library_ms[name] = device_ms(lambda: torch.fft.rfft(real))
+        del real
+        log(f"[17] {KERNELS[name]['name']}, {rows} rows: {ms[name]:.4f} ms device time "
+            f"(plain {plain_ms[name]:.4f} ms, torch.fft.rfft [{2 * rows}, {n}] "
+            f"{library_ms[name]:.4f} ms, bound {bounds[name][0]:.4f} ms by {bounds[name][1]})")
+    log(f"[17] stft_packed (kernel A) on the same {STREAMS} windows: {packed_ms:.4f} ms device time")
+    del x, carry, chunk, bl, br, left, right
+
+
+# (label, config, pipeline arguments, streams, pushes, the kernel it must launch)
+LAYOUT_PATHS = (
+    ("stft_packed=False, k=1", BENCH_CONFIG,
+     dict(chunk_hops=1, store_ring=False, stft_packed=False), STREAMS, PUSHES, sk.SPLIT_KERNEL),
+    ("stft_packed=False, k=1, DEFAULT_CONFIG", DEFAULT_CONFIG,
+     dict(chunk_hops=1, store_ring=False, stft_packed=False), STREAMS, PUSHES, sk.SPLIT_KERNEL),
+    ("stft_packed=False, k=8", BENCH_CONFIG,
+     dict(chunk_hops=K, store_ring=False, stft_packed=False), STREAMS, 2, sk.SPLIT_ALLK_KERNEL),
+    ("transposed_carry, k=1", BENCH_CONFIG,
+     dict(chunk_hops=1, store_ring=False, transposed_carry=True), STREAMS, PUSHES,
+     sk.SPLIT_T_KERNEL),
+    ("transposed_carry, k=8, ring", BENCH_CONFIG, dict(chunk_hops=K, transposed_carry=True),
+     DISPLAY_STREAMS, DISPLAY_PUSHES, sk.SPLIT_T_KERNEL),
+    ("tsplit, k=1", BENCH_CONFIG, dict(chunk_hops=1, store_ring=False, framing="tsplit"),
+     STREAMS, PUSHES, sk.SPLIT_TSPLIT_KERNEL),
+    ("tsplit, sorted", BENCH_CONFIG, dict(chunk_hops=1, store_ring=False, framing="tsplit"),
+     SPLIT_SERVING, SERVING_PUSHES, sk.SPLIT_TSPLIT_KERNEL),
+    ("tsplit, presorted_input + sorted_output", BENCH_CONFIG,
+     dict(chunk_hops=1, store_ring=False, framing="tsplit", presorted_input=True,
+          sorted_output=True), SPLIT_SERVING, SERVING_PUSHES, sk.SPLIT_TSPLIT_KERNEL),
+)
+
+
+def layout_paths(dev, lib, main_launches: dict) -> None:
+    """Phase 18: each split-real path through SpectrogramPipeline, launch
+    counts added to `main_launches`."""
+    for label, cfg, kw, s, n, name in LAYOUT_PATHS:
+        p = SpectrogramPipeline(cfg, packed_output=True, device=dev, **kw)
+        base = dict(chunk_hops=kw["chunk_hops"], store_ring=kw.get("store_ring", True),
+                    packed_output=True, device=dev)
+        default = SpectrogramPipeline(cfg, **base)
+        knob = {k_: v for k_, v in kw.items() if k_ not in ("presorted_input", "sorted_output")}
+        per_row = SpectrogramPipeline(cfg, packed_output=True, device=dev, palette_sort=False,
+                                      **knob)
+        ids = np.arange(s) % len(p.schemes)
+        state = p.set_palette(p.init_state(s), ids)
+        sorted_state = p._state_perm(state) is not None
+        t = p.chunk_size
+        pcm = torch.from_numpy(testing.chirp_tone(s, n * t, cfg.sample_rate, seed=18)).to(dev)
+        chunks = [pcm[:, i * t : (i + 1) * t] for i in range(n)]
+        perm = p.input_perm(state) if p.presorted_input else None
+        if perm is not None:
+            perm_t = torch.from_numpy(perm).to(dev)
+            pushed = [c.index_select(0, perm_t) for c in chunks]
+        else:
+            pushed = chunks
+        out = p.output_perm(state)
+        out = None if out is None else torch.from_numpy(out).to(dev)
+        plain = p.with_plain_kernels()
+        plain_state = state._replace(ring=state.ring.clone())
+        start = state
+        torch.cuda.synchronize()
+        lib.reset_launches()
+        rows = []
+        for c in pushed:
+            state, r = p.push(state, c)
+            rows.append(r if out is None else r.index_select(0, out))
+        views = ({w: p.render_viewport(state, w) for w in (None, RENDER_WIDTH)}
+                 if p.store_ring else {})
+        torch.cuda.synchronize()
+        launches = {k_: v for k_, v in lib.launches.items() if v}
+        for k_, v in launches.items():
+            main_launches[k_] = main_launches.get(k_, 0) + v
+        log(f"[18] {label}, {s} streams, {n} pushes: carry {tuple(state.carry.shape)}, "
+            f"sorted {sorted_state}; launches {launches}")
+        if not launches.get(name):
+            fail(f"{label}: {KERNELS[name]['name']} did not launch")
+        if sorted_state != (s == SPLIT_SERVING):
+            fail(f"{label}: the palette sort did not decide as expected")
+
+        # streamed == process(), per palette
+        streamed = torch.cat(rows, dim=1)
+        padded = torch.cat([torch.zeros(s, p.carry_size, 2, device=dev), pcm], dim=1)
+        for palette in range(len(p.schemes)):
+            sel = torch.from_numpy(np.flatnonzero(ids == palette)).to(dev)
+            one = p.process(padded.index_select(0, sel), palette_id=palette)
+            if not torch.equal(one, streamed.index_select(0, sel)):
+                fail(f"{label}: streamed rows differ from process() for palette {palette}")
+        del padded
+
+        # the plain versions, the per-row pipeline, the default packed pipeline
+        worst_plain = worst_default = 0
+        equal_per_row = True
+        rstate = per_row.set_palette(per_row.init_state(s), ids) if sorted_state else None
+        dstate = default.set_palette(default.init_state(s), ids)
+        for i, c in enumerate(chunks):
+            plain_state, r = plain.push(plain_state, pushed[i])
+            if out is not None:
+                r = r.index_select(0, out)
+            worst_plain = max(worst_plain, u8_diff(rows[i], r, everywhere=False))
+            if sorted_state:
+                rstate, rr = per_row.push(rstate, c)
+                equal_per_row &= torch.equal(rows[i], rr)
+            dstate, dr = default.push(dstate, c)
+            worst_default = max(worst_default, u8_diff(rows[i], dr, everywhere=False))
+        carry_ok = torch.equal(plain_state.carry, state.carry)
+        if sorted_state:
+            inv = p._global_perms(state)[1]
+            carry_ok &= torch.equal(state.carry.index_select(0, inv), rstate.carry)
+        ring_ulps = 0.0
+        if p.store_ring:
+            ring_ulps = max(testing.bf16_ulps(state.ring[i : i + 16], plain_state.ring[i : i + 16],
+                                              STFT_ATOL) for i in range(0, s, 16))
+        view_diff = max((u8_diff(view, plain.render_viewport(state, w), everywhere=False)
+                         for w, view in views.items()), default=0)
+        log(f"[18] {label}: streamed rows equal process() exactly; against the plain path "
+            f"rows max u8 diff {worst_plain}, carry {'equal' if carry_ok else 'DIFFERS'}"
+            + (f", ring {ring_ulps:.3f} bf16 ulps beyond atol, render_viewport at "
+               f"{p.viewport_rows} and {RENDER_WIDTH} max u8 diff {view_diff}" if views else "")
+            + (f"; sorted rows {'equal' if equal_per_row else 'DIFFER from'} per-row rows"
+               if sorted_state else "")
+            + f"; against the default packed pipeline max u8 diff {worst_default} (bars 1)")
+        if (worst_plain > 1 or not carry_ok or ring_ulps > 1 or view_diff > 1
+                or not equal_per_row or worst_default > 1):
+            fail(f"{label}: the path disagrees")
+        del rows, streamed, views, pcm, chunks, pushed, state, plain_state, start
+        del rstate, dstate
+        torch.cuda.empty_cache()
+
+
+def layout_timing(dev, power_line: str) -> None:
+    """Phase 19: ms/push (device time) of each split-real push beside the
+    default push of the same configuration, in turns a b ... b a."""
+    groups = {
+        "BENCH_CONFIG, k=1, 4096 streams, no ring": (
+            BENCH_CONFIG, dict(chunk_hops=1, store_ring=False), STREAMS,
+            {"default (packed)": {}, "stft_packed=False": dict(stft_packed=False),
+             "transposed_carry": dict(transposed_carry=True),
+             "framing=tsplit": dict(framing="tsplit")}),
+        "DEFAULT_CONFIG, k=1, 4096 streams, no ring": (
+            DEFAULT_CONFIG, dict(chunk_hops=1, store_ring=False), STREAMS,
+            {"default (packed)": {}, "stft_packed=False": dict(stft_packed=False)}),
+        "BENCH_CONFIG, k=8, 4096 streams, no ring": (
+            BENCH_CONFIG, dict(chunk_hops=K, store_ring=False), STREAMS,
+            {"default (packed)": {}, "stft_packed=False": dict(stft_packed=False),
+             "transposed_carry": dict(transposed_carry=True)}),
+        "BENCH_CONFIG, k=8, ring 2048, 256 streams": (
+            BENCH_CONFIG, dict(chunk_hops=K), DISPLAY_STREAMS,
+            {"default (packed)": {}, "transposed_carry": dict(transposed_carry=True)}),
+        f"BENCH_CONFIG, k=1, {SPLIT_SERVING} streams, sorted": (
+            BENCH_CONFIG, dict(chunk_hops=1, store_ring=False), SPLIT_SERVING,
+            {"default (packed, sorted)": {}, "framing=tsplit": dict(framing="tsplit"),
+             "default + presorted + sorted_output": dict(presorted_input=True,
+                                                         sorted_output=True),
+             "tsplit + presorted + sorted_output": dict(framing="tsplit", presorted_input=True,
+                                                        sorted_output=True)}),
+    }
+    for group, (cfg, base, s, setups) in groups.items():
+        chunk = torch.from_numpy(testing.chirp_tone(
+            s, base["chunk_hops"] * cfg.hop_size, cfg.sample_rate, seed=19)).to(dev)
+        box = {}
+        for label, extra in setups.items():
+            p = SpectrogramPipeline(cfg, packed_output=True, device=dev, **base, **extra)
+            box[label] = [p, p.set_palette(p.init_state(s), np.arange(s) % len(p.schemes))]
+
+        def push(label):
+            p, state = box[label]
+            box[label][1], _ = p.push(state, chunk)
+
+        timings = {label: [] for label in setups}
+        for label in (*setups, *reversed(setups)):       # in turns: a b ... b a
+            timings[label].append(device_ms(lambda: push(label)))
+        rows = s * base["chunk_hops"]
+        for label, runs in timings.items():
+            log(f"[19] {group}, {label}: " + " / ".join(f"{x:.4f}" for x in runs)
+                + " ms/push = " + " / ".join(f"{rows / x * 1e3:.1f}" for x in runs) + " rows/s")
+        del box, chunk
+        torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[19] peak device memory over phases 17-19: {peak:.2f} GiB; card {power_line}")
 
 
 if __name__ == "__main__":

@@ -16,11 +16,13 @@
 // Both read twiddles from one table of N entries exp(-2 pi i t / N), computed
 // in float64 on the host and rounded once.
 //
-// Every kernel that runs a row goes through `stft_packed_row`, and all the
-// arithmetic here is written with _rn intrinsics, so nvcc contracts nothing
-// differently in one kernel than in another: the all-windows kernel and the
-// window-plane kernels give the same bits for the same window.  No tensor
-// core is used, so TF32 cannot enter; every stage is true f32.
+// Every packed kernel runs a row through `stft_packed_row`, every
+// split-real kernel (stft_split.cu) one channel of a row through
+// `stft_real_row`, and all the arithmetic here is written with _rn
+// intrinsics, so nvcc contracts nothing differently in one kernel than in
+// another: the all-windows kernel and the window-plane kernels give the same
+// bits for the same window, and so do the four split-real layouts.  No
+// tensor core is used, so TF32 cannot enter; every stage is true f32.
 #pragma once
 
 #include "spk_common.cuh"
@@ -255,6 +257,107 @@ __device__ __forceinline__ void stft_packed_row(
     const float rr = __fsub_rn(zk.x, zm.x), ri = __fadd_rn(zk.y, zm.y);
     ol[k] = sqrtf(__fmaf_rn(lr, lr, __fmul_rn(li, li)));
     orr[k] = sqrtf(__fmaf_rn(rr, rr, __fmul_rn(ri, ri)));
+  }
+}
+
+// ---- the split-real row -------------------------------------------------
+//
+// One channel of one window as its own FFT of real input:
+//   Z = DFT_N(x * hann) with x zero-padded from W to N,  out[k] = |Z[k]|
+// for k = 0 .. N/2-1, `hann` carrying the reference's 2/W output scale (the
+// TPU kernels' `_scaled_hann`).  The window's W samples come from a sample
+// source, a functor that returns the f-th sample of the window in the
+// source's memory order and sets the sample's position i in the window:
+//   RowSamples         one contiguous window (window planes; the k
+//                      hop-shifted windows of a carry+chunk buffer)
+//   TransposedSamples  x[j1, t], t < m, is sample t*n1 + j1 (the transposed
+//                      carry layout [n1, m] of one channel)
+//   SplitSamples       carry [n1, c_cols] then chunk [n1, t_cols]: x[j1, t]
+//                      is sample t*n1 + j1, t counted across both
+// Reads follow memory order (coalesced); each sample lands in the body's
+// shared-memory slot of its window position.  Every layout runs the same
+// arithmetic on the same values, so all give the same bits for a window.
+
+struct RowSamples {
+  const float* x;
+  int w;
+
+  __device__ __forceinline__ int size() const { return w; }
+  __device__ __forceinline__ float sample(int f, int* i) const {
+    *i = f;
+    return x[f];
+  }
+};
+
+struct TransposedSamples {
+  const float* x;  // [n1, m]
+  int n1, m;
+
+  __device__ __forceinline__ int size() const { return n1 * m; }
+  __device__ __forceinline__ float sample(int f, int* i) const {
+    const int j1 = f / m;
+    const int t = f - j1 * m;
+    *i = t * n1 + j1;
+    return x[f];
+  }
+};
+
+struct SplitSamples {
+  const float* carry;  // [n1, c_cols]: window columns 0 .. c_cols-1
+  const float* chunk;  // [n1, t_cols]: window columns c_cols .. m-1
+  int n1, c_cols, t_cols;
+
+  __device__ __forceinline__ int size() const { return n1 * (c_cols + t_cols); }
+  __device__ __forceinline__ float sample(int f, int* i) const {
+    const int in_carry = n1 * c_cols;
+    if (f < in_carry) {
+      const int j1 = f / c_cols;
+      *i = (f - j1 * c_cols) * n1 + j1;
+      return carry[f];
+    }
+    const int g = f - in_carry;
+    const int j1 = g / t_cols;
+    *i = (c_cols + g - j1 * t_cols) * n1 + j1;
+    return chunk[g];
+  }
+};
+
+template <class Body, class Source>
+__device__ __forceinline__ void stft_real_row(
+    const Body& body, const Source& src, const float* __restrict__ hann,
+    const float2* __restrict__ tw, float* __restrict__ out, float2* buf) {
+  const int n = body.size();
+  const int w = src.size();
+  for (int f = threadIdx.x; f < w; f += blockDim.x) {
+    int i;
+    const float x = src.sample(f, &i);
+    buf[body.slot(i)] = make_float2(__fmul_rn(x, hann[i]), 0.f);
+  }
+  for (int i = w + threadIdx.x; i < n; i += blockDim.x) {
+    buf[body.slot(i)] = make_float2(0.f, 0.f);
+  }
+  __syncthreads();
+  body.transform(buf, tw);
+  const int half = n >> 1;
+  for (int k = threadIdx.x; k < half; k += blockDim.x) {
+    const float2 z = buf[k];
+    out[k] = sqrtf(__fmaf_rn(z.x, z.x, __fmul_rn(z.y, z.y)));
+  }
+}
+
+// The next carry of the carry+chunk framing, one channel: the window's last
+// c_cols columns after a hop of t_cols, [n1, c_cols] in the carry's layout.
+// For t_cols < c_cols: carry columns t_cols.. then the chunk; else the
+// chunk's last c_cols columns.
+__device__ __forceinline__ void split_next_carry(
+    const float* __restrict__ carry, const float* __restrict__ chunk,
+    float* __restrict__ next, int n1, int c_cols, int t_cols) {
+  const int keep = c_cols > t_cols ? c_cols - t_cols : 0;
+  for (int f = threadIdx.x; f < n1 * c_cols; f += blockDim.x) {
+    const int j1 = f / c_cols;
+    const int u = f - j1 * c_cols;
+    next[f] = u < keep ? carry[j1 * c_cols + t_cols + u]
+                       : chunk[j1 * t_cols + t_cols - c_cols + u];
   }
 }
 

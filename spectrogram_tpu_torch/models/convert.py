@@ -63,15 +63,17 @@ def _tables(tables: tuple, device) -> tuple:
 def state_from_jax(state: dict, device=None) -> StreamState:
     """A `StreamState` on `device` (default: the card) from a JAX state's
     numpy arrays.  The carry is [S, 2, C] f32, or int16 from an i16_planes
-    pipeline; the ring ([S, R, 2, B], R = 0 without store_ring) arrives as
-    bf16 or f32 values and is stored as bf16; the tables tuple keeps its
-    structure.  The transposed carry ([S, 2, n1, C/n1]) is not ported and
-    raises."""
+    pipeline, or the transposed [S, 2, n1, C/n1] f32 of a transposed_carry
+    or framing="tsplit" pipeline; the ring ([S, R, 2, B], R = 0 without
+    store_ring) arrives as bf16 or f32 values and is stored as bf16; the
+    tables tuple keeps its structure."""
     carry = np.asarray(state["carry"])
-    if carry.ndim != 3 or carry.dtype not in (np.float32, np.int16):
+    planar = carry.ndim == 3 and carry.dtype in (np.float32, np.int16)
+    transposed = carry.ndim == 4 and carry.dtype == np.float32
+    if not (planar or transposed) or carry.shape[1] != 2:
         raise ValueError(
-            f"carry must be an f32 or int16 [S, 2, C] array; got {carry.dtype} "
-            f"{carry.shape} (the transposed carry is not ported)"
+            f"carry must be an f32 or int16 [S, 2, C] array or an f32 "
+            f"[S, 2, n1, C/n1] one; got {carry.dtype} {carry.shape}"
         )
     device = default_device(device)
     return StreamState(

@@ -58,6 +58,23 @@ carry no tables, `set_palette` raises, and every row takes the static
 colormap.  Neither a generic nor a static state is marked for the blockwise
 colormap or palette-sorted (the JAX package gates both on built-in tables).
 
+The JAX package's opt-in STFT layouts, with the gates of its Pallas chain
+(the TPU plan `fft_plan` defines the transposed layout's n1):
+
+  * `stft_packed=False`: the split-real STFT, one FFT of real input per
+    channel: `stft_mag_split` over the window planes at k=1 and in
+    `process()`, `stft_mag_split_allk` over the buffers at k>1;
+  * `transposed_carry=True`: the carry is stored [S, 2, n1, C/n1] (sample
+    t*n1 + j1 at [j1, t]); a push transposes only the chunk, concatenates
+    and slices, and `stft_mag_split_t` reads the [k*S, 2, n1, m] windows;
+  * `framing="tsplit"` (k=1): the same carry, and `stft_mag_split_tsplit`
+    takes the carry and the transposed chunk as two operands and writes the
+    next carry itself.
+
+All three are split-real, and the four split-real kernels share one row
+body, so their rows are the same bits; `process()` of such a pipeline takes
+the split-real plane kernel, and streamed == `process()` stays exact.
+
 On a CPU device the kernels run as their plain PyTorch versions; on a CUDA
 device as the hand-written kernels in `csrc/`.  There is no fallback from one
 to the other.  Without a `device`, the pipeline runs on the card.
@@ -76,6 +93,7 @@ import torch
 
 from spectrogram_tpu_torch.config import SpectrogramConfig
 from spectrogram_tpu_torch.ops import colormap as cmap_ops
+from spectrogram_tpu_torch.ops import fft_plan
 from spectrogram_tpu_torch.ops import stft as stft_ops
 from spectrogram_tpu_torch.ops.cuda import colormap_kernel, stft_kernel
 
@@ -87,7 +105,8 @@ class StreamState(NamedTuple):
     """Per-batch state.  Tensors lead with the stream axis except the
     scalars shared by the lockstep batch; the layout is the JAX package's."""
 
-    carry: torch.Tensor       # [S, 2, window-hop] f32 (int16 with i16_planes)
+    carry: torch.Tensor       # [S, 2, window-hop] f32 (int16 with i16_planes);
+                              # [S, 2, n1, (window-hop)/n1] f32 transposed
     ring: torch.Tensor        # [S, R, 2, B] bf16 magnitude rows (R = 0: no ring)
     cursor: torch.Tensor      # [] int32 — next ring row
     palette_id: torch.Tensor  # [S] int32 — per-stream palette index
@@ -169,7 +188,27 @@ class SpectrogramPipeline:
         of a sorted state in sorted stream order: row i carries external
         stream `input_perm(state)[i]` (`input_dest` is the inverse).
       i16_planes: keep carry, chunks and kernel operands int16 PCM words;
-        pushes then take int16 chunks only.
+        pushes then take int16 chunks only.  Packed STFT on the planar
+        carry only: it raises with stft_packed=False, transposed_carry or
+        framing="tsplit", as in JAX (which has no int16 split-real kernel).
+      transposed_carry: store the carry [S, 2, n1, C/n1] and run the
+        split-real STFT on the transposed windows.  Where the JAX gate
+        refuses it (hop not a multiple of the plan's n1, a lane-padded plan,
+        or k > 1 where the TPU's DMA-offset framing applies) it raises.
+      framing: "auto", "allk", "planes" or "tsplit".  "tsplit" (k=1, with
+        JAX's `tsplit_supported`) keeps the transposed carry and passes
+        carry and chunk to the split-real kernel as two operands, which
+        writes the next carry.  "allk" raises where the JAX all-windows gate
+        fails; "auto", "allk" and "planes" all run the all-windows kernel at
+        k > 1 (its rows equal the window-plane path's).
+      stft_packed: "auto", True or False.  False takes the split-real
+        kernels everywhere; "auto" and True the stereo-packed ones on every
+        geometry the kernels take (True raises where the TPU's packed
+        kernel did not apply, as in JAX).
+      stft_unpack_split: "auto", 0, 2 or 3, validated as in JAX (nonzero
+        needs the packed STFT).  It chose a TPU matrix-unit split of the
+        unpack; the port's unpack is exact, which JAX's 0 and 3 are bit for
+        bit and its 2 within 2^-17, so it changes nothing here.
       device: where state, constants and kernels live: "cuda" (the default)
         runs the kernels, "cpu" their plain versions.
     """
@@ -193,6 +232,10 @@ class SpectrogramPipeline:
         sorted_output: bool = False,
         presorted_input: bool = False,
         i16_planes: bool = False,
+        transposed_carry: bool = False,
+        framing: str = "auto",
+        stft_packed="auto",
+        stft_unpack_split="auto",
         device=None,
     ):
         cfg.validate()
@@ -253,6 +296,8 @@ class SpectrogramPipeline:
         res = lut_resolution or cfg.lut_resolution
         self.chunk_size = k * cfg.hop_size
         self.carry_size = stft_ops.carry_size(cfg)
+        self._stft_layout(cfg, stft_packed, stft_unpack_split, transposed_carry,
+                          framing)
         dev = self.device
         # the registry's kind: built-in tables where every scheme fits the
         # built-in structure, else (U, V) factor tables for all of them
@@ -296,6 +341,8 @@ class SpectrogramPipeline:
             stft_kernel.packed_hann(cfg.window_size)).to(dev)         # [W]
         self.hann_i16 = torch.from_numpy(
             stft_kernel.packed_hann_i16(cfg.window_size)).to(dev)     # [W]
+        self.split_hann = torch.from_numpy(
+            stft_kernel.split_hann(cfg.window_size)).to(dev)          # [W]
         self.twiddles = torch.from_numpy(
             stft_kernel.twiddle_table(cfg.padded_size)).to(dev)       # [N, 2]
         # the push reads [N/2] planes (bin k at k); the ring holds bins 1..W-1
@@ -314,6 +361,10 @@ class SpectrogramPipeline:
         self._time_taps = {}
         self._stft = stft_kernel.stft_mag_packed
         self._stft_allk = stft_kernel.stft_mag_packed_allk
+        self._stft_split = stft_kernel.stft_mag_split
+        self._stft_split_allk = stft_kernel.stft_mag_split_allk
+        self._stft_split_t = stft_kernel.stft_mag_split_t
+        self._stft_split_tsplit = stft_kernel.stft_mag_split_tsplit
         self._colormap = colormap_kernel.colormap_builtin
         self._colormap_bw = colormap_kernel.colormap_blockwise
         self._colormap_generic = colormap_kernel.colormap_generic
@@ -329,12 +380,98 @@ class SpectrogramPipeline:
         twin._stft_allk = lambda buf_l, buf_r, hann, tw, k, hop: (
             stft_kernel.stft_mag_packed_allk_plain(
                 buf_l, buf_r, hann, tw.shape[0], k, hop))
+        twin._stft_split = lambda left, right, hann, tw: (
+            stft_kernel.stft_mag_split_plain(left, right, hann, tw.shape[0]))
+        twin._stft_split_allk = lambda buf_l, buf_r, hann, tw, k, hop: (
+            stft_kernel.stft_mag_split_allk_plain(
+                buf_l, buf_r, hann, tw.shape[0], k, hop))
+        twin._stft_split_t = lambda x, hann, tw: (
+            stft_kernel.stft_mag_split_t_plain(x, hann, tw.shape[0]))
+        twin._stft_split_tsplit = lambda carry, chunk, hann, tw: (
+            stft_kernel.stft_mag_split_tsplit_plain(carry, chunk, hann, tw.shape[0]))
         twin._colormap = colormap_kernel.colormap_builtin_plain
         twin._colormap_bw = lambda *args, block_rows: (
             colormap_kernel.colormap_blockwise_plain(*args))
         twin._colormap_generic = colormap_kernel.colormap_generic_plain
         twin._colormap_static = colormap_kernel.colormap_static_plain
         return twin
+
+    def _stft_layout(self, cfg: SpectrogramConfig, stft_packed, stft_unpack_split,
+                     transposed_carry, framing: str) -> None:
+        """The STFT knobs, accepted and refused with the gates of the JAX
+        pipeline on its Pallas chain
+        (`spectrogram_tpu/models/spectrogram.py:237-346`)."""
+        plan = fft_plan.make_plan(cfg)
+        self.fft_plan = plan if fft_plan.plan_usable(cfg, plan) else None
+        plan = self.fft_plan
+        lane_pad = plan is not None and fft_plan.lane_pad_default(plan)
+        k = self.chunk_hops
+        if stft_packed not in ("auto", True, False):
+            raise ValueError(f"unknown stft_packed {stft_packed!r}")
+        if (stft_packed != "auto" and bool(stft_packed)
+                and not (plan is not None and fft_plan.packed_supported(plan, lane_pad))):
+            raise ValueError(
+                f"stft_packed=True requires a plan the TPU's packed kernel "
+                f"takes (cfg {cfg}, plan={plan})"
+            )
+        # "auto": packed wherever the kernels take N (the TPU's gate was its
+        # flat-2D orientation, which the port's packed kernel does not need)
+        self.stft_packed = True if stft_packed == "auto" else bool(stft_packed)
+        if stft_unpack_split not in ("auto", 0, 2, 3):
+            raise ValueError(f"unknown stft_unpack_split {stft_unpack_split!r}")
+        self.stft_unpack_split = ((3 if self.stft_packed else 0)
+                                  if stft_unpack_split == "auto"
+                                  else int(stft_unpack_split))
+        if self.stft_unpack_split and not self.stft_packed:
+            raise ValueError("stft_unpack_split requires the packed STFT formulation")
+        self.carry_transposed = bool(transposed_carry) and (
+            plan is not None
+            and not lane_pad
+            and fft_plan.carry_transposed_supported(cfg, plan)
+            and not (k > 1 and fft_plan.buf_framing_supported(cfg, k, plan))
+        )
+        if transposed_carry and not self.carry_transposed:
+            raise ValueError(
+                f"transposed_carry requires hop % n1 == 0 on the TPU plan, no "
+                f"lane padding, and at k > 1 a hop the DMA-offset framing does "
+                f"not take (cfg {cfg}, plan {plan}, chunk_hops={k})"
+            )
+        if framing not in ("auto", "allk", "planes", "tsplit"):
+            raise ValueError(f"unknown framing {framing!r}")
+        self.framing = framing
+        allk_ok = (plan is not None and not self.carry_transposed
+                   and fft_plan.split_framing_supported(cfg, k, plan))
+        if framing == "allk" and not allk_ok:
+            raise ValueError(
+                f"framing='allk' requires hop % n1 == 0 on the TPU plan "
+                f"(cfg {cfg}, plan {plan})"
+            )
+        tsplit_ok = (plan is not None and not self.carry_transposed and k == 1
+                     and fft_plan.tsplit_supported(cfg, k, plan, lane_pad=lane_pad))
+        self.tsplit_framing = tsplit_ok and framing == "tsplit"
+        if framing == "tsplit" and not tsplit_ok:
+            raise ValueError(
+                f"framing='tsplit' requires chunk_hops=1, hop % n1 == 0 and a "
+                f"flip-capable TPU plan (cfg {cfg}, plan {plan})"
+            )
+        if self.i16_planes and (not self.stft_packed or self.carry_is_transposed):
+            raise ValueError(
+                "i16_planes requires the packed STFT on the planar carry "
+                f"(stft_packed={self.stft_packed}, transposed_carry="
+                f"{self.carry_transposed}, framing={framing!r}): there is no "
+                "int16 split-real kernel"
+            )
+
+    @property
+    def carry_is_transposed(self) -> bool:
+        """True when the state's carry is [S, 2, n1, C/n1]: transposed_carry
+        or the tsplit framing."""
+        return self.carry_transposed or self.tsplit_framing
+
+    @property
+    def split_real(self) -> bool:
+        """True when pushes (and so `process()`) take the split-real STFT."""
+        return not self.stft_packed or self.carry_is_transposed
 
     # ------------------------------------------------------------------ state
 
@@ -352,9 +489,13 @@ class SpectrogramPipeline:
         tables = self.state_tables_for(pid)
         if self.blockwise_palettes == "auto" and len(tables) == 1 and n_streams:
             tables += (self._bw_marker(),)     # one palette: every block uniform
+        if self.carry_is_transposed:
+            n1 = self.fft_plan.n1
+            carry_shape = (n_streams, 2, n1, self.carry_size // n1)
+        else:
+            carry_shape = (n_streams, 2, self.carry_size)
         return StreamState(
-            carry=torch.zeros((n_streams, 2, self.carry_size),
-                              dtype=self.carry_dtype, device=dev),
+            carry=torch.zeros(carry_shape, dtype=self.carry_dtype, device=dev),
             ring=torch.zeros((n_streams, ring_rows, 2, self.cfg.num_bins),
                              dtype=self.ring_dtype, device=dev),
             cursor=torch.zeros((), dtype=torch.int32, device=dev),
@@ -689,11 +830,63 @@ class SpectrogramPipeline:
         w = self.cfg.window_size
         return buf_l[:, :w].contiguous(), buf_r[:, :w].contiguous(), new_carry
 
+    def _chunk_transposed(self, chunk_pl: torch.Tensor) -> torch.Tensor:
+        """[S, 2, T] -> [S, 2, n1, T/n1]: sample t*n1 + j1 at [j1, t]."""
+        n1 = self.fft_plan.n1
+        s = chunk_pl.shape[0]
+        return chunk_pl.reshape(s, 2, self.chunk_size // n1, n1).transpose(2, 3)
+
+    def frame_transposed(self, state: StreamState, chunk_pl: torch.Tensor):
+        """Transposed-carry framing (the JAX `_push_fused_t` glue): (x,
+        new_carry) with x the [k*S, 2, n1, m] windows, window-major, of the
+        carry + transposed chunk, and new_carry its last C/n1 columns."""
+        n1, m = self.fft_plan.n1, self.fft_plan.m
+        buf_t = torch.cat([state.carry, self._chunk_transposed(chunk_pl)], dim=3)
+        cols = buf_t.shape[3]
+        new_carry = buf_t[..., cols - self.carry_size // n1 :].contiguous()
+        if self.chunk_hops == 1:
+            return buf_t, new_carry                      # cols == m
+        hop_m = self.cfg.hop_size // n1
+        x = torch.cat([buf_t[..., r * hop_m : r * hop_m + m]
+                       for r in range(self.chunk_hops)])
+        return x, new_carry
+
+    def _framed_stft(self, state: StreamState, chunk_pl: torch.Tensor):
+        """Framing and the STFT of one push, by the pipeline's layout:
+        (mag_l, mag_r, new_carry), the planes [k*S, N/2] window-major."""
+        k, tw = self.chunk_hops, self.twiddles
+        if self.tsplit_framing:
+            return self._stft_split_tsplit(
+                state.carry, self._chunk_transposed(chunk_pl).contiguous(),
+                self.split_hann, tw)
+        if self.carry_transposed:
+            x, new_carry = self.frame_transposed(state, chunk_pl)
+            return (*self._stft_split_t(x, self.split_hann, tw), new_carry)
+        if not self.stft_packed:
+            hann, stft, stft_allk = self.split_hann, self._stft_split, self._stft_split_allk
+        else:
+            hann = self.hann_i16 if chunk_pl.dtype == torch.int16 else self.hann
+            stft, stft_allk = self._stft, self._stft_allk
+        if k == 1:
+            left, right, new_carry = self.frame_windows(state, chunk_pl)
+            return (*stft(left, right, hann, tw), new_carry)
+        buf_l, buf_r, new_carry = self.frame_buffers(state, chunk_pl)
+        return (*stft_allk(buf_l, buf_r, hann, tw, k, self.cfg.hop_size), new_carry)
+
     def _push_core(self, state: StreamState, chunk_pl: torch.Tensor):
         if state.carry.dtype != self.carry_dtype:
             raise ValueError(
                 f"the state's carry is {state.carry.dtype}; this pipeline "
                 f"keeps {self.carry_dtype} (i16_planes={self.i16_planes})"
+            )
+        if state.carry.ndim != (4 if self.carry_is_transposed else 3):
+            raise ValueError(
+                f"the state's carry is {tuple(state.carry.shape)}; this "
+                f"pipeline keeps a "
+                + ("transposed [S, 2, n1, C/n1]" if self.carry_is_transposed
+                   else "planar [S, 2, C]")
+                + " carry (carry_is_transposed="
+                f"{self.carry_is_transposed})"
             )
         if self.sanitize_input and chunk_pl.dtype == torch.float32:
             # int16 words cannot carry NaN or inf: nothing to scrub
@@ -703,14 +896,7 @@ class SpectrogramPipeline:
         if perms is not None and self.carry_sort_mode and not self.presorted_input:
             # the carry is at rest in sorted order: bring the chunk into it
             chunk_pl = chunk_pl.index_select(0, perms[0])
-        hann = self.hann_i16 if chunk_pl.dtype == torch.int16 else self.hann
-        if k == 1:
-            left, right, new_carry = self.frame_windows(state, chunk_pl)
-            mag_l, mag_r = self._stft(left, right, hann, self.twiddles)
-        else:
-            buf_l, buf_r, new_carry = self.frame_buffers(state, chunk_pl)
-            mag_l, mag_r = self._stft_allk(buf_l, buf_r, hann, self.twiddles,
-                                           k, self.cfg.hop_size)
+        mag_l, mag_r, new_carry = self._framed_stft(state, chunk_pl)
         cm_l, cm_r = mag_l, mag_r
         if perms is not None and not self.carry_sort_mode:
             # the mag-bridge: the planes come in external order (the ring
@@ -852,8 +1038,9 @@ class SpectrogramPipeline:
         complete windows, [S, rows, H] int32 (or [S, rows, H, 4] u8), every
         stream on one palette: `palette_id`, by default the pinned
         static_palette where there is one, else 1 (Magma).  A static_palette
-        pipeline colors with its static table whatever the id.  Kernel A on
-        the framed windows, then the colormap the push takes, so pushing the
+        pipeline colors with its static table whatever the id.  Kernel A
+        (the split-real plane kernel where the push is split-real) on the
+        framed windows, then the colormap the push takes, so pushing the
         same samples in chunks gives the same rows exactly."""
         if palette_id is None:
             palette_id = (self.static_palette_id
@@ -872,7 +1059,10 @@ class SpectrogramPipeline:
         left = frames[..., 0].reshape(s * n, w).contiguous()
         right = frames[..., 1].reshape(s * n, w).contiguous()
         pid = torch.tensor([palette_id], dtype=torch.int32, device=self.device)
-        mag_l, mag_r = self._stft(left, right, self.hann, self.twiddles)
+        if self.split_real:
+            mag_l, mag_r = self._stft_split(left, right, self.split_hann, self.twiddles)
+        else:
+            mag_l, mag_r = self._stft(left, right, self.hann, self.twiddles)
         rows = self._run_colormap(mag_l, mag_r, self.taps,
                                   self.state_tables_for(pid), blockwise=False)
         out = self._output(rows.reshape(s, n, -1))

@@ -44,6 +44,10 @@ KERNELS = {
     "spk_stft_mixed_i16": _STFT,
     "spk_stft_allk": _ALLK,
     "spk_stft_allk_i16": _ALLK,
+    "spk_stft_split": _STFT,
+    "spk_stft_split_allk": _ALLK,
+    "spk_stft_split_t": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "spk_stft_split_tsplit": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "spk_colormap_builtin": (
         _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _F, _F, _F, _F, _P,
         _P,

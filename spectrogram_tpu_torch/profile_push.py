@@ -16,7 +16,11 @@ Profiles, each with torch.profiler over a steady window after a warm-up:
   5. the k=1 push at BENCH_CONFIG, 4096 streams, no ring, by palette kind:
      built-in per-row (arange(S) % 19), static_palette="Magma", and a
      generic registry (a FactoredScheme outside the built-in structure + 3
-     built-ins) per-row (arange(S) % 4) and with one palette.
+     built-ins) per-row (arange(S) % 4) and with one palette;
+  6. the split-real layouts at BENCH_CONFIG, no ring, palettes arange(S) %
+     19: stft_packed=False, transposed_carry and framing="tsplit" at k=1 and
+     4096 streams, and framing="tsplit" in the 10,240-stream serving push
+     (sorted carry).
 
 For each it prints the host wall time per call over the window (ended by a
 synchronize), the device busy time per call (the sum of its kernels), the
@@ -139,6 +143,17 @@ def main(argv=None) -> int:
         state = [p.init_state(s) if ids is None else p.set_palette(p.init_state(s), ids)]
         profile(f"k=1 push, BENCH_CONFIG, {s} streams, {label}", push, args.pushes)
         del state
+    for label, kw, s in (("stft_packed=False", dict(stft_packed=False), 4096),
+                         ("transposed_carry", dict(transposed_carry=True), 4096),
+                         ("framing=tsplit", dict(framing="tsplit"), 4096),
+                         ("framing=tsplit, sorted", dict(framing="tsplit"), 10240)):
+        p = SpectrogramPipeline(BENCH_CONFIG, chunk_hops=1, store_ring=False,
+                                packed_output=True, device=dev, **kw)
+        state = [p.set_palette(p.init_state(s), np.arange(s) % 19)]
+        chunk = torch.from_numpy(
+            testing.chirp_tone(s, BENCH_CONFIG.hop_size, 48000.0, seed=8)).to(dev)
+        profile(f"k=1 push, BENCH_CONFIG, {s} streams, {label}", push, args.pushes)
+        del state, chunk
     print("card:", subprocess.run(smi, capture_output=True, text=True).stdout.strip())
     return 0
 

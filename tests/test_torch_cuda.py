@@ -11,7 +11,9 @@ share their device code); the colormap kernels 1 u8 per channel on the
 same planes (log10f and the plain path's division may round differently),
 and bitwise against each other where they share a per-pixel body (the
 blockwise kernel against kernel B, the static kernel against kernel B and
-the generic kernel with one table).
+the generic kernel with one table).  The four split-real STFT kernels share
+one row body, so they are held bit for bit against each other on the same
+windows, and the tsplit kernel's next carry exactly against the framing's.
 """
 
 import numpy as np
@@ -22,6 +24,7 @@ from spectrogram_tpu_torch import testing
 from spectrogram_tpu_torch.config import BENCH_CONFIG, DEFAULT_CONFIG, SpectrogramConfig
 from spectrogram_tpu_torch.models.spectrogram import SpectrogramPipeline
 from spectrogram_tpu_torch.ops import colormap as cmap_ops
+from spectrogram_tpu_torch.ops import fft_plan
 from spectrogram_tpu_torch.ops.cuda import _build
 from spectrogram_tpu_torch.ops.cuda import colormap_kernel as ck
 from spectrogram_tpu_torch.ops.cuda import stft_kernel as sk
@@ -422,3 +425,97 @@ def test_generic_and_static_pipelines_on_card(cuda, k):
             assert testing.rgba_u8_diff(
                 ck.unpack_rgba(gpu.render_viewport(sg, width)),
                 ck.unpack_rgba(gpu.with_plain_kernels().render_viewport(sg, width))) <= 1
+
+
+# ------------------------------------------------------------- split-real
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+@pytest.mark.parametrize("kind", ["chirp_tone", "noise"])
+def test_split_kernels_match_plain_and_each_other(cuda, geometry, kind):
+    """The four split-real kernels, each launched once, against their plain
+    versions; transposed, tsplit and all-windows bit for bit the window
+    planes' rows; tsplit's next carry exactly the framing's."""
+    cfg = GEOMETRIES[geometry]
+    w, n, rows = cfg.window_size, cfg.padded_size, 64
+    n1 = fft_plan.make_plan(cfg).n1
+    m = w // n1
+    left, right = _windows(cfg, kind, rows, cuda)
+    hann = torch.from_numpy(sk.split_hann(w)).to(cuda)
+    tw = torch.from_numpy(sk.twiddle_table(n)).to(cuda)
+    lib = _build.library()
+    names = (sk.SPLIT_KERNEL, sk.SPLIT_ALLK_KERNEL, sk.SPLIT_T_KERNEL, sk.SPLIT_TSPLIT_KERNEL)
+    before = {name: lib.launches[name] for name in names}
+    planes = sk.stft_mag_split(left, right, hann, tw)
+    x = torch.stack([left, right], 1).reshape(rows, 2, m, n1).transpose(2, 3).contiguous()
+    t = sk.stft_mag_split_t(x, hann, tw)
+    t_cols = m // 3
+    carry, chunk = x[..., : m - t_cols].contiguous(), x[..., m - t_cols :].contiguous()
+    ts = sk.stft_mag_split_tsplit(carry, chunk, hann, tw)
+    k, hop, s = 3, w // 4, rows // 4
+    buf = torch.cat([left[:s], right[:s, : (k - 1) * hop]], dim=1).contiguous()
+    buf_r = torch.cat([right[s : 2 * s], left[s : 2 * s, : (k - 1) * hop]], dim=1).contiguous()
+    allk = sk.stft_mag_split_allk(buf, buf_r, hann, tw, k, hop)
+    torch.cuda.synchronize()
+    assert all(lib.launches[name] == before[name] + 1 for name in names)
+    for g, x_ in zip(planes, sk.stft_mag_split_plain(left, right, hann, n)):
+        torch.testing.assert_close(g, x_, atol=ATOL, rtol=RTOL)
+    for got in (t, ts[:2]):
+        for g, a in zip(got, planes):
+            torch.testing.assert_close(g, a, atol=0, rtol=0)
+    torch.testing.assert_close(ts[2], torch.cat([carry, chunk], 3)[..., t_cols:], atol=0, rtol=0)
+    wl = torch.cat([buf[:, r * hop : r * hop + w] for r in range(k)]).contiguous()
+    wr = torch.cat([buf_r[:, r * hop : r * hop + w] for r in range(k)]).contiguous()
+    for g, a, x_ in zip(allk, sk.stft_mag_split(wl, wr, hann, tw),
+                        sk.stft_mag_split_allk_plain(buf, buf_r, hann, n, k, hop)):
+        torch.testing.assert_close(g, a, atol=0, rtol=0)
+        torch.testing.assert_close(g, x_, atol=ATOL, rtol=RTOL)
+    with pytest.raises(ValueError, match="float32"):
+        sk.stft_mag_split(left.to(torch.int16), right.to(torch.int16), hann, tw)
+
+
+LAYOUTS = {
+    "split_real_k1": dict(chunk_hops=1, stft_packed=False),
+    "split_real_k8": dict(chunk_hops=8, stft_packed=False),
+    "transposed_k1": dict(chunk_hops=1, transposed_carry=True),
+    "transposed_k8": dict(chunk_hops=8, transposed_carry=True),
+    "tsplit": dict(chunk_hops=1, framing="tsplit"),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_split_real_pipelines_on_card(cuda, layout):
+    """Each split-real push on the card against the same push on the CPU
+    (1 u8 over what the image shows, carry and ring as the other pushes),
+    streamed == process() bit for bit, and the launches of its kernel."""
+    cfg = BENCH_CONFIG
+    kw = dict(LAYOUTS[layout], viewport_rows=16, packed_output=True)
+    gpu = SpectrogramPipeline(cfg, device=cuda, **kw)
+    cpu = SpectrogramPipeline(cfg, device="cpu", **kw)
+    ids = np.array([0, 1, 3, 8, 12])
+    sg = gpu.set_palette(gpu.init_state(len(ids)), ids)
+    sc = cpu.set_palette(cpu.init_state(len(ids)), ids)
+    name = (sk.SPLIT_TSPLIT_KERNEL if gpu.tsplit_framing else sk.SPLIT_T_KERNEL
+            if gpu.carry_transposed else sk.SPLIT_KERNEL if gpu.chunk_hops == 1
+            else sk.SPLIT_ALLK_KERNEL)
+    lib = _build.library()
+    before = lib.launches[name]
+    t = gpu.chunk_size
+    pcm = testing.chirp_tone(len(ids), 3 * t, cfg.sample_rate, seed=8)
+    rows_g, rows_c = [], []
+    for i in range(3):
+        chunk = torch.from_numpy(pcm[:, i * t : (i + 1) * t])
+        sg, rg = gpu.push(sg, chunk.to(cuda))
+        sc, rc = cpu.push(sc, chunk)
+        torch.testing.assert_close(sg.carry.cpu(), sc.carry, atol=0, rtol=0)
+        assert testing.bf16_ulps(sg.ring.cpu(), sc.ring, ATOL) <= 1
+        rows_g.append(rg.cpu())
+        rows_c.append(rc)
+    torch.cuda.synchronize()
+    assert lib.launches[name] == before + 3
+    streamed = torch.cat(rows_g, dim=1)
+    assert testing.rgba_u8_diff(
+        ck.unpack_rgba(streamed), ck.unpack_rgba(torch.cat(rows_c, dim=1))) <= 1
+    padded = np.concatenate([np.zeros((len(ids), gpu.carry_size, 2), np.float32), pcm], 1)
+    for s, pid in enumerate(ids):
+        one = gpu.process(torch.from_numpy(padded[s : s + 1]).to(cuda), palette_id=int(pid))
+        torch.testing.assert_close(one.cpu()[0], streamed[s], atol=0, rtol=0)

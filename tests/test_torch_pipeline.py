@@ -223,8 +223,14 @@ def test_state_round_trip():
     for k in ("carry", "ring", "cursor", "palette_id", "row_count"):
         np.testing.assert_array_equal(back[k], np.asarray(d[k], back[k].dtype))
     np.testing.assert_array_equal(back["tables"][0], d["tables"][0])
-    # the transposed carry [S, 2, n1, C/n1] is not ported
-    bad = dict(d, carry=d["carry"].reshape(3, 2, 4, -1))
-    with pytest.raises(ValueError, match="carry"):
-        state_from_jax(bad, device="cpu")
+    # the transposed carry [S, 2, n1, C/n1] carries across as it is (f32
+    # only: no pipeline keeps it int16); other carries raise
+    transposed = dict(d, carry=d["carry"].reshape(3, 2, 4, -1))
+    np.testing.assert_array_equal(
+        state_to_numpy(state_from_jax(transposed, device="cpu"))["carry"],
+        transposed["carry"])
+    for carry in (transposed["carry"].astype(np.int16), d["carry"][:, 0],
+                  d["carry"].reshape(3, 1, 2, -1)):
+        with pytest.raises(ValueError, match="carry"):
+            state_from_jax(dict(d, carry=carry), device="cpu")
     assert jax.default_backend() == "cpu"

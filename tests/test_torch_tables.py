@@ -19,6 +19,7 @@ import spectrogram_tpu.config as jcfg
 from spectrogram_tpu.color import colorscheme as jcs
 from spectrogram_tpu.color import gradients as jgr
 from spectrogram_tpu.ops import colormap as jcm
+from spectrogram_tpu.ops import mxu_fft as jfft
 from spectrogram_tpu.ops import stft as jstft
 from spectrogram_tpu.ops.pallas import colormap_kernel as jck
 from spectrogram_tpu.ops.pallas import stft_kernel as jsk
@@ -27,6 +28,7 @@ import spectrogram_tpu_torch.config as tcfg
 from spectrogram_tpu_torch.color import colorscheme as tcs
 from spectrogram_tpu_torch.color import gradients as tgr
 from spectrogram_tpu_torch.ops import colormap as tcm
+from spectrogram_tpu_torch.ops import fft_plan as tfp
 from spectrogram_tpu_torch.ops import stft as tstft
 from spectrogram_tpu_torch.ops.cuda import colormap_kernel as tck
 from spectrogram_tpu_torch.ops.cuda import stft_kernel as tsk
@@ -176,6 +178,10 @@ def test_hann_copies(w):
     # folds it for int16 operands
     np.testing.assert_array_equal(
         (jh * np.float32(2.0 ** -15)).reshape(-1), tsk.packed_hann_i16(w))
+    # the split-real kernels' window: 2/W folded in, as `_scaled_hann`
+    js = jsk._scaled_hann(w, w // n1, n1)
+    np.testing.assert_array_equal(js.reshape(-1), tsk.split_hann(w))
+    assert tsk.split_hann(w).dtype == js.dtype == np.float32
 
 
 @pytest.mark.parametrize("rows,width", [(2048, 2048), (2048, 800), (6, 9), (16, 24)])
@@ -205,10 +211,69 @@ def test_twiddle_table():
     np.testing.assert_array_equal(tw[:, 1], ref.imag.astype(np.float32))
 
 
+# (sample rate, window, hop, pad): BENCH, DEFAULT, the test geometries, and
+# plans where lane_pad_default and flip_supported differ (n2 = 100, 64, 128,
+# 120, 32, 75), an odd n1, and a window with no plan
+PLAN_SWEEP = [
+    (48000.0, 2048, 800, 2), (48000.0, 2400, 58, 2), (8000.0, 256, 64, 2),
+    (8000.0, 256, 192, 2), (48000.0, 2048, 256, 2), (48000.0, 1024, 512, 2),
+    (48000.0, 4800, 2400, 2), (48000.0, 2400, 480, 2), (48000.0, 1200, 300, 2),
+    (48000.0, 3000, 600, 2), (48000.0, 1000, 250, 2), (48000.0, 2048, 800, 1),
+    (48000.0, 2048, 2048, 2), (48000.0, 2250, 450, 2), (48000.0, 97, 10, 2), (48000.0, 509, 100, 2),
+]
+
+
+def _sweep_configs(rate, w, hop, pad):
+    kw = dict(sample_rate=rate, window_period=w / rate, hop_period=hop / rate,
+              pad_factor=pad)
+    j, t = jcfg.SpectrogramConfig(**kw), tcfg.SpectrogramConfig(**kw)
+    assert (t.window_size, t.hop_size) == (w, hop)
+    return j, t
+
+
+@pytest.mark.parametrize("geometry", PLAN_SWEEP)
+def test_fft_plan_and_gates_copy(geometry):
+    """`ops/fft_plan.py` against `mxu_fft.py` and the gates of
+    `stft_kernel.py`, over plans where each gate goes both ways."""
+    j, t = _sweep_configs(*geometry)
+    n, w = t.padded_size, t.window_size
+    assert tfp.choose_factors(n, w) == jfft.choose_factors(n, w)
+    jp, tp = jfft.make_plan(j), tfp.make_plan(t)
+    assert (jp is None) == (tp is None)
+    if tp is None:
+        return
+    assert dataclasses.astuple(tp) == dataclasses.astuple(jp)
+    assert tp.complex_macs == jp.complex_macs
+    for fn in ("flip_supported", "padded_n2", "lane_pad_default"):
+        assert getattr(tfp, fn)(tp) == getattr(jsk, fn)(jp), fn
+    for lane_pad in (False, True):
+        assert tfp.packed_supported(tp, lane_pad) == jsk.packed_supported(jp, lane_pad)
+    assert tfp.carry_transposed_supported(t) == jsk.carry_transposed_supported(j)
+    assert tfp.carry_transposed_supported(t, tp) == jsk.carry_transposed_supported(j, jp)
+    for k in (1, 2, 8):
+        for fn in ("split_framing_supported", "buf_framing_supported"):
+            assert getattr(tfp, fn)(t, k) == getattr(jsk, fn)(j, k), (fn, k)
+            assert getattr(tfp, fn)(t, k, tp) == getattr(jsk, fn)(j, k, jp), (fn, k)
+        for lane_pad in (False, True):
+            assert (tfp.tsplit_supported(t, k, tp, lane_pad=lane_pad)
+                    == jsk.tsplit_supported(j, k, jp, lane_pad=lane_pad)), (k, lane_pad)
+
+
+def test_plan_sweep_covers_both_sides_of_each_gate():
+    plans = [tfp.make_plan(_sweep_configs(*g)[1]) for g in PLAN_SWEEP]
+    plans = [p for p in plans if p is not None]
+    for fn in (tfp.flip_supported, tfp.lane_pad_default):
+        assert {fn(p) for p in plans} == {False, True}, fn
+    assert {p.n1 % 2 for p in plans} == {0, 1}
+    assert None in [tfp.make_plan(_sweep_configs(*g)[1]) for g in PLAN_SWEEP]
+
+
 def test_import_leaves_jax_out():
     code = (
         "import sys, spectrogram_tpu_torch\n"
         "import spectrogram_tpu_torch.models.convert\n"
+        "import spectrogram_tpu_torch.ops.fft_plan\n"
+        "import spectrogram_tpu_torch.ops.cuda.stft_kernel\n"
         "import spectrogram_tpu_torch.profile_push\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
