@@ -118,14 +118,45 @@ Phases, each of which fails the run with a non-zero exit:
      image shows.
  19. ms/push of each split-real push beside the default push of the same
      configuration, in turns (a b c ... c b a), as device time.
+ 20. the Bluestein FFT body (N with a prime factor above 5): kernel A, the
+     split-real plane kernel and the all-windows kernel (k=8) at N=4410
+     (44.1 kHz, the reference's 0.05 s window; M=9000) and N=4802 = 2 7^4,
+     4096 rows or streams of chirp+tone, against their plain versions at
+     phase 3's bar; device time of kernel A at N=4410 beside the mixed-radix
+     N=4800, its plain version, torch.fft.fft at N=4410, the bound.
+ 21. the pipelines at the sizes the kernels newly take, through
+     SpectrogramPipeline: 44.1 kHz with DEFAULT_CONFIG's periods (N=4410) at
+     k=1 with 4096 streams and no ring, and at k=8 with the ring (R=2048),
+     256 streams, 260 pushes and render_viewport at R and 800;
+     pad_factor=1 at BENCH_CONFIG's window (N=2048), k=1, 4096 streams; an
+     odd N of the JAX fuzz's range (16 kHz, W=145, pad 3: N=435), k=1, 4096
+     streams.  Each passes when its FFT body's launch count rises, streamed
+     rows equal process() exactly, and rows, carry, ring and renders match
+     the same calls on the plain versions (1 u8 over what the image shows;
+     exactly; 1 bf16 ulp); then ms/push of each beside the 48 kHz
+     DEFAULT_CONFIG push, in turns, device time.
+ 22. the carry+chunk pair and the fused push through their entry points at
+     BENCH_CONFIG, 4096 streams: stft_mag_fused2_split at k=1 and k=8,
+     emit_carry on the packed (f32, int16) and split-real all-windows
+     kernels at k=8, push_fused_single with and without emit_mags (per-row
+     tables arange(S) % 19).  Each kernel's launch count must rise.  Bit for
+     bit: the split kernel's rows equal the split-real all-windows kernel's
+     on the concatenated buffers, every next carry the buffers' tail, the
+     magnitudes with emit_carry those without it, and the fused push the
+     split-real plane kernel followed by kernel B; each within phase 3's bar
+     (1 u8 for the push) of its plain version.  Device time of each beside
+     what it replaces (the all-windows kernel after the two framing
+     concatenations, the two-kernel chain), torch.fft.rfft and fft as the
+     library calls, the bounds.
 
-The second-to-last line is {"kernels": [...]}: each kernel's launches on the
-main paths (phases 5, 9, 12, 15 and 18), its largest error against its plain
-version, its time, its plain version's, the library call's where one
-computes the same transform, and its bound: the larger of its bytes (each
-input read once, each output written once) over 3.35 TB/s and its f32
-operations over 67 TFLOP/s, the H100 SXM's published peaks.  The last line
-is {"ok": true, ...}.
+Then the whole run's seconds.  The second-to-last line is {"kernels": [...]}:
+each kernel's launches on the main paths (phases 5, 9, 12, 15, 18, 21 and
+22; the Bluestein body's row counts every STFT launch at such an N), its
+largest error against its plain version, its time, its plain version's, the
+library call's where one computes the same transform, and its bound: the
+larger of its bytes (each input read once, each output written once) over
+3.35 TB/s and its f32 operations over 67 TFLOP/s, the H100 SXM's published
+peaks.  The last line is {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -139,10 +170,12 @@ import numpy as np
 import torch
 
 from spectrogram_tpu_torch import testing
-from spectrogram_tpu_torch.config import BENCH_CONFIG, DEFAULT_CONFIG
+from spectrogram_tpu_torch.config import BENCH_CONFIG, DEFAULT_CONFIG, SpectrogramConfig
 from spectrogram_tpu_torch.models.spectrogram import SpectrogramPipeline
+from spectrogram_tpu_torch.ops import colormap as cmap_ops
 from spectrogram_tpu_torch.ops.cuda import _build
 from spectrogram_tpu_torch.ops.cuda import colormap_kernel as ck
+from spectrogram_tpu_torch.ops.cuda import push_kernel as pk
 from spectrogram_tpu_torch.ops.cuda import stft_kernel as sk
 
 STREAMS = 4096
@@ -223,7 +256,34 @@ KERNELS = {
         name="stft_split_tsplit", source="spectrogram_tpu_torch/csrc/stft_split.cu",
         replaces="spectrogram_tpu/ops/pallas/stft_kernel.py:1467",
     ),
+    # the FFT body the STFT kernels run at N with a prime factor above 5,
+    # counted over every STFT kernel's launches at such N
+    "bluestein": dict(
+        name="fft_body_bluestein", source="spectrogram_tpu_torch/csrc/stft_fft.cuh",
+        replaces="spectrogram_tpu/ops/pallas/stft_kernel.py:509",
+    ),
+    sk.ALLK_CARRY_KERNEL: dict(
+        name="stft_allk_carry", source="spectrogram_tpu_torch/csrc/stft_allk.cu",
+        replaces="spectrogram_tpu/ops/pallas/stft_kernel.py:894",
+    ),
+    sk.ALLK_CARRY_KERNEL_I16: dict(
+        name="stft_allk_carry_i16", source="spectrogram_tpu_torch/csrc/stft_allk.cu",
+        replaces="spectrogram_tpu/ops/pallas/stft_kernel.py:894",
+    ),
+    sk.SPLIT_ALLK_CARRY_KERNEL: dict(
+        name="stft_split_allk_carry", source="spectrogram_tpu_torch/csrc/stft_split.cu",
+        replaces="spectrogram_tpu/ops/pallas/stft_kernel.py:894",
+    ),
+    sk.SPLIT_CARRY_KERNEL: dict(
+        name="stft_split_carry", source="spectrogram_tpu_torch/csrc/stft_split.cu",
+        replaces="spectrogram_tpu/ops/pallas/stft_kernel.py:1118",
+    ),
+    pk.KERNEL: dict(
+        name="push_fused", source="spectrogram_tpu_torch/csrc/push_fused.cu",
+        replaces="spectrogram_tpu/ops/pallas/push_kernel.py:88",
+    ),
 }
+BLUESTEIN = "bluestein"
 
 
 def log(msg: str) -> None:
@@ -335,7 +395,28 @@ def stft_errors(got, want) -> tuple[float, float, bool]:
     return err, rel, ok
 
 
+def _check_stft(phase: int, stats: dict, names: tuple, label: str, got, want) -> float:
+    """Phase 3's bar between a kernel's output and its plain version's; the
+    error goes to each of `names` in `stats`."""
+    err, rel, ok = stft_errors(got, want)
+    log(f"[{phase}] {label}: max abs err {err:.3e}, max rel err {rel:.3e} (bar atol "
+        f"{STFT_ATOL} rtol {STFT_RTOL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{label} disagrees with its plain version")
+    for name in names:
+        stats[name] = max(stats.get(name, 0.0), err)
+    return err
+
+
+def _identity(phase: int, label: str, got, want) -> None:
+    same = all(torch.equal(g, x) for g, x in zip(got, want))
+    log(f"[{phase}] {label}: {'equal' if same else 'DIFFER'} bit for bit")
+    if not same:
+        fail(f"{label}: not bit for bit")
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     power_line = card()
     dev = torch.device("cuda", 0)
     cfg = BENCH_CONFIG
@@ -352,7 +433,7 @@ def main() -> int:
     planes = {}
     for kind in ("chirp_tone", "noise"):
         left, right = windows(cfg, kind, STREAMS, dev)
-        got = sk.stft_mag_packed(left, right, p.hann, p.twiddles)
+        got = sk.stft_mag_packed(left, right, p.hann, p.fft_consts)
         want = sk.stft_mag_packed_plain(left, right, p.hann, cfg.padded_size)
         torch.cuda.synchronize()
         err, rel, ok = stft_errors(got, want)
@@ -425,7 +506,7 @@ def main() -> int:
     # -- 6. timing --------------------------------------------------------------
     left, right, ml, mr = planes["chirp_tone"]
     ms = {
-        sk.KERNEL: time_ms(lambda: sk.stft_mag_packed(left, right, p.hann, p.twiddles)),
+        sk.KERNEL: time_ms(lambda: sk.stft_mag_packed(left, right, p.hann, p.fft_consts)),
         ck.KERNEL: time_ms(lambda: ck.colormap_builtin(ml, mr, p.taps, tables, cfg)),
     }
     plain_ms = {
@@ -461,7 +542,7 @@ def main() -> int:
                              device=dev)
     for kind in ("chirp_tone", "noise"):
         dl, dr = windows(dcfg, kind, STREAMS, dev)
-        got = sk.stft_mag_packed(dl, dr, pd.hann, pd.twiddles)
+        got = sk.stft_mag_packed(dl, dr, pd.hann, pd.fft_consts)
         want = sk.stft_mag_packed_plain(dl, dr, pd.hann, dcfg.padded_size)
         torch.cuda.synchronize()
         err, rel, ok = stft_errors(got, want)
@@ -470,7 +551,7 @@ def main() -> int:
         if not ok:
             fail("stft_mixed disagrees with torch.fft")
         stats[sk.MIXED_KERNEL] = max(stats[sk.MIXED_KERNEL], err)
-    ms[sk.MIXED_KERNEL] = time_ms(lambda: sk.stft_mag_packed(dl, dr, pd.hann, pd.twiddles))
+    ms[sk.MIXED_KERNEL] = time_ms(lambda: sk.stft_mag_packed(dl, dr, pd.hann, pd.fft_consts))
     plain_ms[sk.MIXED_KERNEL] = time_ms(
         lambda: sk.stft_mag_packed_plain(dl, dr, pd.hann, dcfg.padded_size))
     bounds[sk.MIXED_KERNEL] = bound(*stft_work(
@@ -489,7 +570,7 @@ def main() -> int:
         buf = testing.chirp_tone(STREAMS, length, c.sample_rate, seed=3)
         bl = torch.from_numpy(np.ascontiguousarray(buf[..., 0])).to(dev)
         br = torch.from_numpy(np.ascontiguousarray(buf[..., 1])).to(dev)
-        got = sk.stft_mag_packed_allk(bl, br, pp.hann, pp.twiddles, K, c.hop_size)
+        got = sk.stft_mag_packed_allk(bl, br, pp.hann, pp.fft_consts, K, c.hop_size)
         want = sk.stft_mag_packed_allk_plain(bl, br, pp.hann, c.padded_size, K, c.hop_size)
         torch.cuda.synchronize()
         err, rel, ok = stft_errors(got, want)
@@ -511,7 +592,7 @@ def main() -> int:
     # -- 10. timing -------------------------------------------------------------
     bl, br, pp = allk_inputs[cfg.padded_size]
     hop = cfg.hop_size
-    ms[sk.ALLK_KERNEL] = time_ms(lambda: sk.stft_mag_packed_allk(bl, br, pp.hann, pp.twiddles, K, hop))
+    ms[sk.ALLK_KERNEL] = time_ms(lambda: sk.stft_mag_packed_allk(bl, br, pp.hann, pp.fft_consts, K, hop))
     plain_ms[sk.ALLK_KERNEL] = time_ms(
         lambda: sk.stft_mag_packed_allk_plain(bl, br, pp.hann, cfg.padded_size, K, hop))
     bounds[sk.ALLK_KERNEL] = bound(*stft_work(
@@ -521,7 +602,7 @@ def main() -> int:
     library_ms[sk.ALLK_KERNEL] = time_ms(lambda: torch.fft.fft(z))
     del z
     dbl, dbr, dpp = allk_inputs[dcfg.padded_size]
-    dms = time_ms(lambda: sk.stft_mag_packed_allk(dbl, dbr, dpp.hann, dpp.twiddles, K, dcfg.hop_size))
+    dms = time_ms(lambda: sk.stft_mag_packed_allk(dbl, dbr, dpp.hann, dpp.fft_consts, K, dcfg.hop_size))
     dplain = time_ms(lambda: sk.stft_mag_packed_allk_plain(
         dbl, dbr, dpp.hann, dcfg.padded_size, K, dcfg.hop_size))
     dbound = bound(*stft_work(K * STREAMS, dcfg.padded_size, dcfg.window_size, dbl.numel()))
@@ -582,6 +663,16 @@ def main() -> int:
     layout_paths(dev, lib, main_launches)
     layout_timing(dev, power_line)
 
+    # -- 20-22. every FFT size; the carry+chunk pair and the fused push -------
+    torch.cuda.reset_peak_memory_stats()
+    bluestein_kernels(dev, stats, ms, plain_ms, bounds, library_ms)
+    size_paths(dev, lib, main_launches)
+    size_timing(dev, power_line)
+    torch.cuda.reset_peak_memory_stats()
+    carry_pair_and_push(dev, lib, main_launches, stats, ms, plain_ms, bounds, library_ms,
+                        power_line)
+
+    log(f"[22] whole run {time.perf_counter() - t_start:.1f} s")
     print(power_line)
     print(json.dumps({"kernels": [
         dict(meta, route="cuda", launches=main_launches[k], max_abs_err=stats[k],
@@ -626,7 +717,7 @@ def display_path(cfg, dev, lib, main_launches: dict) -> dict:
     torch.cuda.synchronize()
     launches = dict(lib.launches)
     for name in main_launches:
-        main_launches[name] += launches[name]
+        main_launches[name] += launches.get(name, 0)
     log(f"[9] display N={n}: {DISPLAY_PUSHES} pushes x {s} streams -> "
         f"{tuple(streamed.shape)}, ring {tuple(state.ring.shape)} "
         f"({state.ring.numel() * 2 / 2**30:.2f} GiB), cursor {int(state.cursor)}, "
@@ -701,7 +792,7 @@ def serving_kernels(dev, stats, ms, plain_ms, bounds, library_ms) -> None:
     p = SpectrogramPipeline(cfg, chunk_hops=1, store_ring=False, packed_output=True,
                             device=dev)
     left, right = windows(cfg, "chirp_tone", rows, dev)
-    ml, mr = sk.stft_mag_packed(left, right, p.hann, p.twiddles)
+    ml, mr = sk.stft_mag_packed(left, right, p.hann, p.fft_consts)
     ts = p._cmap_ts(rows)
     name = ck.BLOCKWISE_KERNEL
     for layout, ids in (("sorted", np.sort(np.arange(rows) % 19)),
@@ -759,14 +850,14 @@ def serving_kernels(dev, stats, ms, plain_ms, bounds, library_ms) -> None:
         scaled = [w.to(torch.float32) / 32768.0 for w in words]
         if k is None:
             def kernel(x, hann):
-                return sk.stft_mag_packed(*x, hann, pp.twiddles)
+                return sk.stft_mag_packed(*x, hann, pp.fft_consts)
 
             def plain():
                 return sk.stft_mag_packed_plain(*words, pp.hann_i16, c.padded_size)
             rows_out = shape[0]
         else:
             def kernel(x, hann):
-                return sk.stft_mag_packed_allk(*x, hann, pp.twiddles, k, hop)
+                return sk.stft_mag_packed_allk(*x, hann, pp.fft_consts, k, hop)
 
             def plain():
                 return sk.stft_mag_packed_allk_plain(*words, pp.hann_i16, c.padded_size, k, hop)
@@ -983,7 +1074,7 @@ def palette_kernels(dev, stats, ms, plain_ms, bounds, library_ms) -> None:
     planes = {}
     for kind in ("chirp_tone", "noise"):
         left, right = windows(cfg, kind, STREAMS, dev)
-        ml, mr = sk.stft_mag_packed(left, right, p.hann, p.twiddles)
+        ml, mr = sk.stft_mag_packed(left, right, p.hann, p.fft_consts)
         planes[kind] = (ml, mr)
         everywhere = kind == "noise"
         for label, (a, b) in (("per-row tables arange(S) % 4", (u, v)), ("one table", (u1, v1))):
@@ -1194,23 +1285,15 @@ def split_kernels(dev, stats, ms, plain_ms, bounds, library_ms) -> None:
     names = (sk.SPLIT_KERNEL, sk.SPLIT_ALLK_KERNEL, sk.SPLIT_T_KERNEL, sk.SPLIT_TSPLIT_KERNEL)
 
     def check(name, label, got, want):
-        err, rel, ok = stft_errors(got, want)
-        log(f"[17] {KERNELS[name]['name']} {label}: max abs err {err:.3e}, max rel err "
-            f"{rel:.3e} (bar atol {STFT_ATOL} rtol {STFT_RTOL}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"{KERNELS[name]['name']} disagrees with its plain version")
-        stats[name] = max(stats.get(name, 0.0), err)
+        _check_stft(17, stats, (name,), f"{KERNELS[name]['name']} {label}", got, want)
 
     def identity(label, got, want):
-        same = all(torch.equal(g, x) for g, x in zip(got, want))
-        log(f"[17] {label}: {'equal' if same else 'DIFFER'} bit for bit")
-        if not same:
-            fail(f"{label}: not bit for bit")
+        _identity(17, label, got, want)
 
     for c in (DEFAULT_CONFIG, BENCH_CONFIG):       # BENCH's inputs stay for timing
         n, w = c.padded_size, c.window_size
         hann = torch.from_numpy(sk.split_hann(w)).to(dev)
-        tw = torch.from_numpy(sk.twiddle_table(n)).to(dev)
+        tw = sk.fft_constants(n, dev)
         left, right = windows(c, "chirp_tone", STREAMS, dev)
         planes = sk.stft_mag_split(left, right, hann, tw)
         check(sk.SPLIT_KERNEL, f"{STREAMS} rows, N={n}", planes,
@@ -1448,6 +1531,390 @@ def layout_timing(dev, power_line: str) -> None:
         torch.cuda.empty_cache()
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[19] peak device memory over phases 17-19: {peak:.2f} GiB; card {power_line}")
+
+
+# -- 20-22. every FFT size; the carry+chunk pair and the fused push ---------------
+
+SIZE_44K = SpectrogramConfig(sample_rate=44100.0)      # W=2205, N=4410 = 2 3^2 5 7^2
+N4802 = SpectrogramConfig(sample_rate=48000.0, window_period=2401 / 48000.0)  # 2 7^4
+PAD1 = SpectrogramConfig(sample_rate=48000.0, window_period=2048 / 48000.0,
+                         hop_period=800 / 48000.0, pad_factor=1)         # N = W = 2048
+# an odd N of the JAX fuzz's range (its seed 5: 16 kHz, W=145, hop 69, pad 3)
+ODD = SpectrogramConfig(sample_rate=16000.0, window_period=145 / 16000.0,
+                        hop_period=69 / 16000.0, pad_factor=3, viewport_height=100,
+                        max_frequency=7950.0)                            # N = 435
+
+
+def _buffers(cfg, streams: int, length: int, seed: int, dev, dtype=torch.float32):
+    """[S, L] left and right sample planes of chirp+tone (int16: PCM words)."""
+    buf = testing.chirp_tone(streams, length, cfg.sample_rate, seed=seed)
+    if dtype == torch.int16:
+        buf = np.round(buf * 32767.0).astype(np.int16)
+    return tuple(torch.from_numpy(np.ascontiguousarray(buf[..., c])).to(dev) for c in range(2))
+
+
+def bluestein_kernels(dev, stats, ms, plain_ms, bounds, library_ms) -> None:
+    """Phase 20: the Bluestein body in kernel A, the all-windows kernel and
+    the split-real plane kernel at N=4410 and N=4802 against their plain
+    versions; its device time (kernel A at N=4410, 4096 rows), the plain
+    version's, torch.fft.fft at that N and the bound."""
+    for cfg in (SIZE_44K, N4802):
+        n, w, h = cfg.padded_size, cfg.window_size, cfg.hop_size
+        if sk.fft_body(n) != BLUESTEIN:
+            fail(f"N={n} does not take the Bluestein body")
+        consts = sk.fft_constants(n, dev)
+        hann = torch.from_numpy(sk.packed_hann(w)).to(dev)
+        shann = torch.from_numpy(sk.split_hann(w)).to(dev)
+        left, right = windows(cfg, "chirp_tone", STREAMS, dev)
+        _check_stft(20, stats, (BLUESTEIN, sk.MIXED_KERNEL),
+                    f"stft_mixed (Bluestein, M={sk.fft_buf_size(n)}) N={n}, {STREAMS} rows",
+                    sk.stft_mag_packed(left, right, hann, consts),
+                    sk.stft_mag_packed_plain(left, right, hann, n))
+        _check_stft(20, stats, (BLUESTEIN, sk.SPLIT_KERNEL),
+                    f"stft_split (Bluestein) N={n}, {STREAMS} rows",
+                    sk.stft_mag_split(left, right, shann, consts),
+                    sk.stft_mag_split_plain(left, right, shann, n))
+        bl, br = _buffers(cfg, STREAMS, w + (K - 1) * h, 3, dev)
+        _check_stft(20, stats, (BLUESTEIN, sk.ALLK_KERNEL),
+                    f"stft_allk (Bluestein) N={n}, k={K}, buffers {tuple(bl.shape)}",
+                    sk.stft_mag_packed_allk(bl, br, hann, consts, K, h),
+                    sk.stft_mag_packed_allk_plain(bl, br, hann, n, K, h))
+        torch.cuda.synchronize()
+        del bl, br
+
+    cfg = SIZE_44K
+    n, w, h = cfg.padded_size, cfg.window_size, cfg.hop_size
+    consts = sk.fft_constants(n, dev)
+    hann = torch.from_numpy(sk.packed_hann(w)).to(dev)
+    shann = torch.from_numpy(sk.split_hann(w)).to(dev)
+    left, right = windows(cfg, "chirp_tone", STREAMS, dev)
+    torch.cuda.empty_cache()
+    ms[BLUESTEIN] = device_ms(lambda: sk.stft_mag_packed(left, right, hann, consts))
+    plain_ms[BLUESTEIN] = time_ms(lambda: sk.stft_mag_packed_plain(left, right, hann, n), iters=5)
+    bounds[BLUESTEIN] = bound(*stft_work(STREAMS, n, w, STREAMS * w))
+    z = torch.complex(torch.randn(STREAMS, n, device=dev), torch.randn(STREAMS, n, device=dev))
+    library_ms[BLUESTEIN] = device_ms(lambda: torch.fft.fft(z))
+    split_ms = device_ms(lambda: sk.stft_mag_split(left, right, shann, consts))
+    real = torch.randn(2 * STREAMS, n, device=dev)
+    split_lib = device_ms(lambda: torch.fft.rfft(real))
+    del z, real
+    bl, br = _buffers(cfg, STREAMS, w + (K - 1) * h, 3, dev)
+    allk_ms = device_ms(lambda: sk.stft_mag_packed_allk(bl, br, hann, consts, K, h))
+    del bl, br
+    dl, dr = windows(DEFAULT_CONFIG, "chirp_tone", STREAMS, dev)
+    dhann = torch.from_numpy(sk.packed_hann(DEFAULT_CONFIG.window_size)).to(dev)
+    dconsts = sk.fft_constants(DEFAULT_CONFIG.padded_size, dev)
+    mixed_ms = device_ms(lambda: sk.stft_mag_packed(dl, dr, dhann, dconsts))
+    log(f"[20] Bluestein body, kernel A at N={n} (M={sk.fft_buf_size(n)}), {STREAMS} rows: "
+        f"{ms[BLUESTEIN]:.4f} ms device time (plain {plain_ms[BLUESTEIN]:.4f} ms, torch.fft.fft "
+        f"[{STREAMS}, {n}] {library_ms[BLUESTEIN]:.4f} ms, bound {bounds[BLUESTEIN][0]:.4f} ms "
+        f"by {bounds[BLUESTEIN][1]}); mixed radix at N=4800 in the same run {mixed_ms:.4f} ms")
+    log(f"[20] at N={n}: stft_split {STREAMS} rows {split_ms:.4f} ms (torch.fft.rfft "
+        f"[{2 * STREAMS}, {n}] {split_lib:.4f} ms); stft_allk k={K}, {STREAMS} streams "
+        f"{allk_ms:.4f} ms; device time")
+    del left, right, dl, dr
+
+
+# (label, config, pipeline arguments, streams, pushes)
+SIZE_PATHS = (
+    ("44.1 kHz N=4410, k=1", SIZE_44K, dict(chunk_hops=1, store_ring=False), STREAMS, PUSHES),
+    ("44.1 kHz N=4410, k=8, ring", SIZE_44K, dict(chunk_hops=K), DISPLAY_STREAMS,
+     DISPLAY_PUSHES),
+    ("pad_factor=1 N=2048, k=1", PAD1, dict(chunk_hops=1, store_ring=False), STREAMS, PUSHES),
+    ("odd N=435, k=1", ODD, dict(chunk_hops=1, store_ring=False), STREAMS, PUSHES),
+)
+
+
+def size_paths(dev, lib, main_launches: dict) -> None:
+    """Phase 21: the pipelines at the sizes the port used to refuse, through
+    SpectrogramPipeline on the card; launch counts added to
+    `main_launches`."""
+    for label, cfg, kw, s, n in SIZE_PATHS:
+        p = SpectrogramPipeline(cfg, packed_output=True, device=dev, **kw)
+        body = sk.fft_body(cfg.padded_size)
+        ids = np.arange(s) % len(p.schemes)
+        state = p.set_palette(p.init_state(s), ids)
+        t = p.chunk_size
+        pcm = torch.from_numpy(testing.chirp_tone(s, n * t, cfg.sample_rate, seed=21)).to(dev)
+        plain = p.with_plain_kernels()
+        plain_state = state._replace(ring=state.ring.clone())
+        torch.cuda.synchronize()
+        lib.reset_launches()
+        rows = []
+        for i in range(n):
+            state, r = p.push(state, pcm[:, i * t : (i + 1) * t])
+            rows.append(r)
+        streamed = torch.cat(rows, dim=1)
+        padded = torch.cat([torch.zeros(s, p.carry_size, 2, device=dev), pcm], dim=1)
+        one_shot = {}
+        for palette in range(len(p.schemes)):
+            sel = torch.from_numpy(np.flatnonzero(ids == palette)).to(dev)
+            one_shot[palette] = (sel, p.process(padded.index_select(0, sel), palette_id=palette))
+        views = ({w: p.render_viewport(state, w) for w in (None, RENDER_WIDTH)}
+                 if p.store_ring else {})
+        torch.cuda.synchronize()
+        launches = {k_: v for k_, v in lib.launches.items() if v}
+        launches[BLUESTEIN] = lib.body_launches[BLUESTEIN]
+        body_count = lib.body_launches[body]
+        for k_, v in launches.items():
+            main_launches[k_] = main_launches.get(k_, 0) + v
+        log(f"[21] {label} (W={cfg.window_size}, hop {cfg.hop_size}, pad {cfg.pad_factor}, "
+            f"{body} body), {s} streams, {n} pushes: rows {tuple(streamed.shape)}, carry "
+            f"{tuple(state.carry.shape)}, ring {tuple(state.ring.shape)}; launches {launches}; "
+            f"{body} launches {body_count}")
+        if not body_count:
+            fail(f"{label}: the {body} body did not launch")
+        if streamed.shape != (s, n * p.chunk_hops, cfg.viewport_height):
+            fail(f"{label}: rows have the wrong shape")
+        for palette, (sel, one) in one_shot.items():
+            if not torch.equal(one, streamed.index_select(0, sel)):
+                fail(f"{label}: streamed rows differ from process() for palette {palette}")
+        del one_shot, padded
+
+        worst = 0
+        for i in range(n):
+            plain_state, r = plain.push(plain_state, pcm[:, i * t : (i + 1) * t])
+            worst = max(worst, u8_diff(rows[i], r, everywhere=False))
+        carry_ok = torch.equal(plain_state.carry, state.carry)
+        ring_ulps = 0.0
+        if p.store_ring:
+            ring_ulps = max(testing.bf16_ulps(state.ring[i : i + 16], plain_state.ring[i : i + 16],
+                                              STFT_ATOL) for i in range(0, s, 16))
+        view_diff = max((u8_diff(view, plain.render_viewport(state, w), everywhere=False)
+                         for w, view in views.items()), default=0)
+        log(f"[21] {label}: streamed rows equal process() exactly; against the plain path "
+            f"rows max u8 diff {worst}, carry {'equal' if carry_ok else 'DIFFERS'}"
+            + (f", ring {ring_ulps:.3f} bf16 ulps beyond atol, render_viewport at "
+               f"{p.viewport_rows} and {RENDER_WIDTH} max u8 diff {view_diff}" if views else "")
+            + " (bars 1)")
+        if worst > 1 or not carry_ok or ring_ulps > 1 or view_diff > 1:
+            fail(f"{label}: the path disagrees with its plain version")
+        del rows, streamed, views, pcm, state, plain_state
+        torch.cuda.empty_cache()
+
+
+def size_timing(dev, power_line: str) -> None:
+    """Phase 21's timing: ms/push (device time) of each new size beside the
+    48 kHz DEFAULT_CONFIG push of the same shape, in turns a b ... b a."""
+    groups = {
+        f"k=1, {STREAMS} streams, no ring": (
+            dict(chunk_hops=1, store_ring=False), STREAMS,
+            {"DEFAULT_CONFIG 48 kHz (N=4800)": DEFAULT_CONFIG,
+             "44.1 kHz (N=4410)": SIZE_44K, "BENCH_CONFIG (N=4096)": BENCH_CONFIG,
+             "pad_factor=1 (N=2048)": PAD1, "odd N=435": ODD}),
+        f"k={K}, ring 2048, {DISPLAY_STREAMS} streams": (
+            dict(chunk_hops=K), DISPLAY_STREAMS,
+            {"DEFAULT_CONFIG 48 kHz (N=4800)": DEFAULT_CONFIG, "44.1 kHz (N=4410)": SIZE_44K}),
+    }
+    for group, (base, s, setups) in groups.items():
+        box = {}
+        for label, cfg in setups.items():
+            p = SpectrogramPipeline(cfg, packed_output=True, device=dev, **base)
+            chunk = torch.from_numpy(testing.chirp_tone(
+                s, p.chunk_size, cfg.sample_rate, seed=19)).to(dev)
+            box[label] = [p, p.set_palette(p.init_state(s), np.arange(s) % len(p.schemes)),
+                          chunk]
+
+        def push(label):
+            p, state, chunk = box[label]
+            box[label][1], _ = p.push(state, chunk)
+
+        timings = {label: [] for label in setups}
+        for label in (*setups, *reversed(setups)):       # in turns: a b ... b a
+            timings[label].append(device_ms(lambda: push(label)))
+        rows = s * base["chunk_hops"]
+        for label, runs in timings.items():
+            log(f"[21] {group}, {label}: " + " / ".join(f"{x:.4f}" for x in runs)
+                + " ms/push = " + " / ".join(f"{rows / x * 1e3:.1f}" for x in runs) + " rows/s")
+        del box
+        torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[21] peak device memory over phases 20-21: {peak:.2f} GiB; card {power_line}")
+
+
+def carry_pair_and_push(dev, lib, main_launches: dict, stats, ms, plain_ms, bounds,
+                        library_ms, power_line: str) -> None:
+    """Phase 22: the split kernel (k=1, k=8), `emit_carry` on the packed
+    (f32, int16) and split-real all-windows kernels (k=8) and the fused
+    push (with and without `emit_mags`) through their entry points at
+    BENCH_CONFIG, 4096 streams, per-row tables arange(S) % 19; their
+    identities and plain versions; device times."""
+    cfg = BENCH_CONFIG
+    n, w, h = cfg.padded_size, cfg.window_size, cfg.hop_size
+    c = w - h
+    s = STREAMS
+    consts = sk.fft_constants(n, dev)
+    hann = torch.from_numpy(sk.packed_hann(w)).to(dev)
+    hann16 = torch.from_numpy(sk.packed_hann_i16(w)).to(dev)
+    shann = torch.from_numpy(sk.split_hann(w)).to(dev)
+    pcm = {k: testing.chirp_tone(s, c + k * h, cfg.sample_rate, seed=22 + k) for k in (1, K)}
+    carry_chunk = {k: tuple(torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1))).to(dev)
+                            for x in (v[:, :c], v[:, c:]))
+                   for k, v in pcm.items()}
+    bufs = _buffers(cfg, s, w + (K - 1) * h, 22, dev)
+    bufs16 = _buffers(cfg, s, w + (K - 1) * h, 22, dev, torch.int16)
+    left, right = windows(cfg, "chirp_tone", s, dev)
+    tables = ck.builtin_color_tables(32)[np.arange(s) % 19]
+    tables = torch.from_numpy(tables).to(dev)
+    mt = cmap_ops.resample_matrix_full(cfg).T
+    taps = ck.resample_taps(mt.T, dev)
+    torch.cuda.synchronize()
+
+    # the main path of this slice: the entry points a JAX caller maps to
+    lib.reset_launches()
+    split = {k: sk.stft_mag_fused2_split(*carry_chunk[k], cfg, k=k) for k in (1, K)}
+    carried = {
+        sk.ALLK_CARRY_KERNEL: sk.stft_mag_packed_allk(*bufs, hann, consts, K, h, emit_carry=True),
+        sk.ALLK_CARRY_KERNEL_I16: sk.stft_mag_packed_allk(*bufs16, hann16, consts, K, h,
+                                                          emit_carry=True),
+        sk.SPLIT_ALLK_CARRY_KERNEL: sk.stft_mag_split_allk(*bufs, shann, consts, K, h,
+                                                           emit_carry=True),
+    }
+    pushed = {e: pk.push_fused_single(left, right, tables, mt, cfg, emit_mags=e)
+              for e in (False, True)}
+    torch.cuda.synchronize()
+    launches = {k_: v for k_, v in lib.launches.items() if v}
+    for k_, v in launches.items():
+        main_launches[k_] = main_launches.get(k_, 0) + v
+    log(f"[22] entry points at BENCH_CONFIG, {s} streams: launches {launches}")
+    for name in (sk.SPLIT_CARRY_KERNEL, *carried, pk.KERNEL):
+        if not launches.get(name):
+            fail(f"{KERNELS[name]['name']} did not launch on its path")
+
+    # the split kernel: the all-windows split kernel's rows on the
+    # concatenated buffers, bit for bit; the next carry the buffers' tail
+    for k, got in split.items():
+        carry, chunk = carry_chunk[k]
+        buf = torch.cat([carry, chunk], dim=2)
+        allk = sk.stft_mag_split_allk(buf[:, 0].contiguous(), buf[:, 1].contiguous(), shann,
+                                      consts, k, h)
+        _identity(22, f"stft_split_carry k={k} == stft_split_allk on the concatenated buffers",
+                  got[:2], allk)
+        _identity(22, f"stft_split_carry k={k}: next carry == the buffers' last {c} samples",
+                  got[2:], (buf[:, :, buf.shape[2] - c :],))
+        _check_stft(22, stats, (sk.SPLIT_CARRY_KERNEL,), f"stft_split_carry k={k}", got[:2],
+                    sk.stft_mag_split_carry_plain(carry, chunk, shann, n, k, h)[:2])
+        del buf, allk
+    # emit_carry: the same magnitudes as without it, the buffers' tail
+    for name, got in carried.items():
+        b, hn = (bufs16, hann16) if name == sk.ALLK_CARRY_KERNEL_I16 else (
+            bufs, shann if name == sk.SPLIT_ALLK_CARRY_KERNEL else hann)
+        wrapper, plain = ((sk.stft_mag_split_allk, sk.stft_mag_split_allk_plain)
+                          if name == sk.SPLIT_ALLK_CARRY_KERNEL
+                          else (sk.stft_mag_packed_allk, sk.stft_mag_packed_allk_plain))
+        label = KERNELS[name]["name"]
+        _identity(22, f"{label}: magnitudes == without emit_carry", got[:2],
+                  wrapper(*b, hn, consts, K, h))
+        _identity(22, f"{label}: next carry == the buffers' last {c} samples "
+                  f"({got[2].dtype})", got[2:], (sk.buffer_tails(*b, c),))
+        _check_stft(22, stats, (name,), f"{label} k={K}", got[:2], plain(*b, hn, n, K, h))
+    # the fused push: split planes -> kernel B, bit for bit
+    planes = sk.stft_mag_split(left, right, shann, consts)
+    chain = ck.colormap_builtin(*planes, taps, tables, cfg)
+    plain_rows = pk.push_fused_plain(left, right, shann, n, tables, taps, cfg)
+    for emit, got in pushed.items():
+        words = got[0] if emit else got
+        _identity(22, f"push_fused (emit_mags={emit}) == stft_split -> colormap_builtin",
+                  (words, *got[1:]) if emit else (words,),
+                  (chain, *planes) if emit else (chain,))
+        diff = u8_diff(words, plain_rows, everywhere=False)
+        log(f"[22] push_fused (emit_mags={emit}): max u8 diff {diff} against its plain "
+            f"version over what the image shows (bar 1)")
+        if diff > 1:
+            fail("push_fused disagrees with its plain version")
+        stats[pk.KERNEL] = max(stats.get(pk.KERNEL, 0), diff)
+    del split, carried, pushed, plain_rows
+    torch.cuda.empty_cache()
+
+    # device times
+    carry8, chunk8 = carry_chunk[K]
+
+    def framed_allk():
+        # the framing the split kernel removes (two concatenations), then
+        # the all-windows split kernel
+        bl = torch.cat([carry8[:, 0], chunk8[:, 0]], dim=1)
+        br = torch.cat([carry8[:, 1], chunk8[:, 1]], dim=1)
+        return sk.stft_mag_split_allk(bl, br, shann, consts, K, h)
+
+    bl8 = torch.cat([carry8[:, 0], chunk8[:, 0]], dim=1)
+    br8 = torch.cat([carry8[:, 1], chunk8[:, 1]], dim=1)
+    t = {
+        "stft_split_carry k=8": device_ms(lambda: sk.stft_mag_split_carry(
+            carry8, chunk8, shann, consts, K, h)),
+        "stft_split_allk k=8": device_ms(lambda: sk.stft_mag_split_allk(
+            bl8, br8, shann, consts, K, h)),
+        "two concatenations + stft_split_allk k=8": device_ms(framed_allk),
+        "stft_split_carry k=1": device_ms(lambda: sk.stft_mag_split_carry(
+            *carry_chunk[1], shann, consts, 1, h)),
+        "stft_allk k=8": device_ms(lambda: sk.stft_mag_packed_allk(*bufs, hann, consts, K, h)),
+        "stft_allk_carry k=8": device_ms(lambda: sk.stft_mag_packed_allk(
+            *bufs, hann, consts, K, h, emit_carry=True)),
+        "stft_allk_carry_i16 k=8": device_ms(lambda: sk.stft_mag_packed_allk(
+            *bufs16, hann16, consts, K, h, emit_carry=True)),
+        "stft_split_allk_carry k=8": device_ms(lambda: sk.stft_mag_split_allk(
+            *bufs, shann, consts, K, h, emit_carry=True)),
+        "push_fused": device_ms(lambda: pk.push_fused(left, right, shann, consts, tables,
+                                                      taps, cfg)),
+        "push_fused emit_mags": device_ms(lambda: pk.push_fused(
+            left, right, shann, consts, tables, taps, cfg, emit_mags=True)),
+        "stft_split + colormap_builtin": device_ms(lambda: ck.colormap_builtin(
+            *sk.stft_mag_split(left, right, shann, consts), taps, tables, cfg)),
+    }
+    log(f"[22] device time at BENCH_CONFIG, {s} streams: "
+        + "; ".join(f"{k_} {x:.4f} ms" for k_, x in t.items()))
+    ms[sk.SPLIT_CARRY_KERNEL] = t["stft_split_carry k=8"]
+    ms[sk.ALLK_CARRY_KERNEL] = t["stft_allk_carry k=8"]
+    ms[sk.ALLK_CARRY_KERNEL_I16] = t["stft_allk_carry_i16 k=8"]
+    ms[sk.SPLIT_ALLK_CARRY_KERNEL] = t["stft_split_allk_carry k=8"]
+    ms[pk.KERNEL] = t["push_fused"]
+    plain_ms[sk.SPLIT_CARRY_KERNEL] = time_ms(lambda: sk.stft_mag_split_carry_plain(
+        carry8, chunk8, shann, n, K, h), iters=5)
+    plain_ms[sk.ALLK_CARRY_KERNEL] = time_ms(lambda: sk.stft_mag_packed_allk_plain(
+        *bufs, hann, n, K, h, emit_carry=True), iters=5)
+    plain_ms[sk.ALLK_CARRY_KERNEL_I16] = time_ms(lambda: sk.stft_mag_packed_allk_plain(
+        *bufs16, hann16, n, K, h, emit_carry=True), iters=5)
+    plain_ms[sk.SPLIT_ALLK_CARRY_KERNEL] = time_ms(lambda: sk.stft_mag_split_allk_plain(
+        *bufs, shann, n, K, h, emit_carry=True), iters=5)
+    plain_ms[pk.KERNEL] = time_ms(lambda: pk.push_fused_plain(
+        left, right, shann, n, tables, taps, cfg), iters=5)
+    rows8 = K * s
+    carry_bytes = 4 * 2 * s * c
+    bounds[sk.SPLIT_CARRY_KERNEL] = bound(
+        *np.add(stft_work(rows8, n, w, carry8.numel() // 2 + chunk8.numel() // 2),
+                (carry_bytes, 0)))
+    bounds[sk.ALLK_CARRY_KERNEL] = bound(
+        *np.add(stft_work(rows8, n, w, bufs[0].numel()), (carry_bytes, 0)))
+    bounds[sk.ALLK_CARRY_KERNEL_I16] = bound(
+        *np.add(stft_work(rows8, n, w, bufs16[0].numel(), sample_bytes=2), (carry_bytes // 2, 0)))
+    bounds[sk.SPLIT_ALLK_CARRY_KERNEL] = bounds[sk.ALLK_CARRY_KERNEL]
+    stft_b, stft_f = stft_work(s, n, w, s * w)
+    cmap_b, cmap_f = cmap_work(s, taps, tables.numel())
+    # the fused push reads no planes: its bytes are the STFT's inputs and
+    # the colormap's taps, tables and words
+    plane_bytes = 4 * 2 * s * (n // 2)
+    touched = 4 * 2 * s * torch.unique(torch.cat([taps.j0, taps.j1])).numel()
+    bounds[pk.KERNEL] = bound(stft_b - plane_bytes + cmap_b - touched, stft_f + cmap_f)
+    real8 = torch.randn(2 * rows8, n, device=dev)
+    rfft8 = device_ms(lambda: torch.fft.rfft(real8))
+    del real8
+    z8 = torch.complex(torch.randn(rows8, n, device=dev), torch.randn(rows8, n, device=dev))
+    fft8 = device_ms(lambda: torch.fft.fft(z8))
+    del z8
+    real1 = torch.randn(2 * s, n, device=dev)
+    rfft1 = device_ms(lambda: torch.fft.rfft(real1))
+    del real1
+    library_ms[sk.SPLIT_CARRY_KERNEL] = library_ms[sk.SPLIT_ALLK_CARRY_KERNEL] = rfft8
+    library_ms[sk.ALLK_CARRY_KERNEL] = library_ms[sk.ALLK_CARRY_KERNEL_I16] = fft8
+    library_ms[pk.KERNEL] = None
+    for name in (sk.SPLIT_CARRY_KERNEL, sk.ALLK_CARRY_KERNEL, sk.ALLK_CARRY_KERNEL_I16,
+                 sk.SPLIT_ALLK_CARRY_KERNEL, pk.KERNEL):
+        log(f"[22] {KERNELS[name]['name']}: {ms[name]:.4f} ms device time (plain "
+            f"{plain_ms[name]:.4f} ms, library {library_ms[name]} ms, bound "
+            f"{bounds[name][0]:.4f} ms by {bounds[name][1]})")
+    log(f"[22] torch.fft.rfft [{2 * s}, {n}] (the STFT of the k=1 split kernel and the fused "
+        f"push): {rfft1:.4f} ms")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[22] peak device memory over phase 22: {peak:.2f} GiB; card {power_line}")
 
 
 if __name__ == "__main__":

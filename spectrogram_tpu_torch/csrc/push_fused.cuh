@@ -1,0 +1,41 @@
+// One row of the fused push (push_fused.cu): the split-real STFT of both
+// channels into shared memory, then the row's pixels from there.
+#pragma once
+
+#include "colormap_common.cuh"
+#include "stft_fft.cuh"
+
+namespace spk {
+
+// l, r: the row's [w] samples; tab: its built-in [res*4] table; out: its [h]
+// words; mag_l, mag_r: its [stft_bins(N, w)] planes, or null; buf: the
+// body's buf_size() complex f32 and planes 2 * stft_bins(N, w) f32, both in
+// shared memory.
+template <class Body>
+__device__ __forceinline__ void push_fused_row(
+    const Body& body, const float* __restrict__ l, const float* __restrict__ r,
+    int w, const float* __restrict__ hann, const float2* __restrict__ tw,
+    const float* __restrict__ tab, int res, const int* __restrict__ j0,
+    const int* __restrict__ j1, const float* __restrict__ w0,
+    const float* __restrict__ w1, int h, const ColormapLaws& laws,
+    unsigned* __restrict__ out, float* __restrict__ mag_l,
+    float* __restrict__ mag_r, float2* buf, float* planes) {
+  const int bins = stft_bins(body.size(), w);
+  for (int c = 0; c < 2; ++c) {
+    stft_real_row(body, RowSamples{c ? r : l, w}, hann, tw, planes + c * bins,
+                  buf);
+    __syncthreads();  // the next load overwrites buf; the pixels read planes
+  }
+  if (mag_l != nullptr) {
+    for (int k = threadIdx.x; k < bins; k += blockDim.x) {
+      mag_l[k] = planes[k];
+      mag_r[k] = planes[bins + k];
+    }
+  }
+  for (int p = threadIdx.x; p < h; p += blockDim.x) {
+    out[p] = colormap_pixel(planes, planes + bins, j0[p], j1[p], w0[p], w1[p],
+                            tab, res, laws);
+  }
+}
+
+}  // namespace spk

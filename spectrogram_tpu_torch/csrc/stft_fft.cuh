@@ -1,28 +1,42 @@
-// Device code shared by the STFT kernels: the Hann-pack-pad load, the two
+// Device code shared by the STFT kernels: the Hann-pack-pad load, the three
 // FFT bodies and the conjugate-symmetric stereo unpack of one window row.
 //
 // Per row, with N >= W:
 //   z[n] = (l[n] + i r[n]) * hann[n]     for n < W, 0 for W <= n < N
 //   Z    = DFT_N(z)
 //   L[k] = |Z[k] + conj(Z[(N-k) mod N])|, R[k] = |Z[k] - conj(Z[(N-k) mod N])|
-// for k = 0 .. N/2-1 (DC included; the k=0 partner is Z[0] itself).  `hann`
-// arrives with the reference's 2/W output scale and the unpack's 1/2 folded
-// in, as the TPU kernels' `_packed_hann` did.
+// for k = 0 .. B-1 with B = max(N/2, W) output bins (`stft_bins`): N/2 where
+// pad_factor >= 2, W (bins 0 .. W-1, Nyquist included for even N) where
+// N = W.  DC is included; the k=0 partner is Z[0] itself.  `hann` arrives
+// with the reference's 2/W output scale and the unpack's 1/2 folded in, as
+// the TPU kernels' `_packed_hann` did.
 //
-// Two bodies compute DFT_N in place in shared memory (N complex f32):
+// Three bodies compute DFT_N in place in shared memory:
 //   Radix2      N = 2^a: bit-reversed load, log2(N) radix-2 DIT stages.
 //   MixedRadix  N = 2^a 3^b 5^c: digit-reversed load, radix-4/2/3/5 DIT
 //               stages (4s first, then a 2, then 3s, then 5s).
-// Both read twiddles from one table of N entries exp(-2 pi i t / N), computed
-// in float64 on the host and rounded once.
+//   Bluestein   any other N: the chirp-z form of DFT_N as a cyclic
+//               convolution of length M, the least 2^a 3^b 5^c >= 2N - 1,
+//               run as a MixedRadix decimation-in-frequency pass (natural
+//               order in, digit-reversed out), a product with the filter's
+//               transform stored in that digit-reversed order, and the DIT
+//               pass (digit-reversed in, natural out); M complex f32 of
+//               shared memory.
+// Each reads one host-built table (`fft_table` in ops/cuda/stft_kernel.py),
+// computed in float64 and rounded once to f32: the N twiddles exp(-2 pi i t
+// / N) of a direct body, or for Bluestein the M twiddles of its inner
+// length, the N chirp entries exp(-i pi t^2 / N) (t^2 reduced mod 2N in
+// integers first) and the M filter entries.  `with_fft_body` picks the body
+// from N on the host.
 //
 // Every packed kernel runs a row through `stft_packed_row`, every
-// split-real kernel (stft_split.cu) one channel of a row through
-// `stft_real_row`, and all the arithmetic here is written with _rn
+// split-real kernel (stft_split.cu, push_fused.cu) one channel of a row
+// through `stft_real_row`, and all the arithmetic here is written with _rn
 // intrinsics, so nvcc contracts nothing differently in one kernel than in
 // another: the all-windows kernel and the window-plane kernels give the same
-// bits for the same window, and so do the four split-real layouts.  No
-// tensor core is used, so TF32 cannot enter; every stage is true f32.
+// bits for the same window, and so do the split-real layouts and the fused
+// push.  No tensor core is used, so TF32 cannot enter; every stage is true
+// f32.
 #pragma once
 
 #include "spk_common.cuh"
@@ -31,6 +45,13 @@ namespace spk {
 
 constexpr int kStftMaxThreads = 512;
 constexpr int kMaxStages = 16;
+// the dynamic shared memory a Hopper block may opt into (227 KB)
+constexpr int kMaxSmemBytes = 232448;
+
+// Output bins per row: max(N/2, W) (see the top of this file).
+__host__ __device__ __forceinline__ int stft_bins(int n, int w) {
+  return n / 2 > w ? n / 2 : w;
+}
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
   return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
@@ -63,10 +84,80 @@ __device__ __forceinline__ float2 cscale(float c, float2 a) {
   return make_float2(__fmul_rn(c, a.x), __fmul_rn(c, a.y));
 }
 
+__device__ __forceinline__ float2 conjugate(float2 a) {
+  return make_float2(a.x, -a.y);
+}
+
+// In-place forward r-point DFTs of a[0 .. r-1], the butterflies of the
+// mixed-radix stages.
+__device__ __forceinline__ void dft(float2 (&a)[2]) {
+  const float2 a0 = a[0], a1 = a[1];
+  a[0] = cadd(a0, a1);
+  a[1] = csub(a0, a1);
+}
+
+__device__ __forceinline__ void dft(float2 (&a)[4]) {
+  const float2 s02 = cadd(a[0], a[2]), d02 = csub(a[0], a[2]);
+  const float2 s13 = cadd(a[1], a[3]), d13 = csub(a[1], a[3]);
+  a[0] = cadd(s02, s13);
+  a[1] = sub_i(d02, d13);
+  a[2] = csub(s02, s13);
+  a[3] = add_i(d02, d13);
+}
+
+__device__ __forceinline__ void dft(float2 (&a)[3]) {
+  constexpr float kS = static_cast<float>(0.86602540378443864676);  // sin(2pi/3)
+  const float2 a0 = a[0];
+  const float2 s12 = cadd(a[1], a[2]);
+  const float2 c = cfma(-0.5f, s12, a0);
+  const float2 d = cscale(kS, csub(a[1], a[2]));
+  a[0] = cadd(a0, s12);
+  a[1] = sub_i(c, d);
+  a[2] = add_i(c, d);
+}
+
+__device__ __forceinline__ void dft(float2 (&a)[5]) {
+  constexpr float kC1 = static_cast<float>(0.30901699437494742410);   // cos(2pi/5)
+  constexpr float kC2 = static_cast<float>(-0.80901699437494742410);  // cos(4pi/5)
+  constexpr float kS1 = static_cast<float>(0.95105651629515357212);   // sin(2pi/5)
+  constexpr float kS2 = static_cast<float>(0.58778525229247312917);   // sin(4pi/5)
+  const float2 a0 = a[0];
+  const float2 b1 = cadd(a[1], a[4]), d1 = csub(a[1], a[4]);
+  const float2 b2 = cadd(a[2], a[3]), d2 = csub(a[2], a[3]);
+  const float2 c1 = cfma(kC2, b2, cfma(kC1, b1, a0));
+  const float2 c2 = cfma(kC1, b2, cfma(kC2, b1, a0));
+  const float2 e1 = cfma(kS2, d2, cscale(kS1, d1));
+  const float2 e2 = cfma(-kS1, d2, cscale(kS2, d1));
+  a[0] = cadd(cadd(a0, b1), b2);
+  a[1] = sub_i(c1, e1);
+  a[2] = sub_i(c2, e2);
+  a[3] = add_i(c2, e2);
+  a[4] = add_i(c1, e1);
+}
+
+// One radix-R butterfly over x[0], x[l], ..., x[(R-1) l] with twiddles
+// tw[q t]: decimation in time multiplies the inputs q >= 1 before the DFT,
+// decimation in frequency (the transposed flow graph) the outputs after it.
+template <int R, bool kDif>
+__device__ __forceinline__ void butterfly(float2* x, int l, int t,
+                                          const float2* __restrict__ tw) {
+  float2 a[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    a[q] = kDif || q == 0 ? x[q * l] : cmul(x[q * l], tw[q * t]);
+  }
+  dft(a);
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    x[q * l] = !kDif || q == 0 ? a[q] : cmul(a[q], tw[q * t]);
+  }
+}
+
 struct Radix2 {
   int log2n;
 
   __device__ __forceinline__ int size() const { return 1 << log2n; }
+  __host__ __device__ __forceinline__ int buf_size() const { return 1 << log2n; }
 
   // bit reversal: where sample i sits before the first DIT stage
   __device__ __forceinline__ int slot(int i) const {
@@ -100,6 +191,7 @@ struct MixedRadix {
   int radix[kMaxStages];
 
   __device__ __forceinline__ int size() const { return n; }
+  __host__ __device__ __forceinline__ int buf_size() const { return n; }
 
   // Digit reversal.  Stage s turns r_s sub-transforms of length
   // L_s = r_0 ... r_{s-1}, stored one after another, into one of length
@@ -120,87 +212,45 @@ struct MixedRadix {
   // Decimation in time: butterfly (block b, position p) of stage s takes
   // x_q = buf[b M + p + q L] * exp(-2 pi i p q / M), q < r, with L = L_s and
   // M = L r, and writes the r-point DFT of the x_q back to the same slots.
+  // Digit-reversed input (`slot`), natural-order output.
   __device__ __forceinline__ void transform(float2* buf, const float2* tw) const {
     int len = 1;
     for (int s = 0; s < stages; ++s) {
-      const int r = radix[s];
-      const int m = len * r;
-      const int tstep = n / m;
-      const int count = n / r;
-      for (int j = threadIdx.x; j < count; j += blockDim.x) {
-        const int p = j % len;
-        float2* x = buf + (j / len) * m + p;
-        const int t = p * tstep;
-        switch (r) {
-          case 4: radix4(x, len, t, tw); break;
-          case 2: radix2(x, len, t, tw); break;
-          case 3: radix3(x, len, t, tw); break;
-          default: radix5(x, len, t, tw); break;
-        }
-      }
-      __syncthreads();
-      len = m;
+      stage<false>(buf, tw, s, len);
+      len *= radix[s];
     }
   }
 
-  static __device__ __forceinline__ void radix2(float2* x, int l, int t,
-                                                const float2* tw) {
-    const float2 a0 = x[0];
-    const float2 a1 = cmul(x[l], tw[t]);
-    x[0] = cadd(a0, a1);
-    x[l] = csub(a0, a1);
+  // Decimation in frequency, the transposed flow graph of `transform`: the
+  // stages in reverse order, each an r-point DFT followed by the twiddles.
+  // Natural-order input; X[k] lands in buf[slot(k)].
+  __device__ __forceinline__ void transform_dif(float2* buf, const float2* tw) const {
+    int len = n;
+    for (int s = stages - 1; s >= 0; --s) {
+      len /= radix[s];
+      stage<true>(buf, tw, s, len);
+    }
   }
 
-  static __device__ __forceinline__ void radix4(float2* x, int l, int t,
-                                                const float2* tw) {
-    const float2 a0 = x[0];
-    const float2 a1 = cmul(x[l], tw[t]);
-    const float2 a2 = cmul(x[2 * l], tw[2 * t]);
-    const float2 a3 = cmul(x[3 * l], tw[3 * t]);
-    const float2 s02 = cadd(a0, a2), d02 = csub(a0, a2);
-    const float2 s13 = cadd(a1, a3), d13 = csub(a1, a3);
-    x[0] = cadd(s02, s13);
-    x[l] = sub_i(d02, d13);
-    x[2 * l] = csub(s02, s13);
-    x[3 * l] = add_i(d02, d13);
-  }
-
-  static __device__ __forceinline__ void radix3(float2* x, int l, int t,
-                                                const float2* tw) {
-    constexpr float kS = static_cast<float>(0.86602540378443864676);  // sin(2pi/3)
-    const float2 a0 = x[0];
-    const float2 a1 = cmul(x[l], tw[t]);
-    const float2 a2 = cmul(x[2 * l], tw[2 * t]);
-    const float2 s12 = cadd(a1, a2);
-    const float2 c = cfma(-0.5f, s12, a0);
-    const float2 d = cscale(kS, csub(a1, a2));
-    x[0] = cadd(a0, s12);
-    x[l] = sub_i(c, d);
-    x[2 * l] = add_i(c, d);
-  }
-
-  static __device__ __forceinline__ void radix5(float2* x, int l, int t,
-                                                const float2* tw) {
-    constexpr float kC1 = static_cast<float>(0.30901699437494742410);   // cos(2pi/5)
-    constexpr float kC2 = static_cast<float>(-0.80901699437494742410);  // cos(4pi/5)
-    constexpr float kS1 = static_cast<float>(0.95105651629515357212);   // sin(2pi/5)
-    constexpr float kS2 = static_cast<float>(0.58778525229247312917);   // sin(4pi/5)
-    const float2 a0 = x[0];
-    const float2 a1 = cmul(x[l], tw[t]);
-    const float2 a2 = cmul(x[2 * l], tw[2 * t]);
-    const float2 a3 = cmul(x[3 * l], tw[3 * t]);
-    const float2 a4 = cmul(x[4 * l], tw[4 * t]);
-    const float2 b1 = cadd(a1, a4), d1 = csub(a1, a4);
-    const float2 b2 = cadd(a2, a3), d2 = csub(a2, a3);
-    const float2 c1 = cfma(kC2, b2, cfma(kC1, b1, a0));
-    const float2 c2 = cfma(kC1, b2, cfma(kC2, b1, a0));
-    const float2 e1 = cfma(kS2, d2, cscale(kS1, d1));
-    const float2 e2 = cfma(-kS1, d2, cscale(kS2, d1));
-    x[0] = cadd(cadd(a0, b1), b2);
-    x[l] = sub_i(c1, e1);
-    x[2 * l] = sub_i(c2, e2);
-    x[3 * l] = add_i(c2, e2);
-    x[4 * l] = add_i(c1, e1);
+  template <bool kDif>
+  __device__ __forceinline__ void stage(float2* buf, const float2* tw, int s,
+                                        int len) const {
+    const int r = radix[s];
+    const int m = len * r;
+    const int tstep = n / m;
+    const int count = n / r;
+    for (int j = threadIdx.x; j < count; j += blockDim.x) {
+      const int p = j % len;
+      float2* x = buf + (j / len) * m + p;
+      const int t = p * tstep;
+      switch (r) {
+        case 4: butterfly<4, kDif>(x, len, t, tw); break;
+        case 2: butterfly<2, kDif>(x, len, t, tw); break;
+        case 3: butterfly<3, kDif>(x, len, t, tw); break;
+        default: butterfly<5, kDif>(x, len, t, tw); break;
+      }
+    }
+    __syncthreads();
   }
 };
 
@@ -221,9 +271,98 @@ static inline bool make_mixed_radix(int n, MixedRadix* plan) {
   return rest == 1 && n > 1;
 }
 
+// The least 2^a 3^b 5^c >= n: Bluestein's convolution length for 2N - 1.
+static inline int smooth_at_least(int n) {
+  for (int m = n > 1 ? n : 2;; ++m) {
+    int rest = m;
+    const int primes[] = {2, 3, 5};
+    for (int p : primes) {
+      while (rest % p == 0) rest /= p;
+    }
+    if (rest == 1) return m;
+  }
+}
+
+// DFT_N for any N, as a cyclic convolution of length M (`smooth_at_least(2N
+// - 1)`, the MixedRadix body `inner`), with c[t] = exp(-i pi t^2 / N):
+//   X[k] = c[k] * sum_t (x[t] c[t]) conj(c[k - t]),  k < N
+//   a = x c zero-padded to M;  A = DFT_M(a)           (DIF: A[k] at slot(k))
+//   D = conj(A F),  F = DFT_M(b) / M,  b[t] = b[M - t] = conj(c[t]), t < N
+//   conv = conj(DFT_M(D))                             (DIT: natural order)
+//   X[k] = c[k] conj(DFT_M(D)[k])
+// `filter` holds F in the DIF output order (F[k] at slot(k)), so the product
+// is pointwise and no pass permutes the buffer.  The row loads x in natural
+// order (`slot` is the identity) into buf[0 .. N); the transform leaves X in
+// buf[0 .. N), natural order, as the direct bodies do.
+struct Bluestein {
+  int n;
+  MixedRadix inner;
+  const float2* chirp;   // [N] c
+  const float2* filter;  // [M] F, digit-reversed
+
+  __device__ __forceinline__ int size() const { return n; }
+  __host__ __device__ __forceinline__ int buf_size() const { return inner.n; }
+  __device__ __forceinline__ int slot(int i) const { return i; }
+
+  // tw: the M twiddles exp(-2 pi i t / M) of the inner transforms
+  __device__ __forceinline__ void transform(float2* buf, const float2* tw) const {
+    const int m = inner.n;
+    for (int i = threadIdx.x; i < m; i += blockDim.x) {
+      buf[i] = i < n ? cmul(buf[i], chirp[i]) : make_float2(0.f, 0.f);
+    }
+    __syncthreads();
+    inner.transform_dif(buf, tw);
+    for (int i = threadIdx.x; i < m; i += blockDim.x) {
+      buf[i] = conjugate(cmul(buf[i], filter[i]));
+    }
+    __syncthreads();
+    inner.transform(buf, tw);
+    for (int k = threadIdx.x; k < n; k += blockDim.x) {
+      buf[k] = cmul(chirp[k], conjugate(buf[k]));
+    }
+    __syncthreads();
+  }
+};
+
+// fn(body) with the FFT body of size n over its table `consts` (see the top
+// of this file): Radix2 for n = 2^a, MixedRadix for other 2^a 3^b 5^c,
+// Bluestein otherwise; fn's result, or cudaErrorInvalidValue where n < 2 or
+// the body's buffer exceeds a block's shared memory.
+template <class Fn>
+static inline int with_fft_body(int n, const void* consts, Fn fn) {
+  const auto* table = static_cast<const float2*>(consts);
+  if (n < 2) return static_cast<int>(cudaErrorInvalidValue);
+  if ((n & (n - 1)) == 0) {
+    int log2n = 0;
+    while ((1 << log2n) < n) ++log2n;
+    if (n * static_cast<int>(sizeof(float2)) > kMaxSmemBytes) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return fn(Radix2{log2n});
+  }
+  MixedRadix direct;
+  if (make_mixed_radix(n, &direct)) {
+    if (n * static_cast<int>(sizeof(float2)) > kMaxSmemBytes) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return fn(direct);
+  }
+  const int m = smooth_at_least(2 * n - 1);
+  Bluestein body;
+  body.n = n;
+  if (m * static_cast<int>(sizeof(float2)) > kMaxSmemBytes ||
+      !make_mixed_radix(m, &body.inner)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  body.chirp = table + m;
+  body.filter = table + m + n;
+  return fn(body);
+}
+
 // One window row: load l, r through hann into `buf` in the body's input
-// order, transform, unpack both channels' magnitudes into ol, orr [N/2].
-// The caller's block has blockDim.x threads and N complex f32 of `buf`.
+// order, transform, unpack both channels' magnitudes into ol, orr
+// [stft_bins(N, W)].  The caller's block has blockDim.x threads and
+// body.buf_size() complex f32 of `buf`.
 //
 // Samples are f32, or int16 PCM words (T = short, the i16_planes wire mode:
 // half the bytes read).  A word converts to f32 exactly, and its 1/32768
@@ -249,8 +388,8 @@ __device__ __forceinline__ void stft_packed_row(
   __syncthreads();
   body.transform(buf, tw);
   // conjugate-symmetric stereo unpack (fft.rs:81-92), coalesced stores
-  const int half = n >> 1;
-  for (int k = threadIdx.x; k < half; k += blockDim.x) {
+  const int bins = stft_bins(n, w);
+  for (int k = threadIdx.x; k < bins; k += blockDim.x) {
     const float2 zk = buf[k];
     const float2 zm = buf[k == 0 ? 0 : n - k];
     const float lr = __fadd_rn(zk.x, zm.x), li = __fsub_rn(zk.y, zm.y);
@@ -264,16 +403,19 @@ __device__ __forceinline__ void stft_packed_row(
 //
 // One channel of one window as its own FFT of real input:
 //   Z = DFT_N(x * hann) with x zero-padded from W to N,  out[k] = |Z[k]|
-// for k = 0 .. N/2-1, `hann` carrying the reference's 2/W output scale (the
-// TPU kernels' `_scaled_hann`).  The window's W samples come from a sample
-// source, a functor that returns the f-th sample of the window in the
-// source's memory order and sets the sample's position i in the window:
+// for k = 0 .. stft_bins(N, W)-1, `hann` carrying the reference's 2/W output
+// scale (the TPU kernels' `_scaled_hann`).  The window's W samples come from
+// a sample source, a functor that returns the f-th sample of the window in
+// the source's memory order and sets the sample's position i in the window:
 //   RowSamples         one contiguous window (window planes; the k
 //                      hop-shifted windows of a carry+chunk buffer)
 //   TransposedSamples  x[j1, t], t < m, is sample t*n1 + j1 (the transposed
 //                      carry layout [n1, m] of one channel)
 //   SplitSamples       carry [n1, c_cols] then chunk [n1, t_cols]: x[j1, t]
 //                      is sample t*n1 + j1, t counted across both
+//   PlanarSamples      the planar carry [C] then chunk [k*hop] of one
+//                      channel: window sample p is buffer sample start + p,
+//                      in the carry below C and in the chunk from there
 // Reads follow memory order (coalesced); each sample lands in the body's
 // shared-memory slot of its window position.  Every layout runs the same
 // arithmetic on the same values, so all give the same bits for a window.
@@ -322,6 +464,19 @@ struct SplitSamples {
   }
 };
 
+struct PlanarSamples {
+  const float* carry;  // [c_len]: buffer samples 0 .. c_len-1
+  const float* chunk;  // buffer samples c_len ..
+  int c_len, start, w;
+
+  __device__ __forceinline__ int size() const { return w; }
+  __device__ __forceinline__ float sample(int f, int* i) const {
+    *i = f;
+    const int at = start + f;
+    return at < c_len ? carry[at] : chunk[at - c_len];
+  }
+};
+
 template <class Body, class Source>
 __device__ __forceinline__ void stft_real_row(
     const Body& body, const Source& src, const float* __restrict__ hann,
@@ -338,8 +493,8 @@ __device__ __forceinline__ void stft_real_row(
   }
   __syncthreads();
   body.transform(buf, tw);
-  const int half = n >> 1;
-  for (int k = threadIdx.x; k < half; k += blockDim.x) {
+  const int bins = stft_bins(n, w);
+  for (int k = threadIdx.x; k < bins; k += blockDim.x) {
     const float2 z = buf[k];
     out[k] = sqrtf(__fmaf_rn(z.x, z.x, __fmul_rn(z.y, z.y)));
   }
@@ -361,19 +516,43 @@ __device__ __forceinline__ void split_next_carry(
   }
 }
 
-// Threads per row block: one per butterfly of a radix-2 stage, at most 512.
-static inline int stft_threads(int n) {
-  return n / 2 < kStftMaxThreads ? n / 2 : kStftMaxThreads;
+// The planar next carry, one channel: the last c_len samples of carry [c_len]
+// + chunk [t_len], i.e. buffer samples t_len .. t_len + c_len - 1.
+__device__ __forceinline__ void planar_next_carry(
+    const float* __restrict__ carry, const float* __restrict__ chunk,
+    float* __restrict__ next, int c_len, int t_len) {
+  for (int u = threadIdx.x; u < c_len; u += blockDim.x) {
+    const int at = t_len + u;
+    next[u] = at < c_len ? carry[at] : chunk[at - c_len];
+  }
 }
 
-// Allow `kernel` the N complex f32 of dynamic shared memory it needs (above
-// 48 KB only by opting in); 0 or the CUDA error.
+// The last c_len samples of a buffer [ld] into next [c_len] (the all-windows
+// kernels' next carry), f32 or int16.
+template <class T>
+__device__ __forceinline__ void buffer_tail(const T* __restrict__ buf,
+                                            T* __restrict__ next, int ld,
+                                            int c_len) {
+  for (int u = threadIdx.x; u < c_len; u += blockDim.x) {
+    next[u] = buf[ld - c_len + u];
+  }
+}
+
+// Threads per row block: one per butterfly of a radix-2 stage over the
+// body's buffer, in whole warps, from 32 to 512.
+static inline int stft_threads(int buf_size) {
+  const int t = (buf_size / 2 + 31) / 32 * 32;
+  return t < 32 ? 32 : t < kStftMaxThreads ? t : kStftMaxThreads;
+}
+
+// Allow `kernel` `bytes` of dynamic shared memory (above 48 KB only by
+// opting in); 0 or the CUDA error.
 template <class Kernel>
-static inline int allow_smem(Kernel kernel, int n) {
-  const int smem = n * static_cast<int>(sizeof(float2));
-  if (smem <= 48 * 1024) return 0;
+static inline int allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
   return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
 }
 
 }  // namespace spk

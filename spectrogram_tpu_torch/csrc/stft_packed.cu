@@ -24,10 +24,10 @@ __global__ void __launch_bounds__(spk::kStftMaxThreads) stft_packed_kernel(
     float* __restrict__ out_l, float* __restrict__ out_r, int w, int log2n) {
   extern __shared__ float2 buf[];
   const size_t row = blockIdx.x;
-  const size_t half = size_t{1} << (log2n - 1);
+  const size_t bins = spk::stft_bins(1 << log2n, w);
   spk::stft_packed_row(spk::Radix2{log2n}, left + row * w, right + row * w,
-                       hann, twiddles, w, out_l + row * half,
-                       out_r + row * half, buf);
+                       hann, twiddles, w, out_l + row * bins,
+                       out_r + row * bins, buf);
 }
 
 template <class T>
@@ -35,7 +35,7 @@ int launch(const T* left, const T* right, const float* hann,
            const void* twiddles, float* out_l, float* out_r, int rows, int w,
            int log2n, void* stream) {
   const int n = 1 << log2n;
-  const int e = spk::allow_smem(stft_packed_kernel<T>, n);
+  const int e = spk::allow_smem(stft_packed_kernel<T>, n * sizeof(float2));
   if (e != 0) return e;
   stft_packed_kernel<T><<<rows, spk::stft_threads(n), n * sizeof(float2),
                           static_cast<cudaStream_t>(stream)>>>(
@@ -47,7 +47,8 @@ int launch(const T* left, const T* right, const float* hann,
 }  // namespace
 
 // left, right: [rows, w] f32; hann: [w] f32; twiddles: [N] complex f32
-// (exp(-2 pi i t / N)); out_l, out_r: [rows, N/2] f32.  All contiguous.
+// (exp(-2 pi i t / N)); out_l, out_r: [rows, stft_bins(N, w)] f32.  All
+// contiguous.
 SPK_EXPORT int spk_stft_packed(const float* left, const float* right,
                                const float* hann, const void* twiddles,
                                float* out_l, float* out_r, int rows, int w,

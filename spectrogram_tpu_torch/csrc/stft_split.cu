@@ -1,10 +1,11 @@
 // The split-real STFT kernels: each channel of each window as its own FFT of
-// real input, |DFT_N(x * hann)| for bins 0 .. N/2-1, in four operand layouts.
+// real input, |DFT_N(x * hann)| for bins 0 .. B-1 (B = stft_bins(N, W)), in
+// five operand layouts.
 //
 // Replace spectrogram_tpu/ops/pallas/stft_kernel.py
 //   spk_stft_split         `stft_mag_fused2(packed=False)` (bodies
 //                          `_kernel2_2d`, `_kernel2`, `_fft_mag_value`):
-//                          [rows, W] window planes x2 -> [rows, N/2] x2
+//                          [rows, W] window planes x2 -> [rows, B] x2
 //   spk_stft_split_allk    `stft_mag_fused2_allk(packed=False)` (body
 //                          `_allk_kernel`): the k windows buf[s, r*hop :
 //                          r*hop + W] of [S, ld] buffers -> row r*S + s
@@ -14,18 +15,27 @@
 //   spk_stft_split_tsplit  `stft_mag_fused2_tsplit` (body `_tsplit_kernel`):
 //                          carry [rows, 2, n1, c_cols] + chunk [rows, 2, n1,
 //                          t_cols] -> the magnitudes and the next carry
+//   spk_stft_split_carry   `stft_mag_fused2_split` (body `_split_kernel`):
+//                          the planar carry [S, 2, C] + chunk [S, 2, k*hop]
+//                          -> the k windows' magnitudes, row r*S + s, and the
+//                          next carry [S, 2, C], never concatenating them
+//   spk_stft_split_allk_carry  `stft_mag_fused2_allk(packed=False,
+//                          emit_carry=True)`: spk_stft_split_allk, and the
+//                          last C samples of each buffer as [S, 2, C]
 // The TPU bodies ran a four-step matrix-unit FFT; here one thread block per
-// (window, channel) runs the shared FFT bodies of stft_fft.cuh (Radix2 for
-// power-of-two N, MixedRadix for 2^a 3^b 5^c) on the real window, through
-// `stft_real_row` with the layout's sample source.  The four layouts differ
-// only in where a sample is read, so for the same window they give the same
-// bits; the tsplit kernel also writes its channel's next carry.
+// (window, channel) runs the shared FFT bodies of stft_fft.cuh (Radix2,
+// MixedRadix or Bluestein, by N) on the real window, through
+// `stft_real_row` with the layout's sample source.  The layouts differ only
+// in where a sample is read, so for the same window they give the same
+// bits; the kernels with a next carry write it from the blocks of window 0,
+// one channel each.  Output rows are stft_bins(N, W) wide.
 //
 // What bounds them on this card: shared-memory traffic of the butterfly
 // stages, as the packed kernels, here twice over: one complex FFT per
 // channel where the packed kernels run one for both (the N/2-point real-FFT
 // pack would halve it; that is later work).  Device memory moves 4 bytes in
-// and 4 out per sample and channel (tsplit: 4 more per carry sample).
+// and 4 out per sample and channel (with a next carry: 4 more per carry
+// sample).
 #include "stft_fft.cuh"
 
 namespace {
@@ -40,24 +50,54 @@ __global__ void __launch_bounds__(spk::kStftMaxThreads) stft_split_kernel(
   const int c = blockIdx.x & 1;
   const spk::RowSamples src{(c ? right : left) + row * w, w};
   spk::stft_real_row(body, src, hann, twiddles,
-                     (c ? out_r : out_l) + row * (body.size() / 2), buf);
+                     (c ? out_r : out_l) + row * spk::stft_bins(body.size(), w),
+                     buf);
 }
 
 template <class Body>
 __global__ void __launch_bounds__(spk::kStftMaxThreads) stft_split_allk_kernel(
     Body body, const float* __restrict__ buf_l, const float* __restrict__ buf_r,
     const float* __restrict__ hann, const float2* __restrict__ twiddles,
-    float* __restrict__ out_l, float* __restrict__ out_r, int streams, int ld,
-    int hop, int w) {
+    float* __restrict__ out_l, float* __restrict__ out_r,
+    float* __restrict__ next, int streams, int ld, int hop, int w, int c_len) {
   extern __shared__ float2 buf[];
   const int row = blockIdx.x >> 1;
   const int c = blockIdx.x & 1;
-  const size_t at = static_cast<size_t>(row % streams) * ld +
-                    static_cast<size_t>(row / streams) * hop;
-  const spk::RowSamples src{(c ? buf_r : buf_l) + at, w};
+  const int s = row % streams;
+  const float* b = (c ? buf_r : buf_l) + static_cast<size_t>(s) * ld;
+  if (next != nullptr && row < streams) {
+    spk::buffer_tail(b, next + (static_cast<size_t>(s) * 2 + c) * c_len, ld,
+                     c_len);
+  }
+  const spk::RowSamples src{b + static_cast<size_t>(row / streams) * hop, w};
   spk::stft_real_row(body, src, hann, twiddles,
-                     (c ? out_r : out_l) +
-                         static_cast<size_t>(row) * (body.size() / 2),
+                     (c ? out_r : out_l) + static_cast<size_t>(row) *
+                                               spk::stft_bins(body.size(), w),
+                     buf);
+}
+
+// The k windows of carry [S, 2, c_len] + chunk [S, 2, t_len] (t_len = k*hop),
+// one (window, channel) per block, and the next carry from window 0's blocks.
+template <class Body>
+__global__ void __launch_bounds__(spk::kStftMaxThreads) stft_split_carry_kernel(
+    Body body, const float* __restrict__ carry, const float* __restrict__ chunk,
+    const float* __restrict__ hann, const float2* __restrict__ twiddles,
+    float* __restrict__ out_l, float* __restrict__ out_r,
+    float* __restrict__ next, int streams, int c_len, int t_len, int hop,
+    int w) {
+  extern __shared__ float2 buf[];
+  const int row = blockIdx.x >> 1;
+  const int c = blockIdx.x & 1;
+  const size_t sc = static_cast<size_t>(row % streams) * 2 + c;
+  const float* ca = carry + sc * c_len;
+  const float* ch = chunk + sc * t_len;
+  if (row < streams) {
+    spk::planar_next_carry(ca, ch, next + sc * c_len, c_len, t_len);
+  }
+  const spk::PlanarSamples src{ca, ch, c_len, (row / streams) * hop, w};
+  spk::stft_real_row(body, src, hann, twiddles,
+                     (c ? out_r : out_l) + static_cast<size_t>(row) *
+                                               spk::stft_bins(body.size(), w),
                      buf);
 }
 
@@ -72,7 +112,8 @@ __global__ void __launch_bounds__(spk::kStftMaxThreads) stft_split_t_kernel(
   const spk::TransposedSamples src{x + blockIdx.x * static_cast<size_t>(n1) * m,
                                    n1, m};
   spk::stft_real_row(body, src, hann, twiddles,
-                     (c ? out_r : out_l) + row * (body.size() / 2), buf);
+                     (c ? out_r : out_l) + row * spk::stft_bins(body.size(), n1 * m),
+                     buf);
 }
 
 template <class Body>
@@ -91,42 +132,38 @@ __global__ void __launch_bounds__(spk::kStftMaxThreads) stft_split_tsplit_kernel
   spk::split_next_carry(carry + in_carry, chunk + in_chunk,
                         next_carry + in_carry, n1, c_cols, t_cols);
   spk::stft_real_row(body, src, hann, twiddles,
-                     (c ? out_r : out_l) + row * (body.size() / 2), buf);
+                     (c ? out_r : out_l) +
+                         row * spk::stft_bins(body.size(), src.size()),
+                     buf);
 }
 
 // launch(body, grid, threads, smem, stream) with the FFT body N selects and
 // 2 * rows blocks, one per (window row, channel); 0 or the CUDA error.
 template <class Launch>
-int launch_rows(int n, int rows, void* stream, Launch launch) {
+int launch_rows(int n, const void* consts, int rows, void* stream,
+                Launch launch) {
   const auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(2 * rows);
-  const int threads = spk::stft_threads(n);
-  const size_t smem = n * sizeof(float2);
-  if ((n & (n - 1)) == 0) {
-    int log2n = 0;
-    while ((1 << log2n) < n) ++log2n;
-    return launch(spk::Radix2{log2n}, grid, threads, smem, st);
-  }
-  spk::MixedRadix body;
-  if (!spk::make_mixed_radix(n, &body)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return launch(body, grid, threads, smem, st);
+  return spk::with_fft_body(n, consts, [&](auto body) {
+    return launch(body, dim3(2 * rows), spk::stft_threads(body.buf_size()),
+                  body.buf_size() * sizeof(float2), st);
+  });
 }
 
 }  // namespace
 
-// left, right: [rows, w] f32; hann: [w] f32 (2/W folded in); twiddles: [n]
-// complex f32 (exp(-2 pi i t / n)); out_l, out_r: [rows, n/2] f32.  All
-// contiguous.
+// Each entry: hann [w] f32 (2/W folded in); consts: n's FFT table
+// (`fft_table`); out_l, out_r: [rows, stft_bins(n, w)] f32.  All contiguous.
+
+// left, right: [rows, w] f32 window planes.
 SPK_EXPORT int spk_stft_split(const float* left, const float* right,
-                              const float* hann, const void* twiddles,
+                              const float* hann, const void* consts,
                               float* out_l, float* out_r, int rows, int w,
                               int n, void* stream) {
-  const auto* tw = static_cast<const float2*>(twiddles);
-  return launch_rows(n, rows, stream, [&](auto body, dim3 grid, int threads,
-                                          size_t smem, cudaStream_t st) {
-    const int e = spk::allow_smem(stft_split_kernel<decltype(body)>, n);
+  const auto* tw = static_cast<const float2*>(consts);
+  return launch_rows(n, consts, rows, stream, [&](auto body, dim3 grid,
+                                                  int threads, size_t smem,
+                                                  cudaStream_t st) {
+    const int e = spk::allow_smem(stft_split_kernel<decltype(body)>, smem);
     if (e != 0) return e;
     stft_split_kernel<decltype(body)><<<grid, threads, smem, st>>>(
         body, left, right, hann, tw, out_l, out_r, w);
@@ -134,35 +171,83 @@ SPK_EXPORT int spk_stft_split(const float* left, const float* right,
   });
 }
 
-// buf_l, buf_r: [streams, ld] f32 with ld >= w + (k-1)*hop; out_l, out_r:
-// [k*streams, n/2] f32, row r*streams + s for window r of stream s.
+// buf_l, buf_r: [streams, ld] f32 with ld >= w + (k-1)*hop; rows r*streams
+// + s for window r of stream s.
+static int split_allk(const float* buf_l, const float* buf_r,
+                      const float* hann, const void* consts, float* out_l,
+                      float* out_r, float* next, int streams, int ld, int k,
+                      int hop, int w, int n, int c_len, void* stream) {
+  const auto* tw = static_cast<const float2*>(consts);
+  return launch_rows(n, consts, k * streams, stream, [&](auto body, dim3 grid,
+                                                         int threads,
+                                                         size_t smem,
+                                                         cudaStream_t st) {
+    const int e = spk::allow_smem(stft_split_allk_kernel<decltype(body)>, smem);
+    if (e != 0) return e;
+    stft_split_allk_kernel<decltype(body)><<<grid, threads, smem, st>>>(
+        body, buf_l, buf_r, hann, tw, out_l, out_r, next, streams, ld, hop, w,
+        c_len);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
 SPK_EXPORT int spk_stft_split_allk(const float* buf_l, const float* buf_r,
-                                   const float* hann, const void* twiddles,
+                                   const float* hann, const void* consts,
                                    float* out_l, float* out_r, int streams,
                                    int ld, int k, int hop, int w, int n,
                                    void* stream) {
-  const auto* tw = static_cast<const float2*>(twiddles);
-  return launch_rows(n, k * streams, stream, [&](auto body, dim3 grid,
-                                                 int threads, size_t smem,
-                                                 cudaStream_t st) {
-    const int e = spk::allow_smem(stft_split_allk_kernel<decltype(body)>, n);
+  return split_allk(buf_l, buf_r, hann, consts, out_l, out_r, nullptr,
+                    streams, ld, k, hop, w, n, 0, stream);
+}
+
+// As spk_stft_split_allk, and next: [streams, 2, c_len] f32, the last c_len
+// samples of each buffer, not aliasing the buffers.
+SPK_EXPORT int spk_stft_split_allk_carry(const float* buf_l,
+                                         const float* buf_r,
+                                         const float* hann, const void* consts,
+                                         float* out_l, float* out_r,
+                                         float* next, int streams, int ld,
+                                         int k, int hop, int w, int n,
+                                         int c_len, void* stream) {
+  return split_allk(buf_l, buf_r, hann, consts, out_l, out_r, next, streams,
+                    ld, k, hop, w, n, c_len, stream);
+}
+
+// carry: [streams, 2, c_len] f32 and chunk: [streams, 2, k*hop] f32, each
+// stream's buffer samples 0 .. c_len-1 and c_len .. c_len + k*hop - 1, with
+// c_len + hop >= w; rows r*streams + s for window r (buffer samples r*hop ..
+// r*hop + w - 1) of stream s; next: [streams, 2, c_len] f32, the last c_len
+// samples of carry + chunk, not aliasing the inputs.
+SPK_EXPORT int spk_stft_split_carry(const float* carry, const float* chunk,
+                                    const float* hann, const void* consts,
+                                    float* out_l, float* out_r, float* next,
+                                    int streams, int c_len, int k, int hop,
+                                    int w, int n, void* stream) {
+  const auto* tw = static_cast<const float2*>(consts);
+  return launch_rows(n, consts, k * streams, stream, [&](auto body, dim3 grid,
+                                                         int threads,
+                                                         size_t smem,
+                                                         cudaStream_t st) {
+    const int e = spk::allow_smem(stft_split_carry_kernel<decltype(body)>, smem);
     if (e != 0) return e;
-    stft_split_allk_kernel<decltype(body)><<<grid, threads, smem, st>>>(
-        body, buf_l, buf_r, hann, tw, out_l, out_r, streams, ld, hop, w);
+    stft_split_carry_kernel<decltype(body)><<<grid, threads, smem, st>>>(
+        body, carry, chunk, hann, tw, out_l, out_r, next, streams, c_len,
+        k * hop, hop, w);
     return static_cast<int>(cudaGetLastError());
   });
 }
 
 // x: [rows, 2, n1, m] f32, x[r, c, j1, t] = window sample t*n1 + j1 of
-// channel c; hann: [n1*m] f32; out_l, out_r: [rows, n/2] f32.
+// channel c (w = n1*m).
 SPK_EXPORT int spk_stft_split_t(const float* x, const float* hann,
-                                const void* twiddles, float* out_l,
+                                const void* consts, float* out_l,
                                 float* out_r, int rows, int n1, int m, int n,
                                 void* stream) {
-  const auto* tw = static_cast<const float2*>(twiddles);
-  return launch_rows(n, rows, stream, [&](auto body, dim3 grid, int threads,
-                                          size_t smem, cudaStream_t st) {
-    const int e = spk::allow_smem(stft_split_t_kernel<decltype(body)>, n);
+  const auto* tw = static_cast<const float2*>(consts);
+  return launch_rows(n, consts, rows, stream, [&](auto body, dim3 grid,
+                                                  int threads, size_t smem,
+                                                  cudaStream_t st) {
+    const int e = spk::allow_smem(stft_split_t_kernel<decltype(body)>, smem);
     if (e != 0) return e;
     stft_split_t_kernel<decltype(body)><<<grid, threads, smem, st>>>(
         body, x, hann, tw, out_l, out_r, n1, m);
@@ -172,18 +257,19 @@ SPK_EXPORT int spk_stft_split_t(const float* x, const float* hann,
 
 // carry: [rows, 2, n1, c_cols] f32 and chunk: [rows, 2, n1, t_cols] f32, the
 // window's columns 0 .. c_cols-1 and c_cols .. c_cols+t_cols-1 in the
-// transposed layout; hann: [n1*(c_cols+t_cols)] f32; out_l, out_r: [rows,
-// n/2] f32; next_carry: [rows, 2, n1, c_cols] f32, not aliasing the inputs.
+// transposed layout (w = n1*(c_cols+t_cols)); next_carry: [rows, 2, n1,
+// c_cols] f32, not aliasing the inputs.
 SPK_EXPORT int spk_stft_split_tsplit(const float* carry, const float* chunk,
-                                     const float* hann, const void* twiddles,
+                                     const float* hann, const void* consts,
                                      float* out_l, float* out_r,
                                      float* next_carry, int rows, int n1,
                                      int c_cols, int t_cols, int n,
                                      void* stream) {
-  const auto* tw = static_cast<const float2*>(twiddles);
-  return launch_rows(n, rows, stream, [&](auto body, dim3 grid, int threads,
-                                          size_t smem, cudaStream_t st) {
-    const int e = spk::allow_smem(stft_split_tsplit_kernel<decltype(body)>, n);
+  const auto* tw = static_cast<const float2*>(consts);
+  return launch_rows(n, consts, rows, stream, [&](auto body, dim3 grid,
+                                                  int threads, size_t smem,
+                                                  cudaStream_t st) {
+    const int e = spk::allow_smem(stft_split_tsplit_kernel<decltype(body)>, smem);
     if (e != 0) return e;
     stft_split_tsplit_kernel<decltype(body)><<<grid, threads, smem, st>>>(
         body, carry, chunk, hann, tw, out_l, out_r, next_carry, n1, c_cols,

@@ -75,12 +75,21 @@ All three are split-real, and the four split-real kernels share one row
 body, so their rows are the same bits; `process()` of such a pipeline takes
 the split-real plane kernel, and streamed == `process()` stays exact.
 
+Every geometry the JAX pipeline takes runs here: any FFT size (the kernels
+pick radix 2, mixed radix or Bluestein from N) and pad_factor 1, where the
+planes are W bins wide (`stft_kernel.stft_bins`) so that the colormap's
+taps and the ring's bins 1..W-1 fit them; the state keeps JAX's shapes.
+
 On a CPU device the kernels run as their plain PyTorch versions; on a CUDA
-device as the hand-written kernels in `csrc/`.  There is no fallback from one
-to the other.  Without a `device`, the pipeline runs on the card.
+device as the hand-written kernels in `csrc/`, unless the caller names JAX's
+golden backend (`stft_backend="xla"`, `colormap_backend="xla"`), which runs
+the plain versions on the card.  There is no fallback from one to the
+other.  Without a `device`, the pipeline runs on the card.
 
 What the JAX pipeline offers beyond this port raises NotImplementedError
-naming the ROADMAP.md item that brings it: a ring dtype other than bfloat16.
+naming the ROADMAP.md item that brings it: a ring dtype other than bfloat16,
+and on the card an FFT whose row buffer (N, or Bluestein's M >= 2N - 1,
+complex f32) exceeds a block's 227 KB of shared memory.
 """
 
 from __future__ import annotations
@@ -156,11 +165,28 @@ class SpectrogramPipeline:
         ported.
       lut_resolution: palette table size (default cfg.lut_resolution).
       store_ring: keep the row ring that render_viewport draws.
+      stft_backend: "auto", "mxu", "pallas" or "xla", validated as in JAX
+        (an unknown value raises; "mxu" and "pallas" raise where JAX's
+        matrix-unit plan is unusable: no even-n1 factorization, or
+        pad_factor 1).  "auto", "mxu" and "pallas" all run the hand-written
+        STFT kernels; the layout knobs below take JAX's Pallas-chain gates
+        under "auto" and "pallas" (a TPU's "auto") and raise under "mxu"
+        and "xla", as in JAX.  "xla", JAX's golden path (`jnp.fft`), runs
+        the plain PyTorch STFT on the pipeline's device: never a default.
+      colormap_backend: "auto", "pallas" or "xla", validated as in JAX.
+        "auto" and "pallas" run the colormap kernels; "xla" the plain
+        PyTorch colormap on the pipeline's device.
       packed_output: emit [S, k, H] int32 RGBA8888 (byte 0 = R) instead of
         [S, k, H, 4] u8.
       precision_profile: "exact" or "fast".  Both compute the resample in
         true f32: "fast" relaxed only a TPU matrix-unit pass, and this port
         has no such pass.  Kept for API parity.
+      kernel_interpret: accepted for API parity; changes nothing.  It ran
+        JAX's Pallas kernels in interpret mode on a CPU; a CUDA kernel has
+        no such mode (pass device="cpu" for the plain versions).
+      autotune: accepted for API parity; changes nothing.  JAX measures its
+        matrix-unit plans and block sizes; the port has no tuner yet
+        (ROADMAP.md item 11).
       sanitize_input: zero non-finite samples of float chunks (and of
         process()'s PCM) at the ingestion edge, so that one producer's NaN
         cannot poison its stream's carry.
@@ -221,8 +247,12 @@ class SpectrogramPipeline:
         ring_dtype=torch.bfloat16,
         lut_resolution: Optional[int] = None,
         store_ring: bool = True,
+        stft_backend: str = "auto",
+        colormap_backend: str = "auto",
         packed_output: bool = False,
         precision_profile: str = "exact",
+        kernel_interpret: bool = False,
+        autotune: bool = False,
         sanitize_input: bool = False,
         schemes=None,
         static_palette=None,
@@ -245,9 +275,10 @@ class SpectrogramPipeline:
             raise ValueError(f"chunk_hops must be >= 1; got {chunk_hops}")
         if precision_profile not in ("exact", "fast"):
             raise ValueError(f"unknown precision_profile {precision_profile!r}")
-        if cfg.pad_factor < 2:
-            # the half-spectrum covers bins 1..W-1 only when W <= N/2
-            raise ValueError(f"the packed STFT needs pad_factor >= 2, got {cfg}")
+        if stft_backend not in ("auto", "mxu", "xla", "pallas"):
+            raise ValueError(f"unknown stft_backend {stft_backend!r}")
+        if colormap_backend not in ("auto", "pallas", "xla"):
+            raise ValueError(f"unknown colormap_backend {colormap_backend!r}")
         if blockwise_palettes not in (False, True, "auto"):
             raise ValueError(
                 "blockwise_palettes must be False, True or 'auto'; got "
@@ -281,6 +312,10 @@ class SpectrogramPipeline:
         self.store_ring = bool(store_ring)
         self.packed_output = bool(packed_output)
         self.precision_profile = precision_profile
+        self.stft_backend = stft_backend
+        self.colormap_backend = colormap_backend
+        self.kernel_interpret = bool(kernel_interpret)
+        self.autotune = bool(autotune)
         self.sanitize_input = bool(sanitize_input)
         self.blockwise_palettes = blockwise_palettes
         self.stream_blocks = stream_blocks
@@ -296,8 +331,8 @@ class SpectrogramPipeline:
         res = lut_resolution or cfg.lut_resolution
         self.chunk_size = k * cfg.hop_size
         self.carry_size = stft_ops.carry_size(cfg)
-        self._stft_layout(cfg, stft_packed, stft_unpack_split, transposed_carry,
-                          framing)
+        self._stft_layout(cfg, stft_backend, stft_packed, stft_unpack_split,
+                          transposed_carry, framing)
         dev = self.device
         # the registry's kind: built-in tables where every scheme fits the
         # built-in structure, else (U, V) factor tables for all of them
@@ -343,10 +378,10 @@ class SpectrogramPipeline:
             stft_kernel.packed_hann_i16(cfg.window_size)).to(dev)     # [W]
         self.split_hann = torch.from_numpy(
             stft_kernel.split_hann(cfg.window_size)).to(dev)          # [W]
-        self.twiddles = torch.from_numpy(
-            stft_kernel.twiddle_table(cfg.padded_size)).to(dev)       # [N, 2]
-        # the push reads [N/2] planes (bin k at k); the ring holds bins 1..W-1
-        full = cmap_ops.resample_matrix_full(cfg)                     # [H, N/2]
+        self.fft_consts = stft_kernel.fft_constants(cfg.padded_size, dev)
+        # the push reads [max(N/2, W)] planes (bin k at k); the ring holds
+        # bins 1..W-1
+        full = cmap_ops.resample_matrix_planes(cfg)                   # [H, W]
         self.taps = colormap_kernel.resample_taps(full, dev)          # [H] x 4
         self.ring_taps = colormap_kernel.resample_taps(
             cmap_ops.resample_matrix(cfg), dev)                       # [H] x 4
@@ -369,41 +404,62 @@ class SpectrogramPipeline:
         self._colormap_bw = colormap_kernel.colormap_blockwise
         self._colormap_generic = colormap_kernel.colormap_generic
         self._colormap_static = colormap_kernel.colormap_static
+        if stft_backend == "xla":
+            self._use_plain_stft()
+        if colormap_backend == "xla":
+            self._use_plain_colormap()
+
+    def _use_plain_stft(self) -> None:
+        """Run the STFT as its plain PyTorch versions, on this device."""
+        sk = stft_kernel
+        self._stft = lambda left, right, hann, c: (
+            sk.stft_mag_packed_plain(left, right, hann, c.n_fft))
+        self._stft_allk = lambda buf_l, buf_r, hann, c, k, hop: (
+            sk.stft_mag_packed_allk_plain(buf_l, buf_r, hann, c.n_fft, k, hop))
+        self._stft_split = lambda left, right, hann, c: (
+            sk.stft_mag_split_plain(left, right, hann, c.n_fft))
+        self._stft_split_allk = lambda buf_l, buf_r, hann, c, k, hop: (
+            sk.stft_mag_split_allk_plain(buf_l, buf_r, hann, c.n_fft, k, hop))
+        self._stft_split_t = lambda x, hann, c: sk.stft_mag_split_t_plain(x, hann, c.n_fft)
+        self._stft_split_tsplit = lambda carry, chunk, hann, c: (
+            sk.stft_mag_split_tsplit_plain(carry, chunk, hann, c.n_fft))
+
+    def _use_plain_colormap(self) -> None:
+        """Run the colormap as its plain PyTorch versions, on this device."""
+        self._colormap = colormap_kernel.colormap_builtin_plain
+        self._colormap_bw = lambda *args, block_rows: (
+            colormap_kernel.colormap_blockwise_plain(*args))
+        self._colormap_generic = colormap_kernel.colormap_generic_plain
+        self._colormap_static = colormap_kernel.colormap_static_plain
 
     def with_plain_kernels(self) -> "SpectrogramPipeline":
         """This pipeline with the plain PyTorch versions in place of its
         kernels, on the same device: what the kernels are held against on
         the card."""
         twin = copy.copy(self)
-        twin._stft = lambda left, right, hann, tw: (
-            stft_kernel.stft_mag_packed_plain(left, right, hann, tw.shape[0]))
-        twin._stft_allk = lambda buf_l, buf_r, hann, tw, k, hop: (
-            stft_kernel.stft_mag_packed_allk_plain(
-                buf_l, buf_r, hann, tw.shape[0], k, hop))
-        twin._stft_split = lambda left, right, hann, tw: (
-            stft_kernel.stft_mag_split_plain(left, right, hann, tw.shape[0]))
-        twin._stft_split_allk = lambda buf_l, buf_r, hann, tw, k, hop: (
-            stft_kernel.stft_mag_split_allk_plain(
-                buf_l, buf_r, hann, tw.shape[0], k, hop))
-        twin._stft_split_t = lambda x, hann, tw: (
-            stft_kernel.stft_mag_split_t_plain(x, hann, tw.shape[0]))
-        twin._stft_split_tsplit = lambda carry, chunk, hann, tw: (
-            stft_kernel.stft_mag_split_tsplit_plain(carry, chunk, hann, tw.shape[0]))
-        twin._colormap = colormap_kernel.colormap_builtin_plain
-        twin._colormap_bw = lambda *args, block_rows: (
-            colormap_kernel.colormap_blockwise_plain(*args))
-        twin._colormap_generic = colormap_kernel.colormap_generic_plain
-        twin._colormap_static = colormap_kernel.colormap_static_plain
+        twin._use_plain_stft()
+        twin._use_plain_colormap()
         return twin
 
-    def _stft_layout(self, cfg: SpectrogramConfig, stft_packed, stft_unpack_split,
-                     transposed_carry, framing: str) -> None:
-        """The STFT knobs, accepted and refused with the gates of the JAX
-        pipeline on its Pallas chain
-        (`spectrogram_tpu/models/spectrogram.py:237-346`)."""
-        plan = fft_plan.make_plan(cfg)
-        self.fft_plan = plan if fft_plan.plan_usable(cfg, plan) else None
-        plan = self.fft_plan
+    def _stft_layout(self, cfg: SpectrogramConfig, stft_backend: str, stft_packed,
+                     stft_unpack_split, transposed_carry, framing: str) -> None:
+        """The STFT backend and knobs, accepted and refused with the gates
+        of the JAX pipeline (`spectrogram_tpu/models/spectrogram.py:148-346`):
+        "mxu" and "pallas" need its usable plan (an even-n1 factorization
+        and pad_factor >= 2); the layout knobs need its Pallas chain, which
+        "auto" and "pallas" stand for here (a TPU's "auto")."""
+        plan = fft_plan.make_plan(cfg) if stft_backend != "xla" else None
+        usable = fft_plan.plan_usable(cfg, plan)
+        if stft_backend in ("mxu", "pallas") and not usable:
+            raise ValueError(
+                f"stft_backend={stft_backend!r} needs an even-n1 MXU "
+                f"factorization and pad_factor >= 2; geometry {cfg} has "
+                f"plan={plan} pad_factor={cfg.pad_factor}. Use "
+                "stft_backend='xla' or 'auto'."
+            )
+        self.fft_plan = plan if usable else None
+        # the knobs' gates read the plan of the Pallas chain only
+        plan = self.fft_plan if stft_backend in ("auto", "pallas") else None
         lane_pad = plan is not None and fft_plan.lane_pad_default(plan)
         k = self.chunk_hops
         if stft_packed not in ("auto", True, False):
@@ -854,7 +910,7 @@ class SpectrogramPipeline:
     def _framed_stft(self, state: StreamState, chunk_pl: torch.Tensor):
         """Framing and the STFT of one push, by the pipeline's layout:
         (mag_l, mag_r, new_carry), the planes [k*S, N/2] window-major."""
-        k, tw = self.chunk_hops, self.twiddles
+        k, tw = self.chunk_hops, self.fft_consts
         if self.tsplit_framing:
             return self._stft_split_tsplit(
                 state.carry, self._chunk_transposed(chunk_pl).contiguous(),
@@ -1060,9 +1116,9 @@ class SpectrogramPipeline:
         right = frames[..., 1].reshape(s * n, w).contiguous()
         pid = torch.tensor([palette_id], dtype=torch.int32, device=self.device)
         if self.split_real:
-            mag_l, mag_r = self._stft_split(left, right, self.split_hann, self.twiddles)
+            mag_l, mag_r = self._stft_split(left, right, self.split_hann, self.fft_consts)
         else:
-            mag_l, mag_r = self._stft(left, right, self.hann, self.twiddles)
+            mag_l, mag_r = self._stft(left, right, self.hann, self.fft_consts)
         rows = self._run_colormap(mag_l, mag_r, self.taps,
                                   self.state_tables_for(pid), blockwise=False)
         out = self._output(rows.reshape(s, n, -1))

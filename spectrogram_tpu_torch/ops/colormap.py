@@ -91,6 +91,16 @@ def resample_matrix_full(cfg: SpectrogramConfig, height: int | None = None) -> n
     return m
 
 
+def resample_matrix_planes(cfg: SpectrogramConfig, height: int | None = None) -> np.ndarray:
+    """[H, num_bins+1]: `resample_matrix` over bins 1..W-1 with a zero DC
+    column in front, so that column k is padded-FFT bin k, the layout of the
+    STFT kernels' planes.  It equals `resample_matrix_full` wherever
+    min_frequency > bin_hz (every geometry JAX's fused chain was built for);
+    below that, where the full matrix would weight the DC bin, it clamps the
+    lowest pixels onto bin 1 as the reference and JAX's XLA path do."""
+    return np.pad(resample_matrix(cfg, height), ((0, 0), (1, 0)))
+
+
 def time_resample_matrix(rows: int, width: int) -> np.ndarray:
     """[rows, width] two-tap bilinear time-resample matrix implementing the
     GL texel sampling law: output column j reads continuous coordinate

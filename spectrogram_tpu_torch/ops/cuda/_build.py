@@ -8,8 +8,10 @@ library lands in `build/kernels/` beside the package (a directory git
 ignores) and is rebuilt whenever the sources or flags change.
 
 Nothing here runs at import time: the first kernel launch builds the library.
-`KernelLibrary.launches` counts each kernel's launches, so that a run can show
-that its main path went through the kernels.
+`KernelLibrary.launches` counts each kernel's launches, and
+`KernelLibrary.body_launches` the STFT launches by FFT body (radix 2, mixed
+radix, Bluestein), so that a run can show that its main path went through
+the kernels and bodies.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ _F = ctypes.c_float
 # name -> ctypes argtypes of its C entry point (see csrc/*.cu).
 _STFT = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P)
 _ALLK = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+_ALLK_CARRY = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
 KERNELS = {
     "spk_stft_packed": _STFT,
     "spk_stft_packed_i16": _STFT,
@@ -44,10 +47,18 @@ KERNELS = {
     "spk_stft_mixed_i16": _STFT,
     "spk_stft_allk": _ALLK,
     "spk_stft_allk_i16": _ALLK,
+    "spk_stft_allk_carry": _ALLK_CARRY,
+    "spk_stft_allk_carry_i16": _ALLK_CARRY,
     "spk_stft_split": _STFT,
     "spk_stft_split_allk": _ALLK,
+    "spk_stft_split_allk_carry": _ALLK_CARRY,
+    "spk_stft_split_carry": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "spk_stft_split_t": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "spk_stft_split_tsplit": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "spk_push_fused": (
+        _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _F, _F, _F, _F, _P, _P,
+        _P, _I, _I, _I, _P,
+    ),
     "spk_colormap_builtin": (
         _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _F, _F, _F, _F, _P,
         _P,
@@ -66,6 +77,8 @@ KERNELS = {
         _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _F, _F, _F, _F, _P, _P,
     ),
 }
+# the STFT kernels' FFT bodies (csrc/stft_fft.cuh, `stft_kernel.fft_body`)
+FFT_BODIES = ("radix2", "mixed", "bluestein")
 
 
 def _nvcc() -> str:
@@ -149,19 +162,24 @@ class KernelLibrary:
         self._dll.spk_error_string.argtypes = (ctypes.c_int,)
         self._dll.spk_error_string.restype = ctypes.c_char_p
         self.launches = {name: 0 for name in KERNELS}
+        self.body_launches = {body: 0 for body in FFT_BODIES}
 
-    def launch(self, name: str, *args) -> None:
+    def launch(self, name: str, *args, body: str | None = None) -> None:
         """Call kernel `name`'s C entry point (which launches it and returns
-        cudaGetLastError()); raise if the launch was refused."""
+        cudaGetLastError()); raise if the launch was refused.  An STFT
+        launch names the FFT `body` it runs, counted beside the kernel."""
         code = getattr(self._dll, name)(*args)
         if code != 0:
             msg = self._dll.spk_error_string(code).decode()
             raise RuntimeError(f"{name}: CUDA launch failed ({code}): {msg}")
         self.launches[name] += 1
+        if body is not None:
+            self.body_launches[body] += 1
 
     def reset_launches(self) -> None:
-        for name in self.launches:
-            self.launches[name] = 0
+        for counts in (self.launches, self.body_launches):
+            for name in counts:
+                counts[name] = 0
 
 
 @functools.lru_cache(maxsize=None)

@@ -6,19 +6,31 @@ stft_kernel.py` `stft_mag_fused2` with `packed=True, slice_bins=False`
 complex FFT, z = (l + i r)·hann, and the conjugate-symmetric unpack splits
 them again:
 
-    L[k] = |Z[k] + conj(Z[-k])|,  R[k] = |Z[k] - conj(Z[-k])|,  k = 0 .. N/2-1
+    L[k] = |Z[k] + conj(Z[-k])|,  R[k] = |Z[k] - conj(Z[-k])|,  k < B
 
 with the reference's 2/W scale and the unpack's 1/2 folded into the window
-(`packed_hann`).  The outputs are two [rows, N/2] f32 planes, DC included —
-the layout `resample_matrix_full` indexes, so the colormap reads them as
-they are.  On a CUDA tensor, power-of-two N runs `csrc/stft_packed.cu` and
-other N = 2^a 3^b 5^c run `csrc/stft_mixed.cu`.
+(`packed_hann`).  The outputs are two [rows, B] f32 planes, DC included, B =
+`stft_bins(N, W)` = max(N/2, W): N/2 at pad_factor >= 2 and W at
+pad_factor 1 (bins 1 .. W-1 pass N/2 there) — the layout
+`resample_matrix_full` indexes, so the colormap reads them as they are.  On
+a CUDA tensor, power-of-two N runs `csrc/stft_packed.cu` and every other N
+`csrc/stft_mixed.cu`.
+
+Every N from 2 up to the shared-memory limit runs on the card
+(`check_fft_size`): the kernels pick one of three FFT bodies from N
+(`fft_body`; csrc/stft_fft.cuh): radix 2, mixed radix 4/2/3/5 for 2^a 3^b
+5^c, and Bluestein's chirp-z convolution of length M = the least 2^a 3^b
+5^c >= 2N - 1 for any other N (N = 4410 at 44.1 kHz and the reference's 0.05
+s window, M = 9000).  Each body reads one host-built table in float64
+rounded once (`fft_table`), passed with N as `FftConstants`
+(`fft_constants(N, device)`).
 
 The all-windows kernel, `stft_mag_packed_allk`, replaces
 `stft_mag_fused2_allk(packed=True)` (and computes what `stft_mag_fused2_buf`
 computes): it reads the k hop-shifted windows of each stream straight out of
 the carry+chunk sample planes and writes their magnitudes in window-major
-order, row r*S + s (`csrc/stft_allk.cu`, both FFT bodies).
+order, row r*S + s (`csrc/stft_allk.cu`); with `emit_carry` it also writes
+the next carry, as that function's `emit_carry=True` does.
 
 Both take f32 sample planes, or the int16 PCM words of the i16_planes wire
 mode (the TPU kernels' int16 operand form): an int16 plane reads half the
@@ -29,14 +41,18 @@ kernels and in the plain versions alike.
 
 The split-real kernels (`csrc/stft_split.cu`) run each channel as its own
 FFT of real input, |DFT_N(x * hann)| with `split_hann` (the reference's 2/W,
-the TPU kernels' `_scaled_hann`), bins 0 .. N/2-1, f32 only, in the four
-operand layouts of the TPU's split-real kernels:
+the TPU kernels' `_scaled_hann`), bins 0 .. B-1, f32 only, in the operand
+layouts of the TPU's split-real kernels:
 
   * `stft_mag_split`: [rows, W] window planes; replaces `stft_mag_fused2`
     with `packed=False` (bodies `_kernel2_2d`, `_kernel2`, `_fft_mag_value`)
   * `stft_mag_split_allk`: the k windows of [S, L] carry+chunk buffers,
     window-major; replaces `stft_mag_fused2_allk(packed=False)` (body
-    `_allk_kernel`)
+    `_allk_kernel`), with `emit_carry` as the packed one
+  * `stft_mag_split_carry`: the k windows of the planar carry [S, 2, C] and
+    chunk [S, 2, k*hop] as two operands, returning the next carry too;
+    replaces `stft_mag_fused2_split` (body `_split_kernel`), whose call
+    `stft_mag_fused2_split` here mirrors with JAX's gate
   * `stft_mag_split_t`: the combined transposed operand [rows, 2, n1, m],
     x[n, c, j1, t] = sample t*n1 + j1 of channel c; replaces
     `stft_mag_fused2_t` (body `_kernel2_t`)
@@ -44,18 +60,22 @@ operand layouts of the TPU's split-real kernels:
     hop chunk [rows, 2, n1, t_cols] as two operands, returning the next
     carry too; replaces `stft_mag_fused2_tsplit` (body `_tsplit_kernel`)
 
-All four run one row body (`stft_real_row` in `csrc/stft_fft.cuh`) with a
-sample source per layout, so on the card they give the same bits for the
-same window.
+All run one row body (`stft_real_row` in `csrc/stft_fft.cuh`) with a sample
+source per layout, so on the card they give the same bits for the same
+window (JAX's split-operand body is only within 1 ulp of its planes body).
 
 Each wrapper takes a CPU tensor to its plain version (torch.fft) and a CUDA
 tensor to its kernel: an f32 plane to the f32 kernel, an int16 plane to the
 packed kernels' int16 form (the split-real kernels take f32 only).  There is
 no fallback between the two, and no cast: a CUDA tensor a kernel cannot take
-raises.
+raises.  Each launch counts under its kernel and under its FFT body
+(`KernelLibrary.body_launches`).
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -65,18 +85,26 @@ from spectrogram_tpu_torch.ops.stft import hann_window_np
 KERNEL = "spk_stft_packed"
 MIXED_KERNEL = "spk_stft_mixed"
 ALLK_KERNEL = "spk_stft_allk"
+ALLK_CARRY_KERNEL = "spk_stft_allk_carry"
 SPLIT_KERNEL = "spk_stft_split"
 SPLIT_ALLK_KERNEL = "spk_stft_split_allk"
+SPLIT_ALLK_CARRY_KERNEL = "spk_stft_split_allk_carry"
+SPLIT_CARRY_KERNEL = "spk_stft_split_carry"
 SPLIT_T_KERNEL = "spk_stft_split_t"
 SPLIT_TSPLIT_KERNEL = "spk_stft_split_tsplit"
 KERNEL_I16 = "spk_stft_packed_i16"
 MIXED_KERNEL_I16 = "spk_stft_mixed_i16"
 ALLK_KERNEL_I16 = "spk_stft_allk_i16"
+ALLK_CARRY_KERNEL_I16 = "spk_stft_allk_carry_i16"
 # each f32 kernel's int16 form
 _I16_KERNELS = {KERNEL: KERNEL_I16, MIXED_KERNEL: MIXED_KERNEL_I16,
-                ALLK_KERNEL: ALLK_KERNEL_I16}
+                ALLK_KERNEL: ALLK_KERNEL_I16, ALLK_CARRY_KERNEL: ALLK_CARRY_KERNEL_I16}
 WIRE_SCALE = 2.0 ** -15   # an int16 PCM word x stands for x * WIRE_SCALE
-MIN_FFT, MAX_FFT = 256, 16384  # one block's shared memory holds N complex f32
+# One block's FFT buffer (N complex f32, or Bluestein's M) lives in the
+# dynamic shared memory a Hopper block may opt into: 227 KB
+# (csrc/stft_fft.cuh kMaxSmemBytes).
+MAX_SMEM_BYTES = 232448
+MAX_BUF = MAX_SMEM_BYTES // 8
 
 
 def packed_hann(window_size: int) -> np.ndarray:
@@ -98,6 +126,18 @@ def packed_hann_i16(window_size: int) -> np.ndarray:
     return packed_hann(window_size) * np.float32(WIRE_SCALE)
 
 
+def stft_bins(n_fft: int, window_size: int) -> int:
+    """Magnitude bins per output row, max(N/2, W): bins 0 .. N/2-1 where
+    pad_factor >= 2, bins 0 .. W-1 (the Nyquist bin of an even N included)
+    where N = W, so that the colormap's taps (bins up to W-1) always fit."""
+    return max(n_fft // 2, window_size)
+
+
+def carry_len(window_size: int, hop: int) -> int:
+    """The carry the framing keeps, W - hop samples (0 where hop >= W)."""
+    return max(window_size - hop, 0)
+
+
 def twiddle_table(n_fft: int) -> np.ndarray:
     """[N, 2] f32 (re, im) of exp(-2 pi i t / N), t = 0 .. N-1, computed in
     float64 and rounded once to f32."""
@@ -110,49 +150,170 @@ def _is_power_of_two(n: int) -> bool:
     return n & (n - 1) == 0
 
 
-def check_fft_size(n_fft: int) -> None:
-    """Raise for an N the CUDA kernels do not take: N must be even,
-    2^a 3^b 5^c, and within MIN_FFT..MAX_FFT."""
-    rest = n_fft
+def _is_smooth(n: int) -> bool:
     for p in (2, 3, 5):
-        while rest > 1 and rest % p == 0:
-            rest //= p
-    if rest != 1 or n_fft % 2 or not MIN_FFT <= n_fft <= MAX_FFT:
+        while n > 1 and n % p == 0:
+            n //= p
+    return n == 1
+
+
+def mixed_radix_plan(n: int) -> tuple:
+    """The radices of the MixedRadix body's stages for a 2^a 3^b 5^c n (4s,
+    then one 2, then 3s, then 5s; csrc/stft_fft.cuh `make_mixed_radix`)."""
+    radices, rest = [], n
+    for r in (4, 2, 3, 5):
+        while rest % r == 0:
+            radices.append(r)
+            rest //= r
+    if rest != 1 or n < 2:
+        raise ValueError(f"{n} is not 2^a 3^b 5^c")
+    return tuple(radices)
+
+
+def digit_reversal(n: int) -> np.ndarray:
+    """[n] slot(i) of the MixedRadix body of n: where its DIT pass reads
+    sample i, and where its DIF pass leaves X[i] (csrc/stft_fft.cuh
+    `MixedRadix::slot`)."""
+    radices = mixed_radix_plan(n)
+    i = np.arange(n, dtype=np.int64)
+    pos = np.zeros(n, np.int64)
+    span = n
+    for r in reversed(radices):
+        span //= r
+        pos += (i % r) * span
+        i //= r
+    return pos
+
+
+def bluestein_size(n_fft: int) -> int:
+    """Bluestein's convolution length for N: the least 2^a 3^b 5^c >= 2N - 1."""
+    m = max(2 * n_fft - 1, 2)
+    while not _is_smooth(m):
+        m += 1
+    return m
+
+
+def fft_body(n_fft: int) -> str:
+    """The body the kernels run at N (csrc/stft_fft.cuh `with_fft_body`):
+    "radix2", "mixed" (2^a 3^b 5^c) or "bluestein"."""
+    if _is_power_of_two(n_fft):
+        return "radix2"
+    return "mixed" if _is_smooth(n_fft) else "bluestein"
+
+
+def fft_buf_size(n_fft: int) -> int:
+    """Complex f32 of a row's shared-memory buffer: N, or Bluestein's M."""
+    return bluestein_size(n_fft) if fft_body(n_fft) == "bluestein" else n_fft
+
+
+def check_fft_size(n_fft: int) -> None:
+    """Raise for an N the CUDA kernels do not take: below 2, or a row buffer
+    (N complex f32, or Bluestein's M >= 2N - 1) above the 227 KB of shared
+    memory a Hopper block may hold."""
+    if n_fft < 2 or fft_buf_size(n_fft) > MAX_BUF:
         raise NotImplementedError(
-            f"the CUDA STFT kernels take even FFT sizes 2^a 3^b 5^c from "
-            f"{MIN_FFT} to {MAX_FFT}; got {n_fft}.  Other sizes need a "
-            "Bluestein pass (ROADMAP.md, kernel queue)"
+            f"the CUDA STFT kernels hold a row's FFT buffer (N complex f32, "
+            f"or Bluestein's M >= 2N - 1) in one block's shared memory, at "
+            f"most {MAX_SMEM_BYTES} bytes (227 KB, {MAX_BUF} entries); N="
+            f"{n_fft} needs {fft_buf_size(n_fft) if n_fft >= 2 else 0}.  "
+            "Splitting the buffer across blocks is ROADMAP.md work"
         )
+
+
+def fft_table(n_fft: int) -> np.ndarray:
+    """[T, 2] f32 (re, im): the device table of N's FFT body, each entry
+    computed in float64 and rounded once.  Direct bodies: the N twiddles
+    (`twiddle_table`).  Bluestein: the M twiddles of its inner length, the N
+    chirp entries c[t] = exp(-i pi t^2 / N) with t^2 reduced mod 2N in
+    integers (so the angle stays in [0, 2 pi) at any N), and the M entries of
+    the filter's transform F = DFT_M(b) / M, b[t] = b[M - t] = conj(c[t])
+    for t < N, stored at F[k] -> slot(k) (`digit_reversal(M)`), the order in
+    which the kernel's DIF pass leaves the data's transform."""
+    if fft_body(n_fft) != "bluestein":
+        return twiddle_table(n_fft)
+    m = bluestein_size(n_fft)
+    t = np.arange(n_fft, dtype=np.int64)
+    chirp = np.exp(-1j * np.pi * ((t * t) % (2 * n_fft)) / n_fft)
+    b = np.zeros(m, np.complex128)
+    b[:n_fft] = np.conj(chirp)
+    b[m - t[1:]] = np.conj(chirp[1:])
+    filt = np.empty(m, np.complex128)
+    filt[digit_reversal(m)] = np.fft.fft(b) / m
+    table = np.concatenate([np.exp(-2j * np.pi * np.arange(m) / m), chirp, filt])
+    return np.stack([table.real, table.imag], axis=-1).astype(np.float32)
+
+
+def fft_table_shape(n_fft: int) -> tuple:
+    """The shape of `fft_table(n_fft)`."""
+    if fft_body(n_fft) != "bluestein":
+        return (n_fft, 2)
+    return (2 * bluestein_size(n_fft) + n_fft, 2)
+
+
+class FftConstants(NamedTuple):
+    """N and its FFT table (`fft_table`) on one device: what the STFT
+    kernels read besides the samples and the window."""
+
+    n_fft: int
+    table: torch.Tensor   # [T, 2] f32
+
+
+@functools.lru_cache(maxsize=32)
+def _fft_constants(n_fft: int, device: torch.device) -> FftConstants:
+    return FftConstants(n_fft, torch.from_numpy(fft_table(n_fft)).to(device))
+
+
+def fft_constants(n_fft: int, device=None) -> FftConstants:
+    """N's `FftConstants` on `device` (default the CPU), built once per N
+    and device."""
+    return _fft_constants(int(n_fft), torch.device(device or "cpu"))
 
 
 def stft_mag_packed_plain(left: torch.Tensor, right: torch.Tensor,
                           hann: torch.Tensor, n_fft: int):
-    """The plain PyTorch version: torch.fft on complex64, same unpack.
-    int16 planes convert exactly to f32 first (`hann` then carries 2^-15)."""
+    """The plain PyTorch version: torch.fft on complex64, same unpack, bins
+    0 .. stft_bins(N, W)-1.  int16 planes convert exactly to f32 first
+    (`hann` then carries 2^-15)."""
     z = torch.complex(left.to(torch.float32) * hann, right.to(torch.float32) * hann)
     x = torch.fft.fft(z, n=n_fft)
-    half = n_fft // 2
-    k = torch.arange(half, device=left.device)
-    a = x[:, :half]
+    bins = stft_bins(n_fft, hann.shape[0])
+    k = torch.arange(bins, device=left.device)
+    a = x[:, :bins]
     b = x[:, (n_fft - k) % n_fft]          # Z[-k]; the k=0 partner is Z[0]
     return torch.abs(a + torch.conj(b)), torch.abs(a - torch.conj(b))
 
 
+def buffer_tails(buf_l: torch.Tensor, buf_r: torch.Tensor, c: int) -> torch.Tensor:
+    """[S, 2, c]: the last c samples of each buffer, the all-windows
+    kernels' next carry."""
+    length = buf_l.shape[1]
+    return torch.stack([buf_l[:, length - c :], buf_r[:, length - c :]], dim=1)
+
+
+def _windows_of(buf: torch.Tensor, w: int, k: int, hop: int) -> torch.Tensor:
+    """The k windows buf[:, r*hop : r*hop+W] of [S, L] buffers, window-major."""
+    return torch.cat([buf[:, r * hop : r * hop + w] for r in range(k)])
+
+
 def stft_mag_packed_allk_plain(buf_l: torch.Tensor, buf_r: torch.Tensor,
                                hann: torch.Tensor, n_fft: int, k: int,
-                               hop: int):
+                               hop: int, emit_carry: bool = False):
     """The plain version of the all-windows kernel: slice the k windows out
-    of the buffers, window-major, and run `stft_mag_packed_plain`."""
+    of the buffers, window-major, and run `stft_mag_packed_plain`; with
+    `emit_carry` also the next carry (`buffer_tails`)."""
     w = hann.shape[0]
-    left = torch.cat([buf_l[:, r * hop : r * hop + w] for r in range(k)])
-    right = torch.cat([buf_r[:, r * hop : r * hop + w] for r in range(k)])
-    return stft_mag_packed_plain(left, right, hann, n_fft)
+    mags = stft_mag_packed_plain(_windows_of(buf_l, w, k, hop),
+                                 _windows_of(buf_r, w, k, hop), hann, n_fft)
+    if emit_carry:
+        return (*mags, buffer_tails(buf_l, buf_r, carry_len(w, hop)))
+    return mags
 
 
-def _cuda_kernel(name: str, samples: tuple, **consts) -> str:
+def _cuda_kernel(name: str, samples: tuple, consts: FftConstants, **tensors) -> str:
     """Kernel `name` for f32 sample planes, its int16 form for int16
     planes; raise unless the planes are contiguous f32 or int16 of one type
-    on one CUDA device and the constants contiguous f32 there."""
+    on one CUDA device, the FFT table and the other tensors contiguous f32
+    there, and N one the kernels take."""
     first = samples[0]
     if first.device.type != "cuda":
         raise ValueError(f"no STFT kernel for device {first.device}")
@@ -162,36 +323,50 @@ def _cuda_kernel(name: str, samples: tuple, **consts) -> str:
             f"mode); got {first.dtype}")
     if first.dtype == torch.int16 and name not in _I16_KERNELS:
         raise ValueError(f"{name} takes float32 samples only; got int16")
+    check_fft_size(consts.n_fft)
     named = [("samples", t, first.dtype) for t in samples]
-    named += [(arg, t, torch.float32) for arg, t in consts.items()]
+    named += [("fft table", consts.table, torch.float32)]
+    named += [(arg, t, torch.float32) for arg, t in tensors.items()]
     for arg, t, dtype in named:
         if t.dtype != dtype or not t.is_contiguous() or t.device != first.device:
             raise ValueError(
                 f"{arg} must be contiguous {dtype} on {first.device}; got "
                 f"{t.dtype} on {t.device}, contiguous={t.is_contiguous()}"
             )
+    if consts.table.shape != fft_table_shape(consts.n_fft):
+        raise ValueError(
+            f"the FFT table of N={consts.n_fft} is {fft_table_shape(consts.n_fft)}; "
+            f"got {tuple(consts.table.shape)} (build it with fft_constants)")
     return name if first.dtype == torch.float32 else _I16_KERNELS[name]
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
+def _launch(name: str, device: torch.device, n_fft: int, *args) -> None:
+    """Launch kernel `name` on the current stream of `device`, counting the
+    launch under the kernel and under the FFT body N selects."""
     from spectrogram_tpu_torch.ops.cuda import _build
 
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.library().launch(name, *args, stream)
+        _build.library().launch(name, *args, stream, body=fft_body(n_fft))
+
+
+def _planes(rows: int, n_fft: int, w: int, device) -> tuple:
+    """Two empty [rows, stft_bins(N, W)] f32 output planes."""
+    out_l = torch.empty((rows, stft_bins(n_fft, w)), dtype=torch.float32, device=device)
+    return out_l, torch.empty_like(out_l)
 
 
 def stft_mag_packed(left: torch.Tensor, right: torch.Tensor,
-                    hann: torch.Tensor, twiddles: torch.Tensor):
-    """(mag_l, mag_r) [rows, N/2] f32 of the [rows, W] f32 or int16 window
-    planes, with N = twiddles.shape[0] (`twiddle_table(N)` on the same
-    device) and hann `packed_hann(W)`, or `packed_hann_i16(W)` for int16.
+                    hann: torch.Tensor, consts: FftConstants):
+    """(mag_l, mag_r) [rows, stft_bins(N, W)] f32 of the [rows, W] f32 or
+    int16 window planes, with N's `fft_constants` on the same device and
+    hann `packed_hann(W)`, or `packed_hann_i16(W)` for int16.
 
-    CPU tensors take the plain version; CUDA tensors take kernel A."""
-    n_fft = twiddles.shape[0]
+    CPU tensors take the plain version; CUDA tensors take kernel A
+    (stft_packed.cu for power-of-two N, stft_mixed.cu otherwise)."""
+    n_fft = consts.n_fft
     rows, w = left.shape
-    if (right.shape != left.shape or hann.shape != (w,) or w > n_fft
-            or twiddles.shape != (n_fft, 2)):
+    if right.shape != left.shape or hann.shape != (w,) or w > n_fft:
         raise ValueError(
             f"window planes {tuple(left.shape)}/{tuple(right.shape)}, hann "
             f"{tuple(hann.shape)} and N={n_fft} do not fit"
@@ -202,74 +377,105 @@ def stft_mag_packed(left: torch.Tensor, right: torch.Tensor,
         name, size = KERNEL, n_fft.bit_length() - 1
     else:
         name, size = MIXED_KERNEL, n_fft
-    name = _cuda_kernel(name, (left, right), hann=hann, twiddles=twiddles)
-    check_fft_size(n_fft)
-    out_l = torch.empty((rows, n_fft // 2), dtype=torch.float32, device=left.device)
-    out_r = torch.empty_like(out_l)
+    name = _cuda_kernel(name, (left, right), consts, hann=hann)
+    out_l, out_r = _planes(rows, n_fft, w, left.device)
     if rows:
-        _launch(name, left.device, left.data_ptr(), right.data_ptr(),
-                hann.data_ptr(), twiddles.data_ptr(), out_l.data_ptr(),
+        _launch(name, left.device, n_fft, left.data_ptr(), right.data_ptr(),
+                hann.data_ptr(), consts.table.data_ptr(), out_l.data_ptr(),
                 out_r.data_ptr(), rows, w, size)
     return out_l, out_r
 
 
-def stft_mag_packed_allk(buf_l: torch.Tensor, buf_r: torch.Tensor,
-                         hann: torch.Tensor, twiddles: torch.Tensor,
-                         k: int, hop: int):
-    """(mag_l, mag_r) [k*S, N/2] f32 of the k windows buf[s, r*hop : r*hop+W]
-    of the [S, L] f32 or int16 sample buffers (L >= W + (k-1)*hop), with row
-    r*S + s holding window r of stream s, W = hann.shape[0] and N =
-    twiddles.shape[0]; hann as for `stft_mag_packed`.
-
-    CPU tensors take the plain version; CUDA tensors take the all-windows
-    kernel, which never materializes the windows."""
-    n_fft = twiddles.shape[0]
+def _check_buffers(buf_l, buf_r, hann, n_fft: int, k: int, hop: int) -> None:
     s, length = buf_l.shape
     w = hann.shape[0]
     if (buf_r.shape != buf_l.shape or hann.ndim != 1 or w > n_fft or k < 1
-            or hop < 1 or length < w + (k - 1) * hop
-            or twiddles.shape != (n_fft, 2)):
+            or hop < 1 or length < w + (k - 1) * hop):
         raise ValueError(
             f"buffers {tuple(buf_l.shape)}/{tuple(buf_r.shape)}, hann "
             f"{tuple(hann.shape)}, k={k}, hop={hop} and N={n_fft} do not fit"
         )
+
+
+def stft_mag_packed_allk(buf_l: torch.Tensor, buf_r: torch.Tensor,
+                         hann: torch.Tensor, consts: FftConstants,
+                         k: int, hop: int, emit_carry: bool = False):
+    """(mag_l, mag_r) [k*S, stft_bins(N, W)] f32 of the k windows buf[s,
+    r*hop : r*hop+W] of the [S, L] f32 or int16 sample buffers (L >= W +
+    (k-1)*hop), with row r*S + s holding window r of stream s and W =
+    hann.shape[0]; hann and consts as for `stft_mag_packed`.  With
+    `emit_carry` also the next carry [S, 2, W - hop] in the buffers' dtype,
+    the last W - hop samples of each buffer (`buffer_tails`), a new tensor.
+
+    CPU tensors take the plain version; CUDA tensors take the all-windows
+    kernel, which never materializes the windows (and, with `emit_carry`,
+    writes the next carry itself)."""
+    n_fft = consts.n_fft
+    _check_buffers(buf_l, buf_r, hann, n_fft, k, hop)
     if buf_l.device.type == "cpu":
-        return stft_mag_packed_allk_plain(buf_l, buf_r, hann, n_fft, k, hop)
-    name = _cuda_kernel(ALLK_KERNEL, (buf_l, buf_r), hann=hann, twiddles=twiddles)
-    check_fft_size(n_fft)
-    out_l = torch.empty((k * s, n_fft // 2), dtype=torch.float32,
-                        device=buf_l.device)
-    out_r = torch.empty_like(out_l)
+        return stft_mag_packed_allk_plain(buf_l, buf_r, hann, n_fft, k, hop, emit_carry)
+    name = _cuda_kernel(ALLK_CARRY_KERNEL if emit_carry else ALLK_KERNEL,
+                        (buf_l, buf_r), consts, hann=hann)
+    return _launch_allk(name, buf_l, buf_r, hann, consts, k, hop, emit_carry)
+
+
+def _launch_allk(name: str, buf_l, buf_r, hann, consts: FftConstants, k: int,
+                 hop: int, emit_carry: bool):
+    """Launch all-windows kernel `name` (its `_carry` form with
+    `emit_carry`, which also takes the next carry in the buffers' dtype)."""
+    s, length = buf_l.shape
+    w, n_fft = hann.shape[0], consts.n_fft
+    out_l, out_r = _planes(k * s, n_fft, w, buf_l.device)
+    args = [buf_l.data_ptr(), buf_r.data_ptr(), hann.data_ptr(),
+            consts.table.data_ptr(), out_l.data_ptr(), out_r.data_ptr()]
+    c = carry_len(w, hop)
+    if emit_carry:
+        next_carry = torch.empty((s, 2, c), dtype=buf_l.dtype, device=buf_l.device)
+        args += [next_carry.data_ptr(), s, length, k, hop, w, n_fft, c]
+    else:
+        args += [s, length, k, hop, w, n_fft]
     if s:
-        _launch(name, buf_l.device, buf_l.data_ptr(), buf_r.data_ptr(),
-                hann.data_ptr(), twiddles.data_ptr(), out_l.data_ptr(),
-                out_r.data_ptr(), s, length, k, hop, w, n_fft)
-    return out_l, out_r
+        _launch(name, buf_l.device, n_fft, *args)
+    return (out_l, out_r, next_carry) if emit_carry else (out_l, out_r)
 
 
 # ---------------------------------------------------------------- split-real
 
 def stft_mag_split_plain(left: torch.Tensor, right: torch.Tensor,
                          hann: torch.Tensor, n_fft: int):
-    """The plain version of the split-real kernels: torch.fft.rfft of each
-    channel's windowed, zero-padded row; |X| of bins 0 .. N/2-1."""
-    half = n_fft // 2
+    """The plain version of the split-real kernels: |X| of bins 0 ..
+    stft_bins(N, W)-1 of each channel's windowed, zero-padded row, by
+    torch.fft.rfft (torch.fft.fft where the bins pass N/2, at N = W)."""
+    bins = stft_bins(n_fft, hann.shape[0])
+    fft = torch.fft.rfft if bins <= n_fft // 2 + 1 else torch.fft.fft
 
     def mag(x: torch.Tensor) -> torch.Tensor:
-        return torch.abs(torch.fft.rfft(x * hann, n=n_fft)[:, :half])
+        return torch.abs(fft(x * hann, n=n_fft)[:, :bins])
 
     return mag(left), mag(right)
 
 
 def stft_mag_split_allk_plain(buf_l: torch.Tensor, buf_r: torch.Tensor,
                               hann: torch.Tensor, n_fft: int, k: int,
-                              hop: int):
+                              hop: int, emit_carry: bool = False):
     """Slice the k windows out of the buffers, window-major, and run
-    `stft_mag_split_plain`."""
+    `stft_mag_split_plain`; with `emit_carry` also the next carry
+    (`buffer_tails`)."""
     w = hann.shape[0]
-    left = torch.cat([buf_l[:, r * hop : r * hop + w] for r in range(k)])
-    right = torch.cat([buf_r[:, r * hop : r * hop + w] for r in range(k)])
-    return stft_mag_split_plain(left, right, hann, n_fft)
+    mags = stft_mag_split_plain(_windows_of(buf_l, w, k, hop),
+                                _windows_of(buf_r, w, k, hop), hann, n_fft)
+    if emit_carry:
+        return (*mags, buffer_tails(buf_l, buf_r, carry_len(w, hop)))
+    return mags
+
+
+def stft_mag_split_carry_plain(carry: torch.Tensor, chunk: torch.Tensor,
+                               hann: torch.Tensor, n_fft: int, k: int, hop: int):
+    """(mag_l, mag_r, next_carry): the k windows of the concatenated carry
+    + chunk through `stft_mag_split_allk_plain`, and the last C samples."""
+    buf = torch.cat([carry, chunk], dim=2)
+    mags = stft_mag_split_allk_plain(buf[:, 0], buf[:, 1], hann, n_fft, k, hop)
+    return (*mags, buf[:, :, buf.shape[2] - carry.shape[2] :].contiguous())
 
 
 def stft_mag_split_t_plain(x: torch.Tensor, hann: torch.Tensor, n_fft: int):
@@ -298,129 +504,164 @@ def stft_mag_split_tsplit_plain(carry: torch.Tensor, chunk: torch.Tensor,
     return mag_l, mag_r, split_next_carry(carry, chunk)
 
 
-def _split_check(name: str, samples: tuple, hann: torch.Tensor,
-                 twiddles: torch.Tensor) -> None:
-    """Raise unless the samples are contiguous f32 on the constants' CUDA
-    device and N is one the kernels take."""
-    _cuda_kernel(name, samples, hann=hann, twiddles=twiddles)
-    check_fft_size(twiddles.shape[0])
-
-
 def stft_mag_split(left: torch.Tensor, right: torch.Tensor,
-                   hann: torch.Tensor, twiddles: torch.Tensor):
-    """(mag_l, mag_r) [rows, N/2] f32 split-real magnitudes of the [rows, W]
-    f32 window planes, hann `split_hann(W)`, N = twiddles.shape[0].
+                   hann: torch.Tensor, consts: FftConstants):
+    """(mag_l, mag_r) [rows, stft_bins(N, W)] f32 split-real magnitudes of
+    the [rows, W] f32 window planes, hann `split_hann(W)`.
 
     CPU tensors take the plain version; CUDA tensors take spk_stft_split."""
-    n_fft = twiddles.shape[0]
+    n_fft = consts.n_fft
     rows, w = left.shape
-    if (right.shape != left.shape or hann.shape != (w,) or w > n_fft
-            or twiddles.shape != (n_fft, 2)):
+    if right.shape != left.shape or hann.shape != (w,) or w > n_fft:
         raise ValueError(
             f"window planes {tuple(left.shape)}/{tuple(right.shape)}, hann "
             f"{tuple(hann.shape)} and N={n_fft} do not fit"
         )
     if left.device.type == "cpu":
         return stft_mag_split_plain(left, right, hann, n_fft)
-    _split_check(SPLIT_KERNEL, (left, right), hann, twiddles)
-    out_l = torch.empty((rows, n_fft // 2), dtype=torch.float32, device=left.device)
-    out_r = torch.empty_like(out_l)
+    _cuda_kernel(SPLIT_KERNEL, (left, right), consts, hann=hann)
+    out_l, out_r = _planes(rows, n_fft, w, left.device)
     if rows:
-        _launch(SPLIT_KERNEL, left.device, left.data_ptr(), right.data_ptr(),
-                hann.data_ptr(), twiddles.data_ptr(), out_l.data_ptr(),
+        _launch(SPLIT_KERNEL, left.device, n_fft, left.data_ptr(), right.data_ptr(),
+                hann.data_ptr(), consts.table.data_ptr(), out_l.data_ptr(),
                 out_r.data_ptr(), rows, w, n_fft)
     return out_l, out_r
 
 
 def stft_mag_split_allk(buf_l: torch.Tensor, buf_r: torch.Tensor,
-                        hann: torch.Tensor, twiddles: torch.Tensor,
-                        k: int, hop: int):
-    """(mag_l, mag_r) [k*S, N/2] f32 split-real magnitudes of the k windows
-    buf[s, r*hop : r*hop+W] of the [S, L] f32 buffers, row r*S + s; hann
-    `split_hann(W)`.
+                        hann: torch.Tensor, consts: FftConstants,
+                        k: int, hop: int, emit_carry: bool = False):
+    """(mag_l, mag_r) [k*S, stft_bins(N, W)] f32 split-real magnitudes of
+    the k windows buf[s, r*hop : r*hop+W] of the [S, L] f32 buffers, row
+    r*S + s; hann `split_hann(W)`.  With `emit_carry` also the next carry
+    [S, 2, W - hop], as `stft_mag_packed_allk` gives it.
 
     CPU tensors take the plain version; CUDA tensors take
-    spk_stft_split_allk, which never materializes the windows."""
-    n_fft = twiddles.shape[0]
-    s, length = buf_l.shape
-    w = hann.shape[0]
-    if (buf_r.shape != buf_l.shape or hann.ndim != 1 or w > n_fft or k < 1
-            or hop < 1 or length < w + (k - 1) * hop
-            or twiddles.shape != (n_fft, 2)):
-        raise ValueError(
-            f"buffers {tuple(buf_l.shape)}/{tuple(buf_r.shape)}, hann "
-            f"{tuple(hann.shape)}, k={k}, hop={hop} and N={n_fft} do not fit"
-        )
+    spk_stft_split_allk (spk_stft_split_allk_carry with `emit_carry`),
+    which never materializes the windows."""
+    n_fft = consts.n_fft
+    _check_buffers(buf_l, buf_r, hann, n_fft, k, hop)
     if buf_l.device.type == "cpu":
-        return stft_mag_split_allk_plain(buf_l, buf_r, hann, n_fft, k, hop)
-    _split_check(SPLIT_ALLK_KERNEL, (buf_l, buf_r), hann, twiddles)
-    out_l = torch.empty((k * s, n_fft // 2), dtype=torch.float32, device=buf_l.device)
-    out_r = torch.empty_like(out_l)
+        return stft_mag_split_allk_plain(buf_l, buf_r, hann, n_fft, k, hop, emit_carry)
+    name = SPLIT_ALLK_CARRY_KERNEL if emit_carry else SPLIT_ALLK_KERNEL
+    _cuda_kernel(name, (buf_l, buf_r), consts, hann=hann)
+    return _launch_allk(name, buf_l, buf_r, hann, consts, k, hop, emit_carry)
+
+
+def stft_mag_split_carry(carry: torch.Tensor, chunk: torch.Tensor,
+                         hann: torch.Tensor, consts: FftConstants,
+                         k: int, hop: int):
+    """(mag_l, mag_r, next_carry): the split-real magnitudes [k*S,
+    stft_bins(N, W)] f32 of the k windows of each stream's planar carry
+    [S, 2, C] followed by its chunk [S, 2, k*hop] (f32, C = W - hop, hann
+    `split_hann(W)`), row r*S + s for window r of stream s, and the next
+    carry [S, 2, C], the last C samples of carry + chunk, a new tensor.
+    The rows are `stft_mag_split_allk`'s on the concatenated buffers.
+
+    CPU tensors take the plain version; CUDA tensors take
+    spk_stft_split_carry, which reads the two operands in place (no
+    concatenation) and writes the next carry itself."""
+    n_fft = consts.n_fft
+    w = hann.shape[0]
+    if carry.ndim != 3 or carry.shape[1] != 2:
+        raise ValueError(f"expected a [S, 2, C] carry; got {tuple(carry.shape)}")
+    s, _, c = carry.shape
+    if (c != carry_len(w, hop) or chunk.shape != (s, 2, k * hop) or k < 1
+            or hann.ndim != 1 or w > n_fft):
+        raise ValueError(
+            f"carry {tuple(carry.shape)}, chunk {tuple(chunk.shape)}, hann "
+            f"{tuple(hann.shape)}, k={k}, hop={hop} and N={n_fft} do not fit "
+            f"(the carry holds W - hop = {carry_len(w, hop)} samples)"
+        )
+    if carry.device.type == "cpu":
+        return stft_mag_split_carry_plain(carry, chunk, hann, n_fft, k, hop)
+    _cuda_kernel(SPLIT_CARRY_KERNEL, (carry, chunk), consts, hann=hann)
+    out_l, out_r = _planes(k * s, n_fft, w, carry.device)
+    next_carry = torch.empty_like(carry)
     if s:
-        _launch(SPLIT_ALLK_KERNEL, buf_l.device, buf_l.data_ptr(), buf_r.data_ptr(),
-                hann.data_ptr(), twiddles.data_ptr(), out_l.data_ptr(),
-                out_r.data_ptr(), s, length, k, hop, w, n_fft)
-    return out_l, out_r
+        _launch(SPLIT_CARRY_KERNEL, carry.device, n_fft, carry.data_ptr(),
+                chunk.data_ptr(), hann.data_ptr(), consts.table.data_ptr(),
+                out_l.data_ptr(), out_r.data_ptr(), next_carry.data_ptr(), s, c,
+                k, hop, w, n_fft)
+    return out_l, out_r, next_carry
 
 
-def stft_mag_split_t(x: torch.Tensor, hann: torch.Tensor, twiddles: torch.Tensor):
-    """(mag_l, mag_r) [rows, N/2] f32 split-real magnitudes of the windows
-    of the combined transposed operand x [rows, 2, n1, m] f32 (x[n, c, j1,
-    t] = sample t*n1 + j1 of channel c), hann `split_hann(n1*m)`.
+def stft_mag_fused2_split(carry: torch.Tensor, chunk_pl: torch.Tensor,
+                          cfg, k: int = 1):
+    """The counterpart of the JAX package's `stft_mag_fused2_split` at its
+    call: (mag_l, mag_r, new_carry) of the [S, 2, W - hop] f32 carry and
+    the [S, 2, k*hop] f32 planar chunk of `cfg`, as `stft_mag_split_carry`
+    gives them, with the window and FFT table of `cfg` on the operands'
+    device.  Raises ValueError where JAX's gate `split_framing_supported`
+    refuses the geometry (hop not a multiple of the plan's n1, pad_factor
+    below 2)."""
+    from spectrogram_tpu_torch.ops import fft_plan
+
+    plan = fft_plan.make_plan(cfg)
+    if not fft_plan.split_framing_supported(cfg, k, plan):
+        raise ValueError(f"split framing unsupported for {cfg} (plan={plan})")
+    dev = carry.device
+    hann = torch.from_numpy(split_hann(cfg.window_size)).to(dev)
+    return stft_mag_split_carry(carry, chunk_pl, hann,
+                                fft_constants(cfg.padded_size, dev), k, cfg.hop_size)
+
+
+def stft_mag_split_t(x: torch.Tensor, hann: torch.Tensor, consts: FftConstants):
+    """(mag_l, mag_r) [rows, stft_bins(N, n1*m)] f32 split-real magnitudes
+    of the windows of the combined transposed operand x [rows, 2, n1, m]
+    f32 (x[n, c, j1, t] = sample t*n1 + j1 of channel c), hann
+    `split_hann(n1*m)`.
 
     CPU tensors take the plain version; CUDA tensors take spk_stft_split_t."""
-    n_fft = twiddles.shape[0]
+    n_fft = consts.n_fft
     if x.ndim != 4 or x.shape[1] != 2:
         raise ValueError(f"expected a [rows, 2, n1, m] operand; got {tuple(x.shape)}")
     rows, _, n1, m = x.shape
-    if hann.shape != (n1 * m,) or n1 * m > n_fft or twiddles.shape != (n_fft, 2):
+    if hann.shape != (n1 * m,) or n1 * m > n_fft:
         raise ValueError(
             f"operand {tuple(x.shape)}, hann {tuple(hann.shape)} and N={n_fft} "
             "do not fit"
         )
     if x.device.type == "cpu":
         return stft_mag_split_t_plain(x, hann, n_fft)
-    _split_check(SPLIT_T_KERNEL, (x,), hann, twiddles)
-    out_l = torch.empty((rows, n_fft // 2), dtype=torch.float32, device=x.device)
-    out_r = torch.empty_like(out_l)
+    _cuda_kernel(SPLIT_T_KERNEL, (x,), consts, hann=hann)
+    out_l, out_r = _planes(rows, n_fft, n1 * m, x.device)
     if rows:
-        _launch(SPLIT_T_KERNEL, x.device, x.data_ptr(), hann.data_ptr(),
-                twiddles.data_ptr(), out_l.data_ptr(), out_r.data_ptr(), rows,
+        _launch(SPLIT_T_KERNEL, x.device, n_fft, x.data_ptr(), hann.data_ptr(),
+                consts.table.data_ptr(), out_l.data_ptr(), out_r.data_ptr(), rows,
                 n1, m, n_fft)
     return out_l, out_r
 
 
 def stft_mag_split_tsplit(carry: torch.Tensor, chunk: torch.Tensor,
-                          hann: torch.Tensor, twiddles: torch.Tensor):
-    """(mag_l, mag_r, next_carry): the split-real magnitudes [rows, N/2] f32
-    of the windows whose columns are the transposed carry [rows, 2, n1,
-    c_cols] followed by the transposed hop chunk [rows, 2, n1, t_cols]
-    (f32; hann `split_hann(n1*(c_cols+t_cols))`), and the next carry
-    [rows, 2, n1, c_cols] (`split_next_carry`), a new tensor.
+                          hann: torch.Tensor, consts: FftConstants):
+    """(mag_l, mag_r, next_carry): the split-real magnitudes [rows,
+    stft_bins(N, W)] f32 of the windows whose columns are the transposed
+    carry [rows, 2, n1, c_cols] followed by the transposed hop chunk [rows,
+    2, n1, t_cols] (f32; W = n1*(c_cols+t_cols), hann `split_hann(W)`), and
+    the next carry [rows, 2, n1, c_cols] (`split_next_carry`), a new tensor.
 
     CPU tensors take the plain version; CUDA tensors take
     spk_stft_split_tsplit, which writes the next carry itself."""
-    n_fft = twiddles.shape[0]
+    n_fft = consts.n_fft
     if carry.ndim != 4 or carry.shape[1] != 2:
         raise ValueError(f"expected a [rows, 2, n1, c_cols] carry; got {tuple(carry.shape)}")
     rows, _, n1, c_cols = carry.shape
     t_cols = chunk.shape[-1]
     w = n1 * (c_cols + t_cols)
-    if (chunk.shape != (rows, 2, n1, t_cols) or hann.shape != (w,) or w > n_fft
-            or twiddles.shape != (n_fft, 2)):
+    if chunk.shape != (rows, 2, n1, t_cols) or hann.shape != (w,) or w > n_fft:
         raise ValueError(
             f"carry {tuple(carry.shape)}, chunk {tuple(chunk.shape)}, hann "
             f"{tuple(hann.shape)} and N={n_fft} do not fit"
         )
     if carry.device.type == "cpu":
         return stft_mag_split_tsplit_plain(carry, chunk, hann, n_fft)
-    _split_check(SPLIT_TSPLIT_KERNEL, (carry, chunk), hann, twiddles)
-    out_l = torch.empty((rows, n_fft // 2), dtype=torch.float32, device=carry.device)
-    out_r = torch.empty_like(out_l)
+    _cuda_kernel(SPLIT_TSPLIT_KERNEL, (carry, chunk), consts, hann=hann)
+    out_l, out_r = _planes(rows, n_fft, w, carry.device)
     next_carry = torch.empty_like(carry)
     if rows:
-        _launch(SPLIT_TSPLIT_KERNEL, carry.device, carry.data_ptr(), chunk.data_ptr(),
-                hann.data_ptr(), twiddles.data_ptr(), out_l.data_ptr(),
-                out_r.data_ptr(), next_carry.data_ptr(), rows, n1, c_cols,
-                t_cols, n_fft)
+        _launch(SPLIT_TSPLIT_KERNEL, carry.device, n_fft, carry.data_ptr(),
+                chunk.data_ptr(), hann.data_ptr(), consts.table.data_ptr(),
+                out_l.data_ptr(), out_r.data_ptr(), next_carry.data_ptr(), rows,
+                n1, c_cols, t_cols, n_fft)
     return out_l, out_r, next_carry

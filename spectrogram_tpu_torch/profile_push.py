@@ -20,7 +20,12 @@ Profiles, each with torch.profiler over a steady window after a warm-up:
   6. the split-real layouts at BENCH_CONFIG, no ring, palettes arange(S) %
      19: stft_packed=False, transposed_carry and framing="tsplit" at k=1 and
      4096 streams, and framing="tsplit" in the 10,240-stream serving push
-     (sorted carry).
+     (sorted carry);
+  7. the sizes beyond 2^a 3^b 5^c and pad_factor 2: the k=1 push at 4096
+     streams, no ring, at 44.1 kHz with DEFAULT_CONFIG's periods (N=4410,
+     the Bluestein body), at BENCH_CONFIG's window with pad_factor=1
+     (N=2048) and at an odd N (16 kHz, W=145, pad 3: N=435), and the
+     display push at 44.1 kHz.
 
 For each it prints the host wall time per call over the window (ended by a
 synchronize), the device busy time per call (the sum of its kernels), the
@@ -39,7 +44,7 @@ import numpy as np
 import torch
 
 from spectrogram_tpu_torch import testing
-from spectrogram_tpu_torch.config import BENCH_CONFIG, DEFAULT_CONFIG
+from spectrogram_tpu_torch.config import BENCH_CONFIG, DEFAULT_CONFIG, SpectrogramConfig
 from spectrogram_tpu_torch.models.spectrogram import SpectrogramPipeline
 
 
@@ -153,6 +158,22 @@ def main(argv=None) -> int:
         chunk = torch.from_numpy(
             testing.chirp_tone(s, BENCH_CONFIG.hop_size, 48000.0, seed=8)).to(dev)
         profile(f"k=1 push, BENCH_CONFIG, {s} streams, {label}", push, args.pushes)
+        del state, chunk
+    sizes = (("44.1 kHz, N=4410", SpectrogramConfig(sample_rate=44100.0), 1, 4096),
+             ("pad_factor=1, N=2048", SpectrogramConfig(
+                 sample_rate=48000.0, window_period=2048 / 48000.0,
+                 hop_period=800 / 48000.0, pad_factor=1), 1, 4096),
+             ("odd N=435", SpectrogramConfig(
+                 sample_rate=16000.0, window_period=145 / 16000.0, hop_period=69 / 16000.0,
+                 pad_factor=3, viewport_height=100, max_frequency=7950.0), 1, 4096),
+             ("44.1 kHz, N=4410, display, ring", SpectrogramConfig(sample_rate=44100.0), 8, 256))
+    for label, cfg, k, s in sizes:
+        p = SpectrogramPipeline(cfg, chunk_hops=k, store_ring=k > 1, packed_output=True,
+                                device=dev)
+        state = [p.set_palette(p.init_state(s), np.arange(s) % 19)]
+        chunk = torch.from_numpy(
+            testing.chirp_tone(s, p.chunk_size, cfg.sample_rate, seed=9)).to(dev)
+        profile(f"k={k} push, {label}, {s} streams", push, args.pushes)
         del state, chunk
     print("card:", subprocess.run(smi, capture_output=True, text=True).stdout.strip())
     return 0

@@ -9,6 +9,7 @@
 #include <cstddef>
 
 #define __device__
+#define __host__
 #define __global__
 #define __forceinline__ inline
 
@@ -37,6 +38,7 @@ static const HostDim3 threadIdx{0}, blockDim{1};
 inline void __syncthreads() {}
 
 typedef int cudaError_t;
+enum { cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class T>
 inline cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int) {

@@ -1,56 +1,65 @@
-// The STFT kernels' row code (stft_fft.cuh) as a host library: each call
-// runs its rows through the Radix2 (mixed = 0) or MixedRadix (mixed = 1)
-// body, one thread block after another as the kernels' grids would, with
-// the operand offsets of the kernels in csrc/.
+// The STFT kernels' row code (stft_fft.cuh, push_fused.cuh) as a host
+// library: each call runs its rows through the Radix2 (body = 0), MixedRadix
+// (body = 1) or the body `with_fft_body` picks for n (body = 2, Bluestein
+// where n has a prime factor above 5), one thread block after another as the
+// kernels' grids would, with the operand offsets of the kernels in csrc/.
+// `consts` is n's FFT table (`fft_table`); output rows are stft_bins(n, w)
+// wide.
+#include <cstddef>
 #include <vector>
 
-#include "stft_fft.cuh"
+#include "push_fused.cuh"
 
-// fn(body) with the body N selects; 1 where the body does not take N.
+// fn(body, buf) with the body chosen as above and a buffer of its size; 1
+// where the body does not take n.
 template <class Fn>
-static int with_body(int mixed, int n, Fn fn) {
-  if (mixed) {
-    spk::MixedRadix plan;
-    if (!spk::make_mixed_radix(n, &plan)) return 1;
-    fn(plan);
+static int with_body(int body, int n, const float* consts, Fn fn) {
+  auto run = [&](const auto& b) {
+    std::vector<float2> buf(b.buf_size());
+    fn(b, buf.data());
     return 0;
+  };
+  if (body == 1) {
+    spk::MixedRadix plan;
+    return spk::make_mixed_radix(n, &plan) ? run(plan) : 1;
   }
+  if (body == 2) return spk::with_fft_body(n, consts, run);
   spk::Radix2 pow2{0};
   while ((1 << pow2.log2n) < n) ++pow2.log2n;
-  if ((1 << pow2.log2n) != n) return 1;
-  fn(pow2);
-  return 0;
+  return (1 << pow2.log2n) == n ? run(pow2) : 1;
+}
+
+static const float2* tw_of(const float* consts) {
+  return reinterpret_cast<const float2*>(consts);
 }
 
 template <class T>
-static int host_rows(int mixed, int n, int rows, int w, const T* l,
-                     const T* r, const float* hann, const float* twiddles,
+static int host_rows(int body, int n, int rows, int w, const T* l,
+                     const T* r, const float* hann, const float* consts,
                      float* out_l, float* out_r) {
-  std::vector<float2> buf(n);
-  const auto* tw = reinterpret_cast<const float2*>(twiddles);
-  return with_body(mixed, n, [&](const auto& body) {
+  const size_t bins = spk::stft_bins(n, w);
+  return with_body(body, n, consts, [&](const auto& b, float2* buf) {
     for (int row = 0; row < rows; ++row) {
       const size_t in = static_cast<size_t>(row) * w;
-      const size_t out = static_cast<size_t>(row) * (n / 2);
-      spk::stft_packed_row(body, l + in, r + in, hann, tw, w, out_l + out,
-                           out_r + out, buf.data());
+      spk::stft_packed_row(b, l + in, r + in, hann, tw_of(consts), w,
+                           out_l + row * bins, out_r + row * bins, buf);
     }
   });
 }
 
-extern "C" int stft_host_rows(int mixed, int n, int rows, int w,
+extern "C" int stft_host_rows(int body, int n, int rows, int w,
                               const float* l, const float* r,
-                              const float* hann, const float* twiddles,
+                              const float* hann, const float* consts,
                               float* out_l, float* out_r) {
-  return host_rows(mixed, n, rows, w, l, r, hann, twiddles, out_l, out_r);
+  return host_rows(body, n, rows, w, l, r, hann, consts, out_l, out_r);
 }
 
 // The same with int16 sample planes (hann carrying the 2^-15 wire scale).
-extern "C" int stft_host_rows_i16(int mixed, int n, int rows, int w,
+extern "C" int stft_host_rows_i16(int body, int n, int rows, int w,
                                   const short* l, const short* r,
-                                  const float* hann, const float* twiddles,
+                                  const float* hann, const float* consts,
                                   float* out_l, float* out_r) {
-  return host_rows(mixed, n, rows, w, l, r, hann, twiddles, out_l, out_r);
+  return host_rows(body, n, rows, w, l, r, hann, consts, out_l, out_r);
 }
 
 // The radices of n's mixed-radix plan into `radix`; their count, or -1.
@@ -61,91 +70,157 @@ extern "C" int stft_host_plan(int n, int* radix) {
   return plan.stages;
 }
 
+// The buffer length of the body with_fft_body picks for n (n, or Bluestein's
+// M), or -1 where none does.
+extern "C" int stft_host_buf_size(int n) {
+  int size = -1;
+  const std::vector<float> table(1);
+  spk::with_fft_body(n, table.data(), [&](const auto& b) {
+    size = b.buf_size();
+    return 0;
+  });
+  return size;
+}
+
 // ---- the split-real kernels (stft_split.cu): block b is window b / 2,
-// channel b % 2, and writes out_l or out_r [rows, n/2].
+// channel b % 2, and writes out_l or out_r [rows, bins].
 
 // spk_stft_split: [rows, w] planes l, r.
-extern "C" int stft_host_split(int mixed, int n, int rows, int w,
+extern "C" int stft_host_split(int body, int n, int rows, int w,
                                const float* l, const float* r,
-                               const float* hann, const float* twiddles,
+                               const float* hann, const float* consts,
                                float* out_l, float* out_r) {
-  std::vector<float2> buf(n);
-  const auto* tw = reinterpret_cast<const float2*>(twiddles);
-  return with_body(mixed, n, [&](const auto& body) {
-    for (int b = 0; b < 2 * rows; ++b) {
-      const size_t row = b >> 1;
-      const int c = b & 1;
+  const size_t bins = spk::stft_bins(n, w);
+  return with_body(body, n, consts, [&](const auto& b, float2* buf) {
+    for (int blk = 0; blk < 2 * rows; ++blk) {
+      const size_t row = blk >> 1;
+      const int c = blk & 1;
       const spk::RowSamples src{(c ? r : l) + row * w, w};
-      spk::stft_real_row(body, src, hann, tw,
-                         (c ? out_r : out_l) + row * (n / 2), buf.data());
+      spk::stft_real_row(b, src, hann, tw_of(consts),
+                         (c ? out_r : out_l) + row * bins, buf);
     }
   });
 }
 
-// spk_stft_split_allk: [streams, ld] buffers; row r*streams + s is window
-// buf[s, r*hop : r*hop + w].
-extern "C" int stft_host_split_allk(int mixed, int n, int streams, int ld,
+// spk_stft_split_allk(_carry): [streams, ld] buffers; row r*streams + s is
+// window buf[s, r*hop : r*hop + w]; with next (else null), the last c_len
+// samples of each buffer as [streams, 2, c_len].
+extern "C" int stft_host_split_allk(int body, int n, int streams, int ld,
                                     int k, int hop, int w, const float* l,
                                     const float* r, const float* hann,
-                                    const float* twiddles, float* out_l,
-                                    float* out_r) {
-  std::vector<float2> buf(n);
-  const auto* tw = reinterpret_cast<const float2*>(twiddles);
-  return with_body(mixed, n, [&](const auto& body) {
-    for (int b = 0; b < 2 * k * streams; ++b) {
-      const int row = b >> 1;
-      const int c = b & 1;
-      const size_t at = static_cast<size_t>(row % streams) * ld +
-                        static_cast<size_t>(row / streams) * hop;
-      const spk::RowSamples src{(c ? r : l) + at, w};
-      spk::stft_real_row(body, src, hann, tw,
-                         (c ? out_r : out_l) + static_cast<size_t>(row) * (n / 2),
-                         buf.data());
+                                    const float* consts, float* out_l,
+                                    float* out_r, float* next, int c_len) {
+  const size_t bins = spk::stft_bins(n, w);
+  return with_body(body, n, consts, [&](const auto& b, float2* buf) {
+    for (int blk = 0; blk < 2 * k * streams; ++blk) {
+      const int row = blk >> 1;
+      const int c = blk & 1;
+      const int s = row % streams;
+      const float* x = (c ? r : l) + static_cast<size_t>(s) * ld;
+      if (next != nullptr && row < streams) {
+        spk::buffer_tail(x, next + (static_cast<size_t>(s) * 2 + c) * c_len,
+                         ld, c_len);
+      }
+      const spk::RowSamples src{x + static_cast<size_t>(row / streams) * hop,
+                                w};
+      spk::stft_real_row(b, src, hann, tw_of(consts),
+                         (c ? out_r : out_l) + row * bins, buf);
+    }
+  });
+}
+
+// spk_stft_split_carry: carry [streams, 2, c_len] + chunk [streams, 2,
+// k*hop]; next [streams, 2, c_len].
+extern "C" int stft_host_split_carry(int body, int n, int streams, int c_len,
+                                     int k, int hop, int w,
+                                     const float* carry, const float* chunk,
+                                     const float* hann, const float* consts,
+                                     float* out_l, float* out_r,
+                                     float* next) {
+  const size_t bins = spk::stft_bins(n, w);
+  const int t_len = k * hop;
+  return with_body(body, n, consts, [&](const auto& b, float2* buf) {
+    for (int blk = 0; blk < 2 * k * streams; ++blk) {
+      const int row = blk >> 1;
+      const int c = blk & 1;
+      const size_t sc = static_cast<size_t>(row % streams) * 2 + c;
+      const float* ca = carry + sc * c_len;
+      const float* ch = chunk + sc * t_len;
+      if (row < streams) {
+        spk::planar_next_carry(ca, ch, next + sc * c_len, c_len, t_len);
+      }
+      const spk::PlanarSamples src{ca, ch, c_len, (row / streams) * hop, w};
+      spk::stft_real_row(b, src, hann, tw_of(consts),
+                         (c ? out_r : out_l) + row * bins, buf);
     }
   });
 }
 
 // spk_stft_split_t: the [rows, 2, n1, m] transposed operand x.
-extern "C" int stft_host_split_t(int mixed, int n, int rows, int n1, int m,
+extern "C" int stft_host_split_t(int body, int n, int rows, int n1, int m,
                                  const float* x, const float* hann,
-                                 const float* twiddles, float* out_l,
+                                 const float* consts, float* out_l,
                                  float* out_r) {
-  std::vector<float2> buf(n);
-  const auto* tw = reinterpret_cast<const float2*>(twiddles);
-  return with_body(mixed, n, [&](const auto& body) {
-    for (int b = 0; b < 2 * rows; ++b) {
-      const size_t row = b >> 1;
-      const int c = b & 1;
-      const spk::TransposedSamples src{x + b * static_cast<size_t>(n1) * m, n1,
-                                       m};
-      spk::stft_real_row(body, src, hann, tw,
-                         (c ? out_r : out_l) + row * (n / 2), buf.data());
+  const size_t bins = spk::stft_bins(n, n1 * m);
+  return with_body(body, n, consts, [&](const auto& b, float2* buf) {
+    for (int blk = 0; blk < 2 * rows; ++blk) {
+      const size_t row = blk >> 1;
+      const int c = blk & 1;
+      const spk::TransposedSamples src{
+          x + blk * static_cast<size_t>(n1) * m, n1, m};
+      spk::stft_real_row(b, src, hann, tw_of(consts),
+                         (c ? out_r : out_l) + row * bins, buf);
     }
   });
 }
 
 // spk_stft_split_tsplit: carry [rows, 2, n1, c_cols] and chunk [rows, 2, n1,
 // t_cols]; also writes next [rows, 2, n1, c_cols].
-extern "C" int stft_host_split_tsplit(int mixed, int n, int rows, int n1,
+extern "C" int stft_host_split_tsplit(int body, int n, int rows, int n1,
                                       int c_cols, int t_cols,
                                       const float* carry, const float* chunk,
-                                      const float* hann, const float* twiddles,
+                                      const float* hann, const float* consts,
                                       float* out_l, float* out_r,
                                       float* next) {
-  std::vector<float2> buf(n);
-  const auto* tw = reinterpret_cast<const float2*>(twiddles);
-  return with_body(mixed, n, [&](const auto& body) {
-    for (int b = 0; b < 2 * rows; ++b) {
-      const size_t row = b >> 1;
-      const int c = b & 1;
-      const size_t in_carry = b * static_cast<size_t>(n1) * c_cols;
-      const size_t in_chunk = b * static_cast<size_t>(n1) * t_cols;
+  const size_t bins = spk::stft_bins(n, n1 * (c_cols + t_cols));
+  return with_body(body, n, consts, [&](const auto& b, float2* buf) {
+    for (int blk = 0; blk < 2 * rows; ++blk) {
+      const size_t row = blk >> 1;
+      const int c = blk & 1;
+      const size_t in_carry = blk * static_cast<size_t>(n1) * c_cols;
+      const size_t in_chunk = blk * static_cast<size_t>(n1) * t_cols;
       const spk::SplitSamples src{carry + in_carry, chunk + in_chunk, n1,
                                   c_cols, t_cols};
       spk::split_next_carry(carry + in_carry, chunk + in_chunk,
                             next + in_carry, n1, c_cols, t_cols);
-      spk::stft_real_row(body, src, hann, tw,
-                         (c ? out_r : out_l) + row * (n / 2), buf.data());
+      spk::stft_real_row(b, src, hann, tw_of(consts),
+                         (c ? out_r : out_l) + row * bins, buf);
+    }
+  });
+}
+
+// spk_push_fused: [rows, w] planes l, r -> out [rows, h] words, row n
+// colored with tables[n % n_tables]; with mag_l (else null) the planes too.
+extern "C" int stft_host_push(int body, int n, int rows, int w,
+                              const float* l, const float* r,
+                              const float* hann, const float* consts,
+                              const float* tables, int n_tables, int res,
+                              const int* j0, const int* j1, const float* w0,
+                              const float* w1, int h, float min_db,
+                              float db_range, float db_eps, float inv_res1,
+                              unsigned* out, float* mag_l, float* mag_r) {
+  const spk::ColormapLaws laws{static_cast<float>(res), min_db, db_range,
+                               db_eps, inv_res1};
+  const size_t bins = spk::stft_bins(n, w);
+  std::vector<float> planes(2 * bins);
+  return with_body(body, n, consts, [&](const auto& b, float2* buf) {
+    for (int row = 0; row < rows; ++row) {
+      spk::push_fused_row(
+          b, l + static_cast<size_t>(row) * w, r + static_cast<size_t>(row) * w,
+          w, hann, tw_of(consts), spk::row_table(tables, row, 1, n_tables, res),
+          res, j0, j1, w0, w1, h, laws, out + static_cast<size_t>(row) * h,
+          mag_l == nullptr ? nullptr : mag_l + row * bins,
+          mag_r == nullptr ? nullptr : mag_r + row * bins, buf, planes.data());
     }
   });
 }

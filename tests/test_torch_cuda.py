@@ -14,6 +14,12 @@ blockwise kernel against kernel B, the static kernel against kernel B and
 the generic kernel with one table).  The four split-real STFT kernels share
 one row body, so they are held bit for bit against each other on the same
 windows, and the tsplit kernel's next carry exactly against the framing's.
+The sizes the kernels took last (Bluestein N = 4410, 1410, 693, 4802;
+pad_factor=1) are held to the same bars, kernels and pipelines; the
+carry+chunk kernel bit for bit against the all-windows split kernel on the
+concatenated buffers, every next carry exactly, `emit_carry`'s magnitudes
+bit for bit those without it, and the fused push bit for bit against the
+split-real plane kernel followed by kernel B.
 """
 
 import numpy as np
@@ -58,7 +64,7 @@ def test_stft_kernel_matches_plain(cuda, geometry, kind):
     cfg = GEOMETRIES[geometry]
     left, right = _windows(cfg, kind, 256, cuda)
     hann = torch.from_numpy(sk.packed_hann(cfg.window_size)).to(cuda)
-    tw = torch.from_numpy(sk.twiddle_table(cfg.padded_size)).to(cuda)
+    tw = sk.fft_constants(cfg.padded_size, cuda)
     name = sk.KERNEL if geometry != "default" else sk.MIXED_KERNEL
     lib = _build.library()
     before = lib.launches[name]
@@ -77,7 +83,7 @@ def test_mixed_radix_kernel_matches_plain(cuda, n_fft, kind):
     assert cfg.padded_size == n_fft
     left, right = _windows(cfg, kind, 256, cuda)
     hann = torch.from_numpy(sk.packed_hann(cfg.window_size)).to(cuda)
-    tw = torch.from_numpy(sk.twiddle_table(n_fft)).to(cuda)
+    tw = sk.fft_constants(n_fft, cuda)
     lib = _build.library()
     before = lib.launches[sk.MIXED_KERNEL]
     got = sk.stft_mag_packed(left, right, hann, tw)
@@ -97,7 +103,7 @@ def test_allk_kernel_matches_plain_and_kernel_a(cuda, geometry, k):
     buf_l = torch.from_numpy(np.ascontiguousarray(pcm[..., 0])).to(cuda)
     buf_r = torch.from_numpy(np.ascontiguousarray(pcm[..., 1])).to(cuda)
     hann = torch.from_numpy(sk.packed_hann(w)).to(cuda)
-    tw = torch.from_numpy(sk.twiddle_table(cfg.padded_size)).to(cuda)
+    tw = sk.fft_constants(cfg.padded_size, cuda)
     lib = _build.library()
     before = lib.launches[sk.ALLK_KERNEL]
     got = sk.stft_mag_packed_allk(buf_l, buf_r, hann, tw, k, h)
@@ -202,16 +208,27 @@ def test_k8_push_equals_eight_k1_pushes_on_card(cuda):
 
 
 def test_card_refuses_other_sizes(cuda):
-    w = 2401                                  # N = 4802 = 2 * 7^4
-    x = torch.zeros((2, w), device=cuda)
-    hann = torch.zeros(w, device=cuda)
-    tw = torch.zeros((2 * w, 2), device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sk.stft_mag_packed(x, x, hann, tw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sk.stft_mag_packed_allk(x, x, hann, tw, 1, 58)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SpectrogramPipeline(SpectrogramConfig(sample_rate=7000.0, window_period=0.35),
+    """N = 4802 = 2 7^4, once refused, runs (Bluestein) and matches the plain
+    version; an N whose row buffer passes a block's shared memory still
+    raises, before any launch."""
+    w = 2401
+    left, right = _windows(SpectrogramConfig(sample_rate=48000.0, window_period=w / 48000.0),
+                           "chirp_tone", 64, cuda)
+    assert left.shape == (64, w)
+    hann = torch.from_numpy(sk.packed_hann(w)).to(cuda)
+    consts = sk.fft_constants(2 * w, cuda)
+    lib = _build.library()
+    before = lib.body_launches["bluestein"]
+    got = sk.stft_mag_packed(left, right, hann, consts)
+    torch.cuda.synchronize()
+    assert lib.body_launches["bluestein"] == before + 1
+    for g, x in zip(got, sk.stft_mag_packed_plain(left, right, hann, 2 * w)):
+        torch.testing.assert_close(g, x, atol=ATOL, rtol=RTOL)
+    x = torch.zeros((2, 16384), device=cuda)
+    with pytest.raises(NotImplementedError, match="227 KB"):
+        sk.stft_mag_packed(x, x, torch.zeros(16384, device=cuda), sk.fft_constants(32768, cuda))
+    with pytest.raises(NotImplementedError, match="227 KB"):
+        SpectrogramPipeline(SpectrogramConfig(sample_rate=48000.0, window_period=0.35),
                             device=cuda)
 
 
@@ -255,7 +272,7 @@ def test_int16_kernels_equal_f32_kernels(cuda, geometry):
     rng = np.random.default_rng(5)
     hann16 = torch.from_numpy(sk.packed_hann_i16(w)).to(cuda)
     hann = torch.from_numpy(sk.packed_hann(w)).to(cuda)
-    tw = torch.from_numpy(sk.twiddle_table(cfg.padded_size)).to(cuda)
+    tw = sk.fft_constants(cfg.padded_size, cuda)
     lib = _build.library()
     for shape, call in (((256, w), lambda a, b, hn: sk.stft_mag_packed(a, b, hn, tw)),
                         ((64, w + (k - 1) * h),
@@ -441,7 +458,7 @@ def test_split_kernels_match_plain_and_each_other(cuda, geometry, kind):
     m = w // n1
     left, right = _windows(cfg, kind, rows, cuda)
     hann = torch.from_numpy(sk.split_hann(w)).to(cuda)
-    tw = torch.from_numpy(sk.twiddle_table(n)).to(cuda)
+    tw = sk.fft_constants(n, cuda)
     lib = _build.library()
     names = (sk.SPLIT_KERNEL, sk.SPLIT_ALLK_KERNEL, sk.SPLIT_T_KERNEL, sk.SPLIT_TSPLIT_KERNEL)
     before = {name: lib.launches[name] for name in names}
@@ -519,3 +536,196 @@ def test_split_real_pipelines_on_card(cuda, layout):
     for s, pid in enumerate(ids):
         one = gpu.process(torch.from_numpy(padded[s : s + 1]).to(cuda), palette_id=int(pid))
         torch.testing.assert_close(one.cpu()[0], streamed[s], atol=0, rtol=0)
+
+
+# ------------------------------------------- every FFT size, the carry pair
+
+# (config, kind): Bluestein sizes (N = 4410, 1410, odd 693), pad_factor 1
+SIZES = {
+    "n4410": SpectrogramConfig(sample_rate=44100.0),
+    "n1410": SpectrogramConfig(sample_rate=44100.0, window_period=0.016, hop_period=0.006),
+    "odd_n693": SpectrogramConfig(sample_rate=8000.0, window_period=231 / 8000.0,
+                                  hop_period=64 / 8000.0, pad_factor=3),
+    "pad1_n2048": SpectrogramConfig(sample_rate=48000.0, window_period=2048 / 48000.0,
+                                    hop_period=800 / 48000.0, pad_factor=1),
+}
+
+
+@pytest.mark.parametrize("size", sorted(SIZES))
+def test_every_size_kernels_match_plain(cuda, size):
+    """Kernel A, the all-windows kernel and the split-real plane kernel at
+    the sizes the FFT bodies newly take, against their plain versions; the
+    all-windows rows bit for bit kernel A's."""
+    cfg = SIZES[size]
+    w, n, h, k, s = cfg.window_size, cfg.padded_size, cfg.hop_size, 4, 32
+    consts = sk.fft_constants(n, cuda)
+    left, right = _windows(cfg, "chirp_tone", 64, cuda)
+    hann = torch.from_numpy(sk.packed_hann(w)).to(cuda)
+    split_hann = torch.from_numpy(sk.split_hann(w)).to(cuda)
+    lib = _build.library()
+    before = lib.body_launches[sk.fft_body(n)]
+    packed = sk.stft_mag_packed(left, right, hann, consts)
+    split = sk.stft_mag_split(left, right, split_hann, consts)
+    pcm = testing.chirp_tone(s, w + (k - 1) * h, cfg.sample_rate, seed=3)
+    buf_l, buf_r = (torch.from_numpy(np.ascontiguousarray(pcm[..., c])).to(cuda)
+                    for c in range(2))
+    allk = sk.stft_mag_packed_allk(buf_l, buf_r, hann, consts, k, h)
+    torch.cuda.synchronize()
+    assert lib.body_launches[sk.fft_body(n)] == before + 3
+    for got, want in ((packed, sk.stft_mag_packed_plain(left, right, hann, n)),
+                      (split, sk.stft_mag_split_plain(left, right, split_hann, n)),
+                      (allk, sk.stft_mag_packed_allk_plain(buf_l, buf_r, hann, n, k, h))):
+        for g, x in zip(got, want):
+            assert g.shape == (g.shape[0], sk.stft_bins(n, w))
+            torch.testing.assert_close(g, x, atol=ATOL, rtol=RTOL)
+    wl, wr = (torch.cat([b[:, r * h : r * h + w] for r in range(k)]).contiguous()
+              for b in (buf_l, buf_r))
+    for g, a in zip(allk, sk.stft_mag_packed(wl, wr, hann, consts)):
+        torch.testing.assert_close(g, a, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("size", sorted(SIZES))
+@pytest.mark.parametrize("k", [1, 8])
+def test_every_size_pipeline_on_card(cuda, size, k):
+    """The pipeline at those sizes on the card against the same pushes on the
+    CPU (1 u8 over what the image shows, carry exact, ring within 1 bf16 ulp
+    beyond the STFT bar), streamed == process() bit for bit."""
+    cfg = SIZES[size]
+    kw = dict(chunk_hops=k, viewport_rows=16, packed_output=True)
+    gpu = SpectrogramPipeline(cfg, device=cuda, **kw)
+    cpu = SpectrogramPipeline(cfg, device="cpu", **kw)
+    ids = np.array([0, 1, 3, 8])
+    sg = gpu.set_palette(gpu.init_state(len(ids)), ids)
+    sc = cpu.set_palette(cpu.init_state(len(ids)), ids)
+    t = gpu.chunk_size
+    pcm = testing.chirp_tone(len(ids), 3 * t, cfg.sample_rate, seed=8)
+    rows = []
+    for i in range(3):
+        chunk = torch.from_numpy(pcm[:, i * t : (i + 1) * t])
+        sg, rg = gpu.push(sg, chunk.to(cuda))
+        sc, rc = cpu.push(sc, chunk)
+        torch.testing.assert_close(sg.carry.cpu(), sc.carry, atol=0, rtol=0)
+        assert testing.bf16_ulps(sg.ring.cpu(), sc.ring, ATOL) <= 1
+        assert testing.rgba_u8_diff(ck.unpack_rgba(rg), ck.unpack_rgba(rc)) <= 1
+        rows.append(rg.cpu())
+    streamed = torch.cat(rows, dim=1)
+    padded = np.concatenate([np.zeros((len(ids), gpu.carry_size, 2), np.float32), pcm], 1)
+    for s, pid in enumerate(ids):
+        one = gpu.process(torch.from_numpy(padded[s : s + 1]).to(cuda), palette_id=int(pid))
+        torch.testing.assert_close(one.cpu()[0], streamed[s], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("form", ["packed", "packed_i16", "split"])
+def test_emit_carry_kernels(cuda, form):
+    """`emit_carry` on the all-windows kernels: the next carry exactly the
+    buffers' tail in their dtype, the magnitudes the same bits as without
+    the flag and within the bar of the plain version."""
+    cfg = BENCH_CONFIG
+    w, h, k, s = cfg.window_size, cfg.hop_size, 8, 64
+    rng = np.random.default_rng(11)
+    shape = (s, w + (k - 1) * h)
+    if form == "packed_i16":
+        bufs = [torch.from_numpy(rng.integers(-32768, 32768, shape, dtype=np.int16)).to(cuda)
+                for _ in range(2)]
+        hann = sk.packed_hann_i16(w)
+    else:
+        bufs = [torch.from_numpy((rng.standard_normal(shape) * 0.3).astype(np.float32)).to(cuda)
+                for _ in range(2)]
+        hann = sk.packed_hann(w) if form == "packed" else sk.split_hann(w)
+    hann = torch.from_numpy(hann).to(cuda)
+    wrapper = sk.stft_mag_split_allk if form == "split" else sk.stft_mag_packed_allk
+    name = {"packed": sk.ALLK_CARRY_KERNEL, "packed_i16": sk.ALLK_CARRY_KERNEL_I16,
+            "split": sk.SPLIT_ALLK_CARRY_KERNEL}[form]
+    args = (*bufs, hann, sk.fft_constants(cfg.padded_size, cuda), k, h)
+    lib = _build.library()
+    before = lib.launches[name]
+    got = wrapper(*args, emit_carry=True)
+    torch.cuda.synchronize()
+    assert lib.launches[name] == before + 1
+    assert got[2].dtype == bufs[0].dtype
+    torch.testing.assert_close(got[2], sk.buffer_tails(*bufs, w - h), atol=0, rtol=0)
+    plain = (sk.stft_mag_split_allk_plain if form == "split"
+             else sk.stft_mag_packed_allk_plain)(*bufs, hann, cfg.padded_size, k, h)
+    for g, same, x in zip(got, wrapper(*args), plain):
+        torch.testing.assert_close(g, same, atol=0, rtol=0)
+        torch.testing.assert_close(g, x, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_split_carry_kernel(cuda, k):
+    """The planar carry + chunk kernel: rows bit for bit the all-windows
+    split kernel's on the concatenated buffers, within the bar of its plain
+    version; the next carry exactly the buffers' tail."""
+    cfg = BENCH_CONFIG
+    w, h, s = cfg.window_size, cfg.hop_size, 64
+    c = w - h
+    rng = np.random.default_rng(k)
+    carry, chunk = (torch.from_numpy((rng.standard_normal((s, 2, n)) * 0.3)
+                                     .astype(np.float32)).to(cuda) for n in (c, k * h))
+    lib = _build.library()
+    before = lib.launches[sk.SPLIT_CARRY_KERNEL]
+    got = sk.stft_mag_fused2_split(carry, chunk, cfg, k=k)
+    torch.cuda.synchronize()
+    assert lib.launches[sk.SPLIT_CARRY_KERNEL] == before + 1
+    buf = torch.cat([carry, chunk], dim=2)
+    hann = torch.from_numpy(sk.split_hann(w)).to(cuda)
+    allk = sk.stft_mag_split_allk(buf[:, 0].contiguous(), buf[:, 1].contiguous(), hann,
+                                  sk.fft_constants(cfg.padded_size, cuda), k, h)
+    for g, a, x in zip(got, allk, sk.stft_mag_split_carry_plain(carry, chunk, hann,
+                                                               cfg.padded_size, k, h)):
+        torch.testing.assert_close(g, a, atol=0, rtol=0)
+        torch.testing.assert_close(g, x, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(got[2], buf[:, :, buf.shape[2] - c :], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("emit_mags", [False, True])
+def test_push_fused_equals_chain(cuda, emit_mags):
+    """The fused push: rows bit for bit the split-real plane kernel followed
+    by kernel B, planes bit for bit the plane kernel's, rows within 1 u8 of
+    the plain version."""
+    from spectrogram_tpu_torch.ops.cuda import push_kernel as pk
+
+    cfg = BENCH_CONFIG
+    rows = 256
+    left, right = _windows(cfg, "chirp_tone", rows, cuda)
+    tables = torch.from_numpy(ck.builtin_color_tables()[np.arange(rows) % 19]).to(cuda)
+    mt = cmap_ops.resample_matrix_full(cfg).T
+    lib = _build.library()
+    before = lib.launches[pk.KERNEL]
+    got = pk.push_fused_single(left, right, tables, mt, cfg, emit_mags=emit_mags)
+    torch.cuda.synchronize()
+    assert lib.launches[pk.KERNEL] == before + 1
+    hann = torch.from_numpy(sk.split_hann(cfg.window_size)).to(cuda)
+    planes = sk.stft_mag_split(left, right, hann, sk.fft_constants(cfg.padded_size, cuda))
+    taps = ck.resample_taps(mt.T, cuda)
+    chain = ck.colormap_builtin(*planes, taps, tables, cfg)
+    words = got[0] if emit_mags else got
+    torch.testing.assert_close(words, chain, atol=0, rtol=0)
+    if emit_mags:
+        for g, a in zip(got[1:], planes):
+            torch.testing.assert_close(g, a, atol=0, rtol=0)
+    plain = pk.push_fused_plain(left, right, hann, cfg.padded_size, tables, taps, cfg)
+    assert testing.rgba_u8_diff(ck.unpack_rgba_device(words), ck.unpack_rgba_device(plain)) <= 1
+
+
+def test_xla_backends_run_the_plain_versions_on_card(cuda):
+    """stft_backend="xla" and colormap_backend="xla" (JAX's golden path)
+    are the only way a CUDA tensor reaches a plain version: no kernel
+    launches, and the rows equal `with_plain_kernels()`'s exactly."""
+    cfg = SMALL
+    kw = dict(chunk_hops=2, viewport_rows=16, packed_output=True, device=cuda)
+    xla = SpectrogramPipeline(cfg, stft_backend="xla", colormap_backend="xla", **kw)
+    plain = SpectrogramPipeline(cfg, **kw).with_plain_kernels()
+    ids = np.array([0, 1, 3, 8])
+    sx, sp = (q.set_palette(q.init_state(len(ids)), ids) for q in (xla, plain))
+    chunk = torch.from_numpy(testing.chirp_tone(len(ids), xla.chunk_size, cfg.sample_rate,
+                                                seed=8)).to(cuda)
+    lib = _build.library()
+    torch.cuda.synchronize()
+    before = dict(lib.launches)
+    sx, rx = xla.push(sx, chunk)
+    torch.cuda.synchronize()
+    assert lib.launches == before
+    sp, rp = plain.push(sp, chunk)
+    torch.testing.assert_close(rx, rp, atol=0, rtol=0)
+    torch.testing.assert_close(sx.carry, sp.carry, atol=0, rtol=0)

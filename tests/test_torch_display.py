@@ -130,7 +130,7 @@ def test_allk_wrapper_on_cpu_and_its_checks():
     k, s, h = 3, 2, cfg.hop_size
     buf_l, buf_r = (torch.from_numpy(b) for b in _buffers(cfg, k, s, seed=5))
     hann = torch.from_numpy(tsk.packed_hann(cfg.window_size))
-    tw = torch.from_numpy(tsk.twiddle_table(cfg.padded_size))
+    tw = tsk.fft_constants(cfg.padded_size)
     got = tsk.stft_mag_packed_allk(buf_l, buf_r, hann, tw, k, h)
     # window r of stream s at row r*S + s, as the window-plane kernel gives it
     for r in range(k):

@@ -273,7 +273,7 @@ def test_split_wrappers_on_cpu_and_their_checks():
     tc, _ = _configs(SMALL)
     n, w, n1 = tc.padded_size, tc.window_size, 16
     hann = torch.from_numpy(tsk.split_hann(w))
-    tw = torch.from_numpy(tsk.twiddle_table(n))
+    tw = tsk.fft_constants(n)
     left, right = (torch.from_numpy(a) for a in _windows(tc, "noise", 3))
     x = torch.stack([left, right], 1).reshape(3, 2, -1, n1).transpose(2, 3).contiguous()
     carry, chunk = x[..., :12].contiguous(), x[..., 12:].contiguous()

@@ -95,7 +95,7 @@ def test_wrapper_takes_plain_version_on_cpu():
     left = torch.from_numpy(np.ascontiguousarray(frames[..., 0]))
     right = torch.from_numpy(np.ascontiguousarray(frames[..., 1]))
     hann = torch.from_numpy(tsk.packed_hann(CFG.window_size))
-    tw = torch.from_numpy(tsk.twiddle_table(CFG.padded_size))
+    tw = tsk.fft_constants(CFG.padded_size)
     got = tsk.stft_mag_packed(left, right, hann, tw)
     want = tsk.stft_mag_packed_plain(left, right, hann, CFG.padded_size)
     for g, w in zip(got, want):
@@ -105,12 +105,17 @@ def test_wrapper_takes_plain_version_on_cpu():
 def test_wrapper_refuses_other_devices_and_sizes():
     meta = torch.empty((2, 256), device="meta")
     hann = torch.empty(256, device="meta")
-    tw = torch.empty((256, 2), device="meta")
+    tw = tsk.FftConstants(256, torch.empty((256, 2), device="meta"))
     with pytest.raises(ValueError, match="no STFT kernel"):
         tsk.stft_mag_packed(meta, meta, hann, tw)
-    # odd, a prime factor of 7, out of range
-    for n in (4801, 4802, 128, 32768):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsk.check_fft_size(n)
-    for n in (256, 480, 4096, 4800, 9600, 16384):
+    # every N whose row buffer fits a block's shared memory: odd, prime
+    # factors above 5 (Bluestein), below 256, N = W
+    for n in (2, 3, 97, 128, 255, 256, 480, 1410, 2204, 4096, 4410, 4800, 4801,
+              4802, 9600, 14000, 16384, 28800):
         tsk.check_fft_size(n)
+    # above it: 2^15 complex f32 (256 KB), a smooth N past 29,056 entries, and
+    # Bluestein N whose convolution length M >= 2N - 1 passes it
+    for n in (0, 1, 32768, 30000, 14600, 16383):
+        with pytest.raises(NotImplementedError, match="227 KB"):
+            tsk.check_fft_size(n)
+    assert tsk.fft_buf_size(4410) == 9000 and tsk.fft_body(4410) == "bluestein"

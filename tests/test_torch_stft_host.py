@@ -2,16 +2,19 @@
 and against the plain versions.
 
 `spectrogram_tpu_torch/csrc/stft_fft.cuh` holds the row code every STFT
-kernel runs: the Hann-pack-pad load, the radix-2 and mixed-radix (4/2/3/5)
-FFT bodies, the stereo unpack, and the split-real row with its four sample
-sources (window planes, carry+chunk buffers, the transposed operand, the
-transposed carry and chunk) and the tsplit next carry.  Its index logic (bit and digit reversal,
-butterfly positions, twiddle indices) does not depend on the card, so a C++
-compiler can run it here: `tests/cuda_host_stub/` supplies a host stand-in
-for the CUDA runtime (one thread per block) and a C entry point.  The bar,
-1e-6 absolute on magnitudes up to ~0.2, is far below what a wrong index
-gives and far above f32 rounding (~3e-8).  Without a C++ compiler the tests
-skip.
+kernel runs: the Hann-pack-pad load, the radix-2, mixed-radix (4/2/3/5) and
+Bluestein FFT bodies, the stereo unpack, and the split-real row with its
+sample sources (window planes, carry+chunk buffers, the transposed operand,
+the transposed carry and chunk, the planar carry and chunk) and the next
+carries; `push_fused.cuh` the fused push's row (both channels' split-real
+STFT into shared planes, then the built-in colormap's pixels from them).
+Its index logic (bit and digit reversal, butterfly positions, twiddle,
+chirp and filter indices) does not depend on the card, so a C++ compiler
+can run it here: `tests/cuda_host_stub/` supplies a host stand-in for the
+CUDA runtime (one thread per block) and C entry points.  The bar, 1e-6
+absolute on magnitudes up to ~0.3, is far below what a wrong index gives
+and far above f32 rounding (~3e-8; Bluestein's three M-point passes stay
+near 5e-8).  Without a C++ compiler the tests skip.
 """
 
 import ctypes
@@ -24,12 +27,17 @@ import pytest
 import torch
 
 from spectrogram_tpu_torch import testing
+from spectrogram_tpu_torch.config import SpectrogramConfig
+from spectrogram_tpu_torch.ops import colormap as tcm
+from spectrogram_tpu_torch.ops.cuda import colormap_kernel as tck
 from spectrogram_tpu_torch.ops.cuda import stft_kernel as tsk
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 STUB = ROOT / "tests" / "cuda_host_stub"
 CSRC = ROOT / "spectrogram_tpu_torch" / "csrc"
 ATOL = 1e-6
+RADIX2, MIXED, PICKED = 0, 1, 2   # the stub's body argument (PICKED: by N)
+BLUESTEIN_SIZES = (96, 97, 1410, 2204, 4410, 4801, 4802)
 
 
 @pytest.fixture(scope="module")
@@ -44,91 +52,133 @@ def host_lib(tmp_path_factory):
         check=True, capture_output=True, timeout=300,
     )
     lib = ctypes.CDLL(str(out))
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn in (lib.stft_host_rows, lib.stft_host_rows_i16):
         fn.argtypes = (i, i, i, i, p, p, p, p, p, p)
-        fn.restype = i
     lib.stft_host_plan.argtypes = (i, p)
-    lib.stft_host_plan.restype = i
+    lib.stft_host_buf_size.argtypes = (i,)
     lib.stft_host_split.argtypes = (i, i, i, i, p, p, p, p, p, p)
-    lib.stft_host_split_allk.argtypes = (i, i, i, i, i, i, i, p, p, p, p, p, p)
+    lib.stft_host_split_allk.argtypes = (i, i, i, i, i, i, i, p, p, p, p, p, p, p, i)
+    lib.stft_host_split_carry.argtypes = (i, i, i, i, i, i, i, p, p, p, p, p, p, p)
     lib.stft_host_split_t.argtypes = (i, i, i, i, i, p, p, p, p, p)
     lib.stft_host_split_tsplit.argtypes = (i, i, i, i, i, i, p, p, p, p, p, p, p)
-    for fn in (lib.stft_host_split, lib.stft_host_split_allk,
-               lib.stft_host_split_t, lib.stft_host_split_tsplit):
+    lib.stft_host_push.argtypes = (i, i, i, i, p, p, p, p, p, i, i, p, p, p, p, i,
+                                   f, f, f, f, p, p, p)
+    for fn in (lib.stft_host_rows, lib.stft_host_rows_i16, lib.stft_host_plan,
+               lib.stft_host_buf_size, lib.stft_host_split, lib.stft_host_split_allk,
+               lib.stft_host_split_carry, lib.stft_host_split_t,
+               lib.stft_host_split_tsplit, lib.stft_host_push):
         fn.restype = i
     return lib
 
 
-def _reference(left, right, hann, n):
+def _reference(left, right, hann, n, bins=None):
+    """float64 stereo unpack of bins 0 .. bins-1 (default N/2)."""
     z = (left.astype(np.float64) + 1j * right.astype(np.float64)) * hann
     x = np.fft.fft(z, n=n)
-    k = np.arange(n // 2)
+    k = np.arange(n // 2 if bins is None else bins)
     a, b = x[:, k], x[:, (n - k) % n]
     return np.abs(a + np.conj(b)), np.abs(a - np.conj(b))
 
 
-@pytest.mark.parametrize("n_fft,mixed", [
-    (256, 0), (4096, 0), (16384, 0),
-    (256, 1), (480, 1), (720, 1), (4800, 1), (9600, 1), (2 * 3**8, 1),
+def _host_rows(host_lib, fn, body, n_fft, left, right, hann):
+    rows, w = left.shape
+    bins = tsk.stft_bins(n_fft, w)
+    out_l = np.zeros((rows, bins), np.float32)
+    out_r = np.zeros_like(out_l)
+    assert fn(body, n_fft, rows, w, left.ctypes.data, right.ctypes.data,
+              hann.ctypes.data, tsk.fft_table(n_fft).ctypes.data, out_l.ctypes.data,
+              out_r.ctypes.data) == 0
+    return out_l, out_r
+
+
+@pytest.mark.parametrize("n_fft,body", [
+    (256, RADIX2), (4096, RADIX2), (16384, RADIX2),
+    (256, MIXED), (480, MIXED), (720, MIXED), (4800, MIXED), (9600, MIXED),
+    (2 * 3**8, MIXED),
+    *((n, PICKED) for n in BLUESTEIN_SIZES),
 ])
-def test_fft_bodies_match_float64(host_lib, n_fft, mixed):
+def test_fft_bodies_match_float64(host_lib, n_fft, body):
+    """Every body against a float64 FFT; PICKED takes the body the kernels
+    pick for N (Bluestein for 97, 1410, 2204, 4410, 4801, 4802)."""
     rows, w = 3, n_fft // 2
     pcm = testing.chirp_tone(rows, w, 48000.0, seed=n_fft)
     left = np.ascontiguousarray(pcm[..., 0])
     right = np.ascontiguousarray(pcm[..., 1])
     hann = tsk.packed_hann(w)
-    tw = tsk.twiddle_table(n_fft)
-    out_l = np.zeros((rows, n_fft // 2), np.float32)
-    out_r = np.zeros_like(out_l)
-    rc = host_lib.stft_host_rows(
-        mixed, n_fft, rows, w, left.ctypes.data, right.ctypes.data,
-        hann.ctypes.data, tw.ctypes.data, out_l.ctypes.data, out_r.ctypes.data)
-    assert rc == 0
+    out_l, out_r = _host_rows(host_lib, host_lib.stft_host_rows, body, n_fft,
+                              left, right, hann)
     want_l, want_r = _reference(left, right, hann.astype(np.float64), n_fft)
     np.testing.assert_allclose(out_l, want_l, atol=ATOL, rtol=0)
     np.testing.assert_allclose(out_r, want_r, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("n_fft", [97, 256, 480, 1410, 2205])
+def test_pad_factor_one_rows_match_float64(host_lib, n_fft):
+    """N = W: the rows carry W bins (`stft_bins`), the Nyquist bin of an
+    even N and every bin past N/2 included, each partnered with N - k."""
+    rows = 2
+    pcm = testing.noise(rows, n_fft, seed=n_fft)
+    left = np.ascontiguousarray(pcm[..., 0])
+    right = np.ascontiguousarray(pcm[..., 1])
+    hann = tsk.packed_hann(n_fft)
+    out = _host_rows(host_lib, host_lib.stft_host_rows, PICKED, n_fft, left, right, hann)
+    want = _reference(left, right, hann.astype(np.float64), n_fft, bins=n_fft)
+    for g, x in zip(out, want):
+        assert g.shape == (rows, n_fft)
+        np.testing.assert_allclose(g, x, atol=ATOL, rtol=0)
+    plain = tsk.stft_mag_packed_plain(torch.from_numpy(left), torch.from_numpy(right),
+                                      torch.from_numpy(hann), n_fft)
+    for g, x in zip(out, plain):
+        np.testing.assert_allclose(g, x.numpy(), atol=ATOL, rtol=0)
+
+
 def test_mixed_radix_plans_agree_with_the_size_check(host_lib):
+    """A mixed-radix plan exists exactly for N = 2^a 3^b 5^c, the host's
+    choice of body and buffer is the kernels', and the size check takes
+    every N up to the shared-memory limit."""
     radix = (ctypes.c_int * 16)()
     assert host_lib.stft_host_plan(4800, radix) == 6
     assert list(radix)[:6] == [4, 4, 4, 3, 5, 5]
-    for n in range(tsk.MIN_FFT, 5000, 2):
+    for n in range(2, 5000):
         stages = host_lib.stft_host_plan(n, radix)
-        try:
-            tsk.check_fft_size(n)
-            taken = True
-        except NotImplementedError:
-            taken = False
-        assert (stages > 0) == taken, n
-        if taken:
+        assert (stages > 0) == (tsk.fft_body(n) != "bluestein"), n
+        if stages > 0:
             assert int(np.prod(list(radix)[:stages])) == n
+            assert tuple(radix)[:stages] == tsk.mixed_radix_plan(n)
+        assert host_lib.stft_host_buf_size(n) == tsk.fft_buf_size(n), n
+        tsk.check_fft_size(n)
+    for n in (9720, 28800, 14000):
+        assert host_lib.stft_host_buf_size(n) == tsk.fft_buf_size(n), n
 
 
-def _host_rows(host_lib, fn, mixed, n_fft, left, right, hann):
-    rows, w = left.shape
-    tw = tsk.twiddle_table(n_fft)
-    out_l = np.zeros((rows, n_fft // 2), np.float32)
-    out_r = np.zeros_like(out_l)
-    assert fn(mixed, n_fft, rows, w, left.ctypes.data, right.ctypes.data,
-              hann.ctypes.data, tw.ctypes.data, out_l.ctypes.data,
-              out_r.ctypes.data) == 0
-    return out_l, out_r
+def test_bluestein_table_layout():
+    """The Bluestein table: M twiddles, N chirp entries with the phase
+    reduced in integers, M filter entries in the DIF order."""
+    n = 97
+    m = tsk.bluestein_size(n)
+    table = tsk.fft_table(n)
+    assert m == 200 and table.shape == tsk.fft_table_shape(n) == (2 * m + n, 2)
+    np.testing.assert_array_equal(table[:m], tsk.twiddle_table(m))
+    t = np.arange(n)
+    chirp = np.exp(-1j * np.pi * (t.astype(np.float64) ** 2) / n)
+    np.testing.assert_allclose(table[m : m + n, 0], chirp.real, atol=1e-7)
+    np.testing.assert_allclose(table[m : m + n, 1], chirp.imag, atol=1e-7)
+    assert sorted(tsk.digit_reversal(m)) == list(range(m))
 
 
-@pytest.mark.parametrize("n_fft,mixed", [(4096, 0), (4800, 1)])
-def test_int16_rows_equal_f32_rows_of_x_over_32768(host_lib, n_fft, mixed):
+@pytest.mark.parametrize("n_fft,body", [(4096, RADIX2), (4800, MIXED), (4410, PICKED)])
+def test_int16_rows_equal_f32_rows_of_x_over_32768(host_lib, n_fft, body):
     """The int16 load (exact conversion, 2^-15 folded into the window) gives
     the bits of the f32 load of x / 32768, full-scale words included."""
     rows, w = 3, n_fft // 2
     rng = np.random.default_rng(n_fft)
     words = rng.integers(-32768, 32768, (2, rows, w), dtype=np.int16)
     words[0, 0, :4] = (-32768, 32767, 0, -1)
-    got = _host_rows(host_lib, host_lib.stft_host_rows_i16, mixed, n_fft,
+    got = _host_rows(host_lib, host_lib.stft_host_rows_i16, body, n_fft,
                      words[0], words[1], tsk.packed_hann_i16(w))
     scaled = words.astype(np.float32) / np.float32(32768.0)
-    want = _host_rows(host_lib, host_lib.stft_host_rows, mixed, n_fft,
+    want = _host_rows(host_lib, host_lib.stft_host_rows, body, n_fft,
                       np.ascontiguousarray(scaled[0]), np.ascontiguousarray(scaled[1]),
                       tsk.packed_hann(w))
     for g, x in zip(got, want):
@@ -142,29 +192,31 @@ def _ptr(a: np.ndarray) -> int:
     return a.ctypes.data
 
 
-def _outs(rows: int, n_fft: int):
-    return np.zeros((rows, n_fft // 2), np.float32), np.zeros((rows, n_fft // 2), np.float32)
+def _outs(rows: int, n_fft: int, w: int = None):
+    bins = tsk.stft_bins(n_fft, n_fft // 2 if w is None else w)
+    return np.zeros((rows, bins), np.float32), np.zeros((rows, bins), np.float32)
 
 
-# (N, mixed, n1): radix-2 and mixed radix, windows of W = N/2 = n1 * m
-@pytest.mark.parametrize("n_fft,mixed,n1", [(512, 0, 8), (480, 1, 8), (4800, 1, 48)])
+# (N, body, n1): radix-2, mixed radix and Bluestein, windows of W = N/2 = n1 * m
+@pytest.mark.parametrize("n_fft,body,n1", [(512, RADIX2, 8), (480, MIXED, 8),
+                                           (4800, MIXED, 48), (1410, PICKED, 5)])
 @pytest.mark.parametrize("kind", ["chirp_tone", "noise"])
-def test_split_real_layouts_match_plain(host_lib, n_fft, mixed, n1, kind):
-    """Each of the four sample sources through `stft_real_row` against
-    `stft_mag_split_plain` on the same windows, and all four bit for bit
-    the same: a source that misplaces a sample (j1 and t swapped) fails."""
+def test_split_real_layouts_match_plain(host_lib, n_fft, body, n1, kind):
+    """Each of the sample sources through `stft_real_row` against
+    `stft_mag_split_plain` on the same windows, and all bit for bit the
+    same: a source that misplaces a sample (j1 and t swapped) fails."""
     rows, w = 3, n_fft // 2
     m = w // n1
     pcm = testing.make(kind, rows, w, 48000.0, seed=n_fft)
     left = np.ascontiguousarray(pcm[..., 0])
     right = np.ascontiguousarray(pcm[..., 1])
     hann = tsk.split_hann(w)
-    tw = tsk.twiddle_table(n_fft)
+    tw = tsk.fft_table(n_fft)
     want = tsk.stft_mag_split_plain(torch.from_numpy(left), torch.from_numpy(right),
                                     torch.from_numpy(hann), n_fft)
 
     planes = _outs(rows, n_fft)
-    assert host_lib.stft_host_split(mixed, n_fft, rows, w, _ptr(left), _ptr(right),
+    assert host_lib.stft_host_split(body, n_fft, rows, w, _ptr(left), _ptr(right),
                                     _ptr(hann), _ptr(tw), *map(_ptr, planes)) == 0
     for got, x in zip(planes, want):
         np.testing.assert_allclose(got, x.numpy(), atol=ATOL, rtol=0)
@@ -173,7 +225,7 @@ def test_split_real_layouts_match_plain(host_lib, n_fft, mixed, n1, kind):
     x = np.ascontiguousarray(
         np.stack([left, right], 1).reshape(rows, 2, m, n1).transpose(0, 1, 3, 2))
     t_out = _outs(rows, n_fft)
-    assert host_lib.stft_host_split_t(mixed, n_fft, rows, n1, m, _ptr(x), _ptr(hann),
+    assert host_lib.stft_host_split_t(body, n_fft, rows, n1, m, _ptr(x), _ptr(hann),
                                       _ptr(tw), *map(_ptr, t_out)) == 0
     torch_t = tsk.stft_mag_split_t_plain(torch.from_numpy(x), torch.from_numpy(hann), n_fft)
 
@@ -187,11 +239,11 @@ def test_split_real_layouts_match_plain(host_lib, n_fft, mixed, n1, kind):
                                                    for r in range(k)]))
               for b in (buf_l, buf_r))
     allk = _outs(k * s, n_fft)
-    assert host_lib.stft_host_split_allk(mixed, n_fft, s, ld, k, hop, w, _ptr(buf_l),
+    assert host_lib.stft_host_split_allk(body, n_fft, s, ld, k, hop, w, _ptr(buf_l),
                                          _ptr(buf_r), _ptr(hann), _ptr(tw),
-                                         *map(_ptr, allk)) == 0
+                                         *map(_ptr, allk), None, 0) == 0
     allk_planes = _outs(k * s, n_fft)
-    assert host_lib.stft_host_split(mixed, n_fft, k * s, w, _ptr(wl), _ptr(wr), _ptr(hann),
+    assert host_lib.stft_host_split(body, n_fft, k * s, w, _ptr(wl), _ptr(wr), _ptr(hann),
                                     _ptr(tw), *map(_ptr, allk_planes)) == 0
     torch_allk = tsk.stft_mag_split_allk_plain(torch.from_numpy(buf_l), torch.from_numpy(buf_r),
                                                torch.from_numpy(hann), n_fft, k, hop)
@@ -204,9 +256,9 @@ def test_split_real_layouts_match_plain(host_lib, n_fft, mixed, n1, kind):
         np.testing.assert_allclose(got, plain.numpy(), atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("n_fft,mixed,n1", [(512, 0, 8), (480, 1, 8)])
+@pytest.mark.parametrize("n_fft,body,n1", [(512, RADIX2, 8), (480, MIXED, 8)])
 @pytest.mark.parametrize("t_cols", [5, 25])
-def test_split_real_tsplit_matches_plain_and_framing(host_lib, n_fft, mixed, n1, t_cols):
+def test_split_real_tsplit_matches_plain_and_framing(host_lib, n_fft, body, n1, t_cols):
     """Carry + chunk as two operands: magnitudes bit for bit the transposed
     operand's, within the bar of the plain version; the next carry equal to
     the transposed framing's (carry + chunk, last c_cols columns), on both
@@ -219,14 +271,14 @@ def test_split_real_tsplit_matches_plain_and_framing(host_lib, n_fft, mixed, n1,
     carry = np.ascontiguousarray(x[..., :c_cols])
     chunk = np.ascontiguousarray(x[..., c_cols:])
     hann = tsk.split_hann(w)
-    tw = tsk.twiddle_table(n_fft)
+    tw = tsk.fft_table(n_fft)
     out = _outs(rows, n_fft)
     nxt = np.full_like(carry, np.nan)
     assert host_lib.stft_host_split_tsplit(
-        mixed, n_fft, rows, n1, c_cols, t_cols, _ptr(carry), _ptr(chunk), _ptr(hann),
+        body, n_fft, rows, n1, c_cols, t_cols, _ptr(carry), _ptr(chunk), _ptr(hann),
         _ptr(tw), *map(_ptr, out), _ptr(nxt)) == 0
     t_out = _outs(rows, n_fft)
-    assert host_lib.stft_host_split_t(mixed, n_fft, rows, n1, m, _ptr(x), _ptr(hann),
+    assert host_lib.stft_host_split_t(body, n_fft, rows, n1, m, _ptr(x), _ptr(hann),
                                       _ptr(tw), *map(_ptr, t_out)) == 0
     plain = tsk.stft_mag_split_tsplit_plain(torch.from_numpy(carry), torch.from_numpy(chunk),
                                             torch.from_numpy(hann), n_fft)
@@ -238,3 +290,82 @@ def test_split_real_tsplit_matches_plain_and_framing(host_lib, n_fft, mixed, n1,
     framed = np.concatenate([carry, chunk], axis=3)[..., t_cols:]
     np.testing.assert_array_equal(nxt, framed)
     np.testing.assert_array_equal(plain[2].numpy(), framed)
+
+
+# (N, body, W, hop, k): the carry longer than the chunk (C = W - hop > k*hop)
+# and shorter, radix 2, mixed radix and Bluestein
+@pytest.mark.parametrize("n_fft,body,w,hop,k", [
+    (512, RADIX2, 256, 64, 1), (512, RADIX2, 256, 64, 4), (480, MIXED, 240, 100, 2),
+    (1410, PICKED, 705, 150, 3), (97, PICKED, 97, 20, 8),
+])
+def test_planar_carry_source_and_next_carries(host_lib, n_fft, body, w, hop, k):
+    """The planar carry + chunk source (the split kernel of JAX's
+    `stft_mag_fused2_split`): rows bit for bit the all-windows source's on
+    the concatenated buffers, within the bar of the plain version; its next
+    carry and the all-windows kernels' (`buffer_tail`) both exactly the
+    buffers' last C samples."""
+    s = 3
+    c = tsk.carry_len(w, hop)
+    rng = np.random.default_rng(n_fft + k)
+    carry = (rng.standard_normal((s, 2, c)) * 0.3).astype(np.float32)
+    chunk = (rng.standard_normal((s, 2, k * hop)) * 0.3).astype(np.float32)
+    buf = np.concatenate([carry, chunk], axis=2)
+    buf_l, buf_r = (np.ascontiguousarray(buf[:, ch]) for ch in range(2))
+    hann = tsk.split_hann(w)
+    tw = tsk.fft_table(n_fft)
+    out = _outs(k * s, n_fft, w)
+    nxt = np.full_like(carry, np.nan)
+    assert host_lib.stft_host_split_carry(body, n_fft, s, c, k, hop, w, _ptr(carry),
+                                          _ptr(chunk), _ptr(hann), _ptr(tw),
+                                          *map(_ptr, out), _ptr(nxt)) == 0
+    allk = _outs(k * s, n_fft, w)
+    allk_next = np.full_like(carry, np.nan)
+    assert host_lib.stft_host_split_allk(body, n_fft, s, c + k * hop, k, hop, w,
+                                         _ptr(buf_l), _ptr(buf_r), _ptr(hann), _ptr(tw),
+                                         *map(_ptr, allk), _ptr(allk_next), c) == 0
+    plain = tsk.stft_mag_split_carry_plain(torch.from_numpy(carry), torch.from_numpy(chunk),
+                                           torch.from_numpy(hann), n_fft, k, hop)
+    for got, same, want in zip(out, allk, plain):
+        np.testing.assert_array_equal(got, same)
+        np.testing.assert_allclose(got, want.numpy(), atol=ATOL, rtol=0)
+    tail = buf[:, :, buf.shape[2] - c :]
+    for got in (nxt, allk_next, plain[2].numpy()):
+        np.testing.assert_array_equal(got, tail)
+
+
+@pytest.mark.parametrize("n_fft,body", [(256, RADIX2), (480, MIXED), (194, PICKED)])
+@pytest.mark.parametrize("emit_mags", [False, True])
+def test_fused_push_row_matches_split_then_colormap(host_lib, n_fft, body, emit_mags):
+    """The fused push's row: its planes bit for bit the split-real kernel's,
+    its words within 1 u8 of the plain chain (split-real STFT, then kernel
+    B's plain version) over what the image shows, tables read per row."""
+    w = n_fft // 2
+    cfg = SpectrogramConfig(sample_rate=8000.0, window_period=w / 8000.0,
+                            hop_period=w / 4 / 8000.0, viewport_height=64,
+                            max_frequency=3600.0)
+    rows = 5
+    pcm = testing.chirp_tone(rows, w, cfg.sample_rate, seed=n_fft)
+    left, right = (np.ascontiguousarray(pcm[..., c]) for c in range(2))
+    hann = tsk.split_hann(w)
+    tw = tsk.fft_table(n_fft)
+    taps = tck.resample_taps(tcm.resample_matrix_full(cfg))
+    tables = np.ascontiguousarray(tck.builtin_color_tables()[[0, 1, 3, 8]])
+    res = tables.shape[1] // 4
+    h = cfg.viewport_height
+    words = np.zeros((rows, h), np.uint32)
+    mags = _outs(rows, n_fft) if emit_mags else (None, None)
+    assert host_lib.stft_host_push(
+        body, n_fft, rows, w, _ptr(left), _ptr(right), _ptr(hann), _ptr(tw),
+        _ptr(tables), tables.shape[0], res, *(_ptr(t.numpy()) for t in taps[:4]), h,
+        cfg.min_db, cfg.max_db - cfg.min_db, cfg.db_epsilon, 1.0 / (res - 1),
+        _ptr(words), *(None if m is None else _ptr(m) for m in mags)) == 0
+    planes = _outs(rows, n_fft)
+    assert host_lib.stft_host_split(body, n_fft, rows, w, _ptr(left), _ptr(right),
+                                    _ptr(hann), _ptr(tw), *map(_ptr, planes)) == 0
+    if emit_mags:
+        for got, same in zip(mags, planes):
+            np.testing.assert_array_equal(got, same)
+    want = tck.colormap_builtin_plain(torch.from_numpy(planes[0]), torch.from_numpy(planes[1]),
+                                      taps, torch.from_numpy(tables), cfg)
+    assert testing.rgba_u8_diff(tck.unpack_rgba(words.view(np.int32)),
+                                tck.unpack_rgba(want)) <= 1
