@@ -148,10 +148,32 @@ Phases, each of which fails the run with a non-zero exit:
      what it replaces (the all-windows kernel after the two framing
      concatenations, the two-kernel chain), torch.fft.rfft and fft as the
      library calls, the bounds.
+ 23. FFT sizes whose row buffer passes a block's shared memory, on the
+     large-N route: its packed (f32, int16) and split-real kernels on 4,096
+     window rows and through the all-windows entries (k=8, 1,024 streams)
+     at N=32,768 (radix 2), 48,000 (mixed) and 17,640 (Bluestein, M=36,000)
+     against their plain versions (phase 3's bar; int16 == f32 on x/32768
+     and all-windows == window planes bit for bit), device time beside
+     torch.fft; the pipelines at 48 kHz with a 0.5 s window and at 44.1 kHz
+     with a 0.2 s window, k=1 with 4,096 streams and k=8 with the ring at 16
+     streams over 260 pushes, stft_packed=False at k=1, and i16_planes at
+     k=1 (rows == the f32 pipeline's on x/32768): the route's launches by
+     its body label, streamed == process() exactly, within 1 u8 of
+     with_plain_kernels(), carries exact, ring within 1 bf16 ulp; ms/push
+     beside DEFAULT_CONFIG's in turns.
+ 24. colormap_rows_fused at BENCH_CONFIG, 4,096 rows of [2, 2047], H=1024,
+     per-row factors (the 19 built-ins, smoke-custom on every fifth row):
+     packed and u8 within 1 u8 of the plain version, bit for bit
+     colormap_generic on copies of the planes, u8 == the packed bytes, a
+     4-tap matrix within 1 u8; the functional path (the verify recipe's
+     chirp + tone at 48 kHz, stft_rows_planar -> colormap_rows_fused)
+     within 1 u8 of rgba_f32_to_u8(colormap_rows(...)); device time, plain,
+     bound.
 
 Then the whole run's seconds.  The second-to-last line is {"kernels": [...]}:
-each kernel's launches on the main paths (phases 5, 9, 12, 15, 18, 21 and
-22; the Bluestein body's row counts every STFT launch at such an N), its
+each kernel's launches on the main paths (phases 5, 9, 12, 15, 18, 21, 22,
+23 and 24; the Bluestein body's row counts every STFT launch at such an N
+below the large-N route), its
 largest error against its plain version, its time, its plain version's, the
 library call's where one computes the same transform, and its bound: the
 larger of its bytes (each input read once, each output written once) over
@@ -281,6 +303,24 @@ KERNELS = {
     pk.KERNEL: dict(
         name="push_fused", source="spectrogram_tpu_torch/csrc/push_fused.cu",
         replaces="spectrogram_tpu/ops/pallas/push_kernel.py:88",
+    ),
+    # the large-N route: every STFT entry where a row's FFT buffer passes a
+    # block's shared memory (phase 23; its numbers at N=48,000)
+    sk.LARGE_KERNEL: dict(
+        name="stft_large_packed", source="spectrogram_tpu_torch/csrc/stft_large.cu",
+        replaces="spectrogram_tpu/ops/pallas/stft_kernel.py:509",
+    ),
+    sk.LARGE_KERNEL_I16: dict(
+        name="stft_large_packed_i16", source="spectrogram_tpu_torch/csrc/stft_large.cu",
+        replaces="spectrogram_tpu/ops/pallas/stft_kernel.py:509",
+    ),
+    sk.LARGE_SPLIT_KERNEL: dict(
+        name="stft_large_split", source="spectrogram_tpu_torch/csrc/stft_large.cu",
+        replaces="spectrogram_tpu/ops/pallas/stft_kernel.py:509",
+    ),
+    ck.ROWS_KERNEL: dict(
+        name="colormap_rows_fused", source="spectrogram_tpu_torch/csrc/colormap_rows.cu",
+        replaces="spectrogram_tpu/ops/pallas/colormap_kernel.py:152",
     ),
 }
 BLUESTEIN = "bluestein"
@@ -672,7 +712,20 @@ def main() -> int:
     carry_pair_and_push(dev, lib, main_launches, stats, ms, plain_ms, bounds, library_ms,
                         power_line)
 
-    log(f"[22] whole run {time.perf_counter() - t_start:.1f} s")
+    # -- 23. FFT sizes above a block's shared memory: the large-N route -------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    large_kernels(dev, stats, ms, plain_ms, bounds, library_ms)
+    size_paths(dev, lib, main_launches, LARGE_PATHS, phase=23)
+    large_i16_path(dev, lib, main_launches)
+    size_timing(dev, power_line, LARGE_TIMING, phase=23, phases="23")
+
+    # -- 24. colormap_rows_fused at full width, and the functional path --------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rows_fused(dev, lib, main_launches, stats, ms, plain_ms, bounds, library_ms, power_line)
+
+    log(f"[24] whole run {time.perf_counter() - t_start:.1f} s")
     print(power_line)
     print(json.dumps({"kernels": [
         dict(meta, route="cuda", launches=main_launches[k], max_abs_err=stats[k],
@@ -1625,13 +1678,13 @@ SIZE_PATHS = (
 )
 
 
-def size_paths(dev, lib, main_launches: dict) -> None:
-    """Phase 21: the pipelines at the sizes the port used to refuse, through
-    SpectrogramPipeline on the card; launch counts added to
-    `main_launches`."""
-    for label, cfg, kw, s, n in SIZE_PATHS:
+def size_paths(dev, lib, main_launches: dict, paths=SIZE_PATHS, phase: int = 21) -> None:
+    """Phase 21 (and 23 with the large-N paths): the pipelines at the sizes
+    the port used to refuse, through SpectrogramPipeline on the card; launch
+    counts added to `main_launches`."""
+    for label, cfg, kw, s, n in paths:
         p = SpectrogramPipeline(cfg, packed_output=True, device=dev, **kw)
-        body = sk.fft_body(cfg.padded_size)
+        body = sk.fft_route(cfg.padded_size)
         ids = np.arange(s) % len(p.schemes)
         state = p.set_palette(p.init_state(s), ids)
         t = p.chunk_size
@@ -1647,7 +1700,7 @@ def size_paths(dev, lib, main_launches: dict) -> None:
         streamed = torch.cat(rows, dim=1)
         padded = torch.cat([torch.zeros(s, p.carry_size, 2, device=dev), pcm], dim=1)
         one_shot = {}
-        for palette in range(len(p.schemes)):
+        for palette in np.unique(ids).tolist():
             sel = torch.from_numpy(np.flatnonzero(ids == palette)).to(dev)
             one_shot[palette] = (sel, p.process(padded.index_select(0, sel), palette_id=palette))
         views = ({w: p.render_viewport(state, w) for w in (None, RENDER_WIDTH)}
@@ -1658,7 +1711,7 @@ def size_paths(dev, lib, main_launches: dict) -> None:
         body_count = lib.body_launches[body]
         for k_, v in launches.items():
             main_launches[k_] = main_launches.get(k_, 0) + v
-        log(f"[21] {label} (W={cfg.window_size}, hop {cfg.hop_size}, pad {cfg.pad_factor}, "
+        log(f"[{phase}] {label} (W={cfg.window_size}, hop {cfg.hop_size}, pad {cfg.pad_factor}, "
             f"{body} body), {s} streams, {n} pushes: rows {tuple(streamed.shape)}, carry "
             f"{tuple(state.carry.shape)}, ring {tuple(state.ring.shape)}; launches {launches}; "
             f"{body} launches {body_count}")
@@ -1678,11 +1731,13 @@ def size_paths(dev, lib, main_launches: dict) -> None:
         carry_ok = torch.equal(plain_state.carry, state.carry)
         ring_ulps = 0.0
         if p.store_ring:
-            ring_ulps = max(testing.bf16_ulps(state.ring[i : i + 16], plain_state.ring[i : i + 16],
-                                              STFT_ATOL) for i in range(0, s, 16))
+            step = max(1, (1 << 27) // state.ring[0].numel())   # f32 copies of 0.5 GB
+            ring_ulps = max(testing.bf16_ulps(state.ring[i : i + step],
+                                              plain_state.ring[i : i + step], STFT_ATOL)
+                            for i in range(0, s, step))
         view_diff = max((u8_diff(view, plain.render_viewport(state, w), everywhere=False)
                          for w, view in views.items()), default=0)
-        log(f"[21] {label}: streamed rows equal process() exactly; against the plain path "
+        log(f"[{phase}] {label}: streamed rows equal process() exactly; against the plain path "
             f"rows max u8 diff {worst}, carry {'equal' if carry_ok else 'DIFFERS'}"
             + (f", ring {ring_ulps:.3f} bf16 ulps beyond atol, render_viewport at "
                f"{p.viewport_rows} and {RENDER_WIDTH} max u8 diff {view_diff}" if views else "")
@@ -1693,23 +1748,29 @@ def size_paths(dev, lib, main_launches: dict) -> None:
         torch.cuda.empty_cache()
 
 
-def size_timing(dev, power_line: str) -> None:
-    """Phase 21's timing: ms/push (device time) of each new size beside the
-    48 kHz DEFAULT_CONFIG push of the same shape, in turns a b ... b a."""
-    groups = {
-        f"k=1, {STREAMS} streams, no ring": (
-            dict(chunk_hops=1, store_ring=False), STREAMS,
-            {"DEFAULT_CONFIG 48 kHz (N=4800)": DEFAULT_CONFIG,
-             "44.1 kHz (N=4410)": SIZE_44K, "BENCH_CONFIG (N=4096)": BENCH_CONFIG,
-             "pad_factor=1 (N=2048)": PAD1, "odd N=435": ODD}),
-        f"k={K}, ring 2048, {DISPLAY_STREAMS} streams": (
-            dict(chunk_hops=K), DISPLAY_STREAMS,
-            {"DEFAULT_CONFIG 48 kHz (N=4800)": DEFAULT_CONFIG, "44.1 kHz (N=4410)": SIZE_44K}),
-    }
+SIZE_TIMING = {
+    f"k=1, {STREAMS} streams, no ring": (
+        dict(chunk_hops=1, store_ring=False), STREAMS,
+        {"DEFAULT_CONFIG 48 kHz (N=4800)": (DEFAULT_CONFIG, {}),
+         "44.1 kHz (N=4410)": (SIZE_44K, {}), "BENCH_CONFIG (N=4096)": (BENCH_CONFIG, {}),
+         "pad_factor=1 (N=2048)": (PAD1, {}), "odd N=435": (ODD, {})}),
+    f"k={K}, ring 2048, {DISPLAY_STREAMS} streams": (
+        dict(chunk_hops=K), DISPLAY_STREAMS,
+        {"DEFAULT_CONFIG 48 kHz (N=4800)": (DEFAULT_CONFIG, {}),
+         "44.1 kHz (N=4410)": (SIZE_44K, {})}),
+}
+
+
+def size_timing(dev, power_line: str, groups=SIZE_TIMING, phase: int = 21,
+                phases: str = "20-21") -> None:
+    """Phase 21's (and 23's) timing: ms/push (device time) of each size
+    beside the 48 kHz DEFAULT_CONFIG push of the same shape, in turns a b
+    ... b a; `groups` maps a label to (pipeline arguments, streams, {label:
+    (config, more arguments)})."""
     for group, (base, s, setups) in groups.items():
         box = {}
-        for label, cfg in setups.items():
-            p = SpectrogramPipeline(cfg, packed_output=True, device=dev, **base)
+        for label, (cfg, more) in setups.items():
+            p = SpectrogramPipeline(cfg, packed_output=True, device=dev, **base, **more)
             chunk = torch.from_numpy(testing.chirp_tone(
                 s, p.chunk_size, cfg.sample_rate, seed=19)).to(dev)
             box[label] = [p, p.set_palette(p.init_state(s), np.arange(s) % len(p.schemes)),
@@ -1724,12 +1785,12 @@ def size_timing(dev, power_line: str) -> None:
             timings[label].append(device_ms(lambda: push(label)))
         rows = s * base["chunk_hops"]
         for label, runs in timings.items():
-            log(f"[21] {group}, {label}: " + " / ".join(f"{x:.4f}" for x in runs)
+            log(f"[{phase}] {group}, {label}: " + " / ".join(f"{x:.4f}" for x in runs)
                 + " ms/push = " + " / ".join(f"{rows / x * 1e3:.1f}" for x in runs) + " rows/s")
         del box
         torch.cuda.empty_cache()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[21] peak device memory over phases 20-21: {peak:.2f} GiB; card {power_line}")
+    log(f"[{phase}] peak device memory over phases {phases}: {peak:.2f} GiB; card {power_line}")
 
 
 def carry_pair_and_push(dev, lib, main_launches: dict, stats, ms, plain_ms, bounds,
@@ -1915,6 +1976,287 @@ def carry_pair_and_push(dev, lib, main_launches: dict, stats, ms, plain_ms, boun
         f"push): {rfft1:.4f} ms")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[22] peak device memory over phase 22: {peak:.2f} GiB; card {power_line}")
+
+
+# ------------------------------------------------------------ phases 23-24
+
+# N = 2^15 (radix 4^7 2), 48,000 (mixed) and 17,640 = 2^3 3^2 5 7^2
+# (Bluestein, M = 36,000): windows of 16,384 samples, 0.5 s at 48 kHz and
+# 0.2 s at 44.1 kHz, each hop 1.2 ms as DEFAULT_CONFIG's
+LARGE_32K = SpectrogramConfig(sample_rate=48000.0, window_period=16384 / 48000.0)
+LARGE_48K = SpectrogramConfig(window_period=0.5)
+LARGE_44K = SpectrogramConfig(sample_rate=44100.0, window_period=0.2)
+LARGE_ALLK_STREAMS = 1024      # k=8 windows each: 8,192 rows
+LARGE_DISPLAY_STREAMS = 16     # a 2,048-row ring of 23,999 bins is 196 MB of bf16 per stream
+LARGE_PATHS = (
+    ("48 kHz, 0.5 s window (N=48000), k=1", LARGE_48K,
+     dict(chunk_hops=1, store_ring=False), STREAMS, PUSHES),
+    ("44.1 kHz, 0.2 s window (N=17640), k=1", LARGE_44K,
+     dict(chunk_hops=1, store_ring=False), STREAMS, PUSHES),
+    ("48 kHz N=48000, k=8, ring", LARGE_48K, dict(chunk_hops=K), LARGE_DISPLAY_STREAMS,
+     DISPLAY_PUSHES),
+    ("44.1 kHz N=17640, k=8, ring", LARGE_44K, dict(chunk_hops=K), LARGE_DISPLAY_STREAMS,
+     DISPLAY_PUSHES),
+    ("48 kHz N=48000, stft_packed=False, k=1", LARGE_48K,
+     dict(chunk_hops=1, store_ring=False, stft_packed=False), STREAMS, PUSHES),
+)
+LARGE_TIMING = {
+    f"k=1, {STREAMS} streams, no ring": (
+        dict(chunk_hops=1, store_ring=False), STREAMS,
+        {"DEFAULT_CONFIG 48 kHz (N=4800)": (DEFAULT_CONFIG, {}),
+         "48 kHz 0.5 s (N=48000)": (LARGE_48K, {}),
+         "44.1 kHz 0.2 s (N=17640)": (LARGE_44K, {}),
+         "48 kHz 0.5 s, stft_packed=False": (LARGE_48K, dict(stft_packed=False))}),
+    f"k={K}, ring 2048, {LARGE_DISPLAY_STREAMS} streams": (
+        dict(chunk_hops=K), LARGE_DISPLAY_STREAMS,
+        {"DEFAULT_CONFIG 48 kHz (N=4800)": (DEFAULT_CONFIG, {}),
+         "48 kHz 0.5 s (N=48000)": (LARGE_48K, {}),
+         "44.1 kHz 0.2 s (N=17640)": (LARGE_44K, {})}),
+}
+
+
+def large_kernels(dev, stats, ms, plain_ms, bounds, library_ms) -> None:
+    """Phase 23's kernels: the large-N route's packed (f32, int16) and
+    split-real kernels on 4,096 window rows, and through the all-windows
+    entries at k=8 over 1,024 streams, at N = 32,768, 48,000 and 17,640,
+    against their plain versions at phase 3's bar; int16 == f32 on x/32768
+    and all-windows == window planes bit for bit; device times beside
+    torch.fft (the kernels' row: N=48,000)."""
+    rows = STREAMS
+    for cfg in (LARGE_32K, LARGE_48K, LARGE_44K):
+        n, w, h = cfg.padded_size, cfg.window_size, cfg.hop_size
+        if not sk.is_large(n):
+            fail(f"N={n} does not take the large-N route")
+        label = f"N={n} ({sk.fft_body(n)}, buffer {sk.fft_buf_size(n)})"
+        consts = sk.fft_constants(n, dev)
+        hann, hann16, shann = (torch.from_numpy(f(w)).to(dev) for f in (
+            sk.packed_hann, sk.packed_hann_i16, sk.split_hann))
+        left, right = windows(cfg, "chirp_tone", rows, dev)
+        words = [torch.round(x * 32767.0).to(torch.int16) for x in (left, right)]
+        _check_stft(23, stats, (sk.LARGE_KERNEL,), f"stft_large_packed {label}, {rows} rows",
+                    sk.stft_mag_packed(left, right, hann, consts),
+                    sk.stft_mag_packed_plain(left, right, hann, n))
+        i16 = sk.stft_mag_packed(*words, hann16, consts)
+        _identity(23, f"stft_large_packed_i16 {label} == f32 on x/32768", i16,
+                  sk.stft_mag_packed(*(x.to(torch.float32) / 32768.0 for x in words), hann,
+                                     consts))
+        _check_stft(23, stats, (sk.LARGE_KERNEL_I16,), f"stft_large_packed_i16 {label}", i16,
+                    sk.stft_mag_packed_plain(*words, hann16, n))
+        del i16
+        _check_stft(23, stats, (sk.LARGE_SPLIT_KERNEL,), f"stft_large_split {label}, {rows} rows",
+                    sk.stft_mag_split(left, right, shann, consts),
+                    sk.stft_mag_split_plain(left, right, shann, n))
+        bl, br = _buffers(cfg, LARGE_ALLK_STREAMS, w + (K - 1) * h, 3, dev)
+        wl, wr = (torch.cat([b[:, r * h : r * h + w] for r in range(K)]) for b in (bl, br))
+        for name, wrapper, plain, planes, hn in (
+                (sk.LARGE_KERNEL, sk.stft_mag_packed_allk, sk.stft_mag_packed_allk_plain,
+                 sk.stft_mag_packed, hann),
+                (sk.LARGE_SPLIT_KERNEL, sk.stft_mag_split_allk, sk.stft_mag_split_allk_plain,
+                 sk.stft_mag_split, shann)):
+            got = wrapper(bl, br, hn, consts, K, h)
+            _check_stft(23, stats, (name,), f"{wrapper.__name__} k={K}, {label}, buffers "
+                        f"{tuple(bl.shape)}", got, plain(bl, br, hn, n, K, h))
+            _identity(23, f"{wrapper.__name__} {label} == {planes.__name__} on the windows",
+                      got, planes(wl, wr, hn, consts))
+            del got
+        del wl, wr
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+        z = torch.complex(torch.randn(rows, n, device=dev), torch.randn(rows, n, device=dev))
+        real = torch.randn(2 * rows, n, device=dev)
+        t = {
+            sk.LARGE_KERNEL: device_ms(lambda: sk.stft_mag_packed(left, right, hann, consts)),
+            sk.LARGE_KERNEL_I16: device_ms(lambda: sk.stft_mag_packed(*words, hann16, consts)),
+            sk.LARGE_SPLIT_KERNEL: device_ms(lambda: sk.stft_mag_split(left, right, shann,
+                                                                       consts)),
+        }
+        plain = {
+            sk.LARGE_KERNEL: time_ms(lambda: sk.stft_mag_packed_plain(left, right, hann, n),
+                                     iters=3),
+            sk.LARGE_KERNEL_I16: time_ms(lambda: sk.stft_mag_packed_plain(*words, hann16, n),
+                                         iters=3),
+            sk.LARGE_SPLIT_KERNEL: time_ms(lambda: sk.stft_mag_split_plain(left, right, shann,
+                                                                           n), iters=3),
+        }
+        lib_fft, lib_rfft = device_ms(lambda: torch.fft.fft(z)), device_ms(lambda: torch.fft.rfft(real))
+        library = {sk.LARGE_KERNEL: lib_fft, sk.LARGE_KERNEL_I16: lib_fft,
+                   sk.LARGE_SPLIT_KERNEL: lib_rfft}
+        work = {sk.LARGE_KERNEL: stft_work(rows, n, w, rows * w),
+                sk.LARGE_KERNEL_I16: stft_work(rows, n, w, rows * w, sample_bytes=2),
+                sk.LARGE_SPLIT_KERNEL: stft_work(rows, n, w, rows * w)}
+        del z, real
+        allk = device_ms(lambda: sk.stft_mag_packed_allk(bl, br, hann, consts, K, h), iters=5)
+        split_allk = device_ms(lambda: sk.stft_mag_split_allk(bl, br, shann, consts, K, h),
+                               iters=5)
+        zk = torch.complex(torch.randn(K * LARGE_ALLK_STREAMS, n, device=dev),
+                           torch.randn(K * LARGE_ALLK_STREAMS, n, device=dev))
+        allk_lib = device_ms(lambda: torch.fft.fft(zk), iters=5)
+        del zk, bl, br
+        for name in t:
+            b = bound(*work[name])
+            log(f"[23] {KERNELS[name]['name']} {label}, {rows} rows: {t[name]:.4f} ms device "
+                f"time (plain {plain[name]:.4f} ms, library {library[name]:.4f} ms, bound "
+                f"{b[0]:.4f} ms by {b[1]})")
+            if n == LARGE_48K.padded_size:
+                ms[name], plain_ms[name], library_ms[name], bounds[name] = (
+                    t[name], plain[name], library[name], b)
+        log(f"[23] {label}: the all-windows entries at k={K}, {LARGE_ALLK_STREAMS} streams: "
+            f"packed {allk:.4f} ms, split-real {split_allk:.4f} ms device time "
+            f"(torch.fft.fft [{K * LARGE_ALLK_STREAMS}, {n}] {allk_lib:.4f} ms, bound "
+            f"{bound(*stft_work(K * LARGE_ALLK_STREAMS, n, w, LARGE_ALLK_STREAMS * (w + (K - 1) * h)))[0]:.4f} ms)")
+        del left, right, words
+        torch.cuda.empty_cache()
+
+
+def large_i16_path(dev, lib, main_launches: dict) -> None:
+    """Phase 23's int16 path: i16_planes at 48 kHz with a 0.5 s window,
+    k=1, 4,096 streams: the large int16 kernel launches, and the rows and
+    carry equal an f32 pipeline's fed the same words (x/32768) exactly."""
+    cfg = LARGE_48K
+    kw = dict(chunk_hops=1, store_ring=False, packed_output=True, device=dev)
+    p16 = SpectrogramPipeline(cfg, i16_planes=True, **kw)
+    p32 = SpectrogramPipeline(cfg, **kw)
+    ids = np.arange(STREAMS) % len(p16.schemes)
+    s16, s32 = (q.set_palette(q.init_state(STREAMS), ids) for q in (p16, p32))
+    t = p16.chunk_size
+    pcm = testing.chirp_tone(STREAMS, PUSHES * t, cfg.sample_rate, seed=23)
+    words = torch.from_numpy(np.round(pcm * 32767.0).astype(np.int16)).to(dev)
+    torch.cuda.synchronize()
+    lib.reset_launches()
+    rows16 = []
+    for i in range(PUSHES):
+        s16, r = p16.push(s16, words[:, i * t : (i + 1) * t])
+        rows16.append(r)
+    torch.cuda.synchronize()
+    launches = {k_: v for k_, v in lib.launches.items() if v}
+    for k_, v in launches.items():
+        main_launches[k_] = main_launches.get(k_, 0) + v
+    same = True
+    for i in range(PUSHES):
+        s32, r = p32.push(s32, words[:, i * t : (i + 1) * t])
+        same = same and torch.equal(r, rows16[i])
+    carry_same = torch.equal(s16.carry.to(torch.float32) / 32768.0, s32.carry)
+    log(f"[23] i16_planes at N={cfg.padded_size}, {STREAMS} streams, {PUSHES} pushes: launches "
+        f"{launches}; rows {'equal' if same else 'DIFFER from'} the f32 pipeline's on x/32768, "
+        f"carry {'equal' if carry_same else 'DIFFERS'}")
+    if not launches.get(sk.LARGE_KERNEL_I16):
+        fail("the large int16 kernel did not launch on its path")
+    if not (same and carry_same):
+        fail("the int16 pipeline at large N differs from the f32 pipeline on x/32768")
+    del rows16, s16, s32, words
+
+
+def rows_fused(dev, lib, main_launches: dict, stats, ms, plain_ms, bounds, library_ms,
+               power_line: str) -> None:
+    """Phase 24: colormap_rows_fused at BENCH_CONFIG's full width (4,096 rows
+    of [2, 2047], H=1024, resample_matrix(BENCH).T; the 19 built-ins'
+    factors at arange % 19, smoke-custom's on every fifth row) and on the
+    functional path (the verify recipe's 2.5 s chirp + 440 Hz tone at 48
+    kHz -> stft_rows_planar -> colormap_rows_fused); its bars, identities
+    and times."""
+    from spectrogram_tpu_torch.color.colorscheme import scheme_by_name, stacked_factored_tables
+    from spectrogram_tpu_torch.ops import stft as stft_ops
+
+    cfg, n = BENCH_CONFIG, STREAMS
+    w = cfg.window_size
+    left, right = windows(cfg, "chirp_tone", n, dev)
+    planes = sk.stft_mag_packed(left, right, torch.from_numpy(sk.packed_hann(w)).to(dev),
+                                sk.fft_constants(cfg.padded_size, dev))
+    rows = torch.stack([pl[:, 1:w] for pl in planes], dim=1).contiguous()   # [n, 2, 2047]
+    del left, right, planes
+    u, v = stacked_factored_tables(32)
+    pid = np.arange(n) % 19
+    u, v = u[pid].copy(), v[pid].copy()
+    u[::5], v[::5] = testing.custom_factors()
+    u, v = (torch.from_numpy(a).to(dev) for a in (u, v))
+    m = cmap_ops.resample_matrix(cfg)                                      # [H, B]
+    mt = np.ascontiguousarray(m.T)
+    mt_dev = torch.from_numpy(mt).to(dev)
+
+    # the functional path's inputs: the verify recipe
+    fcfg = SpectrogramConfig(sample_rate=48000.0, viewport_height=512)
+    fs = fcfg.sample_rate
+    tt = np.arange(int(2.5 * fs)) / fs
+    phase = 2 * np.pi * 100.0 * (np.exp(tt * np.log(80) / tt[-1]) - 1) * tt[-1] / np.log(80)
+    pcm = torch.from_numpy(np.stack([0.5 * np.sin(phase), 0.2 * np.sin(2 * np.pi * 440 * tt)],
+                                    -1).astype(np.float32)).to(dev)
+    scheme = scheme_by_name("Blue-Yellow-Red (Stereo)")
+    fm = cmap_ops.resample_matrix(fcfg)
+    torch.cuda.synchronize()
+
+    lib.reset_launches()
+    packed = ck.colormap_rows_fused(rows, u, v, mt, cfg, packed=True)
+    u8 = ck.colormap_rows_fused(rows, u, v, mt, cfg)
+    planar = stft_ops.stft_rows_planar(pcm, fcfg).contiguous()             # [r, 2, 2399]
+    r = planar.shape[0]
+    su, sv = (torch.from_numpy(a).to(dev)[None].expand(r, -1, -1).contiguous()
+              for a in scheme.factored_tables(32))
+    functional = ck.colormap_rows_fused(planar, su, sv, fm.T, fcfg)
+    torch.cuda.synchronize()
+    launches = {k_: v_ for k_, v_ in lib.launches.items() if v_}
+    for k_, v_ in launches.items():
+        main_launches[k_] = main_launches.get(k_, 0) + v_
+    log(f"[24] colormap_rows_fused: rows {tuple(rows.shape)}, tables {tuple(u.shape)}, matrix "
+        f"{mt.shape} -> packed {tuple(packed.shape)} {packed.dtype}, u8 {tuple(u8.shape)}; "
+        f"functional path rows {tuple(planar.shape)} -> {tuple(functional.shape)}; launches "
+        f"{launches}")
+    if launches.get(ck.ROWS_KERNEL) != 3:
+        fail("colormap_rows_fused did not launch its kernel on each call")
+
+    plain_packed = ck.colormap_rows_fused_plain(rows, u, v, mt_dev, cfg, packed=True)
+    plain_u8 = ck.colormap_rows_fused_plain(rows, u, v, mt_dev, cfg)
+    d_packed = u8_diff(packed, plain_packed, everywhere=False)
+    d_u8 = testing.rgba_u8_diff(u8, plain_u8)
+    log(f"[24] against the plain version: packed max u8 diff {d_packed}, u8 {d_u8} over what "
+        f"the image shows (bar 1)")
+    if max(d_packed, d_u8) > 1:
+        fail("colormap_rows_fused disagrees with its plain version")
+    stats[ck.ROWS_KERNEL] = max(d_packed, d_u8)
+    generic = ck.colormap_generic(rows[:, 0].contiguous(), rows[:, 1].contiguous(),
+                                  ck.resample_taps(m, dev), u.reshape(n, -1),
+                                  v.reshape(n, -1), cfg)
+    _identity(24, "colormap_rows_fused == colormap_generic on the planes' copies", (packed,),
+              (generic,))
+    _identity(24, "colormap_rows_fused u8 == the packed words' bytes", (u8,),
+              (ck.unpack_rgba_device(packed),))
+    m4 = np.ascontiguousarray((0.5 * (m + np.roll(m, 2, axis=1))).T)
+    taps4 = ck.resample_taps_k(m4, dev)
+    got4 = ck.colormap_rows_fused(rows, u, v, taps4, cfg)
+    d4 = testing.rgba_u8_diff(got4, ck.colormap_rows_fused_plain(
+        rows, u, v, torch.from_numpy(m4).to(dev), cfg))
+    log(f"[24] a {taps4.j.shape[1]}-tap matrix: max u8 diff {d4} against the plain version (bar 1)")
+    if taps4.j.shape[1] != 4 or d4 > 1:
+        fail("colormap_rows_fused disagrees with its plain version on a 4-tap matrix")
+    want = cmap_ops.rgba_f32_to_u8(cmap_ops.colormap_rows(
+        planar.transpose(-1, -2), torch.from_numpy(fm).to(dev),
+        torch.from_numpy(scheme.lookup_table(32)).to(dev), fcfg))
+    d_f = testing.rgba_u8_diff(functional, want)
+    log(f"[24] functional path, {scheme.name}: max u8 diff {d_f} against "
+        f"rgba_f32_to_u8(colormap_rows(...)) over what the image shows (bar 1)")
+    if d_f > 1:
+        fail("the functional path disagrees with colormap_rows")
+    stats[ck.ROWS_KERNEL] = max(stats[ck.ROWS_KERNEL], d4, d_f)
+    del plain_packed, plain_u8, generic, got4, functional, want, planar, pcm
+
+    taps = ck.resample_taps_k(mt, dev)
+    ms[ck.ROWS_KERNEL] = device_ms(lambda: ck.colormap_rows_fused(rows, u, v, taps, cfg,
+                                                                  packed=True))
+    plain_ms[ck.ROWS_KERNEL] = time_ms(lambda: ck.colormap_rows_fused_plain(
+        rows, u, v, mt_dev, cfg, packed=True), iters=3)
+    generic_rows = (rows[:, 0].contiguous(), rows[:, 1].contiguous())
+    two = ck.resample_taps(m, dev)
+    u2, v2 = u.reshape(n, -1), v.reshape(n, -1)
+    generic_ms = device_ms(lambda: ck.colormap_generic(*generic_rows, two, u2, v2, cfg))
+    bounds[ck.ROWS_KERNEL] = bound(*cmap_work(n, two, u.numel() + v.numel(),
+                                              CMAP_OPS_PER_PIXEL_GENERIC))
+    library_ms[ck.ROWS_KERNEL] = None
+    log(f"[24] colormap_rows_fused, {n} rows: {ms[ck.ROWS_KERNEL]:.4f} ms device time (plain "
+        f"{plain_ms[ck.ROWS_KERNEL]:.4f} ms, library none, bound "
+        f"{bounds[ck.ROWS_KERNEL][0]:.4f} ms by {bounds[ck.ROWS_KERNEL][1]}); colormap_generic "
+        f"on the planes' copies {generic_ms:.4f} ms")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[24] peak device memory over phase 24: {peak:.2f} GiB; card {power_line}")
 
 
 if __name__ == "__main__":

@@ -1,10 +1,11 @@
 """Color schemes: the palette registry the colormap kernel reads.
 
 A numpy-only copy of the part of `spectrogram_tpu/color/colorscheme.py` that
-the streaming push needs (the JAX package's module cannot be imported without
-JAX): `ColorScheme` with its rank-1 LUT factors, `FactoredScheme` (a palette
-given as its factors), the 19 named palettes of the reference
-(colorscheme.rs:125-151), and the stacked tables built from them.
+the pipeline and the functional surface need (the JAX package's module
+cannot be imported without JAX): `ColorScheme` with its LUT and rank-1 LUT
+factors, `FactoredScheme` (a palette given as its factors), the 19 named
+palettes of the reference (colorscheme.rs:125-151), and the stacked tables
+built from them.
 The reference quirks are reproduced exactly: channels are divided by **256**
 (not 255), and the pan axis is stored reversed (`pan = 1 - j/(res-1)`).
 `tests/test_torch_tables.py` pins every table against the JAX package's.
@@ -53,6 +54,22 @@ class ColorScheme:
         if self.background is not None:
             return self.background
         return tuple(int(c) for c in eval_u8(self.gradient, 0.0))
+
+    def lookup_table(self, resolution: int = 32) -> np.ndarray:
+        """[res, res, 4] f32 LUT; axis 0 = magnitude, axis 1 = pan
+        (reversed): rgb divided by 256, stereo alpha = the magnitude
+        coordinate (colorscheme.rs:73-91)."""
+        i = np.arange(resolution, dtype=np.float64) / (resolution - 1)
+        table = np.zeros((resolution, resolution, 4), dtype=np.float32)
+        if self.is_stereo:
+            rgb = eval_u8(self.gradient, 1.0 - i).astype(np.float32) / 256.0
+            table[:, :, :3] = rgb[None, :, :]
+            table[:, :, 3] = i.astype(np.float32)[:, None]
+        else:
+            rgb = eval_u8(self.gradient, i).astype(np.float32) / 256.0
+            table[:, :, :3] = rgb[:, None, :]
+            table[:, :, 3] = 1.0
+        return table
 
     def factored_tables(self, resolution: int = 32) -> tuple[np.ndarray, np.ndarray]:
         """Rank-1 factorization of the LUT: (U[res,4], V[res,4]) with
@@ -162,6 +179,12 @@ def scheme_index(name: str) -> int:
 
 def scheme_by_name(name: str) -> ColorScheme:
     return DEFAULT_COLOR_SCHEMES[_NAME_TO_INDEX[name]]
+
+
+def stacked_lookup_tables(resolution: int = 32, schemes=None) -> np.ndarray:
+    """The palettes as one [P, res, res, 4] f32 array."""
+    schemes = DEFAULT_COLOR_SCHEMES if schemes is None else schemes
+    return np.stack([s.lookup_table(resolution) for s in schemes], axis=0)
 
 
 def stacked_factored_tables(

@@ -2,7 +2,8 @@
 // two magnitude planes to its RGBA8888 word.
 //
 // Per pixel p of row n (the reference's fragment shader,
-// gpu_spectrogram.rs:158-190), in `pixel_texels`:
+// gpu_spectrogram.rs:158-190), in `pixel_texels` (two taps) or `tap_sum`
+// (K taps) and `texels_of`:
 //   pl = w0[p]*L[n, j0[p]] + w1[p]*L[n, j1[p]], pr the same on R
 //   mag = (10*log10(pl^2 + pr^2 + eps) - min_db) / (max_db - min_db)
 //   pan = pr / (pl + pr), or 0.5 where pl + pr == 0
@@ -22,8 +23,8 @@
 // not contract them into FMAs: the plain PyTorch version rounds each one, and
 // so did the JAX kernel.  rintf rounds half to even, as jnp.round does.  Every
 // colormap kernel (colormap_builtin.cu, colormap_blockwise.cu,
-// colormap_generic.cu, colormap_static.cu) runs its pixels through these
-// functions, so for the same tables they give the same bits.
+// colormap_generic.cu, colormap_static.cu, colormap_rows.cu) runs its pixels
+// through these functions, so for the same tables they give the same bits.
 #pragma once
 
 #include "spk_common.cuh"
@@ -57,6 +58,30 @@ __device__ __forceinline__ unsigned quantize(float v) {
   return static_cast<unsigned>(clamp_to(rintf(__fmul_rn(v, 255.f)), 255.f));
 }
 
+// The K-tap resample of one plane at a pixel: acc = w[0] x[j[0]], then acc
+// += w[t] x[j[t]] in tap order (ascending bins).  At K = 2 it is
+// `pixel_texels`' two-tap sum, bit for bit.
+__device__ __forceinline__ float tap_sum(const float* __restrict__ x,
+                                         const int* __restrict__ j,
+                                         const float* __restrict__ w,
+                                         int taps) {
+  float acc = __fmul_rn(w[0], x[j[0]]);
+  for (int t = 1; t < taps; ++t) acc = __fadd_rn(acc, __fmul_rn(w[t], x[j[t]]));
+  return acc;
+}
+
+// The laws of a pixel whose resampled magnitudes are pl, pr: its texel
+// coordinates.
+__device__ __forceinline__ Texels texels_of(float pl, float pr,
+                                            const ColormapLaws& laws) {
+  const float power = __fadd_rn(__fmul_rn(pl, pl), __fmul_rn(pr, pr));
+  const float db = __fmul_rn(10.f, log10f(__fadd_rn(power, laws.db_eps)));
+  const float mag = __fdiv_rn(__fsub_rn(db, laws.min_db), laws.db_range);
+  const float denom = __fadd_rn(pl, pr);
+  const float pan = denom != 0.f ? __fdiv_rn(pr, denom) : 0.5f;
+  return Texels{texel(mag, laws.res), texel(pan, laws.res)};
+}
+
 // The texel coordinates of the pixel whose taps (a, b, wa, wb) read the row's
 // planes L, R.
 __device__ __forceinline__ Texels pixel_texels(
@@ -64,12 +89,7 @@ __device__ __forceinline__ Texels pixel_texels(
     float wa, float wb, const ColormapLaws& laws) {
   const float pl = __fadd_rn(__fmul_rn(wa, L[a]), __fmul_rn(wb, L[b]));
   const float pr = __fadd_rn(__fmul_rn(wa, R[a]), __fmul_rn(wb, R[b]));
-  const float power = __fadd_rn(__fmul_rn(pl, pl), __fmul_rn(pr, pr));
-  const float db = __fmul_rn(10.f, log10f(__fadd_rn(power, laws.db_eps)));
-  const float mag = __fdiv_rn(__fsub_rn(db, laws.min_db), laws.db_range);
-  const float denom = __fadd_rn(pl, pr);
-  const float pan = denom != 0.f ? __fdiv_rn(pr, denom) : 0.5f;
-  return Texels{texel(mag, laws.res), texel(pan, laws.res)};
+  return texels_of(pl, pr, laws);
 }
 
 // The two taps of a clamped-linear read at texel x: entries t0 and t1 with
@@ -120,6 +140,18 @@ __device__ __forceinline__ unsigned generic_word(
             << (8 * c);
   }
   return word;
+}
+
+// The generic word of the pixel whose K taps (bins j, weights w) read one
+// planar row [2, bins] (left plane, then right), colored with the row's
+// factors u and v: colormap_rows.cu's body.
+__device__ __forceinline__ unsigned planar_row_pixel(
+    const float* __restrict__ row, int bins, const int* __restrict__ j,
+    const float* __restrict__ w, int taps, const float* __restrict__ u,
+    const float* __restrict__ v, int res, const ColormapLaws& laws) {
+  return generic_word(texels_of(tap_sum(row, j, w, taps),
+                                tap_sum(row + bins, j, w, taps), laws),
+                      u, v, res);
 }
 
 // The built-in word of the pixel whose taps (a, b, wa, wb) read the row's

@@ -209,6 +209,19 @@ struct MixedRadix {
     return pos;
   }
 
+  // The inverse of `slot`: the sample whose slot is pos.  pos = sum_s d_s L_s
+  // in the stages' radices (r_0 least significant), and the sample's digits
+  // are the d_s with r_{m-1} least significant.
+  __device__ __forceinline__ int unslot(int pos) const {
+    int i = 0;
+    for (int s = 0; s < stages; ++s) {
+      const int r = radix[s];
+      i = i * r + pos % r;
+      pos /= r;
+    }
+    return i;
+  }
+
   // Decimation in time: butterfly (block b, position p) of stage s takes
   // x_q = buf[b M + p + q L] * exp(-2 pi i p q / M), q < r, with L = L_s and
   // M = L r, and writes the r-point DFT of the x_q back to the same slots.
@@ -235,22 +248,30 @@ struct MixedRadix {
   template <bool kDif>
   __device__ __forceinline__ void stage(float2* buf, const float2* tw, int s,
                                         int len) const {
-    const int r = radix[s];
-    const int m = len * r;
-    const int tstep = n / m;
-    const int count = n / r;
+    const int count = n / radix[s];
     for (int j = threadIdx.x; j < count; j += blockDim.x) {
-      const int p = j % len;
-      float2* x = buf + (j / len) * m + p;
-      const int t = p * tstep;
-      switch (r) {
-        case 4: butterfly<4, kDif>(x, len, t, tw); break;
-        case 2: butterfly<2, kDif>(x, len, t, tw); break;
-        case 3: butterfly<3, kDif>(x, len, t, tw); break;
-        default: butterfly<5, kDif>(x, len, t, tw); break;
-      }
+      butterfly_at<kDif>(buf, tw, s, len, j);
     }
     __syncthreads();
+  }
+
+  // Butterfly j (of n / r_s) of stage s over `buf`, for sub-transforms of
+  // length `len`: the one step of `stage`, which the large-N route
+  // (stft_large.cuh) runs over device memory.
+  template <bool kDif>
+  __device__ __forceinline__ void butterfly_at(float2* buf, const float2* tw,
+                                               int s, int len, int j) const {
+    const int r = radix[s];
+    const int m = len * r;
+    const int p = j % len;
+    float2* x = buf + (j / len) * m + p;
+    const int t = p * (n / m);
+    switch (r) {
+      case 4: butterfly<4, kDif>(x, len, t, tw); break;
+      case 2: butterfly<2, kDif>(x, len, t, tw); break;
+      case 3: butterfly<3, kDif>(x, len, t, tw); break;
+      default: butterfly<5, kDif>(x, len, t, tw); break;
+    }
   }
 };
 
@@ -359,6 +380,21 @@ static inline int with_fft_body(int n, const void* consts, Fn fn) {
   return fn(body);
 }
 
+// The conjugate-symmetric stereo unpack of one bin (fft.rs:81-92): zk =
+// Z[k] and zm = Z[(N-k) mod N] -> the left and right magnitudes.
+__device__ __forceinline__ void unpack_stereo(float2 zk, float2 zm,
+                                              float* left, float* right) {
+  const float lr = __fadd_rn(zk.x, zm.x), li = __fsub_rn(zk.y, zm.y);
+  const float rr = __fsub_rn(zk.x, zm.x), ri = __fadd_rn(zk.y, zm.y);
+  *left = sqrtf(__fmaf_rn(lr, lr, __fmul_rn(li, li)));
+  *right = sqrtf(__fmaf_rn(rr, rr, __fmul_rn(ri, ri)));
+}
+
+// |z|, the split-real rows' magnitude.
+__device__ __forceinline__ float magnitude(float2 z) {
+  return sqrtf(__fmaf_rn(z.x, z.x, __fmul_rn(z.y, z.y)));
+}
+
 // One window row: load l, r through hann into `buf` in the body's input
 // order, transform, unpack both channels' magnitudes into ol, orr
 // [stft_bins(N, W)].  The caller's block has blockDim.x threads and
@@ -390,12 +426,7 @@ __device__ __forceinline__ void stft_packed_row(
   // conjugate-symmetric stereo unpack (fft.rs:81-92), coalesced stores
   const int bins = stft_bins(n, w);
   for (int k = threadIdx.x; k < bins; k += blockDim.x) {
-    const float2 zk = buf[k];
-    const float2 zm = buf[k == 0 ? 0 : n - k];
-    const float lr = __fadd_rn(zk.x, zm.x), li = __fsub_rn(zk.y, zm.y);
-    const float rr = __fsub_rn(zk.x, zm.x), ri = __fadd_rn(zk.y, zm.y);
-    ol[k] = sqrtf(__fmaf_rn(lr, lr, __fmul_rn(li, li)));
-    orr[k] = sqrtf(__fmaf_rn(rr, rr, __fmul_rn(ri, ri)));
+    unpack_stereo(buf[k], buf[k == 0 ? 0 : n - k], &ol[k], &orr[k]);
   }
 }
 
@@ -495,8 +526,7 @@ __device__ __forceinline__ void stft_real_row(
   body.transform(buf, tw);
   const int bins = stft_bins(n, w);
   for (int k = threadIdx.x; k < bins; k += blockDim.x) {
-    const float2 z = buf[k];
-    out[k] = sqrtf(__fmaf_rn(z.x, z.x, __fmul_rn(z.y, z.y)));
+    out[k] = magnitude(buf[k]);
   }
 }
 

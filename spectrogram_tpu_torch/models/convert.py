@@ -29,9 +29,11 @@ _FIELDS = ("carry", "ring", "cursor", "palette_id", "row_count")
 
 def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
     arr = np.asarray(a)
-    if dtype == torch.bfloat16:
-        # numpy has no bfloat16; bf16 values are exact in f32
-        return torch.from_numpy(np.asarray(arr, np.float32)).to(device, dtype)
+    if dtype.is_floating_point:
+        # through f32 (f64 for an f64 tensor), which holds bf16 and f16
+        # values exactly: numpy has no bfloat16 of its own
+        wide = np.float64 if dtype == torch.float64 else np.float32
+        return torch.from_numpy(np.array(arr, wide, copy=True)).to(device, dtype)
     return torch.from_numpy(np.array(arr, copy=True)).to(device, dtype)
 
 
@@ -60,13 +62,15 @@ def _tables(tables: tuple, device) -> tuple:
                  for a, d in zip(arrays, two_d))
 
 
-def state_from_jax(state: dict, device=None) -> StreamState:
+def state_from_jax(state: dict, device=None,
+                   ring_dtype: torch.dtype = torch.bfloat16) -> StreamState:
     """A `StreamState` on `device` (default: the card) from a JAX state's
     numpy arrays.  The carry is [S, 2, C] f32, or int16 from an i16_planes
     pipeline, or the transposed [S, 2, n1, C/n1] f32 of a transposed_carry
     or framing="tsplit" pipeline; the ring ([S, R, 2, B], R = 0 without
-    store_ring) arrives as bf16 or f32 values and is stored as bf16; the
-    tables tuple keeps its structure."""
+    store_ring) is stored in `ring_dtype`, the pipeline's (bfloat16, the
+    JAX default, unless it was built with another), which holds a ring of
+    that dtype exactly; the tables tuple keeps its structure."""
     carry = np.asarray(state["carry"])
     planar = carry.ndim == 3 and carry.dtype in (np.float32, np.int16)
     transposed = carry.ndim == 4 and carry.dtype == np.float32
@@ -79,7 +83,7 @@ def state_from_jax(state: dict, device=None) -> StreamState:
     return StreamState(
         carry=_tensor(carry, torch.int16 if carry.dtype == np.int16
                       else torch.float32, device),
-        ring=_tensor(state["ring"], torch.bfloat16, device),
+        ring=_tensor(state["ring"], ring_dtype, device),
         cursor=_tensor(state["cursor"], torch.int32, device),
         palette_id=_tensor(state["palette_id"], torch.int32, device),
         row_count=_tensor(state["row_count"], torch.int32, device),
@@ -88,9 +92,9 @@ def state_from_jax(state: dict, device=None) -> StreamState:
 
 
 def state_to_numpy(state: StreamState) -> dict:
-    """The state as a dict of numpy arrays (`tables` a tuple).  The bf16
-    ring comes back as f32, which holds its values exactly; the carry keeps
-    its dtype."""
+    """The state as a dict of numpy arrays (`tables` a tuple).  A bf16 ring
+    comes back as f32, which holds its values exactly, any other ring in its
+    dtype; the carry keeps its dtype."""
     def arr(t: torch.Tensor) -> np.ndarray:
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:

@@ -76,20 +76,17 @@ body, so their rows are the same bits; `process()` of such a pipeline takes
 the split-real plane kernel, and streamed == `process()` stays exact.
 
 Every geometry the JAX pipeline takes runs here: any FFT size (the kernels
-pick radix 2, mixed radix or Bluestein from N) and pad_factor 1, where the
-planes are W bins wide (`stft_kernel.stft_bins`) so that the colormap's
-taps and the ring's bins 1..W-1 fit them; the state keeps JAX's shapes.
+pick radix 2, mixed radix or Bluestein from N, and take the large-N route
+where a row's FFT buffer passes a block's shared memory, e.g. 48 kHz with a
+0.5 s window) and pad_factor 1, where the planes are W bins wide
+(`stft_kernel.stft_bins`) so that the colormap's taps and the ring's bins
+1..W-1 fit them; the state keeps JAX's shapes.
 
 On a CPU device the kernels run as their plain PyTorch versions; on a CUDA
 device as the hand-written kernels in `csrc/`, unless the caller names JAX's
 golden backend (`stft_backend="xla"`, `colormap_backend="xla"`), which runs
 the plain versions on the card.  There is no fallback from one to the
 other.  Without a `device`, the pipeline runs on the card.
-
-What the JAX pipeline offers beyond this port raises NotImplementedError
-naming the ROADMAP.md item that brings it: a ring dtype other than bfloat16,
-and on the card an FFT whose row buffer (N, or Bluestein's M >= 2N - 1,
-complex f32) exceeds a block's 227 KB of shared memory.
 """
 
 from __future__ import annotations
@@ -129,12 +126,6 @@ class StreamState(NamedTuple):
     tables: tuple = ()
 
 
-def _not_in_slice(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, modules to port: {item})"
-    )
-
-
 def _is_marker(t: torch.Tensor) -> bool:
     return t.ndim == 1 and t.numel() == 0
 
@@ -161,8 +152,9 @@ class SpectrogramPipeline:
       chunk_hops: rows per push (k); a chunk is k * hop samples.
       viewport_rows: ring length (default cfg.viewport_rows), rounded up to
         a multiple of chunk_hops so that a push's rows never wrap.
-      ring_dtype: ring storage; only torch.bfloat16 (the JAX default) is
-        ported.
+      ring_dtype: ring storage, a torch floating dtype (JAX's default
+        bfloat16, float16, float32, ...); rows are rounded to it to nearest
+        even, and `render_viewport` reads them back as f32.
       lut_resolution: palette table size (default cfg.lut_resolution).
       store_ring: keep the row ring that render_viewport draws.
       stft_backend: "auto", "mxu", "pallas" or "xla", validated as in JAX
@@ -269,8 +261,8 @@ class SpectrogramPipeline:
         device=None,
     ):
         cfg.validate()
-        if ring_dtype != torch.bfloat16:
-            raise _not_in_slice(f"ring_dtype={ring_dtype}", "6, pipeline completion")
+        if not (isinstance(ring_dtype, torch.dtype) and ring_dtype.is_floating_point):
+            raise ValueError(f"ring_dtype must be a torch floating dtype; got {ring_dtype!r}")
         if int(chunk_hops) < 1:
             raise ValueError(f"chunk_hops must be >= 1; got {chunk_hops}")
         if precision_profile not in ("exact", "fast"):
@@ -301,9 +293,7 @@ class SpectrogramPipeline:
 
         self.cfg = cfg
         self.device = default_device(device)
-        if self.device.type == "cuda":
-            stft_kernel.check_fft_size(cfg.padded_size)
-        elif self.device.type != "cpu":
+        if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
         k = self.chunk_hops = int(chunk_hops)
         rows = viewport_rows or cfg.viewport_rows
@@ -331,6 +321,9 @@ class SpectrogramPipeline:
         res = lut_resolution or cfg.lut_resolution
         self.chunk_size = k * cfg.hop_size
         self.carry_size = stft_ops.carry_size(cfg)
+        self.stft_block_rows = None
+        self._stft_packed_arg = stft_packed
+        self._stft_unpack_split_arg = stft_unpack_split
         self._stft_layout(cfg, stft_backend, stft_packed, stft_unpack_split,
                           transposed_carry, framing)
         dev = self.device
@@ -458,8 +451,10 @@ class SpectrogramPipeline:
                 "stft_backend='xla' or 'auto'."
             )
         self.fft_plan = plan if usable else None
-        # the knobs' gates read the plan of the Pallas chain only
-        plan = self.fft_plan if stft_backend in ("auto", "pallas") else None
+        # JAX's fused Pallas chain, which "auto" and "pallas" stand for: the
+        # knobs' gates read its plan only
+        self.fused_chain = usable and stft_backend in ("auto", "pallas")
+        plan = self.fft_plan if self.fused_chain else None
         lane_pad = plan is not None and fft_plan.lane_pad_default(plan)
         k = self.chunk_hops
         if stft_packed not in ("auto", True, False):
@@ -510,13 +505,41 @@ class SpectrogramPipeline:
                 f"framing='tsplit' requires chunk_hops=1, hop % n1 == 0 and a "
                 f"flip-capable TPU plan (cfg {cfg}, plan {plan})"
             )
+        self._validate_i16_planes()
+
+    def _validate_i16_planes(self) -> None:
         if self.i16_planes and (not self.stft_packed or self.carry_is_transposed):
             raise ValueError(
                 "i16_planes requires the packed STFT on the planar carry "
                 f"(stft_packed={self.stft_packed}, transposed_carry="
-                f"{self.carry_transposed}, framing={framing!r}): there is no "
-                "int16 split-real kernel"
+                f"{self.carry_transposed}, framing={self.framing!r}): there is "
+                "no int16 split-real kernel"
             )
+
+    def override_plan(self, plan, block_rows: Optional[int] = None) -> None:
+        """The JAX pipeline's autotuner hook (`override_plan`): swap the FFT
+        plan and recompute every decision derived from it, as JAX does: the
+        lane-padded layout, `stft_packed` and `stft_unpack_split` from their
+        arguments, the transposed carry and the tsplit framing (each kept
+        only where the new plan still takes it), then revalidate
+        `i16_planes`, which raises ValueError where the new layout has no
+        int16 kernel.  The port's kernels need no plan and no row blocks:
+        `plan` defines the transposed carry's n1 and the knobs' gates, and
+        `block_rows` is kept as `stft_block_rows` for parity."""
+        self.fft_plan = plan
+        self.stft_block_rows = block_rows
+        cfg, k = self.cfg, self.chunk_hops
+        lane_pad = self.fused_chain and plan is not None and fft_plan.lane_pad_default(plan)
+        arg = self._stft_packed_arg
+        self.stft_packed = True if arg == "auto" else bool(arg)
+        arg = self._stft_unpack_split_arg
+        self.stft_unpack_split = ((3 if self.stft_packed else 0) if arg == "auto"
+                                  else int(arg))
+        self.carry_transposed = self.carry_transposed and (
+            not lane_pad and fft_plan.carry_transposed_supported(cfg, plan))
+        self.tsplit_framing = self.tsplit_framing and fft_plan.tsplit_supported(
+            cfg, k, plan, lane_pad=lane_pad)
+        self._validate_i16_planes()
 
     @property
     def carry_is_transposed(self) -> bool:
@@ -584,17 +607,39 @@ class SpectrogramPipeline:
         layout = np.broadcast_to(ids.astype(np.int32), (s,)).copy()
         pid = torch.from_numpy(layout).to(self.device)
         tables = self.state_tables_for(pid[:1] if ids.ndim == 0 else pid)
-        # per-stream built-in tables only: a generic (u, v) pair is neither
-        # marked nor sorted, as in JAX
-        if ids.ndim and len(tables) == 1:
-            if self._blockwise_auto_decision(layout):
-                # already clustered: the marker, and no sort
-                if self.blockwise_palettes == "auto":
-                    tables += (self._bw_marker(),)
-            elif self.palette_sort:
-                tables = self._sorted_tables(tables, layout) or tables
+        if ids.ndim:
+            tables = self._layout_tables(tables, layout)
         return state._replace(palette_id=pid, tables=tables,
                               carry=self._resorted_carry(state, tables))
+
+    def _layout_tables(self, tables: tuple, layout: np.ndarray) -> tuple:
+        """The layout class of per-stream ids `layout`: per-stream built-in
+        tables get the blockwise marker (already clustered, "auto") or the
+        palette sort where it pays; a generic (u, v) pair is neither marked
+        nor sorted, as in JAX."""
+        if len(tables) != 1:
+            return tables
+        if self._blockwise_auto_decision(layout):
+            # already clustered: the marker, and no sort
+            if self.blockwise_palettes == "auto":
+                return tables + (self._bw_marker(),)
+            return tables
+        if self.palette_sort:
+            return self._sorted_tables(tables, layout) or tables
+        return tables
+
+    def restored_tables_for(self, palette_id) -> tuple:
+        """`state_tables_for` the [S] ids with the layout class `set_palette`
+        gives them (the blockwise marker, or the palette-sorted tuple),
+        re-derived from the concrete ids: for a state restored from a
+        checkpoint, so that it keeps its kernel class (the JAX pipeline's
+        `restored_tables_for`)."""
+        if isinstance(palette_id, torch.Tensor):
+            palette_id = palette_id.detach().cpu().numpy()
+        layout = np.asarray(palette_id, np.int32).reshape(-1)
+        self._check_ids(layout)
+        tables = self.state_tables_for(self._device_index(layout))
+        return self._layout_tables(tables, layout)
 
     def _check_ids(self, ids: np.ndarray) -> None:
         if ids.size and (ids.min() < 0 or ids.max() >= len(self.schemes)):

@@ -14,13 +14,17 @@ Per output pixel:
 Steps 1+2 are a precomputed `[H, B]` resample matrix with two nonzeros per
 row; the numpy functions here are copies of the JAX package's (pinned by
 `tests/test_torch_tables.py`).  The torch functions are the plain laws that
-the hand-written colormap kernel (`ops/cuda/colormap_kernel.py`) is held
-against.
+the hand-written colormap kernels (`ops/cuda/colormap_kernel.py`) are held
+against, and the JAX package's functional surface (`colormap_rows`,
+`colormap_resampled`, `sample_lut_bilinear`, `composite_over_background`,
+`rgba_f32_to_u8`): plain jnp there, plain torch on the tensors' device here.
 
 Output pixel index 0 = lowest frequency (GL uv.y = 0, bottom of screen).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -117,10 +121,24 @@ def time_resample_matrix(rows: int, width: int) -> np.ndarray:
     return m
 
 
+@contextlib.contextmanager
+def true_f32():
+    """Matrix products in full f32 inside, whatever the caller set: TF32
+    keeps three decimal digits, as the TPU's default bf16 passes did (the
+    JAX package pins `Precision.HIGHEST`)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def resample_rows(rows: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
     """[..., B, 2] magnitude rows -> [..., H, 2] log-frequency pixels, in
-    true f32 (TF32 would cost three decimal digits)."""
-    return torch.einsum("hb,...bc->...hc", matrix, rows)
+    true f32 (`true_f32`)."""
+    with true_f32():
+        return torch.einsum("hb,...bc->...hc", matrix, rows)
 
 
 def db_normalize(left: torch.Tensor, right: torch.Tensor,
@@ -175,6 +193,40 @@ def sample_lut_factored(
         cu = torch.einsum("s...t,stc->s...c", wu, u_table)
         cv = torch.einsum("s...t,stc->s...c", wv, v_table)
     return cu * cv
+
+
+def sample_lut_bilinear(lut: torch.Tensor, pan: torch.Tensor,
+                        mag: torch.Tensor) -> torch.Tensor:
+    """Clamped bilinear sample of a [R, R, 4] LUT at (x=pan, y=mag): the GL
+    sampler's Clamp + Linear (gpu_spectrogram.rs:284-287), texel position
+    clamp(clamp(coord, 0, 1) * R - 0.5, 0, R-1).  LUT axis 0 is magnitude,
+    axis 1 pan (`ColorScheme.lookup_table`)."""
+    r = lut.shape[-3]
+    py, px = texel_coord(mag, r), texel_coord(pan, r)
+    y0, x0 = torch.floor(py).long(), torch.floor(px).long()
+    y1, x1 = torch.clamp(y0 + 1, max=r - 1), torch.clamp(x0 + 1, max=r - 1)
+    wy = (py - y0.to(py.dtype))[..., None]
+    wx = (px - x0.to(px.dtype))[..., None]
+    top = lut[y0, x0] * (1 - wx) + lut[y0, x1] * wx
+    bot = lut[y1, x0] * (1 - wx) + lut[y1, x1] * wx
+    return top * (1 - wy) + bot * wy
+
+
+def colormap_resampled(pixels: torch.Tensor, lut: torch.Tensor,
+                       cfg: SpectrogramConfig) -> torch.Tensor:
+    """[..., H, 2] log-frequency magnitudes -> [..., H, 4] f32 RGBA."""
+    left, right = pixels[..., 0], pixels[..., 1]
+    return sample_lut_bilinear(lut, pan_fraction(left, right),
+                               db_normalize(left, right, cfg))
+
+
+def colormap_rows(rows: torch.Tensor, matrix: torch.Tensor, lut: torch.Tensor,
+                  cfg: SpectrogramConfig) -> torch.Tensor:
+    """The whole colormap stage: [..., B, 2] magnitude rows -> [..., H, 4]
+    f32 RGBA, by the [H, B] resample matrix and the [R, R, 4] LUT; the
+    reference composition the colormap kernels are held to, on the
+    tensors' device."""
+    return colormap_resampled(resample_rows(rows, matrix), lut, cfg)
 
 
 def composite_over_background(rgba: torch.Tensor,

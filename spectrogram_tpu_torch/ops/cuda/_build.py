@@ -10,8 +10,8 @@ ignores) and is rebuilt whenever the sources or flags change.
 Nothing here runs at import time: the first kernel launch builds the library.
 `KernelLibrary.launches` counts each kernel's launches, and
 `KernelLibrary.body_launches` the STFT launches by FFT body (radix 2, mixed
-radix, Bluestein), so that a run can show that its main path went through
-the kernels and bodies.
+radix, Bluestein, and the large-N route), so that a run can show that its
+main path went through the kernels and bodies.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ _F = ctypes.c_float
 _STFT = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P)
 _ALLK = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 _ALLK_CARRY = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
+_LARGE = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P)
 KERNELS = {
     "spk_stft_packed": _STFT,
     "spk_stft_packed_i16": _STFT,
@@ -55,6 +56,10 @@ KERNELS = {
     "spk_stft_split_carry": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "spk_stft_split_t": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "spk_stft_split_tsplit": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # the large-N route: window planes, hann, table, scratch, planes
+    "spk_stft_large_packed": _LARGE,
+    "spk_stft_large_packed_i16": _LARGE,
+    "spk_stft_large_split": _LARGE,
     "spk_push_fused": (
         _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _F, _F, _F, _F, _P, _P,
         _P, _I, _I, _I, _P,
@@ -76,9 +81,14 @@ KERNELS = {
     "spk_colormap_static": (
         _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _F, _F, _F, _F, _P, _P,
     ),
+    "spk_colormap_rows": (
+        _P, _I, _I, _P, _P, _I, _I, _P, _P, _I, _F, _F, _F, _F, _P, _P,
+    ),
 }
-# the STFT kernels' FFT bodies (csrc/stft_fft.cuh, `stft_kernel.fft_body`)
-FFT_BODIES = ("radix2", "mixed", "bluestein")
+# the STFT kernels' FFT bodies (csrc/stft_fft.cuh, `stft_kernel.fft_body`),
+# and the large-N route (csrc/stft_large.cu) under its own label
+# (`stft_kernel.fft_route`)
+FFT_BODIES = ("radix2", "mixed", "bluestein", "large")
 
 
 def _nvcc() -> str:

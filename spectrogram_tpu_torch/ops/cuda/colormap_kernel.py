@@ -55,6 +55,7 @@ KERNEL = "spk_colormap_builtin"
 BLOCKWISE_KERNEL = "spk_colormap_blockwise"
 GENERIC_KERNEL = "spk_colormap_generic"
 STATIC_KERNEL = "spk_colormap_static"
+ROWS_KERNEL = "spk_colormap_rows"
 # a static table is a kernel parameter: at most this many LUT entries
 # (csrc/colormap_static.cu's kMaxRes)
 MAX_STATIC_RES = 64
@@ -479,3 +480,140 @@ def colormap_static(mag_l: torch.Tensor, mag_r: torch.Tensor,
     v_host = arrays[1].ctypes.data if len(arrays) == 2 else None
     return _launch(STATIC_KERNEL, mag_l, mag_r, taps, cfg, res, (),
                    arrays[0].ctypes.data, v_host, res)
+
+
+class ResampleTapsK(NamedTuple):
+    """K-tap (ELL) form of a resample matrix: pixel p reads sum over t of
+    w[p, t] * x[j[p, t]], taps in ascending bin order."""
+
+    j: torch.Tensor   # [H, K] int32
+    w: torch.Tensor   # [H, K] f32
+    bins: int         # B: rows the taps index must have at least this many bins
+
+
+def resample_taps_k(matrix_t, device=None) -> ResampleTapsK:
+    """The K-tap form of a dense transposed resample matrix [B, H] (numpy or
+    a tensor), K = the most nonzeros of any pixel column: column p's
+    nonzeros in ascending bin order with the matrix's own f32 values,
+    padded with taps of weight 0 at the column's first nonzero bin (bin 0
+    for an empty column).  Every matrix the package builds has K = 2, and
+    then the taps are `resample_taps`' (a pixel clamped onto one bin reads
+    it with w[p, 1] = 0 and j[p, 1] = j[p, 0])."""
+    if isinstance(matrix_t, torch.Tensor):
+        matrix_t = matrix_t.detach().cpu().numpy()
+    m = np.asarray(matrix_t, np.float32).T                     # [H, B]
+    h = m.shape[0]
+    pixels, bins = np.nonzero(m)                               # by pixel, then bin
+    counts = np.bincount(pixels, minlength=h)
+    k = max(int(counts.max(initial=0)), 1)
+    start = np.cumsum(counts) - counts
+    first = np.zeros(h, np.int64)
+    first[counts > 0] = bins[start[counts > 0]]
+    j = np.repeat(first[:, None], k, axis=1).astype(np.int32)
+    w = np.zeros((h, k), np.float32)
+    slot = np.arange(pixels.size) - start[pixels]
+    j[pixels, slot] = bins
+    w[pixels, slot] = m[pixels, bins]
+    return ResampleTapsK(torch.from_numpy(j).to(device), torch.from_numpy(w).to(device),
+                         m.shape[1])
+
+
+def taps_dense(taps: ResampleTapsK) -> torch.Tensor:
+    """The dense transposed matrix [B, H] of K-tap form `taps`."""
+    h, k = taps.j.shape
+    m = torch.zeros((taps.bins, h), dtype=torch.float32, device=taps.w.device)
+    pixels = torch.arange(h, device=m.device).repeat_interleave(k)
+    m.index_put_((taps.j.reshape(-1).long(), pixels), taps.w.reshape(-1), accumulate=True)
+    return m
+
+
+def pack_rgba(rgba_u8: torch.Tensor) -> torch.Tensor:
+    """[..., 4] u8 RGBA -> [...] int32 RGBA8888 words, byte 0 = R (a view of
+    the bytes on a little-endian host and card)."""
+    return rgba_u8.contiguous().view(torch.int32)[..., 0]
+
+
+def colormap_rows_fused_plain(rows: torch.Tensor, u_tables: torch.Tensor,
+                              v_tables: torch.Tensor, matrix_t: torch.Tensor,
+                              cfg: SpectrogramConfig,
+                              packed: bool = False) -> torch.Tensor:
+    """The plain version of `colormap_rows_fused`, the JAX package's own
+    reference composition (tests/test_pallas_colormap.py): `resample_rows`
+    of the interleaved rows by the [H, B] matrix, `db_normalize` and
+    `pan_fraction`, `sample_lut_factored` with the per-row tables,
+    `rgba_f32_to_u8`; [N, H, 4] u8, or [N, H] int32 words with `packed`.
+    On the tensors' device, every matrix product in true f32."""
+    with cmap_ops.true_f32():
+        pixels = cmap_ops.resample_rows(rows.transpose(-2, -1), matrix_t.transpose(0, 1))
+        mag = cmap_ops.db_normalize(pixels[..., 0], pixels[..., 1], cfg)
+        pan = cmap_ops.pan_fraction(pixels[..., 0], pixels[..., 1])
+        rgba = cmap_ops.sample_lut_factored(u_tables, v_tables, pan, mag)
+    u8 = cmap_ops.rgba_f32_to_u8(rgba)
+    return pack_rgba(u8) if packed else u8
+
+
+def colormap_rows_fused(rows: torch.Tensor, u_tables: torch.Tensor,
+                        v_tables: torch.Tensor, matrix_t, cfg: SpectrogramConfig,
+                        block_rows=None, block_cols=None, precision=None,
+                        interpret: bool = False, packed: bool = False) -> torch.Tensor:
+    """The counterpart of the JAX package's `colormap_rows_fused`, with its
+    signature: planar rows [N, 2, B] f32, per-row factor tables `u_tables`,
+    `v_tables` [N, R, 4] f32 and the dense transposed resample matrix
+    `matrix_t` [B, H] -> [N, H, 4] u8 RGBA, or [N, H] int32 RGBA8888 (byte
+    0 = R) with `packed`.  `matrix_t` may also be its `resample_taps_k`,
+    built once: the dense form is read on the host at every call.
+
+    Raises ValueError where JAX raises: a matrix whose row count is not B,
+    and more than 20,480 bins (`_auto_blocks`, whatever the blocks).
+    `block_rows` and `block_cols` (positive, or None for JAX's tiers) were
+    the TPU kernel's tiles; `precision` and `interpret` are accepted and
+    change nothing: the port is always true f32 (JAX's HIGHEST), and a CUDA
+    kernel has no interpret mode (as the pipeline's `kernel_interpret`).
+
+    CPU tensors take the plain version; CUDA tensors take spk_colormap_rows
+    (csrc/colormap_rows.cu), whose words equal `colormap_generic`'s on the
+    same planes, tables and two-tap matrix bit for bit."""
+    n, two, b = rows.shape
+    taps = matrix_t if isinstance(matrix_t, ResampleTapsK) else None
+    matrix_bins = taps.bins if taps is not None else matrix_t.shape[0]
+    if matrix_bins != b:
+        raise ValueError(f"rows have {b} bins but resample matrix expects {matrix_bins}")
+    for name, blocks in (("block_rows", block_rows), ("block_cols", block_cols)):
+        if blocks is not None and int(blocks) < 1:
+            raise ValueError(f"{name} must be a positive tile size; got {blocks}")
+    _auto_blocks(b, block_rows, block_cols)
+    res = u_tables.shape[1] if u_tables.ndim == 3 else 0
+    if (two != 2 or u_tables.shape != (n, res, 4) or v_tables.shape != u_tables.shape
+            or res < 2):
+        raise ValueError(
+            f"rows {tuple(rows.shape)} and tables {tuple(u_tables.shape)}/"
+            f"{tuple(v_tables.shape)} do not fit (expected [N, 2, B] and [N, R, 4])")
+    if rows.device.type == "cpu":
+        matrix = (taps_dense(taps) if taps is not None
+                  else matrix_t if isinstance(matrix_t, torch.Tensor)
+                  else torch.from_numpy(np.asarray(matrix_t, np.float32)))
+        return colormap_rows_fused_plain(rows, u_tables, v_tables, matrix, cfg, packed)
+    if rows.device.type != "cuda":
+        raise ValueError(f"no colormap kernel for device {rows.device}")
+    if taps is None:
+        taps = resample_taps_k(matrix_t, rows.device)
+    h, k = taps.j.shape
+    checks = (("rows", rows, torch.float32), ("u_tables", u_tables, torch.float32),
+              ("v_tables", v_tables, torch.float32), ("taps j", taps.j, torch.int32),
+              ("taps w", taps.w, torch.float32))
+    for name, t, dtype in checks:
+        if t.dtype != dtype or not t.is_contiguous() or t.device != rows.device:
+            raise ValueError(
+                f"{name} must be contiguous {dtype} on {rows.device}; got "
+                f"{t.dtype} on {t.device}, contiguous={t.is_contiguous()}")
+    out = torch.empty((n, h), dtype=torch.int32, device=rows.device)
+    if n and h:
+        from spectrogram_tpu_torch.ops.cuda import _build
+
+        with torch.cuda.device(rows.device):
+            _build.library().launch(
+                ROWS_KERNEL, rows.data_ptr(), n, b, taps.j.data_ptr(), taps.w.data_ptr(),
+                h, k, u_tables.data_ptr(), v_tables.data_ptr(), res, cfg.min_db,
+                cfg.max_db - cfg.min_db, cfg.db_epsilon, 1.0 / (res - 1), out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+    return out if packed else out.view(torch.uint8).view(n, h, 4)

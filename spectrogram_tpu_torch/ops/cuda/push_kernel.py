@@ -16,7 +16,9 @@ The TPU kernel's band `segments` were a matrix-unit tiling; the taps take
 their place here.
 
 A CPU tensor takes the plain version (the plain split-real STFT, then
-kernel B's plain version); a CUDA tensor takes the kernel.
+kernel B's plain version); a CUDA tensor takes the kernel, or where a row's
+FFT buffer passes a block's shared memory (`stft_kernel.is_large`) the
+chain it stands for: the large-N split route, then kernel B.
 """
 
 from __future__ import annotations
@@ -68,6 +70,12 @@ def push_fused(left: torch.Tensor, right: torch.Tensor, hann: torch.Tensor,
     for name, t in (("j0", taps.j0), ("j1", taps.j1)):
         if t.dtype != torch.int32 or not t.is_contiguous() or t.device != left.device:
             raise ValueError(f"{name} must be contiguous int32 on {left.device}")
+    if sk.is_large(n_fft):
+        # a row's two FFT buffers do not fit one block: the chain the fused
+        # kernel stands for, the large-N split route then kernel B
+        planes = sk.stft_mag_split(left, right, hann, consts)
+        out = ck.colormap_builtin(*planes, taps, tables, cfg)
+        return (out, *planes) if emit_mags else out
     h = taps.j0.shape[0]
     res = tables.shape[1] // 4
     out = torch.empty((rows, h), dtype=torch.int32, device=left.device)

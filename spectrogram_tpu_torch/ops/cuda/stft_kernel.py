@@ -16,14 +16,22 @@ pad_factor 1 (bins 1 .. W-1 pass N/2 there) — the layout
 a CUDA tensor, power-of-two N runs `csrc/stft_packed.cu` and every other N
 `csrc/stft_mixed.cu`.
 
-Every N from 2 up to the shared-memory limit runs on the card
-(`check_fft_size`): the kernels pick one of three FFT bodies from N
-(`fft_body`; csrc/stft_fft.cuh): radix 2, mixed radix 4/2/3/5 for 2^a 3^b
-5^c, and Bluestein's chirp-z convolution of length M = the least 2^a 3^b
-5^c >= 2N - 1 for any other N (N = 4410 at 44.1 kHz and the reference's 0.05
-s window, M = 9000).  Each body reads one host-built table in float64
-rounded once (`fft_table`), passed with N as `FftConstants`
-(`fft_constants(N, device)`).
+Every N from 2 up runs on the card (`check_fft_size`): the kernels pick one
+of three FFT bodies from N (`fft_body`; csrc/stft_fft.cuh): radix 2, mixed
+radix 4/2/3/5 for 2^a 3^b 5^c, and Bluestein's chirp-z convolution of
+length M = the least 2^a 3^b 5^c >= 2N - 1 for any other N (N = 4410 at
+44.1 kHz and the reference's 0.05 s window, M = 9000).  Each body reads one
+host-built table in float64 rounded once (`fft_table`), passed with N as
+`FftConstants` (`fft_constants(N, device)`).  A body holds a row's buffer
+(N, or M, complex f32) in one block's shared memory, at most 227 KB; where
+it passes that (`is_large`: N = 2^15 and up, smooth N above 29,056,
+Bluestein N from about 14,500), every entry takes the large-N route
+instead (`csrc/stft_large.cu`): the wrapper frames its operand into [rows,
+W] window planes, as the plain version frames it, and the route runs the
+same passes over a scratch in device memory, in row groups of at most
+`LARGE_SCRATCH_BYTES`.  All split-real entries share one large split
+kernel and all packed entries one large packed kernel, so the layouts keep
+their equalities at every N.
 
 The all-windows kernel, `stft_mag_packed_allk`, replaces
 `stft_mag_fused2_allk(packed=True)` (and computes what `stft_mag_fused2_buf`
@@ -68,8 +76,9 @@ Each wrapper takes a CPU tensor to its plain version (torch.fft) and a CUDA
 tensor to its kernel: an f32 plane to the f32 kernel, an int16 plane to the
 packed kernels' int16 form (the split-real kernels take f32 only).  There is
 no fallback between the two, and no cast: a CUDA tensor a kernel cannot take
-raises.  Each launch counts under its kernel and under its FFT body
-(`KernelLibrary.body_launches`).
+raises.  Each launch counts under its kernel and under its FFT body, or
+under "large" for the large-N route (`fft_route`,
+`KernelLibrary.body_launches`).
 """
 
 from __future__ import annotations
@@ -96,15 +105,21 @@ KERNEL_I16 = "spk_stft_packed_i16"
 MIXED_KERNEL_I16 = "spk_stft_mixed_i16"
 ALLK_KERNEL_I16 = "spk_stft_allk_i16"
 ALLK_CARRY_KERNEL_I16 = "spk_stft_allk_carry_i16"
+LARGE_KERNEL = "spk_stft_large_packed"
+LARGE_KERNEL_I16 = "spk_stft_large_packed_i16"
+LARGE_SPLIT_KERNEL = "spk_stft_large_split"
 # each f32 kernel's int16 form
 _I16_KERNELS = {KERNEL: KERNEL_I16, MIXED_KERNEL: MIXED_KERNEL_I16,
-                ALLK_KERNEL: ALLK_KERNEL_I16, ALLK_CARRY_KERNEL: ALLK_CARRY_KERNEL_I16}
+                ALLK_KERNEL: ALLK_KERNEL_I16, ALLK_CARRY_KERNEL: ALLK_CARRY_KERNEL_I16,
+                LARGE_KERNEL: LARGE_KERNEL_I16}
 WIRE_SCALE = 2.0 ** -15   # an int16 PCM word x stands for x * WIRE_SCALE
 # One block's FFT buffer (N complex f32, or Bluestein's M) lives in the
 # dynamic shared memory a Hopper block may opt into: 227 KB
-# (csrc/stft_fft.cuh kMaxSmemBytes).
+# (csrc/stft_fft.cuh kMaxSmemBytes).  Larger buffers take the large-N route.
 MAX_SMEM_BYTES = 232448
 MAX_BUF = MAX_SMEM_BYTES // 8
+LARGE = "large"                 # the large-N route's body label
+LARGE_SCRATCH_BYTES = 1 << 31   # the route's scratch per row group
 
 
 def packed_hann(window_size: int) -> np.ndarray:
@@ -202,22 +217,29 @@ def fft_body(n_fft: int) -> str:
 
 
 def fft_buf_size(n_fft: int) -> int:
-    """Complex f32 of a row's shared-memory buffer: N, or Bluestein's M."""
+    """Complex f32 of a row's FFT buffer: N, or Bluestein's M."""
     return bluestein_size(n_fft) if fft_body(n_fft) == "bluestein" else n_fft
 
 
+def is_large(n_fft: int) -> bool:
+    """True where a row's FFT buffer passes the 227 KB of shared memory a
+    Hopper block may hold, so the kernels take the large-N route."""
+    return fft_buf_size(n_fft) > MAX_BUF
+
+
+def fft_route(n_fft: int) -> str:
+    """The label the STFT kernels' launches at N count under
+    (`KernelLibrary.body_launches`): "large" on the large-N route, else
+    `fft_body(N)`."""
+    return LARGE if is_large(n_fft) else fft_body(n_fft)
+
+
 def check_fft_size(n_fft: int) -> None:
-    """Raise for an N the CUDA kernels do not take: below 2, or a row buffer
-    (N complex f32, or Bluestein's M >= 2N - 1) above the 227 KB of shared
-    memory a Hopper block may hold."""
-    if n_fft < 2 or fft_buf_size(n_fft) > MAX_BUF:
-        raise NotImplementedError(
-            f"the CUDA STFT kernels hold a row's FFT buffer (N complex f32, "
-            f"or Bluestein's M >= 2N - 1) in one block's shared memory, at "
-            f"most {MAX_SMEM_BYTES} bytes (227 KB, {MAX_BUF} entries); N="
-            f"{n_fft} needs {fft_buf_size(n_fft) if n_fft >= 2 else 0}.  "
-            "Splitting the buffer across blocks is ROADMAP.md work"
-        )
+    """Raise ValueError for an N the STFT kernels do not take: below 2.
+    Every other N runs, on the large-N route where the row buffer passes a
+    block's shared memory."""
+    if n_fft < 2:
+        raise ValueError(f"the STFT needs an FFT of at least 2 points; got N={n_fft}")
 
 
 def fft_table(n_fft: int) -> np.ndarray:
@@ -295,18 +317,43 @@ def _windows_of(buf: torch.Tensor, w: int, k: int, hop: int) -> torch.Tensor:
     return torch.cat([buf[:, r * hop : r * hop + w] for r in range(k)])
 
 
+def _framed_allk(planes, buf_l, buf_r, hann, n_fft: int, k: int, hop: int,
+                 emit_carry: bool):
+    """`planes` (a window-plane STFT: (left, right, hann, N) -> (mag_l,
+    mag_r)) over the k windows of [S, L] buffers, window-major; with
+    `emit_carry` also the next carry (`buffer_tails`)."""
+    w = hann.shape[0]
+    mags = planes(_windows_of(buf_l, w, k, hop), _windows_of(buf_r, w, k, hop),
+                  hann, n_fft)
+    if emit_carry:
+        return (*mags, buffer_tails(buf_l, buf_r, carry_len(w, hop)))
+    return mags
+
+
+def _framed_carry(planes, carry, chunk, hann, n_fft: int, k: int, hop: int):
+    """`planes` over the k windows of the planar carry [S, 2, C] followed by
+    the chunk, and the next carry: the last C samples, a new tensor."""
+    buf = torch.cat([carry, chunk], dim=2)
+    mags = _framed_allk(planes, buf[:, 0], buf[:, 1], hann, n_fft, k, hop, False)
+    return (*mags, buf[:, :, buf.shape[2] - carry.shape[2] :].contiguous())
+
+
+def _framed_t(planes, x, hann, n_fft: int):
+    """`planes` over the transposed operand [rows, 2, n1, m] (x[n, c, j1, t]
+    is sample t*n1 + j1), reordered into window planes."""
+    rows, _, n1, m = x.shape
+    left, right = (x[:, c].transpose(1, 2).reshape(rows, m * n1) for c in range(2))
+    return planes(left, right, hann, n_fft)
+
+
 def stft_mag_packed_allk_plain(buf_l: torch.Tensor, buf_r: torch.Tensor,
                                hann: torch.Tensor, n_fft: int, k: int,
                                hop: int, emit_carry: bool = False):
     """The plain version of the all-windows kernel: slice the k windows out
     of the buffers, window-major, and run `stft_mag_packed_plain`; with
     `emit_carry` also the next carry (`buffer_tails`)."""
-    w = hann.shape[0]
-    mags = stft_mag_packed_plain(_windows_of(buf_l, w, k, hop),
-                                 _windows_of(buf_r, w, k, hop), hann, n_fft)
-    if emit_carry:
-        return (*mags, buffer_tails(buf_l, buf_r, carry_len(w, hop)))
-    return mags
+    return _framed_allk(stft_mag_packed_plain, buf_l, buf_r, hann, n_fft, k, hop,
+                        emit_carry)
 
 
 def _cuda_kernel(name: str, samples: tuple, consts: FftConstants, **tensors) -> str:
@@ -342,18 +389,47 @@ def _cuda_kernel(name: str, samples: tuple, consts: FftConstants, **tensors) -> 
 
 def _launch(name: str, device: torch.device, n_fft: int, *args) -> None:
     """Launch kernel `name` on the current stream of `device`, counting the
-    launch under the kernel and under the FFT body N selects."""
+    launch under the kernel and under N's body label (`fft_route`)."""
     from spectrogram_tpu_torch.ops.cuda import _build
 
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.library().launch(name, *args, stream, body=fft_body(n_fft))
+        _build.library().launch(name, *args, stream, body=fft_route(n_fft))
 
 
 def _planes(rows: int, n_fft: int, w: int, device) -> tuple:
     """Two empty [rows, stft_bins(N, W)] f32 output planes."""
     out_l = torch.empty((rows, stft_bins(n_fft, w)), dtype=torch.float32, device=device)
     return out_l, torch.empty_like(out_l)
+
+
+def _large_stft(left: torch.Tensor, right: torch.Tensor, hann: torch.Tensor,
+                consts: FftConstants, split: bool):
+    """(mag_l, mag_r) of [rows, W] CUDA window planes on the large-N route:
+    spk_stft_large_split (`split`, f32) or spk_stft_large_packed (f32 or
+    int16), over a scratch of at most LARGE_SCRATCH_BYTES, one launch per
+    row group."""
+    n_fft = consts.n_fft
+    rows, w = left.shape
+    name = _cuda_kernel(LARGE_SPLIT_KERNEL if split else LARGE_KERNEL,
+                        (left, right), consts, hann=hann)
+    out_l, out_r = _planes(rows, n_fft, w, left.device)
+    if not rows:
+        return out_l, out_r
+    row_bytes = (2 if split else 1) * fft_buf_size(n_fft) * 8
+    group = max(1, min(rows, LARGE_SCRATCH_BYTES // row_bytes))
+    scratch = torch.empty(group * row_bytes // 4, dtype=torch.float32, device=left.device)
+    for r0 in range(0, rows, group):
+        r1 = min(r0 + group, rows)
+        _launch(name, left.device, n_fft, left[r0].data_ptr(), right[r0].data_ptr(),
+                hann.data_ptr(), consts.table.data_ptr(), scratch.data_ptr(),
+                out_l[r0].data_ptr(), out_r[r0].data_ptr(), r1 - r0, w, n_fft)
+    return out_l, out_r
+
+
+def _large_planes(consts: FftConstants, split: bool):
+    """The large-N route as a window-plane STFT for the framing helpers."""
+    return lambda left, right, hann, n_fft: _large_stft(left, right, hann, consts, split)
 
 
 def stft_mag_packed(left: torch.Tensor, right: torch.Tensor,
@@ -363,7 +439,8 @@ def stft_mag_packed(left: torch.Tensor, right: torch.Tensor,
     hann `packed_hann(W)`, or `packed_hann_i16(W)` for int16.
 
     CPU tensors take the plain version; CUDA tensors take kernel A
-    (stft_packed.cu for power-of-two N, stft_mixed.cu otherwise)."""
+    (stft_packed.cu for power-of-two N, stft_mixed.cu otherwise), or the
+    large-N route."""
     n_fft = consts.n_fft
     rows, w = left.shape
     if right.shape != left.shape or hann.shape != (w,) or w > n_fft:
@@ -373,6 +450,8 @@ def stft_mag_packed(left: torch.Tensor, right: torch.Tensor,
         )
     if left.device.type == "cpu":
         return stft_mag_packed_plain(left, right, hann, n_fft)
+    if is_large(n_fft):
+        return _large_stft(left, right, hann, consts, split=False)
     if _is_power_of_two(n_fft):
         name, size = KERNEL, n_fft.bit_length() - 1
     else:
@@ -409,13 +488,17 @@ def stft_mag_packed_allk(buf_l: torch.Tensor, buf_r: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors take the all-windows
     kernel, which never materializes the windows (and, with `emit_carry`,
-    writes the next carry itself)."""
+    writes the next carry itself), or at large N the windows framed as the
+    plain version frames them, through the large-N route."""
     n_fft = consts.n_fft
     _check_buffers(buf_l, buf_r, hann, n_fft, k, hop)
     if buf_l.device.type == "cpu":
         return stft_mag_packed_allk_plain(buf_l, buf_r, hann, n_fft, k, hop, emit_carry)
     name = _cuda_kernel(ALLK_CARRY_KERNEL if emit_carry else ALLK_KERNEL,
                         (buf_l, buf_r), consts, hann=hann)
+    if is_large(n_fft):
+        return _framed_allk(_large_planes(consts, False), buf_l, buf_r, hann, n_fft, k,
+                            hop, emit_carry)
     return _launch_allk(name, buf_l, buf_r, hann, consts, k, hop, emit_carry)
 
 
@@ -461,29 +544,21 @@ def stft_mag_split_allk_plain(buf_l: torch.Tensor, buf_r: torch.Tensor,
     """Slice the k windows out of the buffers, window-major, and run
     `stft_mag_split_plain`; with `emit_carry` also the next carry
     (`buffer_tails`)."""
-    w = hann.shape[0]
-    mags = stft_mag_split_plain(_windows_of(buf_l, w, k, hop),
-                                _windows_of(buf_r, w, k, hop), hann, n_fft)
-    if emit_carry:
-        return (*mags, buffer_tails(buf_l, buf_r, carry_len(w, hop)))
-    return mags
+    return _framed_allk(stft_mag_split_plain, buf_l, buf_r, hann, n_fft, k, hop,
+                        emit_carry)
 
 
 def stft_mag_split_carry_plain(carry: torch.Tensor, chunk: torch.Tensor,
                                hann: torch.Tensor, n_fft: int, k: int, hop: int):
     """(mag_l, mag_r, next_carry): the k windows of the concatenated carry
-    + chunk through `stft_mag_split_allk_plain`, and the last C samples."""
-    buf = torch.cat([carry, chunk], dim=2)
-    mags = stft_mag_split_allk_plain(buf[:, 0], buf[:, 1], hann, n_fft, k, hop)
-    return (*mags, buf[:, :, buf.shape[2] - carry.shape[2] :].contiguous())
+    + chunk through `stft_mag_split_plain`, and the last C samples."""
+    return _framed_carry(stft_mag_split_plain, carry, chunk, hann, n_fft, k, hop)
 
 
 def stft_mag_split_t_plain(x: torch.Tensor, hann: torch.Tensor, n_fft: int):
     """Reorder the transposed operand [rows, 2, n1, m] (x[n, c, j1, t] is
     sample t*n1 + j1) into window planes and run `stft_mag_split_plain`."""
-    rows, _, n1, m = x.shape
-    left, right = (x[:, c].transpose(1, 2).reshape(rows, m * n1) for c in range(2))
-    return stft_mag_split_plain(left, right, hann, n_fft)
+    return _framed_t(stft_mag_split_plain, x, hann, n_fft)
 
 
 def split_next_carry(carry: torch.Tensor, chunk: torch.Tensor) -> torch.Tensor:
@@ -500,7 +575,12 @@ def stft_mag_split_tsplit_plain(carry: torch.Tensor, chunk: torch.Tensor,
                                 hann: torch.Tensor, n_fft: int):
     """(mag_l, mag_r, next_carry): the window carry + chunk through
     `stft_mag_split_t_plain`, and `split_next_carry`."""
-    mag_l, mag_r = stft_mag_split_t_plain(torch.cat([carry, chunk], dim=3), hann, n_fft)
+    return _framed_tsplit(stft_mag_split_plain, carry, chunk, hann, n_fft)
+
+
+def _framed_tsplit(planes, carry, chunk, hann, n_fft: int):
+    """`planes` over the transposed carry + chunk, and `split_next_carry`."""
+    mag_l, mag_r = _framed_t(planes, torch.cat([carry, chunk], dim=3), hann, n_fft)
     return mag_l, mag_r, split_next_carry(carry, chunk)
 
 
@@ -509,7 +589,8 @@ def stft_mag_split(left: torch.Tensor, right: torch.Tensor,
     """(mag_l, mag_r) [rows, stft_bins(N, W)] f32 split-real magnitudes of
     the [rows, W] f32 window planes, hann `split_hann(W)`.
 
-    CPU tensors take the plain version; CUDA tensors take spk_stft_split."""
+    CPU tensors take the plain version; CUDA tensors take spk_stft_split,
+    or the large-N route."""
     n_fft = consts.n_fft
     rows, w = left.shape
     if right.shape != left.shape or hann.shape != (w,) or w > n_fft:
@@ -519,6 +600,8 @@ def stft_mag_split(left: torch.Tensor, right: torch.Tensor,
         )
     if left.device.type == "cpu":
         return stft_mag_split_plain(left, right, hann, n_fft)
+    if is_large(n_fft):
+        return _large_stft(left, right, hann, consts, split=True)
     _cuda_kernel(SPLIT_KERNEL, (left, right), consts, hann=hann)
     out_l, out_r = _planes(rows, n_fft, w, left.device)
     if rows:
@@ -538,13 +621,17 @@ def stft_mag_split_allk(buf_l: torch.Tensor, buf_r: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors take
     spk_stft_split_allk (spk_stft_split_allk_carry with `emit_carry`),
-    which never materializes the windows."""
+    which never materializes the windows, or at large N the framed windows
+    through the large-N route."""
     n_fft = consts.n_fft
     _check_buffers(buf_l, buf_r, hann, n_fft, k, hop)
     if buf_l.device.type == "cpu":
         return stft_mag_split_allk_plain(buf_l, buf_r, hann, n_fft, k, hop, emit_carry)
     name = SPLIT_ALLK_CARRY_KERNEL if emit_carry else SPLIT_ALLK_KERNEL
     _cuda_kernel(name, (buf_l, buf_r), consts, hann=hann)
+    if is_large(n_fft):
+        return _framed_allk(_large_planes(consts, True), buf_l, buf_r, hann, n_fft, k,
+                            hop, emit_carry)
     return _launch_allk(name, buf_l, buf_r, hann, consts, k, hop, emit_carry)
 
 
@@ -560,7 +647,8 @@ def stft_mag_split_carry(carry: torch.Tensor, chunk: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors take
     spk_stft_split_carry, which reads the two operands in place (no
-    concatenation) and writes the next carry itself."""
+    concatenation) and writes the next carry itself; at large N the
+    concatenated buffers' windows take the large-N route."""
     n_fft = consts.n_fft
     w = hann.shape[0]
     if carry.ndim != 3 or carry.shape[1] != 2:
@@ -576,6 +664,8 @@ def stft_mag_split_carry(carry: torch.Tensor, chunk: torch.Tensor,
     if carry.device.type == "cpu":
         return stft_mag_split_carry_plain(carry, chunk, hann, n_fft, k, hop)
     _cuda_kernel(SPLIT_CARRY_KERNEL, (carry, chunk), consts, hann=hann)
+    if is_large(n_fft):
+        return _framed_carry(_large_planes(consts, True), carry, chunk, hann, n_fft, k, hop)
     out_l, out_r = _planes(k * s, n_fft, w, carry.device)
     next_carry = torch.empty_like(carry)
     if s:
@@ -612,7 +702,8 @@ def stft_mag_split_t(x: torch.Tensor, hann: torch.Tensor, consts: FftConstants):
     f32 (x[n, c, j1, t] = sample t*n1 + j1 of channel c), hann
     `split_hann(n1*m)`.
 
-    CPU tensors take the plain version; CUDA tensors take spk_stft_split_t."""
+    CPU tensors take the plain version; CUDA tensors take spk_stft_split_t,
+    or at large N the reordered window planes through the large-N route."""
     n_fft = consts.n_fft
     if x.ndim != 4 or x.shape[1] != 2:
         raise ValueError(f"expected a [rows, 2, n1, m] operand; got {tuple(x.shape)}")
@@ -625,6 +716,8 @@ def stft_mag_split_t(x: torch.Tensor, hann: torch.Tensor, consts: FftConstants):
     if x.device.type == "cpu":
         return stft_mag_split_t_plain(x, hann, n_fft)
     _cuda_kernel(SPLIT_T_KERNEL, (x,), consts, hann=hann)
+    if is_large(n_fft):
+        return _framed_t(_large_planes(consts, True), x, hann, n_fft)
     out_l, out_r = _planes(rows, n_fft, n1 * m, x.device)
     if rows:
         _launch(SPLIT_T_KERNEL, x.device, n_fft, x.data_ptr(), hann.data_ptr(),
@@ -642,7 +735,8 @@ def stft_mag_split_tsplit(carry: torch.Tensor, chunk: torch.Tensor,
     the next carry [rows, 2, n1, c_cols] (`split_next_carry`), a new tensor.
 
     CPU tensors take the plain version; CUDA tensors take
-    spk_stft_split_tsplit, which writes the next carry itself."""
+    spk_stft_split_tsplit, which writes the next carry itself; at large N
+    the framed windows take the large-N route."""
     n_fft = consts.n_fft
     if carry.ndim != 4 or carry.shape[1] != 2:
         raise ValueError(f"expected a [rows, 2, n1, c_cols] carry; got {tuple(carry.shape)}")
@@ -657,6 +751,8 @@ def stft_mag_split_tsplit(carry: torch.Tensor, chunk: torch.Tensor,
     if carry.device.type == "cpu":
         return stft_mag_split_tsplit_plain(carry, chunk, hann, n_fft)
     _cuda_kernel(SPLIT_TSPLIT_KERNEL, (carry, chunk), consts, hann=hann)
+    if is_large(n_fft):
+        return _framed_tsplit(_large_planes(consts, True), carry, chunk, hann, n_fft)
     out_l, out_r = _planes(rows, n_fft, w, carry.device)
     next_carry = torch.empty_like(carry)
     if rows:

@@ -17,6 +17,10 @@ and the strided framing of `AudioStreamTransform::process`
 (src/fourier/audio_transform.rs:34-42): peek a full window, emit one row,
 advance by `hop` samples.  The hand-written STFT kernel
 (`ops/cuda/stft_kernel.py`) is held against this module.
+
+These functions are the JAX package's functional surface (`stft_frame`,
+`stft_rows` and their planar forms): there they are `jnp.fft` outside any
+Pallas kernel, and here `torch.fft` on the tensor's device.
 """
 
 from __future__ import annotations
@@ -80,13 +84,27 @@ def _stft_frame_lr(frame: torch.Tensor, cfg: SpectrogramConfig):
     return left, right
 
 
-def stft_frame_planar(frame: torch.Tensor, cfg: SpectrogramConfig) -> torch.Tensor:
-    """One window [..., window_size, 2] -> magnitudes [..., 2, num_bins].
+def stft_frame(frame: torch.Tensor, cfg: SpectrogramConfig) -> torch.Tensor:
+    """One window [..., window_size, 2] -> magnitudes [..., num_bins, 2]
+    (left, right on the last axis).
 
     Bin j corresponds to padded-FFT bin k = j + 1 (fft.rs:81 skips DC).
     """
     left, right = _stft_frame_lr(frame, cfg)
+    return torch.stack([left, right], dim=-1)
+
+
+def stft_frame_planar(frame: torch.Tensor, cfg: SpectrogramConfig) -> torch.Tensor:
+    """As `stft_frame`, channels-planar: [..., 2, num_bins]."""
+    left, right = _stft_frame_lr(frame, cfg)
     return torch.stack([left, right], dim=-2)
+
+
+def stft_rows(pcm: torch.Tensor, cfg: SpectrogramConfig) -> torch.Tensor:
+    """[..., T, 2] PCM -> [..., n_rows, num_bins, 2] spectrogram rows: the
+    golden reference of every STFT path, on `torch.fft` on the PCM's
+    device, batched over any leading axes."""
+    return stft_frame(frame_signal(pcm, cfg), cfg)
 
 
 def stft_rows_planar(pcm: torch.Tensor, cfg: SpectrogramConfig) -> torch.Tensor:

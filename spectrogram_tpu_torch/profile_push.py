@@ -25,7 +25,11 @@ Profiles, each with torch.profiler over a steady window after a warm-up:
      streams, no ring, at 44.1 kHz with DEFAULT_CONFIG's periods (N=4410,
      the Bluestein body), at BENCH_CONFIG's window with pad_factor=1
      (N=2048) and at an odd N (16 kHz, W=145, pad 3: N=435), and the
-     display push at 44.1 kHz.
+     display push at 44.1 kHz;
+  8. the large-N route (a row's FFT buffer past a block's shared memory):
+     the k=1 push at 4096 streams, no ring, at 48 kHz with a 0.5 s window
+     (N=48,000) and at 44.1 kHz with a 0.2 s window (N=17,640, Bluestein),
+     and the display push at N=48,000 with 16 streams.
 
 For each it prints the host wall time per call over the window (ended by a
 synchronize), the device busy time per call (the sum of its kernels), the
@@ -166,7 +170,11 @@ def main(argv=None) -> int:
              ("odd N=435", SpectrogramConfig(
                  sample_rate=16000.0, window_period=145 / 16000.0, hop_period=69 / 16000.0,
                  pad_factor=3, viewport_height=100, max_frequency=7950.0), 1, 4096),
-             ("44.1 kHz, N=4410, display, ring", SpectrogramConfig(sample_rate=44100.0), 8, 256))
+             ("44.1 kHz, N=4410, display, ring", SpectrogramConfig(sample_rate=44100.0), 8, 256),
+             ("48 kHz, 0.5 s window, N=48000", SpectrogramConfig(window_period=0.5), 1, 4096),
+             ("44.1 kHz, 0.2 s window, N=17640", SpectrogramConfig(
+                 sample_rate=44100.0, window_period=0.2), 1, 4096),
+             ("48 kHz, N=48000, display, ring", SpectrogramConfig(window_period=0.5), 8, 16))
     for label, cfg, k, s in sizes:
         p = SpectrogramPipeline(cfg, chunk_hops=k, store_ring=k > 1, packed_output=True,
                                 device=dev)

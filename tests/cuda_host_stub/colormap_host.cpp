@@ -32,3 +32,27 @@ extern "C" int colormap_host_rows(const float* mag_l, const float* mag_r,
   }
   return 0;
 }
+
+// colormap_rows.cu: planar rows [n_rows, 2, bins], K taps per pixel ([h,
+// taps] bins and weights), row n's factors at u, v + n * res * 4.
+extern "C" int colormap_host_planar_rows(const float* rows, int n_rows,
+                                         int bins, const int* tap_j,
+                                         const float* tap_w, int h, int taps,
+                                         const float* u, const float* v,
+                                         int res, float min_db, float db_range,
+                                         float db_eps, float inv_res1,
+                                         unsigned* out) {
+  const spk::ColormapLaws laws{static_cast<float>(res), min_db, db_range,
+                               db_eps, inv_res1};
+  for (int n = 0; n < n_rows; ++n) {
+    const size_t table = static_cast<size_t>(n) * res * 4;
+    for (int p = 0; p < h; ++p) {
+      out[static_cast<size_t>(n) * h + p] = spk::planar_row_pixel(
+          rows + static_cast<size_t>(n) * 2 * bins, bins,
+          tap_j + static_cast<size_t>(p) * taps,
+          tap_w + static_cast<size_t>(p) * taps, taps, u + table, v + table,
+          res, laws);
+    }
+  }
+  return 0;
+}

@@ -9,6 +9,7 @@
 #include <vector>
 
 #include "push_fused.cuh"
+#include "stft_large.cuh"
 
 // fn(body, buf) with the body chosen as above and a buffer of its size; 1
 // where the body does not take n.
@@ -197,6 +198,61 @@ extern "C" int stft_host_split_tsplit(int body, int n, int rows, int n1,
                          (c ? out_r : out_l) + row * bins, buf);
     }
   });
+}
+
+// ---- the large-N route (stft_large.cu): each pass over every scratch row
+// before the next, as the route's launches run them.
+
+// spk_stft_large_packed (split = 0) or spk_stft_large_split (split = 1):
+// [rows, w] planes l, r, with local runs of at most max_span entries (the
+// kernels': kMaxSmemBytes / 8); 1 where the route does not take n.
+extern "C" int stft_host_large(int split, int n, int rows, int w,
+                               const float* l, const float* r,
+                               const float* hann, const float* consts,
+                               float* out_l, float* out_r, int max_span) {
+  spk::LargePlan p;
+  if (!spk::make_large_plan(n, w, consts, &p, max_span)) return 1;
+  const size_t m = p.buf_size();
+  const int q_rows = split ? 2 * rows : rows;
+  std::vector<float2> scratch(q_rows * m);
+  for (int q = 0; q < q_rows; ++q) {
+    for (int i = 0; i < static_cast<int>(m); ++i) {
+      if (split) {
+        spk::large_load_real(p, ((q & 1) ? r : l) + static_cast<size_t>(q >> 1) * w,
+                             hann, scratch.data() + q * m, i);
+      } else {
+        spk::large_load_packed(p, l + static_cast<size_t>(q) * w,
+                               r + static_cast<size_t>(q) * w, hann,
+                               scratch.data() + q * m, i);
+      }
+    }
+  }
+  std::vector<float2> tile(p.span);
+  spk::large_passes(p, [&](int kind, int s, int len) {
+    for (int q = 0; q < q_rows; ++q) {
+      for (int j = 0; j < spk::large_pass_count(p, kind, s); ++j) {
+        if (kind == spk::kLargeLocal) {
+          spk::large_local(p, scratch.data() + q * m, j, tile.data());
+        } else {
+          spk::large_pass_at(p, kind, s, len, scratch.data() + q * m, j);
+        }
+      }
+    }
+    return 0;
+  });
+  const size_t bins = spk::stft_bins(n, w);
+  for (int q = 0; q < q_rows; ++q) {
+    const float2* row = scratch.data() + q * m;
+    for (int k = 0; k < static_cast<int>(bins); ++k) {
+      if (split) {
+        ((q & 1) ? out_r : out_l)[(q >> 1) * bins + k] =
+            spk::magnitude(spk::large_result(p, row, k));
+      } else {
+        spk::large_unpack(p, row, k, out_l + q * bins + k, out_r + q * bins + k);
+      }
+    }
+  }
+  return 0;
 }
 
 // spk_push_fused: [rows, w] planes l, r -> out [rows, h] words, row n

@@ -19,7 +19,12 @@ pad_factor=1) are held to the same bars, kernels and pipelines; the
 carry+chunk kernel bit for bit against the all-windows split kernel on the
 concatenated buffers, every next carry exactly, `emit_carry`'s magnitudes
 bit for bit those without it, and the fused push bit for bit against the
-split-real plane kernel followed by kernel B.
+split-real plane kernel followed by kernel B.  The large-N route (N =
+32,768, 48,000, 17,640) is held to the STFT bar against torch.fft, its int16
+rows bit for bit the f32 rows of x / 32768, every split-real layout bit for
+bit the others there, and a k=8 push bit for bit `process()`;
+`colormap_rows_fused` bit for bit the generic kernel on two-tap matrices and
+within 1 u8 of its plain version on a four-tap one.
 """
 
 import numpy as np
@@ -27,6 +32,7 @@ import pytest
 import torch
 
 from spectrogram_tpu_torch import testing
+from spectrogram_tpu_torch.color.colorscheme import stacked_factored_tables
 from spectrogram_tpu_torch.config import BENCH_CONFIG, DEFAULT_CONFIG, SpectrogramConfig
 from spectrogram_tpu_torch.models.spectrogram import SpectrogramPipeline
 from spectrogram_tpu_torch.ops import colormap as cmap_ops
@@ -209,8 +215,8 @@ def test_k8_push_equals_eight_k1_pushes_on_card(cuda):
 
 def test_card_refuses_other_sizes(cuda):
     """N = 4802 = 2 7^4, once refused, runs (Bluestein) and matches the plain
-    version; an N whose row buffer passes a block's shared memory still
-    raises, before any launch."""
+    version; an N whose row buffer passes a block's shared memory, once
+    refused too, runs on the large-N route; only N < 2 raises."""
     w = 2401
     left, right = _windows(SpectrogramConfig(sample_rate=48000.0, window_period=w / 48000.0),
                            "chirp_tone", 64, cuda)
@@ -225,11 +231,16 @@ def test_card_refuses_other_sizes(cuda):
     for g, x in zip(got, sk.stft_mag_packed_plain(left, right, hann, 2 * w)):
         torch.testing.assert_close(g, x, atol=ATOL, rtol=RTOL)
     x = torch.zeros((2, 16384), device=cuda)
-    with pytest.raises(NotImplementedError, match="227 KB"):
-        sk.stft_mag_packed(x, x, torch.zeros(16384, device=cuda), sk.fft_constants(32768, cuda))
-    with pytest.raises(NotImplementedError, match="227 KB"):
-        SpectrogramPipeline(SpectrogramConfig(sample_rate=48000.0, window_period=0.35),
+    before = lib.body_launches["large"]
+    got = sk.stft_mag_packed(x, x, torch.zeros(16384, device=cuda), sk.fft_constants(32768, cuda))
+    torch.cuda.synchronize()
+    assert lib.body_launches["large"] == before + 1
+    assert got[0].shape == (2, 16384) and not got[0].any()
+    p = SpectrogramPipeline(SpectrogramConfig(sample_rate=48000.0, window_period=0.35),
                             device=cuda)
+    assert p.fft_consts.n_fft == 33600 and sk.is_large(33600)
+    with pytest.raises(ValueError, match="at least 2"):
+        sk.check_fft_size(1)
 
 
 @pytest.mark.parametrize("layout", ["uniform", "mixed", "ragged"])
@@ -729,3 +740,176 @@ def test_xla_backends_run_the_plain_versions_on_card(cuda):
     sp, rp = plain.push(sp, chunk)
     torch.testing.assert_close(rx, rp, atol=0, rtol=0)
     torch.testing.assert_close(sx.carry, sp.carry, atol=0, rtol=0)
+
+
+# ------------------------------------------------------ the large-N route
+
+# N = 2^15 (radix 4^7 2), 48,000 (mixed), 17,640 (Bluestein, M = 36,000)
+LARGE = {
+    "n32768": SpectrogramConfig(sample_rate=48000.0, window_period=16384 / 48000.0,
+                                hop_period=4096 / 48000.0),
+    "n48000": SpectrogramConfig(sample_rate=48000.0, window_period=0.5),
+    "n17640": SpectrogramConfig(sample_rate=44100.0, window_period=0.2),
+}
+
+
+@pytest.mark.parametrize("size", sorted(LARGE))
+def test_large_route_matches_plain(cuda, size):
+    """The large-N route's packed (f32, int16) and split-real kernels
+    against torch.fft at the STFT bar, counted under "large"; int16 rows
+    equal the f32 rows of x / 32768 bit for bit."""
+    cfg = LARGE[size]
+    n, w = cfg.padded_size, cfg.window_size
+    assert sk.is_large(n)
+    consts = sk.fft_constants(n, cuda)
+    left, right = _windows(cfg, "chirp_tone", 24, cuda)
+    hann = torch.from_numpy(sk.packed_hann(w)).to(cuda)
+    shann = torch.from_numpy(sk.split_hann(w)).to(cuda)
+    lib = _build.library()
+    before = (lib.body_launches["large"], lib.launches[sk.LARGE_KERNEL],
+              lib.launches[sk.LARGE_SPLIT_KERNEL])
+    packed = sk.stft_mag_packed(left, right, hann, consts)
+    split = sk.stft_mag_split(left, right, shann, consts)
+    torch.cuda.synchronize()
+    assert (lib.body_launches["large"], lib.launches[sk.LARGE_KERNEL],
+            lib.launches[sk.LARGE_SPLIT_KERNEL]) == (before[0] + 2, before[1] + 1,
+                                                      before[2] + 1)
+    for got, want in ((packed, sk.stft_mag_packed_plain(left, right, hann, n)),
+                      (split, sk.stft_mag_split_plain(left, right, shann, n))):
+        for g, x in zip(got, want):
+            assert g.shape == (24, sk.stft_bins(n, w))
+            torch.testing.assert_close(g, x, atol=ATOL, rtol=RTOL)
+    words = [torch.round(x * 32767.0).to(torch.int16) for x in (left, right)]
+    i16 = sk.stft_mag_packed(*words, torch.from_numpy(sk.packed_hann_i16(w)).to(cuda),
+                             consts)
+    f32 = sk.stft_mag_packed(*(x.to(torch.float32) / 32768.0 for x in words), hann, consts)
+    for g, x in zip(i16, f32):
+        torch.testing.assert_close(g, x, atol=0, rtol=0)
+
+
+def test_large_split_layouts_equal_bit_for_bit(cuda):
+    """At N = 32,768 every split-real layout takes the one large split
+    kernel: planes, all-windows (with its next carry), the planar carry +
+    chunk, the transposed operand and tsplit give the same bits for the
+    same windows, and the fused push equals split -> kernel B."""
+    from spectrogram_tpu_torch.ops.cuda import push_kernel as pk
+
+    cfg = LARGE["n32768"]
+    n, w, h, k, s = cfg.padded_size, cfg.window_size, cfg.hop_size, 3, 4
+    n1 = fft_plan.make_plan(cfg).n1
+    consts = sk.fft_constants(n, cuda)
+    shann = torch.from_numpy(sk.split_hann(w)).to(cuda)
+    c = w - h
+    pcm = testing.chirp_tone(s, c + k * h, cfg.sample_rate, seed=12)
+    buf = torch.from_numpy(np.ascontiguousarray(pcm.transpose(0, 2, 1))).to(cuda)  # [S, 2, L]
+    carry, chunk = buf[..., :c].contiguous(), buf[..., c:].contiguous()
+    bl, br = buf[:, 0].contiguous(), buf[:, 1].contiguous()
+    wl, wr = (torch.cat([b[:, r * h : r * h + w] for r in range(k)]) for b in (bl, br))
+    planes = sk.stft_mag_split(wl, wr, shann, consts)
+    allk = sk.stft_mag_split_allk(bl, br, shann, consts, k, h, emit_carry=True)
+    pair = sk.stft_mag_split_carry(carry, chunk, shann, consts, k, h)
+    tail = buf[..., buf.shape[2] - c :]
+    for got in (allk, pair):
+        for g, x in zip(got[:2], planes):
+            torch.testing.assert_close(g, x, atol=0, rtol=0)
+        torch.testing.assert_close(got[2], tail, atol=0, rtol=0)
+    # the transposed operand and tsplit, on the first window of each stream
+    x = buf[..., :w].reshape(s, 2, w // n1, n1).transpose(2, 3).contiguous()
+    t = sk.stft_mag_split_t(x, shann, consts)
+    cols = c // n1
+    ts = sk.stft_mag_split_tsplit(x[..., :cols].contiguous(), x[..., cols:].contiguous(),
+                                  shann, consts)
+    for got in (t, ts[:2]):
+        for g, want in zip(got, planes):
+            torch.testing.assert_close(g, want[:s], atol=0, rtol=0)
+    torch.testing.assert_close(ts[2], sk.split_next_carry(x[..., :cols], x[..., cols:]),
+                               atol=0, rtol=0)
+    tables = torch.from_numpy(ck.builtin_color_tables()[np.arange(k * s) % 19]).to(cuda)
+    mt = cmap_ops.resample_matrix_full(cfg).T
+    pushed = pk.push_fused_single(wl, wr, tables, mt, cfg, emit_mags=True)
+    chain = ck.colormap_builtin(*planes, ck.resample_taps(mt.T, cuda), tables, cfg)
+    for g, x in zip(pushed, (chain, *planes)):
+        torch.testing.assert_close(g, x, atol=0, rtol=0)
+
+
+def test_large_k8_push_equals_process(cuda):
+    """At N = 17,640 (44.1 kHz, 0.2 s window) the k=8 push with its ring
+    equals process() bit for bit, and the k=1 push on the card matches the
+    CPU's within 1 u8, carry exact."""
+    cfg = LARGE["n17640"]
+    ids = np.array([0, 1, 3])
+    p = SpectrogramPipeline(cfg, chunk_hops=8, viewport_rows=16, packed_output=True,
+                            device=cuda)
+    state = p.set_palette(p.init_state(len(ids)), ids)
+    t = p.chunk_size
+    pcm = testing.chirp_tone(len(ids), 3 * t, cfg.sample_rate, seed=13)
+    lib = _build.library()
+    before = lib.body_launches["large"]
+    rows = []
+    for i in range(3):
+        state, r = p.push(state, torch.from_numpy(pcm[:, i * t : (i + 1) * t]).to(cuda))
+        rows.append(r)
+    torch.cuda.synchronize()
+    assert lib.body_launches["large"] == before + 3
+    streamed = torch.cat(rows, dim=1)
+    padded = np.concatenate([np.zeros((len(ids), p.carry_size, 2), np.float32), pcm], 1)
+    for s, pid in enumerate(ids):
+        one = p.process(torch.from_numpy(padded[s : s + 1]).to(cuda), palette_id=int(pid))
+        torch.testing.assert_close(one[0], streamed[s], atol=0, rtol=0)
+    kw = dict(chunk_hops=1, store_ring=False, packed_output=True)
+    gpu, cpu = (SpectrogramPipeline(cfg, device=d, **kw) for d in (cuda, "cpu"))
+    sg, sc = (q.set_palette(q.init_state(len(ids)), ids) for q in (gpu, cpu))
+    chunk = torch.from_numpy(pcm[:, : gpu.chunk_size])
+    sg, rg = gpu.push(sg, chunk.to(cuda))
+    sc, rc = cpu.push(sc, chunk)
+    torch.testing.assert_close(sg.carry.cpu(), sc.carry, atol=0, rtol=0)
+    assert testing.rgba_u8_diff(ck.unpack_rgba(rg), ck.unpack_rgba(rc)) <= 1
+
+
+# ------------------------------------------------- colormap_rows_fused
+
+def _fused_operands(cfg, n, device, seed=14):
+    rng = np.random.default_rng(seed)
+    u, v = stacked_factored_tables(32)
+    pid = np.arange(n) % 19
+    u, v = u[pid].copy(), v[pid].copy()
+    cu, cv = _custom_factors()
+    u[::5], v[::5] = cu.reshape(32, 4), cv.reshape(32, 4)
+    rows = np.abs(rng.standard_normal((n, 2, cfg.num_bins))).astype(np.float32) * 0.01
+    return tuple(torch.from_numpy(a).to(device) for a in (rows, u, v))
+
+
+def test_colormap_rows_fused_equals_generic(cuda):
+    """spk_colormap_rows on planar rows equals the generic kernel on
+    contiguous copies of the planes with the two-tap taps, bit for bit; its
+    u8 form is the packed words' bytes; within 1 u8 of the plain version."""
+    cfg = BENCH_CONFIG
+    rows, u, v = _fused_operands(cfg, 256, cuda)
+    m = cmap_ops.resample_matrix(cfg)
+    lib = _build.library()
+    before = lib.launches[ck.ROWS_KERNEL]
+    packed = ck.colormap_rows_fused(rows, u, v, m.T, cfg, packed=True)
+    u8 = ck.colormap_rows_fused(rows, u, v, m.T, cfg)
+    torch.cuda.synchronize()
+    assert lib.launches[ck.ROWS_KERNEL] == before + 2
+    generic = ck.colormap_generic(rows[:, 0].contiguous(), rows[:, 1].contiguous(),
+                                  ck.resample_taps(m, cuda), u.reshape(256, -1),
+                                  v.reshape(256, -1), cfg)
+    torch.testing.assert_close(packed, generic, atol=0, rtol=0)
+    torch.testing.assert_close(u8, ck.unpack_rgba_device(packed), atol=0, rtol=0)
+    plain = ck.colormap_rows_fused_plain(rows, u, v, torch.from_numpy(m.T).to(cuda), cfg)
+    assert testing.rgba_u8_diff(u8, plain) <= 1
+
+
+def test_colormap_rows_fused_four_taps(cuda):
+    """A matrix with four taps per pixel: within 1 u8 of the plain version."""
+    cfg = SMALL
+    rows, u, v = _fused_operands(cfg, 64, cuda, seed=15)
+    m = cmap_ops.resample_matrix(cfg)
+    m4 = np.ascontiguousarray((0.5 * (m + np.roll(m, 2, axis=1))).T)
+    taps = ck.resample_taps_k(m4, cuda)
+    assert taps.j.shape[1] == 4
+    got = ck.colormap_rows_fused(rows, u, v, taps, cfg)
+    plain = ck.colormap_rows_fused_plain(rows, u, v, torch.from_numpy(m4).to(cuda), cfg)
+    assert testing.rgba_u8_diff(got, plain) <= 1
+    torch.testing.assert_close(got, ck.colormap_rows_fused(rows, u, v, m4, cfg), atol=0, rtol=0)

@@ -1,0 +1,169 @@
+"""The large-N STFT route, on the CPU: FFT sizes whose row buffer passes a
+block's shared memory.
+
+`spectrogram_tpu_torch/csrc/stft_large.cuh` holds the route's index code
+(the load, the local pass of the first radix stages through shared memory,
+the global stages over device memory, Bluestein's filter product, the
+unpack); `tests/cuda_host_stub/` compiles it with g++ and runs each pass
+over every row, one thread per block, as the route's launches do.  The bars: 1e-6 absolute of a float64 FFT (the bar of
+`tests/test_torch_stft_host.py`; f32 rounding over 8-17 passes stays near
+1e-7) at N = 32,768 (radix 4^7 2), 48,000 (mixed), 17,640 (Bluestein,
+M = 36,000) and the prime 16,411 (M = 33,750), packed and split-real; and
+at N the shared-memory bodies take too (4800, 4410), their bits exactly.
+Then the size check, and the pipeline at N = 17,640 against the JAX
+package's, as `tests/test_torch_fft_sizes.py` runs it.  Without a C++
+compiler the host tests skip.
+"""
+
+import ctypes
+import pathlib
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from spectrogram_tpu_torch import testing
+from spectrogram_tpu_torch.config import SpectrogramConfig
+from spectrogram_tpu_torch.ops.cuda import _build
+from spectrogram_tpu_torch.ops.cuda import stft_kernel as tsk
+
+torch.set_num_threads(2)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+STUB = ROOT / "tests" / "cuda_host_stub"
+CSRC = ROOT / "spectrogram_tpu_torch" / "csrc"
+ATOL = 1e-6
+LARGE_SIZES = (32768, 48000, 17640, 16411)
+PICKED = 2    # the stub's body argument: the body the kernels pick for N
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a C++ compiler to build the device code for the CPU")
+    out = tmp_path_factory.mktemp("stft_large_host") / "libstft_host.so"
+    subprocess.run(
+        [cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
+         f"-I{STUB}", f"-I{CSRC}", "-o", str(out), str(STUB / "stft_host.cpp")],
+        check=True, capture_output=True, timeout=300,
+    )
+    lib = ctypes.CDLL(str(out))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.stft_host_large.argtypes = (i, i, i, i, p, p, p, p, p, p, i)
+    lib.stft_host_rows.argtypes = (i, i, i, i, p, p, p, p, p, p)
+    lib.stft_host_split.argtypes = (i, i, i, i, p, p, p, p, p, p)
+    for fn in (lib.stft_host_large, lib.stft_host_rows, lib.stft_host_split):
+        fn.restype = i
+    return lib
+
+
+def _planes(kind: str, n_fft: int, rows: int = 2):
+    w = n_fft // 2
+    pcm = testing.make(kind, rows, w, 48000.0, seed=n_fft)
+    return tuple(np.ascontiguousarray(pcm[..., c]) for c in range(2))
+
+
+def _host(fn, *lead, n_fft, left, right, hann, tail=()):
+    rows, w = left.shape
+    bins = tsk.stft_bins(n_fft, w)
+    out = np.zeros((rows, bins), np.float32), np.zeros((rows, bins), np.float32)
+    assert fn(*lead, n_fft, rows, w, left.ctypes.data, right.ctypes.data, hann.ctypes.data,
+              tsk.fft_table(n_fft).ctypes.data, *(o.ctypes.data for o in out), *tail) == 0
+    return out
+
+
+def _reference(left, right, hann, n_fft, split):
+    """float64 magnitudes of bins 0 .. N/2-1: the stereo unpack, or each
+    channel's |DFT|."""
+    h = hann.astype(np.float64)
+    k = np.arange(n_fft // 2)
+    if split:
+        return tuple(np.abs(np.fft.fft(x.astype(np.float64) * h, n=n_fft))[:, k]
+                     for x in (left, right))
+    x = np.fft.fft((left.astype(np.float64) + 1j * right.astype(np.float64)) * h, n=n_fft)
+    a, b = x[:, k], x[:, (n_fft - k) % n_fft]
+    return np.abs(a + np.conj(b)), np.abs(a - np.conj(b))
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["packed", "split"])
+@pytest.mark.parametrize("n_fft", LARGE_SIZES)
+def test_large_route_matches_float64(host_lib, n_fft, split):
+    """The route's passes against float64, and against the plain version
+    the card holds the kernels to."""
+    assert tsk.is_large(n_fft) and tsk.fft_route(n_fft) == tsk.LARGE
+    left, right = _planes("chirp_tone", n_fft)
+    w = left.shape[1]
+    hann = tsk.split_hann(w) if split else tsk.packed_hann(w)
+    got = _host(host_lib.stft_host_large, int(split), n_fft=n_fft, left=left, right=right,
+                hann=hann, tail=(tsk.MAX_BUF,))
+    plain = (tsk.stft_mag_split_plain if split else tsk.stft_mag_packed_plain)(
+        torch.from_numpy(left), torch.from_numpy(right), torch.from_numpy(hann), n_fft)
+    for g, want, p in zip(got, _reference(left, right, hann, n_fft, split), plain):
+        np.testing.assert_allclose(g, want, atol=ATOL, rtol=0)
+        np.testing.assert_allclose(g, p.numpy(), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("max_span", [tsk.MAX_BUF, 64], ids=["kernels", "span64"])
+@pytest.mark.parametrize("split", [False, True], ids=["packed", "split"])
+@pytest.mark.parametrize("n_fft", [4800, 4410])
+def test_large_route_gives_the_shared_memory_bodies_bits(host_lib, n_fft, split, max_span):
+    """At an N both take, the route runs the shared-memory bodies' own
+    steps in their order (mixed radix; Bluestein's DIF, filter, DIT), so
+    its rows are theirs bit for bit, however its stages split between the
+    local pass and global ones (all but the last local, as the kernels
+    split them, or only those within 64 entries): one law at every N."""
+    assert not tsk.is_large(n_fft)
+    left, right = _planes("noise", n_fft, rows=3)
+    w = left.shape[1]
+    hann = tsk.split_hann(w) if split else tsk.packed_hann(w)
+    got = _host(host_lib.stft_host_large, int(split), n_fft=n_fft, left=left, right=right,
+                hann=hann, tail=(max_span,))
+    fn = host_lib.stft_host_split if split else host_lib.stft_host_rows
+    want = _host(fn, PICKED, n_fft=n_fft, left=left, right=right, hann=hann)
+    for g, x in zip(got, want):
+        np.testing.assert_array_equal(g, x)
+
+
+def test_check_fft_size_raises_only_below_two():
+    """Every N from 2 up runs: the shared-memory bodies up to a 227 KB row
+    buffer, the large-N route past it, under its own launch label."""
+    for n in (2, 3, 97, 4096, 4410, 14000, 14503, 16384, 28800, 29056, 29160, 30000,
+              32768, 48000, 17640, 16411, 65536):
+        tsk.check_fft_size(n)
+    for n in (0, 1, -4):
+        with pytest.raises(ValueError, match="at least 2"):
+            tsk.check_fft_size(n)
+    # the boundary: a buffer of 29,056 complex f32 fits (28,125 = 3^2 5^5
+    # does), the next smooth size, 29,160, does not; 29,056 = 2^7 227 itself
+    # takes Bluestein, M = 58,320
+    assert tsk.MAX_BUF == 29056
+    for n, large in ((16384, False), (28800, False), (28125, False), (29160, True),
+                     (29056, True), (32768, True), (14000, False), (14503, True),
+                     (17640, True)):
+        assert tsk.is_large(n) == large, n
+        assert tsk.fft_route(n) == (tsk.LARGE if large else tsk.fft_body(n))
+    assert tsk.LARGE in _build.FFT_BODIES
+    for name in (tsk.LARGE_KERNEL, tsk.LARGE_KERNEL_I16, tsk.LARGE_SPLIT_KERNEL):
+        assert name in _build.KERNELS
+
+
+def test_large_pipeline_matches_jax():
+    """44.1 kHz with a 0.2 s window (W=8820, N=17,640, Bluestein M=36,000),
+    2 streams, H=64, k=1: the port's pipeline on the CPU against the JAX
+    package's default pipeline from one state, with the bars of
+    `tests/test_torch_fft_sizes.py` (carry exact, rows within 1 u8, ring
+    within 1 bf16 ulp, streamed == process(), the state carried back)."""
+    from test_torch_fft_sizes import _check_against_jax
+
+    kw = dict(sample_rate=44100.0, window_period=0.2, viewport_height=64,
+              viewport_rows=8)
+    cfg = SpectrogramConfig(**kw)
+    assert cfg.padded_size == 17640 and tsk.is_large(cfg.padded_size)
+    c = tsk.carry_len(cfg.window_size, cfg.hop_size)
+    pcm = testing.chirp_tone(2, 3 * cfg.hop_size, cfg.sample_rate, seed=4)
+    carry = testing.make("chirp_tone", 2, c, cfg.sample_rate, seed=5).transpose(0, 2, 1)
+    tp = _check_against_jax(kw, 1, pcm, np.ascontiguousarray(carry))
+    assert tp.fft_consts.n_fft == 17640

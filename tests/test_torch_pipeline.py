@@ -173,10 +173,16 @@ def test_set_palette():
     dict(ring_dtype=torch.float16, static_palette=0, i16_planes=True),
 ])
 def test_arguments_outside_the_slice_raise(kwargs):
-    """A ring dtype other than bfloat16 is not ported; static palettes are
-    (tests/test_torch_palettes.py), and do not hide the refusal."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SpectrogramPipeline(SpectrogramConfig(**SMALL), device="cpu", **kwargs)
+    """Every torch floating ring dtype is ported (with static palettes too,
+    tests/test_torch_palettes.py); a ring dtype that is not a floating
+    torch dtype raises ValueError."""
+    p = SpectrogramPipeline(SpectrogramConfig(**SMALL), device="cpu", **kwargs)
+    assert p.ring_dtype == kwargs["ring_dtype"]
+    assert p.init_state(2).ring.dtype == kwargs["ring_dtype"]
+    for bad in (torch.int16, torch.int32, torch.complex64, "float16", np.float32):
+        with pytest.raises(ValueError, match="ring_dtype"):
+            SpectrogramPipeline(SpectrogramConfig(**SMALL), device="cpu",
+                                **dict(kwargs, ring_dtype=bad))
     static = {k: v for k, v in kwargs.items() if k != "ring_dtype"}
     if static:
         p = SpectrogramPipeline(SpectrogramConfig(**SMALL), device="cpu", **static)

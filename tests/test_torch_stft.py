@@ -113,9 +113,14 @@ def test_wrapper_refuses_other_devices_and_sizes():
     for n in (2, 3, 97, 128, 255, 256, 480, 1410, 2204, 4096, 4410, 4800, 4801,
               4802, 9600, 14000, 16384, 28800):
         tsk.check_fft_size(n)
-    # above it: 2^15 complex f32 (256 KB), a smooth N past 29,056 entries, and
-    # Bluestein N whose convolution length M >= 2N - 1 passes it
-    for n in (0, 1, 32768, 30000, 14600, 16383):
-        with pytest.raises(NotImplementedError, match="227 KB"):
+        assert not tsk.is_large(n)
+    # above it (2^15 complex f32 = 256 KB, a smooth N past 29,056 entries,
+    # Bluestein N whose M >= 2N - 1 passes it) the large-N route takes over;
+    # only N < 2 raises
+    for n in (32768, 30000, 14600, 16383):
+        tsk.check_fft_size(n)
+        assert tsk.is_large(n) and tsk.fft_route(n) == "large"
+    for n in (0, 1):
+        with pytest.raises(ValueError, match="at least 2"):
             tsk.check_fft_size(n)
     assert tsk.fft_buf_size(4410) == 9000 and tsk.fft_body(4410) == "bluestein"

@@ -268,12 +268,63 @@ def test_plan_sweep_covers_both_sides_of_each_gate():
     assert None in [tfp.make_plan(_sweep_configs(*g)[1]) for g in PLAN_SWEEP]
 
 
+@pytest.mark.parametrize("res", [16, 32])
+def test_lookup_tables_copy(res):
+    """The full [P, R, R, 4] LUTs of the registry, of a FactoredScheme, and
+    of a gradient given as a function."""
+    np.testing.assert_array_equal(tcs.stacked_lookup_tables(res),
+                                  jcs.stacked_lookup_tables(res))
+    grey = dict(gradient_fn=lambda t: np.stack([t, t ** 2, 1 - t], -1))
+    for args in (("g", "", None), ("g", "", (1, 2, 3))):
+        np.testing.assert_array_equal(tcs.ColorScheme(*args, **grey).lookup_table(res),
+                                      jcs.ColorScheme(*args, **grey).lookup_table(res))
+    # every palette's LUT is its factors' outer product, as JAX's is
+    u, v = tcs.stacked_factored_tables(res)
+    np.testing.assert_array_equal(tcs.stacked_lookup_tables(res),
+                                  u[:, :, None, :] * v[:, None, :, :])
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_log_scale_and_resample_copies(name):
+    """`ops/log_scale.py` and `ops/resample.py`: the axis mapping, its
+    inverse and ticks, and every band matrix."""
+    from spectrogram_tpu.ops import log_scale as jls
+    from spectrogram_tpu.ops import resample as jrs
+    from spectrogram_tpu_torch.ops import log_scale as tls
+    from spectrogram_tpu_torch.ops import resample as trs
+
+    j, t = _configs(name)
+    for height in (None, 100):
+        ja, ta = jls.display_scale(j, height), tls.display_scale(t, height)
+        assert dataclasses.asdict(ta) == dataclasses.asdict(ja)
+        for points in (3, 6, 12, 40):
+            assert ta.key_points(points) == ja.key_points(points)
+            assert ta.labeled_ticks(points) == ja.labeled_ticks(points)
+        for v in (32.0, 440.0, 1000.0, 22030.0):
+            assert ta.position_of(v) == ja.position_of(v)
+        for pos in (0.0, 17.5, ta.extent):
+            assert ta.value_of(pos) == ja.value_of(pos)
+    wide = (tls.LogScale(20.0, 20000.0, 512, 10.0), jls.LogScale(20.0, 20000.0, 512, 10.0))
+    assert wide[0].key_points(2) == wide[1].key_points(2)
+    np.testing.assert_array_equal(trs.analyzer_band_matrix(t), jrs.analyzer_band_matrix(j))
+    np.testing.assert_array_equal(trs.analyzer_band_matrix(t, 16),
+                                  jrs.analyzer_band_matrix(j, 16))
+    np.testing.assert_array_equal(trs.golden_pixel_matrix(t, 64), jrs.golden_pixel_matrix(j, 64))
+    np.testing.assert_array_equal(trs.log_space_edges(32.0, 24000.0, 10),
+                                  jrs.log_space_edges(32.0, 24000.0, 10))
+    edges = np.array([100.0, 150.0, 151.0, 3000.0])
+    np.testing.assert_array_equal(trs.cubic_band_matrix(edges, t.num_bins, t.sample_rate),
+                                  jrs.cubic_band_matrix(edges, j.num_bins, j.sample_rate))
+
+
 def test_import_leaves_jax_out():
     code = (
         "import sys, spectrogram_tpu_torch\n"
         "import spectrogram_tpu_torch.models.convert\n"
         "import spectrogram_tpu_torch.ops.fft_plan\n"
         "import spectrogram_tpu_torch.ops.cuda.stft_kernel\n"
+        "import spectrogram_tpu_torch.ops.log_scale\n"
+        "import spectrogram_tpu_torch.ops.resample\n"
         "import spectrogram_tpu_torch.profile_push\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
