@@ -93,9 +93,10 @@ Phases, each of which fails the run with a non-zero exit:
      and its bound, as device time (`device_ms`: the card held while the
      host enqueues) and back to back as the other phases time kernels.
 
- 17. the split-real STFT kernels against their plain versions (phase 3's
-     bar), on chirp+tone: the window-plane kernel at 4096 rows of
-     BENCH_CONFIG (N=4096) and of DEFAULT_CONFIG (N=4800), the all-windows
+ 17. the split-real STFT kernels (at even N the N/2-point real-FFT pack)
+     against their plain versions (phase 3's bar), on chirp+tone: the
+     window-plane kernel at 4096 rows of BENCH_CONFIG (N=4096) and of
+     DEFAULT_CONFIG (N=4800), the all-windows
      kernel at k=8 with 4096 streams, the transposed kernel at 4096 rows and
      the tsplit kernel at 4096 streams of BENCH_CONFIG.  Bit for bit: the
      transposed rows, the tsplit rows and the all-windows rows equal the
@@ -118,16 +119,21 @@ Phases, each of which fails the run with a non-zero exit:
      image shows.
  19. ms/push of each split-real push beside the default push of the same
      configuration, in turns (a b c ... c b a), as device time.
- 20. the Bluestein FFT body (N with a prime factor above 5): kernel A, the
-     split-real plane kernel and the all-windows kernel (k=8) at N=4410
-     (44.1 kHz, the reference's 0.05 s window; M=9000) and N=4802 = 2 7^4,
-     4096 rows or streams of chirp+tone, against their plain versions at
-     phase 3's bar; device time of kernel A at N=4410 beside the mixed-radix
-     N=4800, its plain version, torch.fft.fft at N=4410, the bound.
+ 20. the FFT bodies past 5-smooth N: kernel A, the split-real plane
+     kernel and the all-windows kernel (k=8) on the Bluestein body (N with
+     a prime factor above 7: N=1410, M=2880; N=2204, M=4500; the odd N=435,
+     M=875, whose split-real row is the N-point one) and on the radix-7
+     mixed-radix body (N=4410 = 2 3^2 5 7^2, 44.1 kHz at the reference's
+     0.05 s window; N=4802 = 2 7^4), 4096 rows or streams of chirp+tone,
+     against their plain versions at phase 3's bar; device time of kernel A
+     at N=2204 (the Bluestein row), N=1410, N=4410 and N=4800, their plain
+     versions, torch.fft.fft, the bounds.
  21. the pipelines at the sizes the kernels newly take, through
      SpectrogramPipeline: 44.1 kHz with DEFAULT_CONFIG's periods (N=4410) at
      k=1 with 4096 streams and no ring, and at k=8 with the ring (R=2048),
-     256 streams, 260 pushes and render_viewport at R and 800;
+     256 streams, 260 pushes and render_viewport at R and 800; 44.1 kHz
+     with a 1,102-sample window (N=2204 on the Bluestein body, phase 20's
+     timed shape), k=1, 4096 streams;
      pad_factor=1 at BENCH_CONFIG's window (N=2048), k=1, 4096 streams; an
      odd N of the JAX fuzz's range (16 kHz, W=145, pad 3: N=435), k=1, 4096
      streams.  Each passes when its FFT body's launch count rises, streamed
@@ -148,17 +154,23 @@ Phases, each of which fails the run with a non-zero exit:
      what it replaces (the all-windows kernel after the two framing
      concatenations, the two-kernel chain), torch.fft.rfft and fft as the
      library calls, the bounds.
- 23. FFT sizes whose row buffer passes a block's shared memory, on the
-     large-N route: its packed (f32, int16) and split-real kernels on 4,096
-     window rows and through the all-windows entries (k=8, 1,024 streams)
-     at N=32,768 (radix 2), 48,000 (mixed) and 17,640 (Bluestein, M=36,000)
-     against their plain versions (phase 3's bar; int16 == f32 on x/32768
-     and all-windows == window planes bit for bit), device time beside
-     torch.fft; the pipelines at 48 kHz with a 0.5 s window and at 44.1 kHz
-     with a 0.2 s window, k=1 with 4,096 streams and k=8 with the ring at 16
-     streams over 260 pushes, stft_packed=False at k=1, and i16_planes at
-     k=1 (rows == the f32 pipeline's on x/32768): the route's launches by
-     its body label, streamed == process() exactly, within 1 u8 of
+ 23. long windows, against their plain versions at phase 3's bar on 4,096
+     window rows: the large-N route's packed kernel (f32, int16 == f32 on
+     x/32768; all-windows k=8 over 1,024 streams == window planes bit for
+     bit) at N=32,768 and 48,000, its Bluestein passes at the prime
+     N=16,411 (M=33,614) packed and split-real, its split-real kernel at
+     N=65,536 (the N/2 pack past a block; all-windows k=8 over 128 streams);
+     the split-real pack in shared memory at N=17,640, 32,768 and 48,000
+     (all-windows at 48,000) and kernel A at N=17,640 (radix 7), with
+     device times beside torch.fft; the pipelines at 48 kHz with a 0.5 s
+     window and at 44.1 kHz with a 0.2 s window, k=1 with 4,096 streams and
+     k=8 with the ring at 16 streams over 260 pushes, stft_packed=False at
+     k=1 (and at N=65,536 with 1,024 streams), at 48 kHz with a 0.17 s
+     window (N=16,320 = 2^6 3 5 17: packed rows on the route's Bluestein
+     passes, M=32,768; split-real rows on the Bluestein pack in shared
+     memory, M=16,384) k=1 with 4,096 streams, and i16_planes at k=1 (rows
+     == the f32 pipeline's on x/32768): each path's launches under its body
+     label, streamed == process() exactly, within 1 u8 of
      with_plain_kernels(), carries exact, ring within 1 bf16 ulp; ms/push
      beside DEFAULT_CONFIG's in turns.
  24. colormap_rows_fused at BENCH_CONFIG, 4,096 rows of [2, 2047], H=1024,
@@ -169,6 +181,9 @@ Phases, each of which fails the run with a non-zero exit:
      chirp + tone at 48 kHz, stft_rows_planar -> colormap_rows_fused)
      within 1 u8 of rgba_f32_to_u8(colormap_rows(...)); device time, plain,
      bound.
+ 25. the redesigned kernels (the split-real pack; radix 7): each one's
+     device time from phases 17, 20 and 23 beside its first version's
+     (FIRST_VERSION_MS, from PERF.md), its library call and its bound.
 
 Then the whole run's seconds.  The second-to-last line is {"kernels": [...]}:
 each kernel's launches on the main paths (phases 5, 9, 12, 15, 18, 21, 22,
@@ -192,6 +207,7 @@ import numpy as np
 import torch
 
 from spectrogram_tpu_torch import testing
+from spectrogram_tpu_torch.testing import device_ms
 from spectrogram_tpu_torch.config import BENCH_CONFIG, DEFAULT_CONFIG, SpectrogramConfig
 from spectrogram_tpu_torch.models.spectrogram import SpectrogramPipeline
 from spectrogram_tpu_torch.ops import colormap as cmap_ops
@@ -278,8 +294,9 @@ KERNELS = {
         name="stft_split_tsplit", source="spectrogram_tpu_torch/csrc/stft_split.cu",
         replaces="spectrogram_tpu/ops/pallas/stft_kernel.py:1467",
     ),
-    # the FFT body the STFT kernels run at N with a prime factor above 5,
-    # counted over every STFT kernel's launches at such N
+    # the FFT body the STFT kernels run at N with a prime factor above 7,
+    # counted over every STFT kernel's launches at such N (its numbers at
+    # N=2204)
     "bluestein": dict(
         name="fft_body_bluestein", source="spectrogram_tpu_torch/csrc/stft_fft.cuh",
         replaces="spectrogram_tpu/ops/pallas/stft_kernel.py:509",
@@ -305,7 +322,8 @@ KERNELS = {
         replaces="spectrogram_tpu/ops/pallas/push_kernel.py:88",
     ),
     # the large-N route: every STFT entry where a row's FFT buffer passes a
-    # block's shared memory (phase 23; its numbers at N=48,000)
+    # block's shared memory (phase 23; its numbers at N=48,000, the split
+    # kernel's at N=65,536)
     sk.LARGE_KERNEL: dict(
         name="stft_large_packed", source="spectrogram_tpu_torch/csrc/stft_large.cu",
         replaces="spectrogram_tpu/ops/pallas/stft_kernel.py:509",
@@ -360,32 +378,6 @@ def time_ms(fn, iters: int = TIMED_ITERS) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def device_ms(fn, iters: int = TIMED_ITERS) -> float:
-    """Mean device time of fn() over `iters` calls, after one warm-up, with
-    the card held by a spin kernel while the host enqueues the calls: host
-    time between launches (the wrappers' checks, the allocator) does not
-    count.  The spin is lengthened until it outlasts the enqueueing."""
-    fn()
-    torch.cuda.synchronize()
-    cycles = 1 << 24
-    while True:
-        hold, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-        hold.record()
-        torch.cuda._sleep(cycles)
-        start.record()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        enqueue_ms = (time.perf_counter() - t0) * 1e3
-        end.record()
-        torch.cuda.synchronize()
-        if hold.elapsed_time(start) > 1.2 * enqueue_ms:
-            return start.elapsed_time(end) / iters
-        if cycles > 1 << 34:
-            fail("device_ms: the timed calls wait for the card")
-        cycles *= 4
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -699,13 +691,14 @@ def main() -> int:
 
     # -- 17-19. the split-real STFT family ---------------------------------------
     torch.cuda.reset_peak_memory_stats()
-    split_kernels(dev, stats, ms, plain_ms, bounds, library_ms)
+    redesign = {}
+    split_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign)
     layout_paths(dev, lib, main_launches)
     layout_timing(dev, power_line)
 
     # -- 20-22. every FFT size; the carry+chunk pair and the fused push -------
     torch.cuda.reset_peak_memory_stats()
-    bluestein_kernels(dev, stats, ms, plain_ms, bounds, library_ms)
+    bluestein_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign)
     size_paths(dev, lib, main_launches)
     size_timing(dev, power_line)
     torch.cuda.reset_peak_memory_stats()
@@ -715,7 +708,11 @@ def main() -> int:
     # -- 23. FFT sizes above a block's shared memory: the large-N route -------
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    large_kernels(dev, stats, ms, plain_ms, bounds, library_ms)
+    large_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign)
+    n = LARGE_BLUE.padded_size
+    if not (sk.fft_route(n) == "large" and sk.fft_body(n) == BLUESTEIN
+            and sk.split_route(n) == BLUESTEIN):
+        fail(f"N={n} reaches neither the route's Bluestein passes nor the Bluestein pack")
     size_paths(dev, lib, main_launches, LARGE_PATHS, phase=23)
     large_i16_path(dev, lib, main_launches)
     size_timing(dev, power_line, LARGE_TIMING, phase=23, phases="23")
@@ -725,7 +722,16 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     rows_fused(dev, lib, main_launches, stats, ms, plain_ms, bounds, library_ms, power_line)
 
-    log(f"[24] whole run {time.perf_counter() - t_start:.1f} s")
+    # -- 25. the redesigned kernels beside their first versions --------------
+    for label, first in FIRST_VERSION_MS.items():
+        if label not in redesign:
+            fail(f"phase 25: no time for {label}")
+        t, lib_t, b = redesign[label]
+        log(f"[25] {label}: {t:.4f} ms device time (first version {first:.4f} ms, "
+            f"{first / t:.2f}x; library {lib_t:.4f} ms, {t / lib_t:.2f}x it; bound {b:.4f} ms); "
+            f"card {power_line}")
+
+    log(f"[25] whole run {time.perf_counter() - t_start:.1f} s")
     print(power_line)
     print(json.dumps({"kernels": [
         dict(meta, route="cuda", launches=main_launches[k], max_abs_err=stats[k],
@@ -1329,7 +1335,7 @@ def palette_timing(dev, power_line: str) -> None:
 SPLIT_SERVING = SERVING_STREAMS[0]
 
 
-def split_kernels(dev, stats, ms, plain_ms, bounds, library_ms) -> None:
+def split_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign) -> None:
     """Phase 17: the four split-real kernels at the paths' shapes against
     their plain versions, their three bitwise identities with the
     window-plane kernel, tsplit's next carry, and their times."""
@@ -1411,6 +1417,11 @@ def split_kernels(dev, stats, ms, plain_ms, bounds, library_ms) -> None:
             f"(plain {plain_ms[name]:.4f} ms, torch.fft.rfft [{2 * rows}, {n}] "
             f"{library_ms[name]:.4f} ms, bound {bounds[name][0]:.4f} ms by {bounds[name][1]})")
     log(f"[17] stft_packed (kernel A) on the same {STREAMS} windows: {packed_ms:.4f} ms device time")
+    for name, label in ((sk.SPLIT_KERNEL, "stft_split N=4096"),
+                        (sk.SPLIT_T_KERNEL, "stft_split_t N=4096"),
+                        (sk.SPLIT_ALLK_KERNEL, "stft_split_allk N=4096 k=8"),
+                        (sk.SPLIT_TSPLIT_KERNEL, "stft_split_tsplit N=4096")):
+        redesign[label] = (ms[name], library_ms[name], bounds[name][0])
     del x, carry, chunk, bl, br, left, right
 
 
@@ -1590,82 +1601,97 @@ def layout_timing(dev, power_line: str) -> None:
 
 SIZE_44K = SpectrogramConfig(sample_rate=44100.0)      # W=2205, N=4410 = 2 3^2 5 7^2
 N4802 = SpectrogramConfig(sample_rate=48000.0, window_period=2401 / 48000.0)  # 2 7^4
+# N with a prime factor above 7 keep the Bluestein body: N=2204 = 2^2 19 29
+# (M=4500) and N=1410 = 2 3 5 47 (M=2880)
+BLUE_2204 = SpectrogramConfig(sample_rate=44100.0, window_period=1102 / 44100.0)
+BLUE_1410 = SpectrogramConfig(sample_rate=44100.0, window_period=0.016, hop_period=0.006)
 PAD1 = SpectrogramConfig(sample_rate=48000.0, window_period=2048 / 48000.0,
                          hop_period=800 / 48000.0, pad_factor=1)         # N = W = 2048
 # an odd N of the JAX fuzz's range (its seed 5: 16 kHz, W=145, hop 69, pad 3)
 ODD = SpectrogramConfig(sample_rate=16000.0, window_period=145 / 16000.0,
                         hop_period=69 / 16000.0, pad_factor=3, viewport_height=100,
                         max_frequency=7950.0)                            # N = 435
+# The device times (PERF.md, H100 80GB HBM3, 700 W) of the first versions of
+# the kernels the split-real pack and radix 7 redesigned: the split-real
+# rows as N-point transforms (on the large-N route from N=17,640), N=4410
+# and packed N=17,640 on Bluestein; 4096 rows unless named
+FIRST_VERSION_MS = {
+    "stft_split N=4096": 0.7932, "stft_split_t N=4096": 0.8231,
+    "stft_split_allk N=4096 k=8": 6.2293, "stft_split_tsplit N=4096": 0.8144,
+    "kernel A N=4410": 1.0516,
+    "split-real N=17640": 13.9564, "split-real N=32768": 13.7192,
+    "split-real N=48000": 16.3022, "packed N=17640": 7.2398,
+}
 
 
 def _buffers(cfg, streams: int, length: int, seed: int, dev, dtype=torch.float32):
     """[S, L] left and right sample planes of chirp+tone (int16: PCM words)."""
-    buf = testing.chirp_tone(streams, length, cfg.sample_rate, seed=seed)
-    if dtype == torch.int16:
-        buf = np.round(buf * 32767.0).astype(np.int16)
-    return tuple(torch.from_numpy(np.ascontiguousarray(buf[..., c])).to(dev) for c in range(2))
+    return testing.chirp_tone_planes(streams, length, cfg.sample_rate, seed, dev, dtype)
 
 
-def bluestein_kernels(dev, stats, ms, plain_ms, bounds, library_ms) -> None:
-    """Phase 20: the Bluestein body in kernel A, the all-windows kernel and
-    the split-real plane kernel at N=4410 and N=4802 against their plain
-    versions; its device time (kernel A at N=4410, 4096 rows), the plain
-    version's, torch.fft.fft at that N and the bound."""
-    for cfg in (SIZE_44K, N4802):
+def bluestein_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign) -> None:
+    """Phase 20: kernel A, the split-real plane kernel and the all-windows
+    kernel on the Bluestein body (N=1410, 2204, odd 435) and on the radix-7
+    mixed-radix body (N=4410, 4802) against their plain versions; device
+    times of kernel A at N=2204 (the Bluestein row), at N=1410 and at
+    N=4410 beside N=4800, their plain versions, torch.fft.fft, the bounds."""
+    for cfg, body in ((BLUE_1410, BLUESTEIN), (BLUE_2204, BLUESTEIN), (ODD, BLUESTEIN),
+                      (SIZE_44K, "mixed"), (N4802, "mixed")):
         n, w, h = cfg.padded_size, cfg.window_size, cfg.hop_size
-        if sk.fft_body(n) != BLUESTEIN:
-            fail(f"N={n} does not take the Bluestein body")
+        if sk.fft_body(n) != body:
+            fail(f"N={n} does not take the {body} body")
+        names = (BLUESTEIN,) if body == BLUESTEIN else ()
+        label = f"{body}, M={sk.fft_buf_size(n)}" if body == BLUESTEIN else \
+            f"{body} {'-'.join(map(str, sk.mixed_radix_plan(n)))}"
         consts = sk.fft_constants(n, dev)
         hann = torch.from_numpy(sk.packed_hann(w)).to(dev)
         shann = torch.from_numpy(sk.split_hann(w)).to(dev)
         left, right = windows(cfg, "chirp_tone", STREAMS, dev)
-        _check_stft(20, stats, (BLUESTEIN, sk.MIXED_KERNEL),
-                    f"stft_mixed (Bluestein, M={sk.fft_buf_size(n)}) N={n}, {STREAMS} rows",
+        _check_stft(20, stats, (*names, sk.MIXED_KERNEL),
+                    f"stft_mixed ({label}) N={n}, {STREAMS} rows",
                     sk.stft_mag_packed(left, right, hann, consts),
                     sk.stft_mag_packed_plain(left, right, hann, n))
-        _check_stft(20, stats, (BLUESTEIN, sk.SPLIT_KERNEL),
-                    f"stft_split (Bluestein) N={n}, {STREAMS} rows",
+        row = f"pack of N/2={n // 2}" if n % 2 == 0 else "N-point row"
+        _check_stft(20, stats, (*names, sk.SPLIT_KERNEL),
+                    f"stft_split ({sk.split_route(n)} {row}) N={n}, {STREAMS} rows",
                     sk.stft_mag_split(left, right, shann, consts),
                     sk.stft_mag_split_plain(left, right, shann, n))
         bl, br = _buffers(cfg, STREAMS, w + (K - 1) * h, 3, dev)
-        _check_stft(20, stats, (BLUESTEIN, sk.ALLK_KERNEL),
-                    f"stft_allk (Bluestein) N={n}, k={K}, buffers {tuple(bl.shape)}",
+        _check_stft(20, stats, (*names, sk.ALLK_KERNEL),
+                    f"stft_allk ({label}) N={n}, k={K}, buffers {tuple(bl.shape)}",
                     sk.stft_mag_packed_allk(bl, br, hann, consts, K, h),
                     sk.stft_mag_packed_allk_plain(bl, br, hann, n, K, h))
         torch.cuda.synchronize()
         del bl, br
 
-    cfg = SIZE_44K
-    n, w, h = cfg.padded_size, cfg.window_size, cfg.hop_size
-    consts = sk.fft_constants(n, dev)
-    hann = torch.from_numpy(sk.packed_hann(w)).to(dev)
-    shann = torch.from_numpy(sk.split_hann(w)).to(dev)
-    left, right = windows(cfg, "chirp_tone", STREAMS, dev)
+    def kernel_a(cfg):
+        n, w = cfg.padded_size, cfg.window_size
+        consts = sk.fft_constants(n, dev)
+        hann = torch.from_numpy(sk.packed_hann(w)).to(dev)
+        left, right = windows(cfg, "chirp_tone", STREAMS, dev)
+        z = torch.complex(torch.randn(STREAMS, n, device=dev), torch.randn(STREAMS, n, device=dev))
+        out = (device_ms(lambda: sk.stft_mag_packed(left, right, hann, consts)),
+               time_ms(lambda: sk.stft_mag_packed_plain(left, right, hann, n), iters=5),
+               device_ms(lambda: torch.fft.fft(z)), bound(*stft_work(STREAMS, n, w, STREAMS * w)))
+        del z, left, right
+        return out
+
     torch.cuda.empty_cache()
-    ms[BLUESTEIN] = device_ms(lambda: sk.stft_mag_packed(left, right, hann, consts))
-    plain_ms[BLUESTEIN] = time_ms(lambda: sk.stft_mag_packed_plain(left, right, hann, n), iters=5)
-    bounds[BLUESTEIN] = bound(*stft_work(STREAMS, n, w, STREAMS * w))
-    z = torch.complex(torch.randn(STREAMS, n, device=dev), torch.randn(STREAMS, n, device=dev))
-    library_ms[BLUESTEIN] = device_ms(lambda: torch.fft.fft(z))
-    split_ms = device_ms(lambda: sk.stft_mag_split(left, right, shann, consts))
-    real = torch.randn(2 * STREAMS, n, device=dev)
-    split_lib = device_ms(lambda: torch.fft.rfft(real))
-    del z, real
-    bl, br = _buffers(cfg, STREAMS, w + (K - 1) * h, 3, dev)
-    allk_ms = device_ms(lambda: sk.stft_mag_packed_allk(bl, br, hann, consts, K, h))
-    del bl, br
-    dl, dr = windows(DEFAULT_CONFIG, "chirp_tone", STREAMS, dev)
-    dhann = torch.from_numpy(sk.packed_hann(DEFAULT_CONFIG.window_size)).to(dev)
-    dconsts = sk.fft_constants(DEFAULT_CONFIG.padded_size, dev)
-    mixed_ms = device_ms(lambda: sk.stft_mag_packed(dl, dr, dhann, dconsts))
+    ms[BLUESTEIN], plain_ms[BLUESTEIN], library_ms[BLUESTEIN], bounds[BLUESTEIN] = \
+        kernel_a(BLUE_2204)
+    n = BLUE_2204.padded_size
     log(f"[20] Bluestein body, kernel A at N={n} (M={sk.fft_buf_size(n)}), {STREAMS} rows: "
         f"{ms[BLUESTEIN]:.4f} ms device time (plain {plain_ms[BLUESTEIN]:.4f} ms, torch.fft.fft "
         f"[{STREAMS}, {n}] {library_ms[BLUESTEIN]:.4f} ms, bound {bounds[BLUESTEIN][0]:.4f} ms "
-        f"by {bounds[BLUESTEIN][1]}); mixed radix at N=4800 in the same run {mixed_ms:.4f} ms")
-    log(f"[20] at N={n}: stft_split {STREAMS} rows {split_ms:.4f} ms (torch.fft.rfft "
-        f"[{2 * STREAMS}, {n}] {split_lib:.4f} ms); stft_allk k={K}, {STREAMS} streams "
-        f"{allk_ms:.4f} ms; device time")
-    del left, right, dl, dr
+        f"by {bounds[BLUESTEIN][1]})")
+    for cfg in (BLUE_1410, SIZE_44K, DEFAULT_CONFIG):
+        n = cfg.padded_size
+        t, plain, lib_ms, b = kernel_a(cfg)
+        log(f"[20] kernel A at N={n} ({sk.fft_body(n)}, buffer {sk.fft_buf_size(n)}), {STREAMS} "
+            f"rows: {t:.4f} ms device time (plain {plain:.4f} ms, torch.fft.fft {lib_ms:.4f} ms, "
+            f"bound {b[0]:.4f} ms)")
+        if n == SIZE_44K.padded_size:
+            redesign["kernel A N=4410"] = (t, lib_ms, b[0])
 
 
 # (label, config, pipeline arguments, streams, pushes)
@@ -1673,6 +1699,8 @@ SIZE_PATHS = (
     ("44.1 kHz N=4410, k=1", SIZE_44K, dict(chunk_hops=1, store_ring=False), STREAMS, PUSHES),
     ("44.1 kHz N=4410, k=8, ring", SIZE_44K, dict(chunk_hops=K), DISPLAY_STREAMS,
      DISPLAY_PUSHES),
+    ("44.1 kHz N=2204 (Bluestein), k=1", BLUE_2204, dict(chunk_hops=1, store_ring=False),
+     STREAMS, PUSHES),
     ("pad_factor=1 N=2048, k=1", PAD1, dict(chunk_hops=1, store_ring=False), STREAMS, PUSHES),
     ("odd N=435, k=1", ODD, dict(chunk_hops=1, store_ring=False), STREAMS, PUSHES),
 )
@@ -1684,7 +1712,9 @@ def size_paths(dev, lib, main_launches: dict, paths=SIZE_PATHS, phase: int = 21)
     counts added to `main_launches`."""
     for label, cfg, kw, s, n in paths:
         p = SpectrogramPipeline(cfg, packed_output=True, device=dev, **kw)
-        body = sk.fft_route(cfg.padded_size)
+        # the split-real rows run the N/2 pack's body, the packed rows N's
+        body = (sk.split_route if kw.get("stft_packed") is False else sk.fft_route)(
+            cfg.padded_size)
         ids = np.arange(s) % len(p.schemes)
         state = p.set_palette(p.init_state(s), ids)
         t = p.chunk_size
@@ -1980,14 +2010,24 @@ def carry_pair_and_push(dev, lib, main_launches: dict, stats, ms, plain_ms, boun
 
 # ------------------------------------------------------------ phases 23-24
 
-# N = 2^15 (radix 4^7 2), 48,000 (mixed) and 17,640 = 2^3 3^2 5 7^2
-# (Bluestein, M = 36,000): windows of 16,384 samples, 0.5 s at 48 kHz and
-# 0.2 s at 44.1 kHz, each hop 1.2 ms as DEFAULT_CONFIG's
+# Long windows, each hop 1.2 ms as DEFAULT_CONFIG's.  N = 2^15 (16,384-sample
+# window) and 48,000 (0.5 s at 48 kHz): packed rows on the large-N route,
+# split-real rows (the N/2 pack) in shared memory; N = 17,640 = 2^3 3^2 5 7^2
+# (0.2 s at 44.1 kHz): both in shared memory (radix 7); N = 2^16 (32,768
+# samples): split-real rows on the route too; the prime N = 16,411 (window
+# planes of 8,205 samples): the route's Bluestein passes (M = 33,614).
 LARGE_32K = SpectrogramConfig(sample_rate=48000.0, window_period=16384 / 48000.0)
 LARGE_48K = SpectrogramConfig(window_period=0.5)
 LARGE_44K = SpectrogramConfig(sample_rate=44100.0, window_period=0.2)
+LARGE_64K = SpectrogramConfig(sample_rate=48000.0, window_period=32768 / 48000.0)
+PRIME_N, PRIME_W = 16411, 8205
+# a 0.17 s window at 48 kHz: N = 16,320 = 2^6 3 5 17, Bluestein on the route
+# for packed rows (M = 32,768) and in shared memory for the split-real pack
+# (N/2 = 8,160, M = 16,384: the wide bound)
+LARGE_BLUE = SpectrogramConfig(sample_rate=48000.0, window_period=0.17)
 LARGE_ALLK_STREAMS = 1024      # k=8 windows each: 8,192 rows
 LARGE_DISPLAY_STREAMS = 16     # a 2,048-row ring of 23,999 bins is 196 MB of bf16 per stream
+LARGE_SPLIT_STREAMS = 1024     # N = 65,536 split-real: 32,768 bins per channel and row
 LARGE_PATHS = (
     ("48 kHz, 0.5 s window (N=48000), k=1", LARGE_48K,
      dict(chunk_hops=1, store_ring=False), STREAMS, PUSHES),
@@ -1999,6 +2039,12 @@ LARGE_PATHS = (
      DISPLAY_PUSHES),
     ("48 kHz N=48000, stft_packed=False, k=1", LARGE_48K,
      dict(chunk_hops=1, store_ring=False, stft_packed=False), STREAMS, PUSHES),
+    ("48 kHz, 32,768-sample window (N=65536), stft_packed=False, k=1", LARGE_64K,
+     dict(chunk_hops=1, store_ring=False, stft_packed=False), LARGE_SPLIT_STREAMS, PUSHES),
+    ("48 kHz, 0.17 s window (N=16320, Bluestein), k=1", LARGE_BLUE,
+     dict(chunk_hops=1, store_ring=False), STREAMS, PUSHES),
+    ("48 kHz N=16320 (Bluestein), stft_packed=False, k=1", LARGE_BLUE,
+     dict(chunk_hops=1, store_ring=False, stft_packed=False), STREAMS, PUSHES),
 )
 LARGE_TIMING = {
     f"k=1, {STREAMS} streams, no ring": (
@@ -2006,6 +2052,7 @@ LARGE_TIMING = {
         {"DEFAULT_CONFIG 48 kHz (N=4800)": (DEFAULT_CONFIG, {}),
          "48 kHz 0.5 s (N=48000)": (LARGE_48K, {}),
          "44.1 kHz 0.2 s (N=17640)": (LARGE_44K, {}),
+         "48 kHz 0.17 s (N=16320, Bluestein)": (LARGE_BLUE, {}),
          "48 kHz 0.5 s, stft_packed=False": (LARGE_48K, dict(stft_packed=False))}),
     f"k={K}, ring 2048, {LARGE_DISPLAY_STREAMS} streams": (
         dict(chunk_hops=K), LARGE_DISPLAY_STREAMS,
@@ -2015,23 +2062,45 @@ LARGE_TIMING = {
 }
 
 
-def large_kernels(dev, stats, ms, plain_ms, bounds, library_ms) -> None:
-    """Phase 23's kernels: the large-N route's packed (f32, int16) and
-    split-real kernels on 4,096 window rows, and through the all-windows
-    entries at k=8 over 1,024 streams, at N = 32,768, 48,000 and 17,640,
-    against their plain versions at phase 3's bar; int16 == f32 on x/32768
-    and all-windows == window planes bit for bit; device times beside
-    torch.fft (the kernels' row: N=48,000)."""
+def _large_operands(n: int, w: int, rows: int, dev, sample_rate: float = 48000.0):
+    """(left, right) [rows, w] chirp+tone window planes and N's constants and
+    windows (packed, packed int16, split-real) on the card."""
+    left, right = testing.chirp_tone_planes(rows, w, sample_rate, 1, dev)
+    hanns = tuple(torch.from_numpy(f(w)).to(dev) for f in (
+        sk.packed_hann, sk.packed_hann_i16, sk.split_hann))
+    return left, right, sk.fft_constants(n, dev), hanns
+
+
+def large_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign) -> None:
+    """Phase 23's kernels on 4,096 window rows unless named, each against
+    its plain version at phase 3's bar: the large-N route's packed kernel
+    (f32, int16 == f32 on x/32768, and through the all-windows entry at k=8
+    over 1,024 streams, == window planes bit for bit) at N = 32,768 and
+    48,000 (its row), and its Bluestein passes at N = 16,411, packed and
+    split-real (odd: no pack); its split-real kernel at N = 65,536 (its
+    row; all-windows at k=8 over 128 streams); the split-real pack in
+    shared memory at N = 17,640, 32,768 and 48,000 (all-windows over 1,024
+    streams at 48,000), and kernel A at N = 17,640.  Device times beside
+    torch.fft and the bounds."""
     rows = STREAMS
-    for cfg in (LARGE_32K, LARGE_48K, LARGE_44K):
-        n, w, h = cfg.padded_size, cfg.window_size, cfg.hop_size
+
+    def timed(name, label, run, plain, library, work):
+        t = device_ms(run)
+        plain_t = time_ms(plain, iters=3)
+        lib_t = device_ms(library)
+        b = bound(*work)
+        log(f"[23] {KERNELS[name]['name']} {label}: {t:.4f} ms device time (plain "
+            f"{plain_t:.4f} ms, library {lib_t:.4f} ms, bound {b[0]:.4f} ms by {b[1]})")
+        return t, plain_t, lib_t, b
+
+    # the packed route, and its Bluestein passes (packed and split-real)
+    for n, w, sr in ((LARGE_32K.padded_size, LARGE_32K.window_size, 48000.0),
+                     (LARGE_48K.padded_size, LARGE_48K.window_size, 48000.0),
+                     (PRIME_N, PRIME_W, 48000.0)):
         if not sk.is_large(n):
             fail(f"N={n} does not take the large-N route")
         label = f"N={n} ({sk.fft_body(n)}, buffer {sk.fft_buf_size(n)})"
-        consts = sk.fft_constants(n, dev)
-        hann, hann16, shann = (torch.from_numpy(f(w)).to(dev) for f in (
-            sk.packed_hann, sk.packed_hann_i16, sk.split_hann))
-        left, right = windows(cfg, "chirp_tone", rows, dev)
+        left, right, consts, (hann, hann16, shann) = _large_operands(n, w, rows, dev, sr)
         words = [torch.round(x * 32767.0).to(torch.int16) for x in (left, right)]
         _check_stft(23, stats, (sk.LARGE_KERNEL,), f"stft_large_packed {label}, {rows} rows",
                     sk.stft_mag_packed(left, right, hann, consts),
@@ -2043,69 +2112,118 @@ def large_kernels(dev, stats, ms, plain_ms, bounds, library_ms) -> None:
         _check_stft(23, stats, (sk.LARGE_KERNEL_I16,), f"stft_large_packed_i16 {label}", i16,
                     sk.stft_mag_packed_plain(*words, hann16, n))
         del i16
-        _check_stft(23, stats, (sk.LARGE_SPLIT_KERNEL,), f"stft_large_split {label}, {rows} rows",
-                    sk.stft_mag_split(left, right, shann, consts),
-                    sk.stft_mag_split_plain(left, right, shann, n))
-        bl, br = _buffers(cfg, LARGE_ALLK_STREAMS, w + (K - 1) * h, 3, dev)
-        wl, wr = (torch.cat([b[:, r * h : r * h + w] for r in range(K)]) for b in (bl, br))
-        for name, wrapper, plain, planes, hn in (
-                (sk.LARGE_KERNEL, sk.stft_mag_packed_allk, sk.stft_mag_packed_allk_plain,
-                 sk.stft_mag_packed, hann),
-                (sk.LARGE_SPLIT_KERNEL, sk.stft_mag_split_allk, sk.stft_mag_split_allk_plain,
-                 sk.stft_mag_split, shann)):
-            got = wrapper(bl, br, hn, consts, K, h)
-            _check_stft(23, stats, (name,), f"{wrapper.__name__} k={K}, {label}, buffers "
-                        f"{tuple(bl.shape)}", got, plain(bl, br, hn, n, K, h))
-            _identity(23, f"{wrapper.__name__} {label} == {planes.__name__} on the windows",
-                      got, planes(wl, wr, hn, consts))
-            del got
-        del wl, wr
+        if n == PRIME_N:
+            if not sk.is_large_split(n):
+                fail(f"N={n}: the split-real rows do not take the large-N route")
+            _check_stft(23, stats, (sk.LARGE_SPLIT_KERNEL,),
+                        f"stft_large_split {label} (odd: the N-point row), {rows} rows",
+                        sk.stft_mag_split(left, right, shann, consts),
+                        sk.stft_mag_split_plain(left, right, shann, n))
+        else:
+            h = LARGE_48K.hop_size
+            bl, br = _buffers(LARGE_48K, LARGE_ALLK_STREAMS, w + (K - 1) * h, 3, dev)
+            wl, wr = (torch.cat([b[:, r * h : r * h + w] for r in range(K)]) for b in (bl, br))
+            got = sk.stft_mag_packed_allk(bl, br, hann, consts, K, h)
+            _check_stft(23, stats, (sk.LARGE_KERNEL,), f"stft_mag_packed_allk k={K}, {label}, "
+                        f"buffers {tuple(bl.shape)}", got,
+                        sk.stft_mag_packed_allk_plain(bl, br, hann, n, K, h))
+            _identity(23, f"stft_mag_packed_allk {label} == stft_mag_packed on the windows",
+                      got, sk.stft_mag_packed(wl, wr, hann, consts))
+            del got, wl, wr, bl, br
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-
         z = torch.complex(torch.randn(rows, n, device=dev), torch.randn(rows, n, device=dev))
-        real = torch.randn(2 * rows, n, device=dev)
-        t = {
-            sk.LARGE_KERNEL: device_ms(lambda: sk.stft_mag_packed(left, right, hann, consts)),
-            sk.LARGE_KERNEL_I16: device_ms(lambda: sk.stft_mag_packed(*words, hann16, consts)),
-            sk.LARGE_SPLIT_KERNEL: device_ms(lambda: sk.stft_mag_split(left, right, shann,
-                                                                       consts)),
-        }
-        plain = {
-            sk.LARGE_KERNEL: time_ms(lambda: sk.stft_mag_packed_plain(left, right, hann, n),
-                                     iters=3),
-            sk.LARGE_KERNEL_I16: time_ms(lambda: sk.stft_mag_packed_plain(*words, hann16, n),
-                                         iters=3),
-            sk.LARGE_SPLIT_KERNEL: time_ms(lambda: sk.stft_mag_split_plain(left, right, shann,
-                                                                           n), iters=3),
-        }
-        lib_fft, lib_rfft = device_ms(lambda: torch.fft.fft(z)), device_ms(lambda: torch.fft.rfft(real))
-        library = {sk.LARGE_KERNEL: lib_fft, sk.LARGE_KERNEL_I16: lib_fft,
-                   sk.LARGE_SPLIT_KERNEL: lib_rfft}
-        work = {sk.LARGE_KERNEL: stft_work(rows, n, w, rows * w),
-                sk.LARGE_KERNEL_I16: stft_work(rows, n, w, rows * w, sample_bytes=2),
-                sk.LARGE_SPLIT_KERNEL: stft_work(rows, n, w, rows * w)}
-        del z, real
-        allk = device_ms(lambda: sk.stft_mag_packed_allk(bl, br, hann, consts, K, h), iters=5)
-        split_allk = device_ms(lambda: sk.stft_mag_split_allk(bl, br, shann, consts, K, h),
-                               iters=5)
-        zk = torch.complex(torch.randn(K * LARGE_ALLK_STREAMS, n, device=dev),
-                           torch.randn(K * LARGE_ALLK_STREAMS, n, device=dev))
-        allk_lib = device_ms(lambda: torch.fft.fft(zk), iters=5)
-        del zk, bl, br
-        for name in t:
-            b = bound(*work[name])
-            log(f"[23] {KERNELS[name]['name']} {label}, {rows} rows: {t[name]:.4f} ms device "
-                f"time (plain {plain[name]:.4f} ms, library {library[name]:.4f} ms, bound "
-                f"{b[0]:.4f} ms by {b[1]})")
-            if n == LARGE_48K.padded_size:
-                ms[name], plain_ms[name], library_ms[name], bounds[name] = (
-                    t[name], plain[name], library[name], b)
-        log(f"[23] {label}: the all-windows entries at k={K}, {LARGE_ALLK_STREAMS} streams: "
-            f"packed {allk:.4f} ms, split-real {split_allk:.4f} ms device time "
-            f"(torch.fft.fft [{K * LARGE_ALLK_STREAMS}, {n}] {allk_lib:.4f} ms, bound "
-            f"{bound(*stft_work(K * LARGE_ALLK_STREAMS, n, w, LARGE_ALLK_STREAMS * (w + (K - 1) * h)))[0]:.4f} ms)")
+        t = {}
+        for name, run, plain, hn, sb in (
+                (sk.LARGE_KERNEL, lambda: sk.stft_mag_packed(left, right, hann, consts),
+                 lambda: sk.stft_mag_packed_plain(left, right, hann, n), hann, 4),
+                (sk.LARGE_KERNEL_I16, lambda: sk.stft_mag_packed(*words, hann16, consts),
+                 lambda: sk.stft_mag_packed_plain(*words, hann16, n), hann16, 2)):
+            t[name] = timed(name, f"{label}, {rows} rows", run, plain,
+                            lambda: torch.fft.fft(z), stft_work(rows, n, w, rows * w, sb))
+        del z
+        if n == LARGE_48K.padded_size:
+            for name, (tm, pm, lm, b) in t.items():
+                ms[name], plain_ms[name], library_ms[name], bounds[name] = tm, pm, lm, b
         del left, right, words
+        torch.cuda.empty_cache()
+
+    # the split-real route at N = 65,536 (N/2 = 32,768 past a block)
+    cfg = LARGE_64K
+    n, w, h = cfg.padded_size, cfg.window_size, cfg.hop_size
+    if not sk.is_large_split(n):
+        fail(f"N={n}: the split-real rows do not take the large-N route")
+    label = f"N={n} (split-real pack of N/2={n // 2} on the route)"
+    left, right, consts, (_, _, shann) = _large_operands(n, w, rows, dev)
+    _check_stft(23, stats, (sk.LARGE_SPLIT_KERNEL,), f"stft_large_split {label}, {rows} rows",
+                sk.stft_mag_split(left, right, shann, consts),
+                sk.stft_mag_split_plain(left, right, shann, n))
+    streams = 128
+    bl, br = _buffers(cfg, streams, w + (K - 1) * h, 3, dev)
+    wl, wr = (torch.cat([b[:, r * h : r * h + w] for r in range(K)]) for b in (bl, br))
+    got = sk.stft_mag_split_allk(bl, br, shann, consts, K, h)
+    _check_stft(23, stats, (sk.LARGE_SPLIT_KERNEL,), f"stft_mag_split_allk k={K}, {label}, "
+                f"buffers {tuple(bl.shape)}", got,
+                sk.stft_mag_split_allk_plain(bl, br, shann, n, K, h))
+    _identity(23, f"stft_mag_split_allk {label} == stft_mag_split on the windows", got,
+              sk.stft_mag_split(wl, wr, shann, consts))
+    del got, wl, wr, bl, br
+    torch.cuda.empty_cache()
+    real = torch.randn(2 * rows, n, device=dev)
+    name = sk.LARGE_SPLIT_KERNEL
+    ms[name], plain_ms[name], library_ms[name], bounds[name] = timed(
+        name, f"{label}, {rows} rows",
+        lambda: sk.stft_mag_split(left, right, shann, consts),
+        lambda: sk.stft_mag_split_plain(left, right, shann, n),
+        lambda: torch.fft.rfft(real), stft_work(rows, n, w, rows * w))
+    del real, left, right
+    torch.cuda.empty_cache()
+
+    # the split-real pack in shared memory where the route ran it before,
+    # and kernel A at N = 17,640
+    for cfg in (LARGE_44K, LARGE_32K, LARGE_48K):
+        n, w, h = cfg.padded_size, cfg.window_size, cfg.hop_size
+        if sk.is_large_split(n):
+            fail(f"N={n}: the split-real pack left shared memory")
+        label = (f"N={n} (split-real pack of N/2={n // 2}, {sk.split_route(n)}, "
+                 f"{sk.split_buf_size(n) * 8 / 1024:.1f} KB rows)")
+        left, right, consts, (hann, _, shann) = _large_operands(n, w, rows, dev, cfg.sample_rate)
+        _check_stft(23, stats, (sk.SPLIT_KERNEL,), f"stft_split {label}, {rows} rows",
+                    sk.stft_mag_split(left, right, shann, consts),
+                    sk.stft_mag_split_plain(left, right, shann, n))
+        if n == LARGE_48K.padded_size:
+            bl, br = _buffers(cfg, LARGE_ALLK_STREAMS, w + (K - 1) * h, 3, dev)
+            wl, wr = (torch.cat([b[:, r * h : r * h + w] for r in range(K)]) for b in (bl, br))
+            got = sk.stft_mag_split_allk(bl, br, shann, consts, K, h)
+            _check_stft(23, stats, (sk.SPLIT_ALLK_KERNEL,), f"stft_mag_split_allk k={K}, "
+                        f"{label}, buffers {tuple(bl.shape)}", got,
+                        sk.stft_mag_split_allk_plain(bl, br, shann, n, K, h))
+            _identity(23, f"stft_mag_split_allk {label} == stft_mag_split on the windows",
+                      got, sk.stft_mag_split(wl, wr, shann, consts))
+            del got, wl, wr, bl, br
+        torch.cuda.empty_cache()
+        real = torch.randn(2 * rows, n, device=dev)
+        t, _, lib_t, b = timed(sk.SPLIT_KERNEL, f"{label}, {rows} rows",
+                               lambda: sk.stft_mag_split(left, right, shann, consts),
+                               lambda: sk.stft_mag_split_plain(left, right, shann, n),
+                               lambda: torch.fft.rfft(real), stft_work(rows, n, w, rows * w))
+        redesign[f"split-real N={n}"] = (t, lib_t, b[0])
+        del real
+        if n == LARGE_44K.padded_size:
+            if sk.is_large(n) or sk.fft_body(n) != "mixed":
+                fail(f"N={n}: kernel A does not take the mixed-radix body")
+            _check_stft(23, stats, (sk.MIXED_KERNEL,), f"stft_mixed N={n} (mixed "
+                        f"{'-'.join(map(str, sk.mixed_radix_plan(n)))}), {rows} rows",
+                        sk.stft_mag_packed(left, right, hann, consts),
+                        sk.stft_mag_packed_plain(left, right, hann, n))
+            z = torch.complex(torch.randn(rows, n, device=dev), torch.randn(rows, n, device=dev))
+            t, _, lib_t, b = timed(sk.MIXED_KERNEL, f"N={n}, {rows} rows",
+                                   lambda: sk.stft_mag_packed(left, right, hann, consts),
+                                   lambda: sk.stft_mag_packed_plain(left, right, hann, n),
+                                   lambda: torch.fft.fft(z), stft_work(rows, n, w, rows * w))
+            redesign[f"packed N={n}"] = (t, lib_t, b[0])
+            del z
+        del left, right
         torch.cuda.empty_cache()
 
 

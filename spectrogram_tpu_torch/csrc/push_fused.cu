@@ -5,19 +5,22 @@
 // (body `_push_kernel`): [rows, W] window planes x2 -> [rows, H] int32
 // RGBA8888, and with mags the two [rows, B] magnitude planes as well (B =
 // stft_bins(N, W), N/2 at pad_factor >= 2).  One thread block per row runs
-// `stft_real_row` (stft_fft.cuh, the body of the split-real kernels, any N)
-// for each channel into shared memory, then writes every pixel of the row
-// with `colormap_pixel` (colormap_common.cuh, the body of kernel B) from
-// those shared planes, reading row n's table tables[n % n_tables].  Both
-// bodies are the two-kernel chain's, on the same values, so the rows equal
-// spk_stft_split followed by spk_colormap_builtin bit for bit.
+// `stft_real_row` (stft_fft.cuh, the body of the split-real kernels, any N;
+// the N/2-point real-FFT pack at even N) for each channel into shared
+// memory, then writes every pixel of the row with `colormap_pixel`
+// (colormap_common.cuh, the body of kernel B) from those shared planes,
+// reading row n's table tables[n % n_tables].  Both bodies are the
+// two-kernel chain's, on the same values, so the rows equal spk_stft_split
+// followed by spk_colormap_builtin bit for bit.
 //
 // What bounds it on this card: the STFT's shared-memory passes, as
-// spk_stft_split (two FFTs per row).  The fusion saves the chain's device
-// memory round trip of the planes (8 B written and 8 B read per bin and row,
-// minus what the pixels' taps touch) and one launch; it holds the FFT buffer
-// and both planes per block (48 KB at N = 4096), which bounds occupancy as
-// the FFT buffer alone did.
+// spk_stft_split (two N/2-point transforms per row at even N).  The fusion
+// saves the chain's device memory round trip of the planes (8 B written and
+// 8 B read per bin and row, minus what the pixels' taps touch) and one
+// launch; it holds the FFT buffer and both planes per block (32 KB at
+// N = 4096), which bounds occupancy as the FFT buffer alone did.  Where the
+// two do not fit a block together (`push_fused_fits` in
+// ops/cuda/push_kernel.py), the wrapper runs the chain instead.
 #include "push_fused.cuh"
 
 namespace {
@@ -46,7 +49,7 @@ __global__ void __launch_bounds__(spk::kStftMaxThreads) push_fused_kernel(
 }  // namespace
 
 // left, right: [rows, w] f32 window planes; hann: [w] f32 (2/W folded in);
-// consts: n's FFT table (`fft_table`); tables: [n_tables, res*4] f32
+// consts: n's split-real table (`split_fft_table`); tables: [n_tables, res*4] f32
 // built-in tables; j0, j1: [h] i32 and w0, w1: [h] f32 taps below
 // stft_bins(n, w); out: [rows, h] i32; mag_l, mag_r: [rows, stft_bins(n, w)]
 // f32, or both null.  All contiguous.
@@ -61,7 +64,7 @@ SPK_EXPORT int spk_push_fused(const float* left, const float* right,
   const auto* tw = static_cast<const float2*>(consts);
   const spk::ColormapLaws laws{static_cast<float>(res), min_db, db_range,
                                db_eps, inv_res1};
-  return spk::with_fft_body(n, consts, [&](auto body) {
+  return spk::with_real_body(n, consts, [&](auto body) {
     const size_t smem = body.buf_size() * sizeof(float2) +
                         2 * spk::stft_bins(n, w) * sizeof(float);
     if (smem > static_cast<size_t>(spk::kMaxSmemBytes)) {

@@ -14,8 +14,9 @@
 // per output row reads its window from device memory at its offset, so the k
 // window planes are never materialized.  Each row runs the body of the
 // window-plane kernels (stft_fft.cuh `with_fft_body`: Radix2, MixedRadix or
-// Bluestein), so a window gives the same bits here as through stft_packed.cu
-// / stft_mixed.cu.  `spk_stft_allk_carry` (and its int16 form) also writes
+// Bluestein; a mixed-radix row stages its twiddles in shared memory, as
+// there), so a window gives the same bits here as through stft_packed.cu /
+// stft_mixed.cu.  `spk_stft_allk_carry` (and its int16 form) also writes
 // next [S, 2, c_len], the last c_len = W - hop samples of each buffer in the
 // buffers' dtype: the blocks of window 0 copy their stream's two tails.
 //
@@ -58,7 +59,7 @@ int launch(const T* buf_l, const T* buf_r, const float* hann,
            void* stream) {
   const auto* tw = static_cast<const float2*>(consts);
   return spk::with_fft_body(n, consts, [&](auto body) {
-    const size_t smem = body.buf_size() * sizeof(float2);
+    const size_t smem = (body.buf_size() + body.staged_size()) * sizeof(float2);
     const int e = spk::allow_smem(stft_allk_kernel<decltype(body), T>, smem);
     if (e != 0) return e;
     stft_allk_kernel<decltype(body), T>

@@ -1,5 +1,6 @@
 // Device code shared by the STFT kernels: the Hann-pack-pad load, the three
-// FFT bodies and the conjugate-symmetric stereo unpack of one window row.
+// FFT bodies, the conjugate-symmetric stereo unpack of one window row, and
+// the split-real row (one channel as an N/2-point real-FFT pack).
 //
 // Per row, with N >= W:
 //   z[n] = (l[n] + i r[n]) * hann[n]     for n < W, 0 for W <= n < N
@@ -13,14 +14,20 @@
 //
 // Three bodies compute DFT_N in place in shared memory:
 //   Radix2      N = 2^a: bit-reversed load, log2(N) radix-2 DIT stages.
-//   MixedRadix  N = 2^a 3^b 5^c: digit-reversed load, radix-4/2/3/5 DIT
-//               stages (4s first, then a 2, then 3s, then 5s).
-//   Bluestein   any other N: the chirp-z form of DFT_N as a cyclic
-//               convolution of length M, the least 2^a 3^b 5^c >= 2N - 1,
+//   MixedRadix  N = 2^a 3^b 5^c 7^d: digit-reversed load, radix-4/2/3/5/7
+//               DIT stages (4s first, then a 2, then 3s, 5s and 7s), so a
+//               5-smooth N keeps the plan it had before radix 7 (N = 4800:
+//               4-4-4-3-5-5; N = 4410: 2-3-3-5-7-7).
+//   Bluestein   N with a prime factor above 7: the chirp-z form of DFT_N as
+//               a cyclic convolution of length M >= 2N - 1 (`bluestein_length`),
 //               run as a MixedRadix decimation-in-frequency pass (natural
 //               order in, digit-reversed out), a product with the filter's
 //               transform stored in that digit-reversed order, and the DIT
-//               pass (digit-reversed in, natural out); M complex f32 of
+//               pass (digit-reversed in, natural out).  The row's load
+//               multiplies by the chirp and zero-pads to M (`input`), the
+//               DIF pass's last stage stores the filter product, and the
+//               unpack applies the output chirp where it reads a bin
+//               (`result`): no pointwise pass of its own; M complex f32 of
 //               shared memory.
 // Each reads one host-built table (`fft_table` in ops/cuda/stft_kernel.py),
 // computed in float64 and rounded once to f32: the N twiddles exp(-2 pi i t
@@ -39,11 +46,18 @@
 // f32.
 #pragma once
 
+#include <type_traits>
+
 #include "spk_common.cuh"
 
 namespace spk {
 
 constexpr int kStftMaxThreads = 512;
+// An N/2 pack of kWideRow entries or more (128 KB) holds most of an SM's
+// shared memory, one block per SM: those blocks run kWideThreads threads
+// (stft_split.cu), the others at most kStftMaxThreads.
+constexpr int kWideRow = 16384;
+constexpr int kWideThreads = 1024;
 constexpr int kMaxStages = 16;
 // the dynamic shared memory a Hopper block may opt into (227 KB)
 constexpr int kMaxSmemBytes = 232448;
@@ -135,6 +149,35 @@ __device__ __forceinline__ void dft(float2 (&a)[5]) {
   a[4] = add_i(c1, e1);
 }
 
+// A[k] = c_k - i e_k and A[7-k] = c_k + i e_k, k = 1 .. 3, with
+// c_k = a0 + sum_j cos(2 pi j k / 7) (a_j + a_{7-j}) and
+// e_k = sum_j sin(2 pi j k / 7) (a_j - a_{7-j}), j = 1 .. 3.
+__device__ __forceinline__ void dft(float2 (&a)[7]) {
+  constexpr float kC1 = static_cast<float>(0.62348980185873353053);   // cos(2pi/7)
+  constexpr float kC2 = static_cast<float>(-0.22252093395631440429);  // cos(4pi/7)
+  constexpr float kC3 = static_cast<float>(-0.90096886790241912624);  // cos(6pi/7)
+  constexpr float kS1 = static_cast<float>(0.78183148246802980871);   // sin(2pi/7)
+  constexpr float kS2 = static_cast<float>(0.97492791218182360702);   // sin(4pi/7)
+  constexpr float kS3 = static_cast<float>(0.43388373911755812048);   // sin(6pi/7)
+  const float2 a0 = a[0];
+  const float2 b1 = cadd(a[1], a[6]), d1 = csub(a[1], a[6]);
+  const float2 b2 = cadd(a[2], a[5]), d2 = csub(a[2], a[5]);
+  const float2 b3 = cadd(a[3], a[4]), d3 = csub(a[3], a[4]);
+  const float2 c1 = cfma(kC3, b3, cfma(kC2, b2, cfma(kC1, b1, a0)));
+  const float2 c2 = cfma(kC1, b3, cfma(kC3, b2, cfma(kC2, b1, a0)));
+  const float2 c3 = cfma(kC2, b3, cfma(kC1, b2, cfma(kC3, b1, a0)));
+  const float2 e1 = cfma(kS3, d3, cfma(kS2, d2, cscale(kS1, d1)));
+  const float2 e2 = cfma(-kS1, d3, cfma(-kS3, d2, cscale(kS2, d1)));
+  const float2 e3 = cfma(kS2, d3, cfma(-kS1, d2, cscale(kS3, d1)));
+  a[0] = cadd(cadd(cadd(a0, b1), b2), b3);
+  a[1] = sub_i(c1, e1);
+  a[2] = sub_i(c2, e2);
+  a[3] = sub_i(c3, e3);
+  a[4] = add_i(c3, e3);
+  a[5] = add_i(c2, e2);
+  a[6] = add_i(c1, e1);
+}
+
 // One radix-R butterfly over x[0], x[l], ..., x[(R-1) l] with twiddles
 // tw[q t]: decimation in time multiplies the inputs q >= 1 before the DFT,
 // decimation in frequency (the transposed flow graph) the outputs after it.
@@ -158,11 +201,24 @@ struct Radix2 {
 
   __device__ __forceinline__ int size() const { return 1 << log2n; }
   __host__ __device__ __forceinline__ int buf_size() const { return 1 << log2n; }
+  // f32 pairs of the body's table: its N twiddles
+  __host__ __device__ __forceinline__ int table_size() const { return 1 << log2n; }
 
   // bit reversal: where sample i sits before the first DIT stage
   __device__ __forceinline__ int slot(int i) const {
     return static_cast<int>(__brev(static_cast<unsigned>(i)) >> (32 - log2n));
   }
+
+  // The load's value for sample i (z, zero past the window): z itself.
+  __device__ __forceinline__ float2 input(int, float2 z) const { return z; }
+  // X[k] of the transformed buffer
+  __device__ __forceinline__ float2 result(const float2* buf, int k) const {
+    return buf[k];
+  }
+  // After a load that wrote floats into buf[slot(i)], i < size(): nothing.
+  __device__ __forceinline__ void prepare(float2*) const {}
+  // Table entries a packed row stages in shared memory (`stage_twiddles`).
+  __host__ __device__ __forceinline__ int staged_size() const { return 0; }
 
   // Stage s merges transforms of size 2^s into 2^(s+1); the twiddle of
   // butterfly position p is exp(-2 pi i p / 2^(s+1)) = tw[p * N / 2^(s+1)].
@@ -185,13 +241,47 @@ struct Radix2 {
   }
 };
 
-struct MixedRadix {
+// kTop, the largest radix of the butterfly switch: 7 takes every 7-smooth
+// plan, 5 only plans with no 7 (`with_mixed_radix` gives those the 5 switch,
+// so their kernels keep the code, registers and bits they had before radix
+// 7 joined the plan).
+template <int kTop>
+struct MixedRadixT {
+  static constexpr int kTopRadix = kTop;
   int n;
   int stages;
   int radix[kMaxStages];
 
+  __host__ __device__ __forceinline__ bool has_seven() const {
+    for (int s = 0; s < stages; ++s) {
+      if (radix[s] == 7) return true;
+    }
+    return false;
+  }
+
+  // the same plan with the kOther switch
+  template <int kOther>
+  __host__ __device__ __forceinline__ MixedRadixT<kOther> as() const {
+    MixedRadixT<kOther> other;
+    other.n = n;
+    other.stages = stages;
+    for (int s = 0; s < kMaxStages; ++s) other.radix[s] = radix[s];
+    return other;
+  }
+
   __device__ __forceinline__ int size() const { return n; }
   __host__ __device__ __forceinline__ int buf_size() const { return n; }
+  __host__ __device__ __forceinline__ int table_size() const { return n; }
+
+  __device__ __forceinline__ float2 input(int, float2 z) const { return z; }
+  __device__ __forceinline__ float2 result(const float2* buf, int k) const {
+    return buf[k];
+  }
+  __device__ __forceinline__ void prepare(float2*) const {}
+  // The n twiddles, where they fit beside the buffer.
+  __host__ __device__ __forceinline__ int staged_size() const {
+    return 2 * n * static_cast<int>(sizeof(float2)) <= kMaxSmemBytes ? n : 0;
+  }
 
   // Digit reversal.  Stage s turns r_s sub-transforms of length
   // L_s = r_0 ... r_{s-1}, stored one after another, into one of length
@@ -236,10 +326,12 @@ struct MixedRadix {
 
   // Decimation in frequency, the transposed flow graph of `transform`: the
   // stages in reverse order, each an r-point DFT followed by the twiddles.
-  // Natural-order input; X[k] lands in buf[slot(k)].
-  __device__ __forceinline__ void transform_dif(float2* buf, const float2* tw) const {
+  // Natural-order input; X[k] lands in buf[slot(k)] once stages
+  // stages-1 .. `last` have run (all of them for last = 0).
+  __device__ __forceinline__ void transform_dif(float2* buf, const float2* tw,
+                                                int last = 0) const {
     int len = n;
-    for (int s = stages - 1; s >= 0; --s) {
+    for (int s = stages - 1; s >= last; --s) {
       len /= radix[s];
       stage<true>(buf, tw, s, len);
     }
@@ -270,18 +362,29 @@ struct MixedRadix {
       case 4: butterfly<4, kDif>(x, len, t, tw); break;
       case 2: butterfly<2, kDif>(x, len, t, tw); break;
       case 3: butterfly<3, kDif>(x, len, t, tw); break;
-      default: butterfly<5, kDif>(x, len, t, tw); break;
+      default:
+        if constexpr (kTop == 7) {
+          if (r == 7) {
+            butterfly<7, kDif>(x, len, t, tw);
+            break;
+          }
+        }
+        butterfly<5, kDif>(x, len, t, tw);
+        break;
     }
   }
 };
 
+using MixedRadix = MixedRadixT<7>;
+
 // The mixed-radix plan of n on the host; false if n has a prime factor
-// other than 2, 3 and 5 or needs more than kMaxStages stages.
+// above 7 or needs more than kMaxStages stages.  Radix 7 comes last, so a
+// 5-smooth n keeps the plan (and the bits) it had before radix 7.
 static inline bool make_mixed_radix(int n, MixedRadix* plan) {
   plan->n = n;
   plan->stages = 0;
   int rest = n;
-  const int radices[] = {4, 2, 3, 5};  // once the 4s are out, one 2 at most
+  const int radices[] = {4, 2, 3, 5, 7};  // once the 4s are out, one 2 at most
   for (int r : radices) {
     while (rest % r == 0) {
       if (plan->stages == kMaxStages) return false;
@@ -292,20 +395,28 @@ static inline bool make_mixed_radix(int n, MixedRadix* plan) {
   return rest == 1 && n > 1;
 }
 
-// The least 2^a 3^b 5^c >= n: Bluestein's convolution length for 2N - 1.
-static inline int smooth_at_least(int n) {
-  for (int m = n > 1 ? n : 2;; ++m) {
-    int rest = m;
-    const int primes[] = {2, 3, 5};
-    for (int p : primes) {
-      while (rest % p == 0) rest /= p;
+// Bluestein's convolution length for N: of the 7-smooth M from 2N - 1 up to
+// the least 5-smooth one, the M whose plan has the fewest stages, then one
+// without a radix 7, then the least (N = 97: 196 = 4 7 7; N = 2204: 4500,
+// not 4410, whose six stages include a 2 and two 7s).  A stage is a pass
+// over the buffer, and a 7 in the plan costs the kernel registers
+// (MixedRadixT<7>).
+static inline int bluestein_length(int n) {
+  int best = -1, best_key = 0;
+  for (int m = 2 * n - 1 > 2 ? 2 * n - 1 : 2;; ++m) {
+    MixedRadix plan;
+    if (!make_mixed_radix(m, &plan)) continue;
+    const int key = 2 * plan.stages + (plan.has_seven() ? 1 : 0);
+    if (best < 0 || key < best_key) {
+      best = m;
+      best_key = key;
     }
-    if (rest == 1) return m;
+    if (!plan.has_seven()) return best;
   }
 }
 
-// DFT_N for any N, as a cyclic convolution of length M (`smooth_at_least(2N
-// - 1)`, the MixedRadix body `inner`), with c[t] = exp(-i pi t^2 / N):
+// DFT_N for any N, as a cyclic convolution of length M (`bluestein_length`,
+// the MixedRadix body `inner`), with c[t] = exp(-i pi t^2 / N):
 //   X[k] = c[k] * sum_t (x[t] c[t]) conj(c[k - t]),  k < N
 //   a = x c zero-padded to M;  A = DFT_M(a)           (DIF: A[k] at slot(k))
 //   D = conj(A F),  F = DFT_M(b) / M,  b[t] = b[M - t] = conj(c[t]), t < N
@@ -313,40 +424,95 @@ static inline int smooth_at_least(int n) {
 //   X[k] = c[k] conj(DFT_M(D)[k])
 // `filter` holds F in the DIF output order (F[k] at slot(k)), so the product
 // is pointwise and no pass permutes the buffer.  The row loads x in natural
-// order (`slot` is the identity) into buf[0 .. N); the transform leaves X in
-// buf[0 .. N), natural order, as the direct bodies do.
-struct Bluestein {
+// order (`slot` is the identity) into buf[0 .. M) through `input`, which
+// multiplies by the chirp and zero-pads, the DIF pass's last stage stores
+// conj(A F), and the unpack reads X[k] through `result`, which applies the
+// output chirp: the three pointwise steps ride the load, a stage and the
+// unpack.  (A load that writes single floats, the split-real pack's, leaves
+// the chirp to `prepare`.)
+template <class Inner>
+struct BluesteinT {
   int n;
-  MixedRadix inner;
+  Inner inner;           // MixedRadixT of M
   const float2* chirp;   // [N] c
   const float2* filter;  // [M] F, digit-reversed
 
   __device__ __forceinline__ int size() const { return n; }
   __host__ __device__ __forceinline__ int buf_size() const { return inner.n; }
+  // M twiddles, N chirp entries, M filter entries
+  __host__ __device__ __forceinline__ int table_size() const {
+    return 2 * inner.n + n;
+  }
   __device__ __forceinline__ int slot(int i) const { return i; }
 
-  // tw: the M twiddles exp(-2 pi i t / M) of the inner transforms
-  __device__ __forceinline__ void transform(float2* buf, const float2* tw) const {
-    const int m = inner.n;
-    for (int i = threadIdx.x; i < m; i += blockDim.x) {
-      buf[i] = i < n ? cmul(buf[i], chirp[i]) : make_float2(0.f, 0.f);
-    }
-    __syncthreads();
-    inner.transform_dif(buf, tw);
-    for (int i = threadIdx.x; i < m; i += blockDim.x) {
-      buf[i] = conjugate(cmul(buf[i], filter[i]));
-    }
-    __syncthreads();
-    inner.transform(buf, tw);
-    for (int k = threadIdx.x; k < n; k += blockDim.x) {
-      buf[k] = cmul(chirp[k], conjugate(buf[k]));
+  // a[i] = z c[i] for i < N, zero from N to M
+  __device__ __forceinline__ float2 input(int i, float2 z) const {
+    return i < n ? cmul(z, chirp[i]) : make_float2(0.f, 0.f);
+  }
+  __device__ __forceinline__ float2 result(const float2* buf, int k) const {
+    return cmul(chirp[k], conjugate(buf[k]));
+  }
+  // After a load that wrote the floats of buf[0 .. N) in place: `input` over
+  // buf[0 .. M).
+  __host__ __device__ __forceinline__ int staged_size() const { return 0; }
+  __device__ __forceinline__ void prepare(float2* buf) const {
+    for (int i = threadIdx.x; i < inner.n; i += blockDim.x) {
+      buf[i] = input(i, i < n ? buf[i] : make_float2(0.f, 0.f));
     }
     __syncthreads();
   }
+
+  // tw: the M twiddles exp(-2 pi i t / M) of the inner transforms.  The DIF
+  // pass's last stage (radix r_0 over r_0 adjacent entries, twiddle tw[0])
+  // stores conj(A F) directly, so the filter product has no pass of its own.
+  __device__ __forceinline__ void transform(float2* buf, const float2* tw) const {
+    inner.transform_dif(buf, tw, 1);
+    const int r = inner.radix[0];
+    for (int j = threadIdx.x; j < inner.n / r; j += blockDim.x) {
+      switch (r) {
+        case 4: filtered_dft<4>(buf, j * 4, tw); break;
+        case 2: filtered_dft<2>(buf, j * 2, tw); break;
+        case 3: filtered_dft<3>(buf, j * 3, tw); break;
+        default:
+          if constexpr (Inner::kTopRadix == 7) {
+            if (r == 7) {
+              filtered_dft<7>(buf, j * 7, tw);
+              break;
+            }
+          }
+          filtered_dft<5>(buf, j * 5, tw);
+          break;
+      }
+    }
+    __syncthreads();
+    inner.transform(buf, tw);
+  }
+
+  // Butterfly j of the DIF pass's stage 0 (`butterfly<R, true>` with
+  // twiddle tw[0]) over buf[at .. at + R), then the filter product.
+  template <int R>
+  __device__ __forceinline__ void filtered_dft(float2* buf, int at,
+                                               const float2* __restrict__ tw) const {
+    float2 a[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) a[q] = buf[at + q];
+    dft(a);
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const float2 x = q == 0 ? a[q] : cmul(a[q], tw[0]);
+      buf[at + q] = conjugate(cmul(x, filter[at + q]));
+    }
+  }
 };
 
+// fn(plan) with the plan's 5 switch where it has no radix 7, else as it is.
+template <class Fn>
+static inline int with_mixed_radix(const MixedRadix& plan, Fn fn) {
+  return plan.has_seven() ? fn(plan) : fn(plan.template as<5>());
+}
+
 // fn(body) with the FFT body of size n over its table `consts` (see the top
-// of this file): Radix2 for n = 2^a, MixedRadix for other 2^a 3^b 5^c,
+// of this file): Radix2 for n = 2^a, MixedRadix for other 2^a 3^b 5^c 7^d,
 // Bluestein otherwise; fn's result, or cudaErrorInvalidValue where n < 2 or
 // the body's buffer exceeds a block's shared memory.
 template <class Fn>
@@ -366,18 +532,17 @@ static inline int with_fft_body(int n, const void* consts, Fn fn) {
     if (n * static_cast<int>(sizeof(float2)) > kMaxSmemBytes) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    return fn(direct);
+    return with_mixed_radix(direct, fn);
   }
-  const int m = smooth_at_least(2 * n - 1);
-  Bluestein body;
-  body.n = n;
+  const int m = bluestein_length(n);
+  MixedRadix inner;
   if (m * static_cast<int>(sizeof(float2)) > kMaxSmemBytes ||
-      !make_mixed_radix(m, &body.inner)) {
+      !make_mixed_radix(m, &inner)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  body.chirp = table + m;
-  body.filter = table + m + n;
-  return fn(body);
+  return with_mixed_radix(inner, [&](auto plan) {
+    return fn(BluesteinT<decltype(plan)>{n, plan, table + m, table + m + n});
+  });
 }
 
 // The conjugate-symmetric stereo unpack of one bin (fft.rs:81-92): zk =
@@ -395,10 +560,44 @@ __device__ __forceinline__ float magnitude(float2 z) {
   return sqrtf(__fmaf_rn(z.x, z.x, __fmul_rn(z.y, z.y)));
 }
 
+// |X[k]|, k < N = 2h, of a real row x from the h-point transform Z of its
+// pack z[t] = x[2t] + i x[2t+1] (`z(t)` gives Z[t]; `post` holds the h
+// twiddles exp(-2 pi i k / N)):
+//   X[k] = ((Z[k] + conj Z[h-k]) - i e^{-2 pi i k / N} (Z[k] - conj Z[h-k])) / 2
+// with Z[h] = Z[0]; the twiddle of k = h is -1, and a bin past h is the
+// mirror of bin N - k (|X[k]| = |X[N-k]| for real x).  The 1/2 is an exact
+// scale of the magnitude.
+template <class Z>
+__device__ __forceinline__ float real_pack_magnitude(const Z& z,
+                                                     const float2* __restrict__ post,
+                                                     int h, int k) {
+  if (k > h) k = 2 * h - k;
+  const bool edge = k == 0 || k == h;
+  const float2 zk = z(edge ? 0 : k);
+  const float2 zm = z(edge ? 0 : h - k);
+  const float2 e = make_float2(__fadd_rn(zk.x, zm.x), __fsub_rn(zk.y, zm.y));
+  const float2 o = make_float2(__fsub_rn(zk.x, zm.x), __fadd_rn(zk.y, zm.y));
+  const float2 t = k == h ? make_float2(-o.x, -o.y) : cmul(post[k], o);
+  return __fmul_rn(0.5f, magnitude(sub_i(e, t)));
+}
+
+// The first `count` entries of tw copied to shared memory at `at` (the row's
+// barrier after its load orders them), or tw itself where count is 0.
+// Staged, the mixed-radix packed rows read their twiddles 19-20% faster at
+// N = 4410 and 4800; the radix-2 rows (1.3%) and the split-real rows
+// (6-31%, fewer blocks per SM) read them slower so, and stay as they were
+// (PERF.md §6, H100).
+__device__ __forceinline__ const float2* stage_twiddles(const float2* tw, int count,
+                                                       float2* at) {
+  if (count == 0) return tw;
+  for (int i = threadIdx.x; i < count; i += blockDim.x) at[i] = tw[i];
+  return at;
+}
+
 // One window row: load l, r through hann into `buf` in the body's input
 // order, transform, unpack both channels' magnitudes into ol, orr
 // [stft_bins(N, W)].  The caller's block has blockDim.x threads and
-// body.buf_size() complex f32 of `buf`.
+// body.buf_size() + body.staged_size() complex f32 of `buf`.
 //
 // Samples are f32, or int16 PCM words (T = short, the i16_planes wire mode:
 // half the bytes read).  A word converts to f32 exactly, and its 1/32768
@@ -411,22 +610,24 @@ __device__ __forceinline__ void stft_packed_row(
     const float* __restrict__ hann, const float2* __restrict__ tw, int w,
     float* __restrict__ ol, float* __restrict__ orr, float2* buf) {
   const int n = body.size();
+  const float2* stw = stage_twiddles(tw, body.staged_size(), buf + body.buf_size());
   // coalesced global reads, scattered shared-memory writes
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+  for (int i = threadIdx.x; i < body.buf_size(); i += blockDim.x) {
     float2 z = make_float2(0.f, 0.f);
     if (i < w) {
       const float h = hann[i];
       z = make_float2(__fmul_rn(static_cast<float>(l[i]), h),
                       __fmul_rn(static_cast<float>(r[i]), h));
     }
-    buf[body.slot(i)] = z;
+    buf[body.slot(i)] = body.input(i, z);
   }
   __syncthreads();
-  body.transform(buf, tw);
+  body.transform(buf, stw);
   // conjugate-symmetric stereo unpack (fft.rs:81-92), coalesced stores
   const int bins = stft_bins(n, w);
   for (int k = threadIdx.x; k < bins; k += blockDim.x) {
-    unpack_stereo(buf[k], buf[k == 0 ? 0 : n - k], &ol[k], &orr[k]);
+    unpack_stereo(body.result(buf, k), body.result(buf, k == 0 ? 0 : n - k),
+                  &ol[k], &orr[k]);
   }
 }
 
@@ -508,25 +709,103 @@ struct PlanarSamples {
   }
 };
 
+// The split-real row's two forms.  Even N (from 4) runs the N/2-point body
+// `half` on the pack z[t] = x[2t] + i x[2t+1] (t < N/2) and unpacks each bin
+// with `real_pack_magnitude`: half the buffer and half the stages of an
+// N-point transform.  Odd N has no pack and runs the N-point body on
+// (x, 0).  `split_fft_table` (ops/cuda/stft_kernel.py) lays out the table:
+// even N, N/2's body table followed by the N/2 post-twiddles; odd N, N's.
+template <class Body>
+struct RealPack {
+  Body half;
+  const float2* post;  // [N/2] exp(-2 pi i k / N)
+
+  __device__ __forceinline__ int size() const { return 2 * half.size(); }
+  __host__ __device__ __forceinline__ int buf_size() const { return half.buf_size(); }
+};
+
+template <class Body>
+struct RealFull {
+  Body body;
+
+  __device__ __forceinline__ int size() const { return body.size(); }
+  __host__ __device__ __forceinline__ int buf_size() const { return body.buf_size(); }
+};
+
+template <class Row>
+struct is_real_pack : std::false_type {};
+template <class Body>
+struct is_real_pack<RealPack<Body>> : std::true_type {};
+
+// True where the split-real row of N runs as the N/2-point pack.
+__host__ __device__ __forceinline__ bool real_packs(int n) {
+  return n % 2 == 0 && n >= 4;
+}
+
+// fn(row) with the split-real row form of N (RealPack over N/2's body or
+// RealFull over N's) on its table `consts`; as `with_fft_body`.
+template <class Fn>
+static inline int with_real_body(int n, const void* consts, Fn fn) {
+  if (!real_packs(n)) {
+    return with_fft_body(n, consts, [&](auto body) {
+      return fn(RealFull<decltype(body)>{body});
+    });
+  }
+  return with_fft_body(n / 2, consts, [&](auto half) {
+    return fn(RealPack<decltype(half)>{
+        half, static_cast<const float2*>(consts) + half.table_size()});
+  });
+}
+
+// Load x * hann into `buf` (a float lane per sample: lane i & 1 of the
+// pack entry i >> 1, or the real part of entry i with the imaginary zeroed),
+// transform, and write |X[k]| for k < stft_bins(N, W) to `out`.
 template <class Body, class Source>
 __device__ __forceinline__ void stft_real_row(
-    const Body& body, const Source& src, const float* __restrict__ hann,
+    const RealPack<Body>& row, const Source& src, const float* __restrict__ hann,
     const float2* __restrict__ tw, float* __restrict__ out, float2* buf) {
+  const int n = row.size();
+  const int w = src.size();
+  float* lanes = reinterpret_cast<float*>(buf);
+  for (int f = threadIdx.x; f < w; f += blockDim.x) {
+    int i;
+    const float x = src.sample(f, &i);
+    lanes[2 * row.half.slot(i >> 1) + (i & 1)] = __fmul_rn(x, hann[i]);
+  }
+  for (int i = w + threadIdx.x; i < n; i += blockDim.x) {
+    lanes[2 * row.half.slot(i >> 1) + (i & 1)] = 0.f;
+  }
+  __syncthreads();
+  row.half.prepare(buf);
+  row.half.transform(buf, tw);
+  const int bins = stft_bins(n, w);
+  const auto z = [&](int t) { return row.half.result(buf, t); };
+  for (int k = threadIdx.x; k < bins; k += blockDim.x) {
+    out[k] = real_pack_magnitude(z, row.post, n / 2, k);
+  }
+}
+
+// Odd N: the N-point transform of (x * hann, 0).
+template <class Body, class Source>
+__device__ __forceinline__ void stft_real_row(
+    const RealFull<Body>& row, const Source& src, const float* __restrict__ hann,
+    const float2* __restrict__ tw, float* __restrict__ out, float2* buf) {
+  const Body& body = row.body;
   const int n = body.size();
   const int w = src.size();
   for (int f = threadIdx.x; f < w; f += blockDim.x) {
     int i;
     const float x = src.sample(f, &i);
-    buf[body.slot(i)] = make_float2(__fmul_rn(x, hann[i]), 0.f);
+    buf[body.slot(i)] = body.input(i, make_float2(__fmul_rn(x, hann[i]), 0.f));
   }
-  for (int i = w + threadIdx.x; i < n; i += blockDim.x) {
-    buf[body.slot(i)] = make_float2(0.f, 0.f);
+  for (int i = w + threadIdx.x; i < body.buf_size(); i += blockDim.x) {
+    buf[body.slot(i)] = body.input(i, make_float2(0.f, 0.f));
   }
   __syncthreads();
   body.transform(buf, tw);
   const int bins = stft_bins(n, w);
   for (int k = threadIdx.x; k < bins; k += blockDim.x) {
-    out[k] = magnitude(buf[k]);
+    out[k] = magnitude(body.result(buf, k));
   }
 }
 

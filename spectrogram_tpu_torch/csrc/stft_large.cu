@@ -1,8 +1,11 @@
 // The large-N STFT route: the STFT kernels' function at any N, with each
 // row's FFT buffer in device memory where it passes a block's 227 KB of
-// shared memory (N = 2^15 and up, 2^a 3^b 5^c N above 29,056, Bluestein N
-// from about 14,500: 48 kHz with a 0.5 s window, N=48,000; 44.1 kHz with a
-// 0.2 s window, N=17,640 and M=36,000; a 16,384-sample window at pad 2).
+// shared memory.  Packed rows hold N entries (Bluestein: M): N = 2^15 and
+// up, 7-smooth N above 29,056, Bluestein N from about 14,500 (48 kHz with
+// a 0.5 s window, N=48,000; a 16,384-sample window at pad 2; the prime
+// 16,411, M = 33,614).  Split-real rows hold the N/2-point pack, so only
+// even N above 58,112 (N = 65,536 at a 32,768-sample window), even N whose
+// N/2 needs a Bluestein M past 29,056, and odd N from about 14,500 take it.
 //
 // Replaces spectrogram_tpu/ops/pallas/stft_kernel.py `stft_mag_fused2`
 // (packed and split-real) at those N, where the JAX package's fused chain
@@ -18,20 +21,21 @@
 //
 // with B = stft_bins(N, w).  Each entry runs the passes of stft_large.cuh
 // over a caller-allocated scratch of [rows, buf_size] complex f32 ([2 rows,
-// buf_size] split-real): the load (a thread per entry, gathering its
-// sample), the local pass (one block per run of `span` entries, through
-// shared memory), one launch per global stage (a thread per butterfly;
-// Bluestein's DIF stage before the local pass) and the unpack (a thread
-// per bin), each thread walking rows along the grid's y axis.  It is one
-// launch of the route, counted once by its wrapper.
+// buf_size] split-real, buf_size N/2 at even N): the load (a thread per
+// entry, gathering its samples), the local pass (one block per run of
+// `span` entries, through shared memory), one launch per global stage (a
+// thread per butterfly; Bluestein's DIF stage before the local pass) and the
+// unpack (a thread per bin), each thread walking rows along the grid's y
+// axis.  It is one launch of the route, counted once by its wrapper.
 //
 // What bounds it on this card: device memory.  Each pass reads and writes
 // the scratch once, 16 bytes per entry and row: four passes for a direct
 // N, five for Bluestein, where the bytes the function must move (samples
 // in, planes out) are one pass's worth; a direct N's load also gathers its
 // samples from digit-reversed positions, 4 bytes scattered over the row.
-// A radix-N/span global stage fused with the unpack, and the load fused
-// with the local pass, would cut two passes; that is later work.
+// The split-real pack halves the entries of a row, and so the bytes of
+// every pass.  A radix-N/span global stage fused with the unpack, and the
+// load fused with the local pass, would cut two passes; that is later work.
 #include "stft_large.cuh"
 
 namespace {
@@ -119,7 +123,7 @@ __global__ void __launch_bounds__(kThreads) large_magnitude_kernel(
   for (int q = blockIdx.y; q < 2 * rows; q += gridDim.y) {
     const float2* row = scratch + static_cast<size_t>(q) * p.buf_size();
     ((q & 1) ? out_r : out_l)[static_cast<size_t>(q >> 1) * bins + k] =
-        spk::magnitude(spk::large_result(p, row, k));
+        spk::large_magnitude(p, row, k);
   }
 }
 
@@ -190,14 +194,15 @@ SPK_EXPORT int spk_stft_large_packed_i16(const short* left, const short* right,
                       w, n, stream);
 }
 
-// As spk_stft_large_packed with the split-real rows: hann is split_hann and
-// scratch [2 rows, buf_size] complex f32.
+// As spk_stft_large_packed with the split-real rows: hann is split_hann,
+// consts n's split-real table (`split_fft_table`), and scratch [2 rows,
+// buf_size] complex f32 (buf_size of N/2 at even N, else of N).
 SPK_EXPORT int spk_stft_large_split(const float* left, const float* right,
                                     const float* hann, const void* consts,
                                     float* scratch, float* out_l, float* out_r,
                                     int rows, int w, int n, void* stream) {
   spk::LargePlan p;
-  if (!spk::make_large_plan(n, w, consts, &p)) {
+  if (!spk::make_large_plan(n, w, consts, &p, spk::kMaxSmemBytes / 8, true)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto st = static_cast<cudaStream_t>(stream);

@@ -1,7 +1,8 @@
 // Kernel A at every other N: the stereo-packed STFT magnitudes for
-// N = 2^a 3^b 5^c (the reference geometry's N = 4800 = 2^6 3 5^2) and, by
-// Bluestein's chirp-z convolution, for any N with a larger prime factor
-// (44.1 kHz at the reference's 0.05 s window: N = 4410 = 2 3^2 5 7^2).
+// N = 2^a 3^b 5^c 7^d (the reference geometry's N = 4800 = 2^6 3 5^2, and
+// 44.1 kHz at the reference's 0.05 s window, N = 4410 = 2 3^2 5 7^2) and, by
+// Bluestein's chirp-z convolution, for any N with a prime factor above 7
+// (N = 2204 = 2^2 19 29, M = 4500).
 //
 // Replaces spectrogram_tpu/ops/pallas/stft_kernel.py `stft_mag_fused2`
 // (packed=True) at the sizes the TPU ran through its lane-padded four-step
@@ -9,16 +10,19 @@
 // leaves to XLA's FFT, with f32 or int16 window planes (the i16_planes wire
 // mode).  One thread block per window row of the [rows, W] window planes
 // runs the body `with_fft_body` picks (stft_fft.cuh): the digit-reversed
-// radix-4/2/3/5 DIT (`MixedRadix`, 38.4 KB at N=4800) or `Bluestein` (two
-// M-point mixed-radix passes, M = 9000 and 72 KB at N = 4410), above 48 KB by
-// the opt-in attribute.  Same load and unpack as the power-of-two kernel
+// radix-4/2/3/5/7 DIT (`MixedRadix`, 38.4 KB at N=4800, 35.3 KB at N=4410,
+// and as much again for its twiddles, staged in shared memory where they
+// fit: `stage_twiddles`) or `Bluestein` (two M-point mixed-radix passes,
+// the chirp and filter products folded into the load and the last DIF
+// stage), above 48 KB by the opt-in attribute.  Same load and unpack as the power-of-two kernel
 // (stft_packed.cu), which keeps power-of-two N.
 //
 // What bounds it on this card: shared-memory traffic and the integer index
 // arithmetic of its stages (N=4800: six passes, 4-4-4-3-5-5, over a 38.4 KB
-// row; Bluestein twice that over M >= 2N - 1), not device memory (8 bytes
-// in, 4 with int16 samples, and 8 out per sample).  Radix-8/16 stages with
-// register-resident butterflies would cut the passes; that is later work.
+// row; N=4410: six, 2-3-3-5-7-7; Bluestein twice that over M >= 2N - 1),
+// not device memory (8 bytes in, 4 with int16 samples, and 8 out per
+// sample).  Radix-8/16 stages with register-resident butterflies would cut
+// the passes; that is later work.
 #include "stft_fft.cuh"
 
 namespace {
@@ -41,7 +45,7 @@ int launch(const T* left, const T* right, const float* hann,
            int n, void* stream) {
   const auto* tw = static_cast<const float2*>(consts);
   return spk::with_fft_body(n, consts, [&](auto body) {
-    const size_t smem = body.buf_size() * sizeof(float2);
+    const size_t smem = (body.buf_size() + body.staged_size()) * sizeof(float2);
     const int e = spk::allow_smem(stft_mixed_kernel<decltype(body), T>, smem);
     if (e != 0) return e;
     stft_mixed_kernel<decltype(body), T>

@@ -23,25 +23,32 @@
 //                          emit_carry=True)`: spk_stft_split_allk, and the
 //                          last C samples of each buffer as [S, 2, C]
 // The TPU bodies ran a four-step matrix-unit FFT; here one thread block per
-// (window, channel) runs the shared FFT bodies of stft_fft.cuh (Radix2,
-// MixedRadix or Bluestein, by N) on the real window, through
-// `stft_real_row` with the layout's sample source.  The layouts differ only
-// in where a sample is read, so for the same window they give the same
-// bits; the kernels with a next carry write it from the blocks of window 0,
-// one channel each.  Output rows are stft_bins(N, W) wide.
+// (window, channel) runs `stft_real_row` (stft_fft.cuh) with the layout's
+// sample source.  At even N the row is the N/2-point real-FFT pack: the
+// window's samples pair up as x[2t] + i x[2t+1] in an N/2-entry buffer, the
+// shared FFT body of N/2 (Radix2, MixedRadix or Bluestein) transforms it,
+// and each bin is unpacked with the N/2 post-twiddles exp(-2 pi i k / N);
+// odd N runs the N-point body on (x, 0).  The layouts differ only in where a
+// sample is read, so for the same window they give the same bits; the
+// kernels with a next carry write it from the blocks of window 0, one
+// channel each.  Output rows are stft_bins(N, W) wide.
 //
 // What bounds them on this card: shared-memory traffic of the butterfly
-// stages, as the packed kernels, here twice over: one complex FFT per
-// channel where the packed kernels run one for both (the N/2-point real-FFT
-// pack would halve it; that is later work).  Device memory moves 4 bytes in
-// and 4 out per sample and channel (with a next carry: 4 more per carry
-// sample).
+// stages, as the packed kernels: one N/2-point transform per channel, so a
+// window's two channels cost what the packed kernels' one N-point transform
+// costs, and the row's buffer is N/2 complex f32 (16 KB at N = 4096; 192 KB
+// at N = 48,000, which still fits a block: the split-real rows leave the
+// large-N route below N/2 = 29,056 for a direct N/2).  Device memory moves 4
+// bytes in and 4 out per sample and channel (with a next carry: 4 more per
+// carry sample).
+#include <type_traits>
+
 #include "stft_fft.cuh"
 
 namespace {
 
-template <class Body>
-__global__ void __launch_bounds__(spk::kStftMaxThreads) stft_split_kernel(
+template <class Body, int kThreads>
+__global__ void __launch_bounds__(kThreads) stft_split_kernel(
     Body body, const float* __restrict__ left, const float* __restrict__ right,
     const float* __restrict__ hann, const float2* __restrict__ twiddles,
     float* __restrict__ out_l, float* __restrict__ out_r, int w) {
@@ -54,8 +61,8 @@ __global__ void __launch_bounds__(spk::kStftMaxThreads) stft_split_kernel(
                      buf);
 }
 
-template <class Body>
-__global__ void __launch_bounds__(spk::kStftMaxThreads) stft_split_allk_kernel(
+template <class Body, int kThreads>
+__global__ void __launch_bounds__(kThreads) stft_split_allk_kernel(
     Body body, const float* __restrict__ buf_l, const float* __restrict__ buf_r,
     const float* __restrict__ hann, const float2* __restrict__ twiddles,
     float* __restrict__ out_l, float* __restrict__ out_r,
@@ -78,8 +85,8 @@ __global__ void __launch_bounds__(spk::kStftMaxThreads) stft_split_allk_kernel(
 
 // The k windows of carry [S, 2, c_len] + chunk [S, 2, t_len] (t_len = k*hop),
 // one (window, channel) per block, and the next carry from window 0's blocks.
-template <class Body>
-__global__ void __launch_bounds__(spk::kStftMaxThreads) stft_split_carry_kernel(
+template <class Body, int kThreads>
+__global__ void __launch_bounds__(kThreads) stft_split_carry_kernel(
     Body body, const float* __restrict__ carry, const float* __restrict__ chunk,
     const float* __restrict__ hann, const float2* __restrict__ twiddles,
     float* __restrict__ out_l, float* __restrict__ out_r,
@@ -101,8 +108,8 @@ __global__ void __launch_bounds__(spk::kStftMaxThreads) stft_split_carry_kernel(
                      buf);
 }
 
-template <class Body>
-__global__ void __launch_bounds__(spk::kStftMaxThreads) stft_split_t_kernel(
+template <class Body, int kThreads>
+__global__ void __launch_bounds__(kThreads) stft_split_t_kernel(
     Body body, const float* __restrict__ x, const float* __restrict__ hann,
     const float2* __restrict__ twiddles, float* __restrict__ out_l,
     float* __restrict__ out_r, int n1, int m) {
@@ -116,8 +123,8 @@ __global__ void __launch_bounds__(spk::kStftMaxThreads) stft_split_t_kernel(
                      buf);
 }
 
-template <class Body>
-__global__ void __launch_bounds__(spk::kStftMaxThreads) stft_split_tsplit_kernel(
+template <class Body, int kThreads>
+__global__ void __launch_bounds__(kThreads) stft_split_tsplit_kernel(
     Body body, const float* __restrict__ carry, const float* __restrict__ chunk,
     const float* __restrict__ hann, const float2* __restrict__ twiddles,
     float* __restrict__ out_l, float* __restrict__ out_r,
@@ -137,22 +144,36 @@ __global__ void __launch_bounds__(spk::kStftMaxThreads) stft_split_tsplit_kernel
                      buf);
 }
 
-// launch(body, grid, threads, smem, stream) with the FFT body N selects and
-// 2 * rows blocks, one per (window row, channel); 0 or the CUDA error.
+// launch(row, bound, grid, threads, smem, stream) with the split-real row
+// form of N (`with_real_body`), 2 * rows blocks, one per (window row,
+// channel), and the kernel's thread bound as a type (`bound::value`):
+// kWideThreads for N/2 packs of kWideRow entries and more (N = 32,768 and
+// 48,000 among the measured sizes), which run one block per SM, else
+// kStftMaxThreads; 0 or the CUDA error.  Only the pack is compiled at the
+// wide bound: an odd N's full row of that size (a 7-smooth odd N past
+// 16,384, or a Bluestein M past it) is rare and runs kStftMaxThreads.
 template <class Launch>
 int launch_rows(int n, const void* consts, int rows, void* stream,
                 Launch launch) {
   const auto st = static_cast<cudaStream_t>(stream);
-  return spk::with_fft_body(n, consts, [&](auto body) {
-    return launch(body, dim3(2 * rows), spk::stft_threads(body.buf_size()),
-                  body.buf_size() * sizeof(float2), st);
+  return spk::with_real_body(n, consts, [&](auto body) {
+    const size_t smem = body.buf_size() * sizeof(float2);
+    if constexpr (spk::is_real_pack<decltype(body)>::value) {
+      if (body.buf_size() >= spk::kWideRow) {
+        return launch(body, std::integral_constant<int, spk::kWideThreads>{},
+                      dim3(2 * rows), spk::kWideThreads, smem, st);
+      }
+    }
+    return launch(body, std::integral_constant<int, spk::kStftMaxThreads>{},
+                  dim3(2 * rows), spk::stft_threads(body.buf_size()), smem, st);
   });
 }
 
 }  // namespace
 
-// Each entry: hann [w] f32 (2/W folded in); consts: n's FFT table
-// (`fft_table`); out_l, out_r: [rows, stft_bins(n, w)] f32.  All contiguous.
+// Each entry: hann [w] f32 (2/W folded in); consts: n's split-real table
+// (`split_fft_table`); out_l, out_r: [rows, stft_bins(n, w)] f32.  All
+// contiguous.
 
 // left, right: [rows, w] f32 window planes.
 SPK_EXPORT int spk_stft_split(const float* left, const float* right,
@@ -160,12 +181,14 @@ SPK_EXPORT int spk_stft_split(const float* left, const float* right,
                               float* out_l, float* out_r, int rows, int w,
                               int n, void* stream) {
   const auto* tw = static_cast<const float2*>(consts);
-  return launch_rows(n, consts, rows, stream, [&](auto body, dim3 grid,
-                                                  int threads, size_t smem,
-                                                  cudaStream_t st) {
-    const int e = spk::allow_smem(stft_split_kernel<decltype(body)>, smem);
+  return launch_rows(n, consts, rows, stream,
+                     [&](auto body, auto bound, dim3 grid, int threads,
+                         size_t smem, cudaStream_t st) {
+    constexpr int kThreads = decltype(bound)::value;
+    const auto kernel = stft_split_kernel<decltype(body), kThreads>;
+    const int e = spk::allow_smem(kernel, smem);
     if (e != 0) return e;
-    stft_split_kernel<decltype(body)><<<grid, threads, smem, st>>>(
+    kernel<<<grid, threads, smem, st>>>(
         body, left, right, hann, tw, out_l, out_r, w);
     return static_cast<int>(cudaGetLastError());
   });
@@ -178,13 +201,14 @@ static int split_allk(const float* buf_l, const float* buf_r,
                       float* out_r, float* next, int streams, int ld, int k,
                       int hop, int w, int n, int c_len, void* stream) {
   const auto* tw = static_cast<const float2*>(consts);
-  return launch_rows(n, consts, k * streams, stream, [&](auto body, dim3 grid,
-                                                         int threads,
-                                                         size_t smem,
-                                                         cudaStream_t st) {
-    const int e = spk::allow_smem(stft_split_allk_kernel<decltype(body)>, smem);
+  return launch_rows(n, consts, k * streams, stream,
+                     [&](auto body, auto bound, dim3 grid, int threads,
+                         size_t smem, cudaStream_t st) {
+    constexpr int kThreads = decltype(bound)::value;
+    const auto kernel = stft_split_allk_kernel<decltype(body), kThreads>;
+    const int e = spk::allow_smem(kernel, smem);
     if (e != 0) return e;
-    stft_split_allk_kernel<decltype(body)><<<grid, threads, smem, st>>>(
+    kernel<<<grid, threads, smem, st>>>(
         body, buf_l, buf_r, hann, tw, out_l, out_r, next, streams, ld, hop, w,
         c_len);
     return static_cast<int>(cudaGetLastError());
@@ -224,13 +248,14 @@ SPK_EXPORT int spk_stft_split_carry(const float* carry, const float* chunk,
                                     int streams, int c_len, int k, int hop,
                                     int w, int n, void* stream) {
   const auto* tw = static_cast<const float2*>(consts);
-  return launch_rows(n, consts, k * streams, stream, [&](auto body, dim3 grid,
-                                                         int threads,
-                                                         size_t smem,
-                                                         cudaStream_t st) {
-    const int e = spk::allow_smem(stft_split_carry_kernel<decltype(body)>, smem);
+  return launch_rows(n, consts, k * streams, stream,
+                     [&](auto body, auto bound, dim3 grid, int threads,
+                         size_t smem, cudaStream_t st) {
+    constexpr int kThreads = decltype(bound)::value;
+    const auto kernel = stft_split_carry_kernel<decltype(body), kThreads>;
+    const int e = spk::allow_smem(kernel, smem);
     if (e != 0) return e;
-    stft_split_carry_kernel<decltype(body)><<<grid, threads, smem, st>>>(
+    kernel<<<grid, threads, smem, st>>>(
         body, carry, chunk, hann, tw, out_l, out_r, next, streams, c_len,
         k * hop, hop, w);
     return static_cast<int>(cudaGetLastError());
@@ -244,12 +269,14 @@ SPK_EXPORT int spk_stft_split_t(const float* x, const float* hann,
                                 float* out_r, int rows, int n1, int m, int n,
                                 void* stream) {
   const auto* tw = static_cast<const float2*>(consts);
-  return launch_rows(n, consts, rows, stream, [&](auto body, dim3 grid,
-                                                  int threads, size_t smem,
-                                                  cudaStream_t st) {
-    const int e = spk::allow_smem(stft_split_t_kernel<decltype(body)>, smem);
+  return launch_rows(n, consts, rows, stream,
+                     [&](auto body, auto bound, dim3 grid, int threads,
+                         size_t smem, cudaStream_t st) {
+    constexpr int kThreads = decltype(bound)::value;
+    const auto kernel = stft_split_t_kernel<decltype(body), kThreads>;
+    const int e = spk::allow_smem(kernel, smem);
     if (e != 0) return e;
-    stft_split_t_kernel<decltype(body)><<<grid, threads, smem, st>>>(
+    kernel<<<grid, threads, smem, st>>>(
         body, x, hann, tw, out_l, out_r, n1, m);
     return static_cast<int>(cudaGetLastError());
   });
@@ -266,12 +293,14 @@ SPK_EXPORT int spk_stft_split_tsplit(const float* carry, const float* chunk,
                                      int c_cols, int t_cols, int n,
                                      void* stream) {
   const auto* tw = static_cast<const float2*>(consts);
-  return launch_rows(n, consts, rows, stream, [&](auto body, dim3 grid,
-                                                  int threads, size_t smem,
-                                                  cudaStream_t st) {
-    const int e = spk::allow_smem(stft_split_tsplit_kernel<decltype(body)>, smem);
+  return launch_rows(n, consts, rows, stream,
+                     [&](auto body, auto bound, dim3 grid, int threads,
+                         size_t smem, cudaStream_t st) {
+    constexpr int kThreads = decltype(bound)::value;
+    const auto kernel = stft_split_tsplit_kernel<decltype(body), kThreads>;
+    const int e = spk::allow_smem(kernel, smem);
     if (e != 0) return e;
-    stft_split_tsplit_kernel<decltype(body)><<<grid, threads, smem, st>>>(
+    kernel<<<grid, threads, smem, st>>>(
         body, carry, chunk, hann, tw, out_l, out_r, next_carry, n1, c_cols,
         t_cols);
     return static_cast<int>(cudaGetLastError());

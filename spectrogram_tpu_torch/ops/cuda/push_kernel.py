@@ -17,8 +17,9 @@ their place here.
 
 A CPU tensor takes the plain version (the plain split-real STFT, then
 kernel B's plain version); a CUDA tensor takes the kernel, or where a row's
-FFT buffer passes a block's shared memory (`stft_kernel.is_large`) the
-chain it stands for: the large-N split route, then kernel B.
+FFT buffer and its two planes do not fit a block's shared memory together
+(`push_fused_fits`) the chain it stands for: the split-real kernel (the
+large-N split route past `stft_kernel.is_large_split`), then kernel B.
 """
 
 from __future__ import annotations
@@ -30,7 +31,14 @@ from spectrogram_tpu_torch.config import SpectrogramConfig
 from spectrogram_tpu_torch.ops.cuda import colormap_kernel as ck
 from spectrogram_tpu_torch.ops.cuda import stft_kernel as sk
 
-KERNEL = "spk_push_fused"
+KERNEL = sk.PUSH_FUSED_KERNEL
+
+
+def push_fused_fits(n_fft: int, window_size: int) -> bool:
+    """True where a row's split-real FFT buffer and its two f32 planes fit
+    one block's shared memory, as the fused kernel holds them."""
+    need = sk.split_buf_size(n_fft) * 8 + 2 * sk.stft_bins(n_fft, window_size) * 4
+    return need <= sk.MAX_SMEM_BYTES
 
 
 def push_fused_plain(left: torch.Tensor, right: torch.Tensor,
@@ -65,14 +73,14 @@ def push_fused(left: torch.Tensor, right: torch.Tensor, hann: torch.Tensor,
     ck._check(planes, planes, taps, tables, 1)
     if left.device.type == "cpu":
         return push_fused_plain(left, right, hann, n_fft, tables, taps, cfg, emit_mags)
-    sk._cuda_kernel(KERNEL, (left, right), consts, hann=hann, tables=tables,
-                    w0=taps.w0, w1=taps.w1)
+    _, table = sk._cuda_kernel(KERNEL, (left, right), consts, hann=hann, tables=tables,
+                               w0=taps.w0, w1=taps.w1)
     for name, t in (("j0", taps.j0), ("j1", taps.j1)):
         if t.dtype != torch.int32 or not t.is_contiguous() or t.device != left.device:
             raise ValueError(f"{name} must be contiguous int32 on {left.device}")
-    if sk.is_large(n_fft):
-        # a row's two FFT buffers do not fit one block: the chain the fused
-        # kernel stands for, the large-N split route then kernel B
+    if not push_fused_fits(n_fft, w):
+        # a row's FFT buffer and planes do not fit one block: the chain the
+        # fused kernel stands for, the split-real STFT then kernel B
         planes = sk.stft_mag_split(left, right, hann, consts)
         out = ck.colormap_builtin(*planes, taps, tables, cfg)
         return (out, *planes) if emit_mags else out
@@ -82,7 +90,7 @@ def push_fused(left: torch.Tensor, right: torch.Tensor, hann: torch.Tensor,
     mags = (sk._planes(rows, n_fft, w, left.device) if emit_mags else (None, None))
     if rows:
         sk._launch(KERNEL, left.device, n_fft, left.data_ptr(), right.data_ptr(),
-                   hann.data_ptr(), consts.table.data_ptr(), tables.data_ptr(),
+                   hann.data_ptr(), table.data_ptr(), tables.data_ptr(),
                    tables.shape[0], res, taps.j0.data_ptr(), taps.j1.data_ptr(),
                    taps.w0.data_ptr(), taps.w1.data_ptr(), h, cfg.min_db,
                    cfg.max_db - cfg.min_db, cfg.db_epsilon, 1.0 / (res - 1),

@@ -18,14 +18,15 @@ a CUDA tensor, power-of-two N runs `csrc/stft_packed.cu` and every other N
 
 Every N from 2 up runs on the card (`check_fft_size`): the kernels pick one
 of three FFT bodies from N (`fft_body`; csrc/stft_fft.cuh): radix 2, mixed
-radix 4/2/3/5 for 2^a 3^b 5^c, and Bluestein's chirp-z convolution of
-length M = the least 2^a 3^b 5^c >= 2N - 1 for any other N (N = 4410 at
-44.1 kHz and the reference's 0.05 s window, M = 9000).  Each body reads one
+radix 4/2/3/5/7 for 2^a 3^b 5^c 7^d (N = 4410 at 44.1 kHz and the
+reference's 0.05 s window: 2-3-3-5-7-7), and Bluestein's chirp-z
+convolution of a 7-smooth length M >= 2N - 1 (`bluestein_size`) for N
+with a prime factor above 7 (N = 2204, M = 4500).  Each body reads one
 host-built table in float64 rounded once (`fft_table`), passed with N as
 `FftConstants` (`fft_constants(N, device)`).  A body holds a row's buffer
 (N, or M, complex f32) in one block's shared memory, at most 227 KB; where
-it passes that (`is_large`: N = 2^15 and up, smooth N above 29,056,
-Bluestein N from about 14,500), every entry takes the large-N route
+it passes that (`is_large`: N = 2^15 and up, 7-smooth N above 29,056,
+Bluestein N from about 14,500), every packed entry takes the large-N route
 instead (`csrc/stft_large.cu`): the wrapper frames its operand into [rows,
 W] window planes, as the plain version frames it, and the route runs the
 same passes over a scratch in device memory, in row groups of at most
@@ -71,13 +72,23 @@ layouts of the TPU's split-real kernels:
 All run one row body (`stft_real_row` in `csrc/stft_fft.cuh`) with a sample
 source per layout, so on the card they give the same bits for the same
 window (JAX's split-operand body is only within 1 ulp of its planes body).
+At even N the row is the N/2-point real-FFT pack: z[t] = x[2t] h[2t] +
+i x[2t+1] h[2t+1], the body of N/2, and the unpack
+
+    X[k] = ((Z[k] + conj Z[N/2-k]) - i e^{-2 pi i k/N} (Z[k] - conj Z[N/2-k])) / 2
+
+(`split_fft_table`: N/2's body table, then the N/2 post-twiddles; odd N
+runs the N-point body on (x, 0) with N's table).  So a split-real row holds
+N/2 complex f32 and takes the large-N route only past that
+(`is_large_split`: even N above 58,112 with a direct N/2); launches count
+under `split_route(N)`, the body of N/2.
 
 Each wrapper takes a CPU tensor to its plain version (torch.fft) and a CUDA
 tensor to its kernel: an f32 plane to the f32 kernel, an int16 plane to the
 packed kernels' int16 form (the split-real kernels take f32 only).  There is
 no fallback between the two, and no cast: a CUDA tensor a kernel cannot take
 raises.  Each launch counts under its kernel and under its FFT body, or
-under "large" for the large-N route (`fft_route`,
+under "large" for the large-N route (`fft_route`, `split_route`,
 `KernelLibrary.body_launches`).
 """
 
@@ -108,6 +119,11 @@ ALLK_CARRY_KERNEL_I16 = "spk_stft_allk_carry_i16"
 LARGE_KERNEL = "spk_stft_large_packed"
 LARGE_KERNEL_I16 = "spk_stft_large_packed_i16"
 LARGE_SPLIT_KERNEL = "spk_stft_large_split"
+PUSH_FUSED_KERNEL = "spk_push_fused"
+# the kernels that run the split-real row (and read `FftConstants.split_table`)
+_SPLIT_KERNELS = frozenset({SPLIT_KERNEL, SPLIT_ALLK_KERNEL, SPLIT_ALLK_CARRY_KERNEL,
+                            SPLIT_CARRY_KERNEL, SPLIT_T_KERNEL, SPLIT_TSPLIT_KERNEL,
+                            LARGE_SPLIT_KERNEL, PUSH_FUSED_KERNEL})
 # each f32 kernel's int16 form
 _I16_KERNELS = {KERNEL: KERNEL_I16, MIXED_KERNEL: MIXED_KERNEL_I16,
                 ALLK_KERNEL: ALLK_KERNEL_I16, ALLK_CARRY_KERNEL: ALLK_CARRY_KERNEL_I16,
@@ -166,22 +182,23 @@ def _is_power_of_two(n: int) -> bool:
 
 
 def _is_smooth(n: int) -> bool:
-    for p in (2, 3, 5):
+    for p in (2, 3, 5, 7):
         while n > 1 and n % p == 0:
             n //= p
     return n == 1
 
 
 def mixed_radix_plan(n: int) -> tuple:
-    """The radices of the MixedRadix body's stages for a 2^a 3^b 5^c n (4s,
-    then one 2, then 3s, then 5s; csrc/stft_fft.cuh `make_mixed_radix`)."""
+    """The radices of the MixedRadix body's stages for a 2^a 3^b 5^c 7^d n
+    (4s, then one 2, then 3s, 5s and 7s; csrc/stft_fft.cuh
+    `make_mixed_radix`): a 5-smooth n keeps the plan it had before radix 7."""
     radices, rest = [], n
-    for r in (4, 2, 3, 5):
+    for r in (4, 2, 3, 5, 7):
         while rest % r == 0:
             radices.append(r)
             rest //= r
     if rest != 1 or n < 2:
-        raise ValueError(f"{n} is not 2^a 3^b 5^c")
+        raise ValueError(f"{n} is not 2^a 3^b 5^c 7^d")
     return tuple(radices)
 
 
@@ -201,16 +218,26 @@ def digit_reversal(n: int) -> np.ndarray:
 
 
 def bluestein_size(n_fft: int) -> int:
-    """Bluestein's convolution length for N: the least 2^a 3^b 5^c >= 2N - 1."""
+    """Bluestein's convolution length for N (csrc/stft_fft.cuh
+    `bluestein_length`): of the 7-smooth M from 2N - 1 up to the least
+    5-smooth one, the M whose plan has the fewest stages, then one without
+    a radix 7, then the least."""
     m = max(2 * n_fft - 1, 2)
-    while not _is_smooth(m):
+    best = best_key = None
+    while True:
+        if _is_smooth(m):
+            plan = mixed_radix_plan(m)
+            key = (len(plan), 7 in plan)
+            if best is None or key < best_key:
+                best, best_key = m, key
+            if 7 not in plan:
+                return best
         m += 1
-    return m
 
 
 def fft_body(n_fft: int) -> str:
     """The body the kernels run at N (csrc/stft_fft.cuh `with_fft_body`):
-    "radix2", "mixed" (2^a 3^b 5^c) or "bluestein"."""
+    "radix2", "mixed" (2^a 3^b 5^c 7^d) or "bluestein"."""
     if _is_power_of_two(n_fft):
         return "radix2"
     return "mixed" if _is_smooth(n_fft) else "bluestein"
@@ -222,16 +249,48 @@ def fft_buf_size(n_fft: int) -> int:
 
 
 def is_large(n_fft: int) -> bool:
-    """True where a row's FFT buffer passes the 227 KB of shared memory a
-    Hopper block may hold, so the kernels take the large-N route."""
+    """True where a packed row's FFT buffer passes the 227 KB of shared
+    memory a Hopper block may hold, so the packed kernels take the large-N
+    route."""
     return fft_buf_size(n_fft) > MAX_BUF
 
 
 def fft_route(n_fft: int) -> str:
-    """The label the STFT kernels' launches at N count under
+    """The label the packed STFT kernels' launches at N count under
     (`KernelLibrary.body_launches`): "large" on the large-N route, else
     `fft_body(N)`."""
     return LARGE if is_large(n_fft) else fft_body(n_fft)
+
+
+def split_packs(n_fft: int) -> bool:
+    """True where the split-real row runs as the N/2-point real-FFT pack:
+    even N from 4 (csrc/stft_fft.cuh `real_packs`)."""
+    return n_fft % 2 == 0 and n_fft >= 4
+
+
+def split_size(n_fft: int) -> int:
+    """The length of the split-real row's transform: N/2, or N at odd N."""
+    return n_fft // 2 if split_packs(n_fft) else n_fft
+
+
+def split_buf_size(n_fft: int) -> int:
+    """Complex f32 of a split-real row's buffer: `split_size(N)`'s body
+    buffer (N/2, or Bluestein's M of N/2)."""
+    return fft_buf_size(split_size(n_fft))
+
+
+def is_large_split(n_fft: int) -> bool:
+    """True where a split-real row's buffer passes a block's shared memory,
+    so the split-real kernels take the large-N route: even N above 58,112
+    with a direct N/2, an N/2 whose Bluestein M passes 29,056, odd N as
+    `is_large`."""
+    return split_buf_size(n_fft) > MAX_BUF
+
+
+def split_route(n_fft: int) -> str:
+    """The label the split-real kernels' launches at N count under: "large"
+    on the large-N route, else the body of `split_size(N)`."""
+    return LARGE if is_large_split(n_fft) else fft_body(split_size(n_fft))
 
 
 def check_fft_size(n_fft: int) -> None:
@@ -272,17 +331,42 @@ def fft_table_shape(n_fft: int) -> tuple:
     return (2 * bluestein_size(n_fft) + n_fft, 2)
 
 
+def split_fft_table(n_fft: int) -> np.ndarray:
+    """[T, 2] f32: the split-real kernels' table of N.  Even N (the N/2-point
+    pack): `fft_table(N/2)`, the table of the body that transforms the pack,
+    followed by the N/2 post-twiddles exp(-2 pi i k / N) of the unpack, each
+    computed in float64 and rounded once.  Odd N: `fft_table(N)`."""
+    if not split_packs(n_fft):
+        return fft_table(n_fft)
+    post = np.exp(-2j * np.pi * np.arange(n_fft // 2) / n_fft)
+    post = np.stack([post.real, post.imag], axis=-1).astype(np.float32)
+    return np.concatenate([fft_table(n_fft // 2), post])
+
+
+def split_table_shape(n_fft: int) -> tuple:
+    """The shape of `split_fft_table(n_fft)`."""
+    if not split_packs(n_fft):
+        return fft_table_shape(n_fft)
+    return (fft_table_shape(n_fft // 2)[0] + n_fft // 2, 2)
+
+
 class FftConstants(NamedTuple):
-    """N and its FFT table (`fft_table`) on one device: what the STFT
-    kernels read besides the samples and the window."""
+    """N and its FFT tables on one device: what the STFT kernels read
+    besides the samples and the window.  `table` (`fft_table`) is the packed
+    kernels', `split_table` (`split_fft_table`) the split-real kernels' and
+    the fused push's; at odd N they are one tensor."""
 
     n_fft: int
-    table: torch.Tensor   # [T, 2] f32
+    table: torch.Tensor         # [T, 2] f32
+    split_table: torch.Tensor   # [T', 2] f32
 
 
 @functools.lru_cache(maxsize=32)
 def _fft_constants(n_fft: int, device: torch.device) -> FftConstants:
-    return FftConstants(n_fft, torch.from_numpy(fft_table(n_fft)).to(device))
+    table = torch.from_numpy(fft_table(n_fft)).to(device)
+    split = (torch.from_numpy(split_fft_table(n_fft)).to(device)
+             if split_packs(n_fft) else table)
+    return FftConstants(n_fft, table, split)
 
 
 def fft_constants(n_fft: int, device=None) -> FftConstants:
@@ -356,11 +440,13 @@ def stft_mag_packed_allk_plain(buf_l: torch.Tensor, buf_r: torch.Tensor,
                         emit_carry)
 
 
-def _cuda_kernel(name: str, samples: tuple, consts: FftConstants, **tensors) -> str:
-    """Kernel `name` for f32 sample planes, its int16 form for int16
-    planes; raise unless the planes are contiguous f32 or int16 of one type
-    on one CUDA device, the FFT table and the other tensors contiguous f32
-    there, and N one the kernels take."""
+def _cuda_kernel(name: str, samples: tuple, consts: FftConstants,
+                 **tensors) -> tuple[str, torch.Tensor]:
+    """(kernel `name` for f32 sample planes, its int16 form for int16
+    planes; the FFT table it reads: `consts.split_table` for a split-real
+    kernel, `consts.table` otherwise); raise unless the planes are
+    contiguous f32 or int16 of one type on one CUDA device, the table and
+    the other tensors contiguous f32 there, and N one the kernels take."""
     first = samples[0]
     if first.device.type != "cuda":
         raise ValueError(f"no STFT kernel for device {first.device}")
@@ -371,8 +457,11 @@ def _cuda_kernel(name: str, samples: tuple, consts: FftConstants, **tensors) -> 
     if first.dtype == torch.int16 and name not in _I16_KERNELS:
         raise ValueError(f"{name} takes float32 samples only; got int16")
     check_fft_size(consts.n_fft)
+    table, shape = ((consts.split_table, split_table_shape(consts.n_fft))
+                    if name in _SPLIT_KERNELS
+                    else (consts.table, fft_table_shape(consts.n_fft)))
     named = [("samples", t, first.dtype) for t in samples]
-    named += [("fft table", consts.table, torch.float32)]
+    named += [("fft table", table, torch.float32)]
     named += [(arg, t, torch.float32) for arg, t in tensors.items()]
     for arg, t, dtype in named:
         if t.dtype != dtype or not t.is_contiguous() or t.device != first.device:
@@ -380,21 +469,23 @@ def _cuda_kernel(name: str, samples: tuple, consts: FftConstants, **tensors) -> 
                 f"{arg} must be contiguous {dtype} on {first.device}; got "
                 f"{t.dtype} on {t.device}, contiguous={t.is_contiguous()}"
             )
-    if consts.table.shape != fft_table_shape(consts.n_fft):
+    if table.shape != shape:
         raise ValueError(
-            f"the FFT table of N={consts.n_fft} is {fft_table_shape(consts.n_fft)}; "
-            f"got {tuple(consts.table.shape)} (build it with fft_constants)")
-    return name if first.dtype == torch.float32 else _I16_KERNELS[name]
+            f"the FFT table of N={consts.n_fft} is {shape}; got {tuple(table.shape)} "
+            "(build it with fft_constants)")
+    return (name if first.dtype == torch.float32 else _I16_KERNELS[name]), table
 
 
 def _launch(name: str, device: torch.device, n_fft: int, *args) -> None:
     """Launch kernel `name` on the current stream of `device`, counting the
-    launch under the kernel and under N's body label (`fft_route`)."""
+    launch under the kernel and under N's body label (`fft_route`, or
+    `split_route` for a split-real kernel)."""
     from spectrogram_tpu_torch.ops.cuda import _build
 
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.library().launch(name, *args, stream, body=fft_route(n_fft))
+        body = split_route(n_fft) if name in _SPLIT_KERNELS else fft_route(n_fft)
+        _build.library().launch(name, *args, stream, body=body)
 
 
 def _planes(rows: int, n_fft: int, w: int, device) -> tuple:
@@ -403,33 +494,34 @@ def _planes(rows: int, n_fft: int, w: int, device) -> tuple:
     return out_l, torch.empty_like(out_l)
 
 
-def _large_stft(left: torch.Tensor, right: torch.Tensor, hann: torch.Tensor,
-                consts: FftConstants, split: bool):
+def _large_stft(kernel: str, left: torch.Tensor, right: torch.Tensor,
+                hann: torch.Tensor, consts: FftConstants):
     """(mag_l, mag_r) of [rows, W] CUDA window planes on the large-N route:
-    spk_stft_large_split (`split`, f32) or spk_stft_large_packed (f32 or
+    `kernel` spk_stft_large_split (f32) or spk_stft_large_packed (f32 or
     int16), over a scratch of at most LARGE_SCRATCH_BYTES, one launch per
     row group."""
     n_fft = consts.n_fft
     rows, w = left.shape
-    name = _cuda_kernel(LARGE_SPLIT_KERNEL if split else LARGE_KERNEL,
-                        (left, right), consts, hann=hann)
+    name, table = _cuda_kernel(kernel, (left, right), consts, hann=hann)
     out_l, out_r = _planes(rows, n_fft, w, left.device)
     if not rows:
         return out_l, out_r
-    row_bytes = (2 if split else 1) * fft_buf_size(n_fft) * 8
+    # a split-real row is two channels of split_buf_size(N) entries each
+    row_bytes = (2 * split_buf_size(n_fft) * 8 if kernel in _SPLIT_KERNELS
+                 else fft_buf_size(n_fft) * 8)
     group = max(1, min(rows, LARGE_SCRATCH_BYTES // row_bytes))
     scratch = torch.empty(group * row_bytes // 4, dtype=torch.float32, device=left.device)
     for r0 in range(0, rows, group):
         r1 = min(r0 + group, rows)
         _launch(name, left.device, n_fft, left[r0].data_ptr(), right[r0].data_ptr(),
-                hann.data_ptr(), consts.table.data_ptr(), scratch.data_ptr(),
+                hann.data_ptr(), table.data_ptr(), scratch.data_ptr(),
                 out_l[r0].data_ptr(), out_r[r0].data_ptr(), r1 - r0, w, n_fft)
     return out_l, out_r
 
 
-def _large_planes(consts: FftConstants, split: bool):
+def _large_planes(kernel: str, consts: FftConstants):
     """The large-N route as a window-plane STFT for the framing helpers."""
-    return lambda left, right, hann, n_fft: _large_stft(left, right, hann, consts, split)
+    return lambda left, right, hann, n_fft: _large_stft(kernel, left, right, hann, consts)
 
 
 def stft_mag_packed(left: torch.Tensor, right: torch.Tensor,
@@ -451,16 +543,16 @@ def stft_mag_packed(left: torch.Tensor, right: torch.Tensor,
     if left.device.type == "cpu":
         return stft_mag_packed_plain(left, right, hann, n_fft)
     if is_large(n_fft):
-        return _large_stft(left, right, hann, consts, split=False)
+        return _large_stft(LARGE_KERNEL, left, right, hann, consts)
     if _is_power_of_two(n_fft):
         name, size = KERNEL, n_fft.bit_length() - 1
     else:
         name, size = MIXED_KERNEL, n_fft
-    name = _cuda_kernel(name, (left, right), consts, hann=hann)
+    name, table = _cuda_kernel(name, (left, right), consts, hann=hann)
     out_l, out_r = _planes(rows, n_fft, w, left.device)
     if rows:
         _launch(name, left.device, n_fft, left.data_ptr(), right.data_ptr(),
-                hann.data_ptr(), consts.table.data_ptr(), out_l.data_ptr(),
+                hann.data_ptr(), table.data_ptr(), out_l.data_ptr(),
                 out_r.data_ptr(), rows, w, size)
     return out_l, out_r
 
@@ -494,23 +586,24 @@ def stft_mag_packed_allk(buf_l: torch.Tensor, buf_r: torch.Tensor,
     _check_buffers(buf_l, buf_r, hann, n_fft, k, hop)
     if buf_l.device.type == "cpu":
         return stft_mag_packed_allk_plain(buf_l, buf_r, hann, n_fft, k, hop, emit_carry)
-    name = _cuda_kernel(ALLK_CARRY_KERNEL if emit_carry else ALLK_KERNEL,
-                        (buf_l, buf_r), consts, hann=hann)
+    name, table = _cuda_kernel(ALLK_CARRY_KERNEL if emit_carry else ALLK_KERNEL,
+                               (buf_l, buf_r), consts, hann=hann)
     if is_large(n_fft):
-        return _framed_allk(_large_planes(consts, False), buf_l, buf_r, hann, n_fft, k,
-                            hop, emit_carry)
-    return _launch_allk(name, buf_l, buf_r, hann, consts, k, hop, emit_carry)
+        return _framed_allk(_large_planes(LARGE_KERNEL, consts), buf_l, buf_r, hann, n_fft,
+                            k, hop, emit_carry)
+    return _launch_allk(name, table, buf_l, buf_r, hann, n_fft, k, hop, emit_carry)
 
 
-def _launch_allk(name: str, buf_l, buf_r, hann, consts: FftConstants, k: int,
-                 hop: int, emit_carry: bool):
-    """Launch all-windows kernel `name` (its `_carry` form with
-    `emit_carry`, which also takes the next carry in the buffers' dtype)."""
+def _launch_allk(name: str, table: torch.Tensor, buf_l, buf_r, hann, n_fft: int,
+                 k: int, hop: int, emit_carry: bool):
+    """Launch all-windows kernel `name` on its FFT `table` (its `_carry`
+    form with `emit_carry`, which also takes the next carry in the buffers'
+    dtype)."""
     s, length = buf_l.shape
-    w, n_fft = hann.shape[0], consts.n_fft
+    w = hann.shape[0]
     out_l, out_r = _planes(k * s, n_fft, w, buf_l.device)
     args = [buf_l.data_ptr(), buf_r.data_ptr(), hann.data_ptr(),
-            consts.table.data_ptr(), out_l.data_ptr(), out_r.data_ptr()]
+            table.data_ptr(), out_l.data_ptr(), out_r.data_ptr()]
     c = carry_len(w, hop)
     if emit_carry:
         next_carry = torch.empty((s, 2, c), dtype=buf_l.dtype, device=buf_l.device)
@@ -600,13 +693,13 @@ def stft_mag_split(left: torch.Tensor, right: torch.Tensor,
         )
     if left.device.type == "cpu":
         return stft_mag_split_plain(left, right, hann, n_fft)
-    if is_large(n_fft):
-        return _large_stft(left, right, hann, consts, split=True)
-    _cuda_kernel(SPLIT_KERNEL, (left, right), consts, hann=hann)
+    if is_large_split(n_fft):
+        return _large_stft(LARGE_SPLIT_KERNEL, left, right, hann, consts)
+    name, table = _cuda_kernel(SPLIT_KERNEL, (left, right), consts, hann=hann)
     out_l, out_r = _planes(rows, n_fft, w, left.device)
     if rows:
-        _launch(SPLIT_KERNEL, left.device, n_fft, left.data_ptr(), right.data_ptr(),
-                hann.data_ptr(), consts.table.data_ptr(), out_l.data_ptr(),
+        _launch(name, left.device, n_fft, left.data_ptr(), right.data_ptr(),
+                hann.data_ptr(), table.data_ptr(), out_l.data_ptr(),
                 out_r.data_ptr(), rows, w, n_fft)
     return out_l, out_r
 
@@ -627,12 +720,12 @@ def stft_mag_split_allk(buf_l: torch.Tensor, buf_r: torch.Tensor,
     _check_buffers(buf_l, buf_r, hann, n_fft, k, hop)
     if buf_l.device.type == "cpu":
         return stft_mag_split_allk_plain(buf_l, buf_r, hann, n_fft, k, hop, emit_carry)
-    name = SPLIT_ALLK_CARRY_KERNEL if emit_carry else SPLIT_ALLK_KERNEL
-    _cuda_kernel(name, (buf_l, buf_r), consts, hann=hann)
-    if is_large(n_fft):
-        return _framed_allk(_large_planes(consts, True), buf_l, buf_r, hann, n_fft, k,
-                            hop, emit_carry)
-    return _launch_allk(name, buf_l, buf_r, hann, consts, k, hop, emit_carry)
+    name, table = _cuda_kernel(SPLIT_ALLK_CARRY_KERNEL if emit_carry else SPLIT_ALLK_KERNEL,
+                               (buf_l, buf_r), consts, hann=hann)
+    if is_large_split(n_fft):
+        return _framed_allk(_large_planes(LARGE_SPLIT_KERNEL, consts), buf_l, buf_r, hann,
+                            n_fft, k, hop, emit_carry)
+    return _launch_allk(name, table, buf_l, buf_r, hann, n_fft, k, hop, emit_carry)
 
 
 def stft_mag_split_carry(carry: torch.Tensor, chunk: torch.Tensor,
@@ -663,16 +756,16 @@ def stft_mag_split_carry(carry: torch.Tensor, chunk: torch.Tensor,
         )
     if carry.device.type == "cpu":
         return stft_mag_split_carry_plain(carry, chunk, hann, n_fft, k, hop)
-    _cuda_kernel(SPLIT_CARRY_KERNEL, (carry, chunk), consts, hann=hann)
-    if is_large(n_fft):
-        return _framed_carry(_large_planes(consts, True), carry, chunk, hann, n_fft, k, hop)
+    name, table = _cuda_kernel(SPLIT_CARRY_KERNEL, (carry, chunk), consts, hann=hann)
+    if is_large_split(n_fft):
+        return _framed_carry(_large_planes(LARGE_SPLIT_KERNEL, consts), carry, chunk, hann,
+                             n_fft, k, hop)
     out_l, out_r = _planes(k * s, n_fft, w, carry.device)
     next_carry = torch.empty_like(carry)
     if s:
-        _launch(SPLIT_CARRY_KERNEL, carry.device, n_fft, carry.data_ptr(),
-                chunk.data_ptr(), hann.data_ptr(), consts.table.data_ptr(),
-                out_l.data_ptr(), out_r.data_ptr(), next_carry.data_ptr(), s, c,
-                k, hop, w, n_fft)
+        _launch(name, carry.device, n_fft, carry.data_ptr(), chunk.data_ptr(),
+                hann.data_ptr(), table.data_ptr(), out_l.data_ptr(), out_r.data_ptr(),
+                next_carry.data_ptr(), s, c, k, hop, w, n_fft)
     return out_l, out_r, next_carry
 
 
@@ -715,14 +808,13 @@ def stft_mag_split_t(x: torch.Tensor, hann: torch.Tensor, consts: FftConstants):
         )
     if x.device.type == "cpu":
         return stft_mag_split_t_plain(x, hann, n_fft)
-    _cuda_kernel(SPLIT_T_KERNEL, (x,), consts, hann=hann)
-    if is_large(n_fft):
-        return _framed_t(_large_planes(consts, True), x, hann, n_fft)
+    name, table = _cuda_kernel(SPLIT_T_KERNEL, (x,), consts, hann=hann)
+    if is_large_split(n_fft):
+        return _framed_t(_large_planes(LARGE_SPLIT_KERNEL, consts), x, hann, n_fft)
     out_l, out_r = _planes(rows, n_fft, n1 * m, x.device)
     if rows:
-        _launch(SPLIT_T_KERNEL, x.device, n_fft, x.data_ptr(), hann.data_ptr(),
-                consts.table.data_ptr(), out_l.data_ptr(), out_r.data_ptr(), rows,
-                n1, m, n_fft)
+        _launch(name, x.device, n_fft, x.data_ptr(), hann.data_ptr(), table.data_ptr(),
+                out_l.data_ptr(), out_r.data_ptr(), rows, n1, m, n_fft)
     return out_l, out_r
 
 
@@ -750,14 +842,14 @@ def stft_mag_split_tsplit(carry: torch.Tensor, chunk: torch.Tensor,
         )
     if carry.device.type == "cpu":
         return stft_mag_split_tsplit_plain(carry, chunk, hann, n_fft)
-    _cuda_kernel(SPLIT_TSPLIT_KERNEL, (carry, chunk), consts, hann=hann)
-    if is_large(n_fft):
-        return _framed_tsplit(_large_planes(consts, True), carry, chunk, hann, n_fft)
+    name, table = _cuda_kernel(SPLIT_TSPLIT_KERNEL, (carry, chunk), consts, hann=hann)
+    if is_large_split(n_fft):
+        return _framed_tsplit(_large_planes(LARGE_SPLIT_KERNEL, consts), carry, chunk, hann,
+                              n_fft)
     out_l, out_r = _planes(rows, n_fft, w, carry.device)
     next_carry = torch.empty_like(carry)
     if rows:
-        _launch(SPLIT_TSPLIT_KERNEL, carry.device, n_fft, carry.data_ptr(),
-                chunk.data_ptr(), hann.data_ptr(), consts.table.data_ptr(),
-                out_l.data_ptr(), out_r.data_ptr(), next_carry.data_ptr(), rows,
-                n1, c_cols, t_cols, n_fft)
+        _launch(name, carry.device, n_fft, carry.data_ptr(), chunk.data_ptr(),
+                hann.data_ptr(), table.data_ptr(), out_l.data_ptr(), out_r.data_ptr(),
+                next_carry.data_ptr(), rows, n1, c_cols, t_cols, n_fft)
     return out_l, out_r, next_carry

@@ -23,13 +23,14 @@ Profiles, each with torch.profiler over a steady window after a warm-up:
      (sorted carry);
   7. the sizes beyond 2^a 3^b 5^c and pad_factor 2: the k=1 push at 4096
      streams, no ring, at 44.1 kHz with DEFAULT_CONFIG's periods (N=4410,
-     the Bluestein body), at BENCH_CONFIG's window with pad_factor=1
-     (N=2048) and at an odd N (16 kHz, W=145, pad 3: N=435), and the
-     display push at 44.1 kHz;
-  8. the large-N route (a row's FFT buffer past a block's shared memory):
-     the k=1 push at 4096 streams, no ring, at 48 kHz with a 0.5 s window
-     (N=48,000) and at 44.1 kHz with a 0.2 s window (N=17,640, Bluestein),
-     and the display push at N=48,000 with 16 streams.
+     the radix-7 mixed-radix body), at BENCH_CONFIG's window with
+     pad_factor=1 (N=2048) and at an odd N (16 kHz, W=145, pad 3: N=435,
+     Bluestein), and the display push at 44.1 kHz;
+  8. the long windows: the k=1 push at 4096 streams, no ring, at 48 kHz
+     with a 0.5 s window (N=48,000: the packed kernels' large-N route; with
+     stft_packed=False the split-real pack in shared memory) and at 44.1
+     kHz with a 0.2 s window (N=17,640, direct in shared memory), and the
+     display push at N=48,000 with 16 streams.
 
 For each it prints the host wall time per call over the window (ended by a
 synchronize), the device busy time per call (the sum of its kernels), the
@@ -172,12 +173,15 @@ def main(argv=None) -> int:
                  pad_factor=3, viewport_height=100, max_frequency=7950.0), 1, 4096),
              ("44.1 kHz, N=4410, display, ring", SpectrogramConfig(sample_rate=44100.0), 8, 256),
              ("48 kHz, 0.5 s window, N=48000", SpectrogramConfig(window_period=0.5), 1, 4096),
+             ("48 kHz, 0.5 s window, N=48000, stft_packed=False",
+              SpectrogramConfig(window_period=0.5), 1, 4096),
              ("44.1 kHz, 0.2 s window, N=17640", SpectrogramConfig(
                  sample_rate=44100.0, window_period=0.2), 1, 4096),
              ("48 kHz, N=48000, display, ring", SpectrogramConfig(window_period=0.5), 8, 16))
     for label, cfg, k, s in sizes:
+        split = {"stft_packed": False} if "stft_packed=False" in label else {}
         p = SpectrogramPipeline(cfg, chunk_hops=k, store_ring=k > 1, packed_output=True,
-                                device=dev)
+                                device=dev, **split)
         state = [p.set_palette(p.init_state(s), np.arange(s) % 19)]
         chunk = torch.from_numpy(
             testing.chirp_tone(s, p.chunk_size, cfg.sample_rate, seed=9)).to(dev)

@@ -28,6 +28,46 @@ def chirp_tone(n_streams: int, n_samples: int, sample_rate: float,
     return out
 
 
+def chirp_tone_planes(n_streams: int, n_samples: int, sample_rate: float, seed: int,
+                      device, dtype=torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
+    """(left, right) [S, T] sample planes of `chirp_tone` on `device`; for
+    int16 the PCM words round(x * 32767)."""
+    pcm = chirp_tone(n_streams, n_samples, sample_rate, seed=seed)
+    if dtype == torch.int16:
+        pcm = np.round(pcm * 32767.0).astype(np.int16)
+    return tuple(torch.from_numpy(np.ascontiguousarray(pcm[..., c])).to(device)
+                 for c in range(2))
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device time in ms of fn() on the current CUDA card over `iters`
+    calls, after one warm-up, with the card held by a spin kernel while the
+    host enqueues the calls: host time between launches (the wrappers'
+    checks, the allocator) does not count.  The spin is lengthened until it
+    outlasts the enqueueing."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 24
+    while True:
+        hold, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        hold.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if hold.elapsed_time(start) > 1.2 * enqueue_ms:
+            return start.elapsed_time(end) / iters
+        if cycles > 1 << 34:
+            raise RuntimeError("device_ms: the timed calls wait for the card")
+        cycles *= 4
+
+
 def noise(n_streams: int, n_samples: int, seed: int = 0) -> np.ndarray:
     """[S, T, 2] f32 Gaussian noise, standard deviation 0.3."""
     rng = np.random.default_rng(seed)

@@ -1,11 +1,14 @@
 // The STFT kernels' row code (stft_fft.cuh, push_fused.cuh) as a host
 // library: each call runs its rows through the Radix2 (body = 0), MixedRadix
-// (body = 1) or the body `with_fft_body` picks for n (body = 2, Bluestein
-// where n has a prime factor above 5), one thread block after another as the
-// kernels' grids would, with the operand offsets of the kernels in csrc/.
-// `consts` is n's FFT table (`fft_table`); output rows are stft_bins(n, w)
-// wide.
+// (body = 1) or the body `with_fft_body` picks (body = 2, Bluestein where
+// the size has a prime factor above 7), one thread block after another as
+// the kernels' grids would, with the operand offsets of the kernels in
+// csrc/.  The packed rows take that body of n and n's FFT table
+// (`fft_table`); the split-real rows take it of n/2 (the real-FFT pack, even
+// n from 4) or of n (odd n), and n's split-real table (`split_fft_table`).
+// Output rows are stft_bins(n, w) wide.
 #include <cstddef>
+#include <type_traits>
 #include <vector>
 
 #include "push_fused.cuh"
@@ -16,7 +19,7 @@
 template <class Fn>
 static int with_body(int body, int n, const float* consts, Fn fn) {
   auto run = [&](const auto& b) {
-    std::vector<float2> buf(b.buf_size());
+    std::vector<float2> buf(b.buf_size() + b.staged_size());
     fn(b, buf.data());
     return 0;
   };
@@ -32,6 +35,21 @@ static int with_body(int body, int n, const float* consts, Fn fn) {
 
 static const float2* tw_of(const float* consts) {
   return reinterpret_cast<const float2*>(consts);
+}
+
+// fn(row, buf) with the split-real row form of n (`with_real_body`) over the
+// body chosen as above; 1 where the body does not take the transform.
+template <class Fn>
+static int with_real(int body, int n, const float* consts, Fn fn) {
+  if (!spk::real_packs(n)) {
+    return with_body(body, n, consts, [&](const auto& b, float2* buf) {
+      fn(spk::RealFull<std::decay_t<decltype(b)>>{b}, buf);
+    });
+  }
+  return with_body(body, n / 2, consts, [&](const auto& b, float2* buf) {
+    fn(spk::RealPack<std::decay_t<decltype(b)>>{b, tw_of(consts) + b.table_size()},
+       buf);
+  });
 }
 
 template <class T>
@@ -83,6 +101,18 @@ extern "C" int stft_host_buf_size(int n) {
   return size;
 }
 
+// The same for the split-real row of n (`with_real_body`: n/2's body at
+// even n from 4).
+extern "C" int stft_host_split_buf_size(int n) {
+  int size = -1;
+  const std::vector<float> table(1);
+  spk::with_real_body(n, table.data(), [&](const auto& b) {
+    size = b.buf_size();
+    return 0;
+  });
+  return size;
+}
+
 // ---- the split-real kernels (stft_split.cu): block b is window b / 2,
 // channel b % 2, and writes out_l or out_r [rows, bins].
 
@@ -92,7 +122,7 @@ extern "C" int stft_host_split(int body, int n, int rows, int w,
                                const float* hann, const float* consts,
                                float* out_l, float* out_r) {
   const size_t bins = spk::stft_bins(n, w);
-  return with_body(body, n, consts, [&](const auto& b, float2* buf) {
+  return with_real(body, n, consts, [&](const auto& b, float2* buf) {
     for (int blk = 0; blk < 2 * rows; ++blk) {
       const size_t row = blk >> 1;
       const int c = blk & 1;
@@ -112,7 +142,7 @@ extern "C" int stft_host_split_allk(int body, int n, int streams, int ld,
                                     const float* consts, float* out_l,
                                     float* out_r, float* next, int c_len) {
   const size_t bins = spk::stft_bins(n, w);
-  return with_body(body, n, consts, [&](const auto& b, float2* buf) {
+  return with_real(body, n, consts, [&](const auto& b, float2* buf) {
     for (int blk = 0; blk < 2 * k * streams; ++blk) {
       const int row = blk >> 1;
       const int c = blk & 1;
@@ -140,7 +170,7 @@ extern "C" int stft_host_split_carry(int body, int n, int streams, int c_len,
                                      float* next) {
   const size_t bins = spk::stft_bins(n, w);
   const int t_len = k * hop;
-  return with_body(body, n, consts, [&](const auto& b, float2* buf) {
+  return with_real(body, n, consts, [&](const auto& b, float2* buf) {
     for (int blk = 0; blk < 2 * k * streams; ++blk) {
       const int row = blk >> 1;
       const int c = blk & 1;
@@ -163,7 +193,7 @@ extern "C" int stft_host_split_t(int body, int n, int rows, int n1, int m,
                                  const float* consts, float* out_l,
                                  float* out_r) {
   const size_t bins = spk::stft_bins(n, n1 * m);
-  return with_body(body, n, consts, [&](const auto& b, float2* buf) {
+  return with_real(body, n, consts, [&](const auto& b, float2* buf) {
     for (int blk = 0; blk < 2 * rows; ++blk) {
       const size_t row = blk >> 1;
       const int c = blk & 1;
@@ -184,7 +214,7 @@ extern "C" int stft_host_split_tsplit(int body, int n, int rows, int n1,
                                       float* out_l, float* out_r,
                                       float* next) {
   const size_t bins = spk::stft_bins(n, n1 * (c_cols + t_cols));
-  return with_body(body, n, consts, [&](const auto& b, float2* buf) {
+  return with_real(body, n, consts, [&](const auto& b, float2* buf) {
     for (int blk = 0; blk < 2 * rows; ++blk) {
       const size_t row = blk >> 1;
       const int c = blk & 1;
@@ -203,15 +233,15 @@ extern "C" int stft_host_split_tsplit(int body, int n, int rows, int n1,
 // ---- the large-N route (stft_large.cu): each pass over every scratch row
 // before the next, as the route's launches run them.
 
-// spk_stft_large_packed (split = 0) or spk_stft_large_split (split = 1):
-// [rows, w] planes l, r, with local runs of at most max_span entries (the
+// spk_stft_large_packed (split = 0, n's `fft_table`) or spk_stft_large_split
+// (split = 1, n's `split_fft_table`): [rows, w] planes l, r, with local runs of at most max_span entries (the
 // kernels': kMaxSmemBytes / 8); 1 where the route does not take n.
 extern "C" int stft_host_large(int split, int n, int rows, int w,
                                const float* l, const float* r,
                                const float* hann, const float* consts,
                                float* out_l, float* out_r, int max_span) {
   spk::LargePlan p;
-  if (!spk::make_large_plan(n, w, consts, &p, max_span)) return 1;
+  if (!spk::make_large_plan(n, w, consts, &p, max_span, split != 0)) return 1;
   const size_t m = p.buf_size();
   const int q_rows = split ? 2 * rows : rows;
   std::vector<float2> scratch(q_rows * m);
@@ -246,7 +276,7 @@ extern "C" int stft_host_large(int split, int n, int rows, int w,
     for (int k = 0; k < static_cast<int>(bins); ++k) {
       if (split) {
         ((q & 1) ? out_r : out_l)[(q >> 1) * bins + k] =
-            spk::magnitude(spk::large_result(p, row, k));
+            spk::large_magnitude(p, row, k);
       } else {
         spk::large_unpack(p, row, k, out_l + q * bins + k, out_r + q * bins + k);
       }
@@ -269,7 +299,7 @@ extern "C" int stft_host_push(int body, int n, int rows, int w,
                                db_eps, inv_res1};
   const size_t bins = spk::stft_bins(n, w);
   std::vector<float> planes(2 * bins);
-  return with_body(body, n, consts, [&](const auto& b, float2* buf) {
+  return with_real(body, n, consts, [&](const auto& b, float2* buf) {
     for (int row = 0; row < rows; ++row) {
       spk::push_fused_row(
           b, l + static_cast<size_t>(row) * w, r + static_cast<size_t>(row) * w,

@@ -14,15 +14,17 @@ blockwise kernel against kernel B, the static kernel against kernel B and
 the generic kernel with one table).  The four split-real STFT kernels share
 one row body, so they are held bit for bit against each other on the same
 windows, and the tsplit kernel's next carry exactly against the framing's.
-The sizes the kernels took last (Bluestein N = 4410, 1410, 693, 4802;
-pad_factor=1) are held to the same bars, kernels and pipelines; the
+The sizes the kernels took last (N = 4410 and 4802 on radix 7; Bluestein
+N = 1410, 693, 2204; pad_factor=1) are held to the same bars, kernels and
+pipelines; the
 carry+chunk kernel bit for bit against the all-windows split kernel on the
 concatenated buffers, every next carry exactly, `emit_carry`'s magnitudes
 bit for bit those without it, and the fused push bit for bit against the
-split-real plane kernel followed by kernel B.  The large-N route (N =
-32,768, 48,000, 17,640) is held to the STFT bar against torch.fft, its int16
-rows bit for bit the f32 rows of x / 32768, every split-real layout bit for
-bit the others there, and a k=8 push bit for bit `process()`;
+split-real plane kernel followed by kernel B.  The large-N route (packed:
+N = 32,768, 48,000, 35,280, 65,536; split-real: 65,536) is held to the STFT
+bar against torch.fft, its int16 rows bit for bit the f32 rows of
+x / 32768, every split-real layout bit for bit the others at N = 65,536,
+and a k=8 push bit for bit `process()`;
 `colormap_rows_fused` bit for bit the generic kernel on two-tap matrices and
 within 1 u8 of its plain version on a four-tap one.
 """
@@ -214,22 +216,25 @@ def test_k8_push_equals_eight_k1_pushes_on_card(cuda):
 
 
 def test_card_refuses_other_sizes(cuda):
-    """N = 4802 = 2 7^4, once refused, runs (Bluestein) and matches the plain
-    version; an N whose row buffer passes a block's shared memory, once
-    refused too, runs on the large-N route; only N < 2 raises."""
-    w = 2401
-    left, right = _windows(SpectrogramConfig(sample_rate=48000.0, window_period=w / 48000.0),
-                           "chirp_tone", 64, cuda)
-    assert left.shape == (64, w)
-    hann = torch.from_numpy(sk.packed_hann(w)).to(cuda)
-    consts = sk.fft_constants(2 * w, cuda)
+    """N = 4802 = 2 7^4, once refused, runs on the direct mixed-radix body
+    (radix 7) and N = 2204 = 2^2 19 29 on Bluestein (M = 4500), each
+    matching the plain version; an N whose row buffer passes a block's
+    shared memory, once refused too, runs on the large-N route; only N < 2
+    raises."""
     lib = _build.library()
-    before = lib.body_launches["bluestein"]
-    got = sk.stft_mag_packed(left, right, hann, consts)
-    torch.cuda.synchronize()
-    assert lib.body_launches["bluestein"] == before + 1
-    for g, x in zip(got, sk.stft_mag_packed_plain(left, right, hann, 2 * w)):
-        torch.testing.assert_close(g, x, atol=ATOL, rtol=RTOL)
+    for w, body in ((2401, "mixed"), (1102, "bluestein")):
+        left, right = _windows(SpectrogramConfig(sample_rate=48000.0,
+                                                 window_period=w / 48000.0),
+                               "chirp_tone", 64, cuda)
+        assert left.shape == (64, w) and sk.fft_body(2 * w) == body
+        hann = torch.from_numpy(sk.packed_hann(w)).to(cuda)
+        consts = sk.fft_constants(2 * w, cuda)
+        before = lib.body_launches[body]
+        got = sk.stft_mag_packed(left, right, hann, consts)
+        torch.cuda.synchronize()
+        assert lib.body_launches[body] == before + 1
+        for g, x in zip(got, sk.stft_mag_packed_plain(left, right, hann, 2 * w)):
+            torch.testing.assert_close(g, x, atol=ATOL, rtol=RTOL)
     x = torch.zeros((2, 16384), device=cuda)
     before = lib.body_launches["large"]
     got = sk.stft_mag_packed(x, x, torch.zeros(16384, device=cuda), sk.fft_constants(32768, cuda))
@@ -551,7 +556,8 @@ def test_split_real_pipelines_on_card(cuda, layout):
 
 # ------------------------------------------- every FFT size, the carry pair
 
-# (config, kind): Bluestein sizes (N = 4410, 1410, odd 693), pad_factor 1
+# (config, kind): 44.1 kHz (N = 4410, radix 7), Bluestein sizes (N = 1410,
+# odd 693), pad_factor 1
 SIZES = {
     "n4410": SpectrogramConfig(sample_rate=44100.0),
     "n1410": SpectrogramConfig(sample_rate=44100.0, window_period=0.016, hop_period=0.006),
@@ -574,7 +580,7 @@ def test_every_size_kernels_match_plain(cuda, size):
     hann = torch.from_numpy(sk.packed_hann(w)).to(cuda)
     split_hann = torch.from_numpy(sk.split_hann(w)).to(cuda)
     lib = _build.library()
-    before = lib.body_launches[sk.fft_body(n)]
+    before = dict(lib.body_launches)
     packed = sk.stft_mag_packed(left, right, hann, consts)
     split = sk.stft_mag_split(left, right, split_hann, consts)
     pcm = testing.chirp_tone(s, w + (k - 1) * h, cfg.sample_rate, seed=3)
@@ -582,7 +588,11 @@ def test_every_size_kernels_match_plain(cuda, size):
                     for c in range(2))
     allk = sk.stft_mag_packed_allk(buf_l, buf_r, hann, consts, k, h)
     torch.cuda.synchronize()
-    assert lib.body_launches[sk.fft_body(n)] == before + 3
+    # the packed kernels count under N's body, the split-real one under N/2's
+    want = {b: 0 for b in before}
+    want[sk.fft_body(n)] += 2
+    want[sk.split_route(n)] += 1
+    assert {b: lib.body_launches[b] - before[b] for b in before} == want
     for got, want in ((packed, sk.stft_mag_packed_plain(left, right, hann, n)),
                       (split, sk.stft_mag_split_plain(left, right, split_hann, n)),
                       (allk, sk.stft_mag_packed_allk_plain(buf_l, buf_r, hann, n, k, h))):
@@ -744,36 +754,45 @@ def test_xla_backends_run_the_plain_versions_on_card(cuda):
 
 # ------------------------------------------------------ the large-N route
 
-# N = 2^15 (radix 4^7 2), 48,000 (mixed), 17,640 (Bluestein, M = 36,000)
+# N = 2^15 (radix 4^7 2), 48,000 (mixed), 35,280 (mixed with radix 7) on the
+# packed kernels' route, their split-real rows (the N/2 pack) in shared
+# memory; N = 2^16, where the split-real rows take the route too
 LARGE = {
     "n32768": SpectrogramConfig(sample_rate=48000.0, window_period=16384 / 48000.0,
                                 hop_period=4096 / 48000.0),
     "n48000": SpectrogramConfig(sample_rate=48000.0, window_period=0.5),
-    "n17640": SpectrogramConfig(sample_rate=44100.0, window_period=0.2),
+    "n35280": SpectrogramConfig(sample_rate=44100.0, window_period=0.4),
+    "n65536": SpectrogramConfig(sample_rate=48000.0, window_period=32768 / 48000.0,
+                                hop_period=4096 / 48000.0),
 }
 
 
 @pytest.mark.parametrize("size", sorted(LARGE))
 def test_large_route_matches_plain(cuda, size):
-    """The large-N route's packed (f32, int16) and split-real kernels
-    against torch.fft at the STFT bar, counted under "large"; int16 rows
-    equal the f32 rows of x / 32768 bit for bit."""
+    """The large-N route's packed (f32, int16) kernel and the split-real
+    rows (the route's split kernel at N = 65,536, the shared-memory split
+    kernel on the N/2 pack below it) against torch.fft at the STFT bar,
+    counted under their body labels; int16 rows equal the f32 rows of
+    x / 32768 bit for bit."""
     cfg = LARGE[size]
     n, w = cfg.padded_size, cfg.window_size
     assert sk.is_large(n)
+    split_kernel = sk.LARGE_SPLIT_KERNEL if sk.is_large_split(n) else sk.SPLIT_KERNEL
     consts = sk.fft_constants(n, cuda)
     left, right = _windows(cfg, "chirp_tone", 24, cuda)
     hann = torch.from_numpy(sk.packed_hann(w)).to(cuda)
     shann = torch.from_numpy(sk.split_hann(w)).to(cuda)
     lib = _build.library()
-    before = (lib.body_launches["large"], lib.launches[sk.LARGE_KERNEL],
-              lib.launches[sk.LARGE_SPLIT_KERNEL])
+    before = dict(lib.body_launches), dict(lib.launches)
     packed = sk.stft_mag_packed(left, right, hann, consts)
     split = sk.stft_mag_split(left, right, shann, consts)
     torch.cuda.synchronize()
-    assert (lib.body_launches["large"], lib.launches[sk.LARGE_KERNEL],
-            lib.launches[sk.LARGE_SPLIT_KERNEL]) == (before[0] + 2, before[1] + 1,
-                                                      before[2] + 1)
+    assert lib.launches[sk.LARGE_KERNEL] == before[1][sk.LARGE_KERNEL] + 1
+    assert lib.launches[split_kernel] == before[1][split_kernel] + 1
+    want = {b: 0 for b in before[0]}
+    want["large"] += 1
+    want[sk.split_route(n)] += 1
+    assert {b: lib.body_launches[b] - before[0][b] for b in before[0]} == want
     for got, want in ((packed, sk.stft_mag_packed_plain(left, right, hann, n)),
                       (split, sk.stft_mag_split_plain(left, right, shann, n))):
         for g, x in zip(got, want):
@@ -788,13 +807,15 @@ def test_large_route_matches_plain(cuda, size):
 
 
 def test_large_split_layouts_equal_bit_for_bit(cuda):
-    """At N = 32,768 every split-real layout takes the one large split
-    kernel: planes, all-windows (with its next carry), the planar carry +
-    chunk, the transposed operand and tsplit give the same bits for the
-    same windows, and the fused push equals split -> kernel B."""
+    """At N = 65,536 (N/2 = 32,768 past a block) every split-real layout
+    takes the one large split kernel: planes, all-windows (with its next
+    carry), the planar carry + chunk, the transposed operand and tsplit
+    give the same bits for the same windows, and the fused push equals
+    split -> kernel B."""
     from spectrogram_tpu_torch.ops.cuda import push_kernel as pk
 
-    cfg = LARGE["n32768"]
+    cfg = LARGE["n65536"]
+    assert sk.is_large_split(cfg.padded_size)
     n, w, h, k, s = cfg.padded_size, cfg.window_size, cfg.hop_size, 3, 4
     n1 = fft_plan.make_plan(cfg).n1
     consts = sk.fft_constants(n, cuda)
@@ -833,10 +854,10 @@ def test_large_split_layouts_equal_bit_for_bit(cuda):
 
 
 def test_large_k8_push_equals_process(cuda):
-    """At N = 17,640 (44.1 kHz, 0.2 s window) the k=8 push with its ring
+    """At N = 35,280 (44.1 kHz, 0.4 s window) the k=8 push with its ring
     equals process() bit for bit, and the k=1 push on the card matches the
     CPU's within 1 u8, carry exact."""
-    cfg = LARGE["n17640"]
+    cfg = LARGE["n35280"]
     ids = np.array([0, 1, 3])
     p = SpectrogramPipeline(cfg, chunk_hops=8, viewport_rows=16, packed_output=True,
                             device=cuda)

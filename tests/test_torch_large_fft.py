@@ -4,15 +4,18 @@ block's shared memory.
 `spectrogram_tpu_torch/csrc/stft_large.cuh` holds the route's index code
 (the load, the local pass of the first radix stages through shared memory,
 the global stages over device memory, Bluestein's filter product, the
-unpack); `tests/cuda_host_stub/` compiles it with g++ and runs each pass
-over every row, one thread per block, as the route's launches do.  The bars: 1e-6 absolute of a float64 FFT (the bar of
+unpack, the split-real pack's unpack); `tests/cuda_host_stub/` compiles it
+with g++ and runs each pass over every row, one thread per block, as the
+route's launches do.  The bars: 1e-6 absolute of a float64 FFT (the bar of
 `tests/test_torch_stft_host.py`; f32 rounding over 8-17 passes stays near
-1e-7) at N = 32,768 (radix 4^7 2), 48,000 (mixed), 17,640 (Bluestein,
-M = 36,000) and the prime 16,411 (M = 33,750), packed and split-real; and
-at N the shared-memory bodies take too (4800, 4410), their bits exactly.
-Then the size check, and the pipeline at N = 17,640 against the JAX
-package's, as `tests/test_torch_fft_sizes.py` runs it.  Without a C++
-compiler the host tests skip.
+1e-7) at N = 32,768 (radix 4^7 2), 48,000 (mixed), 35,280 (mixed with
+radix 7) and the prime 16,411 (Bluestein, M = 33,614), packed and
+split-real; the split-real route at N = 60,000 and 65,536, where even the
+N/2-point pack passes a block; and at N the shared-memory bodies take too
+(4800, 4410, 2204), their bits exactly.  Then the size check, and the
+pipeline at N = 35,280 against the JAX package's, as
+`tests/test_torch_fft_sizes.py` runs it.  Without a C++ compiler the host
+tests skip.
 """
 
 import ctypes
@@ -35,7 +38,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 STUB = ROOT / "tests" / "cuda_host_stub"
 CSRC = ROOT / "spectrogram_tpu_torch" / "csrc"
 ATOL = 1e-6
-LARGE_SIZES = (32768, 48000, 17640, 16411)
+LARGE_SIZES = (32768, 48000, 35280, 16411)
 PICKED = 2    # the stub's body argument: the body the kernels pick for N
 
 
@@ -66,12 +69,14 @@ def _planes(kind: str, n_fft: int, rows: int = 2):
     return tuple(np.ascontiguousarray(pcm[..., c]) for c in range(2))
 
 
-def _host(fn, *lead, n_fft, left, right, hann, tail=()):
+def _host(fn, *lead, n_fft, left, right, hann, tail=(), split=False):
+    """fn's planes, with N's `fft_table`, or `split_fft_table` with `split`."""
     rows, w = left.shape
     bins = tsk.stft_bins(n_fft, w)
     out = np.zeros((rows, bins), np.float32), np.zeros((rows, bins), np.float32)
+    table = tsk.split_fft_table(n_fft) if split else tsk.fft_table(n_fft)
     assert fn(*lead, n_fft, rows, w, left.ctypes.data, right.ctypes.data, hann.ctypes.data,
-              tsk.fft_table(n_fft).ctypes.data, *(o.ctypes.data for o in out), *tail) == 0
+              table.ctypes.data, *(o.ctypes.data for o in out), *tail) == 0
     return out
 
 
@@ -92,13 +97,15 @@ def _reference(left, right, hann, n_fft, split):
 @pytest.mark.parametrize("n_fft", LARGE_SIZES)
 def test_large_route_matches_float64(host_lib, n_fft, split):
     """The route's passes against float64, and against the plain version
-    the card holds the kernels to."""
+    the card holds the kernels to: packed at N the packed kernels leave to
+    it, split-real (the pack over N/2 = 16,384, 24,000, 17,640; the N-point
+    row at the odd 16,411) at the same N."""
     assert tsk.is_large(n_fft) and tsk.fft_route(n_fft) == tsk.LARGE
     left, right = _planes("chirp_tone", n_fft)
     w = left.shape[1]
     hann = tsk.split_hann(w) if split else tsk.packed_hann(w)
     got = _host(host_lib.stft_host_large, int(split), n_fft=n_fft, left=left, right=right,
-                hann=hann, tail=(tsk.MAX_BUF,))
+                hann=hann, tail=(tsk.MAX_BUF,), split=split)
     plain = (tsk.stft_mag_split_plain if split else tsk.stft_mag_packed_plain)(
         torch.from_numpy(left), torch.from_numpy(right), torch.from_numpy(hann), n_fft)
     for g, want, p in zip(got, _reference(left, right, hann, n_fft, split), plain):
@@ -108,23 +115,39 @@ def test_large_route_matches_float64(host_lib, n_fft, split):
 
 @pytest.mark.parametrize("max_span", [tsk.MAX_BUF, 64], ids=["kernels", "span64"])
 @pytest.mark.parametrize("split", [False, True], ids=["packed", "split"])
-@pytest.mark.parametrize("n_fft", [4800, 4410])
+@pytest.mark.parametrize("n_fft", [4800, 4410, 2204])
 def test_large_route_gives_the_shared_memory_bodies_bits(host_lib, n_fft, split, max_span):
     """At an N both take, the route runs the shared-memory bodies' own
-    steps in their order (mixed radix; Bluestein's DIF, filter, DIT), so
-    its rows are theirs bit for bit, however its stages split between the
-    local pass and global ones (all but the last local, as the kernels
-    split them, or only those within 64 entries): one law at every N."""
+    steps in their order (mixed radix with radix 7; Bluestein's chirp, DIF,
+    filter, DIT, output chirp; the split-real pack and its unpack), so its
+    rows are theirs bit for bit, however its stages split between the local
+    pass and global ones (all but the last local, as the kernels split
+    them, or only those within 64 entries): one law at every N."""
     assert not tsk.is_large(n_fft)
     left, right = _planes("noise", n_fft, rows=3)
     w = left.shape[1]
     hann = tsk.split_hann(w) if split else tsk.packed_hann(w)
     got = _host(host_lib.stft_host_large, int(split), n_fft=n_fft, left=left, right=right,
-                hann=hann, tail=(max_span,))
+                hann=hann, tail=(max_span,), split=split)
     fn = host_lib.stft_host_split if split else host_lib.stft_host_rows
-    want = _host(fn, PICKED, n_fft=n_fft, left=left, right=right, hann=hann)
+    want = _host(fn, PICKED, n_fft=n_fft, left=left, right=right, hann=hann, split=split)
     for g, x in zip(got, want):
         np.testing.assert_array_equal(g, x)
+
+
+@pytest.mark.parametrize("n_fft", [60000, 65536])
+def test_large_split_route_matches_float64(host_lib, n_fft):
+    """Past N/2 = 29,056 even the split-real pack leaves shared memory: the
+    route's split form runs the pack over an N/2-entry scratch row (30,000
+    mixed, 32,768 radix 4^7 2) within the float64 bar."""
+    assert tsk.split_packs(n_fft) and tsk.is_large_split(n_fft)
+    assert tsk.split_route(n_fft) == tsk.LARGE
+    left, right = _planes("chirp_tone", n_fft)
+    hann = tsk.split_hann(left.shape[1])
+    got = _host(host_lib.stft_host_large, 1, n_fft=n_fft, left=left, right=right,
+                hann=hann, tail=(tsk.MAX_BUF,), split=True)
+    for g, want in zip(got, _reference(left, right, hann, n_fft, split=True)):
+        np.testing.assert_allclose(g, want, atol=ATOL, rtol=0)
 
 
 def test_check_fft_size_raises_only_below_two():
@@ -138,32 +161,35 @@ def test_check_fft_size_raises_only_below_two():
             tsk.check_fft_size(n)
     # the boundary: a buffer of 29,056 complex f32 fits (28,125 = 3^2 5^5
     # does), the next smooth size, 29,160, does not; 29,056 = 2^7 227 itself
-    # takes Bluestein, M = 58,320
+    # takes Bluestein, M = 58,320; 17,640 = 2^3 3^2 5 7^2 runs direct
     assert tsk.MAX_BUF == 29056
     for n, large in ((16384, False), (28800, False), (28125, False), (29160, True),
                      (29056, True), (32768, True), (14000, False), (14503, True),
-                     (17640, True)):
+                     (17640, False), (35280, True)):
         assert tsk.is_large(n) == large, n
         assert tsk.fft_route(n) == (tsk.LARGE if large else tsk.fft_body(n))
+    assert tsk.fft_body(17640) == "mixed" and tsk.fft_body(14503) == "bluestein"
     assert tsk.LARGE in _build.FFT_BODIES
     for name in (tsk.LARGE_KERNEL, tsk.LARGE_KERNEL_I16, tsk.LARGE_SPLIT_KERNEL):
         assert name in _build.KERNELS
 
 
 def test_large_pipeline_matches_jax():
-    """44.1 kHz with a 0.2 s window (W=8820, N=17,640, Bluestein M=36,000),
-    2 streams, H=64, k=1: the port's pipeline on the CPU against the JAX
+    """44.1 kHz with a 0.4 s window (W=17,640, N=35,280 = 2^4 3^2 5 7^2:
+    the packed kernels' route, the split-real pack's shared memory), 2
+    streams, H=64, k=1: the port's pipeline on the CPU against the JAX
     package's default pipeline from one state, with the bars of
     `tests/test_torch_fft_sizes.py` (carry exact, rows within 1 u8, ring
     within 1 bf16 ulp, streamed == process(), the state carried back)."""
     from test_torch_fft_sizes import _check_against_jax
 
-    kw = dict(sample_rate=44100.0, window_period=0.2, viewport_height=64,
+    kw = dict(sample_rate=44100.0, window_period=0.4, viewport_height=64,
               viewport_rows=8)
     cfg = SpectrogramConfig(**kw)
-    assert cfg.padded_size == 17640 and tsk.is_large(cfg.padded_size)
+    n = cfg.padded_size
+    assert n == 35280 and tsk.is_large(n) and not tsk.is_large_split(n)
     c = tsk.carry_len(cfg.window_size, cfg.hop_size)
     pcm = testing.chirp_tone(2, 3 * cfg.hop_size, cfg.sample_rate, seed=4)
     carry = testing.make("chirp_tone", 2, c, cfg.sample_rate, seed=5).transpose(0, 2, 1)
     tp = _check_against_jax(kw, 1, pcm, np.ascontiguousarray(carry))
-    assert tp.fft_consts.n_fft == 17640
+    assert tp.fft_consts.n_fft == 35280

@@ -8,6 +8,9 @@ JAX suite holds its own fused STFT to (tests/test_pallas_stft.py): both
 sides are f32 FFTs of different factorizations.
 """
 
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -105,11 +108,12 @@ def test_wrapper_takes_plain_version_on_cpu():
 def test_wrapper_refuses_other_devices_and_sizes():
     meta = torch.empty((2, 256), device="meta")
     hann = torch.empty(256, device="meta")
-    tw = tsk.FftConstants(256, torch.empty((256, 2), device="meta"))
+    table = torch.empty((256, 2), device="meta")
+    tw = tsk.FftConstants(256, table, table)
     with pytest.raises(ValueError, match="no STFT kernel"):
         tsk.stft_mag_packed(meta, meta, hann, tw)
     # every N whose row buffer fits a block's shared memory: odd, prime
-    # factors above 5 (Bluestein), below 256, N = W
+    # factors above 7 (Bluestein), below 256, N = W
     for n in (2, 3, 97, 128, 255, 256, 480, 1410, 2204, 4096, 4410, 4800, 4801,
               4802, 9600, 14000, 16384, 28800):
         tsk.check_fft_size(n)
@@ -123,4 +127,20 @@ def test_wrapper_refuses_other_devices_and_sizes():
     for n in (0, 1):
         with pytest.raises(ValueError, match="at least 2"):
             tsk.check_fft_size(n)
-    assert tsk.fft_buf_size(4410) == 9000 and tsk.fft_body(4410) == "bluestein"
+    assert tsk.fft_buf_size(4410) == 4410 and tsk.fft_body(4410) == "mixed"
+    assert tsk.fft_buf_size(2204) == 4500 and tsk.fft_body(2204) == "bluestein"
+
+
+def test_split_kernels_are_the_split_entry_points():
+    """`_SPLIT_KERNELS`, from which a launch takes `FftConstants.split_table`
+    and its `split_route` label, names exactly the C entry points that run
+    the split-real row: every `spk_stft_split*` export, the route's split
+    form and the fused push."""
+    csrc = pathlib.Path(tsk.__file__).parents[2] / "csrc"
+    exported = set()
+    for source in csrc.glob("*.cu"):
+        exported |= set(re.findall(r"SPK_EXPORT int (spk_\w+)\(", source.read_text()))
+    split = {name for name in exported if name.startswith("spk_stft_split")}
+    assert len(split) == 6
+    assert tsk._SPLIT_KERNELS == split | {tsk.LARGE_SPLIT_KERNEL, tsk.PUSH_FUSED_KERNEL}
+    assert tsk._SPLIT_KERNELS <= exported

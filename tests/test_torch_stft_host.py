@@ -2,22 +2,26 @@
 and against the plain versions.
 
 `spectrogram_tpu_torch/csrc/stft_fft.cuh` holds the row code every STFT
-kernel runs: the Hann-pack-pad load, the radix-2, mixed-radix (4/2/3/5) and
-Bluestein FFT bodies, the stereo unpack, and the split-real row with its
-sample sources (window planes, carry+chunk buffers, the transposed operand,
-the transposed carry and chunk, the planar carry and chunk) and the next
-carries; `push_fused.cuh` the fused push's row (both channels' split-real
-STFT into shared planes, then the built-in colormap's pixels from them).
+kernel runs: the Hann-pack-pad load, the radix-2, mixed-radix (4/2/3/5/7)
+and Bluestein FFT bodies (the chirp and filter products folded into the
+first and last stages of its DIF pass, the output chirp into the unpack),
+the stereo unpack, and the split-real row (the N/2-point real-FFT pack at
+even N, the N-point row at odd N) with its sample sources (window planes,
+carry+chunk buffers, the transposed operand, the transposed carry and
+chunk, the planar carry and chunk) and the next carries; `push_fused.cuh`
+the fused push's row (both channels' split-real STFT into shared planes,
+then the built-in colormap's pixels from them).
 Its index logic (bit and digit reversal, butterfly positions, twiddle,
 chirp and filter indices) does not depend on the card, so a C++ compiler
 can run it here: `tests/cuda_host_stub/` supplies a host stand-in for the
 CUDA runtime (one thread per block) and C entry points.  The bar, 1e-6
 absolute on magnitudes up to ~0.3, is far below what a wrong index gives
-and far above f32 rounding (~3e-8; Bluestein's three M-point passes stay
+and far above f32 rounding (~3e-8; Bluestein's two M-point passes stay
 near 5e-8).  Without a C++ compiler the tests skip.
 """
 
 import ctypes
+import hashlib
 import pathlib
 import shutil
 import subprocess
@@ -37,7 +41,15 @@ STUB = ROOT / "tests" / "cuda_host_stub"
 CSRC = ROOT / "spectrogram_tpu_torch" / "csrc"
 ATOL = 1e-6
 RADIX2, MIXED, PICKED = 0, 1, 2   # the stub's body argument (PICKED: by N)
-BLUESTEIN_SIZES = (96, 97, 1410, 2204, 4410, 4801, 4802)
+# N with a prime factor above 7: the sizes that keep the Bluestein body
+BLUESTEIN_SIZES = (11, 97, 1410, 2204, 4406, 4801, 9998)
+# the sha256 of stft_host_rows' output planes (see `_packed_digest`) at the
+# parent of radix 7 and of the real-FFT pack: a 5-smooth N keeps its bits
+FIVE_SMOOTH_DIGESTS = {
+    (4096, 0): "ff916e7e0987b0e8963c8ef3b149d89d9e14e46e8702927a22a0b395f064911d",
+    (4800, 1): "14be376bb1a61b6a64487f4592433a33e83166e2a3ee5b52eb64c93bf39e0a75",
+    (4800, 2): "14be376bb1a61b6a64487f4592433a33e83166e2a3ee5b52eb64c93bf39e0a75",
+}
 
 
 @pytest.fixture(scope="module")
@@ -57,6 +69,7 @@ def host_lib(tmp_path_factory):
         fn.argtypes = (i, i, i, i, p, p, p, p, p, p)
     lib.stft_host_plan.argtypes = (i, p)
     lib.stft_host_buf_size.argtypes = (i,)
+    lib.stft_host_split_buf_size.argtypes = (i,)
     lib.stft_host_split.argtypes = (i, i, i, i, p, p, p, p, p, p)
     lib.stft_host_split_allk.argtypes = (i, i, i, i, i, i, i, p, p, p, p, p, p, p, i)
     lib.stft_host_split_carry.argtypes = (i, i, i, i, i, i, i, p, p, p, p, p, p, p)
@@ -65,7 +78,8 @@ def host_lib(tmp_path_factory):
     lib.stft_host_push.argtypes = (i, i, i, i, p, p, p, p, p, i, i, p, p, p, p, i,
                                    f, f, f, f, p, p, p)
     for fn in (lib.stft_host_rows, lib.stft_host_rows_i16, lib.stft_host_plan,
-               lib.stft_host_buf_size, lib.stft_host_split, lib.stft_host_split_allk,
+               lib.stft_host_buf_size, lib.stft_host_split_buf_size, lib.stft_host_split,
+               lib.stft_host_split_allk,
                lib.stft_host_split_carry, lib.stft_host_split_t,
                lib.stft_host_split_tsplit, lib.stft_host_push):
         fn.restype = i
@@ -81,13 +95,16 @@ def _reference(left, right, hann, n, bins=None):
     return np.abs(a + np.conj(b)), np.abs(a - np.conj(b))
 
 
-def _host_rows(host_lib, fn, body, n_fft, left, right, hann):
+def _host_rows(host_lib, fn, body, n_fft, left, right, hann, table=None):
+    """fn's [rows, stft_bins] planes; `table` defaults to N's `fft_table`
+    (the split-real rows take `split_fft_table`)."""
     rows, w = left.shape
     bins = tsk.stft_bins(n_fft, w)
     out_l = np.zeros((rows, bins), np.float32)
     out_r = np.zeros_like(out_l)
+    table = tsk.fft_table(n_fft) if table is None else table
     assert fn(body, n_fft, rows, w, left.ctypes.data, right.ctypes.data,
-              hann.ctypes.data, tsk.fft_table(n_fft).ctypes.data, out_l.ctypes.data,
+              hann.ctypes.data, table.ctypes.data, out_l.ctypes.data,
               out_r.ctypes.data) == 0
     return out_l, out_r
 
@@ -100,7 +117,9 @@ def _host_rows(host_lib, fn, body, n_fft, left, right, hann):
 ])
 def test_fft_bodies_match_float64(host_lib, n_fft, body):
     """Every body against a float64 FFT; PICKED takes the body the kernels
-    pick for N (Bluestein for 97, 1410, 2204, 4410, 4801, 4802)."""
+    pick for N (Bluestein for every N of BLUESTEIN_SIZES)."""
+    if body == PICKED:
+        assert tsk.fft_body(n_fft) == "bluestein"
     rows, w = 3, n_fft // 2
     pcm = testing.chirp_tone(rows, w, 48000.0, seed=n_fft)
     left = np.ascontiguousarray(pcm[..., 0])
@@ -134,7 +153,7 @@ def test_pad_factor_one_rows_match_float64(host_lib, n_fft):
 
 
 def test_mixed_radix_plans_agree_with_the_size_check(host_lib):
-    """A mixed-radix plan exists exactly for N = 2^a 3^b 5^c, the host's
+    """A mixed-radix plan exists exactly for N = 2^a 3^b 5^c 7^d, the host's
     choice of body and buffer is the kernels', and the size check takes
     every N up to the shared-memory limit."""
     radix = (ctypes.c_int * 16)()
@@ -158,7 +177,7 @@ def test_bluestein_table_layout():
     n = 97
     m = tsk.bluestein_size(n)
     table = tsk.fft_table(n)
-    assert m == 200 and table.shape == tsk.fft_table_shape(n) == (2 * m + n, 2)
+    assert m == 196 and table.shape == tsk.fft_table_shape(n) == (2 * m + n, 2)
     np.testing.assert_array_equal(table[:m], tsk.twiddle_table(m))
     t = np.arange(n)
     chirp = np.exp(-1j * np.pi * (t.astype(np.float64) ** 2) / n)
@@ -211,7 +230,7 @@ def test_split_real_layouts_match_plain(host_lib, n_fft, body, n1, kind):
     left = np.ascontiguousarray(pcm[..., 0])
     right = np.ascontiguousarray(pcm[..., 1])
     hann = tsk.split_hann(w)
-    tw = tsk.fft_table(n_fft)
+    tw = tsk.split_fft_table(n_fft)
     want = tsk.stft_mag_split_plain(torch.from_numpy(left), torch.from_numpy(right),
                                     torch.from_numpy(hann), n_fft)
 
@@ -271,7 +290,7 @@ def test_split_real_tsplit_matches_plain_and_framing(host_lib, n_fft, body, n1, 
     carry = np.ascontiguousarray(x[..., :c_cols])
     chunk = np.ascontiguousarray(x[..., c_cols:])
     hann = tsk.split_hann(w)
-    tw = tsk.fft_table(n_fft)
+    tw = tsk.split_fft_table(n_fft)
     out = _outs(rows, n_fft)
     nxt = np.full_like(carry, np.nan)
     assert host_lib.stft_host_split_tsplit(
@@ -312,7 +331,7 @@ def test_planar_carry_source_and_next_carries(host_lib, n_fft, body, w, hop, k):
     buf = np.concatenate([carry, chunk], axis=2)
     buf_l, buf_r = (np.ascontiguousarray(buf[:, ch]) for ch in range(2))
     hann = tsk.split_hann(w)
-    tw = tsk.fft_table(n_fft)
+    tw = tsk.split_fft_table(n_fft)
     out = _outs(k * s, n_fft, w)
     nxt = np.full_like(carry, np.nan)
     assert host_lib.stft_host_split_carry(body, n_fft, s, c, k, hop, w, _ptr(carry),
@@ -347,7 +366,7 @@ def test_fused_push_row_matches_split_then_colormap(host_lib, n_fft, body, emit_
     pcm = testing.chirp_tone(rows, w, cfg.sample_rate, seed=n_fft)
     left, right = (np.ascontiguousarray(pcm[..., c]) for c in range(2))
     hann = tsk.split_hann(w)
-    tw = tsk.fft_table(n_fft)
+    tw = tsk.split_fft_table(n_fft)
     taps = tck.resample_taps(tcm.resample_matrix_full(cfg))
     tables = np.ascontiguousarray(tck.builtin_color_tables()[[0, 1, 3, 8]])
     res = tables.shape[1] // 4
@@ -369,3 +388,151 @@ def test_fused_push_row_matches_split_then_colormap(host_lib, n_fft, body, emit_
                                       taps, torch.from_numpy(tables), cfg)
     assert testing.rgba_u8_diff(tck.unpack_rgba(words.view(np.int32)),
                                 tck.unpack_rgba(want)) <= 1
+
+
+# ------------------------------------------- radix 7 and the real-FFT pack
+
+def _packed_digest(host_lib, n_fft: int, body: int) -> str:
+    """sha256 of the packed rows of 4 windows of chirp+tone, then of noise,
+    at W = N/2 (left plane, then right, per kind)."""
+    h = hashlib.sha256()
+    w = n_fft // 2
+    for kind in ("chirp_tone", "noise"):
+        pcm = testing.make(kind, 4, w, 48000.0, seed=n_fft)
+        left, right = (np.ascontiguousarray(pcm[..., c]) for c in range(2))
+        for plane in _host_rows(host_lib, host_lib.stft_host_rows, body, n_fft, left, right,
+                                tsk.packed_hann(w)):
+            h.update(plane.tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("n_fft,body", sorted(FIVE_SMOOTH_DIGESTS))
+def test_five_smooth_rows_keep_their_bits(host_lib, n_fft, body):
+    """Kernel A's and the all-windows kernel's row (`stft_packed_row`) at
+    N = 4096 (radix 2) and 4800 (4-4-4-3-5-5, forced and as picked) gives
+    the bits it gave before radix 7 joined the plan: the digests come from
+    the parent tree's host build on these inputs."""
+    assert tsk.mixed_radix_plan(4800) == (4, 4, 4, 3, 5, 5)
+    assert _packed_digest(host_lib, n_fft, body) == FIVE_SMOOTH_DIGESTS[(n_fft, body)]
+
+
+@pytest.mark.parametrize("n_fft", [7, 343, 4410, 4802, 17640])
+def test_radix7_plans_and_rows_match_float64(host_lib, n_fft):
+    """A 7-smooth N runs the direct mixed-radix body with its 7s last (the
+    radix-7 butterfly alone at N = 7): the host plan is Python's, and the
+    packed rows at W = N/2 and W = N match float64."""
+    radix = (ctypes.c_int * 16)()
+    stages = host_lib.stft_host_plan(n_fft, radix)
+    plan = tsk.mixed_radix_plan(n_fft)
+    assert tuple(radix)[:stages] == plan and plan[-1] == 7
+    assert tsk.fft_body(n_fft) == "mixed" and host_lib.stft_host_buf_size(n_fft) == n_fft
+    for w in (n_fft // 2, n_fft):
+        pcm = testing.chirp_tone(2, w, 44100.0, seed=n_fft + w)
+        left, right = (np.ascontiguousarray(pcm[..., c]) for c in range(2))
+        hann = tsk.packed_hann(w)
+        got = _host_rows(host_lib, host_lib.stft_host_rows, PICKED, n_fft, left, right, hann)
+        want = _reference(left, right, hann.astype(np.float64), n_fft,
+                          bins=tsk.stft_bins(n_fft, w))
+        for g, x in zip(got, want):
+            np.testing.assert_allclose(g, x, atol=ATOL, rtol=0)
+
+
+def _real_reference(x: np.ndarray, hann: np.ndarray, n_fft: int, bins: int) -> np.ndarray:
+    """float64 |DFT_N(x * hann)| of each row, bins 0 .. bins-1."""
+    z = x.astype(np.float64) * hann.astype(np.float64)
+    return np.abs(np.fft.fft(z, n=n_fft))[:, :bins]
+
+
+def _split_rows(host_lib, body: int, n_fft: int, w: int, kind: str = "chirp_tone"):
+    """(left, right, hann, (out_l, out_r)): stft_host_split over 2 windows."""
+    pcm = testing.make(kind, 2, w, 48000.0, seed=n_fft + w)
+    left, right = (np.ascontiguousarray(pcm[..., c]) for c in range(2))
+    hann = tsk.split_hann(w)
+    out = _host_rows(host_lib, host_lib.stft_host_split, body, n_fft, left, right, hann,
+                     tsk.split_fft_table(n_fft))
+    return left, right, hann, out
+
+
+@pytest.mark.parametrize("n_fft", [4096, 4800, 4410, 4408, 17640, 32768, 48000])
+def test_split_real_pack_matches_float64(host_lib, n_fft):
+    """The split-real row at even N as the N/2-point pack, on the body the
+    kernels pick for N/2 (radix 2 at 4096 and 32,768; mixed at 4800, 4410,
+    17,640 and 48,000; Bluestein at 4408, N/2 = 2204, M = 4500), against
+    float64; its buffer is N/2's, in shared memory up to N = 48,000."""
+    half = n_fft // 2
+    assert tsk.split_packs(n_fft) and tsk.split_size(n_fft) == half
+    assert host_lib.stft_host_split_buf_size(n_fft) == tsk.split_buf_size(n_fft) == \
+        tsk.fft_buf_size(half)
+    assert not tsk.is_large_split(n_fft)
+    assert tsk.split_route(n_fft) == tsk.fft_body(half)
+    left, right, hann, out = _split_rows(host_lib, PICKED, n_fft, half)
+    for g, x in zip(out, (left, right)):
+        np.testing.assert_allclose(g, _real_reference(x, hann, n_fft, half), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("n_fft,body", [(256, RADIX2), (480, MIXED), (4410, PICKED),
+                                        (2204, PICKED), (4408, PICKED)])
+def test_split_real_pack_pad_factor_one(host_lib, n_fft, body):
+    """N = W: a split-real row carries W bins; the Nyquist bin (twiddle -1)
+    and the mirrors |X[N-k]| past it come out of the pack's unpack, within
+    the float64 bar and the plain version's."""
+    left, right, hann, out = _split_rows(host_lib, body, n_fft, n_fft, "noise")
+    plain = tsk.stft_mag_split_plain(torch.from_numpy(left), torch.from_numpy(right),
+                                     torch.from_numpy(hann), n_fft)
+    for g, x, q in zip(out, (left, right), plain):
+        assert g.shape == (2, n_fft)
+        np.testing.assert_allclose(g, _real_reference(x, hann, n_fft, n_fft), atol=ATOL, rtol=0)
+        np.testing.assert_allclose(g, q.numpy(), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("n_fft,w", [(97, 48), (97, 97), (435, 145), (693, 231)])
+def test_split_real_odd_n_keeps_the_full_row(host_lib, n_fft, w):
+    """Odd N has no pack: the N-point row on (x, 0), with N's own table,
+    within the float64 bar (Bluestein at 97, 435 = 3 5 29, 693 = 3^2 7 11)."""
+    assert not tsk.split_packs(n_fft) and tsk.split_size(n_fft) == n_fft
+    assert tsk.split_table_shape(n_fft) == tsk.fft_table_shape(n_fft)
+    np.testing.assert_array_equal(tsk.split_fft_table(n_fft), tsk.fft_table(n_fft))
+    assert host_lib.stft_host_split_buf_size(n_fft) == tsk.fft_buf_size(n_fft)
+    left, right, hann, out = _split_rows(host_lib, PICKED, n_fft, w)
+    for g, x in zip(out, (left, right)):
+        np.testing.assert_allclose(g, _real_reference(x, hann, n_fft, tsk.stft_bins(n_fft, w)),
+                                   atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("n_fft,m", [(97, 196), (1410, 2880), (2204, 4500)])
+def test_fused_bluestein_matches_float64(host_lib, n_fft, m):
+    """Bluestein with its chirp product in the first DIF stage, its filter
+    product in the last and its output chirp in the unpack, on a 7-smooth M:
+    the packed rows at W = N/2 and W = N, and the split-real row (the N/2
+    pack, itself Bluestein at 1410 and 2204), within the float64 bar."""
+    assert tsk.fft_body(n_fft) == "bluestein" and tsk.bluestein_size(n_fft) == m
+    assert tsk.mixed_radix_plan(m) and host_lib.stft_host_buf_size(n_fft) == m
+    for w in (n_fft // 2, n_fft):
+        pcm = testing.noise(2, w, seed=n_fft + w)
+        left, right = (np.ascontiguousarray(pcm[..., c]) for c in range(2))
+        hann = tsk.packed_hann(w)
+        got = _host_rows(host_lib, host_lib.stft_host_rows, PICKED, n_fft, left, right, hann)
+        want = _reference(left, right, hann.astype(np.float64), n_fft,
+                          bins=tsk.stft_bins(n_fft, w))
+        for g, x in zip(got, want):
+            np.testing.assert_allclose(g, x, atol=ATOL, rtol=0)
+    left, right, hann, out = _split_rows(host_lib, PICKED, n_fft, n_fft // 2)
+    for g, x in zip(out, (left, right)):
+        np.testing.assert_allclose(g, _real_reference(x, hann, n_fft, tsk.stft_bins(n_fft, n_fft // 2)),
+                                   atol=ATOL, rtol=0)
+
+
+def test_split_sizes_agree_with_the_host(host_lib):
+    """`split_buf_size` is the buffer `with_real_body` gives the split-real
+    kernels at every N up to 5000 and at the long windows; the pack leaves
+    the large-N route below N = 58,112 where N/2 is direct."""
+    for n in range(2, 5000):
+        assert host_lib.stft_host_split_buf_size(n) == tsk.split_buf_size(n), n
+    for n, size, large in ((4096, 2048, False), (4408, 4500, False), (17640, 8820, False),
+                           (32768, 16384, False), (48000, 24000, False), (57600, 28800, False),
+                           (60000, 30000, True), (65536, 32768, True), (16411, 33614, True),
+                           (97, 196, False)):
+        assert tsk.split_buf_size(n) == size and tsk.is_large_split(n) == large, n
+        assert tsk.split_route(n) == (tsk.LARGE if large else tsk.fft_body(tsk.split_size(n)))
+        if not large:
+            assert host_lib.stft_host_split_buf_size(n) == size, n
