@@ -181,9 +181,11 @@ Phases, each of which fails the run with a non-zero exit:
      chirp + tone at 48 kHz, stft_rows_planar -> colormap_rows_fused)
      within 1 u8 of rgba_f32_to_u8(colormap_rows(...)); device time, plain,
      bound.
- 25. the redesigned kernels (the split-real pack; radix 7): each one's
-     device time from phases 17, 20 and 23 beside its first version's
-     (FIRST_VERSION_MS, from PERF.md), its library call and its bound.
+ 25. the redesigned kernels (the split-real pack; radix 7; the large-N
+     route's two passes, packed f32 and int16 at N=48,000, packed at
+     N=32,768, split-real at N=65,536): each one's device time from phases
+     17, 20 and 23 beside its first version's (FIRST_VERSION_MS, from
+     PERF.md), its library call and its bound.
 
 Then the whole run's seconds.  The second-to-last line is {"kernels": [...]}:
 each kernel's launches on the main paths (phases 5, 9, 12, 15, 18, 21, 22,
@@ -1612,15 +1614,18 @@ ODD = SpectrogramConfig(sample_rate=16000.0, window_period=145 / 16000.0,
                         hop_period=69 / 16000.0, pad_factor=3, viewport_height=100,
                         max_frequency=7950.0)                            # N = 435
 # The device times (PERF.md, H100 80GB HBM3, 700 W) of the first versions of
-# the kernels the split-real pack and radix 7 redesigned: the split-real
-# rows as N-point transforms (on the large-N route from N=17,640), N=4410
-# and packed N=17,640 on Bluestein; 4096 rows unless named
+# the redesigned kernels: the split-real rows as N-point transforms (on the
+# large-N route from N=17,640), N=4410 and packed N=17,640 on Bluestein; the
+# large-N route as four passes (load, local pass, last stage, unpack); 4096
+# rows unless named
 FIRST_VERSION_MS = {
     "stft_split N=4096": 0.7932, "stft_split_t N=4096": 0.8231,
     "stft_split_allk N=4096 k=8": 6.2293, "stft_split_tsplit N=4096": 0.8144,
     "kernel A N=4410": 1.0516,
     "split-real N=17640": 13.9564, "split-real N=32768": 13.7192,
     "split-real N=48000": 16.3022, "packed N=17640": 7.2398,
+    "large route packed N=48000": 12.4223, "large route packed int16 N=48000": 10.3921,
+    "large route packed N=32768": 8.8779, "large route split-real N=65536": 15.5659,
 }
 
 
@@ -2145,6 +2150,13 @@ def large_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign) -> Non
         if n == LARGE_48K.padded_size:
             for name, (tm, pm, lm, b) in t.items():
                 ms[name], plain_ms[name], library_ms[name], bounds[name] = tm, pm, lm, b
+        # the route's two passes beside its four (phase 25)
+        for name, what in {LARGE_32K.padded_size: ((sk.LARGE_KERNEL, "packed"),),
+                           LARGE_48K.padded_size: ((sk.LARGE_KERNEL, "packed"),
+                                                   (sk.LARGE_KERNEL_I16, "packed int16"))
+                           }.get(n, ()):
+            tm, _, lm, b = t[name]
+            redesign[f"large route {what} N={n}"] = (tm, lm, b[0])
         del left, right, words
         torch.cuda.empty_cache()
 
@@ -2176,6 +2188,7 @@ def large_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign) -> Non
         lambda: sk.stft_mag_split(left, right, shann, consts),
         lambda: sk.stft_mag_split_plain(left, right, shann, n),
         lambda: torch.fft.rfft(real), stft_work(rows, n, w, rows * w))
+    redesign[f"large route split-real N={n}"] = (ms[name], library_ms[name], bounds[name][0])
     del real, left, right
     torch.cuda.empty_cache()
 

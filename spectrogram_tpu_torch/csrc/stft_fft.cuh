@@ -560,25 +560,31 @@ __device__ __forceinline__ float magnitude(float2 z) {
   return sqrtf(__fmaf_rn(z.x, z.x, __fmul_rn(z.y, z.y)));
 }
 
-// |X[k]|, k < N = 2h, of a real row x from the h-point transform Z of its
-// pack z[t] = x[2t] + i x[2t+1] (`z(t)` gives Z[t]; `post` holds the h
-// twiddles exp(-2 pi i k / N)):
+// |X[k]|, 0 <= k <= h, of a real row x of N = 2h samples from the h-point
+// transform Z of its pack z[t] = x[2t] + i x[2t+1], given zk = Z[k mod h]
+// and zm = Z[(h - k) mod h] (`post` holds the h twiddles
+// exp(-2 pi i k / N)):
 //   X[k] = ((Z[k] + conj Z[h-k]) - i e^{-2 pi i k / N} (Z[k] - conj Z[h-k])) / 2
-// with Z[h] = Z[0]; the twiddle of k = h is -1, and a bin past h is the
-// mirror of bin N - k (|X[k]| = |X[N-k]| for real x).  The 1/2 is an exact
-// scale of the magnitude.
+// with Z[h] = Z[0]; the twiddle of k = h is -1.  The 1/2 is an exact scale
+// of the magnitude.
+__device__ __forceinline__ float real_pack_bin(float2 zk, float2 zm,
+                                               const float2* __restrict__ post,
+                                               int h, int k) {
+  const float2 e = make_float2(__fadd_rn(zk.x, zm.x), __fsub_rn(zk.y, zm.y));
+  const float2 o = make_float2(__fsub_rn(zk.x, zm.x), __fadd_rn(zk.y, zm.y));
+  const float2 t = k == h ? make_float2(-o.x, -o.y) : cmul(post[k], o);
+  return __fmul_rn(0.5f, magnitude(sub_i(e, t)));
+}
+
+// |X[k]|, k < N = 2h, with `z(t)` giving Z[t]: a bin past h is the mirror
+// of bin N - k (|X[k]| = |X[N-k]| for real x).
 template <class Z>
 __device__ __forceinline__ float real_pack_magnitude(const Z& z,
                                                      const float2* __restrict__ post,
                                                      int h, int k) {
   if (k > h) k = 2 * h - k;
   const bool edge = k == 0 || k == h;
-  const float2 zk = z(edge ? 0 : k);
-  const float2 zm = z(edge ? 0 : h - k);
-  const float2 e = make_float2(__fadd_rn(zk.x, zm.x), __fsub_rn(zk.y, zm.y));
-  const float2 o = make_float2(__fsub_rn(zk.x, zm.x), __fadd_rn(zk.y, zm.y));
-  const float2 t = k == h ? make_float2(-o.x, -o.y) : cmul(post[k], o);
-  return __fmul_rn(0.5f, magnitude(sub_i(e, t)));
+  return real_pack_bin(z(edge ? 0 : k), z(edge ? 0 : h - k), post, h, k);
 }
 
 // The first `count` entries of tw copied to shared memory at `at` (the row's

@@ -21,21 +21,35 @@
 //
 // with B = stft_bins(N, w).  Each entry runs the passes of stft_large.cuh
 // over a caller-allocated scratch of [rows, buf_size] complex f32 ([2 rows,
-// buf_size] split-real, buf_size N/2 at even N): the load (a thread per
-// entry, gathering its samples), the local pass (one block per run of
-// `span` entries, through shared memory), one launch per global stage (a
-// thread per butterfly; Bluestein's DIF stage before the local pass) and the
-// unpack (a thread per bin), each thread walking rows along the grid's y
-// axis.  It is one launch of the route, counted once by its wrapper.
+// buf_size] split-real, buf_size N/2 at even N), each walking rows along the
+// grid's y axis.  A direct N takes two kernels: `large_load_local_kernel`
+// (one block per (run, row), blockIdx.x the run, so that a row's G runs,
+// which read the same 32-byte sectors of its window planes G entries apart,
+// are neighbours in the launch order and L2 serves them; 1,024 threads for
+// runs of 128 KB, which hold an SM alone) and `large_last_unpack_kernel` /
+// `large_last_magnitude_kernel` (a thread per butterfly pair of the last
+// stage, templated on its radix), with a `large_pass_kernel` launch for
+// each global stage between them (none at the kernels' span).  Bluestein
+// takes the load (a thread per entry), its DIF stage, the local pass, its
+// DIT stage and the unpack (a thread per bin).  It is one launch of the
+// route, counted once by its wrapper.
 //
-// What bounds it on this card: device memory.  Each pass reads and writes
-// the scratch once, 16 bytes per entry and row: four passes for a direct
-// N, five for Bluestein, where the bytes the function must move (samples
-// in, planes out) are one pass's worth; a direct N's load also gathers its
-// samples from digit-reversed positions, 4 bytes scattered over the row.
-// The split-real pack halves the entries of a row, and so the bytes of
-// every pass.  A radix-N/span global stage fused with the unpack, and the
-// load fused with the local pass, would cut two passes; that is later work.
+// What bounds it on this card (H100).  A direct N reads its samples once,
+// writes and reads the scratch once each (pass 1, pass 2) and writes its
+// planes: at N=48,000 and 4,096 rows 0.79 GB of samples, 1.57 GB written,
+// 1.57 GB read, 0.79 GB of planes, 4.7 GB or 1.41 ms at 3.35 TB/s, against
+// about 11 GB over four passes before, whose load took one 4-byte sample
+// from each 32-byte sector it touched.  Pass 2 runs near that rate (0.83 ms
+// at N=48,000).  Pass 1 does not: it is bound by its shared-memory stages,
+// the engine of the shared-memory kernels (stft_fft.cuh), as the local pass
+// before it was.  Its own costs were the digit reversal of each input's
+// place, a division by a run-time radix per local stage and input (now two
+// table reads, `large_run_slots`, and no division), and its stores into
+// the tile, which conflict across banks (neighbouring inputs land span /
+// r_{local-1} entries apart; measured smaller than the division).  Its
+// samples are read G (2 to 7) entries apart, so each warp's load touches G
+// times the sectors it uses; the row's other runs read the rest from L2.
+// Bluestein's passes each read and write the scratch once.
 #include "stft_large.cuh"
 
 namespace {
@@ -44,7 +58,7 @@ constexpr int kThreads = 256;
 constexpr int kMaxGridY = 65535;
 // blocks per element-wise launch: four waves of 8 blocks on each of the
 // H100's 132 SMs.  Each thread walks rows blockIdx.y, + gridDim.y, ..., so
-// the plan it copies to its stack frame (ptxas: 112 bytes, `radix[]` is
+// the plan it copies to its stack frame (ptxas: 128 bytes, `radix[]` is
 // indexed at run time) is paid once for many elements, not once for each.
 constexpr int kBlocksPerLaunch = 4 * 8 * 132;
 
@@ -54,6 +68,7 @@ dim3 grid_of(int count, int rows) {
   return dim3(x, y < 1 ? 1 : y < rows ? y : rows);
 }
 
+// Bluestein's load, a thread per entry: stereo-packed ...
 template <class T>
 __global__ void __launch_bounds__(kThreads) large_load_packed_kernel(
     spk::LargePlan p, const T* __restrict__ l, const T* __restrict__ r,
@@ -67,7 +82,8 @@ __global__ void __launch_bounds__(kThreads) large_load_packed_kernel(
   }
 }
 
-// scratch row q = 2 * row + c holds channel c of window row `row`
+// ... or split-real: scratch row q = 2 * row + c holds channel c of window
+// row `row`
 __global__ void __launch_bounds__(kThreads) large_load_real_kernel(
     spk::LargePlan p, const float* __restrict__ l, const float* __restrict__ r,
     const float* __restrict__ hann, float2* __restrict__ scratch, int rows) {
@@ -80,7 +96,7 @@ __global__ void __launch_bounds__(kThreads) large_load_real_kernel(
   }
 }
 
-// one block per (run, row): the local stages through shared memory
+// Bluestein's local pass: one block per (run, row), through shared memory
 __global__ void __launch_bounds__(spk::kStftMaxThreads) large_local_kernel(
     spk::LargePlan p, float2* __restrict__ scratch, int rows) {
   extern __shared__ float2 tile[];
@@ -90,6 +106,62 @@ __global__ void __launch_bounds__(spk::kStftMaxThreads) large_local_kernel(
   }
 }
 
+// Pass 1 of a direct N: one block per (run, row), the run's inputs straight
+// from the window planes (f32 or int16 stereo-packed; kSplit: f32 split-real,
+// scratch row q = 2 * row + c) into shared memory, the local stages, the run
+// back to the scratch.  kBound threads at most: kWideThreads for runs of
+// kWideRow entries and more (128 KB, one block per SM), else kStftMaxThreads.
+template <class T, bool kSplit, int kBound>
+__global__ void __launch_bounds__(kBound) large_load_local_kernel(
+    spk::LargePlan p, const T* __restrict__ l, const T* __restrict__ r,
+    const float* __restrict__ hann, float2* __restrict__ scratch, int rows) {
+  extern __shared__ float2 tile[];
+  int* slots = reinterpret_cast<int*>(tile + p.span);
+  spk::large_run_slots(p, slots);
+  const int run = blockIdx.x;
+  const int first = spk::large_run_first(p, run);
+  const int q_rows = kSplit ? 2 * rows : rows;
+  for (int q = blockIdx.y; q < q_rows; q += gridDim.y) {
+    float2* row = scratch + static_cast<size_t>(q) * p.buf_size();
+    if constexpr (kSplit) {
+      const float* x = ((q & 1) ? r : l) + static_cast<size_t>(q >> 1) * p.w;
+      spk::large_load_local(p, row, run, first, tile, slots,
+                            [&](int i) { return spk::large_real_value(p, x, hann, i); });
+    } else {
+      const size_t in = static_cast<size_t>(q) * p.w;
+      spk::large_load_local(p, row, run, first, tile, slots, [&](int i) {
+        return spk::large_packed_value(p, l + in, r + in, hann, i);
+      });
+    }
+  }
+}
+
+// One block per (run, scratch row), rows walked along y.
+dim3 runs_grid(const spk::LargePlan& p, int scratch_rows) {
+  return dim3(p.passes.n / p.span, scratch_rows < kMaxGridY ? scratch_rows : kMaxGridY);
+}
+
+// Pass 1's launch at its thread bound; 0 or the CUDA error.
+template <class T, bool kSplit>
+int launch_load_local(const spk::LargePlan& p, const T* left, const T* right,
+                      const float* hann, float2* scratch, int rows, cudaStream_t st) {
+  const size_t smem = spk::large_smem_bytes(p.span, p.run_low, false);
+  const dim3 grid = runs_grid(p, kSplit ? 2 * rows : rows);
+  const auto launch = [&](auto bound, int threads) {
+    const auto kernel = large_load_local_kernel<T, kSplit, decltype(bound)::value>;
+    const int e = spk::allow_smem(kernel, smem);
+    if (e != 0) return e;
+    kernel<<<grid, threads, smem, st>>>(p, left, right, hann, scratch, rows);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (p.span >= spk::kWideRow) {
+    return launch(std::integral_constant<int, spk::kWideThreads>{}, spk::kWideThreads);
+  }
+  return launch(std::integral_constant<int, spk::kStftMaxThreads>{},
+                spk::stft_threads(p.span));
+}
+
+// A global stage of its own, a thread per butterfly
 __global__ void __launch_bounds__(kThreads) large_pass_kernel(
     spk::LargePlan p, int kind, int s, int len, float2* __restrict__ scratch,
     int rows) {
@@ -101,6 +173,35 @@ __global__ void __launch_bounds__(kThreads) large_pass_kernel(
   }
 }
 
+// Pass 2 of a direct N, a thread per butterfly pair of the last stage:
+// stereo-packed ...
+template <int R>
+__global__ void __launch_bounds__(kThreads) large_last_unpack_kernel(
+    spk::LargeLast p, const float2* __restrict__ scratch,
+    float* __restrict__ out_l, float* __restrict__ out_r, int rows) {
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  if (j > p.len / 2) return;
+  for (int row = blockIdx.y; row < rows; row += gridDim.y) {
+    const size_t at = static_cast<size_t>(row) * p.bins;
+    spk::large_last_unpack<R>(p, scratch + static_cast<size_t>(row) * p.size, j,
+                              out_l + at, out_r + at);
+  }
+}
+
+// ... or split-real (scratch row q: channel q & 1 of row q >> 1)
+template <int R>
+__global__ void __launch_bounds__(kThreads) large_last_magnitude_kernel(
+    spk::LargeLast p, const float2* __restrict__ scratch,
+    float* __restrict__ out_l, float* __restrict__ out_r, int rows) {
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  if (j > p.len / 2) return;
+  for (int q = blockIdx.y; q < 2 * rows; q += gridDim.y) {
+    float* out = ((q & 1) ? out_r : out_l) + static_cast<size_t>(q >> 1) * p.bins;
+    spk::large_last_magnitude<R>(p, scratch + static_cast<size_t>(q) * p.size, j, out);
+  }
+}
+
+// Bluestein's unpack, a thread per bin: stereo-packed ...
 __global__ void __launch_bounds__(kThreads) large_unpack_kernel(
     spk::LargePlan p, const float2* __restrict__ scratch,
     float* __restrict__ out_l, float* __restrict__ out_r, int rows) {
@@ -114,6 +215,7 @@ __global__ void __launch_bounds__(kThreads) large_unpack_kernel(
   }
 }
 
+// ... or split-real
 __global__ void __launch_bounds__(kThreads) large_magnitude_kernel(
     spk::LargePlan p, const float2* __restrict__ scratch,
     float* __restrict__ out_l, float* __restrict__ out_r, int rows) {
@@ -127,25 +229,63 @@ __global__ void __launch_bounds__(kThreads) large_magnitude_kernel(
   }
 }
 
-// The passes of the plan over `scratch_rows` rows; 0 or the CUDA error.
-int run_passes(const spk::LargePlan& p, float2* scratch, int scratch_rows,
-               cudaStream_t st) {
-  const size_t smem = p.span * sizeof(float2);
-  const int e = spk::allow_smem(large_local_kernel, smem);
-  if (e != 0) return e;
-  return spk::large_passes(p, [&](int kind, int s, int len) {
-    const int count = spk::large_pass_count(p, kind, s);
-    if (kind == spk::kLargeLocal) {
-      large_local_kernel<<<dim3(count, scratch_rows < kMaxGridY ? scratch_rows
-                                                                : kMaxGridY),
-                           spk::stft_threads(p.span), smem, st>>>(
-          p, scratch, scratch_rows);
+// The route over `rows` window rows (scratch_rows = rows, or 2 rows
+// split-real); 0 or the CUDA error.  T, kSplit: the sample type and form.
+template <class T, bool kSplit>
+int run_route(const spk::LargePlan& p, const T* left, const T* right,
+              const float* hann, float2* scratch, float* out_l, float* out_r,
+              int rows, cudaStream_t st) {
+  const int scratch_rows = kSplit ? 2 * rows : rows;
+  if (p.bluestein) {
+    if constexpr (kSplit) {
+      large_load_real_kernel<<<grid_of(p.buf_size(), scratch_rows), kThreads, 0, st>>>(
+          p, left, right, hann, scratch, rows);
     } else {
-      large_pass_kernel<<<grid_of(count, scratch_rows), kThreads, 0, st>>>(
-          p, kind, s, len, scratch, scratch_rows);
+      large_load_packed_kernel<T><<<grid_of(p.buf_size(), rows), kThreads, 0, st>>>(
+          p, left, right, hann, scratch, rows);
     }
-    return static_cast<int>(cudaGetLastError());
-  });
+  }
+  const size_t smem = p.span * sizeof(float2);
+  int e = static_cast<int>(cudaGetLastError());
+  if (e == 0 && p.bluestein) e = spk::allow_smem(large_local_kernel, smem);
+  if (e == 0) {
+    e = spk::large_passes(p, [&](int kind, int s, int len) {
+      const int count = spk::large_pass_count(p, kind, s);
+      if (kind == spk::kLargeLoadLocal) {
+        return launch_load_local<T, kSplit>(p, left, right, hann, scratch, rows, st);
+      }
+      if (kind == spk::kLargeLocal) {
+        large_local_kernel<<<runs_grid(p, scratch_rows), spk::stft_threads(p.span), smem,
+                             st>>>(p, scratch, scratch_rows);
+      } else if (kind == spk::kLargeLastUnpack) {
+        const spk::LargeLast last = spk::large_last(p);
+        return spk::with_last_radix(p, [&](auto radix) {
+          constexpr int R = decltype(radix)::value;
+          const dim3 grid = grid_of(count, scratch_rows);
+          if constexpr (kSplit) {
+            large_last_magnitude_kernel<R><<<grid, kThreads, 0, st>>>(last, scratch, out_l,
+                                                                      out_r, rows);
+          } else {
+            large_last_unpack_kernel<R><<<grid, kThreads, 0, st>>>(last, scratch, out_l,
+                                                                   out_r, rows);
+          }
+          return static_cast<int>(cudaGetLastError());
+        });
+      } else {
+        large_pass_kernel<<<grid_of(count, scratch_rows), kThreads, 0, st>>>(
+            p, kind, s, len, scratch, scratch_rows);
+      }
+      return static_cast<int>(cudaGetLastError());
+    });
+  }
+  if (e != 0 || !p.bluestein) return e;
+  const dim3 grid = grid_of(spk::stft_bins(p.n, p.w), scratch_rows);
+  if constexpr (kSplit) {
+    large_magnitude_kernel<<<grid, kThreads, 0, st>>>(p, scratch, out_l, out_r, rows);
+  } else {
+    large_unpack_kernel<<<grid, kThreads, 0, st>>>(p, scratch, out_l, out_r, rows);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <class T>
@@ -156,16 +296,8 @@ int large_packed(const T* left, const T* right, const float* hann,
   if (!spk::make_large_plan(n, w, consts, &p)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto st = static_cast<cudaStream_t>(stream);
-  auto* buf = reinterpret_cast<float2*>(scratch);
-  large_load_packed_kernel<T><<<grid_of(p.buf_size(), rows), kThreads, 0, st>>>(
-      p, left, right, hann, buf, rows);
-  int e = static_cast<int>(cudaGetLastError());
-  if (e == 0) e = run_passes(p, buf, rows, st);
-  if (e != 0) return e;
-  large_unpack_kernel<<<grid_of(spk::stft_bins(n, w), rows), kThreads, 0, st>>>(
-      p, buf, out_l, out_r, rows);
-  return static_cast<int>(cudaGetLastError());
+  return run_route<T, false>(p, left, right, hann, reinterpret_cast<float2*>(scratch),
+                             out_l, out_r, rows, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -205,14 +337,6 @@ SPK_EXPORT int spk_stft_large_split(const float* left, const float* right,
   if (!spk::make_large_plan(n, w, consts, &p, spk::kMaxSmemBytes / 8, true)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto st = static_cast<cudaStream_t>(stream);
-  auto* buf = reinterpret_cast<float2*>(scratch);
-  large_load_real_kernel<<<grid_of(p.buf_size(), 2 * rows), kThreads, 0, st>>>(
-      p, left, right, hann, buf, rows);
-  int e = static_cast<int>(cudaGetLastError());
-  if (e == 0) e = run_passes(p, buf, 2 * rows, st);
-  if (e != 0) return e;
-  large_magnitude_kernel<<<grid_of(spk::stft_bins(n, w), 2 * rows), kThreads, 0,
-                           st>>>(p, buf, out_l, out_r, rows);
-  return static_cast<int>(cudaGetLastError());
+  return run_route<float, true>(p, left, right, hann, reinterpret_cast<float2*>(scratch),
+                                out_l, out_r, rows, static_cast<cudaStream_t>(stream));
 }

@@ -10,36 +10,46 @@
 // (N/2 direct) or whose N/2 takes a Bluestein M past 29,056, and odd N as a
 // packed row, do not.  Here the buffer is a row of a [rows, B] complex f32
 // scratch in device memory (B = buf_size()), and the MixedRadix stages of
-// the transform (direct) or of M (Bluestein) run as passes over every row:
+// the transform (direct) or of M (Bluestein) run as passes over every row.
+// Stage s combines entries within runs of r_0 ... r_s contiguous entries, so
+// the first `local` stages (their span, r_0 ... r_{local-1}, at most a
+// block's shared memory) act within each run of `span` entries, and the
+// rest (one for every N the kernels take this way) span the row.
 //
-//   load     z into the row in the plan's input order: the stereo pack
-//            (l + i r) * hann; one real channel's pack x[2t] h[2t] +
-//            i x[2t+1] h[2t+1] (N/2 entries, even N), or (x * hann, 0)
-//            (odd N); zero-padded to the transform's length; Bluestein also
-//            multiplies by the chirp and zero-pads to M.  Each entry
-//            gathers its samples (`unslot`, the inverse digit reversal), so
-//            the row's writes stay in order
-//   local    stage s combines entries within runs of r_0 ... r_s contiguous
-//            entries, so the first `local` stages (their span, r_0 ...
-//            r_{local-1}, at most a block's shared memory) act within each
-//            run of `span` entries: one pass moves each run into shared
-//            memory, runs those stages there (`large_local`) and writes it
-//            back; Bluestein runs its DIF stages, the pointwise product
-//            with the filter's transform (stored in the DIF output order)
-//            and its DIT stages in this one pass
-//   global   each remaining stage (one for every N this route takes) as its
-//            own pass, each thread one butterfly; Bluestein's DIF ones
-//            before the local pass, its DIT ones after
-//   result   X[k]: the row's entry k (direct, natural order after DIT), or
-//            c[k] conj(row[k]) (Bluestein), into stft_fft.cuh's stereo
-//            unpack or split-real unpack (`real_pack_magnitude`, or the
-//            magnitude at odd N), so packed and split-real rows follow one
-//            law at every N
+// A direct N runs in two passes:
 //
-// Every butterfly is the shared-memory bodies' own step (`butterfly_at`,
-// with the full transform's twiddles), and the chirp and filter products
-// are theirs, run in their order, so the grouping into passes changes no
-// bit.
+//   load + local   one block per run c: run c holds the inputs
+//                  i = first + G m, m < span (G = n / span runs; first =
+//                  unslot(c span), which is c itself where one global stage
+//                  is left), each at its digit-reversed place within the run
+//                  (`large_run_slots`).  The block reads them straight from
+//                  the window planes, G entries apart, into shared memory,
+//                  with the load's arithmetic: the stereo pack (l + i r) *
+//                  hann, one real channel's pack x[2i] h[2i] + i x[2i+1]
+//                  h[2i+1] (N/2 entries, even N), or (x * hann, 0) (odd N);
+//                  zero past the window.  It runs the local DIT stages there
+//                  and writes the run back, contiguous (`large_load_local`)
+//   last + unpack  a thread per butterfly pair (j, len - j) of the last DIT
+//                  stage (radix R, len = n / R): it reads the 2R entries into
+//                  registers, runs both butterflies there, and so holds every
+//                  X[k] and X[n - k] for k = +-j mod len, which is what the
+//                  stereo unpack and the split-real pack's unpack
+//                  (`real_pack_bin`) of those bins need
+//                  (`large_last_stage`); each bin is written once
+//
+// and any global stage between the two (none at the kernels' span) as a
+// pass of its own, a thread per butterfly.  Bluestein runs four: the load
+// (a thread per entry, in natural order, times the chirp, zero-padded to
+// M), its global DIF stages, the local pass (DIF stages, the pointwise
+// product with the filter's transform, stored in the DIF output order, DIT
+// stages), its global DIT stages, and the result c[k] conj(row[k]) into the
+// same unpacks (`large_unpack`, `large_magnitude`), so packed and
+// split-real rows follow one law at every N.
+//
+// Every butterfly is the shared-memory bodies' own step (`butterfly`, at
+// `butterfly_at`'s places, with the full transform's twiddles), and the
+// chirp and filter products are theirs, run in their order, so the grouping
+// into passes changes no bit.
 //
 // Every multiply and add is an _rn intrinsic (stft_fft.cuh), the FFT runs in
 // true f32, and the tables are `fft_table`'s and `split_fft_table`'s
@@ -62,6 +72,8 @@ struct LargePlan {
   MixedRadix passes;      // the stages: size's plan (direct) or M's (Bluestein)
   int local;              // stages 0 .. local-1 run in the shared-memory pass
   int span;               // r_0 ... r_{local-1}: the entries of one local run
+  int run_low;            // direct: B = r_{local-1} ... r_{run_stage} (see
+  int run_stage;          // `large_run_slots`), the least with B^2 >= span
   const float2* tw;       // passes.n twiddles exp(-2 pi i t / passes.n)
   const float2* chirp;    // Bluestein: [size] c[t] = exp(-i pi t^2 / size)
   const float2* filter;   // Bluestein: [M] F in the DIF output order
@@ -70,11 +82,29 @@ struct LargePlan {
   __host__ __device__ __forceinline__ int buf_size() const { return passes.n; }
 };
 
+// B and its first stage for local stages 0 .. local-1 of r (span entries):
+// the product of r_{local-1}, r_{local-2}, ... until B^2 >= span.
+static inline int large_run_low(const MixedRadix& r, int local, int span,
+                                int* stage) {
+  int low = 1, s = local - 1;
+  while (s >= 0 && low * low < span) low *= r.radix[s--];
+  *stage = s + 1;
+  return low;
+}
+
+// Dynamic shared memory of a local pass over runs of `span` entries: the
+// tile, and for a direct N the two place tables (B and span / B ints).
+__host__ __device__ __forceinline__ size_t large_smem_bytes(int span, int low,
+                                                            bool bluestein) {
+  return span * sizeof(float2) + (bluestein ? 0 : (low + span / low) * sizeof(int));
+}
+
 // The plan of N over its table `consts` (`fft_table`, or `split_fft_table`
 // with `split`: then an even N runs the N/2-point pack), with as many local
-// stages as fit `max_span` entries of shared memory, leaving at least one
-// global stage; false where N < 2, w is not in 1 .. N, or no mixed-radix
-// plan of the transform or of M exists.
+// stages as fit `max_span` entries and a block's shared memory
+// (`large_smem_bytes`), leaving at least one global stage; false where N <
+// 2, w is not in 1 .. N, or no mixed-radix plan of the transform or of M
+// exists.
 static inline bool make_large_plan(int n, int w, const void* consts,
                                    LargePlan* plan,
                                    int max_span = kMaxSmemBytes / 8,
@@ -100,10 +130,18 @@ static inline bool make_large_plan(int n, int w, const void* consts,
   const MixedRadix& r = plan->passes;
   plan->local = 0;
   plan->span = 1;
-  while (plan->local + 1 < r.stages &&
-         plan->span * r.radix[plan->local] <= max_span) {
-    plan->span *= r.radix[plan->local++];
+  while (plan->local + 1 < r.stages) {
+    const int span = plan->span * r.radix[plan->local];
+    int stage;
+    const int low = large_run_low(r, plan->local + 1, span, &stage);
+    if (span > max_span ||
+        large_smem_bytes(span, low, plan->bluestein) > kMaxSmemBytes) {
+      break;
+    }
+    plan->span = span;
+    ++plan->local;
   }
+  plan->run_low = large_run_low(r, plan->local, plan->span, &plan->run_stage);
   return true;
 }
 
@@ -112,6 +150,31 @@ static inline bool make_large_plan(int n, int w, const void* consts,
 // `slot`), or j itself for Bluestein.
 __device__ __forceinline__ int large_source(const LargePlan& p, int j) {
   return p.bluestein ? j : p.passes.unslot(j);
+}
+
+// The value z of transform input i of a stereo-packed row: (l + i r) * hann,
+// zero past the window; f32 or int16 samples (int16: `hann` carries the
+// 2^-15 wire scale, as in stft_packed_row).
+template <class T>
+__device__ __forceinline__ float2 large_packed_value(const LargePlan& p,
+                                                     const T* __restrict__ l,
+                                                     const T* __restrict__ r,
+                                                     const float* __restrict__ hann,
+                                                     int i) {
+  if (i >= p.w) return make_float2(0.f, 0.f);
+  const float h = hann[i];
+  return make_float2(__fmul_rn(static_cast<float>(l[i]), h),
+                     __fmul_rn(static_cast<float>(r[i]), h));
+}
+
+// The value z of transform input i of a split-real row: the pack (x[2i]
+// hann[2i], x[2i+1] hann[2i+1]), or (x[i] hann[i], 0) at odd N.
+__device__ __forceinline__ float2 large_real_value(const LargePlan& p,
+                                                   const float* __restrict__ x,
+                                                   const float* __restrict__ hann,
+                                                   int i) {
+  const auto at = [&](int q) { return q < p.w ? __fmul_rn(x[q], hann[q]) : 0.f; };
+  return p.pack ? make_float2(at(2 * i), at(2 * i + 1)) : make_float2(at(i), 0.f);
 }
 
 // Entry j of a row from the value z of its input i = large_source(p, j)
@@ -126,40 +189,39 @@ __device__ __forceinline__ void large_put(const LargePlan& p, float2* row,
   row[j] = i < p.size ? cmul(z, p.chirp[i]) : make_float2(0.f, 0.f);
 }
 
-// The stereo-packed load of entry j: (l + i r) * hann, f32 or int16 samples
-// (int16: `hann` carries the 2^-15 wire scale, as in stft_packed_row).
+// The load of entry j as a pass of its own (Bluestein's): stereo-packed, or
+// split-real.
 template <class T>
 __device__ __forceinline__ void large_load_packed(
     const LargePlan& p, const T* __restrict__ l, const T* __restrict__ r,
     const float* __restrict__ hann, float2* row, int j) {
   const int i = large_source(p, j);
-  float2 z = make_float2(0.f, 0.f);
-  if (i < p.w) {
-    const float h = hann[i];
-    z = make_float2(__fmul_rn(static_cast<float>(l[i]), h),
-                    __fmul_rn(static_cast<float>(r[i]), h));
-  }
-  large_put(p, row, j, i, z);
+  large_put(p, row, j, i, large_packed_value(p, l, r, hann, i));
 }
 
-// The split-real load of entry j: the pack (x[2i] hann[2i], x[2i+1]
-// hann[2i+1]) of input i, or (x[i] hann[i], 0) at odd N.
 __device__ __forceinline__ void large_load_real(const LargePlan& p,
                                                 const float* __restrict__ x,
                                                 const float* __restrict__ hann,
                                                 float2* row, int j) {
   const int i = large_source(p, j);
-  const auto at = [&](int q) { return q < p.w ? __fmul_rn(x[q], hann[q]) : 0.f; };
-  large_put(p, row, j, i,
-            p.pack ? make_float2(at(2 * i), at(2 * i + 1)) : make_float2(at(i), 0.f));
+  large_put(p, row, j, i, large_real_value(p, x, hann, i));
 }
 
-// The passes between the load and the result, in order: fn(kind, stage,
-// len) for each, with kind kLargeDif or kLargeDit (global stage s of
-// sub-transforms of length len, butterflies 0 .. passes.n / radix[s] - 1)
-// or kLargeLocal (the shared-memory pass, runs 0 .. passes.n / span - 1);
-// 0, or the first nonzero fn returned.
-enum LargePass { kLargeDit = 0, kLargeDif = 1, kLargeLocal = 2 };
+// The passes in order: fn(kind, stage, len) for each.  A direct N:
+// kLargeLoadLocal (the load fused with the local pass, runs 0 .. n / span -
+// 1), kLargeDit for each global stage s but the last (sub-transforms of
+// length len, butterflies 0 .. n / radix[s] - 1), kLargeLastUnpack (the
+// last stage fused with the unpack, pairs 0 .. len / 2).  Bluestein: its
+// global kLargeDif stages, kLargeLocal (the shared-memory pass, runs 0 ..
+// n / span - 1), its global kLargeDit stages; the load before them and the
+// unpack after them are the caller's.  0, or the first nonzero fn returned.
+enum LargePass {
+  kLargeDit = 0,
+  kLargeDif = 1,
+  kLargeLocal = 2,
+  kLargeLoadLocal = 3,
+  kLargeLastUnpack = 4,
+};
 
 template <class Fn>
 static inline int large_passes(const LargePlan& p, Fn fn) {
@@ -171,10 +233,11 @@ static inline int large_passes(const LargePlan& p, Fn fn) {
       if (const int e = fn(kLargeDif, s, len)) return e;
     }
   }
-  if (const int e = fn(kLargeLocal, 0, 0)) return e;
+  if (const int e = fn(p.bluestein ? kLargeLocal : kLargeLoadLocal, 0, 0)) return e;
   int len = p.span;
   for (int s = p.local; s < r.stages; ++s) {
-    if (const int e = fn(kLargeDit, s, len)) return e;
+    const bool last = !p.bluestein && s + 1 == r.stages;
+    if (const int e = fn(last ? kLargeLastUnpack : kLargeDit, s, len)) return e;
     len *= r.radix[s];
   }
   return 0;
@@ -191,11 +254,13 @@ __device__ __forceinline__ void large_pass_at(const LargePlan& p, int kind,
   }
 }
 
-// Units of a pass per row: butterflies, or local runs.
+// Units of a pass per row: butterflies, local runs, or butterfly pairs of
+// the last stage.
 __host__ __device__ __forceinline__ int large_pass_count(const LargePlan& p,
                                                          int kind, int s) {
-  return kind == kLargeLocal ? p.passes.n / p.span
-                             : p.passes.n / p.passes.radix[s];
+  if (kind == kLargeLocal || kind == kLargeLoadLocal) return p.passes.n / p.span;
+  const int butterflies = p.passes.n / p.passes.radix[s];
+  return kind == kLargeLastUnpack ? butterflies / 2 + 1 : butterflies;
 }
 
 // Stage s of the local pass over the run in `tile`, cooperatively by the
@@ -211,12 +276,26 @@ __device__ __forceinline__ void large_local_stage(const LargePlan& p,
   __syncthreads();
 }
 
+// The local DIT stages 0 .. local-1 over the run in `tile`, then the run
+// back to run `run` of the row, contiguous.
+__device__ __forceinline__ void large_local_dit(const LargePlan& p, float2* row,
+                                                int run, float2* tile) {
+  int len = 1;
+  for (int s = 0; s < p.local; ++s) {
+    large_local_stage<false>(p, tile, s, len);
+    len *= p.passes.radix[s];
+  }
+  float2* at = row + static_cast<size_t>(run) * p.span;
+  for (int i = threadIdx.x; i < p.span; i += blockDim.x) at[i] = tile[i];
+  __syncthreads();
+}
+
 // The local pass over run `run` of a row, through `tile` (span complex f32 of
 // shared memory): Bluestein's DIF stages local-1 .. 0 and filter product,
 // then the DIT stages 0 .. local-1.  The caller's block runs it together.
 __device__ __forceinline__ void large_local(const LargePlan& p, float2* row,
                                             int run, float2* tile) {
-  float2* at = row + static_cast<size_t>(run) * p.span;
+  const float2* at = row + static_cast<size_t>(run) * p.span;
   for (int i = threadIdx.x; i < p.span; i += blockDim.x) tile[i] = at[i];
   __syncthreads();
   if (p.bluestein) {
@@ -231,13 +310,174 @@ __device__ __forceinline__ void large_local(const LargePlan& p, float2* row,
     }
     __syncthreads();
   }
-  int len = 1;
-  for (int s = 0; s < p.local; ++s) {
-    large_local_stage<false>(p, tile, s, len);
-    len *= p.passes.radix[s];
+  large_local_dit(p, row, run, tile);
+}
+
+// The digits of v, least significant first in radices r_hi, r_{hi-1}, ...,
+// r_lo, reversed: sum_s d_s r_lo ... r_{s-1}, by Horner.
+__device__ __forceinline__ int large_reverse(const LargePlan& p, int v, int hi, int lo) {
+  int pos = 0;
+  for (int s = hi; s >= lo; --s) {
+    const int r = p.passes.radix[s];
+    pos = pos * r + v % r;
+    v /= r;
   }
-  for (int i = threadIdx.x; i < p.span; i += blockDim.x) at[i] = tile[i];
+  return pos;
+}
+
+// Input first + G m (m < span, G = n / span) of a direct row sits at
+// slot(first + G m) - run * span within its run: the global stages' digits
+// of that input are first's, so its place is m's digits reversed over the
+// local stages (r_{local-1} least significant in m).  With m = hi B + lo
+// (B = run_low), that is low[lo] + high[hi]: the low digits' reversal
+// (stages local-1 .. run_stage, weights span / B and up) and the high
+// digits' (stages run_stage-1 .. 0).  The block fills the two tables,
+// `slots` = low [B] then high [span / B], once.
+__device__ __forceinline__ void large_run_slots(const LargePlan& p, int* slots) {
+  const int low = p.run_low, high = p.span / p.run_low;
+  for (int i = threadIdx.x; i < low; i += blockDim.x) {
+    slots[i] = large_reverse(p, i, p.local - 1, p.run_stage) * high;
+  }
+  for (int i = threadIdx.x; i < high; i += blockDim.x) {
+    slots[low + i] = large_reverse(p, i, p.run_stage - 1, 0);
+  }
   __syncthreads();
+}
+
+// The first input of local run `run` of a direct row (the one at its
+// place 0): unslot(run * span), < n / span.
+__device__ __forceinline__ int large_run_first(const LargePlan& p, int run) {
+  return p.passes.unslot(run * p.span);
+}
+
+// Pass 1 of a direct row, run `run` (first input `first`,
+// large_run_first): `value(i)` (large_packed_value or large_real_value) of
+// inputs first + G m, m < span, into their places in `tile` (span complex
+// f32 of shared memory; `slots`, large_run_slots), the local DIT stages,
+// and the run back to the row.  Each thread steps m by blockDim.x and
+// carries m's (hi, lo) along, so no input costs a division.  The caller's
+// block runs it together.
+template <class Value>
+__device__ __forceinline__ void large_load_local(const LargePlan& p, float2* row,
+                                                 int run, int first, float2* tile,
+                                                 const int* slots, const Value& value) {
+  const int low = p.run_low, stride = p.passes.n / p.span;
+  const int* high = slots + low;
+  const int step_lo = blockDim.x % low, step_hi = blockDim.x / low;
+  int lo = threadIdx.x % low, hi = threadIdx.x / low;
+  for (int m = threadIdx.x; m < p.span; m += blockDim.x) {
+    tile[slots[lo] + high[hi]] = value(first + stride * m);
+    lo += step_lo;
+    hi += step_hi;
+    if (lo >= low) {
+      lo -= low;
+      ++hi;
+    }
+  }
+  __syncthreads();
+  large_local_dit(p, row, run, tile);
+}
+
+// What pass 2 of a direct row reads of the plan: passed by value, with no
+// array indexed at run time, so that a thread keeps it in registers.
+struct LargeLast {
+  int size;             // the transform's length (passes.n)
+  int len;              // size / R: butterflies of the last stage
+  int n;                // N
+  int bins;             // stft_bins(N, w)
+  bool pack;            // split-real: the N/2-point pack's unpack
+  const float2* tw;
+  const float2* post;
+};
+
+static inline LargeLast large_last(const LargePlan& p) {
+  const int r = p.passes.radix[p.passes.stages - 1];
+  return LargeLast{p.passes.n, p.passes.n / r, p.n, stft_bins(p.n, p.w), p.pack,
+                   p.tw, p.post};
+}
+
+// fn(std::integral_constant<int, R>) for the last stage's radix R of plan
+// p; cudaErrorInvalidValue for a radix the kernels are not built for.
+template <class Fn>
+static inline int with_last_radix(const LargePlan& p, Fn fn) {
+  switch (p.passes.radix[p.passes.stages - 1]) {
+    case 2: return fn(std::integral_constant<int, 2>{});
+    case 3: return fn(std::integral_constant<int, 3>{});
+    case 4: return fn(std::integral_constant<int, 4>{});
+    case 5: return fn(std::integral_constant<int, 5>{});
+    case 7: return fn(std::integral_constant<int, 7>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Butterflies j and len - j (j <= len / 2) of the last DIT stage, radix R,
+// of a row: butterfly j is `butterfly_at`'s of that stage (x = row + j,
+// stride len, twiddles tw[q j]), run on a register copy.  It outputs X[j +
+// q len], q < R, whose mirror n - k is output R-1-q of butterfly len - j
+// (output (R-q) mod R of butterfly 0 for j = 0, which pairs with itself, as
+// j = len / 2 does).  fn(k, X[k], X[(n - k) mod n]) for each k of the two.
+template <int R, class Fn>
+__device__ __forceinline__ void large_last_stage(const LargeLast& p,
+                                                 const float2* __restrict__ row,
+                                                 int j, const Fn& fn) {
+  const int jm = p.len - j;
+  const bool pair = j != 0 && jm != j;
+  float2 a[R], b[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) a[q] = row[j + q * p.len];
+  butterfly<R, false>(a, 1, j, p.tw);
+  if (pair) {
+#pragma unroll
+    for (int q = 0; q < R; ++q) b[q] = row[jm + q * p.len];
+    butterfly<R, false>(b, 1, jm, p.tw);
+  }
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    if (j == 0) {
+      fn(q * p.len, a[q], a[(R - q) % R]);
+    } else if (!pair) {
+      fn(j + q * p.len, a[q], a[R - 1 - q]);
+    } else {
+      fn(j + q * p.len, a[q], b[R - 1 - q]);
+      fn(jm + q * p.len, b[q], a[R - 1 - q]);
+    }
+  }
+}
+
+// Pass 2 of a stereo-packed row: the last stage of pair j, and bins k <
+// bins of those outputs into the row's planes out_l, out_r (each bin of a
+// row is in exactly one pair).
+template <int R, class Out>
+__device__ __forceinline__ void large_last_unpack(const LargeLast& p,
+                                                  const float2* __restrict__ row,
+                                                  int j, Out out_l, Out out_r) {
+  large_last_stage<R>(p, row, j, [&](int k, float2 zk, float2 zm) {
+    if (k >= p.bins) return;
+    float l, r;
+    unpack_stereo(zk, zm, &l, &r);
+    out_l[k] = l;
+    out_r[k] = r;
+  });
+}
+
+// Pass 2 of a split-real row into its channel's plane `out`: |X[k]| at odd
+// N; for the pack, output k < h = size is bin k and its mirror N - k (the
+// same |X|, as real_pack_magnitude folds it), and output 0 also gives bin
+// h, whose Z[h] is Z[0].
+template <int R, class Out>
+__device__ __forceinline__ void large_last_magnitude(const LargeLast& p,
+                                                     const float2* __restrict__ row,
+                                                     int j, Out out) {
+  large_last_stage<R>(p, row, j, [&](int k, float2 zk, float2 zm) {
+    if (!p.pack) {
+      if (k < p.bins) out[k] = magnitude(zk);
+      return;
+    }
+    const float v = real_pack_bin(zk, zm, p.post, p.size, k);
+    if (k < p.bins) out[k] = v;
+    if (k > 0 && p.n - k < p.bins) out[p.n - k] = v;
+    if (k == 0 && p.size < p.bins) out[p.size] = real_pack_bin(zk, zk, p.post, p.size, p.size);
+  });
 }
 
 // X[k] of a transformed row (the transform's bin k).
@@ -246,7 +486,8 @@ __device__ __forceinline__ float2 large_result(const LargePlan& p,
   return p.bluestein ? cmul(p.chirp[k], conjugate(row[k])) : row[k];
 }
 
-// Bin k (< stft_bins(N, w)) of a packed row into the two planes.
+// Bin k (< stft_bins(N, w)) of a packed row into the two planes (the
+// unpack as a pass of its own: Bluestein's).
 __device__ __forceinline__ void large_unpack(const LargePlan& p,
                                              const float2* row, int k,
                                              float* left, float* right) {

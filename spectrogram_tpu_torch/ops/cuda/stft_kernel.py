@@ -19,18 +19,21 @@ a CUDA tensor, power-of-two N runs `csrc/stft_packed.cu` and every other N
 Every N from 2 up runs on the card (`check_fft_size`): the kernels pick one
 of three FFT bodies from N (`fft_body`; csrc/stft_fft.cuh): radix 2, mixed
 radix 4/2/3/5/7 for 2^a 3^b 5^c 7^d (N = 4410 at 44.1 kHz and the
-reference's 0.05 s window: 2-3-3-5-7-7), and Bluestein's chirp-z
-convolution of a 7-smooth length M >= 2N - 1 (`bluestein_size`) for N
-with a prime factor above 7 (N = 2204, M = 4500).  Each body reads one
-host-built table in float64 rounded once (`fft_table`), passed with N as
-`FftConstants` (`fft_constants(N, device)`).  A body holds a row's buffer
-(N, or M, complex f32) in one block's shared memory, at most 227 KB; where
-it passes that (`is_large`: N = 2^15 and up, 7-smooth N above 29,056,
-Bluestein N from about 14,500), every packed entry takes the large-N route
-instead (`csrc/stft_large.cu`): the wrapper frames its operand into [rows,
-W] window planes, as the plain version frames it, and the route runs the
-same passes over a scratch in device memory, in row groups of at most
-`LARGE_SCRATCH_BYTES`.  All split-real entries share one large split
+reference's 0.05 s window: 2-3-3-5-7-7), and Bluestein's chirp-z convolution
+of a 7-smooth length M >= 2N - 1 (`bluestein_size`) for N with a prime
+factor above 7 (N = 2204, M = 4500).  Each body reads one host-built table
+in float64 rounded once (`fft_table`), passed with N as `FftConstants`
+(`fft_constants(N, device)`).  A body holds a row's buffer (N, or M, complex
+f32) in one block's shared memory, at most 227 KB; where it passes that
+(`is_large`: N = 2^15 and up, 7-smooth N above 29,056, Bluestein N from
+about 14,500), every packed entry takes the large-N route instead
+(`csrc/stft_large.cu`): the wrapper frames its operand into [rows, W] window
+planes, as the plain version frames it, and the route runs the bodies'
+butterflies over a scratch in device memory: for a direct N two passes, the
+load fused into the shared-memory stages and the last stage fused into the
+unpack (Bluestein: its load, stages and unpack as passes of their own).  The
+scratch holds each row's whole buffer between the passes, in row groups of
+at most `LARGE_SCRATCH_BYTES`.  All split-real entries share one large split
 kernel and all packed entries one large packed kernel, so the layouts keep
 their equalities at every N.
 

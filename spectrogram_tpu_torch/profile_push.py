@@ -34,8 +34,9 @@ Profiles, each with torch.profiler over a steady window after a warm-up:
 
 For each it prints the host wall time per call over the window (ended by a
 synchronize), the device busy time per call (the sum of its kernels), the
-idle share 1 - busy/wall, and the kernels by device time.  It needs a CUDA
-card and fails without one, or when the profiler records no device time.
+idle share 1 - busy/wall, and the kernels by device time, the large-N
+route's by the pass each runs (`ROUTE_PASSES`).  It needs a CUDA card and
+fails without one, or when the profiler records no device time.
 """
 
 from __future__ import annotations
@@ -51,6 +52,20 @@ import torch
 from spectrogram_tpu_torch import testing
 from spectrogram_tpu_torch.config import BENCH_CONFIG, DEFAULT_CONFIG, SpectrogramConfig
 from spectrogram_tpu_torch.models.spectrogram import SpectrogramPipeline
+
+
+# the large-N route's kernels (csrc/stft_large.cu) by the pass each runs
+ROUTE_PASSES = {
+    "large_load_local_kernel": "route pass 1: load + local stages",
+    "large_last_unpack_kernel": "route pass 2: last stage + stereo unpack",
+    "large_last_magnitude_kernel": "route pass 2: last stage + split-real unpack",
+    "large_pass_kernel": "route: a global stage",
+    "large_load_packed_kernel": "route, Bluestein: load",
+    "large_load_real_kernel": "route, Bluestein: load",
+    "large_local_kernel": "route, Bluestein: local pass",
+    "large_unpack_kernel": "route, Bluestein: unpack",
+    "large_magnitude_kernel": "route, Bluestein: unpack",
+}
 
 
 def _short(name: str) -> str:
@@ -85,7 +100,8 @@ def profile(label: str, fn, calls: int) -> None:
     print(f"== {label}: wall {wall:.4f} ms/call, device busy {busy:.4f} ms/call, "
           f"idle share {1 - busy / wall:.3f} ({calls} calls)")
     for key, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0]):
-        print(f"   {ms:9.4f} ms/call {ms / busy:6.1%}  x{n / calls:g}/call  {key}")
+        what = f" ({ROUTE_PASSES[key]})" if key in ROUTE_PASSES else ""
+        print(f"   {ms:9.4f} ms/call {ms / busy:6.1%}  x{n / calls:g}/call  {key}{what}")
 
 
 def main(argv=None) -> int:

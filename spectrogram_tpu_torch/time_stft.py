@@ -1,22 +1,28 @@
 """Device times of the STFT kernels of one or more checkouts, in turns.
 
-    python -m spectrogram_tpu_torch.time_stft [ROOT ...]
+    python -m spectrogram_tpu_torch.time_stft [--sizes N,N,...] [ROOT ...]
 
-Each ROOT is the root of a checkout of this repository (default: this
-one), e.g. a parent commit unpacked with `git archive` into a directory git
-ignores.  The roots are timed in turns, a b ... b a, each in a process of its
-own that imports `spectrogram_tpu_torch` from its root and builds that
+Each ROOT is the root of a checkout of this repository (default: this one),
+e.g. a parent commit unpacked with `git archive` into a directory git
+ignores.  The roots are timed in turns, a b ... b a, each in a process of
+its own that imports `spectrogram_tpu_torch` from its root and builds that
 root's kernels there, so two versions of a kernel are compared on one card
-in one call.  Per root and turn it prints one line, `TIMES {json}`: the
-device time in ms (mean of 10 calls after a warm-up, the card held while
-the host enqueues) of kernel A (`stft_mag_packed`) and of the split-real
-plane kernel (`stft_mag_split`) on 4,096 window rows of chirp+tone at each
-N of `SIZES`, and at N=4096 of the split-real all-windows (k=8, 4,096
-streams), transposed and packed all-windows kernels.  It needs a CUDA card.
+in one call.  Per root and turn it prints two lines.  `TIMES {json}`: the
+device time in ms (mean of 10 calls after a warm-up, the card held while the
+host enqueues) of kernel A (`stft_mag_packed`) and of the split-real plane
+kernel (`stft_mag_split`) on 4,096 window rows of chirp+tone at each N of
+`SIZES` (the large-N route where N takes it: packed from N=32,768 and at the
+prime 16,411, split-real at N=65,536 and 16,411), and at N=4096 of the
+split-real all-windows (k=8, 4,096 streams), transposed and packed
+all-windows kernels.  `DIGESTS {json}`: under the same keys, a SHA-256
+prefix of each call's output planes, so that two roots whose kernels give
+the same bits print the same digests.  `--sizes` times only the named N of
+`SIZES`.  It needs a CUDA card.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import pathlib
 import subprocess
@@ -24,11 +30,12 @@ import sys
 
 # (sample rate, window W, N): radix 2; radix 7 (4410 = 2 3^2 5 7^2); the
 # Bluestein N 1410, 2204, 4406 and the odd 4801; 5-smooth 4800; the long
-# windows 17,640, 32,768 and 48,000
+# windows 17,640, 32,768, 48,000 and 65,536 (the split-real route), and the
+# prime 16,411 (the route's Bluestein passes)
 SIZES = ((48000.0, 2048, 4096), (44100.0, 2205, 4410), (44100.0, 705, 1410),
          (44100.0, 1102, 2204), (44100.0, 2203, 4406), (48000.0, 2400, 4801),
          (48000.0, 2400, 4800), (44100.0, 8820, 17640), (48000.0, 16384, 32768),
-         (48000.0, 24000, 48000))
+         (48000.0, 24000, 48000), (48000.0, 32768, 65536), (48000.0, 8205, 16411))
 ROWS = 4096
 
 
@@ -44,7 +51,7 @@ def _tools():
     return module
 
 
-def _worker() -> None:
+def _worker(sizes: list[int]) -> None:
     import torch
 
     from spectrogram_tpu_torch.ops.cuda import _build
@@ -52,8 +59,16 @@ def _worker() -> None:
 
     tools = _tools()
 
-    def device_ms(fn) -> float:
-        return tools.device_ms(fn, iters=10)
+    digests = {}
+
+    def device_ms(fn, key: str) -> float:
+        """fn's device time; its output's digest into `digests[key]`."""
+        t = tools.device_ms(fn, iters=10)
+        h = hashlib.sha256()
+        for plane in fn():
+            h.update(plane.contiguous().cpu().numpy().tobytes())
+        digests[key] = h.hexdigest()[:16]
+        return t
 
     def planes(rows, length, sr, seed):
         return tools.chirp_tone_planes(rows, length, sr, seed, dev)
@@ -64,40 +79,51 @@ def _worker() -> None:
     _build.build()
     out = {}
     for sr, w, n in SIZES:
+        if sizes and n not in sizes:
+            continue
         left, right = planes(ROWS, w, sr, 1)
         consts = sk.fft_constants(n, dev)
         packed_hann = torch.from_numpy(sk.packed_hann(w)).to(dev)
         split_hann = torch.from_numpy(sk.split_hann(w)).to(dev)
-        out[f"packed {n}"] = device_ms(lambda: sk.stft_mag_packed(left, right, packed_hann,
-                                                                  consts))
-        out[f"split {n}"] = device_ms(lambda: sk.stft_mag_split(left, right, split_hann,
-                                                                consts))
+        for key, fn in ((f"packed {n}", lambda: sk.stft_mag_packed(left, right, packed_hann,
+                                                                   consts)),
+                        (f"split {n}", lambda: sk.stft_mag_split(left, right, split_hann,
+                                                                 consts))):
+            out[key] = device_ms(fn, key)
         if n == 4096:
             hop, k = 800, 8
             bl, br = planes(ROWS, w + (k - 1) * hop, sr, 3)
             out["split_allk 4096 k8"] = device_ms(
-                lambda: sk.stft_mag_split_allk(bl, br, split_hann, consts, k, hop))
+                lambda: sk.stft_mag_split_allk(bl, br, split_hann, consts, k, hop),
+                "split_allk 4096 k8")
             out["allk 4096 k8"] = device_ms(
-                lambda: sk.stft_mag_packed_allk(bl, br, packed_hann, consts, k, hop))
+                lambda: sk.stft_mag_packed_allk(bl, br, packed_hann, consts, k, hop),
+                "allk 4096 k8")
             x = torch.stack([left, right], 1).reshape(ROWS, 2, 64, 32).transpose(2, 3)
             x = x.contiguous()
-            out["split_t 4096"] = device_ms(lambda: sk.stft_mag_split_t(x, split_hann, consts))
+            out["split_t 4096"] = device_ms(lambda: sk.stft_mag_split_t(x, split_hann, consts),
+                                            "split_t 4096")
             del bl, br, x
         del left, right
         torch.cuda.empty_cache()
     print("TIMES " + json.dumps(out), flush=True)
+    print("DIGESTS " + json.dumps(digests), flush=True)
 
 
 def main(argv: list[str]) -> int:
+    sizes = []
+    if argv[:1] == ["--sizes"]:
+        sizes, argv = [int(n) for n in argv[1].split(",")], argv[2:]
     if argv[:1] == ["--worker"]:
-        _worker()
+        _worker(sizes)
         return 0
     roots = [pathlib.Path(r).resolve() for r in argv] or [pathlib.Path(__file__).parents[1]]
     for root in (*roots, *reversed(roots)):
         print(f"== {root}", flush=True)
-        env_path = str(root)
-        code = ("import runpy, sys; sys.argv = [sys.argv[0], '--worker']; "
-                f"sys.path.insert(0, {env_path!r}); "
+        worker = ["--sizes", ",".join(map(str, sizes))] if sizes else []
+        code = ("import runpy, sys; "
+                f"sys.argv = [sys.argv[0], *{worker!r}, '--worker']; "
+                f"sys.path.insert(0, {str(root)!r}); "
                 f"runpy.run_path({str(pathlib.Path(__file__).resolve())!r}, "
                 "run_name='__main__')")
         subprocess.run([sys.executable, "-c", code], check=True, cwd=root)

@@ -7,6 +7,8 @@
 // (`fft_table`); the split-real rows take it of n/2 (the real-FFT pack, even
 // n from 4) or of n (odd n), and n's split-real table (`split_fft_table`).
 // Output rows are stft_bins(n, w) wide.
+#include <algorithm>
+#include <cmath>
 #include <cstddef>
 #include <type_traits>
 #include <vector>
@@ -231,34 +233,61 @@ extern "C" int stft_host_split_tsplit(int body, int n, int rows, int n1,
 }
 
 // ---- the large-N route (stft_large.cu): each pass over every scratch row
-// before the next, as the route's launches run them.
+// before the next, as the route's launches run them.  The planes l, r are
+// [rows, w]; split = 0 takes n's `fft_table` (spk_stft_large_packed), split
+// = 1 n's `split_fft_table` (spk_stft_large_split); local runs hold at most
+// max_span entries (the kernels': kMaxSmemBytes / 8).  Each returns 1 where
+// the route does not take n.
 
-// spk_stft_large_packed (split = 0, n's `fft_table`) or spk_stft_large_split
-// (split = 1, n's `split_fft_table`): [rows, w] planes l, r, with local runs of at most max_span entries (the
-// kernels': kMaxSmemBytes / 8); 1 where the route does not take n.
-extern "C" int stft_host_large(int split, int n, int rows, int w,
-                               const float* l, const float* r,
-                               const float* hann, const float* consts,
-                               float* out_l, float* out_r, int max_span) {
-  spk::LargePlan p;
-  if (!spk::make_large_plan(n, w, consts, &p, max_span, split != 0)) return 1;
+// An output plane that counts the writes of each bin in place of the value.
+struct CountedPlane {
+  int* count;
+  struct Bin {
+    int* count;
+    Bin& operator=(float) {
+      ++*count;
+      return *this;
+    }
+  };
+  Bin operator[](size_t k) const { return Bin{count + k}; }
+  CountedPlane operator+(size_t k) const { return CountedPlane{count + k}; }
+};
+
+// The rows' window-plane samples into the kernels' operands.
+struct LargeRows {
+  int split, rows, w;
+  const float *l, *r, *hann;
+
+  int scratch_rows() const { return split ? 2 * rows : rows; }
+  // scratch row q's planes: packed, row q of l and r; split-real, channel
+  // q & 1 of row q >> 1
+  const float* left(int q) const { return l + static_cast<size_t>(q) * w; }
+  const float* right(int q) const { return r + static_cast<size_t>(q) * w; }
+  const float* channel(int q) const {
+    return ((q & 1) ? r : l) + static_cast<size_t>(q >> 1) * w;
+  }
+};
+
+// The passes as the route ran them before its load and last stage were
+// fused (and as it runs Bluestein): the load, kLargeLocal, every global
+// stage, the unpack, for every n.
+template <class Out>
+static void host_large_unfused(const spk::LargePlan& p, const LargeRows& in,
+                               std::vector<float2>& scratch, Out out_l, Out out_r) {
   const size_t m = p.buf_size();
-  const int q_rows = split ? 2 * rows : rows;
-  std::vector<float2> scratch(q_rows * m);
+  const int q_rows = in.scratch_rows();
   for (int q = 0; q < q_rows; ++q) {
-    for (int i = 0; i < static_cast<int>(m); ++i) {
-      if (split) {
-        spk::large_load_real(p, ((q & 1) ? r : l) + static_cast<size_t>(q >> 1) * w,
-                             hann, scratch.data() + q * m, i);
+    for (int j = 0; j < static_cast<int>(m); ++j) {
+      if (in.split) {
+        spk::large_load_real(p, in.channel(q), in.hann, scratch.data() + q * m, j);
       } else {
-        spk::large_load_packed(p, l + static_cast<size_t>(q) * w,
-                               r + static_cast<size_t>(q) * w, hann,
-                               scratch.data() + q * m, i);
+        spk::large_load_packed(p, in.left(q), in.right(q), in.hann,
+                               scratch.data() + q * m, j);
       }
     }
   }
   std::vector<float2> tile(p.span);
-  spk::large_passes(p, [&](int kind, int s, int len) {
+  const auto pass = [&](int kind, int s, int len) {
     for (int q = 0; q < q_rows; ++q) {
       for (int j = 0; j < spk::large_pass_count(p, kind, s); ++j) {
         if (kind == spk::kLargeLocal) {
@@ -269,20 +298,123 @@ extern "C" int stft_host_large(int split, int n, int rows, int w,
       }
     }
     return 0;
-  });
-  const size_t bins = spk::stft_bins(n, w);
+  };
+  if (p.bluestein) {
+    spk::large_passes(p, pass);
+  } else {
+    pass(spk::kLargeLocal, 0, 0);
+    int len = p.span;
+    for (int s = p.local; s < p.passes.stages; ++s) {
+      pass(spk::kLargeDit, s, len);
+      len *= p.passes.radix[s];
+    }
+  }
+  const size_t bins = spk::stft_bins(p.n, p.w);
   for (int q = 0; q < q_rows; ++q) {
     const float2* row = scratch.data() + q * m;
     for (int k = 0; k < static_cast<int>(bins); ++k) {
-      if (split) {
-        ((q & 1) ? out_r : out_l)[(q >> 1) * bins + k] =
-            spk::large_magnitude(p, row, k);
+      if (in.split) {
+        ((q & 1) ? out_r : out_l)[(q >> 1) * bins + k] = spk::large_magnitude(p, row, k);
       } else {
-        spk::large_unpack(p, row, k, out_l + q * bins + k, out_r + q * bins + k);
+        float a, b;
+        spk::large_unpack(p, row, k, &a, &b);
+        out_l[q * bins + k] = a;
+        out_r[q * bins + k] = b;
       }
     }
   }
-  return 0;
+}
+
+// The route as its kernels run it: a direct n in the fused order (pass 1 per
+// run, any middle global stage, pass 2 per butterfly pair), Bluestein as
+// above.
+template <class Out>
+static int host_large(const LargeRows& in, int n, const float* consts, Out out_l,
+                      Out out_r, int max_span, bool fused) {
+  spk::LargePlan p;
+  if (!spk::make_large_plan(n, in.w, consts, &p, max_span, in.split != 0)) {
+    return 1;
+  }
+  const size_t m = p.buf_size();
+  const int q_rows = in.scratch_rows();
+  std::vector<float2> scratch(q_rows * m);
+  if (!fused || p.bluestein) {
+    host_large_unfused(p, in, scratch, out_l, out_r);
+    return 0;
+  }
+  std::vector<float2> tile(p.span);
+  std::vector<int> slots(p.run_low + p.span / p.run_low);
+  spk::large_run_slots(p, slots.data());
+  const size_t bins = spk::stft_bins(n, in.w);
+  const spk::LargeLast last = spk::large_last(p);
+  return spk::large_passes(p, [&](int kind, int s, int len) {
+    const int count = spk::large_pass_count(p, kind, s);
+    for (int q = 0; q < q_rows; ++q) {
+      float2* row = scratch.data() + q * m;
+      for (int j = 0; j < count; ++j) {
+        if (kind == spk::kLargeLoadLocal) {
+          const int first = spk::large_run_first(p, j);
+          if (in.split) {
+            const float* x = in.channel(q);
+            spk::large_load_local(p, row, j, first, tile.data(), slots.data(), [&](int i) {
+              return spk::large_real_value(p, x, in.hann, i);
+            });
+          } else {
+            const float *l = in.left(q), *r = in.right(q);
+            spk::large_load_local(p, row, j, first, tile.data(), slots.data(), [&](int i) {
+              return spk::large_packed_value(p, l, r, in.hann, i);
+            });
+          }
+        } else if (kind == spk::kLargeDit) {
+          spk::large_pass_at(p, kind, s, len, row, j);
+        } else {
+          spk::with_last_radix(p, [&](auto radix) {
+            constexpr int R = decltype(radix)::value;
+            if (in.split) {
+              spk::large_last_magnitude<R>(last, row, j,
+                                           ((q & 1) ? out_r : out_l) + (q >> 1) * bins);
+            } else {
+              spk::large_last_unpack<R>(last, row, j, out_l + q * bins, out_r + q * bins);
+            }
+            return 0;
+          });
+        }
+      }
+    }
+    return 0;
+  });
+}
+
+// The route's kernels' order into out_l, out_r [rows, stft_bins(n, w)],
+// which it fills with NaN first (a bin no pass writes stays NaN).
+extern "C" int stft_host_large(int split, int n, int rows, int w,
+                               const float* l, const float* r,
+                               const float* hann, const float* consts,
+                               float* out_l, float* out_r, int max_span) {
+  const size_t size = static_cast<size_t>(rows) * spk::stft_bins(n, w);
+  std::fill(out_l, out_l + size, std::nanf(""));
+  std::fill(out_r, out_r + size, std::nanf(""));
+  return host_large(LargeRows{split, rows, w, l, r, hann}, n, consts, out_l, out_r,
+                    max_span, true);
+}
+
+// The unfused passes (load, local, each global stage, unpack) at every n.
+extern "C" int stft_host_large_unfused(int split, int n, int rows, int w,
+                                       const float* l, const float* r,
+                                       const float* hann, const float* consts,
+                                       float* out_l, float* out_r, int max_span) {
+  return host_large(LargeRows{split, rows, w, l, r, hann}, n, consts, out_l, out_r,
+                    max_span, false);
+}
+
+// The kernels' order with each output plane counting its writes per bin:
+// count_l, count_r [rows, stft_bins(n, w)] ints, added to.
+extern "C" int stft_host_large_writes(int split, int n, int rows, int w,
+                                      const float* l, const float* r,
+                                      const float* hann, const float* consts,
+                                      int* count_l, int* count_r, int max_span) {
+  return host_large(LargeRows{split, rows, w, l, r, hann}, n, consts,
+                    CountedPlane{count_l}, CountedPlane{count_r}, max_span, true);
 }
 
 // spk_push_fused: [rows, w] planes l, r -> out [rows, h] words, row n

@@ -2,18 +2,22 @@
 block's shared memory.
 
 `spectrogram_tpu_torch/csrc/stft_large.cuh` holds the route's index code
-(the load, the local pass of the first radix stages through shared memory,
-the global stages over device memory, Bluestein's filter product, the
-unpack, the split-real pack's unpack); `tests/cuda_host_stub/` compiles it
-with g++ and runs each pass over every row, one thread per block, as the
-route's launches do.  The bars: 1e-6 absolute of a float64 FFT (the bar of
-`tests/test_torch_stft_host.py`; f32 rounding over 8-17 passes stays near
-1e-7) at N = 32,768 (radix 4^7 2), 48,000 (mixed), 35,280 (mixed with
-radix 7) and the prime 16,411 (Bluestein, M = 33,614), packed and
+(for a 7-smooth N two passes: the load fused into the local pass of the
+first radix stages through shared memory, and the last stage fused into the
+unpack, a butterfly pair at a time; for Bluestein the load, its global
+stages, the local pass with the filter product, and the unpack; the
+split-real pack's unpack); `tests/cuda_host_stub/` compiles it with g++ and
+runs each pass over every row, one thread per block, as the route's launches
+do, and keeps the unfused pass sequence (load, local pass, each global
+stage, unpack) callable beside it.  The bars: 1e-6 absolute of a float64 FFT
+(the bar of `tests/test_torch_stft_host.py`; f32 rounding over 8-17 passes
+stays near 1e-7) at N = 32,768 (radix 4^7 2), 48,000 (mixed), 35,280 (mixed
+with radix 7) and the prime 16,411 (Bluestein, M = 33,614), packed and
 split-real; the split-real route at N = 60,000 and 65,536, where even the
 N/2-point pack passes a block; and at N the shared-memory bodies take too
-(4800, 4410, 2204), their bits exactly.  Then the size check, and the
-pipeline at N = 35,280 against the JAX package's, as
+(4800, 4410, 2204), their bits exactly; the two passes against the unfused
+sequence, bit for bit, and every output bin written exactly once.  Then the
+size check, and the pipeline at N = 35,280 against the JAX package's, as
 `tests/test_torch_fft_sizes.py` runs it.  Without a C++ compiler the host
 tests skip.
 """
@@ -55,25 +59,28 @@ def host_lib(tmp_path_factory):
     )
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.stft_host_large.argtypes = (i, i, i, i, p, p, p, p, p, p, i)
+    large = (lib.stft_host_large, lib.stft_host_large_unfused, lib.stft_host_large_writes)
+    for fn in large:
+        fn.argtypes = (i, i, i, i, p, p, p, p, p, p, i)
     lib.stft_host_rows.argtypes = (i, i, i, i, p, p, p, p, p, p)
     lib.stft_host_split.argtypes = (i, i, i, i, p, p, p, p, p, p)
-    for fn in (lib.stft_host_large, lib.stft_host_rows, lib.stft_host_split):
+    for fn in (*large, lib.stft_host_rows, lib.stft_host_split):
         fn.restype = i
     return lib
 
 
-def _planes(kind: str, n_fft: int, rows: int = 2):
-    w = n_fft // 2
+def _planes(kind: str, n_fft: int, rows: int = 2, w: int | None = None):
+    w = n_fft // 2 if w is None else w
     pcm = testing.make(kind, rows, w, 48000.0, seed=n_fft)
     return tuple(np.ascontiguousarray(pcm[..., c]) for c in range(2))
 
 
-def _host(fn, *lead, n_fft, left, right, hann, tail=(), split=False):
-    """fn's planes, with N's `fft_table`, or `split_fft_table` with `split`."""
+def _host(fn, *lead, n_fft, left, right, hann, tail=(), split=False, dtype=np.float32):
+    """fn's planes, with N's `fft_table`, or `split_fft_table` with `split`
+    (int32 `dtype`: the write counts of `stft_host_large_writes`)."""
     rows, w = left.shape
     bins = tsk.stft_bins(n_fft, w)
-    out = np.zeros((rows, bins), np.float32), np.zeros((rows, bins), np.float32)
+    out = np.zeros((rows, bins), dtype), np.zeros((rows, bins), dtype)
     table = tsk.split_fft_table(n_fft) if split else tsk.fft_table(n_fft)
     assert fn(*lead, n_fft, rows, w, left.ctypes.data, right.ctypes.data, hann.ctypes.data,
               table.ctypes.data, *(o.ctypes.data for o in out), *tail) == 0
@@ -133,6 +140,73 @@ def test_large_route_gives_the_shared_memory_bodies_bits(host_lib, n_fft, split,
     want = _host(fn, PICKED, n_fft=n_fft, left=left, right=right, hann=hann, split=split)
     for g, x in zip(got, want):
         np.testing.assert_array_equal(g, x)
+
+
+# (split, N) of the fused order's checks: the packed route at 2^15 (last
+# stage radix 2), 48,000 (5) and 35,280 (7); the split-real pack at the same
+# N (N/2 = 16,384, 24,000, 17,640) and past a block (30,000: radix 5;
+# 32,768: 2); the odd split-real row 33,075 = 3^3 5^2 7^2 (the N-point row,
+# radix 7 last)
+FUSED_CASES = ((False, 32768), (False, 48000), (False, 35280), (True, 32768),
+               (True, 48000), (True, 35280), (True, 60000), (True, 65536), (True, 33075))
+FUSED_IDS = [f"{'split' if s else 'packed'}-{n}" for s, n in FUSED_CASES]
+
+
+def _window(n_fft: int, width: str) -> int:
+    """W for N: half (pad_factor 2: bins 0 .. N/2-1), three quarters, or
+    full (pad_factor 1: bins 0 .. N-1, past N/2)."""
+    return {"half": n_fft // 2, "3/4": 3 * n_fft // 4, "full": n_fft}[width]
+
+
+@pytest.mark.parametrize("operand", [("chirp_tone", "half"), ("noise", "half"),
+                                     ("noise", "full")],
+                         ids=["chirp_tone", "noise", "noise-full-window"])
+@pytest.mark.parametrize("max_span", [tsk.MAX_BUF, 64], ids=["kernels", "span64"])
+@pytest.mark.parametrize("split,n_fft", FUSED_CASES, ids=FUSED_IDS)
+def test_large_fused_order_equals_the_pass_sequence(host_lib, split, n_fft, max_span,
+                                                    operand):
+    """The route's two passes of a direct N (the load fused into the local
+    pass, reading each run's inputs G entries apart into their
+    digit-reversed places; the last stage fused into the unpack, a butterfly
+    pair (j, len - j) at a time) give the bits of the passes they replace
+    (load, local pass, each global stage, unpack), with every stage but the
+    last local (the kernels' span) or those within 64 entries (the middle
+    global stages as passes of their own); within 1e-6 of float64.  A
+    swapped slot / unslot or a wrong mirror fails on the chirp."""
+    kind, width = operand
+    left, right = _planes(kind, n_fft, w=_window(n_fft, width))
+    w = left.shape[1]
+    hann = tsk.split_hann(w) if split else tsk.packed_hann(w)
+    run = dict(n_fft=n_fft, left=left, right=right, hann=hann, tail=(max_span,),
+               split=split)
+    got = _host(host_lib.stft_host_large, int(split), **run)
+    want = _host(host_lib.stft_host_large_unfused, int(split), **run)
+    half = np.arange(n_fft // 2)
+    for g, x, ref in zip(got, want, _reference(left, right, hann, n_fft, split)):
+        assert np.isfinite(g).all()
+        np.testing.assert_array_equal(g, x)
+        np.testing.assert_allclose(g[:, half], ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("width", ["half", "3/4", "full"])
+@pytest.mark.parametrize("max_span", [tsk.MAX_BUF, 64], ids=["kernels", "span64"])
+@pytest.mark.parametrize("split,n_fft", FUSED_CASES, ids=FUSED_IDS)
+def test_large_last_unpack_writes_every_bin_once(host_lib, split, n_fft, max_span, width):
+    """Each butterfly pair writes the bins of its outputs: every bin
+    0 .. max(N/2, W)-1 of every plane exactly once, N/2 and the bins past
+    it (W > N/2), the self-paired j = 0 and j = len/2, and the pack's
+    mirrors N - k and bin N/2 included (`stft_host_large_writes` counts the
+    writes; `stft_host_large` leaves a bin no pass writes NaN)."""
+    left, right = _planes("noise", n_fft, w=_window(n_fft, width))
+    w = left.shape[1]
+    hann = tsk.split_hann(w) if split else tsk.packed_hann(w)
+    run = dict(n_fft=n_fft, left=left, right=right, hann=hann, tail=(max_span,),
+               split=split)
+    for count in _host(host_lib.stft_host_large_writes, int(split), dtype=np.int32, **run):
+        assert count.shape == (2, tsk.stft_bins(n_fft, w))
+        np.testing.assert_array_equal(count, 1)
+    for plane in _host(host_lib.stft_host_large, int(split), **run):
+        assert np.isfinite(plane).all()
 
 
 @pytest.mark.parametrize("n_fft", [60000, 65536])
