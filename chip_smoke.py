@@ -20,7 +20,7 @@ Phases, each of which fails the run with a non-zero exit:
      versions within 1 u8 on what the image shows; the next carry exactly.
   6. timing with CUDA events after a warm-up: ms/push and rows/s for the
      kernel path and the plain path, and each kernel against its plain
-     version.
+     version (kernel A in device time, `device_ms`).
   7. the mixed-radix kernel A at DEFAULT_CONFIG (N=4800) against its plain
      version, 4096 rows of chirp+tone and of noise, phase 3's bar; and
      torch.fft.fft on [4096, N] complex64 at N=4096 and N=4800, the library
@@ -41,7 +41,8 @@ Phases, each of which fails the run with a non-zero exit:
      within 1 u8 of the plain render of the same state.
  10. timing with CUDA events after a warm-up: the k=8 push at BENCH_CONFIG,
      4096 streams, no ring; the display push and render_viewport at 256
-     streams; each new kernel against its plain version, and torch.fft.fft
+     streams; each new kernel against its plain version (the all-windows
+     kernel and torch.fft.fft beside it in device time), and torch.fft.fft
      on the all-windows rows at DEFAULT_CONFIG; peak device memory.
  11. the serving mode's kernels: the blockwise colormap at 10,240 rows of
      BENCH_CONFIG, on sorted tables (uniform blocks) and scattered ones
@@ -64,7 +65,8 @@ Phases, each of which fails the run with a non-zero exit:
  13. timing with CUDA events after a warm-up: ms/push and rows/s of the
      per-row, sorted and full-serving pipelines at both populations (in
      turns: a b c c b a); each new kernel against its plain version, the f32
-     kernel beside each int16 one, kernel B beside the blockwise one, and
+     kernel beside each int16 one (both in device time), kernel B beside the
+     blockwise one, and
      the blockwise kernel at 32, 64 and 128 rows per CTA; peak device
      memory.
  14. the palette kernels, on 4096 rows of BENCH_CONFIG planes of chirp+tone
@@ -183,9 +185,13 @@ Phases, each of which fails the run with a non-zero exit:
      bound.
  25. the redesigned kernels (the split-real pack; radix 7; the large-N
      route's two passes, packed f32 and int16 at N=48,000, packed at
-     N=32,768, split-real at N=65,536): each one's device time from phases
-     17, 20 and 23 beside its first version's (FIRST_VERSION_MS, from
-     PERF.md), its library call and its bound.
+     N=32,768, split-real at N=65,536; the radix-2 register passes, kernel
+     A f32 and int16 at N=4096 and the packed all-windows kernel at k=8,
+     with and without its next carry): each one's device time from phases
+     6, 10, 13, 17, 20, 22 and 23 beside its first version's
+     (FIRST_VERSION_MS, from PERF.md), its library call and its bound; the
+     split-real kernels at N=4096 also beside their times before the
+     radix-2 passes (BEFORE_PASSES_MS).
 
 Then the whole run's seconds.  The second-to-last line is {"kernels": [...]}:
 each kernel's launches on the main paths (phases 5, 9, 12, 15, 18, 21, 22,
@@ -540,7 +546,7 @@ def main() -> int:
     # -- 6. timing --------------------------------------------------------------
     left, right, ml, mr = planes["chirp_tone"]
     ms = {
-        sk.KERNEL: time_ms(lambda: sk.stft_mag_packed(left, right, p.hann, p.fft_consts)),
+        sk.KERNEL: device_ms(lambda: sk.stft_mag_packed(left, right, p.hann, p.fft_consts)),
         ck.KERNEL: time_ms(lambda: ck.colormap_builtin(ml, mr, p.taps, tables, cfg)),
     }
     plain_ms = {
@@ -593,8 +599,8 @@ def main() -> int:
     library_ms = {ck.KERNEL: None}
     for name, n in ((sk.KERNEL, cfg.padded_size), (sk.MIXED_KERNEL, dcfg.padded_size)):
         z = torch.complex(torch.randn(STREAMS, n, device=dev), torch.randn(STREAMS, n, device=dev))
-        library_ms[name] = time_ms(lambda: torch.fft.fft(z))
-        log(f"[7] torch.fft.fft [{STREAMS}, {n}] complex64: {library_ms[name]:.4f} ms")
+        library_ms[name] = device_ms(lambda: torch.fft.fft(z))
+        log(f"[7] torch.fft.fft [{STREAMS}, {n}] complex64: {library_ms[name]:.4f} ms device time")
     del dl, dr, got, want, z
 
     # -- 8. the all-windows kernel ----------------------------------------------
@@ -617,6 +623,7 @@ def main() -> int:
     del got, want
 
     # -- 9. the display path ----------------------------------------------------
+    redesign = {}          # phase 25's rows: label -> (device ms, library ms, bound ms)
     torch.cuda.reset_peak_memory_stats()
     main_launches = {name: launches.get(name, 0) for name in KERNELS}
     display = {}
@@ -626,14 +633,15 @@ def main() -> int:
     # -- 10. timing -------------------------------------------------------------
     bl, br, pp = allk_inputs[cfg.padded_size]
     hop = cfg.hop_size
-    ms[sk.ALLK_KERNEL] = time_ms(lambda: sk.stft_mag_packed_allk(bl, br, pp.hann, pp.fft_consts, K, hop))
+    ms[sk.ALLK_KERNEL] = device_ms(
+        lambda: sk.stft_mag_packed_allk(bl, br, pp.hann, pp.fft_consts, K, hop))
     plain_ms[sk.ALLK_KERNEL] = time_ms(
         lambda: sk.stft_mag_packed_allk_plain(bl, br, pp.hann, cfg.padded_size, K, hop))
     bounds[sk.ALLK_KERNEL] = bound(*stft_work(
         K * STREAMS, cfg.padded_size, cfg.window_size, bl.numel()))
     z = torch.complex(torch.randn(K * STREAMS, cfg.padded_size, device=dev),
                       torch.randn(K * STREAMS, cfg.padded_size, device=dev))
-    library_ms[sk.ALLK_KERNEL] = time_ms(lambda: torch.fft.fft(z))
+    library_ms[sk.ALLK_KERNEL] = device_ms(lambda: torch.fft.fft(z))
     del z
     dbl, dbr, dpp = allk_inputs[dcfg.padded_size]
     dms = time_ms(lambda: sk.stft_mag_packed_allk(dbl, dbr, dpp.hann, dpp.fft_consts, K, dcfg.hop_size))
@@ -644,6 +652,9 @@ def main() -> int:
                       torch.randn(K * STREAMS, dcfg.padded_size, device=dev))
     dlib = time_ms(lambda: torch.fft.fft(z))
     del z
+    redesign["kernel A N=4096"] = (ms[sk.KERNEL], library_ms[sk.KERNEL], bounds[sk.KERNEL][0])
+    redesign["stft_allk N=4096 k=8"] = (ms[sk.ALLK_KERNEL], library_ms[sk.ALLK_KERNEL],
+                                        bounds[sk.ALLK_KERNEL][0])
     for name in (sk.MIXED_KERNEL, sk.ALLK_KERNEL):
         log(f"[10] {KERNELS[name]['name']}: {ms[name]:.4f} ms (plain {plain_ms[name]:.4f} ms, "
             f"torch.fft.fft {library_ms[name]:.4f} ms, bound {bounds[name][0]:.4f} ms by "
@@ -680,7 +691,7 @@ def main() -> int:
 
     # -- 11-13. the serving mode ---------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
-    serving_kernels(dev, stats, ms, plain_ms, bounds, library_ms)
+    serving_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign)
     serving = {s: serving_path(s, dev, lib, main_launches) for s in SERVING_STREAMS}
     i16_paths(dev, lib, main_launches)
     serving_timing(serving, power_line)
@@ -693,7 +704,6 @@ def main() -> int:
 
     # -- 17-19. the split-real STFT family ---------------------------------------
     torch.cuda.reset_peak_memory_stats()
-    redesign = {}
     split_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign)
     layout_paths(dev, lib, main_launches)
     layout_timing(dev, power_line)
@@ -705,7 +715,7 @@ def main() -> int:
     size_timing(dev, power_line)
     torch.cuda.reset_peak_memory_stats()
     carry_pair_and_push(dev, lib, main_launches, stats, ms, plain_ms, bounds, library_ms,
-                        power_line)
+                        power_line, redesign)
 
     # -- 23. FFT sizes above a block's shared memory: the large-N route -------
     torch.cuda.empty_cache()
@@ -729,9 +739,11 @@ def main() -> int:
         if label not in redesign:
             fail(f"phase 25: no time for {label}")
         t, lib_t, b = redesign[label]
+        before = (f", before the radix-2 passes {BEFORE_PASSES_MS[label]:.4f} ms"
+                  if label in BEFORE_PASSES_MS else "")
         log(f"[25] {label}: {t:.4f} ms device time (first version {first:.4f} ms, "
-            f"{first / t:.2f}x; library {lib_t:.4f} ms, {t / lib_t:.2f}x it; bound {b:.4f} ms); "
-            f"card {power_line}")
+            f"{first / t:.2f}x{before}; library {lib_t:.4f} ms, {t / lib_t:.2f}x it; bound "
+            f"{b:.4f} ms); card {power_line}")
 
     log(f"[25] whole run {time.perf_counter() - t_start:.1f} s")
     print(power_line)
@@ -841,7 +853,7 @@ def display_path(cfg, dev, lib, main_launches: dict) -> dict:
     return timings
 
 
-def serving_kernels(dev, stats, ms, plain_ms, bounds, library_ms) -> None:
+def serving_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign) -> None:
     """Phase 11, and phase 13's kernel times: the blockwise colormap at
     10,240 rows of BENCH_CONFIG on sorted tables (uniform blocks) and on
     scattered ones (mixed blocks), bit for bit kernel B and within 1 u8 of
@@ -933,13 +945,15 @@ def serving_kernels(dev, stats, ms, plain_ms, bounds, library_ms) -> None:
         if not same or not ok:
             fail(f"{KERNELS[name]['name']} disagrees with the f32 kernel or its plain version")
         stats[name] = err
-        f32_ms = time_ms(lambda: kernel(scaled, pp.hann))
-        ms[name] = time_ms(lambda: kernel(words, pp.hann_i16))
+        f32_ms = device_ms(lambda: kernel(scaled, pp.hann))
+        ms[name] = device_ms(lambda: kernel(words, pp.hann_i16))
         plain_ms[name] = time_ms(plain, iters=5)
         bounds[name] = bound(*stft_work(rows_out, c.padded_size, c.window_size,
                                         words[0].numel(), sample_bytes=2))
         library_ms[name] = library_ms[f32_name]
-        log(f"[13] {KERNELS[name]['name']}: {ms[name]:.4f} ms (the f32 kernel on the same "
+        if name == sk.KERNEL_I16:
+            redesign["kernel A int16 N=4096"] = (ms[name], library_ms[name], bounds[name][0])
+        log(f"[13] {KERNELS[name]['name']}: {ms[name]:.4f} ms device time (the f32 kernel on the same "
             f"samples {f32_ms:.4f} ms; plain {plain_ms[name]:.4f} ms; torch.fft.fft "
             f"{library_ms[name]:.4f} ms; bound {bounds[name][0]:.4f} ms by {bounds[name][1]})")
         del words, scaled, got
@@ -1616,8 +1630,9 @@ ODD = SpectrogramConfig(sample_rate=16000.0, window_period=145 / 16000.0,
 # The device times (PERF.md, H100 80GB HBM3, 700 W) of the first versions of
 # the redesigned kernels: the split-real rows as N-point transforms (on the
 # large-N route from N=17,640), N=4410 and packed N=17,640 on Bluestein; the
-# large-N route as four passes (load, local pass, last stage, unpack); 4096
-# rows unless named
+# large-N route as four passes (load, local pass, last stage, unpack); kernel
+# A and the packed all-windows kernel with one shared-memory pass per
+# radix-2 stage; 4096 rows unless named
 FIRST_VERSION_MS = {
     "stft_split N=4096": 0.7932, "stft_split_t N=4096": 0.8231,
     "stft_split_allk N=4096 k=8": 6.2293, "stft_split_tsplit N=4096": 0.8144,
@@ -1626,6 +1641,14 @@ FIRST_VERSION_MS = {
     "split-real N=48000": 16.3022, "packed N=17640": 7.2398,
     "large route packed N=48000": 12.4223, "large route packed int16 N=48000": 10.3921,
     "large route packed N=32768": 8.8779, "large route split-real N=65536": 15.5659,
+    "kernel A N=4096": 0.4221, "kernel A int16 N=4096": 0.4116,
+    "stft_allk N=4096 k=8": 3.1884, "stft_allk_carry N=4096 k=8": 3.1917,
+}
+# The split-real kernels' device times before the radix-2 register passes
+# (PERF.md, H100 80GB HBM3, 700 W)
+BEFORE_PASSES_MS = {
+    "stft_split N=4096": 0.3829, "stft_split_t N=4096": 0.4300,
+    "stft_split_allk N=4096 k=8": 2.9907, "stft_split_tsplit N=4096": 0.4212,
 }
 
 
@@ -1829,7 +1852,7 @@ def size_timing(dev, power_line: str, groups=SIZE_TIMING, phase: int = 21,
 
 
 def carry_pair_and_push(dev, lib, main_launches: dict, stats, ms, plain_ms, bounds,
-                        library_ms, power_line: str) -> None:
+                        library_ms, power_line: str, redesign: dict) -> None:
     """Phase 22: the split kernel (k=1, k=8), `emit_carry` on the packed
     (f32, int16) and split-real all-windows kernels (k=8) and the fused
     push (with and without `emit_mags`) through their entry points at
@@ -2002,6 +2025,8 @@ def carry_pair_and_push(dev, lib, main_launches: dict, stats, ms, plain_ms, boun
     library_ms[sk.SPLIT_CARRY_KERNEL] = library_ms[sk.SPLIT_ALLK_CARRY_KERNEL] = rfft8
     library_ms[sk.ALLK_CARRY_KERNEL] = library_ms[sk.ALLK_CARRY_KERNEL_I16] = fft8
     library_ms[pk.KERNEL] = None
+    redesign["stft_allk_carry N=4096 k=8"] = (ms[sk.ALLK_CARRY_KERNEL], fft8,
+                                              bounds[sk.ALLK_CARRY_KERNEL][0])
     for name in (sk.SPLIT_CARRY_KERNEL, sk.ALLK_CARRY_KERNEL, sk.ALLK_CARRY_KERNEL_I16,
                  sk.SPLIT_ALLK_CARRY_KERNEL, pk.KERNEL):
         log(f"[22] {KERNELS[name]['name']}: {ms[name]:.4f} ms device time (plain "

@@ -73,7 +73,7 @@ SPK_EXPORT int spk_push_fused(const float* left, const float* right,
     const int e = spk::allow_smem(push_fused_kernel<decltype(body)>, smem);
     if (e != 0) return e;
     push_fused_kernel<decltype(body)>
-        <<<rows, spk::stft_threads(body.buf_size()), smem,
+        <<<rows, spk::body_threads(body), smem,
            static_cast<cudaStream_t>(stream)>>>(
             body, left, right, hann, tw, tables, n_tables, res, j0, j1, w0, w1,
             h, laws, reinterpret_cast<unsigned*>(out), mag_l, mag_r, w);

@@ -20,18 +20,22 @@
 // next [S, 2, c_len], the last c_len = W - hop samples of each buffer in the
 // buffers' dtype: the blocks of window 0 copy their stream's two tails.
 //
-// What bounds it on this card: as those kernels, shared-memory traffic of
-// the FFT stages, not device memory.  A buffer sample is read by about W/hop
-// windows (2.6 at BENCH_CONFIG), which is still less traffic than writing
-// the [k*S, W] window planes and reading them back, as the window-plane
-// path would.  The next carry adds c_len samples written per stream and
-// channel, and spares the framing its separate copy.
+// What bounds it on this card: as those kernels, the FFT's trips through
+// shared memory, not device memory; at N = 2^a it runs kernel A's radix-2
+// register passes (stft_packed.cu), the first pass reading the window
+// straight from the buffers, with kernel A's block size and launch bounds
+// (`with_row_bounds`).  A buffer sample is read by about W/hop windows (2.6
+// at BENCH_CONFIG), which is still less traffic than writing the [k*S, W]
+// window planes and reading them back, as the window-plane path would.  The
+// next carry adds c_len samples written per stream and channel, and spares
+// the framing its separate copy.
 #include "stft_fft.cuh"
 
 namespace {
 
-template <class Body, class T>
-__global__ void __launch_bounds__(spk::kStftMaxThreads) stft_allk_kernel(
+template <class Body, class T, class Bounds>
+__global__ void __launch_bounds__(Bounds::threads, Bounds::blocks)
+stft_allk_kernel(
     Body body, const T* __restrict__ buf_l, const T* __restrict__ buf_r,
     const float* __restrict__ hann, const float2* __restrict__ twiddles,
     float* __restrict__ out_l, float* __restrict__ out_r,
@@ -60,14 +64,15 @@ int launch(const T* buf_l, const T* buf_r, const float* hann,
   const auto* tw = static_cast<const float2*>(consts);
   return spk::with_fft_body(n, consts, [&](auto body) {
     const size_t smem = (body.buf_size() + body.staged_size()) * sizeof(float2);
-    const int e = spk::allow_smem(stft_allk_kernel<decltype(body), T>, smem);
-    if (e != 0) return e;
-    stft_allk_kernel<decltype(body), T>
-        <<<k * streams, spk::stft_threads(body.buf_size()), smem,
-           static_cast<cudaStream_t>(stream)>>>(body, buf_l, buf_r, hann, tw,
-                                                out_l, out_r, next, streams,
-                                                ld, hop, w, c_len);
-    return static_cast<int>(cudaGetLastError());
+    return spk::with_row_bounds(body, [&](auto bounds, int threads) {
+      const auto kernel = stft_allk_kernel<decltype(body), T, decltype(bounds)>;
+      const int e = spk::allow_smem(kernel, smem);
+      if (e != 0) return e;
+      kernel<<<k * streams, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+          body, buf_l, buf_r, hann, tw, out_l, out_r, next, streams, ld, hop,
+          w, c_len);
+      return static_cast<int>(cudaGetLastError());
+    });
   });
 }
 

@@ -13,7 +13,9 @@
 // the TPU kernels' `_packed_hann` did.
 //
 // Three bodies compute DFT_N in place in shared memory:
-//   Radix2      N = 2^a: bit-reversed load, log2(N) radix-2 DIT stages.
+//   Radix2      N = 2^a: bit-reversed load, log2(N) radix-2 DIT stages run
+//               four at a time in registers (a pass over the buffer per
+//               four stages), the packed rows' load fused into the first.
 //   MixedRadix  N = 2^a 3^b 5^c 7^d: digit-reversed load, radix-4/2/3/5/7
 //               DIT stages (4s first, then a 2, then 3s, 5s and 7s), so a
 //               5-smooth N keeps the plan it had before radix 7 (N = 4800:
@@ -196,6 +198,43 @@ __device__ __forceinline__ void butterfly(float2* x, int l, int t,
   }
 }
 
+// Stages per register pass of the radix-2 body (a radix-16 group), and the
+// launch bounds of a packed radix-2 row whose buffer leaves room for
+// kRadix2Blocks blocks per SM: kRadix2Threads threads, registers for
+// kRadix2Blocks blocks (`with_row_bounds`).
+constexpr int kRadix2Pass = 4;
+constexpr int kRadix2Threads = 128;
+constexpr int kRadix2Blocks = 5;
+
+// The b-bit reversal of x < 2^b (0 for b = 0).
+__device__ __forceinline__ int reverse_bits(int x, int b) {
+  return b == 0 ? 0 : static_cast<int>(__brev(static_cast<unsigned>(x)) >> (32 - b));
+}
+
+// N = 2^L: bit-reversed input, L radix-2 DIT stages, natural-order output.
+// Stage S merges transforms of size 2^S into 2^(S+1): butterfly (i0, i0 +
+// 2^S), i0 with bit S clear, computes t = x[i1] * tw[pos * N / 2^(S+1)],
+// pos = i0 mod 2^S, then x[i0] + t and x[i0] - t, each with _rn.
+//
+// The stages run kRadix2Pass at a time in registers (`pass`): stages s ..
+// s+Q-1 close over groups of 2^Q entries, those that share their bits below
+// s (lo) and above s+Q-1 (hi), so one thread loads a group from shared
+// memory, runs its Q stages and stores it back: ceil(L / 4) round trips
+// through shared memory (3 at N = 4096) in place of L, the last pass shorter
+// where 4 does not divide L.  Each butterfly is the one above, on the same
+// table entry, so the bits are those of one stage per pass.  The packed rows
+// fuse their load into the first pass (`load_transform`): a thread reads its
+// group's 16 samples straight from the window into registers.
+//
+// Entry i lives at buf[at(i)]: its low 4 bits XORed with its top 4 (from N =
+// 256), so that in every pass, in the first pass's stores and in the
+// unpack's reads of X[k] and X[N-k], a half-warp's 16 accesses fall in 16
+// banks.  Group u of a pass takes hi = reverse(u mod 2^hb) (hb bits of hi)
+// and lo = u >> hb: where hi has 4 bits or more a half-warp shares lo (one
+// twiddle address, a broadcast) and spans the top bits (the XOR); where it
+// has fewer, lo runs over consecutive values.  In the first pass hi is the
+// group and u the first sample it reads, so a warp reads consecutive
+// samples.
 struct Radix2 {
   int log2n;
 
@@ -204,42 +243,156 @@ struct Radix2 {
   // f32 pairs of the body's table: its N twiddles
   __host__ __device__ __forceinline__ int table_size() const { return 1 << log2n; }
 
-  // bit reversal: where sample i sits before the first DIT stage
-  __device__ __forceinline__ int slot(int i) const {
-    return static_cast<int>(__brev(static_cast<unsigned>(i)) >> (32 - log2n));
+  // where entry i of the transform is kept in `buf`
+  __device__ __forceinline__ int at(int i) const {
+    return log2n >= 8 ? i ^ ((i >> (log2n - 4)) & 15) : i;
   }
+
+  // bit reversal: where sample i sits before the first DIT stage
+  __device__ __forceinline__ int slot(int i) const { return at(reverse_bits(i, log2n)); }
 
   // The load's value for sample i (z, zero past the window): z itself.
   __device__ __forceinline__ float2 input(int, float2 z) const { return z; }
   // X[k] of the transformed buffer
   __device__ __forceinline__ float2 result(const float2* buf, int k) const {
-    return buf[k];
+    return buf[at(k)];
   }
   // After a load that wrote floats into buf[slot(i)], i < size(): nothing.
   __device__ __forceinline__ void prepare(float2*) const {}
   // Table entries a packed row stages in shared memory (`stage_twiddles`).
   __host__ __device__ __forceinline__ int staged_size() const { return 0; }
 
-  // Stage s merges transforms of size 2^s into 2^(s+1); the twiddle of
-  // butterfly position p is exp(-2 pi i p / 2^(s+1)) = tw[p * N / 2^(s+1)].
+  // After a load into buf[slot(i)]: every stage.
   __device__ __forceinline__ void transform(float2* buf, const float2* tw) const {
-    const int half = 1 << (log2n - 1);
-    for (int s = 0; s < log2n; ++s) {
-      const int hs = 1 << s;
-      const int tstep = half >> s;
-      for (int j = threadIdx.x; j < half; j += blockDim.x) {
-        const int pos = j & (hs - 1);
-        const int i0 = ((j >> s) << (s + 1)) | pos;
-        const int i1 = i0 + hs;
-        const float2 t = cmul(buf[i1], tw[pos * tstep]);
-        const float2 a = buf[i0];
-        buf[i0] = cadd(a, t);
-        buf[i1] = csub(a, t);
+    passes_from(0, buf, tw);
+  }
+
+  // The transform of the window z(i), i < w (zero from w to size()), read
+  // straight into the first pass's registers.
+  template <class Z>
+  __device__ __forceinline__ void load_transform(float2* buf, const float2* tw,
+                                                 int w, const Z& z) const {
+    switch (log2n < kRadix2Pass ? log2n : kRadix2Pass) {
+      case 1: first_pass<1>(buf, tw, w, z); break;
+      case 2: first_pass<2>(buf, tw, w, z); break;
+      case 3: first_pass<3>(buf, tw, w, z); break;
+      default: first_pass<kRadix2Pass>(buf, tw, w, z); break;
+    }
+    passes_from(kRadix2Pass, buf, tw);
+  }
+
+  // The passes over stages s .. L-1.
+  __device__ __forceinline__ void passes_from(int s, float2* buf,
+                                              const float2* tw) const {
+    for (; s + kRadix2Pass <= log2n; s += kRadix2Pass) pass<kRadix2Pass>(buf, tw, s);
+    switch (log2n - s) {
+      case 1: pass<1>(buf, tw, s); break;
+      case 2: pass<2>(buf, tw, s); break;
+      case 3: pass<3>(buf, tw, s); break;
+      default: break;
+    }
+  }
+
+  // Stages s .. s+Q-1 over every group (see above).
+  template <int Q>
+  __device__ __forceinline__ void pass(float2* buf, const float2* tw, int s) const {
+    const int hb = log2n - s - Q;
+    for (int u = threadIdx.x; u < (1 << (log2n - Q)); u += blockDim.x) {
+      const int lo = u >> hb;
+      const int base = (reverse_bits(u & ((1 << hb) - 1), hb) << (s + Q)) | lo;
+      float2 x[1 << Q];
+#pragma unroll
+      for (int d = 0; d < (1 << Q); ++d) x[d] = buf[at(base + (d << s))];
+      stages<Q>(x, tw, s, lo);
+#pragma unroll
+      for (int d = 0; d < (1 << Q); ++d) buf[at(base + (d << s))] = x[d];
+    }
+    __syncthreads();
+  }
+
+  // Stages 0 .. Q-1 with the load: group g = reverse(u) holds slots g 2^Q +
+  // d, i.e. samples u + reverse_Q(d) N / 2^Q, those of even d below N/2.
+  // Each half's reads issue together (`load_half`); the upper half is read
+  // only where the window reaches it (not at W <= N/2).
+  template <int Q, class Z>
+  __device__ __forceinline__ void first_pass(float2* buf, const float2* tw,
+                                             int w, const Z& z) const {
+    const int hb = log2n - Q;
+    for (int u = threadIdx.x; u < (1 << hb); u += blockDim.x) {
+      float2 x[1 << Q];
+      load_half<Q>(x, 0, u, hb, w, z);
+      if (u + (1 << (log2n - 1)) < w) {
+        load_half<Q>(x, 1, u, hb, w, z);
+      } else {
+#pragma unroll
+        for (int d = 1; d < (1 << Q); d += 2) x[d] = make_float2(0.f, 0.f);
       }
-      __syncthreads();
+      stages<Q>(x, tw, 0, 0);
+      const int base = reverse_bits(u, hb) << Q;
+#pragma unroll
+      for (int d = 0; d < (1 << Q); ++d) buf[at(base + d)] = x[d];
+    }
+    __syncthreads();
+  }
+
+  // x[d] for d = odd, odd + 2, ...: z of its sample, zero past the window.
+  // Every slot reads a sample of the window (one past it reads sample w -
+  // 1, its value unused), so the reads carry no branch and issue together,
+  // and every register index is a constant once the loop is unrolled.
+  template <int Q, class Z>
+  __device__ __forceinline__ void load_half(float2 (&x)[1 << Q], int odd, int u,
+                                            int hb, int w, const Z& z) const {
+#pragma unroll
+    for (int d = odd; d < (1 << Q); d += 2) {
+      const int i = u + (reverse_bits(d, Q) << hb);
+      const float2 v = z(i < w ? i : w - 1);
+      x[d] = i < w ? v : make_float2(0.f, 0.f);
+    }
+  }
+
+  // Stages s .. s+Q-1 of the group whose entries d sit at hi + (d << s) +
+  // lo: butterfly (b, b + 2^j) of stage s+j has pos = lo + (t << s), t = b
+  // mod 2^j, so the stage reads 2^j table entries.
+  template <int Q>
+  __device__ __forceinline__ void stages(float2 (&x)[1 << Q],
+                                         const float2* __restrict__ tw, int s,
+                                         int lo) const {
+    const int half = 1 << (log2n - 1);
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+      const int tstep = half >> (s + j);
+#pragma unroll
+      for (int t = 0; t < (1 << j); ++t) {
+        const float2 w = tw[(lo + (t << s)) * tstep];
+#pragma unroll
+        for (int b = t; b < (1 << Q); b += 2 << j) {
+          const float2 p = cmul(x[b + (1 << j)], w);
+          const float2 a = x[b];
+          x[b] = cadd(a, p);
+          x[b + (1 << j)] = csub(a, p);
+        }
+      }
     }
   }
 };
+
+// The row's transform of the window z(i), i < w (zero past it): the radix-2
+// body's fused first pass, or for the other bodies a load of input(i, z(i))
+// into buf[slot(i)] over the whole buffer, then `transform`.
+template <class Body, class Z>
+__device__ __forceinline__ void load_transform(const Body& body, float2* buf,
+                                               const float2* tw, int w, const Z& z) {
+  if constexpr (std::is_same<Body, Radix2>::value) {
+    body.load_transform(buf, tw, w, z);
+  } else {
+    // coalesced global reads, scattered shared-memory writes
+    for (int i = threadIdx.x; i < body.buf_size(); i += blockDim.x) {
+      buf[body.slot(i)] = body.input(i, i < w ? z(i) : make_float2(0.f, 0.f));
+    }
+    __syncthreads();
+    body.transform(buf, tw);
+  }
+}
 
 // kTop, the largest radix of the butterfly switch: 7 takes every 7-smooth
 // plan, 5 only plans with no 7 (`with_mixed_radix` gives those the 5 switch,
@@ -590,9 +743,9 @@ __device__ __forceinline__ float real_pack_magnitude(const Z& z,
 // The first `count` entries of tw copied to shared memory at `at` (the row's
 // barrier after its load orders them), or tw itself where count is 0.
 // Staged, the mixed-radix packed rows read their twiddles 19-20% faster at
-// N = 4410 and 4800; the radix-2 rows (1.3%) and the split-real rows
-// (6-31%, fewer blocks per SM) read them slower so, and stay as they were
-// (PERF.md §6, H100).
+// N = 4410 and 4800; the radix-2 rows (57% slower over the register passes)
+// and the split-real rows (6-31%, fewer blocks per SM) read them slower so,
+// and read the table (PERF.md §6, H100).
 __device__ __forceinline__ const float2* stage_twiddles(const float2* tw, int count,
                                                        float2* at) {
   if (count == 0) return tw;
@@ -617,18 +770,11 @@ __device__ __forceinline__ void stft_packed_row(
     float* __restrict__ ol, float* __restrict__ orr, float2* buf) {
   const int n = body.size();
   const float2* stw = stage_twiddles(tw, body.staged_size(), buf + body.buf_size());
-  // coalesced global reads, scattered shared-memory writes
-  for (int i = threadIdx.x; i < body.buf_size(); i += blockDim.x) {
-    float2 z = make_float2(0.f, 0.f);
-    if (i < w) {
-      const float h = hann[i];
-      z = make_float2(__fmul_rn(static_cast<float>(l[i]), h),
-                      __fmul_rn(static_cast<float>(r[i]), h));
-    }
-    buf[body.slot(i)] = body.input(i, z);
-  }
-  __syncthreads();
-  body.transform(buf, stw);
+  load_transform(body, buf, stw, w, [&](int i) {
+    const float h = hann[i];
+    return make_float2(__fmul_rn(static_cast<float>(l[i]), h),
+                       __fmul_rn(static_cast<float>(r[i]), h));
+  });
   // conjugate-symmetric stereo unpack (fft.rs:81-92), coalesced stores
   const int bins = stft_bins(n, w);
   for (int k = threadIdx.x; k < bins; k += blockDim.x) {
@@ -853,11 +999,62 @@ __device__ __forceinline__ void buffer_tail(const T* __restrict__ buf,
   }
 }
 
-// Threads per row block: one per butterfly of a radix-2 stage over the
-// body's buffer, in whole warps, from 32 to 512.
-static inline int stft_threads(int buf_size) {
-  const int t = (buf_size / 2 + 31) / 32 * 32;
+// `t` threads in whole warps, from 32 to kStftMaxThreads.
+static inline int whole_warps(int t) {
+  t = (t + 31) / 32 * 32;
   return t < 32 ? 32 : t < kStftMaxThreads ? t : kStftMaxThreads;
+}
+
+// Threads per row block: one per butterfly of a radix-2 stage over the
+// body's buffer (the mixed-radix and Bluestein bodies), in whole warps, from
+// 32 to 512.
+static inline int stft_threads(int buf_size) { return whole_warps(buf_size / 2); }
+
+// Threads per row block of `body`: one per group of a radix-2 register pass
+// (N / 16), else `stft_threads`; the split-real rows take their N/2 body's.
+template <class Body>
+static inline int body_threads(const Body& body) {
+  if constexpr (std::is_same<Body, Radix2>::value) {
+    return whole_warps(body.buf_size() >> kRadix2Pass);
+  } else {
+    return stft_threads(body.buf_size());
+  }
+}
+
+// Launch bounds as a type: at most kThreads threads, kBlocks blocks per SM.
+template <int kThreads, int kBlocks>
+struct Bounds {
+  static constexpr int threads = kThreads, blocks = kBlocks;
+};
+
+// fn(bounds, threads) with the launch bounds of a packed row block over
+// `body` and its threads (`body_threads`, at most bounds.threads): a
+// radix-2 row whose buffer fits kRadix2Blocks times in a block's shared
+// memory (N <= 4096) takes kRadix2Threads threads and kRadix2Blocks blocks,
+// so that ptxas holds its registers to that many blocks per SM; larger rows
+// (fewer blocks per SM: at N = 16,384 these bounds ran kernel A at half the
+// speed, PERF.md §6) and the other bodies take kStftMaxThreads threads and
+// one block.
+template <class Body, class Fn>
+static inline int with_row_bounds(const Body& body, Fn fn) {
+  const int threads = body_threads(body);
+  if constexpr (std::is_same<Body, Radix2>::value) {
+    if (body.buf_size() * static_cast<int>(sizeof(float2)) * kRadix2Blocks <= kMaxSmemBytes) {
+      return fn(Bounds<kRadix2Threads, kRadix2Blocks>{},
+                threads < kRadix2Threads ? threads : kRadix2Threads);
+    }
+  }
+  return fn(Bounds<kStftMaxThreads, 1>{}, threads);
+}
+
+template <class Body>
+static inline int body_threads(const RealPack<Body>& row) {
+  return body_threads(row.half);
+}
+
+template <class Body>
+static inline int body_threads(const RealFull<Body>& row) {
+  return body_threads(row.body);
 }
 
 // Allow `kernel` `bytes` of dynamic shared memory (above 48 KB only by

@@ -49,7 +49,7 @@ int launch(const T* left, const T* right, const float* hann,
     const int e = spk::allow_smem(stft_mixed_kernel<decltype(body), T>, smem);
     if (e != 0) return e;
     stft_mixed_kernel<decltype(body), T>
-        <<<rows, spk::stft_threads(body.buf_size()), smem,
+        <<<rows, spk::body_threads(body), smem,
            static_cast<cudaStream_t>(stream)>>>(body, left, right, hann, tw,
                                                 out_l, out_r, w);
     return static_cast<int>(cudaGetLastError());

@@ -165,7 +165,7 @@ int launch_rows(int n, const void* consts, int rows, void* stream,
       }
     }
     return launch(body, std::integral_constant<int, spk::kStftMaxThreads>{},
-                  dim3(2 * rows), spk::stft_threads(body.buf_size()), smem, st);
+                  dim3(2 * rows), spk::body_threads(body), smem, st);
   });
 }
 

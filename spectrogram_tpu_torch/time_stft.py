@@ -12,9 +12,10 @@ device time in ms (mean of 10 calls after a warm-up, the card held while the
 host enqueues) of kernel A (`stft_mag_packed`) and of the split-real plane
 kernel (`stft_mag_split`) on 4,096 window rows of chirp+tone at each N of
 `SIZES` (the large-N route where N takes it: packed from N=32,768 and at the
-prime 16,411, split-real at N=65,536 and 16,411), and at N=4096 of the
-split-real all-windows (k=8, 4,096 streams), transposed and packed
-all-windows kernels.  `DIGESTS {json}`: under the same keys, a SHA-256
+prime 16,411, split-real at N=65,536 and 16,411), and at N=4096 of kernel A
+on int16 words, of the split-real all-windows (k=8, 4,096 streams),
+transposed and packed all-windows kernels, and of the packed all-windows
+kernel on int16 words and with its next carry.  `DIGESTS {json}`: under the same keys, a SHA-256
 prefix of each call's output planes, so that two roots whose kernels give
 the same bits print the same digests.  `--sizes` times only the named N of
 `SIZES`.  It needs a CUDA card.
@@ -28,11 +29,13 @@ import pathlib
 import subprocess
 import sys
 
-# (sample rate, window W, N): radix 2; radix 7 (4410 = 2 3^2 5 7^2); the
+# (sample rate, window W, N): radix 2 (4096; 8192 and 16,384, whose packed
+# rows take the wide launch bounds); radix 7 (4410 = 2 3^2 5 7^2); the
 # Bluestein N 1410, 2204, 4406 and the odd 4801; 5-smooth 4800; the long
 # windows 17,640, 32,768, 48,000 and 65,536 (the split-real route), and the
 # prime 16,411 (the route's Bluestein passes)
-SIZES = ((48000.0, 2048, 4096), (44100.0, 2205, 4410), (44100.0, 705, 1410),
+SIZES = ((48000.0, 2048, 4096), (48000.0, 4096, 8192), (48000.0, 8192, 16384),
+         (44100.0, 2205, 4410), (44100.0, 705, 1410),
          (44100.0, 1102, 2204), (44100.0, 2203, 4406), (48000.0, 2400, 4801),
          (48000.0, 2400, 4800), (44100.0, 8820, 17640), (48000.0, 16384, 32768),
          (48000.0, 24000, 48000), (48000.0, 32768, 65536), (48000.0, 8205, 16411))
@@ -92,6 +95,10 @@ def _worker(sizes: list[int]) -> None:
             out[key] = device_ms(fn, key)
         if n == 4096:
             hop, k = 800, 8
+            words = [(x * 32767.0).round().to(torch.int16) for x in (left, right)]
+            hann_i16 = torch.from_numpy(sk.packed_hann_i16(w)).to(dev)
+            out["packed_i16 4096"] = device_ms(
+                lambda: sk.stft_mag_packed(*words, hann_i16, consts), "packed_i16 4096")
             bl, br = planes(ROWS, w + (k - 1) * hop, sr, 3)
             out["split_allk 4096 k8"] = device_ms(
                 lambda: sk.stft_mag_split_allk(bl, br, split_hann, consts, k, hop),
@@ -99,11 +106,19 @@ def _worker(sizes: list[int]) -> None:
             out["allk 4096 k8"] = device_ms(
                 lambda: sk.stft_mag_packed_allk(bl, br, packed_hann, consts, k, hop),
                 "allk 4096 k8")
+            bwords = [(x * 32767.0).round().to(torch.int16) for x in (bl, br)]
+            out["allk_i16 4096 k8"] = device_ms(
+                lambda: sk.stft_mag_packed_allk(*bwords, hann_i16, consts, k, hop),
+                "allk_i16 4096 k8")
+            out["allk_carry 4096 k8"] = device_ms(
+                lambda: sk.stft_mag_packed_allk(bl, br, packed_hann, consts, k, hop,
+                                                emit_carry=True),
+                "allk_carry 4096 k8")
             x = torch.stack([left, right], 1).reshape(ROWS, 2, 64, 32).transpose(2, 3)
             x = x.contiguous()
             out["split_t 4096"] = device_ms(lambda: sk.stft_mag_split_t(x, split_hann, consts),
                                             "split_t 4096")
-            del bl, br, x
+            del bl, br, x, words, bwords
         del left, right
         torch.cuda.empty_cache()
     print("TIMES " + json.dumps(out), flush=True)

@@ -1,9 +1,9 @@
 // The STFT kernels' row code (stft_fft.cuh, push_fused.cuh) as a host
 // library: each call runs its rows through the Radix2 (body = 0), MixedRadix
 // (body = 1) or the body `with_fft_body` picks (body = 2, Bluestein where
-// the size has a prime factor above 7), one thread block after another as
-// the kernels' grids would, with the operand offsets of the kernels in
-// csrc/.  The packed rows take that body of n and n's FFT table
+// the size has a prime factor above 7), or the radix-2 stages one pass each
+// (body = 3, radix2_stages.h), one thread block after another as the
+// kernels' grids would, with the operand offsets of the kernels in csrc/.  The packed rows take that body of n and n's FFT table
 // (`fft_table`); the split-real rows take it of n/2 (the real-FFT pack, even
 // n from 4) or of n (odd n), and n's split-real table (`split_fft_table`).
 // Output rows are stft_bins(n, w) wide.
@@ -14,6 +14,7 @@
 #include <vector>
 
 #include "push_fused.cuh"
+#include "radix2_stages.h"
 #include "stft_large.cuh"
 
 // fn(body, buf) with the body chosen as above and a buffer of its size; 1
@@ -30,9 +31,10 @@ static int with_body(int body, int n, const float* consts, Fn fn) {
     return spk::make_mixed_radix(n, &plan) ? run(plan) : 1;
   }
   if (body == 2) return spk::with_fft_body(n, consts, run);
-  spk::Radix2 pow2{0};
-  while ((1 << pow2.log2n) < n) ++pow2.log2n;
-  return (1 << pow2.log2n) == n ? run(pow2) : 1;
+  int log2n = 0;
+  while ((1 << log2n) < n) ++log2n;
+  if ((1 << log2n) != n) return 1;
+  return body == 3 ? run(Radix2Stages{log2n}) : run(spk::Radix2{log2n});
 }
 
 static const float2* tw_of(const float* consts) {
@@ -81,6 +83,49 @@ extern "C" int stft_host_rows_i16(int body, int n, int rows, int w,
                                   const float* hann, const float* consts,
                                   float* out_l, float* out_r) {
   return host_rows(body, n, rows, w, l, r, hann, consts, out_l, out_r);
+}
+
+// spk_stft_allk(_carry) and its int16 forms: [streams, ld] buffers; row
+// r*streams + s is window buf[s, r*hop : r*hop + w]; with next (else null),
+// the last c_len samples of each buffer as [streams, 2, c_len].
+template <class T>
+static int host_allk(int body, int n, int streams, int ld, int k, int hop,
+                     int w, const T* l, const T* r, const float* hann,
+                     const float* consts, float* out_l, float* out_r, T* next,
+                     int c_len) {
+  const size_t bins = spk::stft_bins(n, w);
+  return with_body(body, n, consts, [&](const auto& b, float2* buf) {
+    for (int row = 0; row < k * streams; ++row) {
+      const int s = row % streams;
+      const size_t at = static_cast<size_t>(s) * ld +
+                        static_cast<size_t>(row / streams) * hop;
+      if (next != nullptr && row < streams) {
+        T* dst = next + static_cast<size_t>(s) * 2 * c_len;
+        spk::buffer_tail(l + static_cast<size_t>(s) * ld, dst, ld, c_len);
+        spk::buffer_tail(r + static_cast<size_t>(s) * ld, dst + c_len, ld, c_len);
+      }
+      spk::stft_packed_row(b, l + at, r + at, hann, tw_of(consts), w,
+                           out_l + row * bins, out_r + row * bins, buf);
+    }
+  });
+}
+
+extern "C" int stft_host_allk(int body, int n, int streams, int ld, int k,
+                              int hop, int w, const float* l, const float* r,
+                              const float* hann, const float* consts,
+                              float* out_l, float* out_r, float* next,
+                              int c_len) {
+  return host_allk(body, n, streams, ld, k, hop, w, l, r, hann, consts, out_l,
+                   out_r, next, c_len);
+}
+
+extern "C" int stft_host_allk_i16(int body, int n, int streams, int ld, int k,
+                                  int hop, int w, const short* l,
+                                  const short* r, const float* hann,
+                                  const float* consts, float* out_l,
+                                  float* out_r, short* next, int c_len) {
+  return host_allk(body, n, streams, ld, k, hop, w, l, r, hann, consts, out_l,
+                   out_r, next, c_len);
 }
 
 // The radices of n's mixed-radix plan into `radix`; their count, or -1.

@@ -41,6 +41,7 @@ STUB = ROOT / "tests" / "cuda_host_stub"
 CSRC = ROOT / "spectrogram_tpu_torch" / "csrc"
 ATOL = 1e-6
 RADIX2, MIXED, PICKED = 0, 1, 2   # the stub's body argument (PICKED: by N)
+STAGES = 3                        # radix 2, one shared-memory pass per stage
 # N with a prime factor above 7: the sizes that keep the Bluestein body
 BLUESTEIN_SIZES = (11, 97, 1410, 2204, 4406, 4801, 9998)
 # the sha256 of stft_host_rows' output planes (see `_packed_digest`) at the
@@ -77,6 +78,9 @@ def host_lib(tmp_path_factory):
     lib.stft_host_split_tsplit.argtypes = (i, i, i, i, i, i, p, p, p, p, p, p, p)
     lib.stft_host_push.argtypes = (i, i, i, i, p, p, p, p, p, i, i, p, p, p, p, i,
                                    f, f, f, f, p, p, p)
+    for fn in (lib.stft_host_allk, lib.stft_host_allk_i16):
+        fn.argtypes = (i, i, i, i, i, i, i, p, p, p, p, p, p, p, i)
+        fn.restype = i
     for fn in (lib.stft_host_rows, lib.stft_host_rows_i16, lib.stft_host_plan,
                lib.stft_host_buf_size, lib.stft_host_split_buf_size, lib.stft_host_split,
                lib.stft_host_split_allk,
@@ -536,3 +540,112 @@ def test_split_sizes_agree_with_the_host(host_lib):
         assert tsk.split_route(n) == (tsk.LARGE if large else tsk.fft_body(tsk.split_size(n)))
         if not large:
             assert host_lib.stft_host_split_buf_size(n) == size, n
+
+
+# ------------------------------------------- the radix-2 register passes
+
+# the sha256 of stft_host_split's planes (see `_split_digest`) at the parent
+# of the grouped radix-2 passes: the split-real pack of N runs Radix2 on N/2
+SPLIT_RADIX2_DIGESTS = {
+    8: "6c71ace67bb1e047d0c28c243567d3b57ea9b08be1b615cee2c19f75e0ee9f54",
+    16: "27b8b912f4dc50e7bcc08d5d6fe6b8e2058c14601d18ea6dea41d9b777bee596",
+    32: "e7a5f5c13e610ce55dd8d18a1505e63a7dabab27cdb5cb16055e128a35269e9e",
+    64: "134ff84aa981d27610c39eec6f0cce0a4312a59fb5fb49ccdff40d3c437c720d",
+    128: "aedb57f6bee3a97ac4d4c08904a6f3e80e34ac247c00023ee20874316ec7ea9f",
+    256: "b7218b680bd39e2761e02e885721229f6e7f2379f000504da3701a134574e44b",
+    512: "8afa065409de5d12e54aba48922ddcb63a7b7b9cc7fb8ac8081901e94b3372fb",
+    1024: "238a4c3eef9df12fbe2f0bd5e13a657e99ea9649aed07942e9778fafbaf9a15b",
+    2048: "172f839356ba66f059c9953522b686b7b0c2a33bdd2e328f29c0f45530a9182e",
+    4096: "bb68124ba5580ea46cea6d5b4e1e3d33658b3c519a26676013bc4a5be2f161e1",
+    8192: "76f21e60edb52e64b62b8edfc932d70e090c7545e847e14f974ed60402d8e112",
+    16384: "027924d151a5156218299c2988fbf9bc58a22d738809232236922da18c63cc66",
+    32768: "708337bb1d130d006006a95d0249f6fbc279ed64a2880508ba132d9510530c21",
+}
+
+
+def _random_rows(rows: int, w: int, seed: int, dtype) -> tuple:
+    """(left, right, window): f32 noise or full-range int16 words, and a
+    window of values in (0, 1] (hann is zero at both ends of short windows,
+    which would hide a wrong sample)."""
+    rng = np.random.default_rng(seed)
+    window = rng.uniform(2.0**-8, 1.0, w).astype(np.float32)
+    if dtype == np.int16:
+        x = rng.integers(-32768, 32768, (2, rows, w), dtype=np.int16)
+        return x[0], x[1], window * np.float32(2.0**-15)
+    x = rng.standard_normal((2, rows, w)).astype(np.float32)
+    return x[0], x[1], window
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int16], ids=["f32", "int16"])
+@pytest.mark.parametrize("w_of", ["below", "equal"])
+@pytest.mark.parametrize("log2n", range(1, 15))
+def test_radix2_passes_equal_one_stage_per_pass(host_lib, log2n, w_of, dtype):
+    """The radix-2 body's register passes (four stages at a time, the load
+    fused into the first, a swizzled buffer) give the bits of one
+    shared-memory pass per stage on the same table entries, at every N =
+    2^1 .. 2^14, with W < N and W = N, f32 and int16 rows."""
+    n_fft = 1 << log2n
+    w = n_fft if w_of == "equal" else max(1, n_fft // 2 + log2n % 3)
+    rows = 3 if log2n < 12 else 2
+    left, right, window = _random_rows(rows, w, log2n * 2 + (w_of == "equal"), dtype)
+    fn = host_lib.stft_host_rows_i16 if dtype == np.int16 else host_lib.stft_host_rows
+    got = _host_rows(host_lib, fn, RADIX2, n_fft, left, right, window)
+    want = _host_rows(host_lib, fn, STAGES, n_fft, left, right, window)
+    for g, x in zip(got, want):
+        assert np.isfinite(g).all() and g.any()
+        np.testing.assert_array_equal(g, x)
+
+
+# (N, body, W, hop, k): radix 2 at pad 2 and 1, N = 2^14, mixed radix, Bluestein
+@pytest.mark.parametrize("dtype", [np.float32, np.int16], ids=["f32", "int16"])
+@pytest.mark.parametrize("n_fft,body,w,hop,k", [
+    (4096, RADIX2, 2048, 800, 3), (2048, RADIX2, 2048, 800, 2), (16384, PICKED, 9000, 4000, 2),
+    (4800, PICKED, 2400, 58, 3), (1410, PICKED, 705, 264, 3),
+])
+def test_packed_allk_row_equals_window_planes(host_lib, n_fft, body, w, hop, k, dtype):
+    """The packed all-windows row (window r of stream s read at s*ld +
+    r*hop, row r*S + s) gives the window-plane row's bits on the extracted
+    windows, f32 and int16, and its next carry is each buffer's last W - hop
+    samples."""
+    s, c_len = 2, w - hop
+    ld = w + (k - 1) * hop + 3
+    buf_l, buf_r, window = _random_rows(s, ld, n_fft + k, dtype)
+    fn = host_lib.stft_host_allk_i16 if dtype == np.int16 else host_lib.stft_host_allk
+    rows_fn = host_lib.stft_host_rows_i16 if dtype == np.int16 else host_lib.stft_host_rows
+    table = tsk.fft_table(n_fft)
+    window = window[:w].copy()
+    allk = _outs(k * s, n_fft, w)
+    nxt = np.zeros((s, 2, c_len), dtype)
+    assert fn(body, n_fft, s, ld, k, hop, w, _ptr(buf_l), _ptr(buf_r), _ptr(window),
+              _ptr(table), *map(_ptr, allk), _ptr(nxt), c_len) == 0
+    wl, wr = (np.ascontiguousarray(np.concatenate([b[:, r * hop : r * hop + w]
+                                                   for r in range(k)]))
+              for b in (buf_l, buf_r))
+    planes = _host_rows(host_lib, rows_fn, body, n_fft, wl, wr, window, table)
+    for got, want in zip(allk, planes):
+        assert got.any()
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(nxt, np.stack([buf_l, buf_r], 1)[..., ld - c_len :])
+
+
+def _split_digest(host_lib, n_fft: int) -> str:
+    """sha256 of stft_host_split's planes over 2 windows of chirp+tone, then
+    of noise, at W = N/2 and then W = N."""
+    h = hashlib.sha256()
+    table = tsk.split_fft_table(n_fft)
+    for w in (n_fft // 2, n_fft):
+        for kind in ("chirp_tone", "noise"):
+            pcm = testing.make(kind, 2, w, 48000.0, seed=n_fft + w)
+            left, right = (np.ascontiguousarray(pcm[..., c]) for c in range(2))
+            for plane in _host_rows(host_lib, host_lib.stft_host_split, RADIX2, n_fft, left,
+                                    right, tsk.split_hann(w), table):
+                h.update(plane.tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("n_fft", sorted(SPLIT_RADIX2_DIGESTS))
+def test_split_real_radix2_rows_keep_their_bits(host_lib, n_fft):
+    """The split-real rows whose N/2 pack runs the radix-2 body (N = 8 ..
+    32,768, W = N/2 and N) give the bits they gave with one shared-memory
+    pass per stage: the digests come from the parent tree's host build."""
+    assert _split_digest(host_lib, n_fft) == SPLIT_RADIX2_DIGESTS[n_fft]
