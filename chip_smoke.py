@@ -129,7 +129,8 @@ Phases, each of which fails the run with a non-zero exit:
      0.05 s window; N=4802 = 2 7^4), 4096 rows or streams of chirp+tone,
      against their plain versions at phase 3's bar; device time of kernel A
      at N=2204 (the Bluestein row), N=1410, N=4410 and N=4800, their plain
-     versions, torch.fft.fft, the bounds.
+     versions, torch.fft.fft, the bounds; the split-real plane kernel at the
+     odd 7-smooth N=735 = 3 5 7^2 (the N-point row over radix 7, no pack).
  21. the pipelines at the sizes the kernels newly take, through
      SpectrogramPipeline: 44.1 kHz with DEFAULT_CONFIG's periods (N=4410) at
      k=1 with 4096 streams and no ring, and at k=8 with the ring (R=2048),
@@ -164,7 +165,9 @@ Phases, each of which fails the run with a non-zero exit:
      N=65,536 (the N/2 pack past a block; all-windows k=8 over 128 streams);
      the split-real pack in shared memory at N=17,640, 32,768 and 48,000
      (all-windows at 48,000) and kernel A at N=17,640 (radix 7), with
-     device times beside torch.fft; the pipelines at 48 kHz with a 0.5 s
+     device times beside torch.fft; the split-real packs at 1,024 threads
+     over radix 7 (N=35,280: N/2 = 17,640 direct; N=16,400: N/2 = 8200 on
+     Bluestein's M = 16,807 = 7^5), 1,024 rows; the pipelines at 48 kHz with a 0.5 s
      window and at 44.1 kHz with a 0.2 s window, k=1 with 4,096 streams and
      k=8 with the ring at 16 streams over 260 pushes, stft_packed=False at
      k=1 (and at N=65,536 with 1,024 streams), at 48 kHz with a 0.17 s
@@ -187,7 +190,9 @@ Phases, each of which fails the run with a non-zero exit:
      route's two passes, packed f32 and int16 at N=48,000, packed at
      N=32,768, split-real at N=65,536; the radix-2 register passes, kernel
      A f32 and int16 at N=4096 and the packed all-windows kernel at k=8,
-     with and without its next carry): each one's device time from phases
+     with and without its next carry; the mixed-radix register passes,
+     kernel A at N=4800 and 2204 (Bluestein) and the packed all-windows
+     kernel at DEFAULT_CONFIG, k=8): each one's device time from phases
      6, 10, 13, 17, 20, 22 and 23 beside its first version's
      (FIRST_VERSION_MS, from PERF.md), its library call and its bound; the
      split-real kernels at N=4096 also beside their times before the
@@ -644,14 +649,16 @@ def main() -> int:
     library_ms[sk.ALLK_KERNEL] = device_ms(lambda: torch.fft.fft(z))
     del z
     dbl, dbr, dpp = allk_inputs[dcfg.padded_size]
-    dms = time_ms(lambda: sk.stft_mag_packed_allk(dbl, dbr, dpp.hann, dpp.fft_consts, K, dcfg.hop_size))
+    dms = device_ms(lambda: sk.stft_mag_packed_allk(dbl, dbr, dpp.hann, dpp.fft_consts, K,
+                                                    dcfg.hop_size))
     dplain = time_ms(lambda: sk.stft_mag_packed_allk_plain(
         dbl, dbr, dpp.hann, dcfg.padded_size, K, dcfg.hop_size))
     dbound = bound(*stft_work(K * STREAMS, dcfg.padded_size, dcfg.window_size, dbl.numel()))
     z = torch.complex(torch.randn(K * STREAMS, dcfg.padded_size, device=dev),
                       torch.randn(K * STREAMS, dcfg.padded_size, device=dev))
-    dlib = time_ms(lambda: torch.fft.fft(z))
+    dlib = device_ms(lambda: torch.fft.fft(z))
     del z
+    redesign["stft_allk N=4800 k=8"] = (dms, dlib, dbound[0])
     redesign["kernel A N=4096"] = (ms[sk.KERNEL], library_ms[sk.KERNEL], bounds[sk.KERNEL][0])
     redesign["stft_allk N=4096 k=8"] = (ms[sk.ALLK_KERNEL], library_ms[sk.ALLK_KERNEL],
                                         bounds[sk.ALLK_KERNEL][0])
@@ -659,7 +666,7 @@ def main() -> int:
         log(f"[10] {KERNELS[name]['name']}: {ms[name]:.4f} ms (plain {plain_ms[name]:.4f} ms, "
             f"torch.fft.fft {library_ms[name]:.4f} ms, bound {bounds[name][0]:.4f} ms by "
             f"{bounds[name][1]})")
-    log(f"[10] stft_allk k={K} at DEFAULT_CONFIG, {STREAMS} streams: {dms:.4f} ms "
+    log(f"[10] stft_allk k={K} at DEFAULT_CONFIG, {STREAMS} streams: {dms:.4f} ms device time "
         f"(plain {dplain:.4f} ms, torch.fft.fft [{K * STREAMS}, {dcfg.padded_size}] "
         f"{dlib:.4f} ms, bound {dbound[0]:.4f} ms by {dbound[1]})")
     del allk_inputs, bl, br, dbl, dbr
@@ -1627,12 +1634,19 @@ PAD1 = SpectrogramConfig(sample_rate=48000.0, window_period=2048 / 48000.0,
 ODD = SpectrogramConfig(sample_rate=16000.0, window_period=145 / 16000.0,
                         hop_period=69 / 16000.0, pad_factor=3, viewport_height=100,
                         max_frequency=7950.0)                            # N = 435
+# an odd 7-smooth N: the split-real row is the N-point row over
+# MixedRadixT<7> (no pack), N = 735 = 3 5 7^2
+ODD_735 = SpectrogramConfig(sample_rate=44100.0, window_period=245 / 44100.0,
+                            hop_period=64 / 44100.0, pad_factor=3)
 # The device times (PERF.md, H100 80GB HBM3, 700 W) of the first versions of
 # the redesigned kernels: the split-real rows as N-point transforms (on the
 # large-N route from N=17,640), N=4410 and packed N=17,640 on Bluestein; the
 # large-N route as four passes (load, local pass, last stage, unpack); kernel
 # A and the packed all-windows kernel with one shared-memory pass per
-# radix-2 stage; 4096 rows unless named
+# radix-2 stage; kernel A at N=4800 and 2204 (Bluestein) with one pass per
+# mixed-radix stage and its twiddles read from the table, and the
+# all-windows kernel at DEFAULT_CONFIG as first measured; 4096 rows unless
+# named
 FIRST_VERSION_MS = {
     "stft_split N=4096": 0.7932, "stft_split_t N=4096": 0.8231,
     "stft_split_allk N=4096 k=8": 6.2293, "stft_split_tsplit N=4096": 0.8144,
@@ -1643,6 +1657,7 @@ FIRST_VERSION_MS = {
     "large route packed N=32768": 8.8779, "large route split-real N=65536": 15.5659,
     "kernel A N=4096": 0.4221, "kernel A int16 N=4096": 0.4116,
     "stft_allk N=4096 k=8": 3.1884, "stft_allk_carry N=4096 k=8": 3.1917,
+    "kernel A N=4800": 0.5696, "kernel A N=2204": 0.4092, "stft_allk N=4800 k=8": 4.3991,
 }
 # The split-real kernels' device times before the radix-2 register passes
 # (PERF.md, H100 80GB HBM3, 700 W)
@@ -1691,6 +1706,17 @@ def bluestein_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign) ->
                     sk.stft_mag_packed_allk_plain(bl, br, hann, n, K, h))
         torch.cuda.synchronize()
         del bl, br
+    n, w = ODD_735.padded_size, ODD_735.window_size
+    if sk.split_packs(n) or sk.split_route(n) != "mixed" or 7 not in sk.mixed_radix_plan(n):
+        fail(f"N={n}: the split-real row is not the N-point row over radix 7")
+    consts = sk.fft_constants(n, dev)
+    shann = torch.from_numpy(sk.split_hann(w)).to(dev)
+    left, right = windows(ODD_735, "chirp_tone", STREAMS, dev)
+    _check_stft(20, stats, (sk.SPLIT_KERNEL,),
+                f"stft_split (mixed {'-'.join(map(str, sk.mixed_radix_plan(n)))} N-point row) "
+                f"N={n}, {STREAMS} rows", sk.stft_mag_split(left, right, shann, consts),
+                sk.stft_mag_split_plain(left, right, shann, n))
+    del left, right, consts
 
     def kernel_a(cfg):
         n, w = cfg.padded_size, cfg.window_size
@@ -1708,6 +1734,7 @@ def bluestein_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign) ->
     ms[BLUESTEIN], plain_ms[BLUESTEIN], library_ms[BLUESTEIN], bounds[BLUESTEIN] = \
         kernel_a(BLUE_2204)
     n = BLUE_2204.padded_size
+    redesign["kernel A N=2204"] = (ms[BLUESTEIN], library_ms[BLUESTEIN], bounds[BLUESTEIN][0])
     log(f"[20] Bluestein body, kernel A at N={n} (M={sk.fft_buf_size(n)}), {STREAMS} rows: "
         f"{ms[BLUESTEIN]:.4f} ms device time (plain {plain_ms[BLUESTEIN]:.4f} ms, torch.fft.fft "
         f"[{STREAMS}, {n}] {library_ms[BLUESTEIN]:.4f} ms, bound {bounds[BLUESTEIN][0]:.4f} ms "
@@ -1720,6 +1747,8 @@ def bluestein_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign) ->
             f"bound {b[0]:.4f} ms)")
         if n == SIZE_44K.padded_size:
             redesign["kernel A N=4410"] = (t, lib_ms, b[0])
+        if n == DEFAULT_CONFIG.padded_size:
+            redesign["kernel A N=4800"] = (t, lib_ms, b[0])
 
 
 # (label, config, pipeline arguments, streams, pushes)
@@ -2051,6 +2080,10 @@ LARGE_48K = SpectrogramConfig(window_period=0.5)
 LARGE_44K = SpectrogramConfig(sample_rate=44100.0, window_period=0.2)
 LARGE_64K = SpectrogramConfig(sample_rate=48000.0, window_period=32768 / 48000.0)
 PRIME_N, PRIME_W = 16411, 8205
+# split-real packs at kWideThreads threads over radix 7: N = 35,280 (44.1 kHz,
+# 0.4 s; N/2 = 17,640 = 4 2 3 3 5 7 7) and N = 16,400 (N/2 = 8200 = 2^3 5^2
+# 41: Bluestein over M = 16,807 = 7^5)
+WIDE_SEVEN_N, WIDE_BLUE_N, WIDE_ROWS = 35280, 16400, 1024
 # a 0.17 s window at 48 kHz: N = 16,320 = 2^6 3 5 17, Bluestein on the route
 # for packed rows (M = 32,768) and in shared memory for the split-real pack
 # (N/2 = 8,160, M = 16,384: the wide bound)
@@ -2261,6 +2294,22 @@ def large_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign) -> Non
                                    lambda: torch.fft.fft(z), stft_work(rows, n, w, rows * w))
             redesign[f"packed N={n}"] = (t, lib_t, b[0])
             del z
+        del left, right
+        torch.cuda.empty_cache()
+
+    # the N/2 packs at kWideThreads threads whose body holds radix 7: the
+    # direct MixedRadixT<7> and a Bluestein M with a 7
+    for n, sr in ((WIDE_SEVEN_N, 44100.0), (WIDE_BLUE_N, 48000.0)):
+        w, half = n // 2, sk.split_size(n)
+        m = sk.split_buf_size(n)
+        if sk.is_large_split(n) or m < sk.WIDE_ROW or 7 not in sk.mixed_radix_plan(m):
+            fail(f"N={n}: the split-real pack is not a 1,024-thread row over radix 7")
+        label = (f"N={n} (split-real pack of N/2={half}, {sk.split_route(n)}, buffer {m} = "
+                 f"{'-'.join(map(str, sk.mixed_radix_plan(m)))}, {sk.WIDE_THREADS} threads)")
+        left, right, consts, (_, _, shann) = _large_operands(n, w, WIDE_ROWS, dev, sr)
+        _check_stft(23, stats, (sk.SPLIT_KERNEL,), f"stft_split {label}, {WIDE_ROWS} rows",
+                    sk.stft_mag_split(left, right, shann, consts),
+                    sk.stft_mag_split_plain(left, right, shann, n))
         del left, right
         torch.cuda.empty_cache()
 

@@ -14,17 +14,16 @@
 // per output row reads its window from device memory at its offset, so the k
 // window planes are never materialized.  Each row runs the body of the
 // window-plane kernels (stft_fft.cuh `with_fft_body`: Radix2, MixedRadix or
-// Bluestein; a mixed-radix row stages its twiddles in shared memory, as
-// there), so a window gives the same bits here as through stft_packed.cu /
-// stft_mixed.cu.  `spk_stft_allk_carry` (and its int16 form) also writes
+// Bluestein), so a window gives the same bits here as through
+// stft_packed.cu / stft_mixed.cu.  `spk_stft_allk_carry` (and its int16 form) also writes
 // next [S, 2, c_len], the last c_len = W - hop samples of each buffer in the
 // buffers' dtype: the blocks of window 0 copy their stream's two tails.
 //
 // What bounds it on this card: as those kernels, the FFT's trips through
-// shared memory, not device memory; at N = 2^a it runs kernel A's radix-2
-// register passes (stft_packed.cu), the first pass reading the window
-// straight from the buffers, with kernel A's block size and launch bounds
-// (`with_row_bounds`).  A buffer sample is read by about W/hop windows (2.6
+// shared memory, not device memory; it runs kernel A's register passes
+// (radix 2, stft_packed.cu; mixed radix and Bluestein, stft_mixed.cu), the
+// first pass reading the window straight from the buffers, with kernel A's
+// block size and launch bounds (`with_row_bounds`).  A buffer sample is read by about W/hop windows (2.6
 // at BENCH_CONFIG), which is still less traffic than writing the [k*S, W]
 // window planes and reading them back, as the window-plane path would.  The
 // next carry adds c_len samples written per stream and channel, and spares
@@ -52,8 +51,8 @@ stft_allk_kernel(
                      c_len);
   }
   const size_t out = static_cast<size_t>(row) * spk::stft_bins(body.size(), w);
-  spk::stft_packed_row(body, buf_l + at, buf_r + at, hann, twiddles, w,
-                       out_l + out, out_r + out, buf);
+  spk::stft_packed_row<spk::group_cap<Bounds>()>(body, buf_l + at, buf_r + at, hann,
+                                                 twiddles, w, out_l + out, out_r + out, buf);
 }
 
 template <class T>
@@ -63,7 +62,7 @@ int launch(const T* buf_l, const T* buf_r, const float* hann,
            void* stream) {
   const auto* tw = static_cast<const float2*>(consts);
   return spk::with_fft_body(n, consts, [&](auto body) {
-    const size_t smem = (body.buf_size() + body.staged_size()) * sizeof(float2);
+    const size_t smem = body.buf_size() * sizeof(float2);
     return spk::with_row_bounds(body, [&](auto bounds, int threads) {
       const auto kernel = stft_allk_kernel<decltype(body), T, decltype(bounds)>;
       const int e = spk::allow_smem(kernel, smem);

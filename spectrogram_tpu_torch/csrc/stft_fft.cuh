@@ -19,18 +19,21 @@
 //   MixedRadix  N = 2^a 3^b 5^c 7^d: digit-reversed load, radix-4/2/3/5/7
 //               DIT stages (4s first, then a 2, then 3s, 5s and 7s), so a
 //               5-smooth N keeps the plan it had before radix 7 (N = 4800:
-//               4-4-4-3-5-5; N = 4410: 2-3-3-5-7-7).
+//               4-4-4-3-5-5; N = 4410: 2-3-3-5-7-7), run two at a time in
+//               registers where their radices multiply to at most 28 (a
+//               pass over the buffer per pair: (4 4)(4 3)(5 5) at N =
+//               4800), the packed rows' load fused into the first.
 //   Bluestein   N with a prime factor above 7: the chirp-z form of DFT_N as
 //               a cyclic convolution of length M >= 2N - 1 (`bluestein_length`),
 //               run as a MixedRadix decimation-in-frequency pass (natural
 //               order in, digit-reversed out), a product with the filter's
 //               transform stored in that digit-reversed order, and the DIT
-//               pass (digit-reversed in, natural out).  The row's load
-//               multiplies by the chirp and zero-pads to M (`input`), the
-//               DIF pass's last stage stores the filter product, and the
-//               unpack applies the output chirp where it reads a bin
-//               (`result`): no pointwise pass of its own; M complex f32 of
-//               shared memory.
+//               pass (digit-reversed in, natural out), both in the register
+//               passes.  The row's load multiplies by the chirp and
+//               zero-pads to M (`input`), the DIF pass of stage 0 stores the
+//               filter product, and the unpack applies the output chirp
+//               where it reads a bin (`result`): no pointwise pass of its
+//               own; M complex f32 of shared memory.
 // Each reads one host-built table (`fft_table` in ops/cuda/stft_kernel.py),
 // computed in float64 and rounded once to f32: the N twiddles exp(-2 pi i t
 // / N) of a direct body, or for Bluestein the M twiddles of its inner
@@ -198,13 +201,30 @@ __device__ __forceinline__ void butterfly(float2* x, int l, int t,
   }
 }
 
+// `butterfly` on registers: a[q] <- the same products with tw[q t] before
+// (decimation in time) or after (in frequency) the DFT, so a butterfly run
+// here gives the bits of one run over shared memory.
+template <int R, bool kDif>
+__device__ __forceinline__ void twiddled_dft(float2 (&a)[R], const float2* __restrict__ tw,
+                                             int t) {
+  if constexpr (!kDif) {
+#pragma unroll
+    for (int q = 1; q < R; ++q) a[q] = cmul(a[q], tw[q * t]);
+  }
+  dft(a);
+  if constexpr (kDif) {
+#pragma unroll
+    for (int q = 1; q < R; ++q) a[q] = cmul(a[q], tw[q * t]);
+  }
+}
+
 // Stages per register pass of the radix-2 body (a radix-16 group), and the
-// launch bounds of a packed radix-2 row whose buffer leaves room for
-// kRadix2Blocks blocks per SM: kRadix2Threads threads, registers for
-// kRadix2Blocks blocks (`with_row_bounds`).
+// launch bounds of a packed row whose buffer leaves room for kRowBlocks
+// blocks per SM: kRowThreads threads, registers for kRowBlocks blocks
+// (`with_row_bounds`).
 constexpr int kRadix2Pass = 4;
-constexpr int kRadix2Threads = 128;
-constexpr int kRadix2Blocks = 5;
+constexpr int kRowThreads = 128;
+constexpr int kRowBlocks = 5;
 
 // The b-bit reversal of x < 2^b (0 for b = 0).
 __device__ __forceinline__ int reverse_bits(int x, int b) {
@@ -259,17 +279,17 @@ struct Radix2 {
   }
   // After a load that wrote floats into buf[slot(i)], i < size(): nothing.
   __device__ __forceinline__ void prepare(float2*) const {}
-  // Table entries a packed row stages in shared memory (`stage_twiddles`).
-  __host__ __device__ __forceinline__ int staged_size() const { return 0; }
 
-  // After a load into buf[slot(i)]: every stage.
+  // After a load into buf[slot(i)]: every stage.  (kCap, the mixed-radix
+  // bodies' bound on a pass, leaves the radix-2 passes as they are.)
+  template <int kCap>
   __device__ __forceinline__ void transform(float2* buf, const float2* tw) const {
     passes_from(0, buf, tw);
   }
 
   // The transform of the window z(i), i < w (zero from w to size()), read
   // straight into the first pass's registers.
-  template <class Z>
+  template <int kCap, class Z>
   __device__ __forceinline__ void load_transform(float2* buf, const float2* tw,
                                                  int w, const Z& z) const {
     switch (log2n < kRadix2Pass ? log2n : kRadix2Pass) {
@@ -376,31 +396,71 @@ struct Radix2 {
   }
 };
 
-// The row's transform of the window z(i), i < w (zero past it): the radix-2
-// body's fused first pass, or for the other bodies a load of input(i, z(i))
-// into buf[slot(i)] over the whole buffer, then `transform`.
-template <class Body, class Z>
-__device__ __forceinline__ void load_transform(const Body& body, float2* buf,
-                                               const float2* tw, int w, const Z& z) {
-  if constexpr (std::is_same<Body, Radix2>::value) {
-    body.load_transform(buf, tw, w, z);
-  } else {
-    // coalesced global reads, scattered shared-memory writes
-    for (int i = threadIdx.x; i < body.buf_size(); i += blockDim.x) {
-      buf[body.slot(i)] = body.input(i, i < w ? z(i) : make_float2(0.f, 0.f));
-    }
-    __syncthreads();
-    body.transform(buf, tw);
-  }
+// A radix as a type: `MixedRadixT::with_radices` hands a pass's radices to
+// its templates.
+template <int R>
+struct Radix {
+  static constexpr int value = R;
+};
+
+// Adjacent mixed-radix stages whose radices multiply to at most kMixedGroup
+// run as one register pass, a thread holding the product's entries (N =
+// 4800: (4 4)(4 3)(5 5); N = 4410: (2 3)(3 5)(7)(7)); a 7 after a 4, a 5
+// or a 7 runs alone (28 entries and more spilled under the 96 registers of
+// kRowBlocks blocks per SM).
+constexpr int kMixedGroup = 25;
+// The same bound on the packed rows' first pass, whose registers also hold
+// the samples in flight, and on every pass of a kernel whose launch bounds
+// leave 64 registers a thread (`group_cap`: (2 3) the only pair; at 12
+// those kernels spilled and ran N = 4801 9% slower, PERF.md §6).
+constexpr int kFirstGroup = 16;
+constexpr int kNarrowGroup = 7;
+static_assert(kMixedGroup < 28, "MixedRadixT::with_radices lists the pairs up to 27 entries");
+
+// v / r for 0 <= v < 2^30 and a radix r of a mixed-radix plan (2, 3, 4, 5,
+// 7): the high word of v (floor(2^32 / r) + 1), exact over that range.
+__host__ __device__ __forceinline__ int div_radix(int v, int r) {
+  const unsigned m = r == 2   ? 2147483649u
+                     : r == 3 ? 1431655766u
+                     : r == 4 ? 1073741825u
+                     : r == 5 ? 858993460u
+                              : 613566757u;
+#ifdef __CUDA_ARCH__
+  return static_cast<int>(__umulhi(static_cast<unsigned>(v), m));
+#else
+  return static_cast<int>((static_cast<unsigned long long>(v) * m) >> 32);
+#endif
 }
 
-// kTop, the largest radix of the butterfly switch: 7 takes every 7-smooth
-// plan, 5 only plans with no 7 (`with_mixed_radix` gives those the 5 switch,
-// so their kernels keep the code, registers and bits they had before radix
-// 7 joined the plan).
+// kTop, the largest radix of the plan's passes: 7 takes every 7-smooth
+// plan, 5 only plans with no 7 (`with_mixed_radix` gives those the 5 body,
+// so their kernels keep the code and registers they had before radix 7
+// joined the plan).
+//
+// The DIT stages (`butterfly_at`, the one-stage-per-pass form the large-N
+// route runs over device memory) run one or two at a time in registers
+// (`pass`): stages s and s+1 with L = L_s close over groups of P = r_s
+// r_{s+1} entries b M + p + d L (d < P, M = L P), one per p < L and block
+// b, so a thread loads a group, runs both stages and stores it back.  Stage
+// s's butterflies are d = q + r_s e (e < r_{s+1}) at twiddle step p (N /
+// (L r_s)), stage s+1's d = e + r_s q (e < r_s) at (p + e L) (N / M): the
+// table entries and the arithmetic of one pass per stage, so the same bits.
+// The packed rows fuse their load into the first pass (`load_transform`):
+// the group at slots g P + d holds samples u + e N / P, e the digit
+// reversal of d, g that of u, so consecutive threads read consecutive
+// samples.  Decimation in frequency (Bluestein's first half) runs the same
+// groups from the top stage down, each butterfly's twiddles after its DFT.
+// kCap, the most entries a pass holds, follows from the kernel's launch
+// bounds (`group_cap`).
+//
+// Entry i lives at buf[at(i)]: where 16 divides N, its low 4 bits XORed
+// with bits 6..9, which spreads the first pass's stores (16 entries a group
+// at N = 4800, group starts 960 apart across a warp) over the banks and
+// leaves every pass that touches 16 aligned consecutive entries conflict
+// free (without it kernel A ran 35% slower at N = 4800, PERF.md §6);
+// elsewhere i itself (no stride L_s is then a multiple of 16).
 template <int kTop>
 struct MixedRadixT {
-  static constexpr int kTopRadix = kTop;
   int n;
   int stages;
   int radix[kMaxStages];
@@ -428,33 +488,50 @@ struct MixedRadixT {
 
   __device__ __forceinline__ float2 input(int, float2 z) const { return z; }
   __device__ __forceinline__ float2 result(const float2* buf, int k) const {
-    return buf[k];
+    return buf[at(k)];
   }
   __device__ __forceinline__ void prepare(float2*) const {}
-  // The n twiddles, where they fit beside the buffer.
-  __host__ __device__ __forceinline__ int staged_size() const {
-    return 2 * n * static_cast<int>(sizeof(float2)) <= kMaxSmemBytes ? n : 0;
+
+  // where entry i of the transform is kept in `buf` (see above)
+  __device__ __forceinline__ int at(int i) const {
+    return i ^ ((i >> 6) & ((n & 15) == 0 ? 15 : 0));
   }
 
-  // Digit reversal.  Stage s turns r_s sub-transforms of length
-  // L_s = r_0 ... r_{s-1}, stored one after another, into one of length
-  // L_s r_s; so sample i goes to sum_s d_s L_s, where d_{m-1}, ..., d_0 are
-  // the digits of i in radices r_{m-1}, ..., r_0, least significant first.
-  __device__ __forceinline__ int slot(int i) const {
+  // The plan's radices, 3 bits a stage from stage 0 up: read from registers,
+  // where radix[s] at a run-time s would copy the plan to the stack.
+  __device__ __forceinline__ unsigned long long radix_bits() const {
+    unsigned long long bits = 0;
+#pragma unroll
+    for (int s = 0; s < kMaxStages; ++s) {
+      bits |= static_cast<unsigned long long>(radix[s] & 7) << (3 * s);
+    }
+    return bits;
+  }
+
+  // Digit reversal over stages s0 ..: stage s turns r_s sub-transforms of
+  // length L_s = r_0 ... r_{s-1}, stored one after another, into one of
+  // length L_s r_s; so i goes to sum_s d_s L_s, where d_{m-1}, ..., d_{s0}
+  // are the digits of i in radices r_{m-1}, ..., r_{s0}, least significant
+  // first.
+  __device__ __forceinline__ int reverse(int i, int s0, unsigned long long bits) const {
     int pos = 0;
     int span = n;
-    for (int s = stages - 1; s >= 0; --s) {
-      const int r = radix[s];
-      span /= r;
-      pos += (i % r) * span;
-      i /= r;
+    for (int s = stages - 1; s >= s0; --s) {
+      const int r = static_cast<int>(bits >> (3 * s)) & 7;
+      span = div_radix(span, r);
+      const int q = div_radix(i, r);
+      pos += (i - q * r) * span;
+      i = q;
     }
     return pos;
   }
 
-  // The inverse of `slot`: the sample whose slot is pos.  pos = sum_s d_s L_s
-  // in the stages' radices (r_0 least significant), and the sample's digits
-  // are the d_s with r_{m-1} least significant.
+  // where sample i sits before the first DIT stage
+  __device__ __forceinline__ int slot(int i) const { return at(reverse(i, 0, radix_bits())); }
+
+  // The inverse of the digit reversal: the sample whose slot is pos.  pos =
+  // sum_s d_s L_s in the stages' radices (r_0 least significant), and the
+  // sample's digits are the d_s with r_{m-1} least significant.
   __device__ __forceinline__ int unslot(int pos) const {
     int i = 0;
     for (int s = 0; s < stages; ++s) {
@@ -465,44 +542,292 @@ struct MixedRadixT {
     return i;
   }
 
-  // Decimation in time: butterfly (block b, position p) of stage s takes
-  // x_q = buf[b M + p + q L] * exp(-2 pi i p q / M), q < r, with L = L_s and
-  // M = L r, and writes the r-point DFT of the x_q back to the same slots.
-  // Digit-reversed input (`slot`), natural-order output.
-  __device__ __forceinline__ void transform(float2* buf, const float2* tw) const {
-    int len = 1;
-    for (int s = 0; s < stages; ++s) {
-      stage<false>(buf, tw, s, len);
-      len *= radix[s];
+  // the stages of the DIT pass that starts at stage s: 2 where r_s r_{s+1}
+  // <= kCap, else 1
+  template <int kCap>
+  __host__ __device__ __forceinline__ static int pass_stages(unsigned long long bits, int s,
+                                                             int stages) {
+    const int r = static_cast<int>(bits >> (3 * s)) & 7;
+    return s + 1 < stages && r * (static_cast<int>(bits >> (3 * s + 3)) & 7) <= kCap ? 2 : 1;
+  }
+
+  // The most groups a pass of the DIT or the DIF order runs under the pass
+  // bound `cap`: the block's threads (`body_threads`).
+  __host__ __forceinline__ int max_groups(int cap) const {
+    const int fcap = cap < kFirstGroup ? cap : kFirstGroup;
+    const int first = stages > 1 && radix[0] * radix[1] <= fcap ? radix[0] * radix[1] : radix[0];
+    int most = n / first;
+    for (int s = 0; s < stages;) {
+      const int pair = s + 1 < stages && radix[s] * radix[s + 1] <= cap;
+      const int p = pair ? radix[s] * radix[s + 1] : radix[s];
+      most = n / p > most ? n / p : most;
+      s += 1 + pair;
     }
+    for (int s = stages - 1; s >= 0;) {
+      const int pair = s >= 1 && radix[s - 1] * radix[s] <= cap;
+      const int p = pair ? radix[s - 1] * radix[s] : radix[s];
+      most = n / p > most ? n / p : most;
+      s -= 1 + pair;
+    }
+    return most;
+  }
+
+  // fn(Radix<A>, Radix<B>) where (r1, r2) = (A, B) and the pair has at most
+  // kCap entries; whether it ran.
+  template <int A, int B, int kCap, class Fn>
+  __device__ __forceinline__ static bool radix_case(int r1, int r2, Fn& fn) {
+    if constexpr (A * B <= kCap && (kTop == 7 || (A != 7 && B != 7))) {
+      if (r1 == A && r2 == B) {
+        fn(Radix<A>{}, Radix<B>{});
+        return true;
+      }
+    }
+    return false;
+  }
+
+  // fn(Radix<r1>, Radix<r2>) for a pass's radices (r2 = 1: one stage): the
+  // pairs of at most kCap entries that a plan in make_mixed_radix's order
+  // (4s, one 2, 3s, 5s, 7s) groups.
+  template <int kCap, class Fn>
+  __device__ __forceinline__ static void with_radices(int r1, int r2, Fn fn) {
+    radix_case<4, 4, kCap>(r1, r2, fn) || radix_case<4, 2, kCap>(r1, r2, fn) ||
+        radix_case<4, 3, kCap>(r1, r2, fn) || radix_case<4, 5, kCap>(r1, r2, fn) ||
+        radix_case<2, 3, kCap>(r1, r2, fn) || radix_case<2, 5, kCap>(r1, r2, fn) ||
+        radix_case<2, 7, kCap>(r1, r2, fn) || radix_case<3, 3, kCap>(r1, r2, fn) ||
+        radix_case<3, 5, kCap>(r1, r2, fn) || radix_case<3, 7, kCap>(r1, r2, fn) ||
+        radix_case<5, 5, kCap>(r1, r2, fn) || radix_case<4, 1, kCap>(r1, r2, fn) ||
+        radix_case<2, 1, kCap>(r1, r2, fn) ||
+        radix_case<3, 1, kCap>(r1, r2, fn) || radix_case<5, 1, kCap>(r1, r2, fn) ||
+        radix_case<7, 1, kCap>(r1, r2, fn);
+  }
+
+  // Decimation in time: digit-reversed input (`slot`), natural-order output;
+  // pairs of at most kCap entries.
+  template <int kCap>
+  __device__ __forceinline__ void transform(float2* buf, const float2* tw) const {
+    dit_passes<kCap>(0, 1, radix_bits(), buf, tw);
   }
 
   // Decimation in frequency, the transposed flow graph of `transform`: the
-  // stages in reverse order, each an r-point DFT followed by the twiddles.
-  // Natural-order input; X[k] lands in buf[slot(k)] once stages
-  // stages-1 .. `last` have run (all of them for last = 0).
+  // stages from the top down, each an r-point DFT followed by the twiddles,
+  // pairs grouped from the top.  Natural-order input; X[k] lands in
+  // buf[slot(k)].  With a `filter` (Bluestein's), the pass of stage 0 stores
+  // conj(X[k] filter[k]) there instead, k the logical slot.
+  template <int kCap>
   __device__ __forceinline__ void transform_dif(float2* buf, const float2* tw,
-                                                int last = 0) const {
+                                                const float2* filter = nullptr) const {
+    const unsigned long long bits = radix_bits();
     int len = n;
-    for (int s = stages - 1; s >= last; --s) {
-      len /= radix[s];
-      stage<true>(buf, tw, s, len);
+    for (int s = stages - 1; s >= 0;) {
+      const int r = static_cast<int>(bits >> (3 * s)) & 7;
+      const int below = s >= 1 ? static_cast<int>(bits >> (3 * s - 3)) & 7 : 0;
+      const int pair = below != 0 && below * r <= kCap;
+      len = div_radix(len, r);
+      if (pair) len = div_radix(len, below);
+      const bool filtered = s == pair && filter != nullptr;
+      with_radices<kCap>(pair ? below : r, pair ? r : 1, [&](auto a, auto b) {
+        constexpr int A = decltype(a)::value, B = decltype(b)::value;
+        if (filtered) {
+          this->template pass<A, B, true, true>(buf, tw, len, filter);
+        } else {
+          this->template pass<A, B, true, false>(buf, tw, len);
+        }
+      });
+      s -= 1 + pair;
     }
   }
 
-  template <bool kDif>
-  __device__ __forceinline__ void stage(float2* buf, const float2* tw, int s,
-                                        int len) const {
-    const int count = n / radix[s];
-    for (int j = threadIdx.x; j < count; j += blockDim.x) {
-      butterfly_at<kDif>(buf, tw, s, len, j);
+  // The transform of the window z(i), i < w (zero from w to n): the first
+  // DIT pass reads its samples straight into registers, then the others.
+  template <int kCap, class Z>
+  __device__ __forceinline__ void load_transform(float2* buf, const float2* tw, int w,
+                                                 const Z& z) const {
+    constexpr int kFirst = kCap < kFirstGroup ? kCap : kFirstGroup;
+    const unsigned long long bits = radix_bits();
+    const int q = pass_stages<kFirst>(bits, 0, stages);
+    const int r1 = static_cast<int>(bits) & 7;
+    const int r2 = q == 2 ? static_cast<int>(bits >> 3) & 7 : 1;
+    with_radices<kFirst>(r1, r2, [&](auto a, auto b) {
+      this->template first_pass<decltype(a)::value, decltype(b)::value>(buf, tw, w, z, bits);
+    });
+    dit_passes<kCap>(q, r1 * r2, bits, buf, tw);
+  }
+
+  // The DIT passes from stage s, whose sub-transforms have length len.
+  template <int kCap>
+  __device__ __forceinline__ void dit_passes(int s, int len, unsigned long long bits,
+                                             float2* buf, const float2* tw) const {
+    while (s < stages) {
+      const int q = pass_stages<kCap>(bits, s, stages);
+      const int r1 = static_cast<int>(bits >> (3 * s)) & 7;
+      const int r2 = q == 2 ? static_cast<int>(bits >> (3 * s + 3)) & 7 : 1;
+      with_radices<kCap>(r1, r2, [&](auto a, auto b) {
+        this->template pass<decltype(a)::value, decltype(b)::value, false>(buf, tw, len);
+      });
+      len *= r1 * r2;
+      s += q;
+    }
+  }
+
+  // Stages s (radix R1) and s+1 (R2; none for R2 = 1) over every group,
+  // len = L_s (see above); with a `filter`, `transform_dif`'s product.  Each
+  // butterfly of the pass's second stage (s+1 in time, s in frequency)
+  // stores its entries as it completes, which holds the registers of (5 5)
+  // under kRowBlocks' bounds.
+  template <int R1, int R2, bool kDif, bool kFilter = false>
+  __device__ __forceinline__ void pass(float2* buf, const float2* tw, int len,
+                                       const float2* __restrict__ filter = nullptr) const {
+    if constexpr (R2 == 1) {
+      single_pass<R1, kDif, kFilter>(buf, tw, len, filter);
+    } else {
+      constexpr int kP = R1 * R2;
+      const int m = len * kP;
+      const int step2 = n / m;
+      for (int u = threadIdx.x; u < n / kP; u += blockDim.x) {
+        const int b = u / len;
+        const int p = u - b * len;
+        const int base = b * m + p;
+        float2 x[kP];
+#pragma unroll
+        for (int d = 0; d < kP; ++d) x[d] = buf[at(base + d * len)];
+        if constexpr (kDif) {
+          upper_stage<R1, R2, true>(x, tw, p, len, step2);
+#pragma unroll
+          for (int e = 0; e < R2; ++e) {
+            float2 a[R1];
+#pragma unroll
+            for (int q = 0; q < R1; ++q) a[q] = x[q + R1 * e];
+            twiddled_dft<R1, true>(a, tw, p * step2 * R2);
+#pragma unroll
+            for (int q = 0; q < R1; ++q) {
+              const int i = base + (q + R1 * e) * len;
+              buf[at(i)] = kFilter ? conjugate(cmul(a[q], filter[i])) : a[q];
+            }
+          }
+        } else {
+          lower_stage<R1, R2, false>(x, tw, p * step2 * R2);
+#pragma unroll
+          for (int e = 0; e < R1; ++e) {
+            float2 a[R2];
+#pragma unroll
+            for (int q = 0; q < R2; ++q) a[q] = x[e + R1 * q];
+            twiddled_dft<R2, false>(a, tw, (p + e * len) * step2);
+#pragma unroll
+            for (int q = 0; q < R2; ++q) buf[at(base + (e + R1 * q) * len)] = a[q];
+          }
+        }
+      }
     }
     __syncthreads();
   }
 
-  // Butterfly j (of n / r_s) of stage s over `buf`, for sub-transforms of
-  // length `len`: the one step of `stage`, which the large-N route
-  // (stft_large.cuh) runs over device memory.
+  // One stage of radix R over every group (the butterflies of
+  // `butterfly_at`, with `transform_dif`'s filter product where given).
+  template <int R, bool kDif, bool kFilter>
+  __device__ __forceinline__ void single_pass(float2* buf, const float2* tw, int len,
+                                              const float2* __restrict__ filter) const {
+    const int step = n / (len * R);
+    for (int u = threadIdx.x; u < n / R; u += blockDim.x) {
+      const int b = u / len;
+      const int p = u - b * len;
+      const int base = b * len * R + p;
+      float2 x[R];
+#pragma unroll
+      for (int q = 0; q < R; ++q) x[q] = buf[at(base + q * len)];
+      twiddled_dft<R, kDif>(x, tw, p * step);
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int i = base + q * len;
+        buf[at(i)] = kFilter ? conjugate(cmul(x[q], filter[i])) : x[q];
+      }
+    }
+  }
+
+  // Stages 0 and 1 with the load: the group of u holds slots reverse(u) + d,
+  // samples u + e g (g = n / P groups, e = d's digit reversal: d = d0 + R1
+  // d1, e = d0 R2 + d1).  Where R1 is even, the samples of d0 >= R1 / 2 lie
+  // at u + n/2 and past, and are read only where the window reaches them.
+  template <int R1, int R2, class Z>
+  __device__ __forceinline__ void first_pass(float2* buf, const float2* tw, int w,
+                                             const Z& z, unsigned long long bits) const {
+    constexpr int kP = R1 * R2;
+    const int g = n / kP;
+    const int s0 = R2 > 1 ? 2 : 1;
+    for (int u = threadIdx.x; u < g; u += blockDim.x) {
+      float2 x[kP];
+      if constexpr (R1 % 2 == 0) {
+        load_part<R1, R2, 0, R1 / 2>(x, u, g, w, z);
+        if (u + n / 2 < w) {
+          load_part<R1, R2, R1 / 2, R1>(x, u, g, w, z);
+        } else {
+#pragma unroll
+          for (int d = 0; d < kP; ++d) {
+            if (d % R1 >= R1 / 2) x[d] = make_float2(0.f, 0.f);
+          }
+        }
+      } else {
+        load_part<R1, R2, 0, R1>(x, u, g, w, z);
+      }
+      lower_stage<R1, R2, false>(x, tw, 0);
+      if constexpr (R2 > 1) upper_stage<R1, R2, false>(x, tw, 0, 1, g);
+      const int base = reverse(u, s0, bits);
+#pragma unroll
+      for (int d = 0; d < kP; ++d) buf[at(base + d)] = x[d];
+    }
+    __syncthreads();
+  }
+
+  // x[d] for d0 = d mod R1 in [kLo, kHi): z of its sample, zero past the
+  // window.  Every slot reads a sample of the window (one past it reads
+  // sample w - 1, its value unused), so the reads carry no branch and issue
+  // together, and every register index is a constant once unrolled.
+  template <int R1, int R2, int kLo, int kHi, class Z>
+  __device__ __forceinline__ void load_part(float2 (&x)[R1 * R2], int u, int g, int w,
+                                            const Z& z) const {
+#pragma unroll
+    for (int d = 0; d < R1 * R2; ++d) {
+      if (d % R1 < kLo || d % R1 >= kHi) continue;
+      const int i = u + ((d % R1) * R2 + d / R1) * g;
+      const float2 v = z(i < w ? i : w - 1);
+      x[d] = i < w ? v : make_float2(0.f, 0.f);
+    }
+  }
+
+  // The butterflies of stage s on a group (see above): d = q + R1 e at
+  // twiddle step t (p N / (len R1)).
+  template <int R1, int R2, bool kDif>
+  __device__ __forceinline__ static void lower_stage(float2 (&x)[R1 * R2],
+                                                     const float2* __restrict__ tw, int t) {
+#pragma unroll
+    for (int e = 0; e < R2; ++e) {
+      float2 a[R1];
+#pragma unroll
+      for (int q = 0; q < R1; ++q) a[q] = x[q + R1 * e];
+      twiddled_dft<R1, kDif>(a, tw, t);
+#pragma unroll
+      for (int q = 0; q < R1; ++q) x[q + R1 * e] = a[q];
+    }
+  }
+
+  // ... and of stage s+1: d = e + R1 q at twiddle step (p + e len) N / M.
+  template <int R1, int R2, bool kDif>
+  __device__ __forceinline__ static void upper_stage(float2 (&x)[R1 * R2],
+                                                     const float2* __restrict__ tw, int p,
+                                                     int len, int step2) {
+#pragma unroll
+    for (int e = 0; e < R1; ++e) {
+      float2 a[R2];
+#pragma unroll
+      for (int q = 0; q < R2; ++q) a[q] = x[e + R1 * q];
+      twiddled_dft<R2, kDif>(a, tw, (p + e * len) * step2);
+#pragma unroll
+      for (int q = 0; q < R2; ++q) x[e + R1 * q] = a[q];
+    }
+  }
+
+  // Butterfly j (of n / r_s) of stage s over a natural-order `buf` (no
+  // `at`), for sub-transforms of length `len`: one stage of one pass, which
+  // the large-N route (stft_large.cuh) runs over device memory.
   template <bool kDif>
   __device__ __forceinline__ void butterfly_at(float2* buf, const float2* tw,
                                                int s, int len, int j) const {
@@ -529,6 +854,31 @@ struct MixedRadixT {
 };
 
 using MixedRadix = MixedRadixT<7>;
+
+template <class Body>
+struct fuses_load : std::false_type {};
+template <>
+struct fuses_load<Radix2> : std::true_type {};
+template <int kTop>
+struct fuses_load<MixedRadixT<kTop>> : std::true_type {};
+
+// The row's transform of the window z(i), i < w (zero past it): the radix-2
+// and mixed-radix bodies' fused first pass, or for Bluestein a load of
+// input(i, z(i)) into buf[slot(i)] over the whole buffer, then `transform`.
+template <int kCap, class Body, class Z>
+__device__ __forceinline__ void load_transform(const Body& body, float2* buf,
+                                               const float2* tw, int w, const Z& z) {
+  if constexpr (fuses_load<Body>::value) {
+    body.template load_transform<kCap>(buf, tw, w, z);
+  } else {
+    // coalesced global reads, natural-order shared-memory writes
+    for (int i = threadIdx.x; i < body.buf_size(); i += blockDim.x) {
+      buf[body.slot(i)] = body.input(i, i < w ? z(i) : make_float2(0.f, 0.f));
+    }
+    __syncthreads();
+    body.template transform<kCap>(buf, tw);
+  }
+}
 
 // The mixed-radix plan of n on the host; false if n has a prime factor
 // above 7 or needs more than kMaxStages stages.  Radix 7 comes last, so a
@@ -596,65 +946,31 @@ struct BluesteinT {
   __host__ __device__ __forceinline__ int table_size() const {
     return 2 * inner.n + n;
   }
-  __device__ __forceinline__ int slot(int i) const { return i; }
+  __device__ __forceinline__ int slot(int i) const { return inner.at(i); }
 
   // a[i] = z c[i] for i < N, zero from N to M
   __device__ __forceinline__ float2 input(int i, float2 z) const {
     return i < n ? cmul(z, chirp[i]) : make_float2(0.f, 0.f);
   }
   __device__ __forceinline__ float2 result(const float2* buf, int k) const {
-    return cmul(chirp[k], conjugate(buf[k]));
+    return cmul(chirp[k], conjugate(buf[inner.at(k)]));
   }
   // After a load that wrote the floats of buf[0 .. N) in place: `input` over
   // buf[0 .. M).
-  __host__ __device__ __forceinline__ int staged_size() const { return 0; }
   __device__ __forceinline__ void prepare(float2* buf) const {
     for (int i = threadIdx.x; i < inner.n; i += blockDim.x) {
-      buf[i] = input(i, i < n ? buf[i] : make_float2(0.f, 0.f));
+      buf[inner.at(i)] = input(i, i < n ? buf[inner.at(i)] : make_float2(0.f, 0.f));
     }
     __syncthreads();
   }
 
   // tw: the M twiddles exp(-2 pi i t / M) of the inner transforms.  The DIF
-  // pass's last stage (radix r_0 over r_0 adjacent entries, twiddle tw[0])
+  // pass of stage 0 (radix r_0 over r_0 adjacent entries, twiddle tw[0])
   // stores conj(A F) directly, so the filter product has no pass of its own.
+  template <int kCap>
   __device__ __forceinline__ void transform(float2* buf, const float2* tw) const {
-    inner.transform_dif(buf, tw, 1);
-    const int r = inner.radix[0];
-    for (int j = threadIdx.x; j < inner.n / r; j += blockDim.x) {
-      switch (r) {
-        case 4: filtered_dft<4>(buf, j * 4, tw); break;
-        case 2: filtered_dft<2>(buf, j * 2, tw); break;
-        case 3: filtered_dft<3>(buf, j * 3, tw); break;
-        default:
-          if constexpr (Inner::kTopRadix == 7) {
-            if (r == 7) {
-              filtered_dft<7>(buf, j * 7, tw);
-              break;
-            }
-          }
-          filtered_dft<5>(buf, j * 5, tw);
-          break;
-      }
-    }
-    __syncthreads();
-    inner.transform(buf, tw);
-  }
-
-  // Butterfly j of the DIF pass's stage 0 (`butterfly<R, true>` with
-  // twiddle tw[0]) over buf[at .. at + R), then the filter product.
-  template <int R>
-  __device__ __forceinline__ void filtered_dft(float2* buf, int at,
-                                               const float2* __restrict__ tw) const {
-    float2 a[R];
-#pragma unroll
-    for (int q = 0; q < R; ++q) a[q] = buf[at + q];
-    dft(a);
-#pragma unroll
-    for (int q = 0; q < R; ++q) {
-      const float2 x = q == 0 ? a[q] : cmul(a[q], tw[0]);
-      buf[at + q] = conjugate(cmul(x, filter[at + q]));
-    }
+    inner.template transform_dif<kCap>(buf, tw, filter);
+    inner.template transform<kCap>(buf, tw);
   }
 };
 
@@ -740,37 +1056,26 @@ __device__ __forceinline__ float real_pack_magnitude(const Z& z,
   return real_pack_bin(z(edge ? 0 : k), z(edge ? 0 : h - k), post, h, k);
 }
 
-// The first `count` entries of tw copied to shared memory at `at` (the row's
-// barrier after its load orders them), or tw itself where count is 0.
-// Staged, the mixed-radix packed rows read their twiddles 19-20% faster at
-// N = 4410 and 4800; the radix-2 rows (57% slower over the register passes)
-// and the split-real rows (6-31%, fewer blocks per SM) read them slower so,
-// and read the table (PERF.md §6, H100).
-__device__ __forceinline__ const float2* stage_twiddles(const float2* tw, int count,
-                                                       float2* at) {
-  if (count == 0) return tw;
-  for (int i = threadIdx.x; i < count; i += blockDim.x) at[i] = tw[i];
-  return at;
-}
-
 // One window row: load l, r through hann into `buf` in the body's input
 // order, transform, unpack both channels' magnitudes into ol, orr
 // [stft_bins(N, W)].  The caller's block has blockDim.x threads and
-// body.buf_size() + body.staged_size() complex f32 of `buf`.
+// body.buf_size() complex f32 of `buf`.  Every body reads its twiddles from
+// the table: staged in shared memory they ran the mixed-radix register
+// passes 1.8x slower (fewer blocks per SM), as they did the radix-2 ones
+// (PERF.md §6).
 //
 // Samples are f32, or int16 PCM words (T = short, the i16_planes wire mode:
 // half the bytes read).  A word converts to f32 exactly, and its 1/32768
 // wire scale arrives folded into `hann` (an exact exponent shift, as the TPU
 // kernels did), so the one rounding of x * (hann * 2^-15) gives the bits of
 // (x / 32768) * hann: the int16 row equals the f32 row of x / 32768 exactly.
-template <class Body, class T>
+template <int kCap = kMixedGroup, class Body, class T>
 __device__ __forceinline__ void stft_packed_row(
     const Body& body, const T* __restrict__ l, const T* __restrict__ r,
     const float* __restrict__ hann, const float2* __restrict__ tw, int w,
     float* __restrict__ ol, float* __restrict__ orr, float2* buf) {
   const int n = body.size();
-  const float2* stw = stage_twiddles(tw, body.staged_size(), buf + body.buf_size());
-  load_transform(body, buf, stw, w, [&](int i) {
+  load_transform<kCap>(body, buf, tw, w, [&](int i) {
     const float h = hann[i];
     return make_float2(__fmul_rn(static_cast<float>(l[i]), h),
                        __fmul_rn(static_cast<float>(r[i]), h));
@@ -889,6 +1194,14 @@ struct is_real_pack : std::false_type {};
 template <class Body>
 struct is_real_pack<RealPack<Body>> : std::true_type {};
 
+// True for a split-real row over the radix-2 body.
+template <class Row>
+struct is_radix2_row : std::false_type {};
+template <>
+struct is_radix2_row<RealPack<Radix2>> : std::true_type {};
+template <>
+struct is_radix2_row<RealFull<Radix2>> : std::true_type {};
+
 // True where the split-real row of N runs as the N/2-point pack.
 __host__ __device__ __forceinline__ bool real_packs(int n) {
   return n % 2 == 0 && n >= 4;
@@ -912,7 +1225,7 @@ static inline int with_real_body(int n, const void* consts, Fn fn) {
 // Load x * hann into `buf` (a float lane per sample: lane i & 1 of the
 // pack entry i >> 1, or the real part of entry i with the imaginary zeroed),
 // transform, and write |X[k]| for k < stft_bins(N, W) to `out`.
-template <class Body, class Source>
+template <int kCap = kMixedGroup, class Body, class Source>
 __device__ __forceinline__ void stft_real_row(
     const RealPack<Body>& row, const Source& src, const float* __restrict__ hann,
     const float2* __restrict__ tw, float* __restrict__ out, float2* buf) {
@@ -929,7 +1242,7 @@ __device__ __forceinline__ void stft_real_row(
   }
   __syncthreads();
   row.half.prepare(buf);
-  row.half.transform(buf, tw);
+  row.half.template transform<kCap>(buf, tw);
   const int bins = stft_bins(n, w);
   const auto z = [&](int t) { return row.half.result(buf, t); };
   for (int k = threadIdx.x; k < bins; k += blockDim.x) {
@@ -938,7 +1251,7 @@ __device__ __forceinline__ void stft_real_row(
 }
 
 // Odd N: the N-point transform of (x * hann, 0).
-template <class Body, class Source>
+template <int kCap = kMixedGroup, class Body, class Source>
 __device__ __forceinline__ void stft_real_row(
     const RealFull<Body>& row, const Source& src, const float* __restrict__ hann,
     const float2* __restrict__ tw, float* __restrict__ out, float2* buf) {
@@ -954,7 +1267,7 @@ __device__ __forceinline__ void stft_real_row(
     buf[body.slot(i)] = body.input(i, make_float2(0.f, 0.f));
   }
   __syncthreads();
-  body.transform(buf, tw);
+  body.template transform<kCap>(buf, tw);
   const int bins = stft_bins(n, w);
   for (int k = threadIdx.x; k < bins; k += blockDim.x) {
     out[k] = magnitude(body.result(buf, k));
@@ -1005,20 +1318,33 @@ static inline int whole_warps(int t) {
   return t < 32 ? 32 : t < kStftMaxThreads ? t : kStftMaxThreads;
 }
 
-// Threads per row block: one per butterfly of a radix-2 stage over the
-// body's buffer (the mixed-radix and Bluestein bodies), in whole warps, from
-// 32 to 512.
+// Threads per block of the large-N route's local passes: one per butterfly
+// of a radix-2 stage over `buf_size` entries, in whole warps, from 32 to 512.
 static inline int stft_threads(int buf_size) { return whole_warps(buf_size / 2); }
 
-// Threads per row block of `body`: one per group of a radix-2 register pass
-// (N / 16), else `stft_threads`; the split-real rows take their N/2 body's.
+// Threads per row block of `body`: one per group of its register passes at
+// their most under the pass bound `cap` (radix 2: N / 16; mixed radix:
+// `max_groups`; Bluestein: its inner body's), in whole warps, from 32 to
+// 512; the split-real rows take their N/2 body's.
 template <class Body>
-static inline int body_threads(const Body& body) {
+static inline int body_threads(const Body& body, int cap = kMixedGroup) {
   if constexpr (std::is_same<Body, Radix2>::value) {
     return whole_warps(body.buf_size() >> kRadix2Pass);
+  } else if constexpr (fuses_load<Body>::value) {
+    return whole_warps(body.max_groups(cap));
   } else {
-    return stft_threads(body.buf_size());
+    return whole_warps(body.inner.max_groups(cap));
   }
+}
+
+template <class Body>
+static inline int body_threads(const RealPack<Body>& row, int cap = kMixedGroup) {
+  return body_threads(row.half, cap);
+}
+
+template <class Body>
+static inline int body_threads(const RealFull<Body>& row, int cap = kMixedGroup) {
+  return body_threads(row.body, cap);
 }
 
 // Launch bounds as a type: at most kThreads threads, kBlocks blocks per SM.
@@ -1027,34 +1353,38 @@ struct Bounds {
   static constexpr int threads = kThreads, blocks = kBlocks;
 };
 
+// The pass bound of the mixed-radix passes in a kernel under launch bounds
+// B: kMixedGroup where they leave 96 registers a thread or more, else
+// kNarrowGroup (64 registers: 512 threads and two blocks, 1,024 and one).
+template <class B>
+__host__ __device__ constexpr int group_cap() {
+  return 65536 / (B::threads * B::blocks) >= 96 ? kMixedGroup : kNarrowGroup;
+}
+
 // fn(bounds, threads) with the launch bounds of a packed row block over
-// `body` and its threads (`body_threads`, at most bounds.threads): a
-// radix-2 row whose buffer fits kRadix2Blocks times in a block's shared
-// memory (N <= 4096) takes kRadix2Threads threads and kRadix2Blocks blocks,
-// so that ptxas holds its registers to that many blocks per SM; larger rows
-// (fewer blocks per SM: at N = 16,384 these bounds ran kernel A at half the
-// speed, PERF.md §6) and the other bodies take kStftMaxThreads threads and
-// one block.
+// `body` and its threads (`body_threads` under the bounds' `group_cap`, at
+// most bounds.threads): a row whose buffer fits kRowBlocks times in a
+// block's shared memory (radix 2 to N = 4096, mixed radix and Bluestein's M
+// to 5,811) takes kRowThreads threads and kRowBlocks blocks, so that ptxas
+// holds its registers to that many blocks per SM; a mixed-radix or
+// Bluestein row that fits twice takes (512, 2), the narrow passes of 64
+// registers (N = 4801's M = 9604 = 4 7^4, singles only, ran 9% slower at
+// (256, 2) and 35% at (512, 1), PERF.md §6); larger rows (fewer blocks per
+// SM: at N = 16,384 the radix-2 rows ran at half the speed under (128, 5))
+// take kStftMaxThreads threads and one block.
 template <class Body, class Fn>
 static inline int with_row_bounds(const Body& body, Fn fn) {
-  const int threads = body_threads(body);
-  if constexpr (std::is_same<Body, Radix2>::value) {
-    if (body.buf_size() * static_cast<int>(sizeof(float2)) * kRadix2Blocks <= kMaxSmemBytes) {
-      return fn(Bounds<kRadix2Threads, kRadix2Blocks>{},
-                threads < kRadix2Threads ? threads : kRadix2Threads);
-    }
+  const int bytes = body.buf_size() * static_cast<int>(sizeof(float2));
+  const auto launch = [&](auto bounds) {
+    using B = decltype(bounds);
+    const int threads = body_threads(body, group_cap<B>());
+    return fn(bounds, threads < B::threads ? threads : B::threads);
+  };
+  if (bytes * kRowBlocks <= kMaxSmemBytes) return launch(Bounds<kRowThreads, kRowBlocks>{});
+  if constexpr (!std::is_same<Body, Radix2>::value) {
+    if (bytes * 2 <= kMaxSmemBytes) return launch(Bounds<kStftMaxThreads, 2>{});
   }
-  return fn(Bounds<kStftMaxThreads, 1>{}, threads);
-}
-
-template <class Body>
-static inline int body_threads(const RealPack<Body>& row) {
-  return body_threads(row.half);
-}
-
-template <class Body>
-static inline int body_threads(const RealFull<Body>& row) {
-  return body_threads(row.body);
+  return launch(Bounds<kStftMaxThreads, 1>{});
 }
 
 // Allow `kernel` `bytes` of dynamic shared memory (above 48 KB only by

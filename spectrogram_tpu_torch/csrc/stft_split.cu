@@ -47,8 +47,8 @@
 
 namespace {
 
-template <class Body, int kThreads>
-__global__ void __launch_bounds__(kThreads) stft_split_kernel(
+template <class Body, class Bounds>
+__global__ void __launch_bounds__(Bounds::threads) stft_split_kernel(
     Body body, const float* __restrict__ left, const float* __restrict__ right,
     const float* __restrict__ hann, const float2* __restrict__ twiddles,
     float* __restrict__ out_l, float* __restrict__ out_r, int w) {
@@ -56,13 +56,13 @@ __global__ void __launch_bounds__(kThreads) stft_split_kernel(
   const size_t row = blockIdx.x >> 1;
   const int c = blockIdx.x & 1;
   const spk::RowSamples src{(c ? right : left) + row * w, w};
-  spk::stft_real_row(body, src, hann, twiddles,
+  spk::stft_real_row<spk::group_cap<Bounds>()>(body, src, hann, twiddles,
                      (c ? out_r : out_l) + row * spk::stft_bins(body.size(), w),
                      buf);
 }
 
-template <class Body, int kThreads>
-__global__ void __launch_bounds__(kThreads) stft_split_allk_kernel(
+template <class Body, class Bounds>
+__global__ void __launch_bounds__(Bounds::threads) stft_split_allk_kernel(
     Body body, const float* __restrict__ buf_l, const float* __restrict__ buf_r,
     const float* __restrict__ hann, const float2* __restrict__ twiddles,
     float* __restrict__ out_l, float* __restrict__ out_r,
@@ -77,7 +77,7 @@ __global__ void __launch_bounds__(kThreads) stft_split_allk_kernel(
                      c_len);
   }
   const spk::RowSamples src{b + static_cast<size_t>(row / streams) * hop, w};
-  spk::stft_real_row(body, src, hann, twiddles,
+  spk::stft_real_row<spk::group_cap<Bounds>()>(body, src, hann, twiddles,
                      (c ? out_r : out_l) + static_cast<size_t>(row) *
                                                spk::stft_bins(body.size(), w),
                      buf);
@@ -85,8 +85,8 @@ __global__ void __launch_bounds__(kThreads) stft_split_allk_kernel(
 
 // The k windows of carry [S, 2, c_len] + chunk [S, 2, t_len] (t_len = k*hop),
 // one (window, channel) per block, and the next carry from window 0's blocks.
-template <class Body, int kThreads>
-__global__ void __launch_bounds__(kThreads) stft_split_carry_kernel(
+template <class Body, class Bounds>
+__global__ void __launch_bounds__(Bounds::threads) stft_split_carry_kernel(
     Body body, const float* __restrict__ carry, const float* __restrict__ chunk,
     const float* __restrict__ hann, const float2* __restrict__ twiddles,
     float* __restrict__ out_l, float* __restrict__ out_r,
@@ -102,14 +102,14 @@ __global__ void __launch_bounds__(kThreads) stft_split_carry_kernel(
     spk::planar_next_carry(ca, ch, next + sc * c_len, c_len, t_len);
   }
   const spk::PlanarSamples src{ca, ch, c_len, (row / streams) * hop, w};
-  spk::stft_real_row(body, src, hann, twiddles,
+  spk::stft_real_row<spk::group_cap<Bounds>()>(body, src, hann, twiddles,
                      (c ? out_r : out_l) + static_cast<size_t>(row) *
                                                spk::stft_bins(body.size(), w),
                      buf);
 }
 
-template <class Body, int kThreads>
-__global__ void __launch_bounds__(kThreads) stft_split_t_kernel(
+template <class Body, class Bounds>
+__global__ void __launch_bounds__(Bounds::threads) stft_split_t_kernel(
     Body body, const float* __restrict__ x, const float* __restrict__ hann,
     const float2* __restrict__ twiddles, float* __restrict__ out_l,
     float* __restrict__ out_r, int n1, int m) {
@@ -118,13 +118,13 @@ __global__ void __launch_bounds__(kThreads) stft_split_t_kernel(
   const int c = blockIdx.x & 1;
   const spk::TransposedSamples src{x + blockIdx.x * static_cast<size_t>(n1) * m,
                                    n1, m};
-  spk::stft_real_row(body, src, hann, twiddles,
+  spk::stft_real_row<spk::group_cap<Bounds>()>(body, src, hann, twiddles,
                      (c ? out_r : out_l) + row * spk::stft_bins(body.size(), n1 * m),
                      buf);
 }
 
-template <class Body, int kThreads>
-__global__ void __launch_bounds__(kThreads) stft_split_tsplit_kernel(
+template <class Body, class Bounds>
+__global__ void __launch_bounds__(Bounds::threads) stft_split_tsplit_kernel(
     Body body, const float* __restrict__ carry, const float* __restrict__ chunk,
     const float* __restrict__ hann, const float2* __restrict__ twiddles,
     float* __restrict__ out_l, float* __restrict__ out_r,
@@ -138,7 +138,7 @@ __global__ void __launch_bounds__(kThreads) stft_split_tsplit_kernel(
                               t_cols};
   spk::split_next_carry(carry + in_carry, chunk + in_chunk,
                         next_carry + in_carry, n1, c_cols, t_cols);
-  spk::stft_real_row(body, src, hann, twiddles,
+  spk::stft_real_row<spk::group_cap<Bounds>()>(body, src, hann, twiddles,
                      (c ? out_r : out_l) +
                          row * spk::stft_bins(body.size(), src.size()),
                      buf);
@@ -146,26 +146,43 @@ __global__ void __launch_bounds__(kThreads) stft_split_tsplit_kernel(
 
 // launch(row, bound, grid, threads, smem, stream) with the split-real row
 // form of N (`with_real_body`), 2 * rows blocks, one per (window row,
-// channel), and the kernel's thread bound as a type (`bound::value`):
-// kWideThreads for N/2 packs of kWideRow entries and more (N = 32,768 and
-// 48,000 among the measured sizes), which run one block per SM, else
-// kStftMaxThreads; 0 or the CUDA error.  Only the pack is compiled at the
-// wide bound: an odd N's full row of that size (a 7-smooth odd N past
-// 16,384, or a Bluestein M past it) is rare and runs kStftMaxThreads.
+// channel), and the kernel's thread bound as a type (`spk::Bounds`, one
+// block: the kernels take `__launch_bounds__(threads)` alone, which holds
+// their registers to 65,536 / threads and leaves ptxas its own count below
+// that; a minimum of blocks made it give the radix-2 rows 96-105 registers
+// and run them 3-17% slower, PERF.md §6): kWideThreads for N/2 packs of
+// kWideRow entries and more (N = 32,768 and 48,000 among the measured
+// sizes), which run one block per SM; else kStftMaxThreads for the radix-2
+// rows and for the mixed-radix and Bluestein rows whose buffer fits four
+// times in an SM's shared memory (a block of at most 128 threads, passes of
+// up to 25 entries in 128 registers), and kWideThreads for the others
+// (launched with at most kStftMaxThreads threads: 64 registers, the narrow
+// passes, `group_cap`).  Only the pack is compiled at the wide bound for
+// its own sake: an odd N's full row of that size (a 7-smooth odd N past
+// 16,384, or a Bluestein M past it) is rare and runs the narrow one.
 template <class Launch>
 int launch_rows(int n, const void* consts, int rows, void* stream,
                 Launch launch) {
   const auto st = static_cast<cudaStream_t>(stream);
+  using Narrow = spk::Bounds<spk::kWideThreads, 1>;
+  using Rows = spk::Bounds<spk::kStftMaxThreads, 1>;
   return spk::with_real_body(n, consts, [&](auto body) {
     const size_t smem = body.buf_size() * sizeof(float2);
     if constexpr (spk::is_real_pack<decltype(body)>::value) {
       if (body.buf_size() >= spk::kWideRow) {
-        return launch(body, std::integral_constant<int, spk::kWideThreads>{},
-                      dim3(2 * rows), spk::kWideThreads, smem, st);
+        return launch(body, Narrow{}, dim3(2 * rows), spk::kWideThreads, smem, st);
       }
     }
-    return launch(body, std::integral_constant<int, spk::kStftMaxThreads>{},
-                  dim3(2 * rows), spk::body_threads(body), smem, st);
+    const int threads = spk::body_threads(body);
+    if constexpr (spk::is_radix2_row<decltype(body)>::value) {
+      return launch(body, Rows{}, dim3(2 * rows), threads, smem, st);
+    } else {
+      if (smem * 4 <= static_cast<size_t>(spk::kMaxSmemBytes)) {
+        return launch(body, Rows{}, dim3(2 * rows), threads < 128 ? threads : 128, smem, st);
+      }
+      return launch(body, Narrow{}, dim3(2 * rows),
+                    spk::body_threads(body, spk::kNarrowGroup), smem, st);
+    }
   });
 }
 
@@ -184,8 +201,7 @@ SPK_EXPORT int spk_stft_split(const float* left, const float* right,
   return launch_rows(n, consts, rows, stream,
                      [&](auto body, auto bound, dim3 grid, int threads,
                          size_t smem, cudaStream_t st) {
-    constexpr int kThreads = decltype(bound)::value;
-    const auto kernel = stft_split_kernel<decltype(body), kThreads>;
+    const auto kernel = stft_split_kernel<decltype(body), decltype(bound)>;
     const int e = spk::allow_smem(kernel, smem);
     if (e != 0) return e;
     kernel<<<grid, threads, smem, st>>>(
@@ -204,8 +220,7 @@ static int split_allk(const float* buf_l, const float* buf_r,
   return launch_rows(n, consts, k * streams, stream,
                      [&](auto body, auto bound, dim3 grid, int threads,
                          size_t smem, cudaStream_t st) {
-    constexpr int kThreads = decltype(bound)::value;
-    const auto kernel = stft_split_allk_kernel<decltype(body), kThreads>;
+    const auto kernel = stft_split_allk_kernel<decltype(body), decltype(bound)>;
     const int e = spk::allow_smem(kernel, smem);
     if (e != 0) return e;
     kernel<<<grid, threads, smem, st>>>(
@@ -251,8 +266,7 @@ SPK_EXPORT int spk_stft_split_carry(const float* carry, const float* chunk,
   return launch_rows(n, consts, k * streams, stream,
                      [&](auto body, auto bound, dim3 grid, int threads,
                          size_t smem, cudaStream_t st) {
-    constexpr int kThreads = decltype(bound)::value;
-    const auto kernel = stft_split_carry_kernel<decltype(body), kThreads>;
+    const auto kernel = stft_split_carry_kernel<decltype(body), decltype(bound)>;
     const int e = spk::allow_smem(kernel, smem);
     if (e != 0) return e;
     kernel<<<grid, threads, smem, st>>>(
@@ -272,8 +286,7 @@ SPK_EXPORT int spk_stft_split_t(const float* x, const float* hann,
   return launch_rows(n, consts, rows, stream,
                      [&](auto body, auto bound, dim3 grid, int threads,
                          size_t smem, cudaStream_t st) {
-    constexpr int kThreads = decltype(bound)::value;
-    const auto kernel = stft_split_t_kernel<decltype(body), kThreads>;
+    const auto kernel = stft_split_t_kernel<decltype(body), decltype(bound)>;
     const int e = spk::allow_smem(kernel, smem);
     if (e != 0) return e;
     kernel<<<grid, threads, smem, st>>>(
@@ -296,8 +309,7 @@ SPK_EXPORT int spk_stft_split_tsplit(const float* carry, const float* chunk,
   return launch_rows(n, consts, rows, stream,
                      [&](auto body, auto bound, dim3 grid, int threads,
                          size_t smem, cudaStream_t st) {
-    constexpr int kThreads = decltype(bound)::value;
-    const auto kernel = stft_split_tsplit_kernel<decltype(body), kThreads>;
+    const auto kernel = stft_split_tsplit_kernel<decltype(body), decltype(bound)>;
     const int e = spk::allow_smem(kernel, smem);
     if (e != 0) return e;
     kernel<<<grid, threads, smem, st>>>(

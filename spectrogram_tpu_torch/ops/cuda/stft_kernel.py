@@ -137,6 +137,9 @@ WIRE_SCALE = 2.0 ** -15   # an int16 PCM word x stands for x * WIRE_SCALE
 # (csrc/stft_fft.cuh kMaxSmemBytes).  Larger buffers take the large-N route.
 MAX_SMEM_BYTES = 232448
 MAX_BUF = MAX_SMEM_BYTES // 8
+# a split-real row whose buffer holds WIDE_ROW entries or more runs
+# WIDE_THREADS threads a block (csrc/stft_fft.cuh kWideRow, kWideThreads)
+WIDE_ROW, WIDE_THREADS = 16384, 1024
 LARGE = "large"                 # the large-N route's body label
 LARGE_SCRATCH_BYTES = 1 << 31   # the route's scratch per row group
 

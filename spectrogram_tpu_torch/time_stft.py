@@ -1,6 +1,6 @@
 """Device times of the STFT kernels of one or more checkouts, in turns.
 
-    python -m spectrogram_tpu_torch.time_stft [--sizes N,N,...] [ROOT ...]
+    python -m spectrogram_tpu_torch.time_stft [--sizes N,N,...] [--packed] [ROOT ...]
 
 Each ROOT is the root of a checkout of this repository (default: this one),
 e.g. a parent commit unpacked with `git archive` into a directory git
@@ -15,10 +15,15 @@ kernel (`stft_mag_split`) on 4,096 window rows of chirp+tone at each N of
 prime 16,411, split-real at N=65,536 and 16,411), and at N=4096 of kernel A
 on int16 words, of the split-real all-windows (k=8, 4,096 streams),
 transposed and packed all-windows kernels, and of the packed all-windows
-kernel on int16 words and with its next carry.  `DIGESTS {json}`: under the same keys, a SHA-256
+kernel on int16 words and with its next carry; at N=4800 also kernel A on
+int16 words and the packed all-windows kernel at DEFAULT_CONFIG's geometry
+(k=8, hop 58, 4,096 streams) on f32 and int16 buffers and with its next
+carry.  `DIGESTS {json}`: under the same keys, a SHA-256
 prefix of each call's output planes, so that two roots whose kernels give
 the same bits print the same digests.  `--sizes` times only the named N of
-`SIZES`.  It needs a CUDA card.
+`SIZES`, `--packed` only the packed kernels (kernel A and the packed
+all-windows kernel), so that an experiment tree may leave the split-real
+kernels out of its build.  It needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ def _tools():
     return module
 
 
-def _worker(sizes: list[int]) -> None:
+def _worker(sizes: list[int], packed_only: bool) -> None:
     import torch
 
     from spectrogram_tpu_torch.ops.cuda import _build
@@ -92,7 +97,8 @@ def _worker(sizes: list[int]) -> None:
                                                                    consts)),
                         (f"split {n}", lambda: sk.stft_mag_split(left, right, split_hann,
                                                                  consts))):
-            out[key] = device_ms(fn, key)
+            if not (packed_only and key.startswith("split")):
+                out[key] = device_ms(fn, key)
         if n == 4096:
             hop, k = 800, 8
             words = [(x * 32767.0).round().to(torch.int16) for x in (left, right)]
@@ -100,9 +106,10 @@ def _worker(sizes: list[int]) -> None:
             out["packed_i16 4096"] = device_ms(
                 lambda: sk.stft_mag_packed(*words, hann_i16, consts), "packed_i16 4096")
             bl, br = planes(ROWS, w + (k - 1) * hop, sr, 3)
-            out["split_allk 4096 k8"] = device_ms(
-                lambda: sk.stft_mag_split_allk(bl, br, split_hann, consts, k, hop),
-                "split_allk 4096 k8")
+            if not packed_only:
+                out["split_allk 4096 k8"] = device_ms(
+                    lambda: sk.stft_mag_split_allk(bl, br, split_hann, consts, k, hop),
+                    "split_allk 4096 k8")
             out["allk 4096 k8"] = device_ms(
                 lambda: sk.stft_mag_packed_allk(bl, br, packed_hann, consts, k, hop),
                 "allk 4096 k8")
@@ -116,9 +123,27 @@ def _worker(sizes: list[int]) -> None:
                 "allk_carry 4096 k8")
             x = torch.stack([left, right], 1).reshape(ROWS, 2, 64, 32).transpose(2, 3)
             x = x.contiguous()
-            out["split_t 4096"] = device_ms(lambda: sk.stft_mag_split_t(x, split_hann, consts),
-                                            "split_t 4096")
+            if not packed_only:
+                out["split_t 4096"] = device_ms(
+                    lambda: sk.stft_mag_split_t(x, split_hann, consts), "split_t 4096")
             del bl, br, x, words, bwords
+        if n == 4800:
+            hop, k = 58, 8
+            words = [(x * 32767.0).round().to(torch.int16) for x in (left, right)]
+            hann_i16 = torch.from_numpy(sk.packed_hann_i16(w)).to(dev)
+            out["packed_i16 4800"] = device_ms(
+                lambda: sk.stft_mag_packed(*words, hann_i16, consts), "packed_i16 4800")
+            bl, br = planes(ROWS, w + (k - 1) * hop, sr, 3)
+            bwords = [(x * 32767.0).round().to(torch.int16) for x in (bl, br)]
+            for key, fn in (
+                    ("allk 4800 k8", lambda: sk.stft_mag_packed_allk(bl, br, packed_hann,
+                                                                     consts, k, hop)),
+                    ("allk_i16 4800 k8", lambda: sk.stft_mag_packed_allk(*bwords, hann_i16,
+                                                                         consts, k, hop)),
+                    ("allk_carry 4800 k8", lambda: sk.stft_mag_packed_allk(
+                        bl, br, packed_hann, consts, k, hop, emit_carry=True))):
+                out[key] = device_ms(fn, key)
+            del bl, br, words, bwords
         del left, right
         torch.cuda.empty_cache()
     print("TIMES " + json.dumps(out), flush=True)
@@ -126,16 +151,20 @@ def _worker(sizes: list[int]) -> None:
 
 
 def main(argv: list[str]) -> int:
-    sizes = []
-    if argv[:1] == ["--sizes"]:
-        sizes, argv = [int(n) for n in argv[1].split(",")], argv[2:]
+    sizes, packed_only = [], False
+    while argv[:1] in (["--sizes"], ["--packed"]):
+        if argv[0] == "--sizes":
+            sizes, argv = [int(n) for n in argv[1].split(",")], argv[2:]
+        else:
+            packed_only, argv = True, argv[1:]
     if argv[:1] == ["--worker"]:
-        _worker(sizes)
+        _worker(sizes, packed_only)
         return 0
     roots = [pathlib.Path(r).resolve() for r in argv] or [pathlib.Path(__file__).parents[1]]
     for root in (*roots, *reversed(roots)):
         print(f"== {root}", flush=True)
-        worker = ["--sizes", ",".join(map(str, sizes))] if sizes else []
+        worker = (["--sizes", ",".join(map(str, sizes))] if sizes else []) + \
+            (["--packed"] if packed_only else [])
         code = ("import runpy, sys; "
                 f"sys.argv = [sys.argv[0], *{worker!r}, '--worker']; "
                 f"sys.path.insert(0, {str(root)!r}); "

@@ -1,18 +1,24 @@
 // The STFT kernels' row code (stft_fft.cuh, push_fused.cuh) as a host
 // library: each call runs its rows through the Radix2 (body = 0), MixedRadix
 // (body = 1) or the body `with_fft_body` picks (body = 2, Bluestein where
-// the size has a prime factor above 7), or the radix-2 stages one pass each
-// (body = 3, radix2_stages.h), one thread block after another as the
-// kernels' grids would, with the operand offsets of the kernels in csrc/.  The packed rows take that body of n and n's FFT table
-// (`fft_table`); the split-real rows take it of n/2 (the real-FFT pack, even
-// n from 4) or of n (odd n), and n's split-real table (`split_fft_table`).
-// Output rows are stft_bins(n, w) wide.
+// the size has a prime factor above 7), the radix-2 stages one pass each
+// (body = 3, radix2_stages.h), or the mixed-radix stages one pass each
+// (body = 4, mixed_stages.h: at a 7-smooth n the direct body, else
+// Bluestein over that inner body), or the picked body with its passes at
+// the narrow bound of 64-register kernels (body = 5, kNarrowGroup), one
+// thread block after another as the
+// kernels' grids would, with the operand offsets of the kernels in csrc/.
+// The packed rows take that body of n and n's FFT table (`fft_table`); the
+// split-real rows take it of n/2 (the real-FFT pack, even n from 4) or of n
+// (odd n), and n's split-real table (`split_fft_table`).  Output rows are
+// stft_bins(n, w) wide.
 #include <algorithm>
 #include <cmath>
 #include <cstddef>
 #include <type_traits>
 #include <vector>
 
+#include "mixed_stages.h"
 #include "push_fused.cuh"
 #include "radix2_stages.h"
 #include "stft_large.cuh"
@@ -22,7 +28,7 @@
 template <class Fn>
 static int with_body(int body, int n, const float* consts, Fn fn) {
   auto run = [&](const auto& b) {
-    std::vector<float2> buf(b.buf_size() + b.staged_size());
+    std::vector<float2> buf(b.buf_size());
     fn(b, buf.data());
     return 0;
   };
@@ -30,11 +36,45 @@ static int with_body(int body, int n, const float* consts, Fn fn) {
     spk::MixedRadix plan;
     return spk::make_mixed_radix(n, &plan) ? run(plan) : 1;
   }
-  if (body == 2) return spk::with_fft_body(n, consts, run);
+  if (body == 2 || body == 5) return spk::with_fft_body(n, consts, run);
+  if (body == 4) {
+    spk::MixedRadix plan;
+    const auto stages = [](const spk::MixedRadix& p) {
+      MixedStages copy{p.n, p.stages, {}};
+      std::copy(p.radix, p.radix + spk::kMaxStages, copy.radix);
+      return copy;
+    };
+    if ((n & (n - 1)) == 0) return 1;
+    if (spk::make_mixed_radix(n, &plan)) return run(stages(plan));
+    const int m = spk::bluestein_length(n);
+    if (!spk::make_mixed_radix(m, &plan)) return 1;
+    const auto* table = reinterpret_cast<const float2*>(consts);
+    return run(spk::BluesteinT<MixedStages>{n, stages(plan), table + m, table + m + n});
+  }
   int log2n = 0;
   while ((1 << log2n) < n) ++log2n;
   if ((1 << log2n) != n) return 1;
   return body == 3 ? run(Radix2Stages{log2n}) : run(spk::Radix2{log2n});
+}
+
+// stft_packed_row and stft_real_row at the pass bound of `body` (5: the
+// narrow one).
+template <class... A>
+static void packed_row(int body, const A&... args) {
+  if (body == 5) {
+    spk::stft_packed_row<spk::kNarrowGroup>(args...);
+  } else {
+    spk::stft_packed_row(args...);
+  }
+}
+
+template <class... A>
+static void real_row(int body, const A&... args) {
+  if (body == 5) {
+    spk::stft_real_row<spk::kNarrowGroup>(args...);
+  } else {
+    spk::stft_real_row(args...);
+  }
 }
 
 static const float2* tw_of(const float* consts) {
@@ -64,7 +104,7 @@ static int host_rows(int body, int n, int rows, int w, const T* l,
   return with_body(body, n, consts, [&](const auto& b, float2* buf) {
     for (int row = 0; row < rows; ++row) {
       const size_t in = static_cast<size_t>(row) * w;
-      spk::stft_packed_row(b, l + in, r + in, hann, tw_of(consts), w,
+      packed_row(body, b, l + in, r + in, hann, tw_of(consts), w,
                            out_l + row * bins, out_r + row * bins, buf);
     }
   });
@@ -104,7 +144,7 @@ static int host_allk(int body, int n, int streams, int ld, int k, int hop,
         spk::buffer_tail(l + static_cast<size_t>(s) * ld, dst, ld, c_len);
         spk::buffer_tail(r + static_cast<size_t>(s) * ld, dst + c_len, ld, c_len);
       }
-      spk::stft_packed_row(b, l + at, r + at, hann, tw_of(consts), w,
+      packed_row(body, b, l + at, r + at, hann, tw_of(consts), w,
                            out_l + row * bins, out_r + row * bins, buf);
     }
   });
@@ -174,7 +214,7 @@ extern "C" int stft_host_split(int body, int n, int rows, int w,
       const size_t row = blk >> 1;
       const int c = blk & 1;
       const spk::RowSamples src{(c ? r : l) + row * w, w};
-      spk::stft_real_row(b, src, hann, tw_of(consts),
+      real_row(body, b, src, hann, tw_of(consts),
                          (c ? out_r : out_l) + row * bins, buf);
     }
   });
@@ -201,7 +241,7 @@ extern "C" int stft_host_split_allk(int body, int n, int streams, int ld,
       }
       const spk::RowSamples src{x + static_cast<size_t>(row / streams) * hop,
                                 w};
-      spk::stft_real_row(b, src, hann, tw_of(consts),
+      real_row(body, b, src, hann, tw_of(consts),
                          (c ? out_r : out_l) + row * bins, buf);
     }
   });
@@ -228,7 +268,7 @@ extern "C" int stft_host_split_carry(int body, int n, int streams, int c_len,
         spk::planar_next_carry(ca, ch, next + sc * c_len, c_len, t_len);
       }
       const spk::PlanarSamples src{ca, ch, c_len, (row / streams) * hop, w};
-      spk::stft_real_row(b, src, hann, tw_of(consts),
+      real_row(body, b, src, hann, tw_of(consts),
                          (c ? out_r : out_l) + row * bins, buf);
     }
   });
@@ -246,7 +286,7 @@ extern "C" int stft_host_split_t(int body, int n, int rows, int n1, int m,
       const int c = blk & 1;
       const spk::TransposedSamples src{
           x + blk * static_cast<size_t>(n1) * m, n1, m};
-      spk::stft_real_row(b, src, hann, tw_of(consts),
+      real_row(body, b, src, hann, tw_of(consts),
                          (c ? out_r : out_l) + row * bins, buf);
     }
   });
@@ -271,7 +311,7 @@ extern "C" int stft_host_split_tsplit(int body, int n, int rows, int n1,
                                   c_cols, t_cols};
       spk::split_next_carry(carry + in_carry, chunk + in_chunk,
                             next + in_carry, n1, c_cols, t_cols);
-      spk::stft_real_row(b, src, hann, tw_of(consts),
+      real_row(body, b, src, hann, tw_of(consts),
                          (c ? out_r : out_l) + row * bins, buf);
     }
   });

@@ -24,7 +24,10 @@ split-real plane kernel followed by kernel B.  The large-N route (packed:
 N = 32,768, 48,000, 35,280, 65,536; split-real: 65,536) is held to the STFT
 bar against torch.fft, its int16 rows bit for bit the f32 rows of
 x / 32768, every split-real layout bit for bit the others at N = 65,536,
-and a k=8 push bit for bit `process()`;
+and a k=8 push bit for bit `process()`; the split-real forms over radix 7
+(the odd N = 735 row; the 1,024-thread packs of N = 35,280 and of
+N = 16,400, Bluestein over M = 7^5) against torch.fft.rfft and their plain
+version;
 `colormap_rows_fused` bit for bit the generic kernel on two-tap matrices and
 within 1 u8 of its plain version on a four-tap one.
 """
@@ -804,6 +807,35 @@ def test_large_route_matches_plain(cuda, size):
     f32 = sk.stft_mag_packed(*(x.to(torch.float32) / 32768.0 for x in words), hann, consts)
     for g, x in zip(i16, f32):
         torch.testing.assert_close(g, x, atol=0, rtol=0)
+
+
+# the split-real forms over radix 7 no other card test reaches: the odd
+# N = 735 = 3 5 7 7 (the N-point row over MixedRadixT<7>), and the N/2 packs
+# at 1,024 threads of N = 35,280 (17,640 = 4 2 3 3 5 7 7) and N = 16,400
+# (8200 = 2^3 5^2 41: Bluestein over M = 16,807 = 7^5)
+@pytest.mark.parametrize("n_fft,w", [(735, 367), (35280, 17640), (16400, 8200)])
+def test_split_real_radix7_forms_match_rfft(cuda, n_fft, w):
+    """The split-real plane kernel at those forms against torch.fft.rfft and
+    its plain version at the STFT bar, counted under N/2's body label."""
+    m = sk.split_buf_size(n_fft)
+    assert not sk.is_large_split(n_fft) and 7 in sk.mixed_radix_plan(m)
+    assert (m >= sk.WIDE_ROW) == (n_fft != 735)
+    consts = sk.fft_constants(n_fft, cuda)
+    pcm = testing.chirp_tone(16, w, 44100.0, seed=n_fft)
+    left, right = (torch.from_numpy(np.ascontiguousarray(pcm[..., c])).to(cuda)
+                   for c in range(2))
+    hann = torch.from_numpy(sk.split_hann(w)).to(cuda)
+    lib = _build.library()
+    before = dict(lib.body_launches)
+    got = sk.stft_mag_split(left, right, hann, consts)
+    torch.cuda.synchronize()
+    assert lib.body_launches[sk.split_route(n_fft)] == before[sk.split_route(n_fft)] + 1
+    bins = sk.stft_bins(n_fft, w)
+    plain = sk.stft_mag_split_plain(left, right, hann, n_fft)
+    for g, x, q in zip(got, (left, right), plain):
+        want = torch.fft.rfft(x * hann, n=n_fft).abs()[:, :bins]
+        torch.testing.assert_close(g, want, atol=ATOL, rtol=RTOL)
+        torch.testing.assert_close(g, q, atol=ATOL, rtol=RTOL)
 
 
 def test_large_split_layouts_equal_bit_for_bit(cuda):

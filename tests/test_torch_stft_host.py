@@ -42,6 +42,8 @@ CSRC = ROOT / "spectrogram_tpu_torch" / "csrc"
 ATOL = 1e-6
 RADIX2, MIXED, PICKED = 0, 1, 2   # the stub's body argument (PICKED: by N)
 STAGES = 3                        # radix 2, one shared-memory pass per stage
+COPY = 4                          # mixed radix (and Bluestein's inner body), one pass per stage
+NARROW = 5                        # PICKED with the passes of 64-register kernels
 # N with a prime factor above 7: the sizes that keep the Bluestein body
 BLUESTEIN_SIZES = (11, 97, 1410, 2204, 4406, 4801, 9998)
 # the sha256 of stft_host_rows' output planes (see `_packed_digest`) at the
@@ -628,7 +630,7 @@ def test_packed_allk_row_equals_window_planes(host_lib, n_fft, body, w, hop, k, 
     np.testing.assert_array_equal(nxt, np.stack([buf_l, buf_r], 1)[..., ld - c_len :])
 
 
-def _split_digest(host_lib, n_fft: int) -> str:
+def _split_digest(host_lib, n_fft: int, body: int = RADIX2) -> str:
     """sha256 of stft_host_split's planes over 2 windows of chirp+tone, then
     of noise, at W = N/2 and then W = N."""
     h = hashlib.sha256()
@@ -637,7 +639,7 @@ def _split_digest(host_lib, n_fft: int) -> str:
         for kind in ("chirp_tone", "noise"):
             pcm = testing.make(kind, 2, w, 48000.0, seed=n_fft + w)
             left, right = (np.ascontiguousarray(pcm[..., c]) for c in range(2))
-            for plane in _host_rows(host_lib, host_lib.stft_host_split, RADIX2, n_fft, left,
+            for plane in _host_rows(host_lib, host_lib.stft_host_split, body, n_fft, left,
                                     right, tsk.split_hann(w), table):
                 h.update(plane.tobytes())
     return h.hexdigest()
@@ -649,3 +651,146 @@ def test_split_real_radix2_rows_keep_their_bits(host_lib, n_fft):
     32,768, W = N/2 and N) give the bits they gave with one shared-memory
     pass per stage: the digests come from the parent tree's host build."""
     assert _split_digest(host_lib, n_fft) == SPLIT_RADIX2_DIGESTS[n_fft]
+
+
+# ------------------------------------------- the mixed-radix register passes
+
+# every N = 2^a 3^b 5^c 7^d from 6 to 10,000 but the powers of two: the
+# sizes the direct mixed-radix body runs
+MIXED_GRID = tuple(n for n in range(6, 10001) if tsk.fft_body(n) == "mixed")
+# the sha256 of stft_host_split's planes (see `_split_digest`) at the parent
+# of the grouped mixed-radix passes: the split-real rows of N over the body
+# of N/2 (4410: 2205 = 3 3 5 7 7; 4800: 2400; 17,640: 8820 = 4 3 3 5 7 7)
+# and of odd N (735 = 3 5 7 7, the N-point row)
+SPLIT_MIXED_DIGESTS = {
+    735: "0d0be2b1548b031b05cfa9eef1090ce728a9caf9dc1ecea63a221977c3ce0210",
+    4410: "643ad8e16e60e183b6a03c38abc05dbdac07f6129b6d51aad13504ba79293d2a",
+    4800: "6b98c02ff842386425186592021150d2c8a89bf51267b3f441cfb4062e8a74da",
+    17640: "dacc61bbe1738ff3118ce791c1d4da557e74850276d60780e84c0a67f1ef35f1",
+}
+
+
+def _rows_equal(host_lib, n_fft: int, w: int, body: int, want_body: int, dtype) -> None:
+    """The packed rows of `body` give `want_body`'s bits on 2 windows of
+    random rows (`_random_rows`) at W = w."""
+    left, right, window = _random_rows(2, w, n_fft + w, dtype)
+    fn = host_lib.stft_host_rows_i16 if dtype == np.int16 else host_lib.stft_host_rows
+    got = _host_rows(host_lib, fn, body, n_fft, left, right, window)
+    want = _host_rows(host_lib, fn, want_body, n_fft, left, right, window)
+    for g, x in zip(got, want):
+        assert np.isfinite(g).all() and g.any()
+        np.testing.assert_array_equal(g, x)
+
+
+def _allk_equal(host_lib, n_fft: int, w: int, dtype) -> None:
+    """The packed all-windows row (k=2 windows of 2 streams, hop w/3) over
+    the picked body gives the copy's bits, next carry included."""
+    s, k, hop = 2, 2, max(1, w // 3)
+    ld = w + (k - 1) * hop + 1
+    buf_l, buf_r, window = _random_rows(s, ld, n_fft + 7, dtype)
+    window = window[:w].copy()
+    fn = host_lib.stft_host_allk_i16 if dtype == np.int16 else host_lib.stft_host_allk
+    table = tsk.fft_table(n_fft)
+    outs = []
+    for body in (PICKED, COPY):
+        planes = _outs(k * s, n_fft, w)
+        nxt = np.zeros((s, 2, w - hop), dtype)
+        assert fn(body, n_fft, s, ld, k, hop, w, _ptr(buf_l), _ptr(buf_r), _ptr(window),
+                  _ptr(table), *map(_ptr, planes), _ptr(nxt), w - hop) == 0
+        outs.append((*planes, nxt))
+    for got, want in zip(*outs):
+        assert got.any()
+        np.testing.assert_array_equal(got, want)
+
+
+def _split_equal(host_lib, n_fft: int, w: int, body: int = PICKED) -> None:
+    """The split-real row (the pack over N/2's body at even N, the N-point
+    row at odd N) over `body` gives the copy's bits."""
+    left, right, window = _random_rows(2, w, n_fft + 3, np.float32)
+    table = tsk.split_fft_table(n_fft)
+    got = _host_rows(host_lib, host_lib.stft_host_split, body, n_fft, left, right, window, table)
+    want = _host_rows(host_lib, host_lib.stft_host_split, COPY, n_fft, left, right, window, table)
+    for g, x in zip(got, want):
+        assert np.isfinite(g).all() and g.any()
+        np.testing.assert_array_equal(g, x)
+
+
+@pytest.mark.parametrize("n_fft", MIXED_GRID)
+def test_mixed_radix_passes_equal_one_stage_per_pass(host_lib, n_fft):
+    """The mixed-radix body's register passes (stages two at a time, the
+    load fused into the first, the swizzled buffer) give the bits of one
+    shared-memory pass per stage on the same table entries (mixed_stages.h)
+    at every 7-smooth N from 6 to 10,000 but the powers of two: packed rows
+    at W < N (on both sides of N/2) and W = N, f32 and int16, on the body
+    the kernels pick (MixedRadixT<5> for a 5-smooth plan), on
+    MixedRadixT<7> and with the narrow passes of 64-register kernels; the
+    packed all-windows row; the split-real row, also narrow."""
+    assert tsk.fft_body(n_fft) == "mixed"
+    for w in (max(1, n_fft // 2 + n_fft % 3), n_fft):
+        for dtype in (np.float32, np.int16):
+            _rows_equal(host_lib, n_fft, w, PICKED, COPY, dtype)
+            _allk_equal(host_lib, n_fft, w, dtype)
+        _rows_equal(host_lib, n_fft, w, MIXED, COPY, np.float32)
+        _rows_equal(host_lib, n_fft, w, NARROW, COPY, np.float32)
+        _split_equal(host_lib, n_fft, w)
+        _split_equal(host_lib, n_fft, w, NARROW)
+
+
+@pytest.mark.parametrize("n_fft", BLUESTEIN_SIZES)
+def test_bluestein_passes_equal_one_stage_per_pass(host_lib, n_fft):
+    """Bluestein over the grouped passes (its DIF half paired from the top,
+    the filter product in the pass of stage 0) gives the bits of Bluestein
+    over one pass per stage (the copy as its inner body): packed rows at W <
+    N and W = N, f32 and int16 (f32 also narrow), the all-windows row, the
+    split-real row."""
+    assert tsk.fft_body(n_fft) == "bluestein"
+    for w in (max(1, n_fft // 2 + n_fft % 3), n_fft):
+        for dtype in (np.float32, np.int16):
+            _rows_equal(host_lib, n_fft, w, PICKED, COPY, dtype)
+            _allk_equal(host_lib, n_fft, w, dtype)
+        _rows_equal(host_lib, n_fft, w, NARROW, COPY, np.float32)
+        _split_equal(host_lib, n_fft, w)
+        _split_equal(host_lib, n_fft, w, NARROW)
+
+
+@pytest.mark.parametrize("n_fft", sorted(SPLIT_MIXED_DIGESTS))
+def test_split_real_mixed_rows_keep_their_bits(host_lib, n_fft):
+    """The split-real rows over the mixed-radix body (the N/2 pack at 4410,
+    4800 and 17,640, the N-point row at the odd 735), W = N/2 and N, give
+    the bits they gave with one shared-memory pass per stage: the digests
+    come from the parent tree's host build."""
+    assert tsk.split_route(n_fft) == "mixed"
+    assert _split_digest(host_lib, n_fft, PICKED) == SPLIT_MIXED_DIGESTS[n_fft]
+
+
+@pytest.mark.parametrize("w", [367, 735])
+def test_split_real_odd_seven_smooth_row_matches_float64(host_lib, w):
+    """Odd 7-smooth N = 735 = 3 5 7 7 has no pack: the split-real row is the
+    N-point MixedRadixT<7> row on (x, 0), with N's own table, within the
+    float64 bar and the plain version's."""
+    n_fft = 735
+    assert not tsk.split_packs(n_fft) and tsk.fft_body(n_fft) == "mixed"
+    assert 7 in tsk.mixed_radix_plan(n_fft)
+    left, right, hann, out = _split_rows(host_lib, PICKED, n_fft, w, "noise")
+    plain = tsk.stft_mag_split_plain(torch.from_numpy(left), torch.from_numpy(right),
+                                     torch.from_numpy(hann), n_fft)
+    for g, x, q in zip(out, (left, right), plain):
+        want = _real_reference(x, hann, n_fft, tsk.stft_bins(n_fft, w))
+        np.testing.assert_allclose(g, want, atol=ATOL, rtol=0)
+        np.testing.assert_allclose(g, q.numpy(), atol=ATOL, rtol=0)
+
+
+
+@pytest.mark.parametrize("n_fft", [35280, 16400])
+def test_split_real_wide_radix7_packs_match_float64(host_lib, n_fft):
+    """The N/2 packs that run at 1,024 threads on the card over a radix-7
+    body: N = 35,280 (17,640 = 4 2 3 3 5 7 7, MixedRadixT<7>) and N = 16,400
+    (8200 = 2^3 5^2 41: Bluestein over M = 16,807 = 7^5), against float64."""
+    m = tsk.split_buf_size(n_fft)
+    assert m >= tsk.WIDE_ROW and not tsk.is_large_split(n_fft)
+    assert 7 in tsk.mixed_radix_plan(m)
+    assert host_lib.stft_host_split_buf_size(n_fft) == m
+    left, right, hann, out = _split_rows(host_lib, PICKED, n_fft, n_fft // 2)
+    for g, x in zip(out, (left, right)):
+        np.testing.assert_allclose(g, _real_reference(x, hann, n_fft, n_fft // 2),
+                                   atol=ATOL, rtol=0)
