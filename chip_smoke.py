@@ -20,7 +20,9 @@ Phases, each of which fails the run with a non-zero exit:
      versions within 1 u8 on what the image shows; the next carry exactly.
   6. timing with CUDA events after a warm-up: ms/push and rows/s for the
      kernel path and the plain path, and each kernel against its plain
-     version (kernel A in device time, `device_ms`).
+     version (both kernels in device time, `device_ms`); beside each
+     colormap bound its sector floor (`sector_floor`: the bytes counted in
+     the 32-byte sectors device memory moves).
   7. the mixed-radix kernel A at DEFAULT_CONFIG (N=4800) against its plain
      version, 4096 rows of chirp+tone and of noise, phase 3's bar; and
      torch.fft.fft on [4096, N] complex64 at N=4096 and N=4800, the library
@@ -65,10 +67,9 @@ Phases, each of which fails the run with a non-zero exit:
  13. timing with CUDA events after a warm-up: ms/push and rows/s of the
      per-row, sorted and full-serving pipelines at both populations (in
      turns: a b c c b a); each new kernel against its plain version, the f32
-     kernel beside each int16 one (both in device time), kernel B beside the
-     blockwise one, and
-     the blockwise kernel at 32, 64 and 128 rows per CTA; peak device
-     memory.
+     kernel beside each int16 one, kernel B beside the blockwise one, and
+     the blockwise kernel at 32, 64 and 128 rows per CTA (every kernel in
+     device time); peak device memory.
  14. the palette kernels, on 4096 rows of BENCH_CONFIG planes of chirp+tone
      and of noise (H=1024), each within 1 u8 of its plain version over what
      the image shows (noise: every channel everywhere): the generic colormap
@@ -175,7 +176,10 @@ Phases, each of which fails the run with a non-zero exit:
      passes, M=32,768; split-real rows on the Bluestein pack in shared
      memory, M=16,384) k=1 with 4,096 streams, and i16_planes at k=1 (rows
      == the f32 pipeline's on x/32768): each path's launches under its body
-     label, streamed == process() exactly, within 1 u8 of
+     label and the form kernel B takes (`colormap_kernel.tile_form`: the
+     staged tile, or the direct form where the span is wide), kernel B and
+     the generic kernel in the direct form on the N=48,000 planes within 1
+     u8 of their plain versions, streamed == process() exactly, within 1 u8 of
      with_plain_kernels(), carries exact, ring within 1 bf16 ulp; ms/push
      beside DEFAULT_CONFIG's in turns.
  24. colormap_rows_fused at BENCH_CONFIG, 4,096 rows of [2, 2047], H=1024,
@@ -192,8 +196,9 @@ Phases, each of which fails the run with a non-zero exit:
      A f32 and int16 at N=4096 and the packed all-windows kernel at k=8,
      with and without its next carry; the mixed-radix register passes,
      kernel A at N=4800 and 2204 (Bluestein) and the packed all-windows
-     kernel at DEFAULT_CONFIG, k=8): each one's device time from phases
-     6, 10, 13, 17, 20, 22 and 23 beside its first version's
+     kernel at DEFAULT_CONFIG, k=8; kernel B and the generic kernel as a
+     row tile, per-row tables at 4,096 rows): each one's device time from
+     phases 6, 10, 13, 16, 17, 20, 22 and 23 beside its first version's
      (FIRST_VERSION_MS, from PERF.md), its library call and its bound; the
      split-real kernels at N=4096 also beside their times before the
      radix-2 passes (BEFORE_PASSES_MS).
@@ -423,6 +428,21 @@ def cmap_work(rows: int, taps: ck.ResampleTaps, table_floats: int,
     return nbytes, rows * h * ops_per_pixel
 
 
+def sector_floor(rows: int, taps: ck.ResampleTaps, bins: int, table_floats: int,
+                 h: int | None = None) -> float:
+    """The least ms of a colormap kernel's bytes counted in the 32-byte
+    sectors device memory moves: each row's distinct sectors of each plane
+    that its taps touch (a row starting `row * bins` floats into its plane),
+    the taps, the tables and the [rows, h] i32 output, over 3.35 TB/s.
+    Printed beside `bound_ms`, whose definition stays cmap_work's."""
+    j = torch.unique(torch.cat([taps.j0, taps.j1])).cpu().numpy().astype(np.int64)
+    h = taps.j0.numel() if h is None else h
+    offsets = np.bincount((np.arange(rows, dtype=np.int64) * bins) % 8, minlength=8)
+    sectors = sum(int(c) * np.unique((o + j) // 8).size for o, c in enumerate(offsets) if c)
+    nbytes = 2 * 32 * sectors + 16 * h + 4 * table_floats + 4 * rows * h
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def windows(cfg, kind: str, rows: int, dev):
     frames = testing.make(kind, rows, cfg.window_size, cfg.sample_rate, seed=1)
     left = torch.from_numpy(np.ascontiguousarray(frames[..., 0])).to(dev)
@@ -552,7 +572,7 @@ def main() -> int:
     left, right, ml, mr = planes["chirp_tone"]
     ms = {
         sk.KERNEL: device_ms(lambda: sk.stft_mag_packed(left, right, p.hann, p.fft_consts)),
-        ck.KERNEL: time_ms(lambda: ck.colormap_builtin(ml, mr, p.taps, tables, cfg)),
+        ck.KERNEL: device_ms(lambda: ck.colormap_builtin(ml, mr, p.taps, tables, cfg)),
     }
     plain_ms = {
         sk.KERNEL: time_ms(lambda: sk.stft_mag_packed_plain(left, right, p.hann, cfg.padded_size)),
@@ -574,8 +594,10 @@ def main() -> int:
     push_ms = time_ms(kernel_push)
     plain_push_ms = time_ms(plain_path_push)
     for k in (sk.KERNEL, ck.KERNEL):
-        log(f"[6] {KERNELS[k]['name']}: {ms[k]:.4f} ms (plain {plain_ms[k]:.4f} ms, "
-            f"bound {bounds[k][0]:.4f} ms by {bounds[k][1]})")
+        floor = (f", sector floor {sector_floor(STREAMS, p.taps, ml.shape[1], tables.numel()):.4f}"
+                 " ms" if k == ck.KERNEL else "")
+        log(f"[6] {KERNELS[k]['name']}: {ms[k]:.4f} ms device time (plain {plain_ms[k]:.4f} ms, "
+            f"bound {bounds[k][0]:.4f} ms by {bounds[k][1]}{floor})")
     log(f"[6] push at {STREAMS} streams: kernels {push_ms:.4f} ms/push "
         f"= {STREAMS / push_ms * 1e3:.1f} rows/s; plain {plain_push_ms:.4f} ms/push "
         f"= {STREAMS / plain_push_ms * 1e3:.1f} rows/s; card {power_line}")
@@ -660,6 +682,7 @@ def main() -> int:
     del z
     redesign["stft_allk N=4800 k=8"] = (dms, dlib, dbound[0])
     redesign["kernel A N=4096"] = (ms[sk.KERNEL], library_ms[sk.KERNEL], bounds[sk.KERNEL][0])
+    redesign["kernel B per-row, 4096 rows"] = (ms[ck.KERNEL], None, bounds[ck.KERNEL][0])
     redesign["stft_allk N=4096 k=8"] = (ms[sk.ALLK_KERNEL], library_ms[sk.ALLK_KERNEL],
                                         bounds[sk.ALLK_KERNEL][0])
     for name in (sk.MIXED_KERNEL, sk.ALLK_KERNEL):
@@ -705,7 +728,7 @@ def main() -> int:
 
     # -- 14-16. user-defined and static palettes ---------------------------------
     torch.cuda.reset_peak_memory_stats()
-    palette_kernels(dev, stats, ms, plain_ms, bounds, library_ms)
+    palette_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign)
     palette_paths(dev, lib, main_launches)
     palette_timing(dev, power_line)
 
@@ -748,9 +771,10 @@ def main() -> int:
         t, lib_t, b = redesign[label]
         before = (f", before the radix-2 passes {BEFORE_PASSES_MS[label]:.4f} ms"
                   if label in BEFORE_PASSES_MS else "")
+        library = ("library none" if lib_t is None
+                   else f"library {lib_t:.4f} ms, {t / lib_t:.2f}x it")
         log(f"[25] {label}: {t:.4f} ms device time (first version {first:.4f} ms, "
-            f"{first / t:.2f}x{before}; library {lib_t:.4f} ms, {t / lib_t:.2f}x it; bound "
-            f"{b:.4f} ms); card {power_line}")
+            f"{first / t:.2f}x{before}; {library}; bound {b:.4f} ms); card {power_line}")
 
     log(f"[25] whole run {time.perf_counter() - t_start:.1f} s")
     print(power_line)
@@ -892,22 +916,24 @@ def serving_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign) -> N
             fail("colormap_blockwise disagrees with kernel B or its plain version")
         stats[name] = max(stats.get(name, 0), diff)
         if layout == "sorted":
-            b_ms = time_ms(lambda: ck.colormap_builtin(ml, mr, p.taps, tables, cfg))
-            ms[name] = time_ms(lambda: ck.colormap_blockwise(ml, mr, p.taps, tables, cfg,
-                                                             block_rows=ts))
+            b_ms = device_ms(lambda: ck.colormap_builtin(ml, mr, p.taps, tables, cfg))
+            ms[name] = device_ms(lambda: ck.colormap_blockwise(ml, mr, p.taps, tables, cfg,
+                                                               block_rows=ts))
             plain_ms[name] = time_ms(
                 lambda: ck.colormap_blockwise_plain(ml, mr, p.taps, tables, cfg), iters=5)
             bounds[name] = bound(*cmap_work(rows, p.taps, tables.numel()))
             library_ms[name] = None
+            floor = sector_floor(rows, p.taps, ml.shape[1], tables.numel())
             log(f"[13] colormap_blockwise, {rows} rows, sorted tables: {ms[name]:.4f} ms "
-                f"(kernel B on the same tables {b_ms:.4f} ms; plain {plain_ms[name]:.4f} ms; "
-                f"bound {bounds[name][0]:.4f} ms by {bounds[name][1]})")
+                f"device time (kernel B on the same tables {b_ms:.4f} ms; plain "
+                f"{plain_ms[name]:.4f} ms; bound {bounds[name][0]:.4f} ms by {bounds[name][1]}, "
+                f"sector floor {floor:.4f} ms)")
             # the rows a CTA covers change no output; what they cost here
-            sweep = {br: time_ms(lambda: ck.colormap_blockwise(ml, mr, p.taps, tables, cfg,
-                                                               block_rows=br))
+            sweep = {br: device_ms(lambda: ck.colormap_blockwise(ml, mr, p.taps, tables, cfg,
+                                                                 block_rows=br))
                      for br in (32, 64, 128)}
             one = p.builtin_tables[:1].contiguous()
-            one_ms = time_ms(lambda: ck.colormap_builtin(ml, mr, p.taps, one, cfg))
+            one_ms = device_ms(lambda: ck.colormap_builtin(ml, mr, p.taps, one, cfg))
             log("[13] colormap_blockwise by rows per CTA: " + ", ".join(
                 f"{br}: {t:.4f} ms" for br, t in sweep.items())
                 + f"; kernel B with one table for all rows {one_ms:.4f} ms")
@@ -1130,7 +1156,7 @@ def u8_diff(got: torch.Tensor, want: torch.Tensor, everywhere: bool) -> int:
     return testing.rgba_u8_diff(a, b)
 
 
-def palette_kernels(dev, stats, ms, plain_ms, bounds, library_ms) -> None:
+def palette_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign) -> None:
     """Phase 14, and phase 16's kernel times: the generic and static
     colormaps against their plain versions, and the static kernel's two
     identities, at 4096 rows of BENCH_CONFIG."""
@@ -1213,12 +1239,17 @@ def palette_kernels(dev, stats, ms, plain_ms, bounds, library_ms) -> None:
     bounds[sta] = bound(*cmap_work(STREAMS, taps, 0))
     static_generic_bound = bound(*cmap_work(STREAMS, taps, 0, CMAP_OPS_PER_PIXEL_GENERIC))
     library_ms[gen] = library_ms[sta] = None
+    redesign["generic per-row, 4096 rows"] = (ms[gen], None, bounds[gen][0])
+    bins = ml.shape[1]
     log(f"[16] colormap kernels, {STREAMS} rows, chirp+tone, device time (back to back): "
         + "; ".join(f"{k} {x:.4f} ({back_to_back[k]:.4f}) ms" for k, x in t.items()))
     log(f"[16] colormap_generic (per-row): {ms[gen]:.4f} ms (plain {plain_ms[gen]:.4f} ms, "
-        f"bound {bounds[gen][0]:.4f} ms by {bounds[gen][1]}); colormap_static (Magma): "
+        f"bound {bounds[gen][0]:.4f} ms by {bounds[gen][1]}, sector floor "
+        f"{sector_floor(STREAMS, taps, bins, u.numel() + v.numel()):.4f} ms); "
+        f"colormap_static (Magma): "
         f"{ms[sta]:.4f} ms (plain {plain_ms[sta]:.4f} ms, bound {bounds[sta][0]:.4f} ms by "
-        f"{bounds[sta][1]}); static generic: plain {plain_static_g:.4f} ms, bound "
+        f"{bounds[sta][1]}, sector floor {sector_floor(STREAMS, taps, bins, 0):.4f} ms); "
+        f"static generic: plain {plain_static_g:.4f} ms, bound "
         f"{static_generic_bound[0]:.4f} ms; generic with one table: plain {plain_one_g:.4f} ms, "
         f"bound {one_g_bound[0]:.4f} ms; kernel B with one table: plain {plain_one_b:.4f} ms")
     del planes, ml, mr, u, v
@@ -1645,8 +1676,9 @@ ODD_735 = SpectrogramConfig(sample_rate=44100.0, window_period=245 / 44100.0,
 # A and the packed all-windows kernel with one shared-memory pass per
 # radix-2 stage; kernel A at N=4800 and 2204 (Bluestein) with one pass per
 # mixed-radix stage and its twiddles read from the table, and the
-# all-windows kernel at DEFAULT_CONFIG as first measured; 4096 rows unless
-# named
+# all-windows kernel at DEFAULT_CONFIG as first measured; kernel B and the
+# generic kernel with one pixel per thread and one row per CTA (device time);
+# 4096 rows unless named
 FIRST_VERSION_MS = {
     "stft_split N=4096": 0.7932, "stft_split_t N=4096": 0.8231,
     "stft_split_allk N=4096 k=8": 6.2293, "stft_split_tsplit N=4096": 0.8144,
@@ -1658,6 +1690,7 @@ FIRST_VERSION_MS = {
     "kernel A N=4096": 0.4221, "kernel A int16 N=4096": 0.4116,
     "stft_allk N=4096 k=8": 3.1884, "stft_allk_carry N=4096 k=8": 3.1917,
     "kernel A N=4800": 0.5696, "kernel A N=2204": 0.4092, "stft_allk N=4800 k=8": 4.3991,
+    "kernel B per-row, 4096 rows": 0.0443, "generic per-row, 4096 rows": 0.0577,
 }
 # The split-real kernels' device times before the radix-2 register passes
 # (PERF.md, H100 80GB HBM3, 700 W)
@@ -1798,10 +1831,14 @@ def size_paths(dev, lib, main_launches: dict, paths=SIZE_PATHS, phase: int = 21)
         body_count = lib.body_launches[body]
         for k_, v in launches.items():
             main_launches[k_] = main_launches.get(k_, 0) + v
+        res = cfg.lut_resolution
+        forms = (f"kernel B {ck.tile_form(p.taps, res)} over {p.taps.span} of "
+                 f"{p.taps.bins} bins" + (f", render_viewport's {ck.tile_form(p.ring_taps, res)}"
+                                          if p.store_ring else ""))
         log(f"[{phase}] {label} (W={cfg.window_size}, hop {cfg.hop_size}, pad {cfg.pad_factor}, "
             f"{body} body), {s} streams, {n} pushes: rows {tuple(streamed.shape)}, carry "
             f"{tuple(state.carry.shape)}, ring {tuple(state.ring.shape)}; launches {launches}; "
-            f"{body} launches {body_count}")
+            f"{body} launches {body_count}; {forms}")
         if not body_count:
             fail(f"{label}: the {body} body did not launch")
         if streamed.shape != (s, n * p.chunk_hops, cfg.viewport_height):
@@ -2134,6 +2171,33 @@ def _large_operands(n: int, w: int, rows: int, dev, sample_rate: float = 48000.0
     return left, right, sk.fft_constants(n, dev), hanns
 
 
+def colormap_direct(dev, stats, cfg, planes) -> None:
+    """Phase 23: kernel B and the generic kernel in their direct form (planes
+    too wide to stage in shared memory), per-row tables, against their plain
+    versions."""
+    ml, mr = planes
+    rows = ml.shape[0]
+    taps = ck.resample_taps(cmap_ops.resample_matrix_full(cfg), dev)
+    tables = torch.from_numpy(ck.builtin_color_tables()).to(dev)
+    tables = tables[torch.arange(rows, device=dev) % 19].contiguous()
+    ids = torch.arange(rows, device=dev) % PALETTE_REGISTRY
+    gu, gv = (torch.from_numpy(t).to(dev)[ids].contiguous()
+              for t in ck.generic_color_tables(32, registry()))
+    for name, got, want in (
+            (ck.KERNEL, ck.colormap_builtin(ml, mr, taps, tables, cfg),
+             ck.colormap_builtin_plain(ml, mr, taps, tables, cfg)),
+            (ck.GENERIC_KERNEL, ck.colormap_generic(ml, mr, taps, gu, gv, cfg),
+             ck.colormap_generic_plain(ml, mr, taps, gu, gv, cfg))):
+        form = ck.tile_form(taps, cfg.lut_resolution, name == ck.GENERIC_KERNEL)
+        diff = u8_diff(got, want, everywhere=True)
+        log(f"[23] {KERNELS[name]['name']} at N={cfg.padded_size}, {rows} rows, taps over "
+            f"{taps.span} of {taps.bins} bins: the {form} form; max u8 diff {diff} against "
+            f"the plain version (bar 1)")
+        if form != "direct" or diff > 1:
+            fail(f"{KERNELS[name]['name']}: the direct form disagrees with its plain version")
+        stats[name] = max(stats[name], diff)
+
+
 def large_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign) -> None:
     """Phase 23's kernels on 4,096 window rows unless named, each against
     its plain version at phase 3's bar: the large-N route's packed kernel
@@ -2165,9 +2229,12 @@ def large_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign) -> Non
         label = f"N={n} ({sk.fft_body(n)}, buffer {sk.fft_buf_size(n)})"
         left, right, consts, (hann, hann16, shann) = _large_operands(n, w, rows, dev, sr)
         words = [torch.round(x * 32767.0).to(torch.int16) for x in (left, right)]
+        planes = sk.stft_mag_packed(left, right, hann, consts)
         _check_stft(23, stats, (sk.LARGE_KERNEL,), f"stft_large_packed {label}, {rows} rows",
-                    sk.stft_mag_packed(left, right, hann, consts),
-                    sk.stft_mag_packed_plain(left, right, hann, n))
+                    planes, sk.stft_mag_packed_plain(left, right, hann, n))
+        if n == LARGE_48K.padded_size:
+            colormap_direct(dev, stats, LARGE_48K, planes)
+        del planes
         i16 = sk.stft_mag_packed(*words, hann16, consts)
         _identity(23, f"stft_large_packed_i16 {label} == f32 on x/32768", i16,
                   sk.stft_mag_packed(*(x.to(torch.float32) / 32768.0 for x in words), hann,
@@ -2458,8 +2525,10 @@ def rows_fused(dev, lib, main_launches: dict, stats, ms, plain_ms, bounds, libra
     library_ms[ck.ROWS_KERNEL] = None
     log(f"[24] colormap_rows_fused, {n} rows: {ms[ck.ROWS_KERNEL]:.4f} ms device time (plain "
         f"{plain_ms[ck.ROWS_KERNEL]:.4f} ms, library none, bound "
-        f"{bounds[ck.ROWS_KERNEL][0]:.4f} ms by {bounds[ck.ROWS_KERNEL][1]}); colormap_generic "
-        f"on the planes' copies {generic_ms:.4f} ms")
+        f"{bounds[ck.ROWS_KERNEL][0]:.4f} ms by {bounds[ck.ROWS_KERNEL][1]}, sector floor "
+        f"{sector_floor(n, two, 2 * rows.shape[2], u.numel() + v.numel()):.4f} ms, planar "
+        f"rows counted at the left plane's offsets); colormap_generic on the planes' copies "
+        f"{generic_ms:.4f} ms")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[24] peak device memory over phase 24: {peak:.2f} GiB; card {power_line}")
 

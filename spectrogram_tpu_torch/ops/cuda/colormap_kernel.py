@@ -29,7 +29,12 @@ The TPU kernels needed a banded matmul for the two-tap resample, a tent
 basis for the LUT read and SMEM or compile-time tables, all to avoid
 gathers.  Here the resample is a tap table (`resample_taps`) and each pixel
 reads its two bins and its LUT entries directly; the laws and their rounding
-are the JAX kernels'.
+are the JAX kernels'.  Kernel B and the generic kernel share one tile
+(`csrc/colormap_tile.cuh`): whole rows per CTA, each row's planes over
+[0, `ResampleTaps.span`) and its tables copied into shared memory a row
+ahead of use ("staged"), or, where the span is wide beside the row's
+pixels (the long windows), the first kernels' one pixel per thread
+("direct"); `tile_form` says which.
 
 Host helpers (`builtin_color_tables`, `generic_color_tables`,
 `unpack_rgba`, and `_auto_blocks`, `band_segments`, `_banded_worthwhile`,
@@ -63,13 +68,15 @@ MAX_STATIC_RES = 64
 
 class ResampleTaps(NamedTuple):
     """Two-tap form of a [H, B] resample matrix: pixel p reads
-    w0[p]*x[j0[p]] + w1[p]*x[j1[p]], with every tap below `bins` = B."""
+    w0[p]*x[j0[p]] + w1[p]*x[j1[p]], with every tap below `span` <= `bins`
+    = B."""
 
     j0: torch.Tensor  # [H] int32
     j1: torch.Tensor  # [H] int32
     w0: torch.Tensor  # [H] f32
     w1: torch.Tensor  # [H] f32
     bins: int         # B: planes the taps index must be at least this wide
+    span: int         # the highest tap + 1: the bins kernel B stages per row
 
 
 def resample_taps(matrix: np.ndarray, device=None) -> ResampleTaps:
@@ -93,7 +100,8 @@ def resample_taps(matrix: np.ndarray, device=None) -> ResampleTaps:
     def dev(a):
         return torch.from_numpy(a).to(device)
 
-    return ResampleTaps(dev(j0), dev(j1), dev(w0), dev(w1), matrix.shape[1])
+    return ResampleTaps(dev(j0), dev(j1), dev(w0), dev(w1), matrix.shape[1],
+                        int(j1.max(initial=0)) + 1)
 
 
 def _builtin_table_row(u: np.ndarray, v: np.ndarray, resolution: int):
@@ -342,6 +350,7 @@ def _check(mag_l, mag_r, taps, tables, rows_per_table) -> None:
     fit: the kernels index planes by tap and tables by row unchecked."""
     h = taps.j0.shape[0]
     if (mag_r.shape != mag_l.shape or taps.bins > mag_l.shape[1]
+            or not 1 <= taps.span <= taps.bins
             or any(t.shape != (h,) for t in taps[:4])
             or tables.ndim != 2 or tables.shape[0] < 1
             or tables.shape[1] % 4 or tables.shape[1] < 8
@@ -354,11 +363,12 @@ def _check(mag_l, mag_r, taps, tables, rows_per_table) -> None:
 
 
 def _launch(name: str, mag_l, mag_r, taps, cfg, res: int, tables: tuple,
-            *table_args) -> torch.Tensor:
+            *table_args, span: int | None = None) -> torch.Tensor:
     """Launch colormap kernel `name` on CUDA tensors.  `tables` are the
     device tensors among its operands (checked as the planes are);
     `table_args` the arguments its C entry takes between `h` and
-    `min_db`."""
+    `min_db`; `span`, where given, goes after the bins (kernel B and the
+    generic kernel)."""
     if mag_l.device.type != "cuda":
         raise ValueError(f"no colormap kernel for device {mag_l.device}")
     checks = (
@@ -383,12 +393,34 @@ def _launch(name: str, mag_l, mag_r, taps, cfg, res: int, tables: tuple,
             stream = torch.cuda.current_stream().cuda_stream
             _build.library().launch(
                 name, mag_l.data_ptr(), mag_r.data_ptr(), rows, bins,
-                taps.j0.data_ptr(), taps.j1.data_ptr(), taps.w0.data_ptr(),
-                taps.w1.data_ptr(), h, *table_args,
+                *(() if span is None else (span,)), taps.j0.data_ptr(),
+                taps.j1.data_ptr(), taps.w0.data_ptr(), taps.w1.data_ptr(), h,
+                *table_args,
                 cfg.min_db, cfg.max_db - cfg.min_db, cfg.db_epsilon,
                 1.0 / (res - 1), out.data_ptr(), stream,
             )
     return out
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t`, or a copy where its data is not 16-byte aligned: the tile's
+    table copies move 16-byte chunks."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def tile_form(taps: ResampleTaps, res: int, generic: bool = False) -> str:
+    """The form kernel B (or the generic kernel) takes on the card for
+    `taps` and `res`-entry tables: "staged" (each row's planes over [0,
+    taps.span) copied into shared memory) where the span is at most 2.25x
+    the taps' pixels (3x generic) and two stages fit 48 KB, else "direct"
+    (`csrc/colormap_tile.cuh` `tile_staged`, through its export
+    `spk_colormap_form`, whose int operands and result are ctypes' defaults;
+    builds the kernels)."""
+    from spectrogram_tpu_torch.ops.cuda import _build
+
+    staged = _build.library()._dll.spk_colormap_form(taps.span, taps.j0.shape[0], res,
+                                                     int(generic))
+    return "staged" if staged else "direct"
 
 
 def colormap_builtin(mag_l: torch.Tensor, mag_r: torch.Tensor,
@@ -400,14 +432,17 @@ def colormap_builtin(mag_l: torch.Tensor, mag_r: torch.Tensor,
     layout): rows_per_table 1 for the push's window-major rows, R' for a
     viewport's R' rows per stream.
 
-    CPU tensors take the plain version; CUDA tensors take kernel B."""
+    CPU tensors take the plain version; CUDA tensors take kernel B, in the
+    form `tile_form` names."""
     _check(mag_l, mag_r, taps, tables, rows_per_table)
     if mag_l.device.type == "cpu":
         return colormap_builtin_plain(mag_l, mag_r, taps, tables, cfg,
                                       rows_per_table)
     res = tables.shape[1] // 4
+    tables = _aligned(tables)
     return _launch(KERNEL, mag_l, mag_r, taps, cfg, res, (tables,),
-                   tables.data_ptr(), tables.shape[0], rows_per_table, res)
+                   tables.data_ptr(), tables.shape[0], rows_per_table, res,
+                   span=taps.span)
 
 
 # a uniform block stages its table in at most 48 KB of shared memory
@@ -450,15 +485,17 @@ def colormap_generic(mag_l: torch.Tensor, mag_r: torch.Tensor,
     reads its tables.
 
     CPU tensors take the plain version; CUDA tensors take the generic
-    kernel."""
+    kernel, in the form `tile_form` names."""
     _check(mag_l, mag_r, taps, u, rows_per_table)
     if v.shape != u.shape:
         raise ValueError(f"u {tuple(u.shape)} and v {tuple(v.shape)} differ")
     if mag_l.device.type == "cpu":
         return colormap_generic_plain(mag_l, mag_r, taps, u, v, cfg, rows_per_table)
     res = u.shape[1] // 4
+    u, v = _aligned(u), _aligned(v)
     return _launch(GENERIC_KERNEL, mag_l, mag_r, taps, cfg, res, (u, v),
-                   u.data_ptr(), v.data_ptr(), u.shape[0], rows_per_table, res)
+                   u.data_ptr(), v.data_ptr(), u.shape[0], rows_per_table, res,
+                   span=taps.span)
 
 
 def colormap_static(mag_l: torch.Tensor, mag_r: torch.Tensor,

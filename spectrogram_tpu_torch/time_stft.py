@@ -1,6 +1,7 @@
-"""Device times of the STFT kernels of one or more checkouts, in turns.
+"""Device times of the STFT or colormap kernels of one or more checkouts, in turns.
 
     python -m spectrogram_tpu_torch.time_stft [--sizes N,N,...] [--packed] [ROOT ...]
+    python -m spectrogram_tpu_torch.time_stft --colormap [ROOT ...]
 
 Each ROOT is the root of a checkout of this repository (default: this one),
 e.g. a parent commit unpacked with `git archive` into a directory git
@@ -23,7 +24,20 @@ prefix of each call's output planes, so that two roots whose kernels give
 the same bits print the same digests.  `--sizes` times only the named N of
 `SIZES`, `--packed` only the packed kernels (kernel A and the packed
 all-windows kernel), so that an experiment tree may leave the split-real
-kernels out of its build.  It needs a CUDA card.
+kernels out of its build.
+
+`--colormap` times kernel B (`colormap_builtin`) and the generic kernel
+(`colormap_generic`) in place of the STFT kernels, on magnitude planes of
+chirp+tone from the plain STFT (`COLORMAP_KEYS`): per-row tables
+(`arange(rows) % 19`, 20 generic palettes) and one table at BENCH_CONFIG's
+4,096 rows; the k=8 push's 32,768 rows (a table per stream of 4,096) and
+the DEFAULT_CONFIG display push's 2,048 (256 streams); a viewport render
+block (32,768 rows of 2,047-bin ring planes, 16 streams,
+`rows_per_table` = 2,048); 10,240 serving rows; H=1021; H=512 at N=2400,
+4096 and 6400; N=4410 (B=2205);
+the spans between the main paths' and the long windows' (N=6400, 8192,
+12,000 and 15,360: spans 2,930, 3,749, 5,491 and 7,029 bins); N=16,384 and N=48,000 (the long windows).  It needs
+a CUDA card.
 """
 
 from __future__ import annotations
@@ -57,6 +71,112 @@ def _tools():
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+# (label, config, rows, plane source, tables, rows_per_table): the plane
+# source is the config's window planes ("planes", [rows, max(N/2, W)]) or
+# its ring planes ("ring", bins 1..W-1, with `resample_matrix`'s taps); the
+# tables "per-row" (row n reads table n % 19 of the built-in palettes, or
+# of 20 generic factor pairs), "per-stream" (row n reads table n % (rows /
+# 8), a k=8 push's window-major rows), "one" (one table) or "stream-major"
+# (16 tables, `rows_per_table` rows each)
+COLORMAP_KEYS = (
+    ("per-row", "bench", 4096, "planes", "per-row", 1),
+    ("one table", "bench", 4096, "planes", "one", 1),
+    ("k8 32768 rows", "bench", 32768, "planes", "per-stream", 1),
+    ("display 2048 rows", "default", 2048, "planes", "per-stream", 1),
+    ("viewport rpt=2048", "bench", 32768, "ring", "stream-major", 2048),
+    ("serving 10240 rows", "bench", 10240, "planes", "per-row", 1),
+    ("H=1021", "h1021", 4096, "planes", "per-row", 1),
+    ("H=512 N=2400", "h512n2400", 4096, "planes", "per-row", 1),
+    ("H=512", "h512", 4096, "planes", "per-row", 1),
+    ("H=512 N=6400", "h512n6400", 4096, "planes", "per-row", 1),
+    ("N=4410", "n4410", 4096, "planes", "per-row", 1),
+    ("N=6400", "n6400", 4096, "planes", "per-row", 1),
+    ("N=8192", "n8192", 4096, "planes", "per-row", 1),
+    ("N=12000", "n12000", 4096, "planes", "per-row", 1),
+    ("N=15360", "n15360", 4096, "planes", "per-row", 1),
+    ("N=16384", "n16384", 4096, "planes", "per-row", 1),
+    ("N=48000", "n48000", 4096, "planes", "per-row", 1),
+)
+
+
+def _colormap_worker() -> None:
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from spectrogram_tpu_torch.color.colorscheme import stacked_factored_tables
+    from spectrogram_tpu_torch.config import BENCH_CONFIG, DEFAULT_CONFIG, SpectrogramConfig
+    from spectrogram_tpu_torch.ops import colormap as cmap_ops
+    from spectrogram_tpu_torch.ops.cuda import _build
+    from spectrogram_tpu_torch.ops.cuda import colormap_kernel as ck
+    from spectrogram_tpu_torch.ops.cuda import stft_kernel as sk
+
+    tools = _tools()
+    if not torch.cuda.is_available():
+        raise SystemExit("time_stft needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    _build.build()
+    configs = {"bench": BENCH_CONFIG, "default": DEFAULT_CONFIG,
+               "h1021": dataclasses.replace(BENCH_CONFIG, viewport_height=1021),
+               "h512n2400": SpectrogramConfig(window_period=1200 / 48000.0,
+                                              viewport_height=512),
+               "h512": dataclasses.replace(BENCH_CONFIG, viewport_height=512),
+               "h512n6400": SpectrogramConfig(window_period=3200 / 48000.0,
+                                              viewport_height=512),
+               "n4410": SpectrogramConfig(sample_rate=44100.0, window_period=0.05),
+               "n6400": SpectrogramConfig(window_period=3200 / 48000.0),
+               "n8192": SpectrogramConfig(window_period=4096 / 48000.0),
+               "n12000": SpectrogramConfig(window_period=6000 / 48000.0),
+               "n15360": SpectrogramConfig(window_period=7680 / 48000.0),
+               "n16384": SpectrogramConfig(window_period=8192 / 48000.0),
+               "n48000": SpectrogramConfig(window_period=0.5)}
+    builtin = torch.from_numpy(ck.builtin_color_tables()).to(dev)
+    u, v = (torch.from_numpy(t.reshape(19, -1)).to(dev) for t in stacked_factored_tables(32))
+    cu, cv = (torch.from_numpy(t.reshape(1, -1)).to(dev) for t in tools.custom_factors())
+    generic = torch.cat([cu, u]), torch.cat([cv, v])            # 20 palettes
+    planes = {}
+    out, digests, forms = {}, {}, {}
+    for label, geometry, rows, source, layout, rpt in COLORMAP_KEYS:
+        cfg = configs[geometry]
+        key = (geometry, rows)
+        if key not in planes:
+            planes.clear()
+            torch.cuda.empty_cache()
+            left, right = tools.chirp_tone_planes(rows, cfg.window_size, cfg.sample_rate,
+                                                  1, dev)
+            hann = torch.from_numpy(sk.packed_hann(cfg.window_size)).to(dev)
+            planes[key] = sk.stft_mag_packed_plain(left, right, hann, cfg.padded_size)
+            del left, right
+        ml, mr = planes[key]
+        matrix = cmap_ops.resample_matrix_full(cfg)
+        if source == "ring":
+            w = cfg.window_size
+            ml, mr = ml[:, 1:w].contiguous(), mr[:, 1:w].contiguous()
+            matrix = cmap_ops.resample_matrix(cfg)
+        taps = ck.resample_taps(matrix, dev)
+        n = {"per-row": rows, "per-stream": rows, "one": 1, "stream-major": rows // rpt}[layout]
+        streams = rows // 8 if layout == "per-stream" else None
+        ids = torch.arange(n, device=dev) % (streams or 19)
+        gids = torch.arange(n, device=dev) % (streams or 20)
+        tb = builtin.index_select(0, ids % 19).contiguous()
+        gu, gv = (t.index_select(0, gids % 20).contiguous() for t in generic)
+        for word, fn in (
+                ("kernel B", lambda: ck.colormap_builtin(ml, mr, taps, tb, cfg, rpt)),
+                ("generic", lambda: ck.colormap_generic(ml, mr, taps, gu, gv, cfg, rpt))):
+            name = f"{word} {label}"
+            out[name] = tools.device_ms(fn, iters=10)
+            digests[name] = hashlib.sha256(
+                fn().cpu().numpy().tobytes()).hexdigest()[:16]
+            if hasattr(ck, "tile_form"):
+                forms[name] = ck.tile_form(taps, 32, word == "generic")
+        del ml, mr
+    print("TIMES " + json.dumps(out), flush=True)
+    print("DIGESTS " + json.dumps(digests), flush=True)
+    if forms:
+        print("FORMS " + json.dumps(forms), flush=True)
 
 
 def _worker(sizes: list[int], packed_only: bool) -> None:
@@ -151,20 +271,25 @@ def _worker(sizes: list[int], packed_only: bool) -> None:
 
 
 def main(argv: list[str]) -> int:
-    sizes, packed_only = [], False
-    while argv[:1] in (["--sizes"], ["--packed"]):
+    sizes, packed_only, colormap = [], False, False
+    while argv[:1] in (["--sizes"], ["--packed"], ["--colormap"]):
         if argv[0] == "--sizes":
             sizes, argv = [int(n) for n in argv[1].split(",")], argv[2:]
-        else:
+        elif argv[0] == "--packed":
             packed_only, argv = True, argv[1:]
+        else:
+            colormap, argv = True, argv[1:]
     if argv[:1] == ["--worker"]:
-        _worker(sizes, packed_only)
+        if colormap:
+            _colormap_worker()
+        else:
+            _worker(sizes, packed_only)
         return 0
     roots = [pathlib.Path(r).resolve() for r in argv] or [pathlib.Path(__file__).parents[1]]
     for root in (*roots, *reversed(roots)):
         print(f"== {root}", flush=True)
         worker = (["--sizes", ",".join(map(str, sizes))] if sizes else []) + \
-            (["--packed"] if packed_only else [])
+            (["--packed"] if packed_only else []) + (["--colormap"] if colormap else [])
         code = ("import runpy, sys; "
                 f"sys.argv = [sys.argv[0], *{worker!r}, '--worker']; "
                 f"sys.path.insert(0, {str(root)!r}); "

@@ -10,9 +10,18 @@ n reading its tables at (n / rows_per_table) % T as the kernels do.  The
 bar is 1 u8 per channel against the plain PyTorch versions (the host's
 log10f and PyTorch's may round differently); a wrong table entry, channel
 or association gives far more.  Without a C++ compiler the tests skip.
+
+Kernel B and the generic kernel color rows through a tile
+(`csrc/colormap_tile.cuh`): whole rows per CTA, four pixels per thread,
+each row's planes and tables copied into a stage of shared memory.  The
+stub runs each CTA's loop in turn with the header's own index code, the
+stage an array and each copy a memcpy; its words must equal the per-pixel
+rows bit for bit, every (row, pixel) stored exactly once.
 """
 
 import ctypes
+import dataclasses
+import functools
 import pathlib
 import shutil
 import subprocess
@@ -53,6 +62,11 @@ def host_lib(tmp_path_factory):
     lib.colormap_host_rows.argtypes = (p, p, i, i, p, p, p, p, i, p, p, i, i, i,
                                        f, f, f, f, p)
     lib.colormap_host_rows.restype = i
+    lib.colormap_host_tile.argtypes = (p, p, i, i, i, p, p, p, p, i, p, p, i, i, i,
+                                       f, f, f, f, p, p)
+    lib.colormap_host_tile.restype = i
+    lib.colormap_host_form.argtypes = (i, i, i, i)
+    lib.colormap_host_form.restype = i
     return lib
 
 
@@ -123,3 +137,113 @@ def test_builtin_and_generic_bodies_match_plain(host_lib, geometry, layout):
     if layout == "one_table":
         static = tck.colormap_static_plain(ml, mr, taps, (cu[0].numpy(), cv[0].numpy()), cfg)
         np.testing.assert_array_equal(static.numpy(), want)
+
+
+# ------------------------------------------------------------------ the tile
+
+TILE_ROWS = 37              # no multiple of the tile's rows per CTA
+TILE_WIDTHS = {2048: BENCH_CONFIG,                                       # N=4096
+               2205: SpectrogramConfig(sample_rate=44100.0, window_period=0.05)}  # 4410
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_operands(bins: int, h: int):
+    """Planes [TILE_ROWS, bins] (the left one a float past a 16-byte
+    boundary, inside a padded buffer, so that the copies' rounding reads
+    only the buffer) and the taps of the geometry at width h."""
+    cfg = dataclasses.replace(TILE_WIDTHS[bins], viewport_height=h)
+    ml, mr = _planes(cfg, TILE_ROWS)
+    assert ml.shape == (TILE_ROWS, bins)
+    planes = []
+    for plane, offset in ((ml, 1), (mr, 0)):
+        buf = np.zeros(TILE_ROWS * bins + 8, np.float32)
+        buf[offset : offset + plane.numel()] = plane.numpy().reshape(-1)
+        planes.append((buf, offset))
+    taps = tck.resample_taps(tcm.resample_matrix_full(cfg))
+    return cfg, (ml, mr), planes, taps
+
+
+def _tile_tables(word: str, n_tables: int):
+    gu, gv = (torch.from_numpy(t) for t in tck.generic_color_tables(32))
+    cu, cv = _custom()
+    if word == "builtin":
+        t = torch.from_numpy(tck.builtin_color_tables(32))
+        return (t if n_tables == 19 else t[3:4]).contiguous(), None
+    u, v = torch.cat([cu, gu[:18]]), torch.cat([cv, gv[:18]])
+    return u[:n_tables].contiguous(), v[:n_tables].contiguous()
+
+
+def _host_tile(lib, planes, taps, u, v, cfg, rows_per_table):
+    """(words, stores per word) of the tile's host run."""
+    (bl, ol), (br, orr) = planes
+    bins = (bl.size - 8) // TILE_ROWS
+    h = taps.j0.shape[0]
+    res = u.shape[1] // 4
+    out = np.zeros((TILE_ROWS, h), np.uint32)
+    count = np.zeros((TILE_ROWS, h), np.int32)
+    tap_arrays = [np.ascontiguousarray(t.numpy()) for t in taps[:4]]
+    u_arr = np.ascontiguousarray(u.numpy())
+    v_arr = None if v is None else np.ascontiguousarray(v.numpy())
+    code = lib.colormap_host_tile(
+        bl.ctypes.data + 4 * ol, br.ctypes.data + 4 * orr, TILE_ROWS, bins, taps.span,
+        *(a.ctypes.data for a in tap_arrays), h, u_arr.ctypes.data,
+        None if v_arr is None else v_arr.ctypes.data, u.shape[0], rows_per_table, res,
+        cfg.min_db, cfg.max_db - cfg.min_db, cfg.db_epsilon, 1.0 / (res - 1),
+        out.ctypes.data, count.ctypes.data)
+    assert code == 0, f"the tile's host run refused ({code})"
+    return out.view(np.int32), count
+
+
+@pytest.mark.parametrize("word", ["builtin", "generic"])
+@pytest.mark.parametrize("n_tables", [1, 19])
+# 16: a CTA's rows lie 10 apart (grid 10), so some take the table of the
+# row before them and some a new one: a stage's table skip keyed on the
+# wrong earlier row shows only there
+@pytest.mark.parametrize("rows_per_table", [1, 8, 16])
+@pytest.mark.parametrize("bins", sorted(TILE_WIDTHS))
+@pytest.mark.parametrize("h", [64, 1024, 1021])
+def test_tile_writes_every_pixel_once_with_the_pixel_bits(host_lib, h, bins,
+                                                          rows_per_table, n_tables, word):
+    cfg, (ml, mr), planes, taps = _tile_operands(bins, h)
+    u, v = _tile_tables(word, n_tables)
+    got, count = _host_tile(host_lib, planes, taps, u, v, cfg, rows_per_table)
+    np.testing.assert_array_equal(count, 1)
+    want = _host_rows(host_lib, ml, mr, taps, u, v, cfg, rows_per_table)
+    np.testing.assert_array_equal(got, want)
+
+
+# (geometry, width) -> the form kernel B and the generic kernel take
+FORMS = {
+    ("bench", 1024): ("staged", "staged"),                               # span 1875
+    ("bench", 1021): ("staged", "staged"),
+    ("44.1 kHz N=4410", 1024): ("staged", "staged"),                     # span 2197
+    ("N=6400", 1024): ("direct", "staged"),                              # span 2929
+    ("N=8192", 1024): ("direct", "direct"),                              # span 3749
+    ("N=16384", 1024): ("direct", "direct"),                             # span 7497
+    ("48 kHz 0.5 s", 1024): ("direct", "direct"),                        # span 21,961
+    ("N=2400", 512): ("staged", "staged"),                               # span 1096
+    ("bench", 512): ("direct", "direct"),                                # span 1869
+    ("bench", 64): ("direct", "direct"),
+}
+
+
+@pytest.mark.parametrize("geometry,h", sorted(FORMS))
+def test_tile_form_follows_the_span(host_lib, geometry, h):
+    """`ResampleTaps.span` is the highest tap + 1, and the launch stages the
+    planes where the span is at most 2.25h (built-in) or 3h (generic) and two
+    stages fit 48 KB: the main paths' spans at H = 1024, not the long
+    windows, nor spans wide beside a narrow H."""
+    base = {"bench": BENCH_CONFIG,
+            "44.1 kHz N=4410": TILE_WIDTHS[2205],
+            "N=2400": SpectrogramConfig(window_period=1200 / 48000.0),
+            "N=6400": SpectrogramConfig(window_period=3200 / 48000.0),
+            "N=8192": SpectrogramConfig(window_period=4096 / 48000.0),
+            "N=16384": SpectrogramConfig(window_period=8192 / 48000.0),
+            "48 kHz 0.5 s": SpectrogramConfig(window_period=0.5)}[geometry]
+    cfg = dataclasses.replace(base, viewport_height=h)
+    m = tcm.resample_matrix_full(cfg)
+    taps = tck.resample_taps(m)
+    assert taps.span == int(np.nonzero(m)[1].max()) + 1 <= taps.bins
+    got = tuple({1: "staged", 0: "direct"}[host_lib.colormap_host_form(taps.span, h, 32, g)]
+                for g in (0, 1))
+    assert got == FORMS[geometry, h]

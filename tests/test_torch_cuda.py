@@ -29,8 +29,17 @@ and a k=8 push bit for bit `process()`; the split-real forms over radix 7
 N = 16,400, Bluestein over M = 7^5) against torch.fft.rfft and their plain
 version;
 `colormap_rows_fused` bit for bit the generic kernel on two-tap matrices and
-within 1 u8 of its plain version on a four-tap one.
+within 1 u8 of its plain version on a four-tap one.  Kernel B and the
+generic kernel run as a tile (whole rows per CTA, the rows' planes staged
+in shared memory) at H = 1024 and 1021, and in their direct form at H = 64
+(a span wide beside the row's pixels), plane widths 2048 and 2205 (a left
+plane a float off 16 bytes), per-row and stream-major tables, one or 19
+tables: within 1 u8 of their plain versions, bit for bit the blockwise
+kernel (built-in), `colormap_rows_fused` (generic) and the static kernel;
+and in their direct form at N = 48,000.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -966,3 +975,99 @@ def test_colormap_rows_fused_four_taps(cuda):
     plain = ck.colormap_rows_fused_plain(rows, u, v, torch.from_numpy(m4).to(cuda), cfg)
     assert testing.rgba_u8_diff(got, plain) <= 1
     torch.testing.assert_close(got, ck.colormap_rows_fused(rows, u, v, m4, cfg), atol=0, rtol=0)
+
+
+# ------------------------------------------- kernel B and the generic tile
+
+TILE_WIDTHS = {2048: BENCH_CONFIG,                                       # N=4096
+               2205: SpectrogramConfig(sample_rate=44100.0, window_period=0.05)}  # 4410
+
+
+def _tile_tables(word, n_tables, device):
+    """Built-in tables, or (custom, 18 built-in) factors U and V: the first
+    n_tables of 19."""
+    if word == "builtin":
+        t = ck.builtin_color_tables()
+        return (torch.from_numpy(t if n_tables == 19 else t[3:4].copy()).to(device), None)
+    gu, gv = ck.generic_color_tables()
+    cu, cv = _custom_factors()
+    u, v = np.concatenate([cu, gu[:18]])[:n_tables], np.concatenate([cv, gv[:18]])[:n_tables]
+    return torch.from_numpy(u.copy()).to(device), torch.from_numpy(v.copy()).to(device)
+
+
+def _u8_diff_max(got, want) -> int:
+    return int((ck.unpack_rgba_device(got).int() - ck.unpack_rgba_device(want).int())
+               .abs().max())
+
+
+@pytest.mark.parametrize("word", ["builtin", "generic"])
+@pytest.mark.parametrize("n_tables", [1, 19])
+@pytest.mark.parametrize("rows_per_table", [1, 8])
+@pytest.mark.parametrize("bins", sorted(TILE_WIDTHS))
+@pytest.mark.parametrize("h", [64, 1024, 1021])
+def test_tile_kernels_match_plain_and_twins(cuda, h, bins, rows_per_table, n_tables, word):
+    """Kernel B and the generic kernel on 1,000 rows (no multiple of a
+    CTA's rows), the left plane a float past a 16-byte boundary, staged at
+    H = 1024 and 1021 and direct at H = 64: within 1 u8 of the plain version; kernel B bit for bit the blockwise kernel, the
+    generic kernel bit for bit `colormap_rows_fused` on the same two taps
+    and each row's tables, and with one table both bit for bit the static
+    kernel."""
+    cfg = dataclasses.replace(TILE_WIDTHS[bins], viewport_height=h)
+    rows = 1000
+    left, right = _windows(cfg, "chirp_tone", rows, cuda)
+    hann = torch.from_numpy(sk.packed_hann(cfg.window_size)).to(cuda)
+    ml, mr = sk.stft_mag_packed(left, right, hann, sk.fft_constants(cfg.padded_size, cuda))
+    assert ml.shape == (rows, bins)
+    buf = torch.zeros(rows * bins + 8, device=cuda)
+    buf[1 : 1 + rows * bins] = ml.reshape(-1)
+    ml = buf[1 : 1 + rows * bins].view(rows, bins)
+    matrix = cmap_ops.resample_matrix_full(cfg)
+    taps = ck.resample_taps(matrix, cuda)
+    u, v = _tile_tables(word, n_tables, cuda)
+    name = ck.KERNEL if v is None else ck.GENERIC_KERNEL
+    assert ck.tile_form(taps, 32, v is not None) == ("staged" if h > 1000 else "direct")
+    lib = _build.library()
+    before = lib.launches[name]
+    if v is None:
+        got = ck.colormap_builtin(ml, mr, taps, u, cfg, rows_per_table)
+        want = ck.colormap_builtin_plain(ml, mr, taps, u, cfg, rows_per_table)
+        twin = ck.colormap_blockwise(ml, mr, taps, u, cfg, rows_per_table, block_rows=128)
+        one = u[0].cpu().numpy()
+    else:
+        got = ck.colormap_generic(ml, mr, taps, u, v, cfg, rows_per_table)
+        want = ck.colormap_generic_plain(ml, mr, taps, u, v, cfg, rows_per_table)
+        pick = (torch.arange(rows, device=cuda) // rows_per_table) % n_tables
+        twin = ck.colormap_rows_fused(
+            torch.stack([ml, mr], 1), *(t[pick].view(rows, -1, 4) for t in (u, v)),
+            ck.resample_taps_k(matrix.T, cuda), cfg, packed=True)
+        one = (u[0].cpu().numpy(), v[0].cpu().numpy())
+    torch.cuda.synchronize()
+    assert lib.launches[name] == before + 1
+    assert _u8_diff_max(got, want) <= 1
+    torch.testing.assert_close(got, twin, atol=0, rtol=0)
+    if n_tables == 1:
+        torch.testing.assert_close(got, ck.colormap_static(ml, mr, taps, one, cfg),
+                                   atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("word", ["builtin", "generic"])
+def test_tile_direct_form_matches_plain(cuda, word):
+    """At N = 48,000 (planes of 24,000 bins) the tile reads the planes in
+    place: within 1 u8 of the plain version, per-row and stream-major."""
+    cfg = SpectrogramConfig(window_period=0.5)
+    rows = 300
+    rng = np.random.default_rng(5)
+    m = cmap_ops.resample_matrix_full(cfg)                  # [H, 24,000]
+    ml, mr = (torch.from_numpy(np.abs(rng.standard_normal((rows, m.shape[1])))
+                               .astype(np.float32) * 0.02).to(cuda) for _ in range(2))
+    taps = ck.resample_taps(m, cuda)
+    u, v = _tile_tables(word, 19, cuda)
+    assert ck.tile_form(taps, 32, v is not None) == "direct"
+    for rpt in (1, 8):
+        if v is None:
+            got = ck.colormap_builtin(ml, mr, taps, u, cfg, rpt)
+            want = ck.colormap_builtin_plain(ml, mr, taps, u, cfg, rpt)
+        else:
+            got = ck.colormap_generic(ml, mr, taps, u, v, cfg, rpt)
+            want = ck.colormap_generic_plain(ml, mr, taps, u, v, cfg, rpt)
+        assert _u8_diff_max(got, want) <= 1
