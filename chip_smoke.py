@@ -48,8 +48,10 @@ Phases, each of which fails the run with a non-zero exit:
      on the all-windows rows at DEFAULT_CONFIG; peak device memory.
  11. the serving mode's kernels: the blockwise colormap at 10,240 rows of
      BENCH_CONFIG, on sorted tables (uniform blocks) and scattered ones
-     (mixed blocks), bit for bit kernel B and within 1 u8 of its plain
-     version; the int16 forms of kernel A (N=4096, N=4800) and of the
+     (mixed blocks), in kernel B's staged form (the row tile), and at 4,096
+     rows of N=16,384 on sorted tables in kernel B's direct form (span
+     7,497), bit for bit kernel B and within 1 u8 of its plain version; the
+     int16 forms of kernel A (N=4096, N=4800) and of the
      all-windows kernel (k=8, 4096 streams) on chirp+tone PCM words, bit for
      bit the f32 kernels on x/32768 and within phase 3's bar of plain.
  12. the multi-tenant serving path, SpectrogramPipeline(BENCH_CONFIG,
@@ -68,8 +70,8 @@ Phases, each of which fails the run with a non-zero exit:
      per-row, sorted and full-serving pipelines at both populations (in
      turns: a b c c b a); each new kernel against its plain version, the f32
      kernel beside each int16 one, kernel B beside the blockwise one, and
-     the blockwise kernel at 32, 64 and 128 rows per CTA (every kernel in
-     device time); peak device memory.
+     the blockwise kernel at 32, 64 and 128 rows per block and in its direct
+     form at N=16,384 (every kernel in device time); peak device memory.
  14. the palette kernels, on 4096 rows of BENCH_CONFIG planes of chirp+tone
      and of noise (H=1024), each within 1 u8 of its plain version over what
      the image shows (noise: every channel everywhere): the generic colormap
@@ -197,7 +199,8 @@ Phases, each of which fails the run with a non-zero exit:
      with and without its next carry; the mixed-radix register passes,
      kernel A at N=4800 and 2204 (Bluestein) and the packed all-windows
      kernel at DEFAULT_CONFIG, k=8; kernel B and the generic kernel as a
-     row tile, per-row tables at 4,096 rows): each one's device time from
+     row tile, per-row tables at 4,096 rows; the blockwise colormap as
+     kernel B at 10,240 sorted serving rows): each one's device time from
      phases 6, 10, 13, 16, 17, 20, 22 and 23 beside its first version's
      (FIRST_VERSION_MS, from PERF.md), its library call and its bound; the
      split-real kernels at N=4096 also beside their times before the
@@ -252,6 +255,9 @@ CMAP_OPS_PER_PIXEL = 50     # kernel B's f32 operations per pixel, from its sour
 # builtin_word's 38 (colormap_common.cuh)
 CMAP_OPS_PER_PIXEL_GENERIC = CMAP_OPS_PER_PIXEL - 38 + 68
 PALETTE_REGISTRY = 4        # smoke-custom + 3 built-ins
+# where the blockwise colormap takes kernel B's direct form: N=16,384, span
+# 7,497 bins at H=1024
+LONG_COLORMAP = SpectrogramConfig(window_period=8192 / 48000.0)
 
 KERNELS = {
     sk.KERNEL: dict(
@@ -887,8 +893,9 @@ def display_path(cfg, dev, lib, main_launches: dict) -> dict:
 def serving_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign) -> None:
     """Phase 11, and phase 13's kernel times: the blockwise colormap at
     10,240 rows of BENCH_CONFIG on sorted tables (uniform blocks) and on
-    scattered ones (mixed blocks), bit for bit kernel B and within 1 u8 of
-    its plain version; the int16 forms of kernel A (N=4096, N=4800) and of
+    scattered ones (mixed blocks), staged, and at 4,096 rows of N=16,384 on
+    sorted tables, direct: bit for bit kernel B and within 1 u8 of its
+    plain version; the int16 forms of kernel A (N=4096, N=4800) and of
     the all-windows kernel (k=8, 4096 streams), bit for bit the f32 kernels
     on x / 32768 and within phase 3's bar of their plain versions."""
     cfg = BENCH_CONFIG
@@ -902,19 +909,7 @@ def serving_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign) -> N
     for layout, ids in (("sorted", np.sort(np.arange(rows) % 19)),
                         ("scattered", np.arange(rows) % 19)):
         tables = p.builtin_tables.index_select(0, torch.from_numpy(ids).to(dev)).contiguous()
-        got = ck.colormap_blockwise(ml, mr, p.taps, tables, cfg, block_rows=ts)
-        same = torch.equal(got, ck.colormap_builtin(ml, mr, p.taps, tables, cfg))
-        diff = testing.rgba_u8_diff(
-            ck.unpack_rgba_device(got),
-            ck.unpack_rgba_device(ck.colormap_blockwise_plain(ml, mr, p.taps, tables, cfg)))
-        blocks = [ids[b : b + ts] for b in range(0, rows, ts)]
-        uniform = sum(int((b == b[0]).all()) for b in blocks)
-        log(f"[11] colormap_blockwise, {rows} rows, {layout} tables: {uniform} of "
-            f"{len(blocks)} {ts}-row blocks uniform; {'equals' if same else 'DIFFERS from'} "
-            f"kernel B; max u8 diff {diff} against the plain version (bar 1)")
-        if not same or diff > 1:
-            fail("colormap_blockwise disagrees with kernel B or its plain version")
-        stats[name] = max(stats.get(name, 0), diff)
+        _blockwise_check(ml, mr, p.taps, tables, cfg, ts, ids, layout, "staged", stats)
         if layout == "sorted":
             b_ms = device_ms(lambda: ck.colormap_builtin(ml, mr, p.taps, tables, cfg))
             ms[name] = device_ms(lambda: ck.colormap_blockwise(ml, mr, p.taps, tables, cfg,
@@ -928,16 +923,35 @@ def serving_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign) -> N
                 f"device time (kernel B on the same tables {b_ms:.4f} ms; plain "
                 f"{plain_ms[name]:.4f} ms; bound {bounds[name][0]:.4f} ms by {bounds[name][1]}, "
                 f"sector floor {floor:.4f} ms)")
-            # the rows a CTA covers change no output; what they cost here
+            # block_rows changes no output, nor the launch
             sweep = {br: device_ms(lambda: ck.colormap_blockwise(ml, mr, p.taps, tables, cfg,
                                                                  block_rows=br))
                      for br in (32, 64, 128)}
             one = p.builtin_tables[:1].contiguous()
             one_ms = device_ms(lambda: ck.colormap_builtin(ml, mr, p.taps, one, cfg))
-            log("[13] colormap_blockwise by rows per CTA: " + ", ".join(
+            log("[13] colormap_blockwise by block_rows: " + ", ".join(
                 f"{br}: {t:.4f} ms" for br, t in sweep.items())
                 + f"; kernel B with one table for all rows {one_ms:.4f} ms")
-    del left, right, ml, mr, tables, got
+            redesign["blockwise sorted, 10240 rows"] = (ms[name], None, bounds[name][0])
+    del left, right, ml, mr, tables
+    # the direct form: the long windows' spans, sorted tables
+    lp = SpectrogramPipeline(LONG_COLORMAP, chunk_hops=1, store_ring=False,
+                             packed_output=True, device=dev)
+    rows = STREAMS
+    left, right = windows(LONG_COLORMAP, "chirp_tone", rows, dev)
+    ml, mr = sk.stft_mag_packed(left, right, lp.hann, lp.fft_consts)
+    ids = np.sort(np.arange(rows) % 19)
+    tables = lp.builtin_tables.index_select(0, torch.from_numpy(ids).to(dev)).contiguous()
+    ts = lp._cmap_ts(rows)
+    _blockwise_check(ml, mr, lp.taps, tables, LONG_COLORMAP, ts, ids, "sorted", "direct",
+                     stats)
+    t = device_ms(lambda: ck.colormap_blockwise(ml, mr, lp.taps, tables, LONG_COLORMAP,
+                                                block_rows=ts))
+    b_ms = device_ms(lambda: ck.colormap_builtin(ml, mr, lp.taps, tables, LONG_COLORMAP))
+    log(f"[13] colormap_blockwise at N={LONG_COLORMAP.padded_size}, {rows} rows, sorted "
+        f"tables, the direct form: {t:.4f} ms device time (kernel B {b_ms:.4f} ms; bound "
+        f"{bound(*cmap_work(rows, lp.taps, tables.numel()))[0]:.4f} ms)")
+    del left, right, ml, mr, tables
 
     hop = cfg.hop_size
     cases = (
@@ -990,6 +1004,30 @@ def serving_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign) -> N
             f"samples {f32_ms:.4f} ms; plain {plain_ms[name]:.4f} ms; torch.fft.fft "
             f"{library_ms[name]:.4f} ms; bound {bounds[name][0]:.4f} ms by {bounds[name][1]})")
         del words, scaled, got
+
+
+def _blockwise_check(ml, mr, taps, tables, cfg, ts, ids, layout: str, form: str,
+                     stats) -> None:
+    """Phase 11's bars for one call of the blockwise colormap: the `form`
+    its launch takes, bit for bit kernel B on the same tables, within 1 u8
+    of its plain version."""
+    rows = ml.shape[0]
+    got = ck.colormap_blockwise(ml, mr, taps, tables, cfg, block_rows=ts)
+    same = torch.equal(got, ck.colormap_builtin(ml, mr, taps, tables, cfg))
+    diff = testing.rgba_u8_diff(
+        ck.unpack_rgba_device(got),
+        ck.unpack_rgba_device(ck.colormap_blockwise_plain(ml, mr, taps, tables, cfg)))
+    blocks = [ids[b : b + ts] for b in range(0, rows, ts)]
+    uniform = sum(int((b == b[0]).all()) for b in blocks)
+    got_form = ck.tile_form(taps, cfg.lut_resolution)
+    log(f"[11] colormap_blockwise at N={cfg.padded_size}, {rows} rows, {layout} tables, "
+        f"the {got_form} form (span {taps.span}): {uniform} of "
+        f"{len(blocks)} {ts}-row blocks uniform; {'equals' if same else 'DIFFERS from'} "
+        f"kernel B; max u8 diff {diff} against the plain version (bar 1)")
+    if got_form != form or not same or diff > 1:
+        fail(f"colormap_blockwise: not the {form} form, or disagrees with kernel B or its "
+             f"plain version")
+    stats[ck.BLOCKWISE_KERNEL] = max(stats.get(ck.BLOCKWISE_KERNEL, 0), diff)
 
 
 def serving_path(s: int, dev, lib, main_launches: dict) -> dict:
@@ -1678,6 +1716,8 @@ ODD_735 = SpectrogramConfig(sample_rate=44100.0, window_period=245 / 44100.0,
 # mixed-radix stage and its twiddles read from the table, and the
 # all-windows kernel at DEFAULT_CONFIG as first measured; kernel B and the
 # generic kernel with one pixel per thread and one row per CTA (device time);
+# the blockwise colormap at 10,240 sorted serving rows with one CTA per
+# block of rows and 128 pixels, before it ran as kernel B (device time);
 # 4096 rows unless named
 FIRST_VERSION_MS = {
     "stft_split N=4096": 0.7932, "stft_split_t N=4096": 0.8231,
@@ -1691,6 +1731,7 @@ FIRST_VERSION_MS = {
     "stft_allk N=4096 k=8": 3.1884, "stft_allk_carry N=4096 k=8": 3.1917,
     "kernel A N=4800": 0.5696, "kernel A N=2204": 0.4092, "stft_allk N=4800 k=8": 4.3991,
     "kernel B per-row, 4096 rows": 0.0443, "generic per-row, 4096 rows": 0.0577,
+    "blockwise sorted, 10240 rows": 0.1386,
 }
 # The split-real kernels' device times before the radix-2 register passes
 # (PERF.md, H100 80GB HBM3, 700 W)

@@ -1,5 +1,7 @@
-// The tile of kernel B (colormap_builtin.cu) and the generic kernel
-// (colormap_generic.cu): one design, templated on the word.
+// The tile of kernel B (colormap_builtin.cu), the blockwise colormap
+// (colormap_blockwise.cu: kernel B's function and launch under its own
+// export) and the generic kernel (colormap_generic.cu): one design,
+// templated on the word.
 //
 // A CTA colors whole rows.  Its threads take kTilePixels = 4 pixels each
 // (256 threads cover H = 1024 in one sweep; a narrower H takes fewer warps,
@@ -426,9 +428,9 @@ __global__ void __launch_bounds__(kDirectThreads) colormap_direct_kernel(
   }
 }
 
-// Launch kernel B (kGeneric false) or the generic kernel in the form
-// `span` allows; returns the launch's error (cudaErrorInvalidValue for a
-// span outside [1, bins]).
+// Launch kernel B or the blockwise colormap (kGeneric false), or the
+// generic kernel, in the form `span` allows; returns the launch's error
+// (cudaErrorInvalidValue for a span outside [1, bins]).
 template <bool kGeneric>
 int launch_tile(const TileArgs& a, unsigned* out, cudaStream_t stream) {
   if (a.span < 1 || a.span > a.bins) return static_cast<int>(cudaErrorInvalidValue);

@@ -64,14 +64,15 @@ KERNELS = {
         _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _F, _F, _F, _F, _P, _P,
         _P, _I, _I, _I, _P,
     ),
-    # kernel B and the generic kernel take the taps' span after the bins
+    # kernel B, the blockwise colormap and the generic kernel take the taps'
+    # span after the bins
     "spk_colormap_builtin": (
         _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _F, _F, _F, _F,
         _P, _P,
     ),
     "spk_colormap_blockwise": (
-        _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _F, _F, _F,
-        _P, _P,
+        _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _F, _F,
+        _F, _P, _P,
     ),
     "spk_colormap_generic": (
         _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _F, _F,

@@ -12,9 +12,10 @@ in byte 0.
 
 The blockwise colormap, `colormap_blockwise`, replaces the same entry's
 `_blockwise_builtin_kernel` (with `_blockwise_operands`): it computes kernel
-B's function, and a block of rows whose tables are all equal reads one
-staged table.  Its plain version is `colormap_builtin_plain` itself, since
-the function is the same (`colormap_blockwise_plain` names it so).
+B's function and launches kernel B's code under its own entry point (the
+TPU's per-block table flag cannot pay on the card: it reads what it would
+save).  Its plain version is `colormap_builtin_plain` itself, since the
+function is the same (`colormap_blockwise_plain` names it so).
 
 The generic colormap, `colormap_generic`, replaces the bodies
 `_generic_kernel` (per-row tables) and `_uniform_generic_kernel` (one table):
@@ -29,12 +30,14 @@ The TPU kernels needed a banded matmul for the two-tap resample, a tent
 basis for the LUT read and SMEM or compile-time tables, all to avoid
 gathers.  Here the resample is a tap table (`resample_taps`) and each pixel
 reads its two bins and its LUT entries directly; the laws and their rounding
-are the JAX kernels'.  Kernel B and the generic kernel share one tile
-(`csrc/colormap_tile.cuh`): whole rows per CTA, each row's planes over
-[0, `ResampleTaps.span`) and its tables copied into shared memory a row
-ahead of use ("staged"), or, where the span is wide beside the row's
-pixels (the long windows), the first kernels' one pixel per thread
-("direct"); `tile_form` says which.
+are the JAX kernels'.  Kernel B, the blockwise colormap and the generic
+kernel share one tile (`csrc/colormap_tile.cuh`): whole rows per CTA, each
+row's planes over [0, `ResampleTaps.span`) and its tables copied into
+shared memory a row ahead of use ("staged"), or, where the span is wide
+beside the row's pixels (the long windows), the first kernels' one pixel
+per thread ("direct"); `tile_form` says which.  The static colormap keeps
+one pixel per thread with its palette in shared memory: staged on the tile
+it ran slower at every span measured (PERF.md §6).
 
 Host helpers (`builtin_color_tables`, `generic_color_tables`,
 `unpack_rgba`, and `_auto_blocks`, `band_segments`, `_banded_worthwhile`,
@@ -367,8 +370,8 @@ def _launch(name: str, mag_l, mag_r, taps, cfg, res: int, tables: tuple,
     """Launch colormap kernel `name` on CUDA tensors.  `tables` are the
     device tensors among its operands (checked as the planes are);
     `table_args` the arguments its C entry takes between `h` and
-    `min_db`; `span`, where given, goes after the bins (kernel B and the
-    generic kernel)."""
+    `min_db`; `span`, where given, goes after the bins (kernel B, the
+    blockwise colormap and the generic kernel)."""
     if mag_l.device.type != "cuda":
         raise ValueError(f"no colormap kernel for device {mag_l.device}")
     checks = (
@@ -409,13 +412,13 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def tile_form(taps: ResampleTaps, res: int, generic: bool = False) -> str:
-    """The form kernel B (or the generic kernel) takes on the card for
-    `taps` and `res`-entry tables: "staged" (each row's planes over [0,
-    taps.span) copied into shared memory) where the span is at most 2.25x
-    the taps' pixels (3x generic) and two stages fit 48 KB, else "direct"
-    (`csrc/colormap_tile.cuh` `tile_staged`, through its export
-    `spk_colormap_form`, whose int operands and result are ctypes' defaults;
-    builds the kernels)."""
+    """The form kernel B and the blockwise colormap (or the generic kernel)
+    take on the card for `taps` and `res`-entry tables: "staged" (each row's
+    planes over [0, taps.span) copied into shared memory) where the span is
+    at most 2.25x the taps' pixels (3x generic) and two stages fit 48 KB,
+    else "direct" (`csrc/colormap_tile.cuh` `tile_staged`, through its
+    export `spk_colormap_form`, whose int operands and result are ctypes'
+    defaults; builds the kernels)."""
     from spectrogram_tpu_torch.ops.cuda import _build
 
     staged = _build.library()._dll.spk_colormap_form(taps.span, taps.j0.shape[0], res,
@@ -445,34 +448,28 @@ def colormap_builtin(mag_l: torch.Tensor, mag_r: torch.Tensor,
                    span=taps.span)
 
 
-# a uniform block stages its table in at most 48 KB of shared memory
-MAX_BLOCKWISE_RES = 48 * 1024 // 16
-
-
 def colormap_blockwise(mag_l: torch.Tensor, mag_r: torch.Tensor,
                        taps: ResampleTaps, tables: torch.Tensor,
                        cfg: SpectrogramConfig, rows_per_table: int = 1,
                        block_rows: int = 128) -> torch.Tensor:
     """`colormap_builtin`'s function, with the rows taken in blocks of
-    `block_rows`: a block whose rows all read equal tables reads that one
-    table, staged once; a mixed block reads per-row tables.  The output is
-    kernel B's, bit for bit.
+    `block_rows`.  The output is kernel B's, bit for bit, whatever the
+    blocks.
 
     CPU tensors take the plain version; CUDA tensors take the blockwise
-    kernel."""
+    kernel's entry, which runs kernel B's code in the form `tile_form`
+    names."""
     _check(mag_l, mag_r, taps, tables, rows_per_table)
-    res = tables.shape[1] // 4
-    if block_rows < 1 or res > MAX_BLOCKWISE_RES:
-        raise ValueError(
-            f"block_rows={block_rows} and {res}-entry tables "
-            f"do not fit the blockwise kernel (at most {MAX_BLOCKWISE_RES})"
-        )
+    if block_rows < 1:
+        raise ValueError(f"block_rows must be at least 1; got {block_rows}")
     if mag_l.device.type == "cpu":
         return colormap_blockwise_plain(mag_l, mag_r, taps, tables, cfg,
                                         rows_per_table)
+    res = tables.shape[1] // 4
+    tables = _aligned(tables)
     return _launch(BLOCKWISE_KERNEL, mag_l, mag_r, taps, cfg, res, (tables,),
                    tables.data_ptr(), tables.shape[0], rows_per_table, res,
-                   block_rows)
+                   block_rows, span=taps.span)
 
 
 def colormap_generic(mag_l: torch.Tensor, mag_r: torch.Tensor,

@@ -36,8 +36,16 @@ block (32,768 rows of 2,047-bin ring planes, 16 streams,
 `rows_per_table` = 2,048); 10,240 serving rows; H=1021; H=512 at N=2400,
 4096 and 6400; N=4410 (B=2205);
 the spans between the main paths' and the long windows' (N=6400, 8192,
-12,000 and 15,360: spans 2,930, 3,749, 5,491 and 7,029 bins); N=16,384 and N=48,000 (the long windows).  It needs
-a CUDA card.
+12,000 and 15,360: spans 2,930, 3,749, 5,491 and 7,029 bins); N=16,384 and
+N=48,000 (the long windows).  Then the blockwise colormap
+(`colormap_blockwise`, `BLOCKWISE_KEYS`) on 10,240 BENCH_CONFIG rows with
+sorted tables (uniform blocks) and scattered ones (mixed blocks), each row
+holding its own copy as the serving state does, at the serving pipeline's
+`block_rows` and at 32, and at spans where kernel B takes its direct form
+(H=512; N=6400, 8192, 16,384 and 48,000); and the static colormap
+(`colormap_static`, `STATIC_KEYS`) on Magma and on smoke-custom at 4,096
+rows of BENCH_CONFIG, of the spans above and of N=16,384 and 48,000.  It
+needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -101,14 +109,40 @@ COLORMAP_KEYS = (
 )
 
 
+# (label, config, rows, tables, block_rows): the blockwise colormap with row
+# n reading its own copy of built-in palette ids[n], ids "sorted"
+# (sort(arange(rows) % 19): uniform blocks) or "scattered" (arange(rows) %
+# 19: mixed blocks); block_rows None takes the k=1 serving pipeline's
+# (`_cmap_ts`: 128 at BENCH_CONFIG)
+BLOCKWISE_KEYS = (
+    ("sorted 10240 rows", "bench", 10240, "sorted", None),
+    ("scattered 10240 rows", "bench", 10240, "scattered", None),
+    ("sorted 10240 rows br=32", "bench", 10240, "sorted", 32),
+    ("scattered 10240 rows br=32", "bench", 10240, "scattered", 32),
+    ("H=512", "h512", 4096, "sorted", None),
+    ("N=6400", "n6400", 4096, "sorted", None),
+    ("N=8192", "n8192", 4096, "sorted", None),
+    ("N=16384", "n16384", 4096, "sorted", None),
+    ("N=48000", "n48000", 4096, "sorted", None),
+)
+# (label, config): the static colormap on ROWS rows, Magma and smoke-custom
+STATIC_KEYS = (
+    ("4096 rows", "bench"), ("H=1021", "h1021"), ("N=4410", "n4410"),
+    ("N=6400", "n6400"), ("N=8192", "n8192"), ("H=512 N=2400", "h512n2400"),
+    ("H=512", "h512"), ("H=512 N=6400", "h512n6400"), ("N=16384", "n16384"),
+    ("N=48000", "n48000"),
+)
+
+
 def _colormap_worker() -> None:
     import dataclasses
 
     import numpy as np
     import torch
 
-    from spectrogram_tpu_torch.color.colorscheme import stacked_factored_tables
+    from spectrogram_tpu_torch.color.colorscheme import scheme_index, stacked_factored_tables
     from spectrogram_tpu_torch.config import BENCH_CONFIG, DEFAULT_CONFIG, SpectrogramConfig
+    from spectrogram_tpu_torch.models.spectrogram import SpectrogramPipeline
     from spectrogram_tpu_torch.ops import colormap as cmap_ops
     from spectrogram_tpu_torch.ops.cuda import _build
     from spectrogram_tpu_torch.ops.cuda import colormap_kernel as ck
@@ -139,18 +173,29 @@ def _colormap_worker() -> None:
     generic = torch.cat([cu, u]), torch.cat([cv, v])            # 20 palettes
     planes = {}
     out, digests, forms = {}, {}, {}
-    for label, geometry, rows, source, layout, rpt in COLORMAP_KEYS:
-        cfg = configs[geometry]
+
+    def planes_of(geometry, rows):
+        """[rows, N/2] chirp+tone magnitude planes of the plain STFT."""
         key = (geometry, rows)
         if key not in planes:
             planes.clear()
             torch.cuda.empty_cache()
+            cfg = configs[geometry]
             left, right = tools.chirp_tone_planes(rows, cfg.window_size, cfg.sample_rate,
                                                   1, dev)
             hann = torch.from_numpy(sk.packed_hann(cfg.window_size)).to(dev)
             planes[key] = sk.stft_mag_packed_plain(left, right, hann, cfg.padded_size)
-            del left, right
-        ml, mr = planes[key]
+        return planes[key]
+
+    def record(name, fn, form=None):
+        out[name] = tools.device_ms(fn, iters=10)
+        digests[name] = hashlib.sha256(fn().cpu().numpy().tobytes()).hexdigest()[:16]
+        if form is not None:
+            forms[name] = form
+
+    for label, geometry, rows, source, layout, rpt in COLORMAP_KEYS:
+        cfg = configs[geometry]
+        ml, mr = planes_of(geometry, rows)
         matrix = cmap_ops.resample_matrix_full(cfg)
         if source == "ring":
             w = cfg.window_size
@@ -166,12 +211,31 @@ def _colormap_worker() -> None:
         for word, fn in (
                 ("kernel B", lambda: ck.colormap_builtin(ml, mr, taps, tb, cfg, rpt)),
                 ("generic", lambda: ck.colormap_generic(ml, mr, taps, gu, gv, cfg, rpt))):
-            name = f"{word} {label}"
-            out[name] = tools.device_ms(fn, iters=10)
-            digests[name] = hashlib.sha256(
-                fn().cpu().numpy().tobytes()).hexdigest()[:16]
-            if hasattr(ck, "tile_form"):
-                forms[name] = ck.tile_form(taps, 32, word == "generic")
+            record(f"{word} {label}", fn,
+                   ck.tile_form(taps, 32, word == "generic") if hasattr(ck, "tile_form")
+                   else None)
+        del ml, mr
+    for label, geometry, rows, layout, block_rows in BLOCKWISE_KEYS:
+        cfg = configs[geometry]
+        ml, mr = planes_of(geometry, rows)
+        taps = ck.resample_taps(cmap_ops.resample_matrix_full(cfg), dev)
+        ids = np.arange(rows) % 19
+        tb = builtin.index_select(0, torch.from_numpy(
+            np.sort(ids) if layout == "sorted" else ids).to(dev)).contiguous()
+        br = block_rows or SpectrogramPipeline(cfg, chunk_hops=1, store_ring=False,
+                                               device=dev)._cmap_ts(rows)
+        record(f"blockwise {label}",
+               lambda: ck.colormap_blockwise(ml, mr, taps, tb, cfg, block_rows=br))
+        del ml, mr, tb
+    magma = ck.builtin_color_tables()[scheme_index("Magma")]
+    custom = tuple(t.reshape(-1) for t in tools.custom_factors())
+    for label, geometry in STATIC_KEYS:
+        cfg = configs[geometry]
+        ml, mr = planes_of(geometry, ROWS)
+        taps = ck.resample_taps(cmap_ops.resample_matrix_full(cfg), dev)
+        for word, table in (("Magma", magma), ("smoke-custom", custom)):
+            record(f"static {word} {label}",
+                   lambda: ck.colormap_static(ml, mr, taps, table, cfg))
         del ml, mr
     print("TIMES " + json.dumps(out), flush=True)
     print("DIGESTS " + json.dumps(digests), flush=True)

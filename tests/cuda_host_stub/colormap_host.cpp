@@ -2,8 +2,8 @@
 // library: one call colors `rows` rows of magnitude planes, every pixel as
 // one thread of the kernels would, with the built-in body (v = null) or the
 // generic body, row n reading the tables at (n / rows_per_table) % n_tables;
-// and kernel B's and the generic kernel's tile (colormap_tile.cuh) with each
-// CTA's loop run in turn.
+// and the tile (colormap_tile.cuh) with each CTA's loop run in turn, as
+// kernel B, the blockwise colormap and the generic kernel launch it.
 #include <cstddef>
 #include <cmath>
 #include <cstring>
@@ -125,6 +125,22 @@ extern "C" int colormap_host_tile(const float* mag_l, const float* mag_r,
   if (span < 1 || span > bins) return 1;
   const CountedOut o{out, count};
   return v == nullptr ? host_tile<false>(a, o) : host_tile<true>(a, o);
+}
+
+// spk_colormap_blockwise's arguments as it hands them to kernel B's launch,
+// the tile run as colormap_host_tile runs it (the row blocks change
+// nothing): out and count as there.  Returns 3 where the entry refuses
+// block_rows, else colormap_host_tile's code.
+extern "C" int colormap_host_blockwise(
+    const float* mag_l, const float* mag_r, int rows, int bins, int span,
+    const int* j0, const int* j1, const float* w0, const float* w1, int h,
+    const float* tables, int n_tables, int rows_per_table, int res,
+    int block_rows, float min_db, float db_range, float db_eps,
+    float inv_res1, unsigned* out, int* count) {
+  if (block_rows < 1) return 3;
+  return colormap_host_tile(mag_l, mag_r, rows, bins, span, j0, j1, w0, w1, h,
+                            tables, nullptr, n_tables, rows_per_table, res,
+                            min_db, db_range, db_eps, inv_res1, out, count);
 }
 
 // colormap_tile.cuh `tile_staged`, as spk_colormap_form answers it: 1 where

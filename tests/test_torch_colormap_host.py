@@ -11,12 +11,13 @@ bar is 1 u8 per channel against the plain PyTorch versions (the host's
 log10f and PyTorch's may round differently); a wrong table entry, channel
 or association gives far more.  Without a C++ compiler the tests skip.
 
-Kernel B and the generic kernel color rows through a tile
-(`csrc/colormap_tile.cuh`): whole rows per CTA, four pixels per thread,
-each row's planes and tables copied into a stage of shared memory.  The
-stub runs each CTA's loop in turn with the header's own index code, the
-stage an array and each copy a memcpy; its words must equal the per-pixel
-rows bit for bit, every (row, pixel) stored exactly once.
+Kernel B, the blockwise colormap (kernel B's code under its own entry) and
+the generic kernel color rows through a tile (`csrc/colormap_tile.cuh`):
+whole rows per CTA, four pixels per thread, each row's planes and tables
+copied into a stage of shared memory.  The stub runs each CTA's loop in
+turn with the header's own index code, the stage an array and each copy a
+memcpy; its words must equal the per-pixel rows bit for bit, every (row,
+pixel) stored exactly once.
 """
 
 import ctypes
@@ -65,6 +66,9 @@ def host_lib(tmp_path_factory):
     lib.colormap_host_tile.argtypes = (p, p, i, i, i, p, p, p, p, i, p, p, i, i, i,
                                        f, f, f, f, p, p)
     lib.colormap_host_tile.restype = i
+    lib.colormap_host_blockwise.argtypes = (p, p, i, i, i, p, p, p, p, i, p, i, i, i, i,
+                                            f, f, f, f, p, p)
+    lib.colormap_host_blockwise.restype = i
     lib.colormap_host_form.argtypes = (i, i, i, i)
     lib.colormap_host_form.restype = i
     return lib
@@ -173,8 +177,10 @@ def _tile_tables(word: str, n_tables: int):
     return u[:n_tables].contiguous(), v[:n_tables].contiguous()
 
 
-def _host_tile(lib, planes, taps, u, v, cfg, rows_per_table):
-    """(words, stores per word) of the tile's host run."""
+def _host_tile(lib, planes, taps, u, v, cfg, rows_per_table, block_rows=None):
+    """(words, stores per word) of the tile's host run: kernel B, or the
+    generic kernel where v is given; the blockwise entry where `block_rows`
+    is given."""
     (bl, ol), (br, orr) = planes
     bins = (bl.size - 8) // TILE_ROWS
     h = taps.j0.shape[0]
@@ -184,12 +190,17 @@ def _host_tile(lib, planes, taps, u, v, cfg, rows_per_table):
     tap_arrays = [np.ascontiguousarray(t.numpy()) for t in taps[:4]]
     u_arr = np.ascontiguousarray(u.numpy())
     v_arr = None if v is None else np.ascontiguousarray(v.numpy())
-    code = lib.colormap_host_tile(
-        bl.ctypes.data + 4 * ol, br.ctypes.data + 4 * orr, TILE_ROWS, bins, taps.span,
-        *(a.ctypes.data for a in tap_arrays), h, u_arr.ctypes.data,
-        None if v_arr is None else v_arr.ctypes.data, u.shape[0], rows_per_table, res,
-        cfg.min_db, cfg.max_db - cfg.min_db, cfg.db_epsilon, 1.0 / (res - 1),
-        out.ctypes.data, count.ctypes.data)
+    v_ptr = None if v_arr is None else v_arr.ctypes.data
+    head = (bl.ctypes.data + 4 * ol, br.ctypes.data + 4 * orr, TILE_ROWS, bins, taps.span,
+            *(a.ctypes.data for a in tap_arrays), h)
+    laws = (cfg.min_db, cfg.max_db - cfg.min_db, cfg.db_epsilon, 1.0 / (res - 1),
+            out.ctypes.data, count.ctypes.data)
+    if block_rows is None:
+        code = lib.colormap_host_tile(*head, u_arr.ctypes.data, v_ptr, u.shape[0],
+                                      rows_per_table, res, *laws)
+    else:
+        code = lib.colormap_host_blockwise(*head, u_arr.ctypes.data, u.shape[0],
+                                           rows_per_table, res, block_rows, *laws)
     assert code == 0, f"the tile's host run refused ({code})"
     return out.view(np.int32), count
 
@@ -212,7 +223,42 @@ def test_tile_writes_every_pixel_once_with_the_pixel_bits(host_lib, h, bins,
     np.testing.assert_array_equal(got, want)
 
 
-# (geometry, width) -> the form kernel B and the generic kernel take
+@pytest.mark.parametrize("layout", ["uniform copies", "mixed copies", "uniform shared"])
+@pytest.mark.parametrize("block_rows", [8, 128])
+@pytest.mark.parametrize("bins", sorted(TILE_WIDTHS))
+@pytest.mark.parametrize("h", [64, 1024, 1021])
+def test_blockwise_tile_writes_every_pixel_once_with_the_pixel_bits(host_lib, h, bins,
+                                                                    block_rows, layout):
+    """The blockwise colormap's staged form on 37 rows (no multiple of
+    `block_rows`): blocks of one palette whose rows hold copies of it
+    (equal bytes at different addresses, as the sorted state's per-row
+    tables), mixed blocks, and blocks whose rows share one table by
+    address (`rows_per_table` = `block_rows`); every pixel stored once, the
+    per-pixel rows' bits."""
+    cfg, (ml, mr), planes, taps = _tile_operands(bins, h)
+    builtin = torch.from_numpy(tck.builtin_color_tables(32))
+    rows = torch.arange(TILE_ROWS)
+    tables, rpt = {"uniform copies": (builtin[(rows // block_rows) % 19], 1),
+                   "mixed copies": (builtin[rows % 19], 1),
+                   "uniform shared": (builtin, block_rows)}[layout]
+    tables = tables.contiguous()
+    got, count = _host_tile(host_lib, planes, taps, tables, None, cfg, rpt, block_rows)
+    np.testing.assert_array_equal(count, 1)
+    np.testing.assert_array_equal(got, _host_rows(host_lib, ml, mr, taps, tables, None, cfg,
+                                                  rpt))
+
+
+def test_blockwise_entry_refuses_what_the_launch_refuses(host_lib):
+    """block_rows < 1 and a span past the bins."""
+    cfg, _, planes, taps = _tile_operands(2048, 64)
+    table = torch.from_numpy(tck.builtin_color_tables(32)[:1])
+    for t, block_rows in ((taps, 0), (taps._replace(span=2049), 8)):
+        with pytest.raises(AssertionError, match="refused"):
+            _host_tile(host_lib, planes, t, table, None, cfg, 1, block_rows)
+
+
+# (geometry, width) -> the form kernel B (and the blockwise colormap) and
+# the generic kernel take
 FORMS = {
     ("bench", 1024): ("staged", "staged"),                               # span 1875
     ("bench", 1021): ("staged", "staged"),
@@ -223,6 +269,7 @@ FORMS = {
     ("48 kHz 0.5 s", 1024): ("direct", "direct"),                        # span 21,961
     ("N=2400", 512): ("staged", "staged"),                               # span 1096
     ("bench", 512): ("direct", "direct"),                                # span 1869
+    ("N=6400", 512): ("direct", "direct"),                               # span 2920
     ("bench", 64): ("direct", "direct"),
 }
 

@@ -36,7 +36,9 @@ in shared memory) at H = 1024 and 1021, and in their direct form at H = 64
 plane a float off 16 bytes), per-row and stream-major tables, one or 19
 tables: within 1 u8 of their plain versions, bit for bit the blockwise
 kernel (built-in), `colormap_rows_fused` (generic) and the static kernel;
-and in their direct form at N = 48,000.
+and in their direct form at N = 48,000.  The blockwise colormap runs kernel
+B's code under its own entry: bit for bit kernel B on sorted and scattered
+per-row tables at geometries that take both forms.
 """
 
 import dataclasses
@@ -1071,3 +1073,48 @@ def test_tile_direct_form_matches_plain(cuda, word):
             got = ck.colormap_generic(ml, mr, taps, u, v, cfg, rpt)
             want = ck.colormap_generic_plain(ml, mr, taps, u, v, cfg, rpt)
         assert _u8_diff_max(got, want) <= 1
+
+
+# ------------------------------------------- the blockwise colormap's forms
+
+FORM_GEOMETRIES = (  # (config, H): kernel B's staged and direct forms
+    (BENCH_CONFIG, 1024), (BENCH_CONFIG, 64),
+    (SpectrogramConfig(window_period=1200 / 48000.0), 512),
+    (SpectrogramConfig(window_period=0.5), 1024),
+)
+
+
+@pytest.mark.parametrize("layout", ["sorted", "scattered"])
+def test_blockwise_forms_equal_kernel_b(cuda, layout):
+    """The blockwise colormap bit for bit kernel B on sorted (uniform
+    blocks) and scattered per-row table copies, within 1 u8 of its plain
+    version, on 1,000 rows (no multiple of block_rows; a left plane a float
+    past 16 bytes) at geometries that take both of kernel B's forms, with
+    its own launch count."""
+    lib = _build.library()
+    rows = 1000
+    ids = np.arange(rows) % 19
+    ids = np.sort(ids) if layout == "sorted" else ids
+    forms = set()
+    for base, h in FORM_GEOMETRIES:
+        cfg = dataclasses.replace(base, viewport_height=h)
+        left, right = _windows(cfg, "chirp_tone", rows, cuda)
+        hann = torch.from_numpy(sk.packed_hann(cfg.window_size)).to(cuda)
+        ml, mr = sk.stft_mag_packed_plain(left, right, hann, cfg.padded_size)
+        bins = ml.shape[1]
+        buf = torch.zeros(rows * bins + 8, device=cuda)
+        buf[1 : 1 + rows * bins] = ml.reshape(-1)
+        ml = buf[1 : 1 + rows * bins].view(rows, bins)
+        taps = ck.resample_taps(cmap_ops.resample_matrix_full(cfg), cuda)
+        tables = torch.from_numpy(ck.builtin_color_tables()[ids]).to(cuda)
+        before = (lib.launches[ck.BLOCKWISE_KERNEL], lib.launches[ck.KERNEL])
+        got = ck.colormap_blockwise(ml, mr, taps, tables, cfg, block_rows=128)
+        torch.cuda.synchronize()
+        assert (lib.launches[ck.BLOCKWISE_KERNEL], lib.launches[ck.KERNEL]) == (
+            before[0] + 1, before[1])
+        torch.testing.assert_close(got, ck.colormap_builtin(ml, mr, taps, tables, cfg),
+                                   atol=0, rtol=0)
+        want = ck.colormap_blockwise_plain(ml, mr, taps, tables, cfg)
+        assert _u8_diff_max(got, want) <= 1
+        forms.add(ck.tile_form(taps, 32))
+    assert forms == {"staged", "direct"}
