@@ -190,8 +190,10 @@ Phases, each of which fails the run with a non-zero exit:
      colormap_generic on copies of the planes, u8 == the packed bytes, a
      4-tap matrix within 1 u8; the functional path (the verify recipe's
      chirp + tone at 48 kHz, stft_rows_planar -> colormap_rows_fused)
-     within 1 u8 of rgba_f32_to_u8(colormap_rows(...)); device time, plain,
-     bound.
+     within 1 u8 of rgba_f32_to_u8(colormap_rows(...)); the kernel each
+     call launched, as the kernel reports it (the generic row tile staged at
+     BENCH_CONFIG and direct on the functional path's H=512, one pixel per
+     thread at four taps); device time, plain, bound.
  25. the redesigned kernels (the split-real pack; radix 7; the large-N
      route's two passes, packed f32 and int16 at N=48,000, packed at
      N=32,768, split-real at N=65,536; the radix-2 register passes, kernel
@@ -200,11 +202,15 @@ Phases, each of which fails the run with a non-zero exit:
      kernel A at N=4800 and 2204 (Bluestein) and the packed all-windows
      kernel at DEFAULT_CONFIG, k=8; kernel B and the generic kernel as a
      row tile, per-row tables at 4,096 rows; the blockwise colormap as
-     kernel B at 10,240 sorted serving rows): each one's device time from
-     phases 6, 10, 13, 16, 17, 20, 22 and 23 beside its first version's
-     (FIRST_VERSION_MS, from PERF.md), its library call and its bound; the
-     split-real kernels at N=4096 also beside their times before the
-     radix-2 passes (BEFORE_PASSES_MS).
+     kernel B at 10,240 sorted serving rows; the split-real row's load
+     fused into its first pass, in the split-real kernels and the fused
+     push at N=4096; colormap_rows_fused on the generic row tile at 4,096
+     planar rows): each one's device time from phases 6, 10, 13, 16, 17,
+     20, 22, 23 and 24 beside its first version's (FIRST_VERSION_MS, from
+     PERF.md), its library call and its bound; the split-real kernels and
+     the fused push at N=4096 also beside their times before the radix-2
+     passes (BEFORE_PASSES_MS) and before the fused load
+     (BEFORE_FUSED_LOAD_MS, with colormap_rows_fused before the tile).
 
 Then the whole run's seconds.  The second-to-last line is {"kernels": [...]}:
 each kernel's launches on the main paths (phases 5, 9, 12, 15, 18, 21, 22,
@@ -768,7 +774,8 @@ def main() -> int:
     # -- 24. colormap_rows_fused at full width, and the functional path --------
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    rows_fused(dev, lib, main_launches, stats, ms, plain_ms, bounds, library_ms, power_line)
+    rows_fused(dev, lib, main_launches, stats, ms, plain_ms, bounds, library_ms, power_line,
+               redesign)
 
     # -- 25. the redesigned kernels beside their first versions --------------
     for label, first in FIRST_VERSION_MS.items():
@@ -777,6 +784,9 @@ def main() -> int:
         t, lib_t, b = redesign[label]
         before = (f", before the radix-2 passes {BEFORE_PASSES_MS[label]:.4f} ms"
                   if label in BEFORE_PASSES_MS else "")
+        if label in BEFORE_FUSED_LOAD_MS:
+            before += (f", before the fused load and the tile "
+                       f"{BEFORE_FUSED_LOAD_MS[label]:.4f} ms")
         library = ("library none" if lib_t is None
                    else f"library {lib_t:.4f} ms, {t / lib_t:.2f}x it")
         log(f"[25] {label}: {t:.4f} ms device time (first version {first:.4f} ms, "
@@ -1717,8 +1727,9 @@ ODD_735 = SpectrogramConfig(sample_rate=44100.0, window_period=245 / 44100.0,
 # all-windows kernel at DEFAULT_CONFIG as first measured; kernel B and the
 # generic kernel with one pixel per thread and one row per CTA (device time);
 # the blockwise colormap at 10,240 sorted serving rows with one CTA per
-# block of rows and 128 pixels, before it ran as kernel B (device time);
-# 4096 rows unless named
+# block of rows and 128 pixels, before it ran as kernel B (device time); the
+# fused push with the N-point split-real row; colormap_rows_fused with one
+# pixel per thread (device time); 4096 rows unless named
 FIRST_VERSION_MS = {
     "stft_split N=4096": 0.7932, "stft_split_t N=4096": 0.8231,
     "stft_split_allk N=4096 k=8": 6.2293, "stft_split_tsplit N=4096": 0.8144,
@@ -1732,12 +1743,22 @@ FIRST_VERSION_MS = {
     "kernel A N=4800": 0.5696, "kernel A N=2204": 0.4092, "stft_allk N=4800 k=8": 4.3991,
     "kernel B per-row, 4096 rows": 0.0443, "generic per-row, 4096 rows": 0.0577,
     "blockwise sorted, 10240 rows": 0.1386,
+    "push_fused N=4096": 0.8176, "colormap_rows_fused, 4096 rows": 0.0506,
 }
 # The split-real kernels' device times before the radix-2 register passes
 # (PERF.md, H100 80GB HBM3, 700 W)
 BEFORE_PASSES_MS = {
     "stft_split N=4096": 0.3829, "stft_split_t N=4096": 0.4300,
     "stft_split_allk N=4096 k=8": 2.9907, "stft_split_tsplit N=4096": 0.4212,
+    "push_fused N=4096": 0.3929,
+}
+# The same kernels' device times before the split-real row read its samples
+# straight into its first pass and colormap_rows_fused ran the generic row
+# tile (PERF.md, H100 80GB HBM3, 700 W)
+BEFORE_FUSED_LOAD_MS = {
+    "stft_split N=4096": 0.2011, "stft_split_t N=4096": 0.2182,
+    "stft_split_allk N=4096 k=8": 1.4634, "stft_split_tsplit N=4096": 0.2716,
+    "push_fused N=4096": 0.2296, "colormap_rows_fused, 4096 rows": 0.0506,
 }
 
 
@@ -2132,6 +2153,7 @@ def carry_pair_and_push(dev, lib, main_launches: dict, stats, ms, plain_ms, boun
     library_ms[sk.SPLIT_CARRY_KERNEL] = library_ms[sk.SPLIT_ALLK_CARRY_KERNEL] = rfft8
     library_ms[sk.ALLK_CARRY_KERNEL] = library_ms[sk.ALLK_CARRY_KERNEL_I16] = fft8
     library_ms[pk.KERNEL] = None
+    redesign["push_fused N=4096"] = (ms[pk.KERNEL], None, bounds[pk.KERNEL][0])
     redesign["stft_allk_carry N=4096 k=8"] = (ms[sk.ALLK_CARRY_KERNEL], fft8,
                                               bounds[sk.ALLK_CARRY_KERNEL][0])
     for name in (sk.SPLIT_CARRY_KERNEL, sk.ALLK_CARRY_KERNEL, sk.ALLK_CARRY_KERNEL_I16,
@@ -2461,7 +2483,7 @@ def large_i16_path(dev, lib, main_launches: dict) -> None:
 
 
 def rows_fused(dev, lib, main_launches: dict, stats, ms, plain_ms, bounds, library_ms,
-               power_line: str) -> None:
+               power_line: str, redesign: dict) -> None:
     """Phase 24: colormap_rows_fused at BENCH_CONFIG's full width (4,096 rows
     of [2, 2047], H=1024, resample_matrix(BENCH).T; the 19 built-ins'
     factors at arange % 19, smoke-custom's on every fifth row) and on the
@@ -2500,16 +2522,23 @@ def rows_fused(dev, lib, main_launches: dict, stats, ms, plain_ms, bounds, libra
 
     lib.reset_launches()
     packed = ck.colormap_rows_fused(rows, u, v, mt, cfg, packed=True)
+    routes = [ck.rows_route()]
     u8 = ck.colormap_rows_fused(rows, u, v, mt, cfg)
     planar = stft_ops.stft_rows_planar(pcm, fcfg).contiguous()             # [r, 2, 2399]
     r = planar.shape[0]
     su, sv = (torch.from_numpy(a).to(dev)[None].expand(r, -1, -1).contiguous()
               for a in scheme.factored_tables(32))
     functional = ck.colormap_rows_fused(planar, su, sv, fm.T, fcfg)
+    routes.append(ck.rows_route())
     torch.cuda.synchronize()
     launches = {k_: v_ for k_, v_ in lib.launches.items() if v_}
     for k_, v_ in launches.items():
         main_launches[k_] = main_launches.get(k_, 0) + v_
+    log(f"[24] colormap_rows_fused at two taps launched the generic row tile's {routes[0]} "
+        f"form at BENCH_CONFIG, its {routes[1]} form on the functional path")
+    if routes != ["staged", "direct"]:
+        fail("colormap_rows_fused's two-tap calls did not launch the row tile's forms phase "
+             "24 checks")
     log(f"[24] colormap_rows_fused: rows {tuple(rows.shape)}, tables {tuple(u.shape)}, matrix "
         f"{mt.shape} -> packed {tuple(packed.shape)} {packed.dtype}, u8 {tuple(u8.shape)}; "
         f"functional path rows {tuple(planar.shape)} -> {tuple(functional.shape)}; launches "
@@ -2536,11 +2565,15 @@ def rows_fused(dev, lib, main_launches: dict, stats, ms, plain_ms, bounds, libra
     m4 = np.ascontiguousarray((0.5 * (m + np.roll(m, 2, axis=1))).T)
     taps4 = ck.resample_taps_k(m4, dev)
     got4 = ck.colormap_rows_fused(rows, u, v, taps4, cfg)
+    route4 = ck.rows_route()
     d4 = testing.rgba_u8_diff(got4, ck.colormap_rows_fused_plain(
         rows, u, v, torch.from_numpy(m4).to(dev), cfg))
-    log(f"[24] a {taps4.j.shape[1]}-tap matrix: max u8 diff {d4} against the plain version (bar 1)")
+    log(f"[24] a {taps4.j.shape[1]}-tap matrix ({route4}): max u8 diff {d4} against the plain "
+        f"version (bar 1)")
     if taps4.j.shape[1] != 4 or d4 > 1:
         fail("colormap_rows_fused disagrees with its plain version on a 4-tap matrix")
+    if route4 != "pixels":
+        fail("colormap_rows_fused at four taps did not launch its one-pixel-a-thread kernel")
     want = cmap_ops.rgba_f32_to_u8(cmap_ops.colormap_rows(
         planar.transpose(-1, -2), torch.from_numpy(fm).to(dev),
         torch.from_numpy(scheme.lookup_table(32)).to(dev), fcfg))
@@ -2564,6 +2597,8 @@ def rows_fused(dev, lib, main_launches: dict, stats, ms, plain_ms, bounds, libra
     bounds[ck.ROWS_KERNEL] = bound(*cmap_work(n, two, u.numel() + v.numel(),
                                               CMAP_OPS_PER_PIXEL_GENERIC))
     library_ms[ck.ROWS_KERNEL] = None
+    redesign["colormap_rows_fused, 4096 rows"] = (ms[ck.ROWS_KERNEL], None,
+                                                  bounds[ck.ROWS_KERNEL][0])
     log(f"[24] colormap_rows_fused, {n} rows: {ms[ck.ROWS_KERNEL]:.4f} ms device time (plain "
         f"{plain_ms[ck.ROWS_KERNEL]:.4f} ms, library none, bound "
         f"{bounds[ck.ROWS_KERNEL][0]:.4f} ms by {bounds[ck.ROWS_KERNEL][1]}, sector floor "

@@ -50,7 +50,7 @@ SPK_EXPORT int spk_colormap_blockwise(const float* mag_l, const float* mag_r,
                                       float inv_res1, int* out, void* stream) {
   if (block_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
   const spk::TileArgs a{
-      mag_l, mag_r, rows, bins, span, j0, j1, w0, w1, h, tables, nullptr,
+      mag_l, mag_r, rows, bins, bins, span, j0, j1, w0, w1, h, tables, nullptr,
       n_tables, rows_per_table, res,
       spk::ColormapLaws{static_cast<float>(res), min_db, db_range, db_eps,
                         inv_res1}};

@@ -41,7 +41,7 @@ SPK_EXPORT int spk_colormap_generic(const float* mag_l, const float* mag_r,
                                     float db_range, float db_eps,
                                     float inv_res1, int* out, void* stream) {
   const spk::TileArgs a{
-      mag_l, mag_r, rows, bins, span, j0, j1, w0, w1, h, u_tables, v_tables,
+      mag_l, mag_r, rows, bins, bins, span, j0, j1, w0, w1, h, u_tables, v_tables,
       n_tables, rows_per_table, res,
       spk::ColormapLaws{static_cast<float>(res), min_db, db_range, db_eps,
                         inv_res1}};

@@ -1,7 +1,8 @@
 // The tile of kernel B (colormap_builtin.cu), the blockwise colormap
 // (colormap_blockwise.cu: kernel B's function and launch under its own
-// export) and the generic kernel (colormap_generic.cu): one design,
-// templated on the word.
+// export), the generic kernel (colormap_generic.cu) and the two-tap
+// planar rows (colormap_rows.cu: the generic kernel's launch on [rows, 2,
+// B] rows): one design, templated on the word.
 //
 // A CTA colors whole rows.  Its threads take kTilePixels = 4 pixels each
 // (256 threads cover H = 1024 in one sweep; a narrower H takes fewer warps,
@@ -13,11 +14,14 @@
 // A row's operands go to shared memory ahead of use, kTileStages rows deep,
 // each in a TMA bulk copy: its left and right planes over bins [0, span),
 // span = the taps' highest bin + 1, and its table (R*4 floats built-in, U
-// and V generic) unless the stage already holds it.  A plane row is 16-byte
-// aligned only where 4 divides the plane width (not at B = 2205, nor the
-// ring's W - 1), so the copy starts at the row's address rounded down to 16
-// bytes and its length is rounded up; the row's bin 0 lies `shift` floats
-// into the staged copy.  Every pixel runs through colormap_common.cuh's
+// and V generic) unless the stage already holds it.  A plane's rows lie `ld`
+// floats apart: the plane width, or twice it for planar rows [rows, 2, B]
+// whose right plane starts B floats into the row (colormap_rows.cu).  A
+// plane row is 16-byte aligned only where 4 divides its offset (not at B =
+// 2205, the ring's W - 1, or planar rows of B = 2047, whose right planes
+// start 8,188 bytes in), so the copy starts at the row's address rounded
+// down to 16 bytes and its length is rounded up; the row's bin 0 lies
+// `shift` floats into the staged copy.  Every pixel runs through colormap_common.cuh's
 // `pixel_texels` and `builtin_word` / `generic_word`, so the bits are the
 // per-pixel code's whatever the tile.
 //
@@ -67,9 +71,12 @@ constexpr int kTileMaxStagedBytes = 48 * 1024;
 
 // The kernels' operands.
 struct TileArgs {
-  const float* mag_l;  // [rows, bins]
+  const float* mag_l;  // row n's bins at mag_l + n * ld
   const float* mag_r;
   int rows, bins;
+  int ld;              // floats from a plane's row to the next: bins for
+                       // [rows, bins] planes, 2 * bins for planar rows
+                       // [rows, 2, bins] (colormap_rows.cu)
   int span;            // the taps' highest bin + 1, at most bins
   const int* j0;       // [h] taps
   const int* j1;
@@ -81,6 +88,19 @@ struct TileArgs {
   int n_tables, rows_per_table, res;
   ColormapLaws laws;
 };
+
+// The operands of the two-tap planar rows [rows, 2, bins] (colormap_rows.cu):
+// each row's right plane `bins` floats after its left, rows 2 * bins
+// apart; the taps tap-major [2, h] (tap_j: every j0, then every j1; tap_w
+// likewise); row n's factors the n-th of [rows, res * 4] U and V.
+__host__ __device__ __forceinline__ TileArgs planar_tile_args(
+    const float* rows, int n_rows, int bins, int span, const int* tap_j,
+    const float* tap_w, int h, const float* u, const float* v, int res,
+    const ColormapLaws& laws) {
+  return TileArgs{rows, rows + bins, n_rows, bins, 2 * bins, span,
+                  tap_j, tap_j + h, tap_w, tap_w + h, h, u, v, n_rows, 1, res,
+                  laws};
+}
 
 // Threads of a CTA at width h: warps enough for its pixel groups, at most
 // kTileThreads.
@@ -173,8 +193,8 @@ struct RowCopies {
 };
 
 __device__ __forceinline__ const float* plane_row(const float* plane, int row,
-                                                  int bins) {
-  return plane + static_cast<size_t>(row) * bins;
+                                                  int ld) {
+  return plane + static_cast<size_t>(row) * ld;
 }
 
 // What a stage receives for `row`: its planes' staged copies and its
@@ -186,8 +206,8 @@ __device__ __forceinline__ RowCopies row_copies(const TileArgs& a,
                                                 const TileLayout& lay, int row,
                                                 int prev, bool generic) {
   RowCopies c{};
-  const float* l = plane_row(a.mag_l, row, a.bins);
-  const float* r = plane_row(a.mag_r, row, a.bins);
+  const float* l = plane_row(a.mag_l, row, a.ld);
+  const float* r = plane_row(a.mag_r, row, a.ld);
   const StagedRow sl = staged_row(l, a.span), sr = staged_row(r, a.span);
   c.seg[c.n++] = CopySeg{lay.l, l - sl.shift, sl.floats};
   c.seg[c.n++] = CopySeg{lay.r, r - sr.shift, sr.floats};
@@ -220,8 +240,8 @@ __device__ __forceinline__ RowOperands row_operands(const TileArgs& a,
                                                     const TileLayout& lay,
                                                     const float* stage,
                                                     int row) {
-  const int sl = staged_row(plane_row(a.mag_l, row, a.bins), a.span).shift;
-  const int sr = staged_row(plane_row(a.mag_r, row, a.bins), a.span).shift;
+  const int sl = staged_row(plane_row(a.mag_l, row, a.ld), a.span).shift;
+  const int sr = staged_row(plane_row(a.mag_r, row, a.ld), a.span).shift;
   return RowOperands{stage + lay.l + sl, stage + lay.r + sr, stage + lay.tab,
                      stage + lay.tab + a.res * 4};
 }
@@ -404,7 +424,7 @@ constexpr int kMaxGridY = 65535;
 template <bool kGeneric>
 __global__ void __launch_bounds__(kDirectThreads) colormap_direct_kernel(
     const float* __restrict__ mag_l, const float* __restrict__ mag_r,
-    int rows, int bins, const int* __restrict__ j0,
+    int rows, int ld, const int* __restrict__ j0,
     const int* __restrict__ j1, const float* __restrict__ w0,
     const float* __restrict__ w1, int h, const float* __restrict__ u_tables,
     const float* __restrict__ v_tables, int n_tables, int rows_per_table,
@@ -414,7 +434,7 @@ __global__ void __launch_bounds__(kDirectThreads) colormap_direct_kernel(
   const int a = j0[p], b = j1[p];
   const float wa = w0[p], wb = w1[p];
   for (int row = blockIdx.y; row < rows; row += gridDim.y) {
-    const size_t at = static_cast<size_t>(row) * bins;
+    const size_t at = static_cast<size_t>(row) * ld;
     if constexpr (kGeneric) {
       const Texels x = pixel_texels(mag_l + at, mag_r + at, a, b, wa, wb, laws);
       out[static_cast<size_t>(row) * h + p] = generic_word(
@@ -438,7 +458,7 @@ int launch_tile(const TileArgs& a, unsigned* out, cudaStream_t stream) {
     const dim3 grid((a.h + kDirectThreads - 1) / kDirectThreads,
                     a.rows < kMaxGridY ? a.rows : kMaxGridY);
     colormap_direct_kernel<kGeneric><<<grid, kDirectThreads, 0, stream>>>(
-        a.mag_l, a.mag_r, a.rows, a.bins, a.j0, a.j1, a.w0, a.w1, a.h,
+        a.mag_l, a.mag_r, a.rows, a.ld, a.j0, a.j1, a.w0, a.w1, a.h,
         a.u_tables, a.v_tables, a.n_tables, a.rows_per_table, a.res, a.laws,
         out);
     return static_cast<int>(cudaGetLastError());

@@ -10,8 +10,8 @@ namespace spk {
 // l, r: the row's [w] samples; tab: its built-in [res*4] table; out: its [h]
 // words; mag_l, mag_r: its [stft_bins(N, w)] planes, or null; buf: the
 // body's buf_size() complex f32 and planes 2 * stft_bins(N, w) f32, both in
-// shared memory.
-template <class Body>
+// shared memory; kCap: the kernel's pass bound (`group_cap`).
+template <int kCap = kMixedGroup, class Body>
 __device__ __forceinline__ void push_fused_row(
     const Body& body, const float* __restrict__ l, const float* __restrict__ r,
     int w, const float* __restrict__ hann, const float2* __restrict__ tw,
@@ -22,8 +22,8 @@ __device__ __forceinline__ void push_fused_row(
     float* __restrict__ mag_r, float2* buf, float* planes) {
   const int bins = stft_bins(body.size(), w);
   for (int c = 0; c < 2; ++c) {
-    stft_real_row(body, RowSamples{c ? r : l, w}, hann, tw, planes + c * bins,
-                  buf);
+    stft_real_row<kCap>(body, RowSamples{c ? r : l, w}, hann, tw, planes + c * bins,
+                        buf);
     __syncthreads();  // the next load overwrites buf; the pixels read planes
   }
   if (mag_l != nullptr) {

@@ -277,9 +277,6 @@ struct Radix2 {
   __device__ __forceinline__ float2 result(const float2* buf, int k) const {
     return buf[at(k)];
   }
-  // After a load that wrote floats into buf[slot(i)], i < size(): nothing.
-  __device__ __forceinline__ void prepare(float2*) const {}
-
   // After a load into buf[slot(i)]: every stage.  (kCap, the mixed-radix
   // bodies' bound on a pass, leaves the radix-2 passes as they are.)
   template <int kCap>
@@ -490,7 +487,6 @@ struct MixedRadixT {
   __device__ __forceinline__ float2 result(const float2* buf, int k) const {
     return buf[at(k)];
   }
-  __device__ __forceinline__ void prepare(float2*) const {}
 
   // where entry i of the transform is kept in `buf` (see above)
   __device__ __forceinline__ int at(int i) const {
@@ -931,8 +927,7 @@ static inline int bluestein_length(int n) {
 // multiplies by the chirp and zero-pads, the DIF pass's last stage stores
 // conj(A F), and the unpack reads X[k] through `result`, which applies the
 // output chirp: the three pointwise steps ride the load, a stage and the
-// unpack.  (A load that writes single floats, the split-real pack's, leaves
-// the chirp to `prepare`.)
+// unpack.
 template <class Inner>
 struct BluesteinT {
   int n;
@@ -955,15 +950,6 @@ struct BluesteinT {
   __device__ __forceinline__ float2 result(const float2* buf, int k) const {
     return cmul(chirp[k], conjugate(buf[inner.at(k)]));
   }
-  // After a load that wrote the floats of buf[0 .. N) in place: `input` over
-  // buf[0 .. M).
-  __device__ __forceinline__ void prepare(float2* buf) const {
-    for (int i = threadIdx.x; i < inner.n; i += blockDim.x) {
-      buf[inner.at(i)] = input(i, i < n ? buf[inner.at(i)] : make_float2(0.f, 0.f));
-    }
-    __syncthreads();
-  }
-
   // tw: the M twiddles exp(-2 pi i t / M) of the inner transforms.  The DIF
   // pass of stage 0 (radix r_0 over r_0 adjacent entries, twiddle tw[0])
   // stores conj(A F) directly, so the filter product has no pass of its own.
@@ -1094,8 +1080,8 @@ __device__ __forceinline__ void stft_packed_row(
 //   Z = DFT_N(x * hann) with x zero-padded from W to N,  out[k] = |Z[k]|
 // for k = 0 .. stft_bins(N, W)-1, `hann` carrying the reference's 2/W output
 // scale (the TPU kernels' `_scaled_hann`).  The window's W samples come from
-// a sample source, a functor that returns the f-th sample of the window in
-// the source's memory order and sets the sample's position i in the window:
+// a sample source, a functor that returns the sample at window position i
+// (`window(i)`):
 //   RowSamples         one contiguous window (window planes; the k
 //                      hop-shifted windows of a carry+chunk buffer)
 //   TransposedSamples  x[j1, t], t < m, is sample t*n1 + j1 (the transposed
@@ -1105,8 +1091,17 @@ __device__ __forceinline__ void stft_packed_row(
 //   PlanarSamples      the planar carry [C] then chunk [k*hop] of one
 //                      channel: window sample p is buffer sample start + p,
 //                      in the carry below C and in the chunk from there
-// Reads follow memory order (coalesced); each sample lands in the body's
-// shared-memory slot of its window position.  Every layout runs the same
+// The body's first pass reads the samples by window position straight into
+// its registers (`load_transform`, as the packed rows do), in every source:
+// a warp reads consecutive positions, which the window-ordered sources hold
+// at consecutive addresses and the transposed ones m floats apart.  The
+// first form read each source in its memory order and stored each sample
+// as one f32 lane of its slot, then transformed the buffer; on an H100 80GB
+// HBM3 at 700 W the fused load took 0.66x its time on window planes at N =
+// 4096, 0.31x at N = 4800, and 0.71x / 0.34x on the transposed operand at
+// N = 4096 / 4800, where the strided reads were expected to lose (PERF.md
+// §6).  The Bluestein body has no fused pass: its load goes through `slot`
+// and `input` over the whole buffer.  Every layout runs the same
 // arithmetic on the same values, so all give the same bits for a window.
 
 struct RowSamples {
@@ -1114,10 +1109,7 @@ struct RowSamples {
   int w;
 
   __device__ __forceinline__ int size() const { return w; }
-  __device__ __forceinline__ float sample(int f, int* i) const {
-    *i = f;
-    return x[f];
-  }
+  __device__ __forceinline__ float window(int i) const { return x[i]; }
 };
 
 struct TransposedSamples {
@@ -1125,11 +1117,9 @@ struct TransposedSamples {
   int n1, m;
 
   __device__ __forceinline__ int size() const { return n1 * m; }
-  __device__ __forceinline__ float sample(int f, int* i) const {
-    const int j1 = f / m;
-    const int t = f - j1 * m;
-    *i = t * n1 + j1;
-    return x[f];
+  __device__ __forceinline__ float window(int i) const {
+    const int t = i / n1;
+    return x[(i - t * n1) * m + t];
   }
 };
 
@@ -1139,17 +1129,10 @@ struct SplitSamples {
   int n1, c_cols, t_cols;
 
   __device__ __forceinline__ int size() const { return n1 * (c_cols + t_cols); }
-  __device__ __forceinline__ float sample(int f, int* i) const {
-    const int in_carry = n1 * c_cols;
-    if (f < in_carry) {
-      const int j1 = f / c_cols;
-      *i = (f - j1 * c_cols) * n1 + j1;
-      return carry[f];
-    }
-    const int g = f - in_carry;
-    const int j1 = g / t_cols;
-    *i = (c_cols + g - j1 * t_cols) * n1 + j1;
-    return chunk[g];
+  __device__ __forceinline__ float window(int i) const {
+    const int t = i / n1;
+    const int j1 = i - t * n1;
+    return t < c_cols ? carry[j1 * c_cols + t] : chunk[j1 * t_cols + t - c_cols];
   }
 };
 
@@ -1159,9 +1142,8 @@ struct PlanarSamples {
   int c_len, start, w;
 
   __device__ __forceinline__ int size() const { return w; }
-  __device__ __forceinline__ float sample(int f, int* i) const {
-    *i = f;
-    const int at = start + f;
+  __device__ __forceinline__ float window(int i) const {
+    const int at = start + i;
     return at < c_len ? carry[at] : chunk[at - c_len];
   }
 };
@@ -1222,27 +1204,23 @@ static inline int with_real_body(int n, const void* consts, Fn fn) {
   });
 }
 
-// Load x * hann into `buf` (a float lane per sample: lane i & 1 of the
-// pack entry i >> 1, or the real part of entry i with the imaginary zeroed),
-// transform, and write |X[k]| for k < stft_bins(N, W) to `out`.
+// x * hann through the pack, transformed, and |X[k]| for k < stft_bins(N,
+// W) written to `out`: the first pass reads pack entry t = (x[2t]
+// hann[2t], x[2t+1] hann[2t+1]) for t < ceil(W / 2), the odd lane of t =
+// (W-1)/2 zero at odd W.
 template <int kCap = kMixedGroup, class Body, class Source>
 __device__ __forceinline__ void stft_real_row(
     const RealPack<Body>& row, const Source& src, const float* __restrict__ hann,
     const float2* __restrict__ tw, float* __restrict__ out, float2* buf) {
   const int n = row.size();
   const int w = src.size();
-  float* lanes = reinterpret_cast<float*>(buf);
-  for (int f = threadIdx.x; f < w; f += blockDim.x) {
-    int i;
-    const float x = src.sample(f, &i);
-    lanes[2 * row.half.slot(i >> 1) + (i & 1)] = __fmul_rn(x, hann[i]);
-  }
-  for (int i = w + threadIdx.x; i < n; i += blockDim.x) {
-    lanes[2 * row.half.slot(i >> 1) + (i & 1)] = 0.f;
-  }
-  __syncthreads();
-  row.half.prepare(buf);
-  row.half.template transform<kCap>(buf, tw);
+  load_transform<kCap>(row.half, buf, tw, (w + 1) / 2, [&](int t) {
+    const int i = 2 * t;
+    const int j = i + 1 < w ? i + 1 : i;  // read in range; zero past W
+    const float a = __fmul_rn(src.window(i), hann[i]);
+    const float b = __fmul_rn(src.window(j), hann[j]);
+    return make_float2(a, i + 1 < w ? b : 0.f);
+  });
   const int bins = stft_bins(n, w);
   const auto z = [&](int t) { return row.half.result(buf, t); };
   for (int k = threadIdx.x; k < bins; k += blockDim.x) {
@@ -1258,16 +1236,21 @@ __device__ __forceinline__ void stft_real_row(
   const Body& body = row.body;
   const int n = body.size();
   const int w = src.size();
-  for (int f = threadIdx.x; f < w; f += blockDim.x) {
-    int i;
-    const float x = src.sample(f, &i);
-    buf[body.slot(i)] = body.input(i, make_float2(__fmul_rn(x, hann[i]), 0.f));
+  if constexpr (fuses_load<Body>::value) {
+    load_transform<kCap>(body, buf, tw, w, [&](int i) {
+      return make_float2(__fmul_rn(src.window(i), hann[i]), 0.f);
+    });
+  } else {
+    // the window's reads in a loop of their own, then the zero pad
+    for (int i = threadIdx.x; i < w; i += blockDim.x) {
+      buf[body.slot(i)] = body.input(i, make_float2(__fmul_rn(src.window(i), hann[i]), 0.f));
+    }
+    for (int i = w + threadIdx.x; i < body.buf_size(); i += blockDim.x) {
+      buf[body.slot(i)] = body.input(i, make_float2(0.f, 0.f));
+    }
+    __syncthreads();
+    body.template transform<kCap>(buf, tw);
   }
-  for (int i = w + threadIdx.x; i < body.buf_size(); i += blockDim.x) {
-    buf[body.slot(i)] = body.input(i, make_float2(0.f, 0.f));
-  }
-  __syncthreads();
-  body.template transform<kCap>(buf, tw);
   const int bins = stft_bins(n, w);
   for (int k = threadIdx.x; k < bins; k += blockDim.x) {
     out[k] = magnitude(body.result(buf, k));
@@ -1360,6 +1343,28 @@ template <class B>
 __host__ __device__ constexpr int group_cap() {
   return 65536 / (B::threads * B::blocks) >= 96 ? kMixedGroup : kNarrowGroup;
 }
+
+// A kernel template <class Body, class Bounds> in two launch-bounds forms
+// of the same code: `name` under Bounds::threads alone and `name##_blocks`
+// under threads and blocks; `name##_for<Body, Bounds>()` is the one that
+// the bounds take (only it is instantiated): the threads alone for bounds
+// of one block, as a declared minimum of one block moves ptxas's register
+// choice at the same cap (the split-real rows' N-point Bluestein row of
+// N = 4801: 64 registers in place of 54, 4-5% slower, PERF.md §6).
+#define SPK_BOUNDED_KERNEL(name, params, ...)                                  \
+  template <class Body, class Bounds>                                         \
+  __global__ void __launch_bounds__(Bounds::threads) name params __VA_ARGS__  \
+  template <class Body, class Bounds>                                         \
+  __global__ void __launch_bounds__(Bounds::threads, Bounds::blocks)          \
+      name##_blocks params __VA_ARGS__                                        \
+  template <class Body, class Bounds>                                         \
+  auto name##_for() {                                                         \
+    if constexpr (Bounds::blocks == 1) {                                      \
+      return name<Body, Bounds>;                                              \
+    } else {                                                                  \
+      return name##_blocks<Body, Bounds>;                                     \
+    }                                                                         \
+  }
 
 // fn(bounds, threads) with the launch bounds of a packed row block over
 // `body` and its threads (`body_threads` under the bounds' `group_cap`, at

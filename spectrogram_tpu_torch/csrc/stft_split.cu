@@ -28,10 +28,12 @@
 // window's samples pair up as x[2t] + i x[2t+1] in an N/2-entry buffer, the
 // shared FFT body of N/2 (Radix2, MixedRadix or Bluestein) transforms it,
 // and each bin is unpacked with the N/2 post-twiddles exp(-2 pi i k / N);
-// odd N runs the N-point body on (x, 0).  The layouts differ only in where a
-// sample is read, so for the same window they give the same bits; the
-// kernels with a next carry write it from the blocks of window 0, one
-// channel each.  Output rows are stft_bins(N, W) wide.
+// odd N runs the N-point body on (x, 0).  The radix-2 and mixed-radix
+// bodies read the samples straight from the layout into their first pass.
+// The layouts differ only in where a sample is read, so for the same window
+// they give the same bits; the kernels with a next carry write it from the
+// blocks of window 0, one channel each.  Output rows are stft_bins(N, W)
+// wide.
 //
 // What bounds them on this card: shared-memory traffic of the butterfly
 // stages, as the packed kernels: one N/2-point transform per channel, so a
@@ -47,11 +49,10 @@
 
 namespace {
 
-template <class Body, class Bounds>
-__global__ void __launch_bounds__(Bounds::threads) stft_split_kernel(
+SPK_BOUNDED_KERNEL(stft_split_kernel, (
     Body body, const float* __restrict__ left, const float* __restrict__ right,
     const float* __restrict__ hann, const float2* __restrict__ twiddles,
-    float* __restrict__ out_l, float* __restrict__ out_r, int w) {
+    float* __restrict__ out_l, float* __restrict__ out_r, int w), {
   extern __shared__ float2 buf[];
   const size_t row = blockIdx.x >> 1;
   const int c = blockIdx.x & 1;
@@ -59,14 +60,13 @@ __global__ void __launch_bounds__(Bounds::threads) stft_split_kernel(
   spk::stft_real_row<spk::group_cap<Bounds>()>(body, src, hann, twiddles,
                      (c ? out_r : out_l) + row * spk::stft_bins(body.size(), w),
                      buf);
-}
+})
 
-template <class Body, class Bounds>
-__global__ void __launch_bounds__(Bounds::threads) stft_split_allk_kernel(
+SPK_BOUNDED_KERNEL(stft_split_allk_kernel, (
     Body body, const float* __restrict__ buf_l, const float* __restrict__ buf_r,
     const float* __restrict__ hann, const float2* __restrict__ twiddles,
     float* __restrict__ out_l, float* __restrict__ out_r,
-    float* __restrict__ next, int streams, int ld, int hop, int w, int c_len) {
+    float* __restrict__ next, int streams, int ld, int hop, int w, int c_len), {
   extern __shared__ float2 buf[];
   const int row = blockIdx.x >> 1;
   const int c = blockIdx.x & 1;
@@ -81,17 +81,16 @@ __global__ void __launch_bounds__(Bounds::threads) stft_split_allk_kernel(
                      (c ? out_r : out_l) + static_cast<size_t>(row) *
                                                spk::stft_bins(body.size(), w),
                      buf);
-}
+})
 
 // The k windows of carry [S, 2, c_len] + chunk [S, 2, t_len] (t_len = k*hop),
 // one (window, channel) per block, and the next carry from window 0's blocks.
-template <class Body, class Bounds>
-__global__ void __launch_bounds__(Bounds::threads) stft_split_carry_kernel(
+SPK_BOUNDED_KERNEL(stft_split_carry_kernel, (
     Body body, const float* __restrict__ carry, const float* __restrict__ chunk,
     const float* __restrict__ hann, const float2* __restrict__ twiddles,
     float* __restrict__ out_l, float* __restrict__ out_r,
     float* __restrict__ next, int streams, int c_len, int t_len, int hop,
-    int w) {
+    int w), {
   extern __shared__ float2 buf[];
   const int row = blockIdx.x >> 1;
   const int c = blockIdx.x & 1;
@@ -106,13 +105,12 @@ __global__ void __launch_bounds__(Bounds::threads) stft_split_carry_kernel(
                      (c ? out_r : out_l) + static_cast<size_t>(row) *
                                                spk::stft_bins(body.size(), w),
                      buf);
-}
+})
 
-template <class Body, class Bounds>
-__global__ void __launch_bounds__(Bounds::threads) stft_split_t_kernel(
+SPK_BOUNDED_KERNEL(stft_split_t_kernel, (
     Body body, const float* __restrict__ x, const float* __restrict__ hann,
     const float2* __restrict__ twiddles, float* __restrict__ out_l,
-    float* __restrict__ out_r, int n1, int m) {
+    float* __restrict__ out_r, int n1, int m), {
   extern __shared__ float2 buf[];
   const size_t row = blockIdx.x >> 1;
   const int c = blockIdx.x & 1;
@@ -121,14 +119,13 @@ __global__ void __launch_bounds__(Bounds::threads) stft_split_t_kernel(
   spk::stft_real_row<spk::group_cap<Bounds>()>(body, src, hann, twiddles,
                      (c ? out_r : out_l) + row * spk::stft_bins(body.size(), n1 * m),
                      buf);
-}
+})
 
-template <class Body, class Bounds>
-__global__ void __launch_bounds__(Bounds::threads) stft_split_tsplit_kernel(
+SPK_BOUNDED_KERNEL(stft_split_tsplit_kernel, (
     Body body, const float* __restrict__ carry, const float* __restrict__ chunk,
     const float* __restrict__ hann, const float2* __restrict__ twiddles,
     float* __restrict__ out_l, float* __restrict__ out_r,
-    float* __restrict__ next_carry, int n1, int c_cols, int t_cols) {
+    float* __restrict__ next_carry, int n1, int c_cols, int t_cols), {
   extern __shared__ float2 buf[];
   const size_t row = blockIdx.x >> 1;
   const int c = blockIdx.x & 1;
@@ -142,30 +139,39 @@ __global__ void __launch_bounds__(Bounds::threads) stft_split_tsplit_kernel(
                      (c ? out_r : out_l) +
                          row * spk::stft_bins(body.size(), src.size()),
                      buf);
-}
+})
 
 // launch(row, bound, grid, threads, smem, stream) with the split-real row
 // form of N (`with_real_body`), 2 * rows blocks, one per (window row,
-// channel), and the kernel's thread bound as a type (`spk::Bounds`, one
-// block: the kernels take `__launch_bounds__(threads)` alone, which holds
-// their registers to 65,536 / threads and leaves ptxas its own count below
-// that; a minimum of blocks made it give the radix-2 rows 96-105 registers
-// and run them 3-17% slower, PERF.md §6): kWideThreads for N/2 packs of
-// kWideRow entries and more (N = 32,768 and 48,000 among the measured
-// sizes), which run one block per SM; else kStftMaxThreads for the radix-2
-// rows and for the mixed-radix and Bluestein rows whose buffer fits four
-// times in an SM's shared memory (a block of at most 128 threads, passes of
-// up to 25 entries in 128 registers), and kWideThreads for the others
-// (launched with at most kStftMaxThreads threads: 64 registers, the narrow
-// passes, `group_cap`).  Only the pack is compiled at the wide bound for
-// its own sake: an odd N's full row of that size (a 7-smooth odd N past
-// 16,384, or a Bluestein M past it) is rare and runs the narrow one.
+// channel), and the kernel's launch bounds as a type (`spk::Bounds`, threads
+// and blocks per SM).  A row whose buffer fits kRowBlocks times in an SM's
+// shared memory (up to 5,811 entries: N = 4096, 4800, 4410) takes
+// kRowThreads threads under (kRowThreads, kRowBlocks), as kernel A's rows
+// do; with the load fused into the first pass that ran every layout in
+// 0.87-0.95x the time of (kStftMaxThreads, 1) at N = 4096 and 4800 (the
+// lane-loaded rows had run 3-17% slower so, PERF.md §6).  Larger rows keep
+// their bounds ((512, 2) ran N = 17,640 within 0.7% of them):
+// kWideThreads for N/2 packs of kWideRow entries and more (N = 32,768 and
+// 48,000 among the measured sizes), which run one block per SM; else
+// kStftMaxThreads for the radix-2 rows and for the mixed-radix and
+// Bluestein rows whose buffer fits four times in an SM's shared memory (a
+// block of at most 128 threads, passes of up to 25 entries in 128
+// registers), and kWideThreads for the others (launched with at most
+// kStftMaxThreads threads: 64 registers, the narrow passes, `group_cap`).
+// Only the pack is compiled at the wide bound for its own sake: an odd N's
+// full row of that size (a 7-smooth odd N past 16,384, or a Bluestein M
+// past it) is rare and runs the narrow one.  The one-block bounds take
+// the kernels' form under the threads alone (`SPK_BOUNDED_KERNEL`): a
+// declared minimum of one block gave the N-point Bluestein row of N = 4801
+// 64 registers in place of 54 and ran it 4-5% slower (PERF.md §6).
 template <class Launch>
 int launch_rows(int n, const void* consts, int rows, void* stream,
                 Launch launch) {
   const auto st = static_cast<cudaStream_t>(stream);
   using Narrow = spk::Bounds<spk::kWideThreads, 1>;
-  using Rows = spk::Bounds<spk::kStftMaxThreads, 1>;
+  using Wide = spk::Bounds<spk::kStftMaxThreads, 1>;
+  using Rows = spk::Bounds<spk::kRowThreads, spk::kRowBlocks>;
+  const size_t limit = spk::kMaxSmemBytes;
   return spk::with_real_body(n, consts, [&](auto body) {
     const size_t smem = body.buf_size() * sizeof(float2);
     if constexpr (spk::is_real_pack<decltype(body)>::value) {
@@ -173,12 +179,17 @@ int launch_rows(int n, const void* consts, int rows, void* stream,
         return launch(body, Narrow{}, dim3(2 * rows), spk::kWideThreads, smem, st);
       }
     }
+    if (smem * spk::kRowBlocks <= limit) {
+      const int threads = spk::body_threads(body, spk::group_cap<Rows>());
+      return launch(body, Rows{}, dim3(2 * rows),
+                    threads < Rows::threads ? threads : Rows::threads, smem, st);
+    }
     const int threads = spk::body_threads(body);
     if constexpr (spk::is_radix2_row<decltype(body)>::value) {
-      return launch(body, Rows{}, dim3(2 * rows), threads, smem, st);
+      return launch(body, Wide{}, dim3(2 * rows), threads, smem, st);
     } else {
-      if (smem * 4 <= static_cast<size_t>(spk::kMaxSmemBytes)) {
-        return launch(body, Rows{}, dim3(2 * rows), threads < 128 ? threads : 128, smem, st);
+      if (smem * 4 <= limit) {
+        return launch(body, Wide{}, dim3(2 * rows), threads < 128 ? threads : 128, smem, st);
       }
       return launch(body, Narrow{}, dim3(2 * rows),
                     spk::body_threads(body, spk::kNarrowGroup), smem, st);
@@ -201,7 +212,7 @@ SPK_EXPORT int spk_stft_split(const float* left, const float* right,
   return launch_rows(n, consts, rows, stream,
                      [&](auto body, auto bound, dim3 grid, int threads,
                          size_t smem, cudaStream_t st) {
-    const auto kernel = stft_split_kernel<decltype(body), decltype(bound)>;
+    const auto kernel = stft_split_kernel_for<decltype(body), decltype(bound)>();
     const int e = spk::allow_smem(kernel, smem);
     if (e != 0) return e;
     kernel<<<grid, threads, smem, st>>>(
@@ -220,7 +231,7 @@ static int split_allk(const float* buf_l, const float* buf_r,
   return launch_rows(n, consts, k * streams, stream,
                      [&](auto body, auto bound, dim3 grid, int threads,
                          size_t smem, cudaStream_t st) {
-    const auto kernel = stft_split_allk_kernel<decltype(body), decltype(bound)>;
+    const auto kernel = stft_split_allk_kernel_for<decltype(body), decltype(bound)>();
     const int e = spk::allow_smem(kernel, smem);
     if (e != 0) return e;
     kernel<<<grid, threads, smem, st>>>(
@@ -266,7 +277,7 @@ SPK_EXPORT int spk_stft_split_carry(const float* carry, const float* chunk,
   return launch_rows(n, consts, k * streams, stream,
                      [&](auto body, auto bound, dim3 grid, int threads,
                          size_t smem, cudaStream_t st) {
-    const auto kernel = stft_split_carry_kernel<decltype(body), decltype(bound)>;
+    const auto kernel = stft_split_carry_kernel_for<decltype(body), decltype(bound)>();
     const int e = spk::allow_smem(kernel, smem);
     if (e != 0) return e;
     kernel<<<grid, threads, smem, st>>>(
@@ -286,7 +297,7 @@ SPK_EXPORT int spk_stft_split_t(const float* x, const float* hann,
   return launch_rows(n, consts, rows, stream,
                      [&](auto body, auto bound, dim3 grid, int threads,
                          size_t smem, cudaStream_t st) {
-    const auto kernel = stft_split_t_kernel<decltype(body), decltype(bound)>;
+    const auto kernel = stft_split_t_kernel_for<decltype(body), decltype(bound)>();
     const int e = spk::allow_smem(kernel, smem);
     if (e != 0) return e;
     kernel<<<grid, threads, smem, st>>>(
@@ -309,7 +320,7 @@ SPK_EXPORT int spk_stft_split_tsplit(const float* carry, const float* chunk,
   return launch_rows(n, consts, rows, stream,
                      [&](auto body, auto bound, dim3 grid, int threads,
                          size_t smem, cudaStream_t st) {
-    const auto kernel = stft_split_tsplit_kernel<decltype(body), decltype(bound)>;
+    const auto kernel = stft_split_tsplit_kernel_for<decltype(body), decltype(bound)>();
     const int e = spk::allow_smem(kernel, smem);
     if (e != 0) return e;
     kernel<<<grid, threads, smem, st>>>(

@@ -83,8 +83,9 @@ KERNELS = {
     "spk_colormap_static": (
         _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _F, _F, _F, _F, _P, _P,
     ),
+    # the planar rows take the taps' span after the bins
     "spk_colormap_rows": (
-        _P, _I, _I, _P, _P, _I, _I, _P, _P, _I, _F, _F, _F, _F, _P, _P,
+        _P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _F, _F, _F, _F, _P, _P,
     ),
 }
 # the STFT kernels' FFT bodies (csrc/stft_fft.cuh, `stft_kernel.fft_body`),

@@ -35,7 +35,10 @@ kernel share one tile (`csrc/colormap_tile.cuh`): whole rows per CTA, each
 row's planes over [0, `ResampleTaps.span`) and its tables copied into
 shared memory a row ahead of use ("staged"), or, where the span is wide
 beside the row's pixels (the long windows), the first kernels' one pixel
-per thread ("direct"); `tile_form` says which.  The static colormap keeps
+per thread ("direct"); `tile_form` says which.  `colormap_rows_fused`
+runs the generic kernel's tile on planar rows [N, 2, B] where its matrix
+has two taps a pixel (every matrix the package builds): the left and right
+planes of a row B floats apart, rows 2B apart.  The static colormap keeps
 one pixel per thread with its palette in shared memory: staged on the tile
 it ran slower at every span measured (PERF.md §6).
 
@@ -426,6 +429,20 @@ def tile_form(taps: ResampleTaps, res: int, generic: bool = False) -> str:
     return "staged" if staged else "direct"
 
 
+def rows_route() -> str:
+    """The kernel that `colormap_rows_fused`'s last launch on the card took:
+    "staged" or "direct", the generic row tile in that form (two taps a
+    pixel), or "pixels", one pixel per thread over K taps (`csrc/
+    colormap_rows.cu`, through its export `spk_colormap_rows_route`; builds
+    the kernels)."""
+    from spectrogram_tpu_torch.ops.cuda import _build
+
+    route = _build.library()._dll.spk_colormap_rows_route()
+    if route < 0:
+        raise RuntimeError("colormap_rows_fused has not launched its kernel")
+    return ("pixels", "staged", "direct")[route]
+
+
 def colormap_builtin(mag_l: torch.Tensor, mag_r: torch.Tensor,
                      taps: ResampleTaps, tables: torch.Tensor,
                      cfg: SpectrogramConfig,
@@ -523,6 +540,9 @@ class ResampleTapsK(NamedTuple):
     j: torch.Tensor   # [H, K] int32
     w: torch.Tensor   # [H, K] f32
     bins: int         # B: rows the taps index must have at least this many bins
+    span: int         # the highest tap + 1
+    # (j, w) tap-major [2, H], the row tile's operands, at K = 2; else None
+    pairs: tuple | None
 
 
 def resample_taps_k(matrix_t, device=None) -> ResampleTapsK:
@@ -532,7 +552,8 @@ def resample_taps_k(matrix_t, device=None) -> ResampleTapsK:
     padded with taps of weight 0 at the column's first nonzero bin (bin 0
     for an empty column).  Every matrix the package builds has K = 2, and
     then the taps are `resample_taps`' (a pixel clamped onto one bin reads
-    it with w[p, 1] = 0 and j[p, 1] = j[p, 0])."""
+    it with w[p, 1] = 0 and j[p, 1] = j[p, 0]), also kept tap-major
+    (`pairs`) for the kernel."""
     if isinstance(matrix_t, torch.Tensor):
         matrix_t = matrix_t.detach().cpu().numpy()
     m = np.asarray(matrix_t, np.float32).T                     # [H, B]
@@ -548,8 +569,10 @@ def resample_taps_k(matrix_t, device=None) -> ResampleTapsK:
     slot = np.arange(pixels.size) - start[pixels]
     j[pixels, slot] = bins
     w[pixels, slot] = m[pixels, bins]
+    pairs = (tuple(torch.from_numpy(np.ascontiguousarray(a.T)).to(device) for a in (j, w))
+             if k == 2 else None)
     return ResampleTapsK(torch.from_numpy(j).to(device), torch.from_numpy(w).to(device),
-                         m.shape[1])
+                         m.shape[1], int(j.max(initial=0)) + 1, pairs)
 
 
 def taps_dense(taps: ResampleTapsK) -> torch.Tensor:
@@ -605,8 +628,9 @@ def colormap_rows_fused(rows: torch.Tensor, u_tables: torch.Tensor,
     kernel has no interpret mode (as the pipeline's `kernel_interpret`).
 
     CPU tensors take the plain version; CUDA tensors take spk_colormap_rows
-    (csrc/colormap_rows.cu), whose words equal `colormap_generic`'s on the
-    same planes, tables and two-tap matrix bit for bit."""
+    (csrc/colormap_rows.cu): at K = 2 taps the generic kernel's row tile on
+    the planar rows, whose words equal `colormap_generic`'s on copies of the
+    planes bit for bit, else one pixel per thread over the K taps."""
     n, two, b = rows.shape
     taps = matrix_t if isinstance(matrix_t, ResampleTapsK) else None
     matrix_bins = taps.bins if taps is not None else matrix_t.shape[0]
@@ -640,14 +664,19 @@ def colormap_rows_fused(rows: torch.Tensor, u_tables: torch.Tensor,
             raise ValueError(
                 f"{name} must be contiguous {dtype} on {rows.device}; got "
                 f"{t.dtype} on {t.device}, contiguous={t.is_contiguous()}")
+    tap_j, tap_w = taps.j, taps.w
+    if k == 2:
+        # the row tile reads its taps tap-major and its tables by TMA
+        tap_j, tap_w = taps.pairs
+        u_tables, v_tables = _aligned(u_tables), _aligned(v_tables)
     out = torch.empty((n, h), dtype=torch.int32, device=rows.device)
     if n and h:
         from spectrogram_tpu_torch.ops.cuda import _build
 
         with torch.cuda.device(rows.device):
             _build.library().launch(
-                ROWS_KERNEL, rows.data_ptr(), n, b, taps.j.data_ptr(), taps.w.data_ptr(),
-                h, k, u_tables.data_ptr(), v_tables.data_ptr(), res, cfg.min_db,
-                cfg.max_db - cfg.min_db, cfg.db_epsilon, 1.0 / (res - 1), out.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
+                ROWS_KERNEL, rows.data_ptr(), n, b, taps.span, tap_j.data_ptr(),
+                tap_w.data_ptr(), h, k, u_tables.data_ptr(), v_tables.data_ptr(), res,
+                cfg.min_db, cfg.max_db - cfg.min_db, cfg.db_epsilon, 1.0 / (res - 1),
+                out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     return out if packed else out.view(torch.uint8).view(n, h, 4)

@@ -1,6 +1,6 @@
 """Device times of the STFT or colormap kernels of one or more checkouts, in turns.
 
-    python -m spectrogram_tpu_torch.time_stft [--sizes N,N,...] [--packed] [ROOT ...]
+    python -m spectrogram_tpu_torch.time_stft [--sizes N,N,...] [--packed | --split] [ROOT ...]
     python -m spectrogram_tpu_torch.time_stft --colormap [ROOT ...]
 
 Each ROOT is the root of a checkout of this repository (default: this one),
@@ -19,12 +19,18 @@ transposed and packed all-windows kernels, and of the packed all-windows
 kernel on int16 words and with its next carry; at N=4800 also kernel A on
 int16 words and the packed all-windows kernel at DEFAULT_CONFIG's geometry
 (k=8, hop 58, 4,096 streams) on f32 and int16 buffers and with its next
-carry.  `DIGESTS {json}`: under the same keys, a SHA-256
-prefix of each call's output planes, so that two roots whose kernels give
-the same bits print the same digests.  `--sizes` times only the named N of
-`SIZES`, `--packed` only the packed kernels (kernel A and the packed
-all-windows kernel), so that an experiment tree may leave the split-real
-kernels out of its build.
+carry.  At N = 4096, 4800 and 17,640 (`SPLIT_HOPS`) also every kernel
+over the split-real row: the transposed kernel, the tsplit kernel, the
+split-real all-windows kernel with and without its next carry and the
+carry+chunk kernel (k=8, 4,096 streams, the N's hop), and the fused push
+(`push_fused`: split-real STFT -> kernel B on per-row tables) with and
+without its magnitude planes.  `DIGESTS {json}`: under the same keys, a
+SHA-256 prefix of each call's output planes, so that two roots whose
+kernels give the same bits print the same digests.  `--sizes` times only
+the named N of `SIZES`, `--packed` only the packed kernels (kernel A and
+the packed all-windows kernel), `--split` only the split-real ones and the
+fused push, so that an experiment tree may leave the others out of its
+build.
 
 `--colormap` times kernel B (`colormap_builtin`) and the generic kernel
 (`colormap_generic`) in place of the STFT kernels, on magnitude planes of
@@ -44,8 +50,11 @@ holding its own copy as the serving state does, at the serving pipeline's
 `block_rows` and at 32, and at spans where kernel B takes its direct form
 (H=512; N=6400, 8192, 16,384 and 48,000); and the static colormap
 (`colormap_static`, `STATIC_KEYS`) on Magma and on smoke-custom at 4,096
-rows of BENCH_CONFIG, of the spans above and of N=16,384 and 48,000.  It
-needs a CUDA card.
+rows of BENCH_CONFIG, of the spans above and of N=16,384 and 48,000; and
+`colormap_rows_fused` on 4,096 planar rows [4096, 2, 2047] of BENCH_CONFIG
+(ring planes, bins 1 .. W-1) with per-row factors, at the two-tap
+`resample_matrix` and at a 4-tap matrix (`ROWS_KEYS`).  It needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -67,6 +76,11 @@ SIZES = ((48000.0, 2048, 4096), (48000.0, 4096, 8192), (48000.0, 8192, 16384),
          (48000.0, 2400, 4800), (44100.0, 8820, 17640), (48000.0, 16384, 32768),
          (48000.0, 24000, 48000), (48000.0, 32768, 65536), (48000.0, 8205, 16411))
 ROWS = 4096
+# N -> the hop of the split-real kernels' k=8 keys: BENCH_CONFIG's,
+# DEFAULT_CONFIG's and 44.1 kHz's at DEFAULT_CONFIG's periods (W=8820)
+SPLIT_HOPS = {4096: 800, 4800: 58, 17640: 53}
+# (label, taps): colormap_rows_fused at the two-tap matrix and a 4-tap one
+ROWS_KEYS = (("rows_fused 4096", 2), ("rows_fused_k4 4096", 4))
 
 
 def _tools():
@@ -237,16 +251,51 @@ def _colormap_worker() -> None:
             record(f"static {word} {label}",
                    lambda: ck.colormap_static(ml, mr, taps, table, cfg))
         del ml, mr
+    cfg, w = BENCH_CONFIG, BENCH_CONFIG.window_size
+    ml, mr = planes_of("bench", ROWS)
+    rows = torch.stack([ml[:, 1:w], mr[:, 1:w]], dim=1).contiguous()   # [4096, 2, 2047]
+    planes.clear()
+    del ml, mr
+    fu, fv = stacked_factored_tables(32)
+    fu, fv = (torch.from_numpy(t[np.arange(ROWS) % 19]).to(dev) for t in (fu, fv))
+    m = cmap_ops.resample_matrix(cfg)
+    for label, k in ROWS_KEYS:
+        mk = m if k == 2 else 0.5 * (m + np.roll(m, 2, axis=1))
+        taps = ck.resample_taps_k(np.ascontiguousarray(mk.T), dev)
+        assert taps.j.shape[1] == k
+        record(label, lambda: ck.colormap_rows_fused(rows, fu, fv, taps, cfg, packed=True))
+    del rows
     print("TIMES " + json.dumps(out), flush=True)
     print("DIGESTS " + json.dumps(digests), flush=True)
     if forms:
         print("FORMS " + json.dumps(forms), flush=True)
 
 
-def _worker(sizes: list[int], packed_only: bool) -> None:
+def _transposed(left, right, n1: int):
+    """The transposed operand [rows, 2, n1, m] of window planes:
+    x[r, c, j1, t] = sample t*n1 + j1."""
     import torch
 
+    rows, w = left.shape
+    x = torch.stack([left, right], 1).reshape(rows, 2, w // n1, n1)
+    return x.transpose(2, 3).contiguous()
+
+
+def _n1(w: int) -> int:
+    """The largest divisor of w at most sqrt(w): the JAX plan's n1 at the
+    timed N (32 at W=2048, 48 at 2400, 90 at 8820)."""
+    return max(d for d in range(1, int(w**0.5) + 1) if w % d == 0)
+
+
+def _worker(sizes: list[int], packed_only: bool, split_only: bool) -> None:
+    import numpy as np
+    import torch
+
+    from spectrogram_tpu_torch.config import SpectrogramConfig
+    from spectrogram_tpu_torch.ops import colormap as cmap_ops
     from spectrogram_tpu_torch.ops.cuda import _build
+    from spectrogram_tpu_torch.ops.cuda import colormap_kernel as ck
+    from spectrogram_tpu_torch.ops.cuda import push_kernel as pk
     from spectrogram_tpu_torch.ops.cuda import stft_kernel as sk
 
     tools = _tools()
@@ -270,6 +319,8 @@ def _worker(sizes: list[int], packed_only: bool) -> None:
     dev = torch.device("cuda", 0)
     _build.build()
     out = {}
+    packed = not split_only
+    split = not packed_only
     for sr, w, n in SIZES:
         if sizes and n not in sizes:
             continue
@@ -277,23 +328,19 @@ def _worker(sizes: list[int], packed_only: bool) -> None:
         consts = sk.fft_constants(n, dev)
         packed_hann = torch.from_numpy(sk.packed_hann(w)).to(dev)
         split_hann = torch.from_numpy(sk.split_hann(w)).to(dev)
-        for key, fn in ((f"packed {n}", lambda: sk.stft_mag_packed(left, right, packed_hann,
-                                                                   consts)),
-                        (f"split {n}", lambda: sk.stft_mag_split(left, right, split_hann,
-                                                                 consts))):
-            if not (packed_only and key.startswith("split")):
-                out[key] = device_ms(fn, key)
-        if n == 4096:
+        if packed:
+            out[f"packed {n}"] = device_ms(
+                lambda: sk.stft_mag_packed(left, right, packed_hann, consts), f"packed {n}")
+        if split:
+            out[f"split {n}"] = device_ms(
+                lambda: sk.stft_mag_split(left, right, split_hann, consts), f"split {n}")
+        if n == 4096 and packed:
             hop, k = 800, 8
             words = [(x * 32767.0).round().to(torch.int16) for x in (left, right)]
             hann_i16 = torch.from_numpy(sk.packed_hann_i16(w)).to(dev)
             out["packed_i16 4096"] = device_ms(
                 lambda: sk.stft_mag_packed(*words, hann_i16, consts), "packed_i16 4096")
             bl, br = planes(ROWS, w + (k - 1) * hop, sr, 3)
-            if not packed_only:
-                out["split_allk 4096 k8"] = device_ms(
-                    lambda: sk.stft_mag_split_allk(bl, br, split_hann, consts, k, hop),
-                    "split_allk 4096 k8")
             out["allk 4096 k8"] = device_ms(
                 lambda: sk.stft_mag_packed_allk(bl, br, packed_hann, consts, k, hop),
                 "allk 4096 k8")
@@ -305,13 +352,8 @@ def _worker(sizes: list[int], packed_only: bool) -> None:
                 lambda: sk.stft_mag_packed_allk(bl, br, packed_hann, consts, k, hop,
                                                 emit_carry=True),
                 "allk_carry 4096 k8")
-            x = torch.stack([left, right], 1).reshape(ROWS, 2, 64, 32).transpose(2, 3)
-            x = x.contiguous()
-            if not packed_only:
-                out["split_t 4096"] = device_ms(
-                    lambda: sk.stft_mag_split_t(x, split_hann, consts), "split_t 4096")
-            del bl, br, x, words, bwords
-        if n == 4800:
+            del bl, br, words, bwords
+        if n == 4800 and packed:
             hop, k = 58, 8
             words = [(x * 32767.0).round().to(torch.int16) for x in (left, right)]
             hann_i16 = torch.from_numpy(sk.packed_hann_i16(w)).to(dev)
@@ -328,6 +370,42 @@ def _worker(sizes: list[int], packed_only: bool) -> None:
                         bl, br, packed_hann, consts, k, hop, emit_carry=True))):
                 out[key] = device_ms(fn, key)
             del bl, br, words, bwords
+        if n in SPLIT_HOPS and split:
+            # every kernel over the split-real row, and the fused push
+            hop, k = SPLIT_HOPS[n], 8
+            n1 = _n1(w)
+            x = _transposed(left, right, n1)
+            t_cols = max(1, x.shape[3] // 4)
+            carry, chunk = (x[..., : x.shape[3] - t_cols].contiguous(),
+                            x[..., x.shape[3] - t_cols :].contiguous())
+            del x
+            bl, br = planes(ROWS, w + (k - 1) * hop, sr, 3)
+            c_len = w - hop
+            pc = torch.stack([bl[:, :c_len], br[:, :c_len]], 1).contiguous()
+            pch = torch.stack([bl[:, c_len:], br[:, c_len:]], 1).contiguous()
+            cfg = SpectrogramConfig(sample_rate=sr, window_period=w / sr)
+            assert cfg.window_size == w and cfg.padded_size == n
+            taps = ck.resample_taps(cmap_ops.resample_matrix_full(cfg), dev)
+            tables = torch.from_numpy(ck.builtin_color_tables(32)[np.arange(ROWS) % 19]).to(dev)
+            xt = _transposed(left, right, n1)
+            keys = {
+                f"split_t {n}": lambda: sk.stft_mag_split_t(xt, split_hann, consts),
+                f"split_tsplit {n}": lambda: sk.stft_mag_split_tsplit(carry, chunk, split_hann,
+                                                                       consts),
+                f"split_allk {n} k8": lambda: sk.stft_mag_split_allk(bl, br, split_hann,
+                                                                      consts, k, hop),
+                f"split_allk_carry {n} k8": lambda: sk.stft_mag_split_allk(
+                    bl, br, split_hann, consts, k, hop, emit_carry=True),
+                f"split_carry {n} k8": lambda: sk.stft_mag_split_carry(pc, pch, split_hann,
+                                                                        consts, k, hop),
+                f"push_fused {n}": lambda: (pk.push_fused(left, right, split_hann, consts,
+                                                          tables, taps, cfg),),
+                f"push_fused_mags {n}": lambda: pk.push_fused(
+                    left, right, split_hann, consts, tables, taps, cfg, emit_mags=True),
+            }
+            for key, fn in keys.items():
+                out[key] = device_ms(fn, key)
+            del carry, chunk, bl, br, pc, pch, xt, tables
         del left, right
         torch.cuda.empty_cache()
     print("TIMES " + json.dumps(out), flush=True)
@@ -335,25 +413,28 @@ def _worker(sizes: list[int], packed_only: bool) -> None:
 
 
 def main(argv: list[str]) -> int:
-    sizes, packed_only, colormap = [], False, False
-    while argv[:1] in (["--sizes"], ["--packed"], ["--colormap"]):
+    sizes, packed_only, split_only, colormap = [], False, False, False
+    while argv[:1] in (["--sizes"], ["--packed"], ["--split"], ["--colormap"]):
         if argv[0] == "--sizes":
             sizes, argv = [int(n) for n in argv[1].split(",")], argv[2:]
         elif argv[0] == "--packed":
             packed_only, argv = True, argv[1:]
+        elif argv[0] == "--split":
+            split_only, argv = True, argv[1:]
         else:
             colormap, argv = True, argv[1:]
     if argv[:1] == ["--worker"]:
         if colormap:
             _colormap_worker()
         else:
-            _worker(sizes, packed_only)
+            _worker(sizes, packed_only, split_only)
         return 0
     roots = [pathlib.Path(r).resolve() for r in argv] or [pathlib.Path(__file__).parents[1]]
     for root in (*roots, *reversed(roots)):
         print(f"== {root}", flush=True)
         worker = (["--sizes", ",".join(map(str, sizes))] if sizes else []) + \
-            (["--packed"] if packed_only else []) + (["--colormap"] if colormap else [])
+            (["--packed"] if packed_only else []) + (["--split"] if split_only else []) + \
+            (["--colormap"] if colormap else [])
         code = ("import runpy, sys; "
                 f"sys.argv = [sys.argv[0], *{worker!r}, '--worker']; "
                 f"sys.path.insert(0, {str(root)!r}); "

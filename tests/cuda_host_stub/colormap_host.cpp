@@ -118,7 +118,7 @@ extern "C" int colormap_host_tile(const float* mag_l, const float* mag_r,
                                   int rows_per_table, int res, float min_db,
                                   float db_range, float db_eps, float inv_res1,
                                   unsigned* out, int* count) {
-  const spk::TileArgs a{mag_l, mag_r, rows, bins, span, j0, j1, w0, w1, h, u, v,
+  const spk::TileArgs a{mag_l, mag_r, rows, bins, bins, span, j0, j1, w0, w1, h, u, v,
                         n_tables, rows_per_table, res,
                         spk::ColormapLaws{static_cast<float>(res), min_db,
                                           db_range, db_eps, inv_res1}};
@@ -141,6 +141,23 @@ extern "C" int colormap_host_blockwise(
   return colormap_host_tile(mag_l, mag_r, rows, bins, span, j0, j1, w0, w1, h,
                             tables, nullptr, n_tables, rows_per_table, res,
                             min_db, db_range, db_eps, inv_res1, out, count);
+}
+
+// spk_colormap_rows at two taps as it hands the planar rows [n_rows, 2,
+// bins] to the generic kernel's launch (`planar_tile_args`: tap-major taps
+// [2, h], row n's factors at u, v + n * res * 4), the tile run as
+// colormap_host_tile runs it: out and count as there.
+extern "C" int colormap_host_planar_tile(
+    const float* rows, int n_rows, int bins, int span, const int* tap_j,
+    const float* tap_w, int h, const float* u, const float* v, int res,
+    float min_db, float db_range, float db_eps, float inv_res1, unsigned* out,
+    int* count) {
+  if (span < 1 || span > bins) return 1;
+  return host_tile<true>(
+      spk::planar_tile_args(rows, n_rows, bins, span, tap_j, tap_w, h, u, v, res,
+                            spk::ColormapLaws{static_cast<float>(res), min_db,
+                                              db_range, db_eps, inv_res1}),
+      CountedOut{out, count});
 }
 
 // colormap_tile.cuh `tile_staged`, as spk_colormap_form answers it: 1 where

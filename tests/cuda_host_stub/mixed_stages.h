@@ -18,7 +18,6 @@ struct MixedStages {
   int table_size() const { return n; }
   float2 input(int, float2 z) const { return z; }
   float2 result(const float2* buf, int k) const { return buf[k]; }
-  void prepare(float2*) const {}
   int at(int i) const { return i; }
 
   // Digit reversal.  Stage s turns r_s sub-transforms of length

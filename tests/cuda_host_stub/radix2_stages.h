@@ -17,7 +17,6 @@ struct Radix2Stages {
   }
   float2 input(int, float2 z) const { return z; }
   float2 result(const float2* buf, int k) const { return buf[k]; }
-  void prepare(float2*) const {}
 
   // Stage s merges transforms of size 2^s into 2^(s+1); the twiddle of
   // butterfly position p is exp(-2 pi i p / 2^(s+1)) = tw[p * N / 2^(s+1)].

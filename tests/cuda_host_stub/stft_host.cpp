@@ -10,8 +10,9 @@
 // kernels' grids would, with the operand offsets of the kernels in csrc/.
 // The packed rows take that body of n and n's FFT table (`fft_table`); the
 // split-real rows take it of n/2 (the real-FFT pack, even n from 4) or of n
-// (odd n), and n's split-real table (`split_fft_table`).  Output rows are
-// stft_bins(n, w) wide.
+// (odd n), and n's split-real table (`split_fft_table`), with the kernels'
+// load or the lane load of split_lanes.h (`stft_host_set_load`).  Output
+// rows are stft_bins(n, w) wide.
 #include <algorithm>
 #include <cmath>
 #include <cstddef>
@@ -21,6 +22,7 @@
 #include "mixed_stages.h"
 #include "push_fused.cuh"
 #include "radix2_stages.h"
+#include "split_lanes.h"
 #include "stft_large.cuh"
 
 // fn(body, buf) with the body chosen as above and a buffer of its size; 1
@@ -68,12 +70,27 @@ static void packed_row(int body, const A&... args) {
   }
 }
 
+// The split-real rows' load (`stft_host_set_load`): 0 the kernels' (fused
+// into the first pass), 1 the lane load of split_lanes.h.
+static int g_load = 0;
+
+extern "C" void stft_host_set_load(int load) { g_load = load; }
+
+template <int kCap, class... A>
+static void real_row_at(const A&... args) {
+  if (g_load == 1) {
+    real_row_lanes<kCap>(args...);
+  } else {
+    spk::stft_real_row<kCap>(args...);
+  }
+}
+
 template <class... A>
 static void real_row(int body, const A&... args) {
   if (body == 5) {
-    spk::stft_real_row<spk::kNarrowGroup>(args...);
+    real_row_at<spk::kNarrowGroup>(args...);
   } else {
-    spk::stft_real_row(args...);
+    real_row_at<spk::kMixedGroup>(args...);
   }
 }
 
@@ -526,4 +543,27 @@ extern "C" int stft_host_push(int body, int n, int rows, int w,
           mag_r == nullptr ? nullptr : mag_r + row * bins, buf, planes.data());
     }
   });
+}
+
+// Kernel B's per-pixel body (`colormap_pixel`) over planes [rows, bins]:
+// out [rows, h] words, row n colored with tables[n % n_tables] (the second
+// kernel of the chain the fused push stands for).
+extern "C" int stft_host_builtin(const float* mag_l, const float* mag_r,
+                                 int rows, int bins, const float* tables,
+                                 int n_tables, int res, const int* j0,
+                                 const int* j1, const float* w0,
+                                 const float* w1, int h, float min_db,
+                                 float db_range, float db_eps, float inv_res1,
+                                 unsigned* out) {
+  const spk::ColormapLaws laws{static_cast<float>(res), min_db, db_range,
+                               db_eps, inv_res1};
+  for (int row = 0; row < rows; ++row) {
+    const size_t at = static_cast<size_t>(row) * bins;
+    const float* tab = spk::row_table(tables, row, 1, n_tables, res);
+    for (int p = 0; p < h; ++p) {
+      out[static_cast<size_t>(row) * h + p] = spk::colormap_pixel(
+          mag_l + at, mag_r + at, j0[p], j1[p], w0[p], w1[p], tab, res, laws);
+    }
+  }
+  return 0;
 }

@@ -17,7 +17,10 @@ whole rows per CTA, four pixels per thread, each row's planes and tables
 copied into a stage of shared memory.  The stub runs each CTA's loop in
 turn with the header's own index code, the stage an array and each copy a
 memcpy; its words must equal the per-pixel rows bit for bit, every (row,
-pixel) stored exactly once.
+pixel) stored exactly once.  `colormap_rows_fused`'s kernel runs the
+generic kernel's tile on planar rows [rows, 2, B] at two taps (a plane row
+stride of 2B, the taps tap-major): its host run must give the K-tap
+per-pixel body's words (`planar_row_pixel`), every pixel stored once.
 """
 
 import ctypes
@@ -71,6 +74,10 @@ def host_lib(tmp_path_factory):
     lib.colormap_host_blockwise.restype = i
     lib.colormap_host_form.argtypes = (i, i, i, i)
     lib.colormap_host_form.restype = i
+    lib.colormap_host_planar_rows.argtypes = (p, i, i, p, p, i, i, p, p, i, f, f, f, f, p)
+    lib.colormap_host_planar_rows.restype = i
+    lib.colormap_host_planar_tile.argtypes = (p, i, i, i, p, p, i, p, p, i, f, f, f, f, p, p)
+    lib.colormap_host_planar_tile.restype = i
     return lib
 
 
@@ -294,3 +301,62 @@ def test_tile_form_follows_the_span(host_lib, geometry, h):
     got = tuple({1: "staged", 0: "direct"}[host_lib.colormap_host_form(taps.span, h, 32, g)]
                 for g in (0, 1))
     assert got == FORMS[geometry, h]
+
+
+# ------------------------------------------------- planar rows on the tile
+
+# B -> (geometry, planes, matrix): BENCH_CONFIG's ring planes (bins 1 ..
+# W-1: the right plane starts 8,188 bytes into a row) and the N=4410 planes
+PLANAR_WIDTHS = {2047: (BENCH_CONFIG, "ring"), 2205: (TILE_WIDTHS[2205], "full")}
+
+
+@pytest.mark.parametrize("bins", sorted(PLANAR_WIDTHS))
+@pytest.mark.parametrize("h", [512, 1024])
+def test_planar_rows_tile_writes_every_pixel_once_with_the_rows_bits(host_lib, h, bins):
+    """spk_colormap_rows at two taps: the generic kernel's tile over planar
+    rows [37, 2, B] (a plane row stride of 2B, the buffer a float past a
+    16-byte boundary, so both planes' copies start unaligned), tap-major
+    taps and per-row factors, stores every pixel once with the words of the
+    K-tap per-pixel body `colormap_rows_kernel` runs."""
+    base, kind = PLANAR_WIDTHS[bins]
+    cfg = dataclasses.replace(base, viewport_height=h)
+    ml, mr = _planes(cfg, TILE_ROWS)
+    if kind == "ring":
+        w = cfg.window_size
+        ml, mr = ml[:, 1:w], mr[:, 1:w]
+        m = tcm.resample_matrix(cfg)
+    else:
+        m = tcm.resample_matrix_full(cfg)
+    rows = np.ascontiguousarray(torch.stack([ml, mr], 1).numpy())
+    assert rows.shape == (TILE_ROWS, 2, bins) and m.shape == (h, bins)
+    buf = np.zeros(rows.size + 8, np.float32)
+    buf[1 : 1 + rows.size] = rows.reshape(-1)
+    ptr = buf.ctypes.data + 4
+    taps = tck.resample_taps_k(m.T)
+    assert taps.j.shape == (h, 2) and taps.span == int(np.nonzero(m)[1].max()) + 1
+    tap_j, tap_w = (np.ascontiguousarray(t.numpy()) for t in taps.pairs)
+    np.testing.assert_array_equal(tap_j, taps.j.numpy().T)
+    j, w = (np.ascontiguousarray(t.numpy()) for t in (taps.j, taps.w))
+    gu, gv = tck.generic_color_tables(32)
+    cu, cv = (t.numpy() for t in _custom())
+    pick = np.arange(TILE_ROWS) % 20
+    u = np.ascontiguousarray(np.concatenate([gu, cu])[pick])
+    v = np.ascontiguousarray(np.concatenate([gv, cv])[pick])
+    res = 32
+    laws = (cfg.min_db, cfg.max_db - cfg.min_db, cfg.db_epsilon, 1.0 / (res - 1))
+    got = np.zeros((TILE_ROWS, h), np.uint32)
+    count = np.zeros((TILE_ROWS, h), np.int32)
+    assert host_lib.colormap_host_planar_tile(
+        ptr, TILE_ROWS, bins, taps.span, tap_j.ctypes.data, tap_w.ctypes.data, h,
+        u.ctypes.data, v.ctypes.data, res, *laws, got.ctypes.data, count.ctypes.data) == 0
+    np.testing.assert_array_equal(count, 1)
+    want = np.zeros_like(got)
+    assert host_lib.colormap_host_planar_rows(
+        ptr, TILE_ROWS, bins, j.ctypes.data, w.ctypes.data, h, 2, u.ctypes.data,
+        v.ctypes.data, res, *laws, want.ctypes.data) == 0
+    np.testing.assert_array_equal(got, want)
+    plain = tck.colormap_rows_fused_plain(
+        torch.from_numpy(rows), torch.from_numpy(u.reshape(TILE_ROWS, res, 4)),
+        torch.from_numpy(v.reshape(TILE_ROWS, res, 4)), torch.from_numpy(m.T.copy()), cfg,
+        packed=True)
+    assert _u8_diff(got.view(np.int32), plain.numpy()) <= 1

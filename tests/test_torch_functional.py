@@ -250,6 +250,23 @@ def test_resample_taps_k_forms():
     assert t.j.tolist() == [[0], [2], [0]] and t.w.tolist() == [[0.0], [0.25], [0.0]]
 
 
+def test_resample_taps_k_span_and_pairs():
+    """The K-tap form keeps the taps' span (highest bin + 1, `resample_taps`'
+    at K = 2) and, at K = 2 only, its taps tap-major for the row tile."""
+    for kw in (CFG_KW, BENCH_H64):
+        tc, _ = _cfgs(kw)
+        for m in (tcm.resample_matrix(tc), tcm.resample_matrix_full(tc)):
+            k_taps = tck.resample_taps_k(m.T)
+            assert k_taps.span == tck.resample_taps(m).span == int(np.nonzero(m)[1].max()) + 1
+            pj, pw = k_taps.pairs
+            assert torch.equal(pj, k_taps.j.t()) and torch.equal(pw, k_taps.w.t())
+            assert pj.is_contiguous() and pw.is_contiguous()
+            m4 = 0.5 * (m + np.roll(m, 2, axis=1))
+            four = tck.resample_taps_k(m4.T)
+            assert four.j.shape[1] == 4 and four.pairs is None
+            assert four.span == int(np.nonzero(m4)[1].max()) + 1
+
+
 def test_fused_raises_where_jax_raises(rng):
     tc, jc, rows, u, v, m = _fused_case(CFG_KW, 2, rng)
     for fn, args, cfg in ((jck.colormap_rows_fused, (jnp.asarray(rows), jnp.asarray(u),

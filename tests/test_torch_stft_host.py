@@ -80,6 +80,10 @@ def host_lib(tmp_path_factory):
     lib.stft_host_split_tsplit.argtypes = (i, i, i, i, i, i, p, p, p, p, p, p, p)
     lib.stft_host_push.argtypes = (i, i, i, i, p, p, p, p, p, i, i, p, p, p, p, i,
                                    f, f, f, f, p, p, p)
+    lib.stft_host_builtin.argtypes = (p, p, i, i, p, i, i, p, p, p, p, i, f, f, f, f, p)
+    lib.stft_host_builtin.restype = i
+    lib.stft_host_set_load.argtypes = (i,)
+    lib.stft_host_set_load.restype = None
     for fn in (lib.stft_host_allk, lib.stft_host_allk_i16):
         fn.argtypes = (i, i, i, i, i, i, i, p, p, p, p, p, p, p, i)
         fn.restype = i
@@ -394,6 +398,44 @@ def test_fused_push_row_matches_split_then_colormap(host_lib, n_fft, body, emit_
                                       taps, torch.from_numpy(tables), cfg)
     assert testing.rgba_u8_diff(tck.unpack_rgba(words.view(np.int32)),
                                 tck.unpack_rgba(want)) <= 1
+
+
+@pytest.mark.parametrize("n_fft,body", [(256, RADIX2), (4096, RADIX2), (480, MIXED),
+                                         (4800, PICKED), (194, PICKED), (435, PICKED)])
+def test_fused_push_row_equals_the_chain(host_lib, n_fft, body):
+    """The fused push's row: its planes the split-real kernel's and its
+    words kernel B's per-pixel body on those planes, bit for bit, tables
+    read per row (W = N/2, and W = N at the odd N = 435)."""
+    w = n_fft if n_fft % 2 else n_fft // 2
+    rows, h = 3, 64 if n_fft < 1000 else 1024
+    left, right, window = _random_rows(rows, w, n_fft, np.float32)
+    left, right = left * 0.05, right * 0.02
+    table = tsk.split_fft_table(n_fft)
+    bins = tsk.stft_bins(n_fft, w)
+    rng = np.random.default_rng(n_fft)
+    j0 = np.sort(rng.integers(0, bins - 1, h)).astype(np.int32)
+    j1 = (j0 + 1).astype(np.int32)
+    w1 = rng.uniform(0.0, 1.0, h).astype(np.float32)
+    w0 = (1.0 - w1).astype(np.float32)
+    tables = np.ascontiguousarray(tck.builtin_color_tables()[[0, 1, 3, 8]])
+    res = tables.shape[1] // 4
+    laws = (-120.0, 120.0, 1e-12, 1.0 / (res - 1))
+    words = np.zeros((rows, h), np.uint32)
+    mags = _outs(rows, n_fft, w)
+    assert host_lib.stft_host_push(
+        body, n_fft, rows, w, _ptr(left), _ptr(right), _ptr(window), _ptr(table),
+        _ptr(tables), tables.shape[0], res, _ptr(j0), _ptr(j1), _ptr(w0), _ptr(w1), h,
+        *laws, _ptr(words), *map(_ptr, mags)) == 0
+    planes = _host_rows(host_lib, host_lib.stft_host_split, body, n_fft, left, right, window,
+                        table)
+    for got, same in zip(mags, planes):
+        np.testing.assert_array_equal(got, same)
+    chain = np.zeros_like(words)
+    assert host_lib.stft_host_builtin(
+        *map(_ptr, planes), rows, bins, _ptr(tables), tables.shape[0], res, _ptr(j0),
+        _ptr(j1), _ptr(w0), _ptr(w1), h, *laws, _ptr(chain)) == 0
+    np.testing.assert_array_equal(words, chain)
+    assert len(np.unique(words)) > h // 4
 
 
 # ------------------------------------------- radix 7 and the real-FFT pack
@@ -794,3 +836,85 @@ def test_split_real_wide_radix7_packs_match_float64(host_lib, n_fft):
     for g, x in zip(out, (left, right)):
         np.testing.assert_allclose(g, _real_reference(x, hann, n_fft, n_fft // 2),
                                    atol=ATOL, rtol=0)
+
+
+# ------------------------------------- the split-real row's two load forms
+
+FUSED, LANES = 0, 1   # stft_host_set_load: the kernels' load, split_lanes.h's
+# every even N = 2^1 .. 2^14, every 7-smooth N of MIXED_GRID (the odd 735
+# among them: the N-point row), the Bluestein sizes and the odd N = 435
+SPLIT_LOAD_SIZES = tuple(sorted({1 << b for b in range(1, 15)} | set(MIXED_GRID)
+                                | set(BLUESTEIN_SIZES) | {435}))
+
+
+def _load_n1(w: int) -> int:
+    """The largest divisor of w at most sqrt(w): the transposed layouts'
+    n1 (1 at a prime w)."""
+    return max(d for d in range(1, int(w**0.5) + 1) if w % d == 0)
+
+
+def _source_rows(host_lib, n_fft: int, w: int) -> list:
+    """The planes of each sample source at W = w over the picked body, in
+    the load form set: window planes (2 rows), the planar carry + chunk
+    (k=2 windows of one stream, the carry one sample longer than W - hop),
+    the transposed operand (2 rows, n1 = `_load_n1(w)`) and, where the
+    window has two columns or more, the transposed carry + chunk."""
+    table = tsk.split_fft_table(n_fft)
+    left, right, window = _random_rows(2, w, n_fft + w, np.float32)
+    outs = [_host_rows(host_lib, host_lib.stft_host_split, PICKED, n_fft, left, right,
+                       window, table)]
+    k, hop = 2, max(1, w // 3)
+    c_len = w - hop + 1
+    rng = np.random.default_rng(n_fft - w)
+    carry = rng.standard_normal((1, 2, c_len)).astype(np.float32)
+    chunk = rng.standard_normal((1, 2, k * hop)).astype(np.float32)
+    planar = _outs(k, n_fft, w)
+    nxt = np.zeros_like(carry)
+    assert host_lib.stft_host_split_carry(PICKED, n_fft, 1, c_len, k, hop, w, _ptr(carry),
+                                          _ptr(chunk), _ptr(window), _ptr(table),
+                                          *map(_ptr, planar), _ptr(nxt)) == 0
+    outs.append(planar)
+    n1 = _load_n1(w)
+    m = w // n1
+    x = np.ascontiguousarray(
+        np.stack([left, right], 1).reshape(2, 2, m, n1).transpose(0, 1, 3, 2))
+    t_out = _outs(2, n_fft, w)
+    assert host_lib.stft_host_split_t(PICKED, n_fft, 2, n1, m, _ptr(x), _ptr(window),
+                                      _ptr(table), *map(_ptr, t_out)) == 0
+    outs.append(t_out)
+    if m >= 2:
+        t_cols = max(1, m // 3)
+        tc, tt = (np.ascontiguousarray(a) for a in (x[..., : m - t_cols], x[..., m - t_cols :]))
+        ts_out = _outs(2, n_fft, w)
+        ts_next = np.zeros_like(tc)
+        assert host_lib.stft_host_split_tsplit(PICKED, n_fft, 2, n1, m - t_cols, t_cols,
+                                               _ptr(tc), _ptr(tt), _ptr(window), _ptr(table),
+                                               *map(_ptr, ts_out), _ptr(ts_next)) == 0
+        outs.append(ts_out)
+    return outs
+
+
+@pytest.mark.parametrize("n_fft", SPLIT_LOAD_SIZES)
+def test_split_real_fused_load_equals_lanes(host_lib, n_fft):
+    """The split-real row with its samples read by window position straight
+    into the first pass gives the bits of the lane load it replaced
+    (split_lanes.h: each sample a float lane of its slot, then the whole
+    transform), for each of the four sample sources, at W = N/2, 3N/4, N
+    and an odd W:
+    every even N = 2^1 .. 2^14, every 7-smooth N from 6 to 10,000, the
+    Bluestein sizes (whose load goes through its slots in both forms) and
+    the odd N = 435 and 735 (the N-point row)."""
+    for w in sorted({max(1, n_fft // 2), max(1, n_fft - n_fft // 4), n_fft,
+                     (n_fft // 2) | 1}):
+        forms = []
+        for load in (FUSED, LANES):
+            host_lib.stft_host_set_load(load)
+            try:
+                forms.append(_source_rows(host_lib, n_fft, w))
+            finally:
+                host_lib.stft_host_set_load(0)
+        assert len(forms[0]) == (4 if w // _load_n1(w) >= 2 else 3)
+        for fused, lanes in zip(*forms):
+            for got, want in zip(fused, lanes):
+                assert np.isfinite(got).all() and got.any()
+                np.testing.assert_array_equal(got, want)
