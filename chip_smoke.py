@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Runs from the root of a checkout and needs one CUDA card, `nvcc` and
-`nvidia-smi`; it imports `spectrogram_tpu_torch`, torch and numpy only.
+Runs from the root of a checkout and needs one CUDA card, `nvcc`, `g++`
+(phase 26's host rings) and `nvidia-smi`; it imports `spectrogram_tpu_torch`,
+torch and numpy only.
 Phases, each of which fails the run with a non-zero exit:
 
   1. the card: torch sees it; nvidia-smi's name and power limit.
@@ -212,9 +213,32 @@ Phases, each of which fails the run with a non-zero exit:
      passes (BEFORE_PASSES_MS) and before the fused load
      (BEFORE_FUSED_LOAD_MS, with colormap_rows_fused before the tile).
 
+ 26. the serving loop on the card at full width, examples/serve.py's loop
+     on the port: SpectrogramPipeline(BENCH_CONFIG, chunk_hops=1,
+     store_ring=False, packed_output=True, i16_planes=True,
+     presorted_input=True, sorted_output=True), 10,240 streams, palettes
+     arange(S) % 19; a RingBank16 of 8,192 frames a ring, fed by producer
+     threads that push 256-stream blocks of one seeded int16 chirp+tone
+     array at the hop rate (push_matrix_range); 24 ticks, each
+     pop_matrix_i16_planar(800, pool.next(), dest=input_dest) into a pinned
+     ChunkPool slot pushed by a depth-2 DeviceFeeder (H2D on its side
+     stream).  Passes when rows[output_perm] equal an independent per-row
+     pipeline's direct push_planar of the same samples bit for bit, no
+     frame was dropped and the bank is empty, the int16 kernel A and
+     blockwise launch counts rose, the state at tick 12 saved with
+     save_state and restored with load_state into a fresh pipeline gives
+     ticks 13-24 bit for bit, and an f32 drain (pop_matrix_f32_planar,
+     4,096 per-row streams, readback="probe") gives its direct pushes' rows
+     bit for bit through f32 kernel A and kernel B.  Then the host drain's
+     ms per tick (p50 / p99), the H2D ms of a 32.8 MB chunk and the device
+     ms per push (the feeder's CUDA events), the wall ms per tick at depth 1
+     and 2 from rings holding ten hops (in turns 1 2 2 1) against the
+     16.67 ms hop, a torch.profiler trace's share of H2D time under a
+     kernel, the card and the host CPU.
+
 Then the whole run's seconds.  The second-to-last line is {"kernels": [...]}:
 each kernel's launches on the main paths (phases 5, 9, 12, 15, 18, 21, 22,
-23 and 24; the Bluestein body's row counts every STFT launch at such an N
+23, 24 and 26; the Bluestein body's row counts every STFT launch at such an N
 below the large-N route), its
 largest error against its plain version, its time, its plain version's, the
 library call's where one computes the same transform, and its bound: the
@@ -226,8 +250,12 @@ peaks.  The last line is {"ok": true, ...}.
 from __future__ import annotations
 
 import json
+import os
+import pathlib
+import platform
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -242,6 +270,10 @@ from spectrogram_tpu_torch.ops.cuda import _build
 from spectrogram_tpu_torch.ops.cuda import colormap_kernel as ck
 from spectrogram_tpu_torch.ops.cuda import push_kernel as pk
 from spectrogram_tpu_torch.ops.cuda import stft_kernel as sk
+from spectrogram_tpu_torch.io.feeder import ChunkPool, DeviceFeeder
+from spectrogram_tpu_torch.io.ring import RingBank16
+from spectrogram_tpu_torch.utils import checkpoint
+from spectrogram_tpu_torch.utils.profiling import LatencyTracker, device_trace
 
 STREAMS = 4096
 PUSHES = 4
@@ -792,7 +824,12 @@ def main() -> int:
         log(f"[25] {label}: {t:.4f} ms device time (first version {first:.4f} ms, "
             f"{first / t:.2f}x{before}; {library}; bound {b:.4f} ms); card {power_line}")
 
-    log(f"[25] whole run {time.perf_counter() - t_start:.1f} s")
+    # -- 26. the serving loop on the card at full width ----------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    serving_loop(dev, lib, main_launches, power_line)
+
+    log(f"[26] whole run {time.perf_counter() - t_start:.1f} s")
     print(power_line)
     print(json.dumps({"kernels": [
         dict(meta, route="cuda", launches=main_launches[k], max_abs_err=stats[k],
@@ -2607,6 +2644,331 @@ def rows_fused(dev, lib, main_launches: dict, stats, ms, plain_ms, bounds, libra
         f"{generic_ms:.4f} ms")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[24] peak device memory over phase 24: {peak:.2f} GiB; card {power_line}")
+
+
+LOOP_STREAMS = 10240        # the serving cell (PERF.md section 4)
+LOOP_TICKS = 24
+LOOP_CHECKPOINT_TICK = 12
+LOOP_CAPACITY = 8192        # frames per ring: ten hops of slack
+LOOP_BLOCK = 256            # streams per producer thread, as examples/serve.py
+LOOP_F32_STREAMS = 4096
+LOOP_F32_TICKS = 6
+LOOP_TIMED_TICKS = 9        # after one warm-up tick, from ten hops in the rings
+BUILD = pathlib.Path(__file__).resolve().parent / "build"
+
+
+def host_cpu() -> str:
+    """The host CPU's model name and core count (the drain runs there)."""
+    model = None
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+        model = next((line.split(":", 1)[1].strip() for line in out.splitlines()
+                      if line.startswith("Model name")), None)
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return f"{model or 'model not reported'} ({platform.machine()}), {os.cpu_count()} cores"
+
+
+def _planar_hop(hops: np.ndarray, t: int, dev) -> torch.Tensor:
+    """Hop t of [T, S, n, 2] int16 words as a planar [S, 2, n] tensor on
+    `dev`."""
+    return torch.from_numpy(hops[t]).to(dev).transpose(1, 2).contiguous()
+
+
+def _h2d_overlap(trace: pathlib.Path) -> tuple[int, float, float]:
+    """(host-to-device copies, their microseconds, the microseconds of them
+    during which a kernel ran) in a torch.profiler Chrome trace."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    copies = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    merged = []
+    for lo, hi in sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                         if e.get("cat") == "kernel"):
+        if merged and lo <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], hi)
+        else:
+            merged.append([lo, hi])
+    total = sum(hi - lo for lo, hi in copies)
+    covered = sum(max(0.0, min(hi, b) - max(lo, a))
+                  for lo, hi in copies for a, b in merged)
+    return len(copies), total, covered
+
+
+def _feed_ticks(feeder, pool, bank, n: int, ticks: int, dest=None, f32: bool = False,
+                drain: LatencyTracker = None, keep: bool = True) -> list:
+    """`ticks` drains of the bank into pool slots, each pushed by the
+    feeder; the rows of every push, in order (none unless `keep`: a
+    consumer that drops each block as it comes)."""
+    rows = []
+    for _ in range(ticks):
+        t0 = time.perf_counter()
+        if f32:
+            chunk, _ = bank.pop_matrix_f32_planar(n, pool.next(), dest=dest)
+        else:
+            chunk, _ = bank.pop_matrix_i16_planar(n, pool.next(), dest=dest)
+        if drain is not None:
+            drain.record(time.perf_counter() - t0)
+        done = feeder.push(chunk)
+        if done is not None and keep:
+            rows.append(done)
+    flushed = feeder.flush()
+    return rows + flushed if keep else []
+
+
+def serving_loop(dev, lib, main_launches: dict, power_line: str) -> None:
+    """Phase 26: examples/serve.py's loop on the port at 10,240 streams of
+    BENCH_CONFIG (k=1, no ring, packed rows, i16_planes, presorted_input,
+    sorted_output, palettes arange(S) % 19): producer threads push 256-stream
+    blocks of one seeded int16 chirp+tone array into a RingBank16 (8,192
+    frames a ring) at the hop rate; each tick drains 800 frames a stream
+    with pop_matrix_i16_planar(dest=input_dest) into a pinned ChunkPool slot
+    that a depth-2 DeviceFeeder copies to the card on its side stream and
+    pushes, its rows left on the card (readback="probe").  Checks: rows[output_perm] bit for bit an independent per-row
+    pipeline's direct pushes of the same samples; no dropped frame and an
+    empty bank; the int16 kernel A and blockwise launch counts; the state
+    at tick 12, saved with save_state and restored with load_state into a
+    fresh pipeline, gives ticks 13-24 bit for bit; an f32 drain at 4,096
+    per-row streams with readback="probe" (f32 kernel A, kernel B) bit for
+    bit its direct pushes.  Then the loop's times: host drain ms per tick,
+    H2D ms per chunk and device ms per push (CUDA events of the feeder),
+    wall ms per tick at depth 1 and 2 from rings holding ten hops, with the
+    rows left on the card and read back to the host (each block dropped as
+    it comes), and a torch.profiler trace of the depth-2 loop for the
+    copies' overlap with the kernels."""
+    t_phase = time.perf_counter()
+    cfg = BENCH_CONFIG
+    s, n = LOOP_STREAMS, cfg.hop_size
+    hop_ms = n / cfg.sample_rate * 1e3
+    kw = dict(chunk_hops=1, store_ring=False, packed_output=True, device=dev)
+    full_kw = dict(kw, i16_planes=True, presorted_input=True, sorted_output=True)
+    p = SpectrogramPipeline(cfg, **full_kw)
+    ids = np.arange(s) % len(p.schemes)
+    state0 = p.set_palette(p.init_state(s), ids)
+    dest, out = p.input_dest(state0), p.output_perm(state0)
+    if dest is None or out is None:
+        fail("phase 26: the 10,240-stream layout did not take the palette sort")
+    words = np.round(testing.chirp_tone(s, LOOP_TICKS * n, cfg.sample_rate, seed=26)
+                     * 32767.0).astype(np.int16)
+    # hop-major [T, S, n, 2]: any block of streams of one hop is contiguous,
+    # so the producers push without a copy
+    hops = np.ascontiguousarray(words.reshape(s, LOOP_TICKS, n, 2).transpose(1, 0, 2, 3))
+    del words
+
+    # the reference: a per-row pipeline, the same samples pushed directly
+    per_row = SpectrogramPipeline(cfg, palette_sort=False, **dict(kw, i16_planes=True))
+    rstate = per_row.set_palette(per_row.init_state(s), ids)
+    ref_rows = []
+    for t in range(LOOP_TICKS):
+        rstate, r = per_row.push_planar(rstate, _planar_hop(hops, t, dev))
+        ref_rows.append(r)
+    DeviceFeeder(p, state0, depth=1, planar=True).push(np.zeros((s, 2, n), np.int16))  # warm-up
+    torch.cuda.synchronize()
+
+    # -- the paced loop -------------------------------------------------------
+    bank = RingBank16(s, capacity=LOOP_CAPACITY)
+    feeder = DeviceFeeder(p, state0, depth=2, planar=True, copy_chunks=False,
+                          readback="probe")
+    pool = ChunkPool.for_feeder(feeder, s, dtype=np.int16)
+    if not (pool.pinned and all(torch.from_numpy(pool.next()).is_pinned()
+                                for _ in range(len(pool)))):
+        fail("phase 26: the ChunkPool of a CUDA pipeline is not pinned")
+    errors = []
+    start = time.perf_counter() + 0.05
+
+    def producer(lo: int, hi: int) -> None:
+        try:
+            for t in range(LOOP_TICKS):
+                wait = start + t * hop_ms * 1e-3 - time.perf_counter()
+                if wait > 0:
+                    time.sleep(wait)
+                bank.push_matrix_range(lo, hops[t, lo:hi])
+        except Exception as exc:          # reported by the consumer
+            errors.append(exc)
+
+    threads = [threading.Thread(target=producer, args=(lo, min(lo + LOOP_BLOCK, s)),
+                                daemon=True) for lo in range(0, s, LOOP_BLOCK)]
+    drain, tick = LatencyTracker(), LatencyTracker()
+    rows, snapshot = [], None
+    lib.reset_launches()
+    for th in threads:
+        th.start()
+    for t in range(LOOP_TICKS):
+        give_up = time.perf_counter() + 5.0
+        while bank.min_size() < n:
+            if errors or time.perf_counter() > give_up:
+                fail(f"phase 26: the producers stalled at tick {t + 1} ({errors}); "
+                     f"dropped frames {bank.dropped_total}; drain {drain.summary()}, "
+                     f"tick {tick.summary()}, H2D {feeder.h2d.summary()}, push "
+                     f"{feeder.device_time.summary()}")
+            time.sleep(0.0002)
+        t0 = time.perf_counter()
+        chunk, _ = bank.pop_matrix_i16_planar(n, pool.next(), dest=dest)
+        drain.record(time.perf_counter() - t0)
+        done = feeder.push(chunk)
+        tick.record(time.perf_counter() - t0)
+        if done is not None:
+            rows.append(done)
+        if t + 1 == LOOP_CHECKPOINT_TICK:
+            snapshot = feeder.state       # a push never writes a state in place
+    rows.extend(feeder.flush())
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in lib.launches.items() if v}
+    for th in threads:
+        th.join(timeout=10)
+    if errors or any(th.is_alive() for th in threads):
+        fail(f"phase 26: a producer failed ({errors})")
+    for name, v in launches.items():
+        main_launches[name] = main_launches.get(name, 0) + v
+    left = max(bank.size(i) for i in range(s))
+    log(f"[26] serving loop, {s} streams, {LOOP_TICKS} ticks paced at {hop_ms:.2f} ms, "
+        f"depth 2, rows left on the card: launches {launches}; dropped frames "
+        f"{bank.dropped_total}, frames left {left}")
+    if bank.dropped_total or left:
+        fail("phase 26: the loop dropped frames or left frames in the bank")
+    if not (launches.get(sk.KERNEL_I16) and launches.get(ck.BLOCKWISE_KERNEL)):
+        fail("phase 26: the loop did not launch int16 kernel A and the blockwise colormap")
+    out_t = torch.from_numpy(out).to(dev)
+    same = len(rows) == LOOP_TICKS and all(
+        r.is_cuda and torch.equal(r.index_select(0, out_t), w) for r, w in zip(rows, ref_rows))
+    log(f"[26] rows[output_perm] {'equal' if same else 'DIFFER from'} the per-row "
+        f"pipeline's direct pushes, bit for bit, all {LOOP_TICKS} ticks")
+    if not same:
+        fail("phase 26: the serving loop's rows differ from the direct pushes")
+
+    # -- the checkpoint at tick 12 ----------------------------------------------
+    path = BUILD / "checkpoint" / "tick12"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    checkpoint.save_state(path, snapshot, cfg, pipeline=p)
+    save_s = time.perf_counter() - t0
+    p2 = SpectrogramPipeline(cfg, **full_kw)
+    t0 = time.perf_counter()
+    restored = checkpoint.load_state(path, p2)
+    load_s = time.perf_counter() - t0
+    dest2 = p2.input_dest(restored)
+    bank2 = RingBank16(s, capacity=LOOP_CAPACITY)
+    feeder2 = DeviceFeeder(p2, restored, depth=2, planar=True, copy_chunks=False,
+                           readback="probe")
+    pool2 = ChunkPool.for_feeder(feeder2, s, dtype=np.int16)
+    resumed = []
+    for t in range(LOOP_CHECKPOINT_TICK, LOOP_TICKS):
+        bank2.push_matrix(hops[t])
+        chunk, _ = bank2.pop_matrix_i16_planar(n, pool2.next(), dest=dest2)
+        done = feeder2.push(chunk)
+        if done is not None:
+            resumed.append(done)
+    resumed.extend(feeder2.flush())
+    resumed_same = (np.array_equal(dest2, dest)
+                    and len(resumed) == LOOP_TICKS - LOOP_CHECKPOINT_TICK
+                    and all(torch.equal(a, b)
+                            for a, b in zip(resumed, rows[LOOP_CHECKPOINT_TICK:])))
+    mib = path.with_suffix(".npz").stat().st_size / 2**20
+    log(f"[26] checkpoint at tick {LOOP_CHECKPOINT_TICK}: save_state {save_s:.2f} s "
+        f"({mib:.1f} MiB), load_state into a fresh pipeline {load_s:.2f} s; ticks "
+        f"{LOOP_CHECKPOINT_TICK + 1}-{LOOP_TICKS} "
+        f"{'equal' if resumed_same else 'DIFFER from'} the uninterrupted run, bit for bit")
+    if not resumed_same:
+        fail("phase 26: the restored state does not resume the loop bit for bit")
+    del ref_rows, rows, resumed, snapshot, restored, feeder2, pool2, bank2
+
+    # -- the f32 drain with probe readback ----------------------------------------
+    sf = LOOP_F32_STREAMS
+    pf = SpectrogramPipeline(cfg, **kw)
+    fstate = pf.set_palette(pf.init_state(sf), np.arange(sf) % len(pf.schemes))
+    if pf._state_perm(fstate) is not None:
+        fail("phase 26: the 4,096-stream f32 state took the palette sort")
+    want, ws = [], fstate
+    bankf = RingBank16(sf, capacity=LOOP_CAPACITY)
+    for t in range(LOOP_F32_TICKS):
+        ws, r = pf.push_planar(ws, _planar_hop(hops[:, :sf], t, dev).to(torch.float32) / 32768.0)
+        want.append(r)
+        bankf.push_matrix(hops[t, :sf])
+    feederf = DeviceFeeder(pf, fstate, depth=2, planar=True, copy_chunks=False,
+                           readback="probe")
+    poolf = ChunkPool.for_feeder(feederf, sf)
+    torch.cuda.synchronize()
+    lib.reset_launches()
+    got = _feed_ticks(feederf, poolf, bankf, n, LOOP_F32_TICKS, f32=True)
+    torch.cuda.synchronize()
+    flaunch = {k: v for k, v in lib.launches.items() if v}
+    for name, v in flaunch.items():
+        main_launches[name] = main_launches.get(name, 0) + v
+    fsame = len(got) == LOOP_F32_TICKS and all(g.is_cuda and torch.equal(g, w)
+                                              for g, w in zip(got, want))
+    fcarry = torch.equal(feederf.state.carry, ws.carry)
+    log(f"[26] f32 drain, {sf} per-row streams, readback=probe: launches {flaunch}; rows "
+        f"on the card {'equal' if fsame else 'DIFFER from'} the direct pushes bit for bit, "
+        f"carry {'exact' if fcarry else 'DIFFERS'}")
+    if not (fsame and fcarry) or not (flaunch.get(sk.KERNEL) and flaunch.get(ck.KERNEL)):
+        fail("phase 26: the f32 loop disagrees or missed f32 kernel A / kernel B")
+    del got, want, feederf, poolf, bankf
+
+    # -- timing: rings holding ten hops, drained as fast as the loop goes ---------
+    timed_bank = RingBank16(s, capacity=LOOP_CAPACITY)
+    walls = {(r, d): [] for r in ("probe", "full") for d in (1, 2)}
+    h2d, dev_ms, drain_t = LatencyTracker(), LatencyTracker(), LatencyTracker()
+
+    def timed(depth: int, readback: str, traced: bool = False) -> float:
+        for t in range(LOOP_TIMED_TICKS + 1):
+            timed_bank.push_matrix(hops[t])
+        f = DeviceFeeder(p, state0, depth=depth, planar=True, copy_chunks=False,
+                         readback=readback)
+        pl = ChunkPool.for_feeder(f, s, dtype=np.int16)
+        _feed_ticks(f, pl, timed_bank, n, 1, dest=dest)          # warm-up tick
+        f.h2d.samples.clear()
+        f.device_time.samples.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _feed_ticks(f, pl, timed_bank, n, LOOP_TIMED_TICKS, dest=dest,
+                    drain=None if traced else drain_t, keep=False)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / LOOP_TIMED_TICKS * 1e3
+        if not traced:
+            h2d.samples += f.h2d.samples
+            dev_ms.samples += f.device_time.samples
+        return wall
+
+    for readback in ("probe", "full"):
+        for depth in (1, 2, 2, 1):                               # in turns
+            walls[readback, depth].append(timed(depth, readback))
+    trace_line = "not measured"
+    try:
+        trace_dir = BUILD / "trace" / "phase26"
+        with device_trace(trace_dir):
+            timed(2, "full", traced=True)
+        copies, total_us, covered_us = _h2d_overlap(trace_dir / "trace.json")
+        if copies:
+            trace_line = (f"{copies} host-to-device copies, {total_us / copies / 1e3:.4f} ms "
+                          f"each, {covered_us / total_us * 100:.1f}% of their time under a "
+                          f"kernel")
+        else:
+            trace_line = "not measured (the trace holds no host-to-device copy)"
+    except Exception as exc:               # the trace is a reading, not a check
+        trace_line = f"not measured ({type(exc).__name__}: {exc})"
+
+    if not (h2d.samples and dev_ms.samples):
+        fail("phase 26: the feeder timed no host-to-device copy or push on the card")
+    mb = s * 2 * n * 2 / 1e6
+    cpu = host_cpu()
+    log(f"[26] host drain (pop_matrix_i16_planar with dest, {s} streams): paced p50 "
+        f"{drain.p50_ms:.3f} / p99 {drain.p99_ms:.3f} ms per tick; unpaced p50 "
+        f"{drain_t.p50_ms:.3f} / p99 {drain_t.p99_ms:.3f} ms; host CPU {cpu}")
+    log(f"[26] H2D of a {mb:.1f} MB int16 chunk from pinned memory on the copy stream "
+        f"(CUDA events): p50 {h2d.p50_ms:.4f} / p99 {h2d.p99_ms:.4f} ms "
+        f"= {mb / h2d.p50_ms:.2f} GB/s; device ms per push (compute stream) p50 "
+        f"{dev_ms.p50_ms:.4f} / p99 {dev_ms.p99_ms:.4f}")
+    for readback, label in (("probe", "rows left on the card"),
+                            ("full", "rows read back to the host, dropped as they come")):
+        log(f"[26] wall ms per tick, {label}, rings holding ten hops: depth 1 "
+            + " / ".join(f"{w:.3f}" for w in walls[readback, 1]) + ", depth 2 "
+            + " / ".join(f"{w:.3f}" for w in walls[readback, 2])
+            + f" (in turns 1 2 2 1); hop budget {hop_ms:.2f} ms")
+    log(f"[26] paced loop (depth 2, rows left on the card): drain + push p50 "
+        f"{tick.p50_ms:.3f} / p99 {tick.p99_ms:.3f} ms per tick")
+    log(f"[26] torch.profiler trace of the depth-2 loop: {trace_line}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[26] phase 26 {time.perf_counter() - t_phase:.1f} s; peak device memory "
+        f"{peak:.2f} GiB; card {power_line}; host CPU {cpu}")
 
 
 if __name__ == "__main__":

@@ -9,9 +9,11 @@ reference it is tested against.
 The exports are the JAX package's (its `__all__`), on torch tensors: the
 stateless functional surface (`stft_rows`, `colormap_rows`, ...) follows
 its tensors' device; `SpectrogramPipeline` runs on the card unless given
-`device="cpu"`.  The JAX package's host-side serving and session layers
-(`LiveSession`, `StreamGroupManager`, `DeviceFeeder`, `ChunkPool`) are not
-ported yet (ROADMAP.md).
+`device="cpu"`.  The serving loop's host side is ported: int16 ingest
+rings (`io.ring`), the async device feeder (`DeviceFeeder`, `ChunkPool`, lazy
+exports as in the JAX package) and npz checkpoints that cross between the
+two packages (`utils.checkpoint`).  `LiveSession` and `StreamGroupManager`
+are not ported yet (ROADMAP.md).
 """
 
 from spectrogram_tpu_torch.config import BENCH_CONFIG, DEFAULT_CONFIG, SpectrogramConfig
@@ -33,6 +35,21 @@ from spectrogram_tpu_torch.ops.colormap import (
 )
 from spectrogram_tpu_torch.models.spectrogram import SpectrogramPipeline, StreamState
 from spectrogram_tpu_torch.ops.cuda.colormap_kernel import unpack_rgba
+
+
+def __getattr__(name):
+    # Lazy exports, as in the JAX package: importing the package does not
+    # load the serving loop's modules.
+    if name == "DeviceFeeder":
+        from spectrogram_tpu_torch.io.feeder import DeviceFeeder
+
+        return DeviceFeeder
+    if name == "ChunkPool":
+        from spectrogram_tpu_torch.io.feeder import ChunkPool
+
+        return ChunkPool
+    raise AttributeError(name)
+
 
 __version__ = "0.1.0"
 
@@ -56,6 +73,8 @@ __all__ = [
     "SpectrogramPipeline",
     "FactoredScheme",
     "StreamState",
+    "DeviceFeeder",
+    "ChunkPool",
     "unpack_rgba",
     "__version__",
 ]

@@ -1118,3 +1118,76 @@ def test_blockwise_forms_equal_kernel_b(cuda, layout):
         assert _u8_diff_max(got, want) <= 1
         forms.add(ck.tile_form(taps, 32))
     assert forms == {"staged", "direct"}
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+@pytest.mark.parametrize("wire", ["int16_presorted", "f32_probe"])
+def test_feeder_on_the_card_equals_pushes(cuda, depth, wire):
+    """The serving loop's feeder on the card: a RingBank16 drained into a
+    pinned ChunkPool (every slot `is_pinned()`), copied on the feeder's side
+    stream, pushed at depth 1 and 2: rows bit for bit the same pipeline's
+    sequential pushes of the same chunks sent straight to the card, carries
+    exact, every copy and push timed, and the kernels launched (int16
+    kernel A and the blockwise colormap on the sorted int16 state; f32
+    kernel A and kernel B on the per-row one)."""
+    from spectrogram_tpu_torch.io.feeder import ChunkPool, DeviceFeeder
+    from spectrogram_tpu_torch.io.ring import RingBank16
+
+    s, ticks = 1024, 6
+    i16 = wire == "int16_presorted"
+    kw = dict(chunk_hops=1, store_ring=False, packed_output=True, device=cuda)
+    if i16:
+        kw.update(i16_planes=True, presorted_input=True, sorted_output=True)
+    p = SpectrogramPipeline(BENCH_CONFIG, **kw)
+    ids = np.arange(s) % (2 if i16 else 19)
+    state = p.set_palette(p.init_state(s), ids)
+    dest = p.input_dest(state)
+    assert (dest is not None) == i16
+    n = p.chunk_size
+    words = np.round(testing.chirp_tone(s, ticks * n, BENCH_CONFIG.sample_rate, seed=31)
+                     * 32767.0).astype(np.int16)
+
+    want, ref = [], state
+    for t in range(ticks):
+        planar = np.ascontiguousarray(words[:, t * n : (t + 1) * n].transpose(0, 2, 1))
+        chunk = torch.from_numpy(planar).to(cuda)
+        if i16:
+            chunk = chunk.index_select(0, torch.from_numpy(p.input_perm(state)).to(cuda))
+        else:
+            chunk = chunk.to(torch.float32) / 32768.0
+        ref, r = p.push_planar(ref, chunk)
+        want.append(r)
+
+    lib = _build.library()
+    kernels = ((sk.KERNEL_I16, ck.BLOCKWISE_KERNEL) if i16 else (sk.KERNEL, ck.KERNEL))
+    before = [lib.launches[k] for k in kernels]
+    bank = RingBank16(s, 8192)
+    bank.push_matrix(words)
+    feeder = DeviceFeeder(p, state, depth=depth, planar=True, copy_chunks=False,
+                          readback="full" if i16 else "probe")
+    pool = ChunkPool.for_feeder(feeder, s, dtype=np.int16 if i16 else np.float32)
+    assert pool.pinned and len(pool) == depth + 1
+    got = []
+    for _ in range(ticks):
+        buf = pool.next()
+        assert torch.from_numpy(buf).is_pinned()
+        if i16:
+            chunk, _ = bank.pop_matrix_i16_planar(n, buf, dest=dest)
+        else:
+            chunk, _ = bank.pop_matrix_f32_planar(n, buf)
+        done = feeder.push(chunk)
+        if done is not None:
+            got.append(done)
+    got.extend(feeder.flush())
+    assert bank.dropped_total == 0 and bank.min_size() == 0
+    assert [lib.launches[k] - b for k, b in zip(kernels, before)] == [ticks, ticks]
+    assert len(got) == ticks
+    for g, w in zip(got, want):
+        if i16:
+            np.testing.assert_array_equal(g, w.cpu().numpy())
+        else:
+            assert g.is_cuda
+            torch.testing.assert_close(g, w, atol=0, rtol=0)
+    torch.testing.assert_close(feeder.state.carry, ref.carry, atol=0, rtol=0)
+    assert len(feeder.h2d.samples) == len(feeder.device_time.samples) == ticks
+    assert all(x > 0 for x in feeder.h2d.samples + feeder.device_time.samples)

@@ -39,8 +39,8 @@ CFG_KW = dict(sample_rate=8000.0, window_period=0.032, hop_period=0.008,
               viewport_height=128)
 BENCH_H64 = dict(sample_rate=48000.0, window_period=2048 / 48000.0,
                  hop_period=800 / 48000.0, viewport_height=64)
-# the four names JAX exports lazily that come with later modules
-LAZY = {"LiveSession", "StreamGroupManager", "DeviceFeeder", "ChunkPool"}
+# the names JAX exports lazily that come with later modules
+LAZY = {"LiveSession", "StreamGroupManager"}
 
 
 def _cfgs(kw):
@@ -154,6 +154,7 @@ def test_exports_are_jax_s():
     assert not LAZY & set(tsg.__all__)
     for name in set(jsg.__all__) - LAZY:
         assert hasattr(tsg, name), name
+    assert {"DeviceFeeder", "ChunkPool"} <= set(tsg.__all__)
 
 
 # ---------------------------------------------------- colormap_rows_fused

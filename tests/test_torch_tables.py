@@ -326,8 +326,14 @@ def test_import_leaves_jax_out():
         "import spectrogram_tpu_torch.ops.log_scale\n"
         "import spectrogram_tpu_torch.ops.resample\n"
         "import spectrogram_tpu_torch.profile_push\n"
+        "import spectrogram_tpu_torch.io.feeder, spectrogram_tpu_torch.io.registry\n"
+        "import spectrogram_tpu_torch.io.ring, spectrogram_tpu_torch.io.sources\n"
+        "import spectrogram_tpu_torch.utils.checkpoint\n"
+        "import spectrogram_tpu_torch.utils.profiling, spectrogram_tpu_torch.utils.probe\n"
+        "spectrogram_tpu_torch.DeviceFeeder, spectrogram_tpu_torch.ChunkPool\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'orbax' or m.startswith('orbax.')"
         " or m == 'spectrogram_tpu' or m.startswith('spectrogram_tpu.')]\n"
         "assert not bad, bad\n"
     )
