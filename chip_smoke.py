@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Runs from the root of a checkout and needs one CUDA card, `nvcc`, `g++`
-(phase 26's host rings) and `nvidia-smi`; it imports `spectrogram_tpu_torch`,
-torch and numpy only.
+(the host rings of phases 26-27) and `nvidia-smi`; it imports
+`spectrogram_tpu_torch`, torch, numpy and (phase 27's PNG check) PIL only.
 Phases, each of which fails the run with a non-zero exit:
 
   1. the card: torch sees it; nvidia-smi's name and power limit.
@@ -235,10 +235,41 @@ Phases, each of which fails the run with a non-zero exit:
      and 2 from rings holding ten hops (in turns 1 2 2 1) against the
      16.67 ms hop, a torch.profiler trace's share of H2D time under a
      kernel, the card and the host CPU.
+ 27. multi-rate serving and the live display path, through the entry
+     points a user calls: (a) a StreamGroupManager(group_capacity=4096,
+     chunk_hops=1, store_ring=False) holding two geometry groups,
+     BENCH_CONFIG at 48 kHz (N=4096, 16.67 ms cadence) and its window
+     period at 44.1 kHz with an 8 ms hop (window 1881, hop 352, N=3762 on
+     the Bluestein body, 7.98 ms), palettes arange(S) % 19, pushed
+     directly with int16 tones / 32768: push_group rows bit for bit each
+     geometry's own pipeline, within 1 u8 of its plain version, carries
+     exact; a detached stream's reused slot gives a fresh stream's rows,
+     its neighbours their own history's; the same reuse in a BENCH group
+     on palettes i % 2, whose carry rests in sorted stream order
+     (palette_sort, no ring); (b) the same groups with ingest
+     (wire_int16, i16_planes, depth 2): producers push_pcm one hop of
+     int16 tones per stream before each due tick of a synthetic clock, 24
+     ticks of the slower group; the completed blocks bit for bit the f32
+     pipelines' direct pushes of x / 32768, no drop; halfway, with a push
+     in flight, one tenant per group leaves a stale backlog and its slot
+     is reused: from then on that slot's rows are a fresh stream's; wall
+     ms per tick and
+     the host drain's p50 / p99 per group; (c) LiveSession at its
+     defaults (48 kHz, N=4800, k=8, ring 2,048) with the scope and the
+     analyzer, fed the registry's 440 Hz source in real time, TF32
+     allowed: rows, ring and viewport bit for bit a direct pipeline's on
+     the chunks it consumed, the analyzer's levels within 1e-6 of a
+     float64 band product over the same ring rows, the scope's envelope
+     the newest samples' min / max; (d) `python -m
+     spectrogram_tpu_torch.app render` and `live --seconds 2 --streams 4`,
+     plain, with `--view` and with `--view --multirate` (headless), in
+     subprocesses: exit 0 and a PNG of the expected shape.  Kernel A
+     (radix 2, Bluestein, their int16 forms), the all-windows kernel and
+     kernel B must launch.
 
 Then the whole run's seconds.  The second-to-last line is {"kernels": [...]}:
 each kernel's launches on the main paths (phases 5, 9, 12, 15, 18, 21, 22,
-23, 24 and 26; the Bluestein body's row counts every STFT launch at such an N
+23, 24, 26 and 27; the Bluestein body's row counts every STFT launch at such an N
 below the large-N route), its
 largest error against its plain version, its time, its plain version's, the
 library call's where one computes the same transform, and its bound: the
@@ -829,7 +860,12 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     serving_loop(dev, lib, main_launches, power_line)
 
-    log(f"[26] whole run {time.perf_counter() - t_start:.1f} s")
+    # -- 27. multi-rate serving and the live display path ----------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    multirate_and_display(dev, lib, main_launches, power_line)
+
+    log(f"[27] whole run {time.perf_counter() - t_start:.1f} s")
     print(power_line)
     print(json.dumps({"kernels": [
         dict(meta, route="cuda", launches=main_launches[k], max_abs_err=stats[k],
@@ -2969,6 +3005,457 @@ def serving_loop(dev, lib, main_launches: dict, power_line: str) -> None:
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[26] phase 26 {time.perf_counter() - t_phase:.1f} s; peak device memory "
         f"{peak:.2f} GiB; card {power_line}; host CPU {cpu}")
+
+
+
+# ------------------------------------------------------------------ phase 27
+
+MR_STREAMS = 4096           # a geometry group's capacity
+MR_PUSHES = 4               # direct pushes per group in (a)
+MR_TICKS = 24               # ticks of the slower group in (b)
+# the second group: BENCH_CONFIG's window period at 44.1 kHz with an 8 ms
+# hop: window 1881, hop 352, N = 3762 = 2 * 3^2 * 11 * 19 (the Bluestein body)
+MR_44K = SpectrogramConfig(sample_rate=44100.0, window_period=BENCH_CONFIG.window_period,
+                           hop_period=0.008)
+MR_REUSE_SLOT = {BENCH_CONFIG: 1234, MR_44K: 2345}
+MR_SORT_PALETTES = 2        # palettes i % 2: the carry-sort group of (a)
+MR_STALE_FRAMES = 100       # a leaving tenant's backlog, dropped on reuse in (b)
+SESSION_PUSHES = 48         # LiveSession pushes in (c): 384 rows, no ring wrap
+ANALYZER_ATOL = 1e-6        # levels against a float64 band product
+CLI_SECONDS = 2.0
+
+
+def _mr_tones(s: int, hop: int, n: int, rate: float) -> np.ndarray:
+    """Hop `hop` ([s, n, 2] int16) of s stereo tones, each stream its own
+    pitch, phase and level (the producers' PCM in phase 27)."""
+    i = np.arange(s)[:, None]
+    f = 110.0 * 2.0 ** ((i % 61) / 12.0)
+    amp = 3000.0 + (i * 397) % 24000
+    t = (hop * n + np.arange(n))[None, :] / rate
+    left = np.round(amp * np.sin(2 * np.pi * f * t + 0.37 * i))
+    right = np.round(0.5 * amp * np.sin(3 * np.pi * f * t + 1.1 * i))
+    return np.stack([left, right], axis=-1).astype(np.int16)
+
+
+def _f32_words(words: np.ndarray, dev) -> torch.Tensor:
+    """int16 words as the f32 samples x / 32768, on the card."""
+    return torch.from_numpy(words).to(dev).to(torch.float32) / 32768.0
+
+
+def _count(lib, main_launches: dict) -> dict:
+    """This run's launches (kernels and the Bluestein body), added to
+    `main_launches`."""
+    launches = {k: v for k, v in lib.launches.items() if v}
+    launches[BLUESTEIN] = lib.body_launches[BLUESTEIN]
+    for k, v in launches.items():
+        main_launches[k] = main_launches.get(k, 0) + v
+    return launches
+
+
+def multirate_direct(dev, lib, main_launches: dict) -> None:
+    """Phase 27 (a): two geometry groups of 4,096 streams in one
+    StreamGroupManager, pushed directly, against their own pipelines."""
+    from spectrogram_tpu_torch.models.multirate import StreamGroupManager
+
+    s, groups = MR_STREAMS, (BENCH_CONFIG, MR_44K)
+    kw = dict(chunk_hops=1, store_ring=False)
+    ids = np.arange(s) % 19
+    t0 = time.perf_counter()
+    mgr = StreamGroupManager(group_capacity=s, device=dev, **kw)
+    sids = {cfg: [mgr.add_stream(cfg, palette_id=int(p)) for p in ids] for cfg in groups}
+    add_s = time.perf_counter() - t0
+    gs = {g.cfg: g for g in mgr.groups()}
+    hops = {cfg: [_f32_words(_mr_tones(s, i, gs[cfg].pipeline.chunk_size, cfg.sample_rate), dev)
+                  for i in range(MR_PUSHES + 1)] for cfg in groups}
+    torch.cuda.synchronize()
+    lib.reset_launches()
+    rows = {cfg: [] for cfg in groups}
+    for i in range(MR_PUSHES):
+        for cfg in groups:
+            rows[cfg].append(mgr.push_group(cfg, hops[cfg][i]))
+    torch.cuda.synchronize()
+    launches = _count(lib, main_launches)
+    for cfg in groups:
+        g = gs[cfg]
+        log(f"[27] (a) group {cfg.sample_rate:.0f} Hz (W={cfg.window_size}, hop "
+            f"{cfg.hop_size}, N={cfg.padded_size}, {sk.fft_route(cfg.padded_size)} body, "
+            f"{g.chunk_period * 1e3:.2f} ms cadence): {s} streams, tables "
+            f"{'palette-sorted' if g.pipeline._state_perm(g.state) is not None else 'per row'}")
+    log(f"[27] (a) {len(groups)} groups x {MR_PUSHES} pushes x {s} streams (add_stream x "
+        f"{len(groups) * s}: {add_s:.2f} s); launches {launches}; radix-2 body "
+        f"{lib.body_launches['radix2']}")
+    if not (launches.get(sk.KERNEL) and launches.get(sk.MIXED_KERNEL)
+            and launches[BLUESTEIN] and launches.get(ck.KERNEL)):
+        fail("phase 27 (a): the manager did not launch kernel A at N=4096 and on the "
+             "Bluestein body at N=3762, and kernel B")
+
+    for cfg in groups:
+        g = gs[cfg]
+        rp = SpectrogramPipeline(cfg, device=dev, **kw)
+        plain = rp.with_plain_kernels()
+        rs = ps = rp.set_palette(rp.init_state(s), ids)
+        same, worst = True, 0
+        for i in range(MR_PUSHES):
+            rs, want = rp.push(rs, hops[cfg][i])
+            ps, pw = plain.push(ps, hops[cfg][i])
+            same &= torch.equal(rows[cfg][i], want)
+            worst = max(worst, testing.rgba_u8_diff(rows[cfg][i], pw))
+        carry_ok = torch.equal(g.state.carry, rs.carry) and torch.equal(g.state.carry, ps.carry)
+        log(f"[27] (a) {cfg.sample_rate:.0f} Hz: push_group rows "
+            f"{'equal' if same else 'DIFFER from'} the geometry's own pipeline's pushes, bit "
+            f"for bit; against the plain path max u8 diff {worst} over what the image shows "
+            f"(bar 1); carry {'exact' if carry_ok else 'DIFFERS'}")
+        if not (same and carry_ok) or worst > 1:
+            fail(f"phase 27 (a): the {cfg.sample_rate:.0f} Hz group disagrees")
+        # a detached stream's slot, reused: the new tenant's rows are a fresh
+        # stream's, its neighbours' continue their own history
+        slot = MR_REUSE_SLOT[cfg]
+        mgr.remove_stream(sids[cfg][slot])
+        new_pid = int(ids[slot] + 5) % 19
+        sid = mgr.add_stream(cfg, palette_id=new_pid)
+        ids2 = ids.copy()
+        ids2[slot] = new_pid
+        got = mgr.push_group(cfg, hops[cfg][MR_PUSHES])
+        _, fresh = rp.push(rp.set_palette(rp.init_state(s), ids2), hops[cfg][MR_PUSHES])
+        _, cont = rp.push(rp.set_palette(rs, ids2), hops[cfg][MR_PUSHES])
+        others = torch.arange(s, device=dev) != slot
+        reuse_ok = (mgr.location(sid)[1] == slot and torch.equal(got[slot], fresh[slot])
+                    and torch.equal(got[others], cont[others]))
+        log(f"[27] (a) {cfg.sample_rate:.0f} Hz: slot {slot} detached and reused (palette "
+            f"{ids[slot]} -> {new_pid}): its next rows {'equal' if reuse_ok else 'DIFFER from'} "
+            f"a fresh stream's, the other {s - 1} streams' their continued history's, bit for bit")
+        if not reuse_ok:
+            fail(f"phase 27 (a): slot reuse leaks state at {cfg.sample_rate:.0f} Hz")
+    del mgr, rows, hops
+
+
+def multirate_sorted_reuse(dev) -> None:
+    """Phase 27 (a), the carry-sort form: a BENCH group of 4,096 streams on
+    palettes i % 2 with palette_sort=True and store_ring=False, so its
+    carry rests in sorted stream order.  A slot detached and reused onto
+    the other palette gives a fresh stream's rows, its neighbours their
+    continued history's."""
+    from spectrogram_tpu_torch.models.multirate import StreamGroupManager
+
+    s, cfg = MR_STREAMS, BENCH_CONFIG
+    kw = dict(chunk_hops=1, store_ring=False, palette_sort=True)
+    ids = np.arange(s) % MR_SORT_PALETTES
+    mgr = StreamGroupManager(group_capacity=s, device=dev, **kw)
+    sids = [mgr.add_stream(cfg, palette_id=int(p)) for p in ids]
+    g = next(mgr.groups())
+    if not (g.pipeline.carry_sort_mode and g.pipeline._state_perm(g.state) is not None):
+        fail("phase 27 (a): the i % 2 group did not take the palette-sorted path")
+    hops = [_f32_words(_mr_tones(s, i, g.pipeline.chunk_size, cfg.sample_rate), dev)
+            for i in range(3)]
+    rp = SpectrogramPipeline(cfg, device=dev, **kw)
+    rs = rp.set_palette(rp.init_state(s), ids)
+    same = True
+    for x in hops[:2]:
+        rs, want = rp.push(rs, x)
+        same &= torch.equal(mgr.push_group(cfg, x), want)
+    slot = MR_REUSE_SLOT[cfg]
+    crow = int(g.pipeline._global_perms(g.state)[1][slot])
+    mgr.remove_stream(sids[slot])
+    new_pid = 1 - int(ids[slot])
+    sid = mgr.add_stream(cfg, palette_id=new_pid)
+    ids2 = ids.copy()
+    ids2[slot] = new_pid
+    got = mgr.push_group(cfg, hops[2])
+    _, fresh = rp.push(rp.set_palette(rp.init_state(s), ids2), hops[2])
+    _, cont = rp.push(rp.set_palette(rs, ids2), hops[2])
+    others = torch.arange(s, device=dev) != slot
+    reuse_ok = (mgr.location(sid)[1] == slot and crow != slot
+                and torch.equal(got[slot], fresh[slot]) and torch.equal(got[others], cont[others]))
+    log(f"[27] (a) carry-sort group {cfg.sample_rate:.0f} Hz, {s} streams on palettes i % "
+        f"{MR_SORT_PALETTES}: push_group rows {'equal' if same else 'DIFFER from'} the "
+        f"pipeline's; slot {slot} (sorted carry row {crow}) detached and reused (palette "
+        f"{ids[slot]} -> {new_pid}): its next rows {'equal' if reuse_ok else 'DIFFER from'} a "
+        f"fresh stream's, the other {s - 1} streams' their continued history's, bit for bit")
+    if not (same and reuse_ok):
+        fail("phase 27 (a): slot reuse leaks state in the carry-sort group")
+
+
+def multirate_ingest(dev, lib, main_launches: dict, power_line: str) -> None:
+    """Phase 27 (b): the same two groups with ingest (int16 wire, int16
+    planes, depth-2 feeders) on a synthetic clock: producers push_pcm one
+    hop of int16 tones per stream before each due tick.  Halfway, between
+    two ticks and with the last push in flight, one tenant of each group
+    leaves a stale backlog and detaches, and a new one takes its slot."""
+    from spectrogram_tpu_torch.models.multirate import StreamGroupManager
+
+    s, groups = MR_STREAMS, (BENCH_CONFIG, MR_44K)
+    ids = np.arange(s) % 19
+    mgr = StreamGroupManager(group_capacity=s, ingest=True, wire_int16=True, feeder_depth=2,
+                             device=dev, chunk_hops=1, store_ring=False, i16_planes=True)
+    sids = {cfg: [mgr.add_stream(cfg, palette_id=int(p)) for p in ids] for cfg in groups}
+    gs = {g.cfg: g for g in mgr.groups()}
+    drains = {cfg: LatencyTracker() for cfg in groups}
+    for cfg in groups:
+        if not gs[cfg].pinned.pinned:
+            fail("phase 27 (b): a group's ChunkPool is not pinned")
+        bank, tracker = gs[cfg].bank, drains[cfg]
+
+        def timed_pop(*args, _pop=bank.pop_matrix_i16_planar, _t=tracker, **kwargs):
+            t0 = time.perf_counter()
+            out = _pop(*args, **kwargs)
+            _t.record(time.perf_counter() - t0)
+            return out
+
+        bank.pop_matrix_i16_planar = timed_pop       # times the manager's drain
+    walls = {cfg: LatencyTracker() for cfg in groups}
+    both = LatencyTracker()
+    words = {cfg: [] for cfg in groups}
+    blocks = {cfg: [] for cfg in groups}
+    reuse = {}                  # cfg -> (index of the new tenant's first hop, its palette)
+    produce_s, now = 0.0, 1000.0
+    torch.cuda.synchronize()
+    lib.reset_launches()
+    while len(words[BENCH_CONFIG]) < MR_TICKS:
+        due = [cfg for cfg in groups if gs[cfg].next_due == 0.0 or now >= gs[cfg].next_due]
+        t0 = time.perf_counter()
+        for cfg in due:
+            if len(words[cfg]) == MR_TICKS // 2 and cfg not in reuse:
+                slot = MR_REUSE_SLOT[cfg]
+                mgr.push_pcm(sids[cfg][slot], np.full((MR_STALE_FRAMES, 2), 9999, np.int16))
+                mgr.remove_stream(sids[cfg][slot])
+                reuse[cfg] = (len(words[cfg]), int(ids[slot] + 5) % 19)
+                sids[cfg][slot] = mgr.add_stream(cfg, palette_id=reuse[cfg][1])
+            hop = _mr_tones(s, len(words[cfg]), gs[cfg].pipeline.chunk_size, cfg.sample_rate)
+            for slot, sid in enumerate(sids[cfg]):
+                mgr.push_pcm(sid, hop[slot])
+            words[cfg].append(hop)
+        produce_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = mgr.tick(now)
+        wall = time.perf_counter() - t0
+        (walls[due[0]] if len(due) == 1 else both).record(wall)
+        for cfg, blk in out.items():
+            # kept on the card: the pinned readback buffer goes back to the
+            # host allocator's cache for the next tick
+            blocks[cfg].append(torch.from_numpy(blk).to(dev))
+        now = min(g.next_due for g in gs.values())
+    for cfg, blks in mgr.flush().items():
+        blocks[cfg].extend(torch.from_numpy(b).to(dev) for b in blks)
+    torch.cuda.synchronize()
+    launches = _count(lib, main_launches)
+    metrics = mgr.metrics()
+    log(f"[27] (b) ingest, {s} streams a group, int16 wire and planes, depth 2: "
+        + ", ".join(f"{cfg.sample_rate:.0f} Hz {len(words[cfg])} ticks" for cfg in groups)
+        + f" on a synthetic clock; launches {launches}; rows_produced "
+        f"{metrics['rows_produced']}, dropped {metrics['dropped']}")
+    if any(metrics["dropped"].values()):
+        fail("phase 27 (b): the ingest groups dropped frames")
+    if not (launches.get(sk.KERNEL_I16) and launches.get(sk.MIXED_KERNEL_I16)
+            and launches[BLUESTEIN]):
+        fail("phase 27 (b): the ingest groups did not launch int16 kernel A at N=4096 and "
+             "on the Bluestein body")
+    for cfg in groups:
+        # the direct pushes of x / 32768; from the reuse on, the reused slot
+        # against a fresh stream's pushes, the others against their history
+        rp = SpectrogramPipeline(cfg, device=dev, chunk_hops=1, store_ring=False)
+        rs = rp.set_palette(rp.init_state(s), ids)
+        slot, (r, new_pid) = MR_REUSE_SLOT[cfg], reuse[cfg]
+        ids2 = ids.copy()
+        ids2[slot] = new_pid
+        others = torch.arange(s, device=dev) != slot
+        same = fresh_ok = len(blocks[cfg]) == len(words[cfg])
+        for j, (blk, hop) in enumerate(zip(blocks[cfg], words[cfg])):
+            x = _f32_words(hop, dev)
+            if j == r:
+                rs = rp.set_palette(rs, ids2)
+                fs = rp.set_palette(rp.init_state(s), ids2)
+            rs, want = rp.push(rs, x)
+            if j < r:
+                same &= torch.equal(blk, want)
+            else:
+                fs, fresh = rp.push(fs, x)
+                same &= torch.equal(blk[others], want[others])
+                fresh_ok &= torch.equal(blk[slot], fresh[slot])
+        log(f"[27] (b) {cfg.sample_rate:.0f} Hz: {len(blocks[cfg])} completed blocks "
+            f"{'equal' if same else 'DIFFER from'} the f32 pipeline's direct pushes of "
+            f"x / 32768, bit for bit; slot {slot} reused before hop {r} (a stale "
+            f"{MR_STALE_FRAMES}-frame backlog, palette {ids[slot]} -> {new_pid}): its rows "
+            f"{'equal' if fresh_ok else 'DIFFER from'} a fresh stream's")
+        if not (same and fresh_ok):
+            fail(f"phase 27 (b): the {cfg.sample_rate:.0f} Hz ingest blocks differ")
+    for cfg in groups:
+        n = gs[cfg].pipeline.chunk_size
+        log(f"[27] (b) {cfg.sample_rate:.0f} Hz (hop {n}, {gs[cfg].chunk_period * 1e3:.2f} ms): "
+            f"wall ms per tick (drain + H2D + push + readback of the block one tick late) p50 "
+            f"{walls[cfg].p50_ms:.3f} / p99 {walls[cfg].p99_ms:.3f} over "
+            f"{len(walls[cfg].samples)} ticks alone; host drain (pop_matrix_i16_planar, "
+            f"{s * n * 4 / 1e6:.1f} MB out) p50 {drains[cfg].p50_ms:.3f} / p99 "
+            f"{drains[cfg].p99_ms:.3f} ms; card {power_line}")
+    log(f"[27] (b) ticks firing both groups: wall p50 {both.p50_ms:.3f} ms over "
+        f"{len(both.samples)}; producers' push_pcm {produce_s:.2f} s in all")
+
+
+def display_session(dev, lib, main_launches: dict, power_line: str) -> None:
+    """Phase 27 (c): LiveSession at its defaults (48 kHz, window 0.05 s,
+    N=4800, k=8, ring 2,048) with the scope and the analyzer, fed the
+    registry's 440 Hz sine source in real time."""
+    from spectrogram_tpu_torch.models.spectrum_analyzer import band_product
+    from spectrogram_tpu_torch.session import LiveSession, SessionConfig
+
+    sess = LiveSession(SessionConfig(enable_scope=True, enable_analyzer=True), device=dev)
+    ring = sess.registry.ring
+    popped = []
+
+    def recording_pop(n, _pop=ring.pop):
+        frames = _pop(n)
+        popped.append(frames.copy())
+        return frames
+
+    ring.pop = recording_pop                  # what the session consumed
+    index = next(i for i, d in enumerate(sess.registry.inputs) if "440 Hz" in d.name)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = True          # a caller's global switch:
+    torch.set_float32_matmul_precision("medium")          # the analyzer ignores it
+    rows = []
+    try:
+        sess.select_input(index)
+        torch.cuda.synchronize()
+        lib.reset_launches()
+        t0 = time.perf_counter()
+        while len(rows) < SESSION_PUSHES:
+            if time.perf_counter() - t0 > 30.0:
+                fail(f"phase 27 (c): the session made {len(rows)} pushes in 30 s")
+            rows.extend(sess.process_available(max_chunks=SESSION_PUSHES - len(rows)))
+        drive_s = time.perf_counter() - t0
+    finally:
+        sess.stop()
+        torch.backends.cuda.matmul.allow_tf32 = tf32[0]
+        torch.set_float32_matmul_precision(tf32[1])
+    vp = sess.viewport()
+    torch.cuda.synchronize()
+    launches = _count(lib, main_launches)
+    p, state = sess.pipeline, sess.state
+    cfg, k = p.cfg, p.chunk_hops
+    log(f"[27] (c) LiveSession (W={cfg.window_size}, N={cfg.padded_size}, hop {cfg.hop_size}, "
+        f"k={k}, ring {p.viewport_rows}), the 440 Hz source in real time: {len(rows)} pushes "
+        f"in {drive_s:.2f} s, push + readback p50 {sess.latency.p50_ms:.3f} / p99 "
+        f"{sess.latency.p99_ms:.3f} ms; launches {launches}")
+    if not (launches.get(sk.ALLK_KERNEL) and lib.body_launches["mixed"]
+            and launches.get(ck.KERNEL)):
+        fail("phase 27 (c): the session did not launch the all-windows kernel at N=4800 "
+             "and kernel B")
+    # the same chunks through a direct pipeline
+    direct = SpectrogramPipeline(cfg, chunk_hops=k, device=dev)
+    ds = direct.init_state(1, palette_id=sess.palette_id)
+    same = len(popped) == len(rows) == SESSION_PUSHES
+    for frames, got in zip(popped, rows):
+        ds, r = direct.push(ds, torch.from_numpy(frames[None]).to(dev))
+        same &= np.array_equal(r[0].cpu().numpy(), got)
+    ring_ok = torch.equal(ds.ring, state.ring)
+    view_ok = vp.shape == (p.viewport_rows, cfg.viewport_height, 4) and np.array_equal(
+        direct.render_viewport(ds)[0].cpu().numpy(), vp)
+    log(f"[27] (c) session rows {'equal' if same else 'DIFFER from'} a direct pipeline's "
+        f"pushes of the chunks it consumed, bit for bit; ring {'equal' if ring_ok else 'DIFFERS'}"
+        f"; viewport {tuple(vp.shape)} {'equal to' if view_ok else 'DIFFERS from'} the direct "
+        f"render")
+    if not (same and ring_ok and view_ok):
+        fail("phase 27 (c): the session disagrees with a direct pipeline")
+    # the analyzer: its levels against a float64 band product over the same
+    # ring rows (the law's other steps in f32 on the host)
+    n_rows = SESSION_PUSHES * k
+    ring_rows_np = state.ring[0, :n_rows].to(torch.float32).cpu().numpy()      # [rows, 2, B]
+    m64 = sess.analyzer.band_matrix.cpu().numpy().astype(np.float64)
+    bands = np.einsum("gb,rcb->rgc", m64, ring_rows_np.astype(np.float64)).astype(np.float32)
+    norm = np.sqrt(bands[..., 0] ** 2 + bands[..., 1] ** 2)
+    new = np.clip((np.float32(10.0) * np.log10(norm + np.float32(1e-7)) - np.float32(-70.0))
+                  / np.float32(60.0), 0.0, 1.0)
+    want = np.full(new.shape[1], 0.3, np.float32)
+    for v in new:
+        want = np.maximum(v, want * np.float32(0.99))
+    got = sess.levels[0].cpu().numpy()
+    lv_err = float(np.abs(got - want).max())
+    # the product alone, with TF32 allowed, against float64
+    x = state.ring[0, :n_rows].to(torch.float32).reshape(-1, cfg.num_bins)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        prod = band_product(sess.analyzer.band_matrix, x).cpu().numpy().astype(np.float64)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32[0]
+    ref = ring_rows_np.reshape(-1, cfg.num_bins).astype(np.float64) @ m64.T
+    prod_rel = float((np.abs(prod - ref) / np.maximum(np.abs(ref), 1e-12))[
+        np.abs(ref) > 1e-6].max())
+    log(f"[27] (c) analyzer levels ({sess.analyzer.n_bands} bands, {n_rows} ring rows, TF32 "
+        f"allowed): max abs err {lv_err:.3e} against a float64 band product (bar "
+        f"{ANALYZER_ATOL}); the band product's max rel err {prod_rel:.3e}; levels in "
+        f"[{got.min():.4f}, {got.max():.4f}]")
+    if not lv_err <= ANALYZER_ATOL:
+        fail("phase 27 (c): the analyzer's levels are not within the bar of float64")
+    # the scope: the newest samples' min / max per column
+    cat = np.concatenate(popped)
+    width = 1024
+    per_col = sess.scope.buffer_size // width
+    newest = cat[len(cat) - width * per_col:].reshape(width, per_col, 2)
+    env_want = np.stack([newest.min(axis=1), newest.max(axis=1)], axis=-1)
+    env = sess.scope.envelope(sess.scope_state, width)[0].cpu().numpy()
+    scope_ok = len(cat) >= sess.scope.buffer_size and np.array_equal(env, env_want)
+    log(f"[27] (c) oscilloscope ({sess.scope.buffer_size}-sample ring, {len(cat)} samples "
+        f"pushed): envelope at width {width} {'equal to' if scope_ok else 'DIFFERS from'} the "
+        f"min / max of the newest samples; card {power_line}")
+    if not scope_ok:
+        fail("phase 27 (c): the oscilloscope's envelope is wrong")
+
+
+def cli_runs(dev) -> None:
+    """Phase 27 (d): the port's CLI in subprocesses on the card."""
+    from PIL import Image
+
+    from spectrogram_tpu_torch.ops.stft import num_rows
+
+    root = pathlib.Path(__file__).resolve().parent
+    out = BUILD / "phase27"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(root), env.get("PYTHONPATH")]))
+    cfg = SpectrogramConfig(window_period=0.05, hop_period=2.5 / 2048.0)  # the CLI's defaults
+    render = out / "render.png"
+    live = ["--seconds", str(CLI_SECONDS), "--streams", "4"]
+    viewport = (cfg.viewport_height, cfg.viewport_rows, 3)
+    runs = {
+        "render": (["render", "--source", "chirp", str(render), "--seconds", str(CLI_SECONDS)],
+                   render,
+                   (cfg.viewport_height, num_rows(int(CLI_SECONDS * cfg.sample_rate), cfg), 3)),
+        # headless: with no terminal the viewer draws into a no-op sink, and
+        # --multirate composites the host blocks `tick` returns on the card
+        **{name: (["live", str(out / f"{name}.png"), *live, *view], out / f"{name}.png",
+                  viewport)
+           for name, view in (("live", []), ("live_view", ["--view"]),
+                              ("live_view_multirate", ["--view", "--multirate"]))},
+    }
+    for name, (args, path, shape) in runs.items():
+        path.unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "spectrogram_tpu_torch.app", *args],
+                           capture_output=True, text=True, timeout=300, env=env, cwd=root)
+        wall = time.perf_counter() - t0
+        if r.returncode:
+            fail(f"phase 27 (d): `app {' '.join(args)}` exited {r.returncode}: "
+                 f"{r.stderr[-2000:]}")
+        got = np.asarray(Image.open(path)).shape if path.exists() else None
+        said = (r.stdout.strip().splitlines() or ["(no output)"])[-1]
+        log(f"[27] (d) python -m spectrogram_tpu_torch.app {' '.join(args)}: exit 0 in "
+            f"{wall:.1f} s; {said}; PNG {got} (expected {shape})")
+        if got != shape:
+            fail(f"phase 27 (d): `app {' '.join(args)}` wrote no PNG of the expected shape")
+
+
+def multirate_and_display(dev, lib, main_launches: dict, power_line: str) -> None:
+    """Phase 27: multi-rate serving and the live display path on the card."""
+    t_phase = time.perf_counter()
+    multirate_direct(dev, lib, main_launches)
+    multirate_sorted_reuse(dev)
+    torch.cuda.empty_cache()
+    multirate_ingest(dev, lib, main_launches, power_line)
+    torch.cuda.empty_cache()
+    display_session(dev, lib, main_launches, power_line)
+    cli_runs(dev)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[27] phase 27 {time.perf_counter() - t_phase:.1f} s; peak device memory "
+        f"{peak:.2f} GiB; card {power_line}")
 
 
 if __name__ == "__main__":

@@ -8,12 +8,18 @@ reference it is tested against.
 
 The exports are the JAX package's (its `__all__`), on torch tensors: the
 stateless functional surface (`stft_rows`, `colormap_rows`, ...) follows
-its tensors' device; `SpectrogramPipeline` runs on the card unless given
-`device="cpu"`.  The serving loop's host side is ported: int16 ingest
-rings (`io.ring`), the async device feeder (`DeviceFeeder`, `ChunkPool`, lazy
-exports as in the JAX package) and npz checkpoints that cross between the
-two packages (`utils.checkpoint`).  `LiveSession` and `StreamGroupManager`
-are not ported yet (ROADMAP.md).
+its tensors' device; `SpectrogramPipeline`, `StreamGroupManager` and
+`LiveSession` run on the card unless given `device="cpu"`.  The serving
+loop's host side is ported: int16 ingest rings (`io.ring`), the async
+device feeder (`DeviceFeeder`, `ChunkPool`), multi-rate geometry groups
+(`StreamGroupManager`, `models.multirate`) and npz checkpoints that cross
+between the two packages (`utils.checkpoint`); so is the live display
+path: `LiveSession` (`session`), the oscilloscope, the spectrum analyzer,
+the golden renderer (`models`), the terminal viewer (`utils`) and the CLI
+(`python -m spectrogram_tpu_torch.app`).  As in the JAX package, the
+serving and session classes are lazy exports.  Not ported yet: the device
+mesh and multi-process serving (`parallel/`) and the autotuner
+(ROADMAP.md items 12 and 11).
 """
 
 from spectrogram_tpu_torch.config import BENCH_CONFIG, DEFAULT_CONFIG, SpectrogramConfig
@@ -48,11 +54,21 @@ def __getattr__(name):
         from spectrogram_tpu_torch.io.feeder import ChunkPool
 
         return ChunkPool
+    if name == "LiveSession":
+        from spectrogram_tpu_torch.session import LiveSession
+
+        return LiveSession
+    if name == "StreamGroupManager":
+        from spectrogram_tpu_torch.models.multirate import StreamGroupManager
+
+        return StreamGroupManager
     raise AttributeError(name)
 
 
 __version__ = "0.1.0"
 
+# the JAX package's `__all__`, name for name; `StreamState` and
+# `unpack_rgba` are importable from here as well
 __all__ = [
     "BENCH_CONFIG",
     "DEFAULT_CONFIG",
@@ -71,10 +87,10 @@ __all__ = [
     "resample_matrix",
     "rgba_f32_to_u8",
     "SpectrogramPipeline",
-    "FactoredScheme",
-    "StreamState",
+    "LiveSession",
+    "StreamGroupManager",
     "DeviceFeeder",
     "ChunkPool",
-    "unpack_rgba",
+    "FactoredScheme",
     "__version__",
 ]

@@ -1,8 +1,9 @@
 """Color schemes: the palette registry the colormap kernel reads.
 
 A numpy-only copy of the part of `spectrogram_tpu/color/colorscheme.py` that
-the pipeline and the functional surface need (the JAX package's module
-cannot be imported without JAX): `ColorScheme` with its LUT and rank-1 LUT
+the pipeline, the functional surface and the visualizers need (the JAX
+package's module cannot be imported without JAX): `ColorScheme` with its
+scalar CPU-path law (`color_for`, `foreground_color`), its LUT and rank-1 LUT
 factors, `FactoredScheme` (a palette given as its factors), the 19 named
 palettes of the reference (colorscheme.rs:125-151), and the stacked tables
 built from them.
@@ -54,6 +55,29 @@ class ColorScheme:
         if self.background is not None:
             return self.background
         return tuple(int(c) for c in eval_u8(self.gradient, 0.0))
+
+    def foreground_color(self) -> tuple[int, int, int]:
+        """colorscheme.rs:46-53."""
+        t = 0.5 if self.is_stereo else 1.0
+        return tuple(int(c) for c in eval_u8(self.gradient, t))
+
+    def color_for(self, left: float, right: float) -> tuple[np.ndarray, float]:
+        """(l, r) magnitude -> (u8 rgb, alpha). colorscheme.rs:55-71.
+
+        Stereo: color from pan = l / (|l| + |r|), alpha = normalized dB.
+        Mono:   color from normalized dB, alpha = 1.
+        Note this CPU-path pan differs from the GPU shader's r/(l+r)
+        (gpu_spectrogram.rs:182) — the framework treats the shader as the
+        canonical production law and keeps this one for golden-model parity.
+        """
+        power = left * left + right * right
+        db = 10.0 * np.log10(power + 1e-7)
+        bounded = (db - MIN_DB) / (MAX_DB - MIN_DB)
+        if self.is_stereo:
+            l1 = abs(left) + abs(right)
+            pan = left / l1 if l1 != 0.0 else np.nan  # ref divides unguarded
+            return eval_u8(self.gradient, pan), float(bounded)
+        return eval_u8(self.gradient, bounded), 1.0
 
     def lookup_table(self, resolution: int = 32) -> np.ndarray:
         """[res, res, 4] f32 LUT; axis 0 = magnitude, axis 1 = pan

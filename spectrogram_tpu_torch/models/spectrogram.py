@@ -1125,10 +1125,11 @@ class SpectrogramPipeline:
     def composite(self, rgba_u8: torch.Tensor, palette_id) -> torch.Tensor:
         """Blend [S, ..., 4] u8 RGBA rows over each stream's palette
         background (frame clear + alpha blend, gpu_spectrogram.rs:278-293):
-        [S, ..., 3] u8."""
+        [S, ..., 3] u8, on the pipeline's device (host rows, such as the
+        blocks `StreamGroupManager.tick` returns, are moved there)."""
         ids = torch.as_tensor(palette_id, device=self.device).to(torch.int64)
         bg = self.backgrounds.index_select(0, ids.reshape(-1))     # [S, 3] u8
-        rgba = rgba_u8.to(torch.float32) / 255.0
+        rgba = torch.as_tensor(rgba_u8).to(device=self.device, dtype=torch.float32) / 255.0
         shape = (rgba.shape[0],) + (1,) * (rgba.ndim - 2) + (3,)
         return cmap_ops.composite_over_background(rgba, bg.reshape(shape))
 

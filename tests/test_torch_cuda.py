@@ -38,7 +38,12 @@ tables: within 1 u8 of their plain versions, bit for bit the blockwise
 kernel (built-in), `colormap_rows_fused` (generic) and the static kernel;
 and in their direct form at N = 48,000.  The blockwise colormap runs kernel
 B's code under its own entry: bit for bit kernel B on sorted and scattered
-per-row tables at geometries that take both forms.
+per-row tables at geometries that take both forms.  `StreamGroupManager`'s
+groups (N=1410 on Bluestein among them) give their own pipelines' rows bit
+for bit, its int16 wire the f32 drain's; the spectrum analyzer's levels stay
+within 1e-6 of a float64 band product with TF32 allowed.  The CLI's `live`,
+`live --view` and `live --view --multirate` (headless) run on the card,
+launch kernels and write the viewport's PNG.
 """
 
 import dataclasses
@@ -1191,3 +1196,90 @@ def test_feeder_on_the_card_equals_pushes(cuda, depth, wire):
     torch.testing.assert_close(feeder.state.carry, ref.carry, atol=0, rtol=0)
     assert len(feeder.h2d.samples) == len(feeder.device_time.samples) == ticks
     assert all(x > 0 for x in feeder.h2d.samples + feeder.device_time.samples)
+
+
+# ------------------------------------- the multi-rate manager and the analyzer
+
+def test_manager_groups_equal_their_pipelines(cuda):
+    """Two geometry groups (8 kHz, and 44.1 kHz with N=1410 on the
+    Bluestein body) of 64 streams: push_group rows bit for bit each
+    geometry's own pipeline, and an int16-wire ingest group's blocks bit for
+    bit the f32 drain's."""
+    from spectrogram_tpu_torch.models.multirate import StreamGroupManager
+
+    g44 = SpectrogramConfig(sample_rate=44100.0, window_period=0.016, hop_period=0.006)
+    assert sk.fft_body(g44.padded_size) == "bluestein"
+    ids = np.arange(64) % 19
+    mgr = StreamGroupManager(group_capacity=64, chunk_hops=2, device=cuda)
+    for cfg in (SMALL, g44):
+        for p in ids:
+            mgr.add_stream(cfg, palette_id=int(p))
+        ref = SpectrogramPipeline(cfg, chunk_hops=2, device=cuda)
+        rs = ref.set_palette(ref.init_state(64), ids)
+        for seed in range(3):
+            chunk = torch.from_numpy(testing.make(
+                "chirp_tone", 64, ref.chunk_size, cfg.sample_rate, seed=seed)).to(cuda)
+            rs, want = ref.push(rs, chunk)
+            assert torch.equal(mgr.push_group(cfg, chunk), want)
+    words = np.random.default_rng(4).integers(-32768, 32768, (64, 4000, 2)).astype(np.int16)
+    blocks = {}
+    for wire in (False, True):
+        m = StreamGroupManager(group_capacity=64, chunk_hops=2, ingest=True,
+                               wire_int16=wire, store_ring=False, device=cuda)
+        sids = [m.add_stream(SMALL, palette_id=int(p)) for p in ids]
+        for sid, w in zip(sids, words):
+            m.push_pcm(sid, w)
+        blocks[wire] = [b for now in (1.0, 2.0, 3.0, 4.0) for b in m.tick(now).values()]
+        assert not any(m.metrics()["dropped"].values())
+    assert len(blocks[False]) == len(blocks[True]) == 3
+    for a, b in zip(blocks[False], blocks[True]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_analyzer_band_product_is_true_f32(cuda):
+    """The analyzer's band product ignores TF32 switches: with TF32 allowed
+    its levels stay within 1e-6 of a float64 band product followed by the
+    same f32 law."""
+    from spectrogram_tpu_torch.models.spectrum_analyzer import SpectrumAnalyzer
+
+    ana = SpectrumAnalyzer(DEFAULT_CONFIG, device=cuda)
+    rng = np.random.default_rng(7)
+    rows = (10.0 ** rng.uniform(-5, -0.5, (4, 8, DEFAULT_CONFIG.num_bins, 2))).astype(np.float32)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = ana.push_rows(ana.init_levels(4), torch.from_numpy(rows).to(cuda)).cpu().numpy()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    m = ana.band_matrix.cpu().numpy().astype(np.float64)
+    bands = np.einsum("gb,skbc->kgsc", m, rows.astype(np.float64)).astype(np.float32)
+    norm = np.sqrt(bands[..., 0] ** 2 + bands[..., 1] ** 2)
+    new = np.clip((np.float32(10.0) * np.log10(norm + np.float32(1e-7)) + np.float32(70.0))
+                  / np.float32(60.0), 0.0, 1.0)
+    want = np.full((4, ana.n_bands), 0.3, np.float32)
+    for v in new:
+        want = np.maximum(v.T, want * np.float32(0.99))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+LIVE_VIEWS = {"plain": [], "view": ["--view", "--fps", "100"],
+              "multirate": ["--view", "--multirate", "--fps", "50", "--chunk-hops", "2"]}
+
+
+@pytest.mark.parametrize("view", sorted(LIVE_VIEWS))
+def test_cli_live_runs_on_the_card(cuda, tmp_path, view):
+    """`app live` headless with `--device cuda`: the multi-rate view
+    composites the host blocks `tick` returns on the card; each form exits
+    0, launches kernels and writes the viewport, 2,048 rows of 64 pixels."""
+    from PIL import Image
+
+    from spectrogram_tpu_torch import app
+
+    out = tmp_path / "live.png"
+    lib = _build.library()
+    before = sum(lib.launches.values())
+    rc = app.main(["live", str(out), "--seconds", "0.5", "--streams", "4",
+                   "--sample-rate", "9000", "--window", "0.032", "--hop", "0.008",
+                   "--height", "64", *LIVE_VIEWS[view], "--device", "cuda"])
+    assert rc == 0 and np.asarray(Image.open(out)).shape == (64, 2048, 3)
+    assert sum(lib.launches.values()) > before

@@ -39,8 +39,8 @@ CFG_KW = dict(sample_rate=8000.0, window_period=0.032, hop_period=0.008,
               viewport_height=128)
 BENCH_H64 = dict(sample_rate=48000.0, window_period=2048 / 48000.0,
                  hop_period=800 / 48000.0, viewport_height=64)
-# the names JAX exports lazily that come with later modules
-LAZY = {"LiveSession", "StreamGroupManager"}
+# the names JAX exports lazily that come with later modules: none left
+LAZY = set()
 
 
 def _cfgs(kw):
@@ -155,6 +155,10 @@ def test_exports_are_jax_s():
     for name in set(jsg.__all__) - LAZY:
         assert hasattr(tsg, name), name
     assert {"DeviceFeeder", "ChunkPool"} <= set(tsg.__all__)
+    # the port's `__all__` is the JAX package's, name for name
+    assert tsg.__all__ == jsg.__all__
+    assert tsg.LiveSession.__module__ == "spectrogram_tpu_torch.session"
+    assert tsg.StreamGroupManager.__module__ == "spectrogram_tpu_torch.models.multirate"
 
 
 # ---------------------------------------------------- colormap_rows_fused

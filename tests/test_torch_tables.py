@@ -331,6 +331,13 @@ def test_import_leaves_jax_out():
         "import spectrogram_tpu_torch.utils.checkpoint\n"
         "import spectrogram_tpu_torch.utils.profiling, spectrogram_tpu_torch.utils.probe\n"
         "spectrogram_tpu_torch.DeviceFeeder, spectrogram_tpu_torch.ChunkPool\n"
+        "import spectrogram_tpu_torch.models.multirate, spectrogram_tpu_torch.session\n"
+        "import spectrogram_tpu_torch.app, spectrogram_tpu_torch.models.golden\n"
+        "import spectrogram_tpu_torch.models.oscilloscope\n"
+        "import spectrogram_tpu_torch.models.spectrum_analyzer\n"
+        "import spectrogram_tpu_torch.utils.image, spectrogram_tpu_torch.utils.terminal\n"
+        "import spectrogram_tpu_torch.utils.liveview\n"
+        "spectrogram_tpu_torch.LiveSession, spectrogram_tpu_torch.StreamGroupManager\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'orbax' or m.startswith('orbax.')"
@@ -341,3 +348,26 @@ def test_import_leaves_jax_out():
         [sys.executable, "-c", code], check=True, timeout=120,
         cwd=pathlib.Path(__file__).resolve().parents[1],
     )
+
+
+@pytest.mark.parametrize("module", ["image", "terminal", "liveview"])
+def test_utils_copies_have_the_jax_source(module):
+    """`utils/image.py`, `utils/terminal.py` and `utils/liveview.py` are the
+    JAX package's modules with the package name changed and nothing else,
+    and they draw the same frames."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    jsrc = (root / "spectrogram_tpu" / "utils" / f"{module}.py").read_text()
+    tsrc = (root / "spectrogram_tpu_torch" / "utils" / f"{module}.py").read_text()
+    assert tsrc == jsrc.replace("spectrogram_tpu.", "spectrogram_tpu_torch.")
+    import importlib
+
+    jmod = importlib.import_module(f"spectrogram_tpu.utils.{module}")
+    tmod = importlib.import_module(f"spectrogram_tpu_torch.utils.{module}")
+    img = np.random.default_rng(len(module)).integers(0, 256, (21, 34, 3), dtype=np.uint8)
+    if module == "image":
+        np.testing.assert_array_equal(tmod.rows_to_image(img), jmod.rows_to_image(img))
+    elif module == "terminal":
+        assert tmod.render_ansi(img, 9, 5) == jmod.render_ansi(img, 9, 5)
+    else:
+        np.testing.assert_array_equal(tmod.tile_grid([img, img[::-1]], 30, 40, highlight=0),
+                                      jmod.tile_grid([img, img[::-1]], 30, 40, highlight=0))
