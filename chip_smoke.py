@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Runs from the root of a checkout and needs one CUDA card, `nvcc`, `g++`
-(the host rings of phases 26-27) and `nvidia-smi`; it imports
+(the host rings of phases 26-28) and `nvidia-smi`; it imports
 `spectrogram_tpu_torch`, torch, numpy and (phase 27's PNG check) PIL only.
 Phases, each of which fails the run with a non-zero exit:
 
@@ -266,10 +266,39 @@ Phases, each of which fails the run with a non-zero exit:
      subprocesses: exit 0 and a PNG of the expected shape.  Kernel A
      (radix 2, Bluestein, their int16 forms), the all-windows kernel and
      kernel B must launch.
+ 28. the stream mesh over ranks (`spectrogram_tpu_torch.parallel`), each
+     part's ranks started as subprocesses of this script (`--mesh-part`)
+     under a time limit; a rank that fails, outlives it or disagrees fails
+     the run, and the ranks' kernel launches join the counts below.  (a)
+     one rank under NCCL on cuda:0: SpectrogramPipeline(BENCH_CONFIG,
+     chunk_hops=1, store_ring=False, packed_output=True), 4,096 streams on
+     palettes arange(S) % 19 (sharded_init, sharded_set_palette), 24
+     shard_map_step pushes of chirp + tone: rows and carry bit for bit the
+     unsharded pipeline's, global_rows summed through NCCL = 4,096 x 24;
+     device time of the sharded and the unsharded push in turns, the
+     all-reduce's time.  (b) two gloo ranks sharing cuda:0, the full
+     serving mode (i16_planes, presorted_input, sorted_output) at 10,240
+     streams, 5,120 a rank, palettes arange(S) % 19: each rank takes the
+     per-shard sort; its HostShardIngest gets one hop of int16 tones a
+     tick on local indices and drains it presorted (wire int16), 24 ticks,
+     at tick 12 save_sharded (unsorted, DCP) and save_state (gathered npz):
+     rows gathered on rank 0 in external order bit for bit one process's
+     direct per-row pushes, no drop and empty banks, ticks 13-24 bit for
+     bit from load_sharded onto the two ranks, from load_sharded in one
+     process and from the npz; producer, drain, push and wall ms a tick,
+     each rank's push device time alone and with the other's, an
+     unsharded pipeline of 5,120 streams beside it, the gloo all-reduce.
+     (c) StreamGroupManager(mesh=...) over two gloo ranks with phase 27's
+     groups (4,096 slots at N=4096 and at N=3762 on the Bluestein body),
+     a set_palette on each rank's half after four pushes, six pushes: both
+     ranks' rows gathered on rank 0 bit for bit a single-card manager's.
+     (d) `python -m spectrogram_tpu_torch.parallel.dryrun --ranks 2
+     --device cuda:0 --backend gloo` exits 0.  Peak device memory per
+     rank.
 
 Then the whole run's seconds.  The second-to-last line is {"kernels": [...]}:
 each kernel's launches on the main paths (phases 5, 9, 12, 15, 18, 21, 22,
-23, 24, 26 and 27; the Bluestein body's row counts every STFT launch at such an N
+23, 24, 26, 27 and 28; the Bluestein body's row counts every STFT launch at such an N
 below the large-N route), its
 largest error against its plain version, its time, its plain version's, the
 library call's where one computes the same transform, and its bound: the
@@ -865,7 +894,11 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     multirate_and_display(dev, lib, main_launches, power_line)
 
-    log(f"[27] whole run {time.perf_counter() - t_start:.1f} s")
+    # -- 28. the stream mesh over ranks ----------------------------------------
+    torch.cuda.empty_cache()
+    mesh_serving(main_launches, power_line)
+
+    log(f"[28] whole run {time.perf_counter() - t_start:.1f} s")
     print(power_line)
     print(json.dumps({"kernels": [
         dict(meta, route="cuda", launches=main_launches[k], max_abs_err=stats[k],
@@ -3025,10 +3058,11 @@ ANALYZER_ATOL = 1e-6        # levels against a float64 band product
 CLI_SECONDS = 2.0
 
 
-def _mr_tones(s: int, hop: int, n: int, rate: float) -> np.ndarray:
-    """Hop `hop` ([s, n, 2] int16) of s stereo tones, each stream its own
-    pitch, phase and level (the producers' PCM in phase 27)."""
-    i = np.arange(s)[:, None]
+def _mr_tones(s: int, hop: int, n: int, rate: float, lo: int = 0) -> np.ndarray:
+    """Hop `hop` ([s, n, 2] int16) of the s stereo tones of streams lo ..
+    lo+s-1, each stream its own pitch, phase and level (the producers' PCM
+    in phases 27 and 28)."""
+    i = np.arange(lo, lo + s)[:, None]
     f = 110.0 * 2.0 ** ((i % 61) / 12.0)
     amp = 3000.0 + (i * 397) % 24000
     t = (hop * n + np.arange(n))[None, :] / rate
@@ -3458,5 +3492,422 @@ def multirate_and_display(dev, lib, main_launches: dict, power_line: str) -> Non
         f"{peak:.2f} GiB; card {power_line}")
 
 
+MESH_A_STREAMS = 4096       # (a): BENCH_CONFIG at full width, one rank
+MESH_B_STREAMS = 10240      # (b): the serving cell over two ranks
+MESH_TICKS = 24
+MESH_CHECKPOINT_TICK = 12
+MESH_SET_PALETTE = ((100, 5), (3000, 7))    # (c): (slot, palette) edits, one a rank
+MESH_TIMED_REDUCES = 200
+# each part's ranks in all, seconds; a rank that outlives it is killed
+MESH_TIMEOUT_S = {"a": 150.0, "bc": 300.0, "d": 150.0}
+MESH_RANK_SCRIPT = pathlib.Path(__file__).resolve()
+MESH_WORKDIR = BUILD / "mesh"
+
+
+def _mesh_lines(text: str) -> list[str]:
+    return [line for line in text.splitlines() if line.startswith("[28]")]
+
+
+def mesh_serving(main_launches: dict, power_line: str) -> None:
+    """Phase 28: the stream mesh over ranks, each part's ranks in
+    subprocesses of this script (`--mesh-part`), under a time limit; a rank
+    that fails, outlives the limit or disagrees fails the run.  The ranks'
+    kernel launches join the main paths' counts."""
+    import shutil
+
+    from spectrogram_tpu_torch.parallel.distributed import run_ranks
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(MESH_WORKDIR, ignore_errors=True)
+    MESH_WORKDIR.mkdir(parents=True)
+    shared = ["--device", "cuda:0", "--backend", "gloo"]
+    # (b) and (c) share their two rank processes: each start costs seconds
+    for part, world, extra in (("a", 1, []), ("bc", 2, shared)):
+        t0 = time.perf_counter()
+
+        def argv(r: int, part=part, world=world, extra=extra) -> list[str]:
+            return [sys.executable, str(MESH_RANK_SCRIPT), "--mesh-part", part,
+                    "--world", str(world), "--init",
+                    f"file://{MESH_WORKDIR}/{part}.rendezvous", "--out",
+                    str(MESH_WORKDIR), *extra]
+
+        results = run_ranks(argv, world, MESH_TIMEOUT_S[part], MESH_WORKDIR / f"logs_{part}",
+                            cwd=str(MESH_RANK_SCRIPT.parent))
+        for rc, out in results:
+            for line in _mesh_lines(out):
+                log(f"{line}; card {power_line}")
+        if any(rc != 0 for rc, _ in results):
+            for r, (rc, out) in enumerate(results):
+                print(f"--- phase 28 ({part}) rank {r}: exit {rc}\n{out[-6000:]}", flush=True)
+            fail(f"phase 28 ({part}): a rank failed, disagreed or outlived "
+                 f"{MESH_TIMEOUT_S[part]:.0f} s")
+        for r in range(world):
+            doc = json.loads((MESH_WORKDIR / f"{part}_r{r}.json").read_text())
+            for k, v in doc["launches"].items():
+                main_launches[k] = main_launches.get(k, 0) + v
+        log(f"[28] ({part}) {world} rank(s): {time.perf_counter() - t0:.1f} s with the "
+            "ranks' start")
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "spectrogram_tpu_torch.parallel.dryrun", "--ranks", "2",
+           "--device", "cuda:0", "--backend", "gloo", "--timeout", str(MESH_TIMEOUT_S["d"])]
+    try:
+        out = subprocess.run(cmd, capture_output=True, text=True, cwd=str(MESH_RANK_SCRIPT.parent),
+                             timeout=MESH_TIMEOUT_S["d"] + 30)
+    except subprocess.TimeoutExpired:
+        fail("phase 28 (d): the dry run outlived its time limit")
+    if out.returncode != 0:
+        print(out.stdout[-6000:] + out.stderr[-6000:], flush=True)
+        fail("phase 28 (d): the dry run failed")
+    said = next((line for line in out.stdout.splitlines() if line.startswith("dryrun OK")), "")
+    log(f"[28] (d) python -m spectrogram_tpu_torch.parallel.dryrun --ranks 2 --device cuda:0 "
+        f"--backend gloo: {said} ({time.perf_counter() - t0:.1f} s)")
+    log(f"[28] phase 28 {time.perf_counter() - t_phase:.1f} s; card {power_line}")
+
+
+def _rank_log(mesh, msg: str) -> None:
+    from spectrogram_tpu_torch.parallel import mesh as pmesh
+
+    log(f"[28] rank {pmesh.mesh_rank(mesh)}: {msg}")
+
+
+def _rank_launches(lib) -> dict:
+    launches = {k: v for k, v in lib.launches.items() if v}
+    if lib.body_launches[BLUESTEIN]:
+        launches[BLUESTEIN] = lib.body_launches[BLUESTEIN]
+    return launches
+
+
+def _reduce_ms(mesh, dev) -> float:
+    """Mean wall ms of one all-reduce of the row count (the step's one
+    collective), its tensor where the backend takes it."""
+    import torch.distributed as dist
+
+    from spectrogram_tpu_torch.parallel import mesh as pmesh
+
+    group = mesh.get_group(pmesh.STREAM_AXIS)
+    t = torch.ones(1, dtype=torch.int64, device=pmesh._collective_device(group))
+    dist.all_reduce(t, group=group)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(MESH_TIMED_REDUCES):
+        dist.all_reduce(t, group=group)
+        if t.is_cuda:
+            torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t0) / MESH_TIMED_REDUCES * 1e3
+
+
+def mesh_part_a(mesh, dev, lib) -> dict:
+    """Phase 28 (a): one rank under NCCL on cuda:0, BENCH_CONFIG at full
+    width (k=1, no ring, packed rows), 4,096 streams on palettes arange(S) %
+    19 laid out by sharded_set_palette over sharded_init; 24 shard_map_step
+    pushes of chirp + tone.  Rows bit for bit the unsharded pipeline's,
+    global_rows summed through NCCL = 4,096 x 24."""
+    from spectrogram_tpu_torch.parallel import mesh as pmesh
+
+    cfg, s, n = BENCH_CONFIG, MESH_A_STREAMS, BENCH_CONFIG.hop_size
+    kw = dict(chunk_hops=1, store_ring=False, packed_output=True, device=dev)
+    p = SpectrogramPipeline(cfg, **kw)
+    ids = np.arange(s) % len(p.schemes)
+    st = pmesh.sharded_set_palette(p, pmesh.sharded_init(p, s, mesh), ids, mesh)
+    pcm = torch.from_numpy(testing.chirp_tone(s, MESH_TICKS * n, cfg.sample_rate,
+                                              seed=28)).to(dev)
+    chunks = [pcm[:, t * n:(t + 1) * n].contiguous() for t in range(MESH_TICKS)]
+    del pcm
+    step = pmesh.shard_map_step(p, mesh)
+    torch.cuda.synchronize(dev)
+    lib.reset_launches()
+    rows, total, ticks = [], 0, []
+    for chunk in chunks:
+        t0 = time.perf_counter()
+        st, r, g = step(st, chunk)
+        total += int(g)                 # reads the NCCL sum on the card
+        ticks.append((time.perf_counter() - t0) * 1e3)
+        rows.append(r)
+    torch.cuda.synchronize(dev)
+    launches = _rank_launches(lib)
+    if str(g.device) != str(dev):
+        fail(f"phase 28 (a): the NCCL row count lives on {g.device}, not the card")
+    rp = SpectrogramPipeline(cfg, **kw)
+    rs = rp.set_palette(rp.init_state(s), ids)
+    same = True
+    for chunk, r in zip(chunks, rows):
+        rs, want = rp.push(rs, chunk)
+        same &= torch.equal(r, want)
+    same &= torch.equal(st.carry, rs.carry)
+    klass = "per-shard sorted" if p._state_perm(st) is not None else "per row"
+    _rank_log(mesh, f"(a) NCCL world 1, BENCH_CONFIG, {s} streams, tables {klass} (the "
+              f"unsharded state's {'sorted' if rp._state_perm(rs) is not None else 'per row'}); "
+              f"{MESH_TICKS} shard_map_step pushes: rows and carry "
+              f"{'equal' if same else 'DIFFER from'} the unsharded pipeline's bit for bit; "
+              f"global_rows summed {total} (want {s * MESH_TICKS}); launches {launches}")
+    if not same or total != s * MESH_TICKS:
+        fail("phase 28 (a): the world-1 mesh disagrees with the unsharded pipeline")
+    push = pmesh.sharded_push(p, mesh)
+    times = {"sharded": [], "unsharded": []}
+    for who in ("sharded", "unsharded", "unsharded", "sharded"):
+        fn = ((lambda: push(st, chunks[0])) if who == "sharded"
+              else (lambda: rp.push(rs, chunks[0])))
+        times[who].append(device_ms(fn))
+    reduce_ms = _reduce_ms(mesh, dev)
+    sharded_ms, unsharded_ms = (float(np.mean(times[k])) for k in ("sharded", "unsharded"))
+    _rank_log(mesh, f"(a) push device time at {s} streams: sharded {sharded_ms:.4f} ms, "
+              f"unsharded {unsharded_ms:.4f} ms (turns a b b a); wall per tick with the NCCL "
+              f"sum read p50 {np.median(ticks):.3f} ms; all-reduce {reduce_ms:.4f} ms; peak "
+              f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    return launches
+
+
+def _planar_words(words: np.ndarray, dev) -> torch.Tensor:
+    """[S, n, 2] int16 words as a planar [S, 2, n] tensor on `dev`."""
+    return torch.from_numpy(words).to(dev).transpose(1, 2).contiguous()
+
+
+def mesh_part_b(mesh, dev, lib) -> dict:
+    """Phase 28 (b): two gloo ranks sharing cuda:0, the full serving mode
+    (BENCH_CONFIG, k=1, no ring, i16_planes, presorted_input,
+    sorted_output) at 10,240 streams, 5,120 a rank, palettes arange(S) %
+    19 (the per-shard sort).  Each rank's HostShardIngest takes one hop of
+    int16 tones a tick on local indices and drains it presorted; 24 ticks,
+    a DCP save (unsorted) and a gathered npz at tick 12.  Rows gathered on
+    rank 0 in external order equal one process's direct per-row pushes bit
+    for bit; no drop; load_sharded resumes ticks 13-24 bit for bit on the
+    two ranks and in one process, and so does the npz."""
+    import torch.distributed as dist
+
+    from spectrogram_tpu_torch.parallel import distributed as pdist
+    from spectrogram_tpu_torch.parallel import mesh as pmesh
+
+    cfg, s, n = BENCH_CONFIG, MESH_B_STREAMS, BENCH_CONFIG.hop_size
+    rate = cfg.sample_rate
+    lo, hi = pmesh.local_stream_range(mesh, s)
+    rank = pmesh.mesh_rank(mesh)
+    kw = dict(chunk_hops=1, store_ring=False, packed_output=True, device=dev)
+    full_kw = dict(kw, i16_planes=True, presorted_input=True, sorted_output=True)
+    p = SpectrogramPipeline(cfg, **full_kw)
+    ids = np.arange(s) % len(p.schemes)
+    st = pmesh.sharded_set_palette(p, pmesh.sharded_init(p, s, mesh), ids, mesh)
+    sorted_ok = p._tables_perm_global(st.tables)
+    _rank_log(mesh, f"(b) streams [{lo}, {hi}) of {s}: tables "
+              f"{'per-shard sorted (t_sorted, perm, inv, marker), rank-local perm' if sorted_ok else 'NOT sorted'}")
+    if not sorted_ok:
+        fail("phase 28 (b): the per-shard sort did not engage at 10,240 streams")
+    # hop-major int16 tones [T, S, n, 2]: rank 0 makes every stream's (its
+    # reference pushes the whole batch), rank 1 its own
+    if rank == 0:
+        every = np.stack([_mr_tones(s, t, n, rate) for t in range(MESH_TICKS)])
+        words = every[:, lo:hi]
+    else:
+        words = np.stack([_mr_tones(hi - lo, t, n, rate, lo=lo) for t in range(MESH_TICKS)])
+    ingest = pdist.HostShardIngest(mesh, s, n, capacity=LOOP_CAPACITY, wire_int16=True)
+    step = pmesh.shard_map_step(p, mesh, planar=True)
+    dest = p.input_dest(st)
+    out_perm = torch.from_numpy(p.output_perm(st)).to(dev)
+    ck_dir, npz = MESH_WORKDIR / "b_dcp", MESH_WORKDIR / "b_gathered"
+    torch.cuda.synchronize(dev)
+    lib.reset_launches()
+    rows, total = [], 0
+    ticks = {"producer": [], "drain": [], "push": [], "wall": []}
+    for t in range(MESH_TICKS):
+        t0 = time.perf_counter()
+        ingest.bank.push_matrix(words[t])                      # the producer
+        t1 = time.perf_counter()
+        chunk = ingest.drain(dest=dest)                        # with its copy to the card
+        t2 = time.perf_counter()
+        st, r, g = step(st, chunk)
+        rows.append(r.index_select(0, out_perm))
+        torch.cuda.synchronize(dev)
+        t3 = time.perf_counter()
+        for k, a, b in (("producer", t0, t1), ("drain", t1, t2), ("push", t2, t3),
+                        ("wall", t0, t3)):
+            ticks[k].append((b - a) * 1e3)
+        total += int(g)
+        if t + 1 == MESH_CHECKPOINT_TICK:
+            checkpoint.save_sharded(ck_dir, p.unsort_state(st), cfg, pipeline=p, mesh=mesh)
+            checkpoint.save_state(npz, st, cfg, pipeline=p, mesh=mesh)
+    launches = _rank_launches(lib)
+    m = ingest.metrics()
+    empty = all(ingest.bank.size(i) == 0 for i in range(hi - lo))
+    spans = "; ".join(f"{k} p50 {np.median(v):.3f} ms" for k, v in ticks.items())
+    _rank_log(mesh, f"(b) {MESH_TICKS} ticks: global_rows summed {total} (want {s * MESH_TICKS}); "
+              f"dropped {m['dropped']}, bank {'empty' if empty else 'NOT empty'}; launches "
+              f"{launches}; per tick (the push with its all-reduce, the wall with the "
+              f"checkpoint tick) {spans}, wall p99 {np.percentile(ticks['wall'], 99):.3f} ms")
+    if total != s * MESH_TICKS or m["dropped"] or not empty:
+        fail("phase 28 (b): rows lost, frames dropped or frames left in the bank")
+
+    # the two-rank restore: ticks 13-24 from the DCP checkpoint
+    r2 = checkpoint.load_sharded(ck_dir, p, mesh)
+    resumed = p._tables_perm_global(r2.tables)
+    in_perm = torch.from_numpy(p.input_perm(r2)).to(dev)
+    out_perm2 = torch.from_numpy(p.output_perm(r2)).to(dev)
+    for t in range(MESH_CHECKPOINT_TICK, MESH_TICKS):
+        r2, got, _ = step(r2, _planar_words(words[t], dev).index_select(0, in_perm))
+        resumed &= torch.equal(got.index_select(0, out_perm2), rows[t])
+    _rank_log(mesh, f"(b) load_sharded onto the two ranks at tick {MESH_CHECKPOINT_TICK}: "
+              f"per-shard sorted again, ticks {MESH_CHECKPOINT_TICK + 1}-{MESH_TICKS} "
+              f"{'equal' if resumed else 'DIFFER from'} the uninterrupted run bit for bit")
+    if not resumed:
+        fail("phase 28 (b): the two-rank restore does not resume bit for bit")
+
+    whole = [pmesh.gather_streams(r, mesh) for r in rows]
+    if rank == 0:
+        per_row = SpectrogramPipeline(cfg, palette_sort=False, **dict(kw, i16_planes=True))
+        rs = per_row.set_palette(per_row.init_state(s), ids)
+        same = True
+        for t in range(MESH_TICKS):
+            rs, want = per_row.push_planar(rs, _planar_words(every[t], dev))
+            same &= torch.equal(whole[t], want)
+        one = SpectrogramPipeline(cfg, **full_kw)
+        restores = {}
+        for name, state in (("load_sharded, one process", checkpoint.load_sharded(ck_dir, one)),
+                            ("load_state of the gathered npz", checkpoint.load_state(npz, one))):
+            ok = one._state_perm(state) is not None
+            in_perm = torch.from_numpy(one.input_perm(state)).to(dev)
+            out_perm1 = torch.from_numpy(one.output_perm(state)).to(dev)
+            for t in range(MESH_CHECKPOINT_TICK, MESH_TICKS):
+                state, got = one.push_planar(
+                    state, _planar_words(every[t], dev).index_select(0, in_perm))
+                ok &= torch.equal(got.index_select(0, out_perm1), whole[t])
+            restores[name] = ok
+        _rank_log(mesh, f"(b) rows of both ranks gathered on rank 0 in external order "
+                  f"{'equal' if same else 'DIFFER from'} one process's direct per-row pushes "
+                  f"of the same samples, bit for bit; "
+                  + "; ".join(f"{k}: ticks {MESH_CHECKPOINT_TICK + 1}-{MESH_TICKS} "
+                              f"{'equal' if v else 'DIFFER'}" for k, v in restores.items()))
+        if not (same and all(restores.values())):
+            fail("phase 28 (b): the two ranks' rows or a one-process restore disagree")
+    del whole
+
+    # times: each rank's push alone, then both at once; rank 0 also times an
+    # unsharded pipeline of the same 5,120 streams
+    chunk = ingest.drain(dest=p.input_dest(st))
+    push = pmesh.sharded_push(p, mesh, planar=True)
+    alone = {}
+    for turn in range(mesh.size()):
+        dist.barrier()
+        if turn == rank:
+            alone["sharded"] = device_ms(lambda: push(st, chunk))
+            if rank == 0:
+                local = SpectrogramPipeline(cfg, **full_kw)
+                ls = local.set_palette(local.init_state(hi - lo), ids[lo:hi])
+                alone["unsharded"] = device_ms(lambda: local.push_planar(ls, chunk))
+                del local, ls
+    dist.barrier()
+    together = device_ms(lambda: push(st, chunk))
+    reduce_ms = _reduce_ms(mesh, dev)
+    unsharded = (f", an unsharded pipeline of the same {hi - lo} streams alone "
+                 f"{alone['unsharded']:.4f} ms" if "unsharded" in alone else "")
+    _rank_log(mesh, f"(b) push device time of {hi - lo} streams: alone {alone['sharded']:.4f} ms"
+              f"{unsharded}; with the other rank's pushes on the card {together:.4f} ms; gloo "
+              f"all-reduce (host tensor) {reduce_ms:.4f} ms; peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    return launches
+
+
+def mesh_part_c(mesh, dev, lib) -> dict:
+    """Phase 28 (c): StreamGroupManager(mesh=...) over two gloo ranks on
+    cuda:0 with phase 27's two geometries (4,096-slot groups at N=4096 and
+    at N=3762 on the Bluestein body, k=1, no ring, palettes arange(S) %
+    19), each rank pushing its own streams; a set_palette on each rank's
+    half mid-stream.  The rows of both ranks, gathered on rank 0, equal a
+    single-card manager's bit for bit before and after."""
+    from spectrogram_tpu_torch.models.multirate import StreamGroupManager
+    from spectrogram_tpu_torch.parallel import mesh as pmesh
+
+    s, groups = MR_STREAMS, (BENCH_CONFIG, MR_44K)
+    kw = dict(chunk_hops=1, store_ring=False)
+    ids = np.arange(s) % 19
+    lo, hi = pmesh.local_stream_range(mesh, s)
+    rank = pmesh.mesh_rank(mesh)
+
+    def drive(mgr, a: int, b: int, count: bool) -> dict:
+        sids = {cfg: [mgr.add_stream(cfg, palette_id=int(q)) for q in ids] for cfg in groups}
+        gs = {g.cfg: g for g in mgr.groups()}
+        torch.cuda.synchronize(dev)
+        if count:
+            lib.reset_launches()
+        rows = {cfg: [] for cfg in groups}
+        for i in range(MR_PUSHES + 2):
+            if i == MR_PUSHES:
+                for cfg in groups:
+                    for slot, palette in MESH_SET_PALETTE:
+                        mgr.set_palette(sids[cfg][slot], palette)
+            for cfg in groups:
+                words = _mr_tones(b - a, i, gs[cfg].pipeline.chunk_size, cfg.sample_rate, lo=a)
+                rows[cfg].append(mgr.push_group(cfg, _f32_words(words, dev)))
+        torch.cuda.synchronize(dev)
+        return rows, gs
+
+    t0 = time.perf_counter()
+    mgr = StreamGroupManager(group_capacity=s, mesh=mesh, device=dev, **kw)
+    rows, gs = drive(mgr, lo, hi, count=True)
+    launches = _rank_launches(lib)
+    classes = {cfg.padded_size: ("per-shard sorted" if gs[cfg].pipeline._state_perm(gs[cfg].state)
+                                 is not None else "per row") for cfg in groups}
+    _rank_log(mesh, f"(c) mesh manager, streams [{lo}, {hi}) of two {s}-slot groups "
+              f"(N={BENCH_CONFIG.padded_size}, N={MR_44K.padded_size} on the "
+              f"{sk.fft_body(MR_44K.padded_size)} body), tables {classes}: {MR_PUSHES + 2} "
+              f"pushes a group in {time.perf_counter() - t0:.1f} s with the add_stream calls; "
+              f"launches {launches}")
+    if not (launches.get(sk.KERNEL) and launches.get(BLUESTEIN)):
+        fail("phase 28 (c): the mesh manager did not launch kernel A at N=4096 and the "
+             "Bluestein body at N=3762")
+    whole = {cfg: [pmesh.gather_streams(r, mesh) for r in rows[cfg]] for cfg in groups}
+    if rank == 0:
+        single = StreamGroupManager(group_capacity=s, device=dev, **kw)
+        want, _ = drive(single, 0, s, count=False)
+        same = {cfg.padded_size: [torch.equal(a, b) for a, b in zip(whole[cfg], want[cfg])]
+                for cfg in groups}
+        _rank_log(mesh, "(c) both ranks' rows gathered on rank 0 against a single-card "
+                  "manager, push by push (a set_palette on each rank's half before push "
+                  f"{MR_PUSHES + 1}): {same}")
+        if not all(all(v) for v in same.values()):
+            fail("phase 28 (c): the mesh manager disagrees with the single-card manager")
+    return launches
+
+
+def mesh_rank_main(argv: list) -> int:
+    """One rank of phase-28 parts (`python chip_smoke.py --mesh-part a` or
+    `bc`, started by `mesh_serving`): brings up the process group, runs
+    the parts in turn and writes their kernel launches to
+    <out>/<parts>_r<rank>.json."""
+    import argparse
+
+    import torch.distributed as dist
+
+    from spectrogram_tpu_torch.parallel import distributed as pdist
+    from spectrogram_tpu_torch.parallel import mesh as pmesh
+
+    ap = argparse.ArgumentParser()
+    for flag in ("--mesh-part", "--init", "--out", "--device", "--backend"):
+        ap.add_argument(flag, default=None)
+    ap.add_argument("--world", type=int, default=1)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("FAIL: torch.cuda.is_available() is false; this check needs a CUDA card")
+    rank = int(os.environ["RANK"])
+    pdist.initialize(init_method=None if args.world == 1 else args.init, world_size=args.world,
+                     rank=rank, backend=args.backend, device=args.device)
+    mesh = pdist.global_mesh()
+    dev = pmesh.rank_device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lib = _build.library()
+    parts = {"a": mesh_part_a, "b": mesh_part_b, "c": mesh_part_c}
+    _rank_log(mesh, f"({args.mesh_part}) {dist.get_backend()} world {args.world}, device {dev}")
+    launches = {}
+    for name in args.mesh_part:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for k, v in parts[name](mesh, dev, lib).items():
+            launches[k] = launches.get(k, 0) + v
+        dist.barrier()
+    doc = dict(launches=launches)
+    pathlib.Path(args.out, f"{args.mesh_part}_r{rank}.json").write_text(json.dumps(doc))
+    dist.destroy_process_group()
+    return 0
+
+
 if __name__ == "__main__":
+    if "--mesh-part" in sys.argv:
+        sys.exit(mesh_rank_main(sys.argv[1:]))
     sys.exit(main())

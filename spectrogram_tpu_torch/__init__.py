@@ -17,9 +17,11 @@ between the two packages (`utils.checkpoint`); so is the live display
 path: `LiveSession` (`session`), the oscilloscope, the spectrum analyzer,
 the golden renderer (`models`), the terminal viewer (`utils`) and the CLI
 (`python -m spectrogram_tpu_torch.app`).  As in the JAX package, the
-serving and session classes are lazy exports.  Not ported yet: the device
-mesh and multi-process serving (`parallel/`) and the autotuner
-(ROADMAP.md items 12 and 11).
+serving and session classes are lazy exports.  The stream mesh and
+multi-process serving (`parallel/`: the batch split over ranks of a
+torch.distributed process group, sharded checkpoints in
+`utils.checkpoint`) are ported too.  Not ported yet: the autotuner
+(ROADMAP.md item 11).
 """
 
 from spectrogram_tpu_torch.config import BENCH_CONFIG, DEFAULT_CONFIG, SpectrogramConfig

@@ -15,8 +15,15 @@ group drains its own `RingBank16` through a `DeviceFeeder` (io/ring.py,
 io/feeder.py).  Every group runs on the manager's device: the card unless
 the caller passes `device="cpu"`.
 
-`mesh=` (stream-sharded groups over a device mesh) waits for the port's
-mesh module (ROADMAP.md item 12): a mesh raises NotImplementedError.
+With `mesh=` (a `parallel.mesh` DeviceMesh) every geometry group's state is
+sharded over the ranks: each rank runs the same manager (the same
+`add_stream` calls give the same slots) and holds its slice of every group.
+Palette edits take the whole batch's layout on every rank
+(`parallel.mesh.sharded_set_palette`: the per-shard sort where the JAX
+package takes it), and `push_group` runs `parallel.mesh.shard_map_step`.
+Unlike the JAX manager, whose push takes the whole batch as one global
+array, `push_group` takes the rank's own [capacity / W, chunk, 2] chunk and
+returns the rank's rows: PCM never crosses processes.
 """
 
 from __future__ import annotations
@@ -50,6 +57,9 @@ class StreamGroup:
     feeder: object = None        # io.feeder.DeviceFeeder (ingest mode)
     pinned: object = None        # io.feeder.ChunkPool (rotating drain buffers)
     next_due: float = 0.0        # next hop-tick deadline (group clock)
+    layout: object = None        # mesh mode: the whole batch's [capacity] palette ids
+    steps: dict = dataclasses.field(default_factory=dict)  # mesh mode:
+    # shard_map_step per table class, keyed on the tables' full shapes
 
     @property
     def n_streams(self) -> int:
@@ -88,9 +98,12 @@ class StreamGroupManager:
     ):
         self.group_capacity = int(group_capacity)
         self.pipeline_kwargs = dict(pipeline_kwargs)
+        # mesh (direct mode): every geometry group's lockstep state is
+        # sharded over the mesh's ranks.  Ingest ticking stays per process
+        # BY DESIGN — PCM never crosses processes (one ingest manager per
+        # rank over its own streams, parallel/distributed.py), so
+        # mesh + ingest in one manager is a topology error, not a feature.
         if mesh is not None:
-            # JAX's topology check first, so the two packages refuse
-            # mesh + ingest with the same message
             if ingest:
                 raise ValueError(
                     "mesh + ingest in one manager is unsupported: host "
@@ -98,11 +111,13 @@ class StreamGroupManager:
                     "DCN) — run one ingest manager per process, or use "
                     "mesh mode with push_group"
                 )
-            raise NotImplementedError(
-                "StreamGroupManager(mesh=...) waits for the port's mesh "
-                "module (ROADMAP.md item 12: parallel/mesh.py and "
-                "parallel/distributed.py); run one manager per card"
-            )
+            n_dev = mesh.size()
+            if self.group_capacity % n_dev:
+                raise ValueError(
+                    f"group_capacity {self.group_capacity} must divide "
+                    f"evenly over the {n_dev}-device mesh"
+                )
+        self.mesh = mesh
         self.device = default_device(device)
         # ingest=True wires each geometry group to its own host RingBank16 +
         # DeviceFeeder: producers push int16 PCM by stream id, and `tick`
@@ -128,8 +143,17 @@ class StreamGroupManager:
         group = self._groups.get(cfg)
         if group is None:
             pipeline = SpectrogramPipeline(cfg, device=self.device, **self.pipeline_kwargs)
-            state = pipeline.init_state(self.group_capacity, palette_id=palette_id)
+            if self.mesh is not None:
+                from spectrogram_tpu_torch.parallel import mesh as pmesh
+
+                state = pmesh.sharded_init(pipeline, self.group_capacity, self.mesh,
+                                           palette_id=palette_id)
+            else:
+                state = pipeline.init_state(self.group_capacity, palette_id=palette_id)
             group = StreamGroup(cfg, pipeline, state, [])
+            if self.mesh is not None:
+                group.layout = np.full(self.group_capacity, state.palette_id[0].item(),
+                                       np.int32)
             if self.ingest:
                 from spectrogram_tpu_torch.io.feeder import ChunkPool, DeviceFeeder
                 from spectrogram_tpu_torch.io.ring import RingBank16
@@ -176,13 +200,23 @@ class StreamGroupManager:
         sorted row, not row `slot`.  The carry is replaced (a push never
         writes one in place); the ring row is zeroed in place, as a push
         writes the ring.  The slot's host backlog is dropped too."""
+        if group.bank is not None:
+            group.bank.reset(slot)  # drop the dead tenant's backlog too
         pipeline = group.pipeline
         st = self._state(group)
+        if self.mesh is not None:
+            # only the rank that holds the slot has anything to zero
+            from spectrogram_tpu_torch.parallel import mesh as pmesh
+
+            lo, hi = pmesh.local_stream_range(self.mesh, self.group_capacity)
+            if not lo <= slot < hi:
+                return
+            slot -= lo
         crow = slot
         pi = pipeline._state_perm(st)
         if pi is not None and pipeline.carry_sort_mode:
             inv = pipeline._global_perm(
-                pi[1], self.group_capacity, pipeline._tables_perm_global(st.tables),
+                pi[1], st.palette_id.shape[0], pipeline._tables_perm_global(st.tables),
             )
             crow = int(inv[slot])
         carry = st.carry.index_fill(
@@ -190,16 +224,35 @@ class StreamGroupManager:
         if st.ring.shape[1]:
             st.ring[slot].zero_()
         self._set_state(group, st._replace(carry=carry))
-        if group.bank is not None:
-            group.bank.reset(slot)  # drop the dead tenant's backlog too
 
     def _set_slot_palette(self, group: StreamGroup, slot: int, palette_id: int) -> None:
         # through pipeline.set_palette (not a raw _replace): the state's
         # pre-picked kernel tables must track palette_id
         st = self._state(group)
+        if self.mesh is not None:
+            # the whole batch's layout decides the tables' class on every
+            # rank (the per-shard sort), as shard_state after a JAX edit
+            from spectrogram_tpu_torch.parallel import mesh as pmesh
+
+            group.layout[slot] = palette_id
+            self._set_state(group, pmesh.sharded_set_palette(
+                group.pipeline, st, group.layout, self.mesh))
+            return
         ids = st.palette_id.cpu().numpy().copy()
         ids[slot] = palette_id
         self._set_state(group, group.pipeline.set_palette(st, ids))
+
+    def _mesh_step(self, group: StreamGroup, st: StreamState):
+        """The shard_map_step for the state's table class, cached on the
+        tables' full shapes (per-stream, uniform, marked and sorted states
+        differ in them)."""
+        from spectrogram_tpu_torch.parallel import mesh as pmesh
+
+        key = tuple(tuple(t.shape) for t in st.tables)
+        step = group.steps.get(key)
+        if step is None:
+            step = group.steps[key] = pmesh.shard_map_step(group.pipeline, self.mesh)
+        return step
 
     # The live state is owned by the feeder once ingest is attached; these
     # keep `group.state` a coherent snapshot either way.  Every mutation
@@ -233,12 +286,24 @@ class StreamGroupManager:
         chunk: [capacity, chunk_size, 2] (numpy or a tensor) — the host ring
         bank for this group supplies silence for unattached slots
         (RingBank.pop_matrix zero-fill).  Returns the group's RGBA rows on
-        the manager's device.
+        the manager's device.  With a mesh, the rank's own [capacity / W,
+        chunk_size, 2] streams in, the rank's rows out.
         """
         group = self._groups[cfg]
         if not isinstance(chunk, torch.Tensor):
             chunk = torch.from_numpy(np.asarray(chunk))
-        st, rgba = group.pipeline.push(self._state(group), chunk)
+        st = self._state(group)
+        if self.mesh is not None:
+            want = (st.palette_id.shape[0], group.pipeline.chunk_size, 2)
+            if tuple(chunk.shape) != want:
+                raise ValueError(
+                    f"mesh push_group takes this rank's chunk {want}; got "
+                    f"{tuple(chunk.shape)}"
+                )
+            st, rgba, _global_rows = self._mesh_step(group, st)(st, chunk)
+            self._set_state(group, st)
+            return rgba
+        st, rgba = group.pipeline.push(st, chunk)
         self._set_state(group, st)
         return rgba
 

@@ -736,14 +736,35 @@ class SpectrogramPipeline:
         if (bs >= s or not self.carry_sort_mode
                 or self.blockwise_palettes not in ("auto", True)):
             return None
-        perm = np.argsort(layout, kind="stable").astype(np.int32)
+        return self._view_sorted_tables(tables, layout, s)
+
+    def _view_sorted_tables(self, tables: tuple, layout: np.ndarray, view_bs: int):
+        """The length-4 sorted tuple with view blocks of `view_bs` streams:
+        one stable argsort per view block, perm and inv holding global
+        stream indices confined to their block (the JAX pipeline's
+        `_view_sorted_tables`).  view_bs = S is the whole-state global sort;
+        view_bs = S / ranks the per-shard sort of `parallel.mesh`, whose
+        rank-local slices subtract their offset.  None where the
+        view-sorted layout fails the blockwise test."""
+        s = int(layout.shape[0])
+        perm = np.empty(s, np.int32)
+        inv = np.empty(s, np.int32)
+        for b0 in range(0, s, view_bs):
+            b1 = min(b0 + view_bs, s)
+            p = b0 + np.argsort(layout[b0:b1], kind="stable").astype(np.int32)
+            perm[b0:b1] = p
+            inv[p] = np.arange(b0, b1, dtype=np.int32)
         if not self._blockwise_auto_decision(layout[perm]):
             return None
-        inv = np.empty(s, np.int32)
-        inv[perm] = np.arange(s, dtype=np.int32)
         return (tables[0].index_select(0, self._device_index(perm)),
                 self._device_index(perm), self._device_index(inv),
                 self._bw_marker())
+
+    def _palette_sort_eligible(self, tables: tuple) -> bool:
+        """Whether the palette sort may take a state with these tables: the
+        built-in registry's per-stream 1-tuple, with palette_sort on."""
+        return (self.palette_sort and self.static_table is None
+                and self.builtin_tables is not None and len(tables) == 1)
 
     def _device_index(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(self.device)

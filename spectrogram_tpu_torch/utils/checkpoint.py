@@ -22,15 +22,22 @@ loads in the other:
     pipeline's registry), recomputed by `restored_tables_for`, which also
     re-decides the blockwise marker and the palette sort.
 
-The sharded path (JAX's orbax `save_sharded` / `load_sharded`) is not
-ported yet (ROADMAP.md item 12).
+A state sharded over ranks (`parallel.mesh`) is written either way:
+`save_state(..., mesh=)` gathers it to rank 0 in external order and writes
+the npz once, so npz files still cross between the packages; `save_sharded`
+/ `load_sharded` (JAX's orbax pair) write and read it with
+`torch.distributed.checkpoint` (DCP), every rank its own slice.  A DCP
+directory is not an orbax one: the two packages do not read each other's
+sharded checkpoints (orbax needs JAX).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import pathlib
+import warnings
 
 import numpy as np
 import torch
@@ -74,11 +81,22 @@ def _torch_dtype(name: str) -> torch.dtype:
 
 
 def save_state(
-    path, state: StreamState, cfg: SpectrogramConfig, pipeline=None
+    path, state: StreamState, cfg: SpectrogramConfig, pipeline=None, mesh=None
 ) -> None:
     """Write state + config. `path` gets `.npz`; a `.json` sidecar holds the
-    geometry (plus chunk_hops/viewport_rows when `pipeline` is given)."""
+    geometry (plus chunk_hops/viewport_rows when `pipeline` is given).
+    With `mesh`, `state` is this rank's slice: every rank calls this, the
+    whole state is gathered in external order and rank 0 writes it once;
+    every rank returns once the files exist."""
     path = pathlib.Path(path)
+    if mesh is not None:
+        from spectrogram_tpu_torch.parallel import mesh as pmesh
+
+        whole = pmesh.gather_state(state, mesh, pipeline)
+        if pmesh.mesh_rank(mesh) == 0:
+            save_state(path, whole, cfg, pipeline)
+        torch.distributed.barrier(group=mesh.get_group(pmesh.STREAM_AXIS))
+        return
     host = state_to_numpy(state)
     carry = host["carry"]
     # Palette-sorted states: checkpoints always persist the EXTERNAL stream
@@ -214,6 +232,154 @@ def load_state(path, pipeline: SpectrogramPipeline) -> StreamState:
                 f"checkpoint field {name} shape {got} != pipeline "
                 f"expectation {expected[name]}"
             )
+    _check_cursor_alignment(state, pipeline, pipeline_meta)
+    return state
+
+
+@contextlib.contextmanager
+def _one_process():
+    """DCP in one process (`no_dist=True`), without its warning that no
+    process group is in use: that is what was asked for."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="torch.distributed is disabled")
+        yield
+
+
+def save_sharded(
+    path, state: StreamState, cfg: SpectrogramConfig, pipeline=None, mesh=None
+) -> None:
+    """DCP save of a sharded state: with `mesh`, `state` is this rank's
+    slice, every rank calls this and writes only its slice (per-stream
+    leaves as `Shard(0)` DTensors, scalars replicated); without, a whole
+    state from one process.  The config sidecar (`config.json`, written by
+    rank 0) travels in the same directory.  `path` is a directory.  Kernel
+    tables are derived state and are not saved; zero-size leaves (a
+    streaming state's empty ring) are dropped, as the JAX package drops
+    them."""
+    import torch.distributed.checkpoint as dcp
+
+    path = pathlib.Path(path).resolve()
+    if SpectrogramPipeline._tables_perm(state.tables) is not None:
+        raise ValueError(
+            "palette-sorted states are not saved sharded: save with "
+            "save_state, which persists the external carry order, or save "
+            "pipeline.unsort_state(state)"
+        )
+    payload = {name: getattr(state, name) for name in StreamState._fields
+               if name != "tables" and getattr(state, name).numel() > 0}
+    if mesh is None:
+        with _one_process():
+            dcp.save(payload, checkpoint_id=path / "state", no_dist=True)
+        (path / "config.json").write_text(_sidecar_payload(cfg, pipeline))
+        return
+    from torch.distributed.tensor import DTensor
+
+    from spectrogram_tpu_torch.parallel import mesh as pmesh
+
+    placements = pmesh.state_shardings(mesh)
+    payload = {name: DTensor.from_local(t, mesh, getattr(placements, name), run_check=False)
+               for name, t in payload.items()}
+    group = mesh.get_group(pmesh.STREAM_AXIS)
+    dcp.save(payload, checkpoint_id=path / "state", process_group=group)
+    if pmesh.mesh_rank(mesh) == 0:
+        (path / "config.json").write_text(_sidecar_payload(cfg, pipeline))
+    torch.distributed.barrier(group=group)
+
+
+def load_sharded(path, pipeline: SpectrogramPipeline, mesh=None) -> StreamState:
+    """Restore a DCP checkpoint of `save_sharded` onto the pipeline's
+    device: with `mesh`, this rank's slice of it (each rank reads its own
+    streams, whatever mesh size saved it); with `mesh=None`, the whole
+    state in one process (no process group needed).  Raises where the
+    geometry or a shape differs from the pipeline's.  The tables are
+    re-derived from the restored palette ids, in the layout class a state
+    on this mesh takes (`parallel.mesh.sharded_layout_tables`: the
+    blockwise marker, or the per-shard sort), or, unsharded, in the one
+    `restored_tables_for` gives."""
+    import torch.distributed.checkpoint as dcp
+
+    path = pathlib.Path(path).resolve()
+    saved_cfg, pipeline_meta = _parse_sidecar((path / "config.json").read_text())
+    if (
+        saved_cfg.window_size != pipeline.cfg.window_size
+        or saved_cfg.sample_rate != pipeline.cfg.sample_rate
+        or saved_cfg.pad_factor != pipeline.cfg.pad_factor
+    ):
+        raise ValueError(
+            f"checkpoint geometry {saved_cfg} incompatible with pipeline "
+            f"{pipeline.cfg}; start a fresh state instead"
+        )
+    reader = dcp.FileSystemReader(path / "state")
+    stored = reader.read_metadata().state_dict_metadata
+    n_streams = int(stored["palette_id"].size[0])
+    expected = expected_shapes(pipeline, n_streams)
+    for name, md in stored.items():
+        if [tuple(md.size)] != expected[name]:
+            raise ValueError(
+                f"checkpoint field {name} shape {tuple(md.size)} != pipeline "
+                f"expectation {expected[name][0]} (viewport/chunk geometry "
+                f"changed; start a fresh state)"
+            )
+    carry_dtype = stored["carry"].properties.dtype
+    if carry_dtype != pipeline.carry_dtype:
+        raise ValueError(
+            f"checkpoint carry is {carry_dtype}; this pipeline keeps "
+            f"{pipeline.carry_dtype} (i16_planes={pipeline.i16_planes}) — "
+            f"start a fresh state"
+        )
+    dev = pipeline.device
+    lo, hi = 0, n_streams
+    if mesh is not None:
+        from torch.distributed.tensor import DTensor, Shard
+
+        from spectrogram_tpu_torch.parallel import mesh as pmesh
+
+        lo, hi = pmesh.local_stream_range(mesh, n_streams)
+    targets = {}
+    for name, md in stored.items():
+        shape, dtype = tuple(md.size), md.properties.dtype
+        if mesh is not None and name in ("carry", "ring"):
+            local = torch.empty((hi - lo,) + shape[1:], dtype=dtype, device=dev)
+            targets[name] = DTensor.from_local(local, mesh, [Shard(0)], run_check=False)
+        else:
+            # scalars, and the whole [S] palette layout on every rank: the
+            # tables' class is decided on it
+            targets[name] = torch.empty(shape, dtype=dtype, device=dev)
+    if mesh is None:
+        with _one_process():
+            dcp.load(targets, storage_reader=reader, no_dist=True)
+    else:
+        dcp.load(targets, storage_reader=reader,
+                 process_group=mesh.get_group(pmesh.STREAM_AXIS))
+    restored = {name: t.to_local() if mesh is not None and isinstance(t, DTensor) else t
+                for name, t in targets.items()}
+    # zero-size leaves (a streaming state's empty ring) are never stored
+    for name in StreamState._fields:
+        if name == "tables" or name in restored:
+            continue
+        want = expected[name][0]
+        if int(np.prod(want)):
+            raise ValueError(
+                f"checkpoint is missing field {name!r} but the pipeline "
+                f"expects {want} (store_ring mismatch between save and load "
+                f"pipelines?)"
+            )
+        local = (hi - lo,) + tuple(want[1:]) if name in ("carry", "ring") else want
+        dtype = pipeline.ring_dtype if name == "ring" else pipeline.carry_dtype
+        restored[name] = torch.zeros(local, dtype=dtype, device=dev)
+    layout = restored["palette_id"].cpu().numpy()
+    if mesh is not None:
+        tables = pmesh._local_tables(
+            pmesh.sharded_layout_tables(pipeline, layout, mesh.size()), lo, hi, dev)
+        restored["palette_id"] = restored["palette_id"][lo:hi].contiguous()
+    else:
+        tables = pipeline.restored_tables_for(layout)
+    state = StreamState(**restored, tables=tables)
+    # carry-sort pipelines keep the carry at rest in sorted order; the
+    # checkpoint stores external order
+    perms = pipeline._global_perms(state)
+    if perms is not None and pipeline.carry_sort_mode:
+        state = state._replace(carry=state.carry.index_select(0, perms[0]))
     _check_cursor_alignment(state, pipeline, pipeline_meta)
     return state
 

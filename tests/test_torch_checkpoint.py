@@ -300,3 +300,139 @@ def test_mismatches_raise(tmp_path):
     _, tsorted = _pipelines("sorted")
     with pytest.raises(ValueError, match="pipeline="):
         tck.save_state(tmp_path / "x", _start(tsorted, "sorted"), tsorted.cfg)
+
+
+# ------------------------------------------------ states sharded over ranks
+#
+# The port of tests/test_session.py:101-212.  Two gloo ranks on the CPU
+# (`tests/torch_ranks.py`, group "checkpoint") save and restore; the
+# one-rank and unsharded restores run in this process.  Before the ranks
+# start, the JAX package writes an npz from its 8-device sharded state,
+# which the ranks restore onto their mesh.
+
+@pytest.fixture(scope="module")
+def ck_ranks(tmp_path_factory):
+    import jax
+
+    from spectrogram_tpu.parallel import mesh as jmesh
+
+    import torch_ranks as tr
+
+    out = tmp_path_factory.mktemp("checkpoint_ranks")
+    jp = JaxPipeline(jcfg.SpectrogramConfig(**tr.CFG_KW), chunk_hops=4)
+    m = jmesh.make_mesh()
+    js = jmesh.shard_state(jp.init_state(8, palette_id=3), m)
+    js, _ = jmesh.sharded_push(jp, m)(
+        js, jax.device_put(jnp.asarray(tr.pcm(45, 8, jp.chunk_size)), jmesh.chunk_sharding(m)))
+    jck.save_state(out / "jax_sharded", js, jp.cfg, pipeline=jp)
+    return tr.spawn("checkpoint", out)
+
+
+def _tr():
+    import torch_ranks as tr
+
+    return tr
+
+
+def test_npz_from_sharded_state_continues_bit_for_bit(ck_ranks):
+    """save_state of a state split over two ranks writes the whole state
+    once (rank 0, external order); restored and re-split, it continues as
+    the unsharded pipeline does, and the JAX package reads the file."""
+    tr = _tr()
+    got = tr.result(ck_ranks, "npz_from_sharded")
+    p = SpectrogramPipeline(tr.CFG, chunk_hops=4, device="cpu")
+    chunk = torch.from_numpy(tr.pcm(40, 8, p.chunk_size))
+    s, _ = p.push(p.init_state(8, palette_id=3), chunk)
+    s, want = p.push(s, chunk)
+    assert int(got["row_count"]) == 8 == int(s.row_count)
+    assert tuple(got["local_ring"]) == (4, p.viewport_rows, 2, tr.CFG.num_bins)
+    np.testing.assert_array_equal(got["rows"], want.numpy())
+    js = jck.load_state(ck_ranks["out"] / "sharded", JaxPipeline(jcfg.SpectrogramConfig(
+        **tr.CFG_KW), chunk_hops=4))
+    assert int(js.row_count) == 4 and np.asarray(js.palette_id).tolist() == [3] * 8
+
+
+@pytest.mark.parametrize("restore", ["two_ranks", "one_rank", "unsharded"])
+def test_dcp_saved_by_two_ranks_restores(ck_ranks, restore):
+    """save_sharded from two ranks (each its own slice, DCP): restored on
+    the same two ranks, on a one-rank mesh in this process and unsharded
+    (no process group), the state equals the saved one and its next push
+    equals the saved state's next push bit for bit."""
+    tr = _tr()
+    got = tr.result(ck_ranks, "dcp_cycle")
+    if restore == "two_ranks":
+        assert bool(got["same"]) and bool(got["tables_equal"])
+        np.testing.assert_array_equal(got["rows2"], got["rows"])
+        return
+    p = SpectrogramPipeline(tr.CFG, chunk_hops=2, device="cpu")
+    mesh = None
+    if restore == "one_rank":
+        from spectrogram_tpu_torch.parallel import mesh as pmesh
+
+        mesh = pmesh.make_mesh(device="cpu")
+    st = tck.load_sharded(ck_ranks["out"] / "ckpt", p, mesh)
+    np.testing.assert_array_equal(st.carry.numpy(), got["carry"])
+    np.testing.assert_array_equal(st.ring.float().numpy(), got["ring"])
+    assert int(st.row_count) == 2 and int(st.cursor) == 2
+    _, rows = p.push(st, torch.from_numpy(tr.pcm(42, 16, p.chunk_size)))
+    np.testing.assert_array_equal(rows.numpy(), got["rows"])
+
+
+def test_dcp_serving_state_resumes_per_shard_sorted(ck_ranks):
+    """The serving mode's checkpoint: a per-shard sorted streaming state is
+    refused as it is, saved unsorted (its empty ring dropped), and restored
+    onto the two ranks in the per-shard sorted class, the carry back in
+    each slice's sorted order; the next push equals the uninterrupted one
+    bit for bit, also from an unsharded restore in one process."""
+    tr = _tr()
+    got = tr.result(ck_ranks, "dcp_sorted_streaming")
+    assert "palette-sorted" in str(got["refused"])
+    assert bool(got["sorted"]) and bool(got["carry_equal"])
+    np.testing.assert_array_equal(got["rows2"], got["rows"])
+    p = SpectrogramPipeline(tr.CFG, device="cpu", **tr.STREAM_KW)
+    st = tck.load_sharded(ck_ranks["out"] / "sorted_dcp", p)
+    assert p._state_perm(st) is not None
+    _, rows = p.push(st, torch.from_numpy(tr.pcm(44, tr.SORT_STREAMS, p.chunk_size)))
+    np.testing.assert_array_equal(rows.numpy(), got["rows"])
+
+
+def test_dcp_guards(ck_ranks, tmp_path):
+    """The geometry guard, a chunk_hops change, a store_ring change and a
+    palette-sorted state each raise ValueError; an aligned restore works."""
+    tr = _tr()
+    other = SpectrogramPipeline(SpectrogramConfig(**tr.CFG_B_KW), chunk_hops=2, device="cpu")
+    with pytest.raises(ValueError, match="geometry"):
+        tck.load_sharded(ck_ranks["out"] / "ckpt", other)
+    p2 = SpectrogramPipeline(tr.CFG, chunk_hops=2, device="cpu")
+    s, _ = p2.push(p2.init_state(1), torch.from_numpy(tr.pcm(47, 1, p2.chunk_size)))
+    tck.save_sharded(tmp_path / "d", s, tr.CFG)
+    with pytest.raises(ValueError, match="chunk_hops"):
+        tck.load_sharded(tmp_path / "d", SpectrogramPipeline(tr.CFG, chunk_hops=4, device="cpu"))
+    assert int(tck.load_sharded(tmp_path / "d", p2).cursor) == 2
+    streaming = SpectrogramPipeline(tr.CFG, device="cpu", **tr.STREAM_KW)
+    tck.save_sharded(tmp_path / "e", streaming.init_state(2), tr.CFG, pipeline=streaming)
+    with pytest.raises(ValueError, match="missing field 'ring'"):
+        tck.load_sharded(tmp_path / "e", SpectrogramPipeline(tr.CFG, chunk_hops=1, device="cpu"))
+    sorted_state = streaming.set_palette(streaming.init_state(256), tr.alternating(256))
+    assert streaming._state_perm(sorted_state) is not None
+    with pytest.raises(ValueError, match="palette-sorted"):
+        tck.save_sharded(tmp_path / "f", sorted_state, tr.CFG, pipeline=streaming)
+
+
+def test_jax_sharded_npz_loads_into_the_port_mesh(ck_ranks):
+    """An npz the JAX package wrote from its 8-device sharded state,
+    restored onto the port's two ranks: the next push is within 1 u8 of
+    JAX continuing, the carry exact."""
+    import jax
+
+    from spectrogram_tpu.parallel import mesh as jmesh
+
+    tr = _tr()
+    got = tr.result(ck_ranks, "jax_npz_into_mesh")
+    jp = JaxPipeline(jcfg.SpectrogramConfig(**tr.CFG_KW), chunk_hops=4)
+    m = jmesh.make_mesh()
+    js = jmesh.shard_state(jck.load_state(ck_ranks["out"] / "jax_sharded", jp), m)
+    js, jrows = jmesh.sharded_push(jp, m)(
+        js, jax.device_put(jnp.asarray(tr.pcm(46, 8, jp.chunk_size)), jmesh.chunk_sharding(m)))
+    assert testing.rgba_u8_diff(got["rows"], np.asarray(jrows)) <= 1
+    np.testing.assert_array_equal(got["carry"], np.asarray(js.carry))

@@ -43,7 +43,9 @@ groups (N=1410 on Bluestein among them) give their own pipelines' rows bit
 for bit, its int16 wire the f32 drain's; the spectrum analyzer's levels stay
 within 1e-6 of a float64 band product with TF32 allowed.  The CLI's `live`,
 `live --view` and `live --view --multirate` (headless) run on the card,
-launch kernels and write the viewport's PNG.
+launch kernels and write the viewport's PNG.  The stream mesh at world size
+1 runs under NCCL in a rank process: its rows bit for bit the unsharded
+pipeline's.
 """
 
 import dataclasses
@@ -1283,3 +1285,16 @@ def test_cli_live_runs_on_the_card(cuda, tmp_path, view):
                    "--height", "64", *LIVE_VIEWS[view], "--device", "cuda"])
     assert rc == 0 and np.asarray(Image.open(out)).shape == (64, 2048, 3)
     assert sum(lib.launches.values()) > before
+
+
+def test_mesh_world_one_under_nccl(cuda, tmp_path):
+    """One rank under NCCL (`tests/torch_ranks.py`, group "card"): the
+    mesh's shard_map_step rows bit for bit the unsharded pipeline's, the
+    row count summed by NCCL on the card, a DCP save and restore."""
+    import torch_ranks as tr
+
+    run = tr.spawn("card", tmp_path, world=1)
+    got = tr.result(run, "card_world1")
+    assert str(got["backend"]) == "nccl" and str(got["sum_device"]) == "cuda"
+    assert bool(got["same"]) and int(got["total"]) == 3 * 1024
+    assert bool(got["restored"])

@@ -14,9 +14,15 @@ streams.  The bars:
   * inside the port: int16 wire rows equal the f32 drain's bit for bit, and
     a reused slot's next rows equal a fresh stream's bit for bit;
   * membership, locations, metrics and drop counts equal to JAX's.
+
+Mesh mode runs in two gloo ranks (`tests/torch_ranks.py`, group
+"multirate"), each holding its slice of every group: the gathered rows
+equal the port's single manager's bit for bit and lie within 1 u8 of the
+JAX manager's on a 2-device mesh.
 """
 
 import dataclasses
+import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +31,8 @@ import torch
 
 import spectrogram_tpu.config as jcfg
 from spectrogram_tpu.models.multirate import StreamGroupManager as JaxManager
+
+import torch_ranks as tr
 
 import spectrogram_tpu_torch.config as tcfg
 from spectrogram_tpu_torch import testing
@@ -344,13 +352,90 @@ def test_bench_width_group_matches_jax():
     assert tm.metrics() == jm.metrics()
 
 
-def test_mesh_raises_naming_item_12():
-    """mesh= waits for the port's mesh module; mesh + ingest keeps JAX's
-    ValueError first."""
-    with pytest.raises(ValueError, match="mesh \\+ ingest"):
-        StreamGroupManager(group_capacity=4, mesh=object(), ingest=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        StreamGroupManager(group_capacity=4, mesh=object(), device="cpu")
+@pytest.fixture(scope="module")
+def mesh_ranks(tmp_path_factory):
+    """The port's mesh managers in two gloo ranks on the CPU
+    (`tests/torch_ranks.py`, group "multirate")."""
+    return tr.spawn("multirate", tmp_path_factory.mktemp("multirate_ranks"))
+
+
+@pytest.fixture(scope="module")
+def mesh_reference():
+    """The JAX manager on a 2-device mesh and the port's single manager,
+    driven as the ranks drive theirs (`torch_ranks.manager`): rows before
+    and after `set_palette(1, 5)`, and metrics."""
+    from spectrogram_tpu.parallel import mesh as jmesh
+
+    tm = StreamGroupManager(group_capacity=4, chunk_hops=2, device="cpu")
+    jm = JaxManager(group_capacity=4, chunk_hops=2, mesh=jmesh.make_mesh(2))
+    rows = {"port": [], "jax": []}
+    for mgr, (a, b), key in ((tm, (CFG_A, CFG_B), "port"), (jm, (JCFG_A, JCFG_B), "jax")):
+        for _ in range(4):
+            mgr.add_stream(a)
+        mgr.add_stream(b, palette_id=3)
+        chunks = [tr.pcm(20 + i, 4, _group(mgr, cfg).pipeline.chunk_size)
+                  for i, cfg in enumerate((a, b))]
+        for cfg, ch in zip((a, b), chunks):
+            rows[key].append(np.asarray(mgr.push_group(cfg, _wrap(key, ch))))
+        mgr.set_palette(1, 5)
+        rows[key].append(np.asarray(mgr.push_group(a, _wrap(key, chunks[0]))))
+    return rows, tm.metrics(), jm.metrics()
+
+
+def _wrap(key, chunk):
+    return torch.from_numpy(chunk) if key == "port" else jnp.asarray(chunk)
+
+
+@pytest.mark.parametrize("when", ["before_set_palette", "after_set_palette"])
+def test_mesh_manager_matches_single_manager(mesh_ranks, mesh_reference, when):
+    """Mesh mode: every geometry group's state split over two ranks, each
+    push_group the rank's own streams; the gathered rows equal the single
+    manager's bit for bit and lie within 1 u8 of the JAX mesh manager's,
+    before and after a mid-stream palette edit."""
+    got = tr.result(mesh_ranks, "manager")
+    rows, _, _ = mesh_reference
+    keys = ("rows0", "rows1") if when == "before_set_palette" else ("rows_after",)
+    idx = (0, 1) if when == "before_set_palette" else (2,)
+    for k, i in zip(keys, idx):
+        np.testing.assert_array_equal(got[k], rows["port"][i])
+        _assert_rows_close(got[k], rows["jax"][i])
+    assert int(got["local0"]) == 2
+
+
+def test_mesh_manager_metrics(mesh_ranks, mesh_reference):
+    got = tr.result(mesh_ranks, "manager")
+    _, port_metrics, jax_metrics = mesh_reference
+    assert json.loads(str(got["metrics"])) == port_metrics == jax_metrics
+    assert "this rank's chunk" in str(got["wrong_chunk"])
+
+
+@pytest.mark.parametrize("error", ["ingest", "divide"])
+def test_mesh_manager_errors(mesh_ranks, error):
+    """JAX's two refusals: mesh + ingest, and a capacity the mesh cannot
+    split evenly."""
+    got = str(tr.result(mesh_ranks, "manager")[error])
+    assert ("mesh + ingest" if error == "ingest" else "must divide evenly over the 2-device mesh") in got
+
+
+def test_mesh_manager_sorts_per_shard(mesh_ranks):
+    """A carry-sort group (k=1, no ring) of 512 slots on palettes i % 2:
+    each rank holds a per-shard sorted slice; a reused slot and a palette
+    edit keep it sorted, and the gathered rows equal the single manager's
+    bit for bit throughout."""
+    got = tr.result(mesh_ranks, "manager_sorted")
+    assert bool(got["sorted"]) and bool(got["sorted_after"])
+    s_n = tr.SORT_STREAMS
+    mgr = StreamGroupManager(group_capacity=s_n, device="cpu", **tr.STREAM_KW)
+    ids = tr.alternating(s_n)
+    sids = [mgr.add_stream(CFG_A, palette_id=int(i)) for i in ids]
+    g = _group(mgr, CFG_A)
+    hops = [tr.pcm(30 + i, s_n, g.pipeline.chunk_size) for i in range(3)]
+    np.testing.assert_array_equal(got["rows0"], mgr.push_group(CFG_A, hops[0]).numpy())
+    mgr.remove_stream(sids[300])
+    mgr.add_stream(CFG_A, palette_id=1 - int(ids[300]))
+    mgr.set_palette(sids[7], 4)
+    for i in (1, 2):
+        np.testing.assert_array_equal(got[f"rows{i}"], mgr.push_group(CFG_A, hops[i]).numpy())
 
 
 def test_manager_runs_on_the_card_by_default():

@@ -1,8 +1,9 @@
 """The port's LiveSession against the JAX package's, on the CPU.
 
-Mirrors the session and metrics tests of `tests/test_session.py` (its npz
-checkpoint tests were ported with `utils/checkpoint.py`; its orbax and
-sharded ones wait for the port's mesh module, ROADMAP.md item 12).  Live
+Mirrors the session and metrics tests of `tests/test_session.py` (its
+checkpoint tests, npz, sharded and orbax, are ported in
+`tests/test_torch_checkpoint.py`, the orbax ones onto
+`torch.distributed.checkpoint`).  Live
 selection runs the registry's real-time source pump; the parity tests
 drive both sessions deterministically, the same seeded frames pushed into
 their host rings.  The bars:

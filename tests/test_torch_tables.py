@@ -338,6 +338,8 @@ def test_import_leaves_jax_out():
         "import spectrogram_tpu_torch.utils.image, spectrogram_tpu_torch.utils.terminal\n"
         "import spectrogram_tpu_torch.utils.liveview\n"
         "spectrogram_tpu_torch.LiveSession, spectrogram_tpu_torch.StreamGroupManager\n"
+        "import spectrogram_tpu_torch.parallel.mesh, spectrogram_tpu_torch.parallel.distributed\n"
+        "import spectrogram_tpu_torch.parallel.dryrun\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'orbax' or m.startswith('orbax.')"
