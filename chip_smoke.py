@@ -219,7 +219,8 @@ Phases, each of which fails the run with a non-zero exit:
      presorted_input=True, sorted_output=True), 10,240 streams, palettes
      arange(S) % 19; a RingBank16 of 8,192 frames a ring, fed by producer
      threads that push 256-stream blocks of one seeded int16 chirp+tone
-     array at the hop rate (push_matrix_range); 24 ticks, each
+     array at the hop rate (push_matrix_range; the schedule starts once
+     every thread runs, and each hop's lateness is logged); 24 ticks, each
      pop_matrix_i16_planar(800, pool.next(), dest=input_dest) into a pinned
      ChunkPool slot pushed by a depth-2 DeviceFeeder (H2D on its side
      stream).  Passes when rows[output_perm] equal an independent per-row
@@ -234,7 +235,9 @@ Phases, each of which fails the run with a non-zero exit:
      ms per push (the feeder's CUDA events), the wall ms per tick at depth 1
      and 2 from rings holding ten hops (in turns 1 2 2 1) against the
      16.67 ms hop, a torch.profiler trace's share of H2D time under a
-     kernel, the card and the host CPU.
+     kernel, the card and the host CPU.  A failed loop prints the tick of
+     the first drop, the drops per tick, the drain's p99, the host's load
+     averages and the live threads.
  27. multi-rate serving and the live display path, through the entry
      points a user calls: (a) a StreamGroupManager(group_capacity=4096,
      chunk_hops=1, store_ring=False) holding two geometry groups,
@@ -295,10 +298,28 @@ Phases, each of which fails the run with a non-zero exit:
      (d) `python -m spectrogram_tpu_torch.parallel.dryrun --ranks 2
      --device cuda:0 --backend gloo` exits 0.  Peak device memory per
      rank.
+ 29. the autotuner (`spectrogram_tpu_torch.utils.autotune`): (a) at
+     BENCH_CONFIG k=1 (4,096 streams: radix-2 kernel A, kernel B),
+     DEFAULT_CONFIG k=1 (N=4800, mixed radix), N=16,384 k=1, the full
+     serving mode at 10,240 streams (int16 kernel A, blockwise),
+     BENCH_CONFIG split-real k=1 and BENCH_CONFIG k=8 (the all-windows
+     kernel), palettes arange(S) % 19, four pushes of chirp+tone under
+     every launch shape of the push's families (`launch_families`: the
+     STFT rows' launch bounds, the colormap tile's form): rows and next
+     carry bit for bit the table's, the family's kernels launching; the
+     fused push's shapes on 4,096 window rows bit for bit its table's;
+     device ms of each beside the table's.  (b) `autotune.tune` at each
+     of those geometries on a fresh cache in a temporary directory under
+     build/: the pick, its ms, the table's, the seconds spent; a second
+     call and SpectrogramPipeline(autotune=True) measure nothing, the
+     tuned pipeline's rows and carry bit for bit the untuned one's; a
+     StreamGroupManager(autotune=True) of BENCH_CONFIG and phase 27's
+     44.1 kHz geometry launches each group's own pick.  Only correctness
+     fails the run; the times are printed.
 
 Then the whole run's seconds.  The second-to-last line is {"kernels": [...]}:
 each kernel's launches on the main paths (phases 5, 9, 12, 15, 18, 21, 22,
-23, 24, 26, 27 and 28; the Bluestein body's row counts every STFT launch at such an N
+23, 24, 26, 27, 28 and 29; the Bluestein body's row counts every STFT launch at such an N
 below the large-N route), its
 largest error against its plain version, its time, its plain version's, the
 library call's where one computes the same transform, and its bound: the
@@ -898,7 +919,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh_serving(main_launches, power_line)
 
-    log(f"[28] whole run {time.perf_counter() - t_start:.1f} s")
+    # -- 29. the autotuner's launch shapes ---------------------------------------
+    torch.cuda.empty_cache()
+    tuner_phase(dev, lib, main_launches, power_line)
+
+    log(f"[29] whole run {time.perf_counter() - t_start:.1f} s")
     print(power_line)
     print(json.dumps({"kernels": [
         dict(meta, route="cuda", launches=main_launches[k], max_abs_err=stats[k],
@@ -2784,12 +2809,38 @@ def _feed_ticks(feeder, pool, bank, n: int, ticks: int, dest=None, f32: bool = F
     return rows + flushed if keep else []
 
 
+def _lateness(late: np.ndarray) -> str:
+    """The producers' worst lateness per hop: ms after its schedule that
+    the last of them had its hop in the bank (`late`: [producers, hops],
+    NaN where a hop never landed)."""
+    worst = [("-" if np.isnan(col).all() else f"{np.nanmax(col):.1f}") for col in late.T]
+    return "[" + ", ".join(worst) + "]"
+
+
+def _loop_diagnosis(dropped: list, drain: LatencyTracker, late: np.ndarray,
+                    first_pop_ms) -> str:
+    """What a failed paced loop shows: the tick of the first drop, the
+    frames dropped in each tick (`dropped`: the bank's cumulative count
+    after each tick), the drain's p99, the producers' worst lateness per
+    hop, when the first tick drained, the host's load averages and the
+    live threads."""
+    per_tick = [b - a for a, b in zip([0] + dropped[:-1], dropped)]
+    first = next((t + 1 for t, d in enumerate(per_tick) if d), None)
+    p99 = f"{drain.p99_ms:.3f} ms" if drain.samples else "none drained"
+    pop = "never" if first_pop_ms is None else f"{first_pop_ms:.1f} ms after the schedule's start"
+    load = " / ".join(f"{v:.2f}" for v in os.getloadavg())
+    return (f"first drop at tick {first}; dropped per tick {per_tick}; drain p99 {p99}; "
+            f"producers' worst lateness per hop (ms) {_lateness(late)}; first drain {pop}; "
+            f"load average (1, 5, 15 min) {load}; live threads {threading.active_count()}")
+
+
 def serving_loop(dev, lib, main_launches: dict, power_line: str) -> None:
     """Phase 26: examples/serve.py's loop on the port at 10,240 streams of
     BENCH_CONFIG (k=1, no ring, packed rows, i16_planes, presorted_input,
     sorted_output, palettes arange(S) % 19): producer threads push 256-stream
     blocks of one seeded int16 chirp+tone array into a RingBank16 (8,192
-    frames a ring) at the hop rate; each tick drains 800 frames a stream
+    frames a ring) at the hop rate, on a schedule that starts once every
+    thread runs, each hop's lateness recorded; each tick drains 800 frames a stream
     with pop_matrix_i16_planar(dest=input_dest) into a pinned ChunkPool slot
     that a depth-2 DeviceFeeder copies to the card on its side stream and
     pushes, its rows left on the card (readback="probe").  Checks: rows[output_perm] bit for bit an independent per-row
@@ -2842,25 +2893,31 @@ def serving_loop(dev, lib, main_launches: dict, power_line: str) -> None:
                                 for _ in range(len(pool)))):
         fail("phase 26: the ChunkPool of a CUDA pipeline is not pinned")
     errors = []
-    start = time.perf_counter() + 0.05
+    blocks = range(0, s, LOOP_BLOCK)
+    late = np.full((len(blocks), LOOP_TICKS), np.nan)    # ms after schedule, per hop
+    go, start = threading.Event(), 0.0
 
-    def producer(lo: int, hi: int) -> None:
+    def producer(i: int, lo: int, hi: int) -> None:
+        go.wait()
         try:
             for t in range(LOOP_TICKS):
                 wait = start + t * hop_ms * 1e-3 - time.perf_counter()
                 if wait > 0:
                     time.sleep(wait)
                 bank.push_matrix_range(lo, hops[t, lo:hi])
+                late[i, t] = (time.perf_counter() - start) * 1e3 - t * hop_ms
         except Exception as exc:          # reported by the consumer
             errors.append(exc)
 
-    threads = [threading.Thread(target=producer, args=(lo, min(lo + LOOP_BLOCK, s)),
-                                daemon=True) for lo in range(0, s, LOOP_BLOCK)]
+    threads = [threading.Thread(target=producer, args=(i, lo, min(lo + LOOP_BLOCK, s)),
+                                daemon=True) for i, lo in enumerate(blocks)]
     drain, tick = LatencyTracker(), LatencyTracker()
-    rows, snapshot = [], None
+    rows, snapshot, dropped, first_pop = [], None, [], None
     lib.reset_launches()
     for th in threads:
         th.start()
+    start = time.perf_counter() + 0.01   # the schedule starts once every producer runs
+    go.set()
     for t in range(LOOP_TICKS):
         give_up = time.perf_counter() + 5.0
         while bank.min_size() < n:
@@ -2868,9 +2925,12 @@ def serving_loop(dev, lib, main_launches: dict, power_line: str) -> None:
                 fail(f"phase 26: the producers stalled at tick {t + 1} ({errors}); "
                      f"dropped frames {bank.dropped_total}; drain {drain.summary()}, "
                      f"tick {tick.summary()}, H2D {feeder.h2d.summary()}, push "
-                     f"{feeder.device_time.summary()}")
+                     f"{feeder.device_time.summary()}; "
+                     f"{_loop_diagnosis(dropped + [bank.dropped_total], drain, late, first_pop)}")
             time.sleep(0.0002)
         t0 = time.perf_counter()
+        if first_pop is None:
+            first_pop = (t0 - start) * 1e3
         chunk, _ = bank.pop_matrix_i16_planar(n, pool.next(), dest=dest)
         drain.record(time.perf_counter() - t0)
         done = feeder.push(chunk)
@@ -2879,6 +2939,7 @@ def serving_loop(dev, lib, main_launches: dict, power_line: str) -> None:
             rows.append(done)
         if t + 1 == LOOP_CHECKPOINT_TICK:
             snapshot = feeder.state       # a push never writes a state in place
+        dropped.append(bank.dropped_total)
     rows.extend(feeder.flush())
     torch.cuda.synchronize()
     launches = {k: v for k, v in lib.launches.items() if v}
@@ -2891,9 +2952,11 @@ def serving_loop(dev, lib, main_launches: dict, power_line: str) -> None:
     left = max(bank.size(i) for i in range(s))
     log(f"[26] serving loop, {s} streams, {LOOP_TICKS} ticks paced at {hop_ms:.2f} ms, "
         f"depth 2, rows left on the card: launches {launches}; dropped frames "
-        f"{bank.dropped_total}, frames left {left}")
+        f"{bank.dropped_total}, frames left {left}; first drain {first_pop:.1f} ms after "
+        f"the schedule's start; producers' worst lateness per hop (ms) {_lateness(late)}")
     if bank.dropped_total or left:
-        fail("phase 26: the loop dropped frames or left frames in the bank")
+        fail(f"phase 26: the loop dropped frames or left frames in the bank; "
+             f"{_loop_diagnosis(dropped, drain, late, first_pop)}")
     if not (launches.get(sk.KERNEL_I16) and launches.get(ck.BLOCKWISE_KERNEL)):
         fail("phase 26: the loop did not launch int16 kernel A and the blockwise colormap")
     out_t = torch.from_numpy(out).to(dev)
@@ -3905,6 +3968,233 @@ def mesh_rank_main(argv: list) -> int:
     pathlib.Path(args.out, f"{args.mesh_part}_r{rank}.json").write_text(json.dumps(doc))
     dist.destroy_process_group()
     return 0
+
+
+# ------------------------------------------------------------------ phase 29
+
+TUNE_STREAMS = 4096
+TUNE_PUSHES = 4
+TUNE_KW = dict(chunk_hops=1, store_ring=False, packed_output=True)
+SERVING_KW = dict(TUNE_KW, i16_planes=True, presorted_input=True, sorted_output=True)
+# (label, config, pipeline arguments, streams): the geometries whose every
+# launch candidate phase 29 holds to the table's bits
+TUNE_GEOMETRIES = (
+    ("BENCH k=1 (radix-2 kernel A, kernel B)", BENCH_CONFIG, TUNE_KW, TUNE_STREAMS),
+    ("DEFAULT k=1 (mixed radix, N=4800)", DEFAULT_CONFIG, TUNE_KW, TUNE_STREAMS),
+    ("N=16,384 k=1 (radix 2, the direct tile)", LONG_COLORMAP, TUNE_KW, TUNE_STREAMS),
+    ("full serving mode (int16 kernel A, blockwise)", BENCH_CONFIG, SERVING_KW, 10240),
+    ("BENCH split-real k=1", BENCH_CONFIG, dict(TUNE_KW, stft_packed=False), TUNE_STREAMS),
+    ("BENCH k=8 (the all-windows kernel)", BENCH_CONFIG, dict(TUNE_KW, chunk_hops=K),
+     TUNE_STREAMS),
+)
+# each launch family's kernels on the paths above
+FAMILY_KERNELS = {
+    "packed": (sk.KERNEL, sk.MIXED_KERNEL, sk.ALLK_KERNEL, sk.KERNEL_I16),
+    "split": (sk.SPLIT_KERNEL,),
+    "tile": (ck.KERNEL, ck.BLOCKWISE_KERNEL, ck.GENERIC_KERNEL),
+}
+
+
+def _tune_streams(p, s: int, cfg, seed: int, dev):
+    """(state on palettes arange(S) % 19, the chunks of TUNE_PUSHES pushes
+    of chirp+tone in the order and dtype the pipeline takes)."""
+    state = p.set_palette(p.init_state(s), np.arange(s) % len(p.schemes))
+    pcm = testing.chirp_tone(s, TUNE_PUSHES * p.chunk_size, cfg.sample_rate, seed=seed)
+    chunks = [pcm[:, i * p.chunk_size : (i + 1) * p.chunk_size] for i in range(TUNE_PUSHES)]
+    perm = p.input_perm(state)
+    if perm is not None:
+        chunks = [c[perm] for c in chunks]
+    if p.i16_planes:
+        chunks = [np.round(c * 32767.0).astype(np.int16) for c in chunks]
+    return state, [torch.from_numpy(np.ascontiguousarray(c)).to(dev) for c in chunks]
+
+
+def _pushed(p, state, chunks):
+    rows = []
+    for chunk in chunks:
+        state, r = p.push(state, chunk)
+        rows.append(r)
+    return torch.cat(rows, dim=1), state.carry
+
+
+def launch_candidates_check(dev, lib, main_launches: dict, power_line: str) -> None:
+    """Phase 29 (a): at each TUNE_GEOMETRIES geometry, every launch shape of
+    the push's families (`launch_families`) gives the table's rows and next
+    carry bit for bit over TUNE_PUSHES pushes, its family's kernels
+    launching; device ms per push beside the table's.  The fused push's
+    shapes on the split-real geometry's windows, against its table bits."""
+    for label, cfg, kw, s in TUNE_GEOMETRIES:
+        p = SpectrogramPipeline(cfg, device=dev, **kw)
+        state, chunks = _tune_streams(p, s, cfg, 29, dev)
+        p.override_launch({})
+        want_rows, want_carry = _pushed(p, state, chunks)
+        timed = [state]
+
+        def push():
+            timed[0], _ = p.push(timed[0], chunks[0])
+
+        table_ms = device_ms(push)
+        families = p.launch_families()
+        log(f"[29] (a) {label}, {s} streams: families {families}; the table's launch "
+            f"{table_ms:.4f} ms/push")
+        for family, choices in families.items():
+            for choice in choices:
+                p.override_launch({family: choice})
+                torch.cuda.synchronize()
+                lib.reset_launches()
+                rows, carry = _pushed(p, state, chunks)
+                torch.cuda.synchronize()
+                launched = _count(lib, main_launches)
+                same = torch.equal(rows, want_rows) and torch.equal(carry, want_carry)
+                ran = any(launched.get(k) for k in FAMILY_KERNELS[family])
+                ms = device_ms(push)
+                log(f"[29] (a)   {family}={choice} "
+                    f"({sk.LAUNCH_BOUNDS.get(choice) if family != 'tile' else ck.TILE_FORMS[choice]}): "
+                    f"rows and carry {'equal' if same else 'DIFFER from'} the table's bit for bit; "
+                    f"{ms:.4f} ms/push ({ms / table_ms:.3f}x the table's)")
+                if not same:
+                    fail(f"phase 29: {label} {family}={choice} changes the rows")
+                if not ran:
+                    fail(f"phase 29: {label} {family}={choice} launched no kernel of its "
+                         f"family ({launched})")
+        p.override_launch({})
+        del state, chunks, want_rows, want_carry, timed
+        if not kw.get("stft_packed", True):
+            fused_push_candidates(p, cfg, dev, lib, main_launches)
+        torch.cuda.empty_cache()
+    log(f"[29] (a) card {power_line}")
+
+
+def fused_push_candidates(p, cfg, dev, lib, main_launches: dict) -> None:
+    """The fused push's launch shapes at `cfg` on TUNE_STREAMS window rows
+    of chirp+tone, per-row tables arange % 19: each bit for bit the
+    table's, launching spk_push_fused; device ms beside the table's."""
+    left, right = windows(cfg, "chirp_tone", TUNE_STREAMS, dev)
+    ids = torch.arange(TUNE_STREAMS, device=dev) % len(p.schemes)
+    tables = p.builtin_tables.index_select(0, ids).contiguous()
+
+    def run(launch=None):
+        return pk.push_fused(left, right, p.split_hann, p.fft_consts, tables, p.taps, cfg,
+                             launch=launch)
+
+    want = run()
+    table_ms = device_ms(run)
+    for choice in sk.launch_candidates("push", cfg.padded_size, cfg.window_size):
+        lib.reset_launches()
+        got = run(choice)
+        torch.cuda.synchronize()
+        launched = _count(lib, main_launches)
+        ms = device_ms(lambda: run(choice))
+        same = torch.equal(got, want)
+        log(f"[29] (a)   fused push={choice} ({sk.LAUNCH_BOUNDS[choice]}), "
+            f"{TUNE_STREAMS} rows: {'equal' if same else 'DIFFER from'} the table's bit for "
+            f"bit; {ms:.4f} ms ({ms / table_ms:.3f}x the table's {table_ms:.4f} ms)")
+        if not same or not launched.get(pk.KERNEL):
+            fail(f"phase 29: the fused push at {choice} disagrees or did not launch")
+
+
+def tuner_runs(dev, lib, main_launches: dict, power_line: str) -> None:
+    """Phase 29 (b): `autotune.tune` on a fresh cache in a temporary
+    directory at each TUNE_GEOMETRIES geometry, with its pipeline's
+    `tune_kwargs`: the pick, its ms, the table's, the seconds spent; a
+    second call measures nothing; SpectrogramPipeline(autotune=True) from
+    that cache measures nothing and gives the untuned pipeline's rows bit
+    for bit; a StreamGroupManager(autotune=True) of two geometries keeps
+    each group's own pick."""
+    import tempfile
+
+    from spectrogram_tpu_torch.models.multirate import StreamGroupManager
+    from spectrogram_tpu_torch.utils import autotune
+
+    calls = []
+    plain_measure = autotune.measure_push
+
+    def counted(*args, **kw):
+        calls.append(args[1])
+        return plain_measure(*args, **kw)
+
+    saved = autotune.DEFAULT_CACHE
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        autotune.DEFAULT_CACHE = pathlib.Path(tmp) / "autotune.json"
+        try:
+            picks = {}
+            for label, cfg, kw, s in TUNE_GEOMETRIES:
+                untuned = SpectrogramPipeline(cfg, device=dev, **kw)
+                tkw = untuned.tune_kwargs()
+                n0, t0 = len(calls), time.perf_counter()
+                pick = autotune.tune(cfg, pipeline_kwargs=tkw, measure=counted, device=dev)
+                spent = time.perf_counter() - t0
+                key = autotune._cache_key(cfg, torch.cuda.get_device_name(dev), tkw)
+                entry = autotune._load_cache(autotune.DEFAULT_CACHE).get(key, {})
+                times = entry.get("ms", {})
+                table = entry.get("table", pick)
+                shown = "; ".join(
+                    f"{f}: "
+                    + (" / ".join(f"{c} {t:.4f}" for c, t in times[f].items())
+                       + f" ms, pick {pick[f]} ({times[f][str(pick[f])]:.4f} ms), table "
+                       f"{table[f]}" if f in times
+                       else f"{pick[f]} (one candidate, not measured)")
+                    for f in pick)
+                log(f"[29] (b) tune {label}: {len(calls) - n0} measurements in {spent:.1f} s; "
+                    f"{shown or 'nothing to tune'}")
+                n1 = len(calls)
+                again = autotune.tune(cfg, pipeline_kwargs=tkw, measure=counted, device=dev)
+                tuned = SpectrogramPipeline(cfg, device=dev, autotune=True, **kw)
+                if again != pick or len(calls) != n1 or tuned.launch != pick:
+                    fail(f"phase 29: {label}: the second tune or the autotune=True pipeline "
+                         f"measured again or picked otherwise ({again}, {tuned.launch}, "
+                         f"{len(calls) - n1} measurements)")
+                state, chunks = _tune_streams(untuned, min(s, TUNE_STREAMS), cfg, 30, dev)
+                a = _pushed(untuned, state, chunks)
+                b = _pushed(tuned, state, chunks)
+                same = all(torch.equal(x, y) for x, y in zip(a, b))
+                log(f"[29] (b)   SpectrogramPipeline(autotune=True) from the cache: launch "
+                    f"{tuned.launch}, no measurement; rows and carry "
+                    f"{'equal' if same else 'DIFFER from'} the untuned pipeline's bit for bit")
+                if not same:
+                    fail(f"phase 29: {label}: the tuned pipeline's rows differ")
+                picks[label] = pick
+                del untuned, tuned, state, chunks, a, b
+                torch.cuda.empty_cache()
+            # two geometries in one manager, each group's pipeline its own pick
+            n2, t0 = len(calls), time.perf_counter()
+            autotune.measure_push = counted
+            try:
+                mgr = StreamGroupManager(group_capacity=TUNE_STREAMS, device=dev,
+                                         autotune=True, **TUNE_KW)
+                for cfg in (BENCH_CONFIG, MR_44K):
+                    mgr.add_stream(cfg)
+            finally:
+                autotune.measure_push = plain_measure
+            own = {}
+            for cfg, group in mgr._groups.items():
+                own[cfg.padded_size] = autotune.tune(
+                    cfg, pipeline_kwargs=group.pipeline.tune_kwargs(), measure=counted,
+                    device=dev)
+                if group.pipeline.launch != own[cfg.padded_size]:
+                    fail(f"phase 29: the manager's N={cfg.padded_size} group does not launch "
+                         f"its own pick ({group.pipeline.launch} against {own})")
+            differ = len({tuple(sorted(v.items())) for v in own.values()}) > 1
+            log(f"[29] (b) StreamGroupManager(autotune=True), groups N=4096 and "
+                f"N={MR_44K.padded_size}: launches {own} ({'different' if differ else 'the same'}"
+                f" picks, each group its own); {len(calls) - n2} measurements "
+                f"(the N={MR_44K.padded_size} group tuned on adding it) in "
+                f"{time.perf_counter() - t0:.1f} s")
+            del mgr
+        finally:
+            autotune.DEFAULT_CACHE = saved
+    log(f"[29] (b) card {power_line}")
+
+
+def tuner_phase(dev, lib, main_launches: dict, power_line: str) -> None:
+    """Phase 29: the autotuner's launch shapes on the card."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    launch_candidates_check(dev, lib, main_launches, power_line)
+    tuner_runs(dev, lib, main_launches, power_line)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[29] phase 29 {time.perf_counter() - t_phase:.1f} s; peak device memory "
+        f"{peak:.2f} GiB; card {power_line}")
 
 
 if __name__ == "__main__":

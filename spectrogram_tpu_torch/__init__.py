@@ -20,8 +20,12 @@ the golden renderer (`models`), the terminal viewer (`utils`) and the CLI
 serving and session classes are lazy exports.  The stream mesh and
 multi-process serving (`parallel/`: the batch split over ranks of a
 torch.distributed process group, sharded checkpoints in
-`utils.checkpoint`) are ported too.  Not ported yet: the autotuner
-(ROADMAP.md item 11).
+`utils.checkpoint`) are ported too, and so is the autotuner
+(`utils.autotune`): `SpectrogramPipeline(autotune=True)` on the card
+measures the kernels' launch shapes (the STFT rows' launch bounds, the
+colormap tile's form) and launches the fastest, cached per card, geometry,
+deployment and kernel sources; its cache is its own, apart from the JAX
+package's (whose keys name a TPU kind and FFT plans).
 """
 
 from spectrogram_tpu_torch.config import BENCH_CONFIG, DEFAULT_CONFIG, SpectrogramConfig

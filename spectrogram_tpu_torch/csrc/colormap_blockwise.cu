@@ -37,7 +37,8 @@
 // blocks (at least 1), accepted and unused.  mag_l, mag_r: [rows, bins] f32;
 // span: the taps' highest bin + 1; j0, j1: [h] i32 and w0, w1: [h] f32 taps;
 // tables: [n_tables, res*4] f32, 16-byte aligned; out: [rows, h] i32.  All
-// contiguous.  block_rows < 1 or a span outside [1, bins] is refused with
+// contiguous.  form: the tile's form, as spk_colormap_builtin's.  block_rows
+// < 1, a span outside [1, bins] or a form refused is refused with
 // cudaErrorInvalidValue.
 SPK_EXPORT int spk_colormap_blockwise(const float* mag_l, const float* mag_r,
                                       int rows, int bins, int span,
@@ -47,7 +48,8 @@ SPK_EXPORT int spk_colormap_blockwise(const float* mag_l, const float* mag_r,
                                       int rows_per_table, int res,
                                       int block_rows, float min_db,
                                       float db_range, float db_eps,
-                                      float inv_res1, int* out, void* stream) {
+                                      float inv_res1, int* out, int form,
+                                      void* stream) {
   if (block_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
   const spk::TileArgs a{
       mag_l, mag_r, rows, bins, bins, span, j0, j1, w0, w1, h, tables, nullptr,
@@ -55,5 +57,5 @@ SPK_EXPORT int spk_colormap_blockwise(const float* mag_l, const float* mag_r,
       spk::ColormapLaws{static_cast<float>(res), min_db, db_range, db_eps,
                         inv_res1}};
   return spk::launch_tile<false>(a, reinterpret_cast<unsigned*>(out),
-                                 static_cast<cudaStream_t>(stream));
+                                 static_cast<cudaStream_t>(stream), form);
 }

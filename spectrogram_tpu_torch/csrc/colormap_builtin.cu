@@ -31,7 +31,9 @@
 
 // mag_l, mag_r: [rows, bins] f32; span: the taps' highest bin + 1; j0, j1:
 // [h] i32 and w0, w1: [h] f32 taps; tables: [n_tables, res*4] f32, 16-byte
-// aligned; out: [rows, h] i32.  All contiguous.
+// aligned; out: [rows, h] i32.  All contiguous.  form: the tile's form
+// (colormap_tile.cuh kTileFormRule, the rule `spk_colormap_form` reports,
+// kTileFormStaged or kTileFormDirect).
 SPK_EXPORT int spk_colormap_builtin(const float* mag_l, const float* mag_r,
                                     int rows, int bins, int span,
                                     const int* j0, const int* j1,
@@ -39,14 +41,15 @@ SPK_EXPORT int spk_colormap_builtin(const float* mag_l, const float* mag_r,
                                     const float* tables, int n_tables,
                                     int rows_per_table, int res, float min_db,
                                     float db_range, float db_eps,
-                                    float inv_res1, int* out, void* stream) {
+                                    float inv_res1, int* out, int form,
+                                    void* stream) {
   const spk::TileArgs a{
       mag_l, mag_r, rows, bins, bins, span, j0, j1, w0, w1, h, tables, nullptr,
       n_tables, rows_per_table, res,
       spk::ColormapLaws{static_cast<float>(res), min_db, db_range, db_eps,
                         inv_res1}};
   return spk::launch_tile<false>(a, reinterpret_cast<unsigned*>(out),
-                                 static_cast<cudaStream_t>(stream));
+                                 static_cast<cudaStream_t>(stream), form);
 }
 
 // The form kernel B (generic = 0) or the generic kernel (generic = 1) takes

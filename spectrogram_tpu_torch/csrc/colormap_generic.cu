@@ -30,7 +30,8 @@
 
 // mag_l, mag_r: [rows, bins] f32; span: the taps' highest bin + 1; j0, j1:
 // [h] i32 and w0, w1: [h] f32 taps; u_tables, v_tables: [n_tables, res*4]
-// f32 each, 16-byte aligned; out: [rows, h] i32.  All contiguous.
+// f32 each, 16-byte aligned; out: [rows, h] i32.  All contiguous.  form: the
+// tile's form, as spk_colormap_builtin's.
 SPK_EXPORT int spk_colormap_generic(const float* mag_l, const float* mag_r,
                                     int rows, int bins, int span,
                                     const int* j0, const int* j1,
@@ -39,12 +40,13 @@ SPK_EXPORT int spk_colormap_generic(const float* mag_l, const float* mag_r,
                                     const float* v_tables, int n_tables,
                                     int rows_per_table, int res, float min_db,
                                     float db_range, float db_eps,
-                                    float inv_res1, int* out, void* stream) {
+                                    float inv_res1, int* out, int form,
+                                    void* stream) {
   const spk::TileArgs a{
       mag_l, mag_r, rows, bins, bins, span, j0, j1, w0, w1, h, u_tables, v_tables,
       n_tables, rows_per_table, res,
       spk::ColormapLaws{static_cast<float>(res), min_db, db_range, db_eps,
                         inv_res1}};
   return spk::launch_tile<true>(a, reinterpret_cast<unsigned*>(out),
-                                static_cast<cudaStream_t>(stream));
+                                static_cast<cudaStream_t>(stream), form);
 }

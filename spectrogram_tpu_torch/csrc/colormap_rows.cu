@@ -66,22 +66,28 @@ __global__ void __launch_bounds__(kThreads) colormap_rows_kernel(
 // tap_w: at taps == 2 tap-major [2, h] (i32, f32), else pixel-major [h,
 // taps], every tap below bins; u_tables, v_tables: [n_rows, res, 4] f32,
 // 16-byte aligned at taps == 2; out: [n_rows, h] i32.  All contiguous.
+// form: at taps == 2 the row tile's form (colormap_tile.cuh kTileFormRule,
+// kTileFormStaged or kTileFormDirect); at other taps it must be
+// kTileFormRule.
 SPK_EXPORT int spk_colormap_rows(const float* rows, int n_rows, int bins,
                                  int span, const int* tap_j,
                                  const float* tap_w, int h, int taps,
                                  const float* u_tables,
                                  const float* v_tables, int res, float min_db,
                                  float db_range, float db_eps, float inv_res1,
-                                 int* out, void* stream) {
+                                 int* out, int form, void* stream) {
   const spk::ColormapLaws laws{static_cast<float>(res), min_db, db_range,
                                db_eps, inv_res1};
   const auto st = static_cast<cudaStream_t>(stream);
   if (taps == 2) {
     const spk::TileArgs a = spk::planar_tile_args(
         rows, n_rows, bins, span, tap_j, tap_w, h, u_tables, v_tables, res, laws);
-    g_route = spk::tile_staged(a.span, a.h, true, a.res) ? 1 : 2;
-    return spk::launch_tile<true>(a, reinterpret_cast<unsigned*>(out), st);
+    const int f = spk::tile_launch_form(a.span, a.h, true, a.res, form);
+    if (f < 0) return static_cast<int>(cudaErrorInvalidValue);
+    g_route = f == spk::kTileFormStaged ? 1 : 2;
+    return spk::launch_tile<true>(a, reinterpret_cast<unsigned*>(out), st, form);
   }
+  if (form != spk::kTileFormRule) return static_cast<int>(cudaErrorInvalidValue);
   g_route = 0;
   const dim3 grid((h + kThreads - 1) / kThreads,
                   n_rows < spk::kMaxGridY ? n_rows : spk::kMaxGridY);

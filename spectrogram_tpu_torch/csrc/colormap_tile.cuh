@@ -168,6 +168,37 @@ __host__ __device__ __forceinline__ bool tile_staged(int span, int h,
              kTileMaxStagedBytes;
 }
 
+// A tile launch's form, the `form` argument of kernel B, the blockwise
+// colormap, the generic kernel and the two-tap planar rows: kTileFormRule
+// takes `tile_staged`'s rule; kTileFormStaged the staged tile wherever its
+// stages fit kTileMaxStagedBytes, at any span (the tile's code holds at
+// every span up to the planes' bins: the span ratio of the rule is a speed
+// rule); kTileFormDirect the direct form, at any span.  Both forms give the
+// same bits (every pixel runs `pixel_texels` and the same word).
+// ops/cuda/colormap_kernel.py `TILE_FORMS` mirrors these values, and
+// utils/autotune.py measures them.
+constexpr int kTileFormRule = 0;
+constexpr int kTileFormStaged = 1;
+constexpr int kTileFormDirect = 2;
+
+// The form a launch with `form` takes (kTileFormStaged or kTileFormDirect),
+// or -1 where it is refused: a staged form whose stages do not fit, or a
+// value outside the three.
+__host__ __device__ __forceinline__ int tile_launch_form(int span, int h, bool generic,
+                                                         int res, int form) {
+  switch (form) {
+    case kTileFormRule:
+      return tile_staged(span, h, generic, res) ? kTileFormStaged : kTileFormDirect;
+    case kTileFormStaged:
+      return tile_smem_bytes(span, tile_table_floats(generic, res)) <= kTileMaxStagedBytes
+                 ? kTileFormStaged
+                 : -1;
+    case kTileFormDirect:
+      return kTileFormDirect;
+  }
+  return -1;
+}
+
 // A plane row's staged copy: the source rounded down to 16 bytes is
 // `shift` floats before the row, and `floats` (a multiple of 4) cover
 // bins [0, span).
@@ -449,12 +480,17 @@ __global__ void __launch_bounds__(kDirectThreads) colormap_direct_kernel(
 }
 
 // Launch kernel B or the blockwise colormap (kGeneric false), or the
-// generic kernel, in the form `span` allows; returns the launch's error
-// (cudaErrorInvalidValue for a span outside [1, bins]).
+// generic kernel, in the form `form` names (`tile_launch_form`); returns the
+// launch's error (cudaErrorInvalidValue for a span outside [1, bins] or a
+// form refused).
 template <bool kGeneric>
-int launch_tile(const TileArgs& a, unsigned* out, cudaStream_t stream) {
-  if (a.span < 1 || a.span > a.bins) return static_cast<int>(cudaErrorInvalidValue);
-  if (!tile_staged(a.span, a.h, kGeneric, a.res)) {
+int launch_tile(const TileArgs& a, unsigned* out, cudaStream_t stream,
+                int form = kTileFormRule) {
+  const int f = tile_launch_form(a.span, a.h, kGeneric, a.res, form);
+  if (a.span < 1 || a.span > a.bins || f < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (f == kTileFormDirect) {
     const dim3 grid((a.h + kDirectThreads - 1) / kDirectThreads,
                     a.rows < kMaxGridY ? a.rows : kMaxGridY);
     colormap_direct_kernel<kGeneric><<<grid, kDirectThreads, 0, stream>>>(

@@ -67,7 +67,9 @@ SPK_BOUNDED_KERNEL(push_fused_kernel, (
 // consts: n's split-real table (`split_fft_table`); tables: [n_tables, res*4] f32
 // built-in tables; j0, j1: [h] i32 and w0, w1: [h] f32 taps below
 // stft_bins(n, w); out: [rows, h] i32; mag_l, mag_r: [rows, stft_bins(n, w)]
-// f32, or both null.  All contiguous.
+// f32, or both null.  All contiguous.  choice: the launch bounds
+// (push_fused.cuh `with_push_bounds`: stft_fft.cuh kLaunchTable, the table's
+// rule, or kLaunchRows / kLaunchWide).
 SPK_EXPORT int spk_push_fused(const float* left, const float* right,
                               const float* hann, const void* consts,
                               const float* tables, int n_tables, int res,
@@ -75,30 +77,21 @@ SPK_EXPORT int spk_push_fused(const float* left, const float* right,
                               const float* w1, int h, float min_db,
                               float db_range, float db_eps, float inv_res1,
                               int* out, float* mag_l, float* mag_r, int rows,
-                              int w, int n, void* stream) {
+                              int w, int n, int choice, void* stream) {
   const auto* tw = static_cast<const float2*>(consts);
   const spk::ColormapLaws laws{static_cast<float>(res), min_db, db_range,
                                db_eps, inv_res1};
   return spk::with_real_body(n, consts, [&](auto body) {
     const size_t smem = body.buf_size() * sizeof(float2) +
                         2 * spk::stft_bins(n, w) * sizeof(float);
-    const size_t limit = spk::kMaxSmemBytes;
-    if (smem > limit) return static_cast<int>(cudaErrorInvalidValue);
-    const auto launch = [&](auto bounds) {
-      using B = decltype(bounds);
-      const auto kernel = push_fused_kernel_for<decltype(body), B>();
+    return spk::with_push_bounds(body, smem, [&](auto bounds, int threads) {
+      const auto kernel = push_fused_kernel_for<decltype(body), decltype(bounds)>();
       const int e = spk::allow_smem(kernel, smem);
       if (e != 0) return e;
-      const int threads = spk::body_threads(body, spk::group_cap<B>());
-      kernel<<<rows, threads < B::threads ? threads : B::threads, smem,
-               static_cast<cudaStream_t>(stream)>>>(
+      kernel<<<rows, threads, smem, static_cast<cudaStream_t>(stream)>>>(
           body, left, right, hann, tw, tables, n_tables, res, j0, j1, w0, w1,
           h, laws, reinterpret_cast<unsigned*>(out), mag_l, mag_r, w);
       return static_cast<int>(cudaGetLastError());
-    };
-    if (smem * spk::kRowBlocks <= limit) {
-      return launch(spk::Bounds<spk::kRowThreads, spk::kRowBlocks>{});
-    }
-    return launch(spk::Bounds<spk::kStftMaxThreads, 1>{});
+    }, choice);
   });
 }

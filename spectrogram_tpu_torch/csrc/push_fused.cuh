@@ -38,4 +38,39 @@ __device__ __forceinline__ void push_fused_row(
   }
 }
 
+// The table's rule for a fused-push block of `smem` bytes (push_fused.cu):
+// kLaunchRows where it fits kRowBlocks times in an SM's shared memory, else
+// kLaunchWide.
+static inline int push_bounds_rule(size_t smem) {
+  return smem * kRowBlocks <= static_cast<size_t>(kMaxSmemBytes) ? kLaunchRows
+                                                                 : kLaunchWide;
+}
+
+// fn(bounds, threads) with the launch bounds of a fused-push block over
+// `row` (`smem` bytes: the FFT buffer and both planes) that `choice` names
+// (stft_fft.cuh kLaunchTable: `push_bounds_rule`; kLaunchRows or
+// kLaunchWide, the two the kernel instantiates) and its threads
+// (`body_threads` under the bounds' `group_cap`, at most bounds.threads);
+// cudaErrorInvalidValue for any other choice or where the block does not
+// fit an SM's shared memory.
+template <class Row, class Fn>
+static inline int with_push_bounds(const Row& row, size_t smem, Fn fn,
+                                   int choice = kLaunchTable) {
+  if (smem > static_cast<size_t>(kMaxSmemBytes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto launch = [&](auto bounds) {
+    using B = decltype(bounds);
+    const int threads = body_threads(row, group_cap<B>());
+    return fn(bounds, threads < B::threads ? threads : B::threads);
+  };
+  switch (choice == kLaunchTable ? push_bounds_rule(smem) : choice) {
+    case kLaunchRows:
+      return launch(Bounds<kRowThreads, kRowBlocks>{});
+    case kLaunchWide:
+      return launch(Bounds<kStftMaxThreads, 1>{});
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace spk

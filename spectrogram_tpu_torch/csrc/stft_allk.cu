@@ -59,7 +59,7 @@ template <class T>
 int launch(const T* buf_l, const T* buf_r, const float* hann,
            const void* consts, float* out_l, float* out_r, T* next,
            int streams, int ld, int k, int hop, int w, int n, int c_len,
-           void* stream) {
+           int choice, void* stream) {
   const auto* tw = static_cast<const float2*>(consts);
   return spk::with_fft_body(n, consts, [&](auto body) {
     const size_t smem = body.buf_size() * sizeof(float2);
@@ -71,7 +71,7 @@ int launch(const T* buf_l, const T* buf_r, const float* hann,
           body, buf_l, buf_r, hann, tw, out_l, out_r, next, streams, ld, hop,
           w, c_len);
       return static_cast<int>(cudaGetLastError());
-    });
+    }, choice);
   });
 }
 
@@ -79,13 +79,15 @@ int launch(const T* buf_l, const T* buf_r, const float* hann,
 
 // buf_l, buf_r: [streams, ld] f32 with ld >= w + (k-1)*hop; hann: [w] f32;
 // consts: n's FFT table (`fft_table`); out_l, out_r: [k*streams,
-// stft_bins(n, w)] f32.  All contiguous.
+// stft_bins(n, w)] f32.  All contiguous.  choice: the launch bounds, as
+// spk_stft_packed's (radix 2) or spk_stft_mixed's (every other n).
 SPK_EXPORT int spk_stft_allk(const float* buf_l, const float* buf_r,
                              const float* hann, const void* consts,
                              float* out_l, float* out_r, int streams, int ld,
-                             int k, int hop, int w, int n, void* stream) {
+                             int k, int hop, int w, int n, int choice,
+                             void* stream) {
   return launch<float>(buf_l, buf_r, hann, consts, out_l, out_r, nullptr,
-                       streams, ld, k, hop, w, n, 0, stream);
+                       streams, ld, k, hop, w, n, 0, choice, stream);
 }
 
 // As spk_stft_allk with int16 buffers; hann carries the 2^-15 wire scale.
@@ -93,9 +95,9 @@ SPK_EXPORT int spk_stft_allk_i16(const short* buf_l, const short* buf_r,
                                  const float* hann, const void* consts,
                                  float* out_l, float* out_r, int streams,
                                  int ld, int k, int hop, int w, int n,
-                                 void* stream) {
+                                 int choice, void* stream) {
   return launch<short>(buf_l, buf_r, hann, consts, out_l, out_r, nullptr,
-                       streams, ld, k, hop, w, n, 0, stream);
+                       streams, ld, k, hop, w, n, 0, choice, stream);
 }
 
 // As spk_stft_allk, and next: [streams, 2, c_len] f32, the last c_len
@@ -104,9 +106,10 @@ SPK_EXPORT int spk_stft_allk_carry(const float* buf_l, const float* buf_r,
                                    const float* hann, const void* consts,
                                    float* out_l, float* out_r, float* next,
                                    int streams, int ld, int k, int hop, int w,
-                                   int n, int c_len, void* stream) {
+                                   int n, int c_len, int choice,
+                                   void* stream) {
   return launch<float>(buf_l, buf_r, hann, consts, out_l, out_r, next,
-                       streams, ld, k, hop, w, n, c_len, stream);
+                       streams, ld, k, hop, w, n, c_len, choice, stream);
 }
 
 // As spk_stft_allk_carry with int16 buffers and an int16 next carry.
@@ -115,7 +118,7 @@ SPK_EXPORT int spk_stft_allk_carry_i16(const short* buf_l, const short* buf_r,
                                        float* out_l, float* out_r,
                                        short* next, int streams, int ld,
                                        int k, int hop, int w, int n,
-                                       int c_len, void* stream) {
+                                       int c_len, int choice, void* stream) {
   return launch<short>(buf_l, buf_r, hann, consts, out_l, out_r, next,
-                       streams, ld, k, hop, w, n, c_len, stream);
+                       streams, ld, k, hop, w, n, c_len, choice, stream);
 }

@@ -1366,30 +1366,126 @@ __host__ __device__ constexpr int group_cap() {
     }                                                                         \
   }
 
-// fn(bounds, threads) with the launch bounds of a packed row block over
-// `body` and its threads (`body_threads` under the bounds' `group_cap`, at
-// most bounds.threads): a row whose buffer fits kRowBlocks times in a
-// block's shared memory (radix 2 to N = 4096, mixed radix and Bluestein's M
-// to 5,811) takes kRowThreads threads and kRowBlocks blocks, so that ptxas
-// holds its registers to that many blocks per SM; a mixed-radix or
-// Bluestein row that fits twice takes (512, 2), the narrow passes of 64
-// registers (N = 4801's M = 9604 = 4 7^4, singles only, ran 9% slower at
-// (256, 2) and 35% at (512, 1), PERF.md §6); larger rows (fewer blocks per
-// SM: at N = 16,384 the radix-2 rows ran at half the speed under (128, 5))
-// take kStftMaxThreads threads and one block.
-template <class Body, class Fn>
-static inline int with_row_bounds(const Body& body, Fn fn) {
+// A launch choice, the `launch` argument of the STFT and push entries: 0
+// (kLaunchTable) takes the table's rule below; any other value names launch
+// bounds that the kernel instantiates for its body, and a value that it
+// does not instantiate is refused with cudaErrorInvalidValue.  Every choice
+// computes the same bits: the bounds move the threads of a block and the
+// registers ptxas leaves them, and with them only the pass bound of the
+// mixed-radix passes (`group_cap`), which groups stages, not operations.
+// ops/cuda/stft_kernel.py `LAUNCH_BOUNDS` mirrors these values, and
+// utils/autotune.py measures them.
+constexpr int kLaunchTable = 0;
+constexpr int kLaunchRows = 1;    // (kRowThreads, kRowBlocks)
+constexpr int kLaunchPair = 2;    // (kStftMaxThreads, 2)
+constexpr int kLaunchWide = 3;    // (kStftMaxThreads, 1)
+constexpr int kLaunchNarrow = 4;  // (kWideThreads, 1)
+
+// The table's rule for a packed row block over `body` (`with_row_bounds`):
+// a row whose buffer fits kRowBlocks times in a block's shared memory
+// (radix 2 to N = 4096, mixed radix and Bluestein's M to 5,811) takes
+// kRowThreads threads and kRowBlocks blocks, so that ptxas holds its
+// registers to that many blocks per SM; a mixed-radix or Bluestein row that
+// fits twice takes (512, 2), the narrow passes of 64 registers (N = 4801's
+// M = 9604 = 4 7^4, singles only, ran 9% slower at (256, 2) and 35% at
+// (512, 1), PERF.md §6); larger rows (fewer blocks per SM: at N = 16,384
+// the radix-2 rows ran at half the speed under (128, 5)) take
+// kStftMaxThreads threads and one block.
+template <class Body>
+static inline int row_bounds_rule(const Body& body) {
   const int bytes = body.buf_size() * static_cast<int>(sizeof(float2));
+  if (bytes * kRowBlocks <= kMaxSmemBytes) return kLaunchRows;
+  if (!std::is_same<Body, Radix2>::value && bytes * 2 <= kMaxSmemBytes) return kLaunchPair;
+  return kLaunchWide;
+}
+
+// fn(bounds, threads) with the launch bounds of a packed row block over
+// `body` that `choice` names (kLaunchTable: `row_bounds_rule`) and its
+// threads (`body_threads` under the bounds' `group_cap`, at most
+// bounds.threads): kLaunchRows, kLaunchWide, and kLaunchPair except over
+// the radix-2 body, which has no (512, 2) form.
+template <class Body, class Fn>
+static inline int with_row_bounds(const Body& body, Fn fn, int choice = kLaunchTable) {
   const auto launch = [&](auto bounds) {
     using B = decltype(bounds);
     const int threads = body_threads(body, group_cap<B>());
     return fn(bounds, threads < B::threads ? threads : B::threads);
   };
-  if (bytes * kRowBlocks <= kMaxSmemBytes) return launch(Bounds<kRowThreads, kRowBlocks>{});
-  if constexpr (!std::is_same<Body, Radix2>::value) {
-    if (bytes * 2 <= kMaxSmemBytes) return launch(Bounds<kStftMaxThreads, 2>{});
+  switch (choice == kLaunchTable ? row_bounds_rule(body) : choice) {
+    case kLaunchRows:
+      return launch(Bounds<kRowThreads, kRowBlocks>{});
+    case kLaunchPair:
+      if constexpr (!std::is_same<Body, Radix2>::value) {
+        return launch(Bounds<kStftMaxThreads, 2>{});
+      }
+      break;
+    case kLaunchWide:
+      return launch(Bounds<kStftMaxThreads, 1>{});
   }
-  return launch(Bounds<kStftMaxThreads, 1>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The table's rule for a split-real row (`with_split_bounds`).  A row whose
+// buffer fits kRowBlocks times in an SM's shared memory (up to 5,811
+// entries: N = 4096, 4800, 4410) takes (kRowThreads, kRowBlocks), as kernel
+// A's rows do; with the load fused into the first pass that ran every
+// layout in 0.87-0.95x the time of (kStftMaxThreads, 1) at N = 4096 and
+// 4800 (the lane-loaded rows had run 3-17% slower so, PERF.md §6).  Larger
+// rows keep their bounds ((512, 2) ran N = 17,640 within 0.7% of them):
+// kLaunchNarrow for N/2 packs of kWideRow entries and more (N = 32,768 and
+// 48,000 among the measured sizes), which run one block per SM; else
+// kLaunchWide for the radix-2 rows and for the mixed-radix and Bluestein
+// rows whose buffer fits four times in an SM's shared memory, and
+// kLaunchNarrow for the others.
+template <class Row>
+static inline int split_bounds_rule(const Row& row) {
+  const size_t smem = row.buf_size() * sizeof(float2);
+  const size_t limit = kMaxSmemBytes;
+  if (is_real_pack<Row>::value && row.buf_size() >= kWideRow) return kLaunchNarrow;
+  if (smem * kRowBlocks <= limit) return kLaunchRows;
+  if (is_radix2_row<Row>::value || smem * 4 <= limit) return kLaunchWide;
+  return kLaunchNarrow;
+}
+
+// fn(bounds, threads) with the launch bounds of a split-real row block over
+// `row` that `choice` names (kLaunchTable: `split_bounds_rule`) and its
+// threads: under kLaunchRows `body_threads` at its `group_cap`, at most
+// kRowThreads; under kLaunchWide `body_threads`, at most 128 for the
+// mixed-radix and Bluestein rows (passes of up to 25 entries in 128
+// registers); under kLaunchNarrow kWideThreads for N/2 packs of kWideRow
+// entries and more, else `body_threads` at the narrow passes (64 registers,
+// `group_cap`).  Every split-real row instantiates those three; kLaunchPair
+// is refused.  Only the pack is compiled at the wide bound for its own
+// sake: an odd N's full row of that size (a 7-smooth odd N past 16,384, or
+// a Bluestein M past it) is rare and runs the narrow one.  The one-block
+// bounds take the kernels' form under the threads alone
+// (`SPK_BOUNDED_KERNEL`): a declared minimum of one block gave the N-point
+// Bluestein row of N = 4801 64 registers in place of 54 and ran it 4-5%
+// slower (PERF.md §6).
+template <class Row, class Fn>
+static inline int with_split_bounds(const Row& row, Fn fn, int choice = kLaunchTable) {
+  using Rows = Bounds<kRowThreads, kRowBlocks>;
+  switch (choice == kLaunchTable ? split_bounds_rule(row) : choice) {
+    case kLaunchRows: {
+      const int threads = body_threads(row, group_cap<Rows>());
+      return fn(Rows{}, threads < Rows::threads ? threads : Rows::threads);
+    }
+    case kLaunchWide: {
+      const int threads = body_threads(row);
+      const int cap = is_radix2_row<Row>::value ? kStftMaxThreads : 128;
+      return fn(Bounds<kStftMaxThreads, 1>{}, threads < cap ? threads : cap);
+    }
+    case kLaunchNarrow:
+      // the full row over the radix-2 body (N = 2) has no narrow form
+      if constexpr (is_real_pack<Row>::value || !is_radix2_row<Row>::value) {
+        return fn(Bounds<kWideThreads, 1>{},
+                  is_real_pack<Row>::value && row.buf_size() >= kWideRow
+                      ? kWideThreads
+                      : body_threads(row, kNarrowGroup));
+      }
+      break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Allow `kernel` `bytes` of dynamic shared memory (above 48 KB only by

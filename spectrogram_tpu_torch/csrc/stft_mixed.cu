@@ -50,7 +50,7 @@ __global__ void __launch_bounds__(Bounds::threads, Bounds::blocks) stft_mixed_ke
 template <class T>
 int launch(const T* left, const T* right, const float* hann,
            const void* consts, float* out_l, float* out_r, int rows, int w,
-           int n, void* stream) {
+           int n, int choice, void* stream) {
   const auto* tw = static_cast<const float2*>(consts);
   return spk::with_fft_body(n, consts, [&](auto body) {
     // power-of-two N runs stft_packed.cu
@@ -65,7 +65,7 @@ int launch(const T* left, const T* right, const float* hann,
         kernel<<<rows, threads, smem, static_cast<cudaStream_t>(stream)>>>(
             body, left, right, hann, tw, out_l, out_r, w);
         return static_cast<int>(cudaGetLastError());
-      });
+      }, choice);
     }
   });
 }
@@ -74,17 +74,21 @@ int launch(const T* left, const T* right, const float* hann,
 
 // left, right: [rows, w] f32; hann: [w] f32; consts: N's FFT table
 // (`fft_table`); out_l, out_r: [rows, stft_bins(n, w)] f32.  All contiguous.
+// choice: the launch bounds (stft_fft.cuh `kLaunchTable`, the table's rule,
+// or kLaunchRows / kLaunchPair / kLaunchWide).
 SPK_EXPORT int spk_stft_mixed(const float* left, const float* right,
                               const float* hann, const void* consts,
                               float* out_l, float* out_r, int rows, int w,
-                              int n, void* stream) {
-  return launch(left, right, hann, consts, out_l, out_r, rows, w, n, stream);
+                              int n, int choice, void* stream) {
+  return launch(left, right, hann, consts, out_l, out_r, rows, w, n, choice,
+                stream);
 }
 
 // As spk_stft_mixed with int16 planes; hann carries the 2^-15 wire scale.
 SPK_EXPORT int spk_stft_mixed_i16(const short* left, const short* right,
                                   const float* hann, const void* consts,
                                   float* out_l, float* out_r, int rows, int w,
-                                  int n, void* stream) {
-  return launch(left, right, hann, consts, out_l, out_r, rows, w, n, stream);
+                                  int n, int choice, void* stream) {
+  return launch(left, right, hann, consts, out_l, out_r, rows, w, n, choice,
+                stream);
 }

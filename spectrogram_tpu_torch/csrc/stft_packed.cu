@@ -40,7 +40,7 @@ stft_packed_kernel(
 template <class T>
 int launch(const T* left, const T* right, const float* hann,
            const void* twiddles, float* out_l, float* out_r, int rows, int w,
-           int log2n, void* stream) {
+           int log2n, int choice, void* stream) {
   const spk::Radix2 body{log2n};
   const size_t smem = body.buf_size() * sizeof(float2);
   return spk::with_row_bounds(body, [&](auto bounds, int threads) {
@@ -52,29 +52,30 @@ int launch(const T* left, const T* right, const float* hann,
             body, left, right, hann, static_cast<const float2*>(twiddles),
             out_l, out_r, w);
     return static_cast<int>(cudaGetLastError());
-  });
+  }, choice);
 }
 
 }  // namespace
 
 // left, right: [rows, w] f32; hann: [w] f32; twiddles: [N] complex f32
 // (exp(-2 pi i t / N)); out_l, out_r: [rows, stft_bins(N, w)] f32.  All
-// contiguous.
+// contiguous.  choice: the launch bounds (stft_fft.cuh `kLaunchTable`, the
+// table's rule, or kLaunchRows / kLaunchWide; radix 2 has no kLaunchPair).
 SPK_EXPORT int spk_stft_packed(const float* left, const float* right,
                                const float* hann, const void* twiddles,
                                float* out_l, float* out_r, int rows, int w,
-                               int log2n, void* stream) {
+                               int log2n, int choice, void* stream) {
   return launch(left, right, hann, twiddles, out_l, out_r, rows, w, log2n,
-                stream);
+                choice, stream);
 }
 
 // As spk_stft_packed with int16 planes; hann carries the 2^-15 wire scale.
 SPK_EXPORT int spk_stft_packed_i16(const short* left, const short* right,
                                    const float* hann, const void* twiddles,
                                    float* out_l, float* out_r, int rows, int w,
-                                   int log2n, void* stream) {
+                                   int log2n, int choice, void* stream) {
   return launch(left, right, hann, twiddles, out_l, out_r, rows, w, log2n,
-                stream);
+                choice, stream);
 }
 
 SPK_EXPORT const char* spk_error_string(int code) {

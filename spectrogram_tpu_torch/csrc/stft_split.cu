@@ -144,56 +144,19 @@ SPK_BOUNDED_KERNEL(stft_split_tsplit_kernel, (
 // launch(row, bound, grid, threads, smem, stream) with the split-real row
 // form of N (`with_real_body`), 2 * rows blocks, one per (window row,
 // channel), and the kernel's launch bounds as a type (`spk::Bounds`, threads
-// and blocks per SM).  A row whose buffer fits kRowBlocks times in an SM's
-// shared memory (up to 5,811 entries: N = 4096, 4800, 4410) takes
-// kRowThreads threads under (kRowThreads, kRowBlocks), as kernel A's rows
-// do; with the load fused into the first pass that ran every layout in
-// 0.87-0.95x the time of (kStftMaxThreads, 1) at N = 4096 and 4800 (the
-// lane-loaded rows had run 3-17% slower so, PERF.md §6).  Larger rows keep
-// their bounds ((512, 2) ran N = 17,640 within 0.7% of them):
-// kWideThreads for N/2 packs of kWideRow entries and more (N = 32,768 and
-// 48,000 among the measured sizes), which run one block per SM; else
-// kStftMaxThreads for the radix-2 rows and for the mixed-radix and
-// Bluestein rows whose buffer fits four times in an SM's shared memory (a
-// block of at most 128 threads, passes of up to 25 entries in 128
-// registers), and kWideThreads for the others (launched with at most
-// kStftMaxThreads threads: 64 registers, the narrow passes, `group_cap`).
-// Only the pack is compiled at the wide bound for its own sake: an odd N's
-// full row of that size (a 7-smooth odd N past 16,384, or a Bluestein M
-// past it) is rare and runs the narrow one.  The one-block bounds take
-// the kernels' form under the threads alone (`SPK_BOUNDED_KERNEL`): a
-// declared minimum of one block gave the N-point Bluestein row of N = 4801
-// 64 registers in place of 54 and ran it 4-5% slower (PERF.md §6).
+// and blocks per SM) and its threads as `choice` names them
+// (stft_fft.cuh `with_split_bounds`: kLaunchTable takes the table's rule,
+// `split_bounds_rule`; kLaunchRows, kLaunchWide and kLaunchNarrow the
+// bounds they name, every one of which each row form instantiates).
 template <class Launch>
-int launch_rows(int n, const void* consts, int rows, void* stream,
+int launch_rows(int n, const void* consts, int rows, int choice, void* stream,
                 Launch launch) {
   const auto st = static_cast<cudaStream_t>(stream);
-  using Narrow = spk::Bounds<spk::kWideThreads, 1>;
-  using Wide = spk::Bounds<spk::kStftMaxThreads, 1>;
-  using Rows = spk::Bounds<spk::kRowThreads, spk::kRowBlocks>;
-  const size_t limit = spk::kMaxSmemBytes;
   return spk::with_real_body(n, consts, [&](auto body) {
     const size_t smem = body.buf_size() * sizeof(float2);
-    if constexpr (spk::is_real_pack<decltype(body)>::value) {
-      if (body.buf_size() >= spk::kWideRow) {
-        return launch(body, Narrow{}, dim3(2 * rows), spk::kWideThreads, smem, st);
-      }
-    }
-    if (smem * spk::kRowBlocks <= limit) {
-      const int threads = spk::body_threads(body, spk::group_cap<Rows>());
-      return launch(body, Rows{}, dim3(2 * rows),
-                    threads < Rows::threads ? threads : Rows::threads, smem, st);
-    }
-    const int threads = spk::body_threads(body);
-    if constexpr (spk::is_radix2_row<decltype(body)>::value) {
-      return launch(body, Wide{}, dim3(2 * rows), threads, smem, st);
-    } else {
-      if (smem * 4 <= limit) {
-        return launch(body, Wide{}, dim3(2 * rows), threads < 128 ? threads : 128, smem, st);
-      }
-      return launch(body, Narrow{}, dim3(2 * rows),
-                    spk::body_threads(body, spk::kNarrowGroup), smem, st);
-    }
+    return spk::with_split_bounds(body, [&](auto bound, int threads) {
+      return launch(body, bound, dim3(2 * rows), threads, smem, st);
+    }, choice);
   });
 }
 
@@ -201,15 +164,15 @@ int launch_rows(int n, const void* consts, int rows, void* stream,
 
 // Each entry: hann [w] f32 (2/W folded in); consts: n's split-real table
 // (`split_fft_table`); out_l, out_r: [rows, stft_bins(n, w)] f32.  All
-// contiguous.
+// contiguous.  choice: the launch bounds (`launch_rows`).
 
 // left, right: [rows, w] f32 window planes.
 SPK_EXPORT int spk_stft_split(const float* left, const float* right,
                               const float* hann, const void* consts,
                               float* out_l, float* out_r, int rows, int w,
-                              int n, void* stream) {
+                              int n, int choice, void* stream) {
   const auto* tw = static_cast<const float2*>(consts);
-  return launch_rows(n, consts, rows, stream,
+  return launch_rows(n, consts, rows, choice, stream,
                      [&](auto body, auto bound, dim3 grid, int threads,
                          size_t smem, cudaStream_t st) {
     const auto kernel = stft_split_kernel_for<decltype(body), decltype(bound)>();
@@ -226,9 +189,10 @@ SPK_EXPORT int spk_stft_split(const float* left, const float* right,
 static int split_allk(const float* buf_l, const float* buf_r,
                       const float* hann, const void* consts, float* out_l,
                       float* out_r, float* next, int streams, int ld, int k,
-                      int hop, int w, int n, int c_len, void* stream) {
+                      int hop, int w, int n, int c_len, int choice,
+                      void* stream) {
   const auto* tw = static_cast<const float2*>(consts);
-  return launch_rows(n, consts, k * streams, stream,
+  return launch_rows(n, consts, k * streams, choice, stream,
                      [&](auto body, auto bound, dim3 grid, int threads,
                          size_t smem, cudaStream_t st) {
     const auto kernel = stft_split_allk_kernel_for<decltype(body), decltype(bound)>();
@@ -245,9 +209,9 @@ SPK_EXPORT int spk_stft_split_allk(const float* buf_l, const float* buf_r,
                                    const float* hann, const void* consts,
                                    float* out_l, float* out_r, int streams,
                                    int ld, int k, int hop, int w, int n,
-                                   void* stream) {
+                                   int choice, void* stream) {
   return split_allk(buf_l, buf_r, hann, consts, out_l, out_r, nullptr,
-                    streams, ld, k, hop, w, n, 0, stream);
+                    streams, ld, k, hop, w, n, 0, choice, stream);
 }
 
 // As spk_stft_split_allk, and next: [streams, 2, c_len] f32, the last c_len
@@ -258,9 +222,10 @@ SPK_EXPORT int spk_stft_split_allk_carry(const float* buf_l,
                                          float* out_l, float* out_r,
                                          float* next, int streams, int ld,
                                          int k, int hop, int w, int n,
-                                         int c_len, void* stream) {
+                                         int c_len, int choice,
+                                         void* stream) {
   return split_allk(buf_l, buf_r, hann, consts, out_l, out_r, next, streams,
-                    ld, k, hop, w, n, c_len, stream);
+                    ld, k, hop, w, n, c_len, choice, stream);
 }
 
 // carry: [streams, 2, c_len] f32 and chunk: [streams, 2, k*hop] f32, each
@@ -272,9 +237,9 @@ SPK_EXPORT int spk_stft_split_carry(const float* carry, const float* chunk,
                                     const float* hann, const void* consts,
                                     float* out_l, float* out_r, float* next,
                                     int streams, int c_len, int k, int hop,
-                                    int w, int n, void* stream) {
+                                    int w, int n, int choice, void* stream) {
   const auto* tw = static_cast<const float2*>(consts);
-  return launch_rows(n, consts, k * streams, stream,
+  return launch_rows(n, consts, k * streams, choice, stream,
                      [&](auto body, auto bound, dim3 grid, int threads,
                          size_t smem, cudaStream_t st) {
     const auto kernel = stft_split_carry_kernel_for<decltype(body), decltype(bound)>();
@@ -292,9 +257,9 @@ SPK_EXPORT int spk_stft_split_carry(const float* carry, const float* chunk,
 SPK_EXPORT int spk_stft_split_t(const float* x, const float* hann,
                                 const void* consts, float* out_l,
                                 float* out_r, int rows, int n1, int m, int n,
-                                void* stream) {
+                                int choice, void* stream) {
   const auto* tw = static_cast<const float2*>(consts);
-  return launch_rows(n, consts, rows, stream,
+  return launch_rows(n, consts, rows, choice, stream,
                      [&](auto body, auto bound, dim3 grid, int threads,
                          size_t smem, cudaStream_t st) {
     const auto kernel = stft_split_t_kernel_for<decltype(body), decltype(bound)>();
@@ -315,9 +280,9 @@ SPK_EXPORT int spk_stft_split_tsplit(const float* carry, const float* chunk,
                                      float* out_l, float* out_r,
                                      float* next_carry, int rows, int n1,
                                      int c_cols, int t_cols, int n,
-                                     void* stream) {
+                                     int choice, void* stream) {
   const auto* tw = static_cast<const float2*>(consts);
-  return launch_rows(n, consts, rows, stream,
+  return launch_rows(n, consts, rows, choice, stream,
                      [&](auto body, auto bound, dim3 grid, int threads,
                          size_t smem, cudaStream_t st) {
     const auto kernel = stft_split_tsplit_kernel_for<decltype(body), decltype(bound)>();

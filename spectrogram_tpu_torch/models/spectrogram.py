@@ -87,6 +87,14 @@ device as the hand-written kernels in `csrc/`, unless the caller names JAX's
 golden backend (`stft_backend="xla"`, `colormap_backend="xla"`), which runs
 the plain versions on the card.  There is no fallback from one to the
 other.  Without a `device`, the pipeline runs on the card.
+
+The kernels' launch shapes are fixed tables in the C sources (the STFT
+rows' launch bounds, the colormap tile's staged or direct form).  A
+pipeline's `launch` (`override_launch`, which `autotune=True` calls with
+`utils.autotune.tune`'s pick) names another shape per launch family
+("packed", "split", "tile"; `launch_families` lists those its push runs),
+and every launch of its push, `process()` and `render_viewport` takes it;
+every shape gives the same bits.
 """
 
 from __future__ import annotations
@@ -176,9 +184,15 @@ class SpectrogramPipeline:
       kernel_interpret: accepted for API parity; changes nothing.  It ran
         JAX's Pallas kernels in interpret mode on a CPU; a CUDA kernel has
         no such mode (pass device="cpu" for the plain versions).
-      autotune: accepted for API parity; changes nothing.  JAX measures its
-        matrix-unit plans and block sizes; the port has no tuner yet
-        (ROADMAP.md item 11).
+      autotune: on a CUDA pipeline, measure the launch shapes of the kernel
+        families its push runs (`launch_families`: the STFT rows' launch
+        bounds, the colormap tile's form) on the card with
+        `utils.autotune.tune`, cached per (card name, geometry, these
+        constructor arguments, kernel sources), and launch the pick
+        (`override_launch`); the rows are the same bits.  A CPU pipeline
+        measures nothing and launches nothing: it changes nothing there.
+        JAX measures its matrix-unit plans and block sizes instead; the
+        two caches never cross.
       sanitize_input: zero non-finite samples of float chunks (and of
         process()'s PCM) at the ingestion edge, so that one producer's NaN
         cannot poison its stream's carry.
@@ -319,6 +333,7 @@ class SpectrogramPipeline:
         self.schemes = tuple(schemes) if schemes is not None else DEFAULT_COLOR_SCHEMES
         self.scheme_names = tuple(s.name for s in self.schemes)
         res = lut_resolution or cfg.lut_resolution
+        self._lut_resolution = res
         self.chunk_size = k * cfg.hop_size
         self.carry_size = stft_ops.carry_size(cfg)
         self.stft_block_rows = None
@@ -401,29 +416,36 @@ class SpectrogramPipeline:
             self._use_plain_stft()
         if colormap_backend == "xla":
             self._use_plain_colormap()
+        self.launch = {}
+        if self.autotune and self.device.type == "cuda":
+            self.override_launch(self._tuned_launch())
 
     def _use_plain_stft(self) -> None:
-        """Run the STFT as its plain PyTorch versions, on this device."""
+        """Run the STFT as its plain PyTorch versions, on this device (they
+        take no launch shape)."""
         sk = stft_kernel
-        self._stft = lambda left, right, hann, c: (
+        self._stft = lambda left, right, hann, c, launch=None: (
             sk.stft_mag_packed_plain(left, right, hann, c.n_fft))
-        self._stft_allk = lambda buf_l, buf_r, hann, c, k, hop: (
+        self._stft_allk = lambda buf_l, buf_r, hann, c, k, hop, launch=None: (
             sk.stft_mag_packed_allk_plain(buf_l, buf_r, hann, c.n_fft, k, hop))
-        self._stft_split = lambda left, right, hann, c: (
+        self._stft_split = lambda left, right, hann, c, launch=None: (
             sk.stft_mag_split_plain(left, right, hann, c.n_fft))
-        self._stft_split_allk = lambda buf_l, buf_r, hann, c, k, hop: (
+        self._stft_split_allk = lambda buf_l, buf_r, hann, c, k, hop, launch=None: (
             sk.stft_mag_split_allk_plain(buf_l, buf_r, hann, c.n_fft, k, hop))
-        self._stft_split_t = lambda x, hann, c: sk.stft_mag_split_t_plain(x, hann, c.n_fft)
-        self._stft_split_tsplit = lambda carry, chunk, hann, c: (
+        self._stft_split_t = lambda x, hann, c, launch=None: (
+            sk.stft_mag_split_t_plain(x, hann, c.n_fft))
+        self._stft_split_tsplit = lambda carry, chunk, hann, c, launch=None: (
             sk.stft_mag_split_tsplit_plain(carry, chunk, hann, c.n_fft))
 
     def _use_plain_colormap(self) -> None:
-        """Run the colormap as its plain PyTorch versions, on this device."""
-        self._colormap = colormap_kernel.colormap_builtin_plain
-        self._colormap_bw = lambda *args, block_rows: (
-            colormap_kernel.colormap_blockwise_plain(*args))
-        self._colormap_generic = colormap_kernel.colormap_generic_plain
-        self._colormap_static = colormap_kernel.colormap_static_plain
+        """Run the colormap as its plain PyTorch versions, on this device
+        (they take no form)."""
+        ck = colormap_kernel
+        self._colormap = lambda *args, launch=None: ck.colormap_builtin_plain(*args)
+        self._colormap_bw = lambda *args, block_rows, launch=None: (
+            ck.colormap_blockwise_plain(*args))
+        self._colormap_generic = lambda *args, launch=None: ck.colormap_generic_plain(*args)
+        self._colormap_static = ck.colormap_static_plain
 
     def with_plain_kernels(self) -> "SpectrogramPipeline":
         """This pipeline with the plain PyTorch versions in place of its
@@ -540,6 +562,95 @@ class SpectrogramPipeline:
         self.tsplit_framing = self.tsplit_framing and fft_plan.tsplit_supported(
             cfg, k, plan, lane_pad=lane_pad)
         self._validate_i16_planes()
+
+    def launch_families(self) -> dict:
+        """The launch families this pipeline's push runs, each with the
+        shapes its kernels take here: the STFT rows' launch bounds
+        ("packed" or "split", `stft_kernel.launch_candidates`; none on the
+        large-N route) and the colormap tile's form at the push's taps
+        ("tile", `colormap_kernel.tile_forms`; none for a static palette).
+        The plain versions ("xla" backends) take none.  {family: choices}."""
+        families = {}
+        n = self.cfg.padded_size
+        if self.stft_backend != "xla":
+            family = "split" if self.split_real else "packed"
+            choices = stft_kernel.launch_candidates(family, n)
+            if choices:
+                families[family] = choices
+        if self.colormap_backend != "xla" and self.static_table is None:
+            families["tile"] = colormap_kernel.tile_forms(*self._tile_args(self.taps))
+        return families
+
+    def launch_rules(self) -> dict:
+        """{family: the shape the C tables' rule takes} for each family of
+        `launch_families`: what a launch without a choice runs."""
+        rules = {}
+        for family in self.launch_families():
+            if family == "tile":
+                rules[family] = colormap_kernel.tile_rule(*self._tile_args(self.taps))
+            else:
+                rules[family] = stft_kernel.launch_rule(family, self.cfg.padded_size)
+        return rules
+
+    def _tile_args(self, taps) -> tuple:
+        """(span, width, LUT entries, generic): what the tile's form
+        depends on at `taps`."""
+        generic = self.builtin_tables is None
+        tables = self.generic_tables[0] if generic else self.builtin_tables
+        return taps.span, taps.j0.shape[0], tables.shape[1] // 4, generic
+
+    def override_launch(self, launch: Optional[dict]) -> None:
+        """The port's autotuner hook, beside `override_plan`: launch every
+        kernel of family f with the shape `launch[f]` names (a value of
+        `launch_families()[f]`); a family left out takes the C tables'
+        rule.  None or {} restores the tables everywhere.  The rows are the
+        same bits whatever the shapes.  Raises ValueError for a family this
+        pipeline's push does not run or a shape its kernels do not take.
+        render_viewport's tile launches take the tile's form where it runs
+        at the ring's taps, else the rule."""
+        launch = dict(launch or {})
+        families = self.launch_families()
+        for family, choice in launch.items():
+            if family not in families or choice not in families[family]:
+                raise ValueError(
+                    f"launch {family}={choice!r} is not one this pipeline's push "
+                    f"takes ({families})")
+        self.launch = launch
+
+    def _tuned_launch(self) -> dict:
+        """`utils.autotune.tune`'s pick for this pipeline: its geometry and
+        the constructor arguments that change what its push launches."""
+        from spectrogram_tpu_torch.utils import autotune
+
+        return autotune.tune(self.cfg, pipeline_kwargs=self.tune_kwargs(),
+                             device=self.device)
+
+    def tune_kwargs(self) -> dict:
+        """The constructor arguments that change which kernels this
+        pipeline's push launches, or around them how much work it does: the
+        deployment the tuner measures and keys its cache on (JAX passes its
+        first four)."""
+        return dict(
+            chunk_hops=self.chunk_hops, store_ring=self.store_ring,
+            packed_output=self.packed_output, precision_profile=self.precision_profile,
+            viewport_rows=self.viewport_rows, ring_dtype=self.ring_dtype,
+            lut_resolution=self._lut_resolution, stft_backend=self.stft_backend,
+            colormap_backend=self.colormap_backend, schemes=self.schemes,
+            static_palette=self.static_palette_id,
+            blockwise_palettes=self.blockwise_palettes, stream_blocks=self.stream_blocks,
+            palette_sort=self.palette_sort, sorted_output=self.sorted_output,
+            presorted_input=self.presorted_input, i16_planes=self.i16_planes,
+            transposed_carry=self.carry_transposed, framing=self.framing,
+            stft_packed=self._stft_packed_arg, sanitize_input=self.sanitize_input,
+        )
+
+    def _tile_launch(self, taps):
+        """The tile form the launches at `taps` take: the pipeline's where
+        it runs there, else None (the rule)."""
+        form = self.launch.get("tile")
+        if form is None or form not in colormap_kernel.tile_forms(*self._tile_args(taps)):
+            return None
+        return form
 
     @property
     def carry_is_transposed(self) -> bool:
@@ -977,23 +1088,27 @@ class SpectrogramPipeline:
         """Framing and the STFT of one push, by the pipeline's layout:
         (mag_l, mag_r, new_carry), the planes [k*S, N/2] window-major."""
         k, tw = self.chunk_hops, self.fft_consts
+        split = self.launch.get("split")
         if self.tsplit_framing:
             return self._stft_split_tsplit(
                 state.carry, self._chunk_transposed(chunk_pl).contiguous(),
-                self.split_hann, tw)
+                self.split_hann, tw, launch=split)
         if self.carry_transposed:
             x, new_carry = self.frame_transposed(state, chunk_pl)
-            return (*self._stft_split_t(x, self.split_hann, tw), new_carry)
+            return (*self._stft_split_t(x, self.split_hann, tw, launch=split), new_carry)
         if not self.stft_packed:
             hann, stft, stft_allk = self.split_hann, self._stft_split, self._stft_split_allk
+            launch = split
         else:
             hann = self.hann_i16 if chunk_pl.dtype == torch.int16 else self.hann
             stft, stft_allk = self._stft, self._stft_allk
+            launch = self.launch.get("packed")
         if k == 1:
             left, right, new_carry = self.frame_windows(state, chunk_pl)
-            return (*stft(left, right, hann, tw), new_carry)
+            return (*stft(left, right, hann, tw, launch=launch), new_carry)
         buf_l, buf_r, new_carry = self.frame_buffers(state, chunk_pl)
-        return (*stft_allk(buf_l, buf_r, hann, tw, k, self.cfg.hop_size), new_carry)
+        return (*stft_allk(buf_l, buf_r, hann, tw, k, self.cfg.hop_size, launch=launch),
+                new_carry)
 
     def _push_core(self, state: StreamState, chunk_pl: torch.Tensor):
         if state.carry.dtype != self.carry_dtype:
@@ -1053,14 +1168,16 @@ class SpectrogramPipeline:
         cfg = self.cfg
         if self.static_table is not None:
             return self._colormap_static(mag_l, mag_r, taps, self.static_table, cfg)
+        form = self._tile_launch(taps)
         if len(tables) == 2:
             return self._colormap_generic(mag_l, mag_r, taps, *tables, cfg,
-                                          rows_per_table)
+                                          rows_per_table, launch=form)
         (t,) = tables
         if blockwise and t.shape[0] > 1:
             return self._colormap_bw(mag_l, mag_r, taps, t, cfg, rows_per_table,
-                                     block_rows=self._cmap_ts(mag_l.shape[0]))
-        return self._colormap(mag_l, mag_r, taps, t, cfg, rows_per_table)
+                                     block_rows=self._cmap_ts(mag_l.shape[0]),
+                                     launch=form)
+        return self._colormap(mag_l, mag_r, taps, t, cfg, rows_per_table, launch=form)
 
     def _write_ring(self, state: StreamState, mag_l: torch.Tensor,
                     mag_r: torch.Tensor) -> None:
@@ -1183,9 +1300,11 @@ class SpectrogramPipeline:
         right = frames[..., 1].reshape(s * n, w).contiguous()
         pid = torch.tensor([palette_id], dtype=torch.int32, device=self.device)
         if self.split_real:
-            mag_l, mag_r = self._stft_split(left, right, self.split_hann, self.fft_consts)
+            mag_l, mag_r = self._stft_split(left, right, self.split_hann, self.fft_consts,
+                                            launch=self.launch.get("split"))
         else:
-            mag_l, mag_r = self._stft(left, right, self.hann, self.fft_consts)
+            mag_l, mag_r = self._stft(left, right, self.hann, self.fft_consts,
+                                      launch=self.launch.get("packed"))
         rows = self._run_colormap(mag_l, mag_r, self.taps,
                                   self.state_tables_for(pid), blockwise=False)
         out = self._output(rows.reshape(s, n, -1))

@@ -36,10 +36,13 @@ LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# name -> ctypes argtypes of its C entry point (see csrc/*.cu).
-_STFT = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P)
-_ALLK = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
-_ALLK_CARRY = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
+# name -> ctypes argtypes of its C entry point (see csrc/*.cu).  The STFT
+# entries, the fused push and the tile colormaps take a launch choice before
+# the stream (the bounds, `stft_kernel.LAUNCH_BOUNDS`, or the tile's form,
+# `colormap_kernel.TILE_FORMS`; 0 the table's rule).
+_STFT = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+_ALLK = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
+_ALLK_CARRY = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)
 _LARGE = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P)
 KERNELS = {
     "spk_stft_packed": _STFT,
@@ -53,30 +56,30 @@ KERNELS = {
     "spk_stft_split": _STFT,
     "spk_stft_split_allk": _ALLK,
     "spk_stft_split_allk_carry": _ALLK_CARRY,
-    "spk_stft_split_carry": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "spk_stft_split_t": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "spk_stft_split_tsplit": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "spk_stft_split_carry": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "spk_stft_split_t": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "spk_stft_split_tsplit": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # the large-N route: window planes, hann, table, scratch, planes
     "spk_stft_large_packed": _LARGE,
     "spk_stft_large_packed_i16": _LARGE,
     "spk_stft_large_split": _LARGE,
     "spk_push_fused": (
         _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _F, _F, _F, _F, _P, _P,
-        _P, _I, _I, _I, _P,
+        _P, _I, _I, _I, _I, _P,
     ),
     # kernel B, the blockwise colormap and the generic kernel take the taps'
     # span after the bins
     "spk_colormap_builtin": (
         _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _F, _F, _F, _F,
-        _P, _P,
+        _P, _I, _P,
     ),
     "spk_colormap_blockwise": (
         _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _F, _F,
-        _F, _P, _P,
+        _F, _P, _I, _P,
     ),
     "spk_colormap_generic": (
         _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _F, _F,
-        _F, _P, _P,
+        _F, _P, _I, _P,
     ),
     # the two table pointers are host memory, copied into the kernel's
     # parameters (the second null for a built-in table)
@@ -85,7 +88,7 @@ KERNELS = {
     ),
     # the planar rows take the taps' span after the bins
     "spk_colormap_rows": (
-        _P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _F, _F, _F, _F, _P, _P,
+        _P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _F, _F, _F, _F, _P, _I, _P,
     ),
 }
 # the STFT kernels' FFT bodies (csrc/stft_fft.cuh, `stft_kernel.fft_body`),

@@ -42,6 +42,13 @@ planes of a row B floats apart, rows 2B apart.  The static colormap keeps
 one pixel per thread with its palette in shared memory: staged on the tile
 it ran slower at every span measured (PERF.md §6).
 
+The tile's wrappers take `launch`, the form: None (or 0) the rule
+`tile_form` reports, `TILE_STAGED` or `TILE_DIRECT` that form wherever it
+runs (`tile_forms` lists them: the staged form wherever its stages fit
+`TILE_MAX_STAGED_BYTES`, whatever the span; the direct form always).  Both
+forms give the same bits; the autotuner (`utils/autotune.py`) measures
+them.  The plain versions and the static colormap ignore it.
+
 Host helpers (`builtin_color_tables`, `generic_color_tables`,
 `unpack_rgba`, and `_auto_blocks`, `band_segments`, `_banded_worthwhile`,
 which give the row block the palette-sort economics are counted in) are
@@ -70,6 +77,13 @@ ROWS_KERNEL = "spk_colormap_rows"
 # a static table is a kernel parameter: at most this many LUT entries
 # (csrc/colormap_static.cu's kMaxRes)
 MAX_STATIC_RES = 64
+# the tile's forms (csrc/colormap_tile.cuh kTileFormRule .. kTileFormDirect)
+TILE_RULE, TILE_STAGED, TILE_DIRECT = range(3)
+TILE_FORMS = {TILE_STAGED: "staged", TILE_DIRECT: "direct"}
+# the tile's stages and sizes (colormap_tile.cuh kTileStages,
+# kTileMaxStagedBytes)
+TILE_STAGES = 2
+TILE_MAX_STAGED_BYTES = 48 * 1024
 
 
 class ResampleTaps(NamedTuple):
@@ -369,12 +383,13 @@ def _check(mag_l, mag_r, taps, tables, rows_per_table) -> None:
 
 
 def _launch(name: str, mag_l, mag_r, taps, cfg, res: int, tables: tuple,
-            *table_args, span: int | None = None) -> torch.Tensor:
+            *table_args, span: int | None = None, form=None) -> torch.Tensor:
     """Launch colormap kernel `name` on CUDA tensors.  `tables` are the
     device tensors among its operands (checked as the planes are);
     `table_args` the arguments its C entry takes between `h` and
-    `min_db`; `span`, where given, goes after the bins (kernel B, the
-    blockwise colormap and the generic kernel)."""
+    `min_db`; `span`, where given, goes after the bins, and the tile's
+    `form` (None: the rule) before the stream (kernel B, the blockwise
+    colormap and the generic kernel)."""
     if mag_l.device.type != "cuda":
         raise ValueError(f"no colormap kernel for device {mag_l.device}")
     checks = (
@@ -403,7 +418,8 @@ def _launch(name: str, mag_l, mag_r, taps, cfg, res: int, tables: tuple,
                 taps.j1.data_ptr(), taps.w0.data_ptr(), taps.w1.data_ptr(), h,
                 *table_args,
                 cfg.min_db, cfg.max_db - cfg.min_db, cfg.db_epsilon,
-                1.0 / (res - 1), out.data_ptr(), stream,
+                1.0 / (res - 1), out.data_ptr(),
+                *(() if span is None else (int(form or TILE_RULE),)), stream,
             )
     return out
 
@@ -412,6 +428,30 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     """`t`, or a copy where its data is not 16-byte aligned: the tile's
     table copies move 16-byte chunks."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def tile_smem_bytes(span: int, res: int, generic: bool = False) -> int:
+    """The staged tile's shared memory at `span` (colormap_tile.cuh
+    `tile_smem_bytes`): per stage two plane rows of span + 3 floats in whole
+    16-byte chunks and the row's table (U and V generic)."""
+    plane = (span + 6) // 4 * 4
+    return TILE_STAGES * (2 * plane + (2 if generic else 1) * res * 4) * 4
+
+
+def tile_forms(span: int, h: int, res: int, generic: bool = False) -> tuple:
+    """The forms the tile launches at `span`, width `h` and `res`-entry
+    tables, in `TILE_FORMS` order: the staged form wherever its stages fit
+    (colormap_tile.cuh `tile_launch_form`), the direct form always."""
+    staged = tile_smem_bytes(span, res, generic) <= TILE_MAX_STAGED_BYTES
+    return (TILE_STAGED, TILE_DIRECT) if staged else (TILE_DIRECT,)
+
+
+def tile_rule(span: int, h: int, res: int, generic: bool = False) -> int:
+    """The form `tile_staged`'s rule takes: staged where span <= 2.25h
+    (3h generic) and the stages fit, else direct."""
+    ratio = 12 if generic else 9
+    staged = 4 * span <= ratio * h and TILE_STAGED in tile_forms(span, h, res, generic)
+    return TILE_STAGED if staged else TILE_DIRECT
 
 
 def tile_form(taps: ResampleTaps, res: int, generic: bool = False) -> str:
@@ -446,14 +486,15 @@ def rows_route() -> str:
 def colormap_builtin(mag_l: torch.Tensor, mag_r: torch.Tensor,
                      taps: ResampleTaps, tables: torch.Tensor,
                      cfg: SpectrogramConfig,
-                     rows_per_table: int = 1) -> torch.Tensor:
+                     rows_per_table: int = 1, launch=None) -> torch.Tensor:
     """[rows, B] f32 magnitude planes -> [rows, H] int32 RGBA8888, row n
     colored with tables[(n // rows_per_table) % T] ([T, R*4] f32, built-in
     layout): rows_per_table 1 for the push's window-major rows, R' for a
     viewport's R' rows per stream.
 
     CPU tensors take the plain version; CUDA tensors take kernel B, in the
-    form `tile_form` names."""
+    form `launch` names (one of `tile_forms`; None: the form `tile_form`
+    names)."""
     _check(mag_l, mag_r, taps, tables, rows_per_table)
     if mag_l.device.type == "cpu":
         return colormap_builtin_plain(mag_l, mag_r, taps, tables, cfg,
@@ -462,20 +503,20 @@ def colormap_builtin(mag_l: torch.Tensor, mag_r: torch.Tensor,
     tables = _aligned(tables)
     return _launch(KERNEL, mag_l, mag_r, taps, cfg, res, (tables,),
                    tables.data_ptr(), tables.shape[0], rows_per_table, res,
-                   span=taps.span)
+                   span=taps.span, form=launch)
 
 
 def colormap_blockwise(mag_l: torch.Tensor, mag_r: torch.Tensor,
                        taps: ResampleTaps, tables: torch.Tensor,
                        cfg: SpectrogramConfig, rows_per_table: int = 1,
-                       block_rows: int = 128) -> torch.Tensor:
+                       block_rows: int = 128, launch=None) -> torch.Tensor:
     """`colormap_builtin`'s function, with the rows taken in blocks of
     `block_rows`.  The output is kernel B's, bit for bit, whatever the
     blocks.
 
     CPU tensors take the plain version; CUDA tensors take the blockwise
-    kernel's entry, which runs kernel B's code in the form `tile_form`
-    names."""
+    kernel's entry, which runs kernel B's code in the form `launch` names,
+    as `colormap_builtin`."""
     _check(mag_l, mag_r, taps, tables, rows_per_table)
     if block_rows < 1:
         raise ValueError(f"block_rows must be at least 1; got {block_rows}")
@@ -486,20 +527,20 @@ def colormap_blockwise(mag_l: torch.Tensor, mag_r: torch.Tensor,
     tables = _aligned(tables)
     return _launch(BLOCKWISE_KERNEL, mag_l, mag_r, taps, cfg, res, (tables,),
                    tables.data_ptr(), tables.shape[0], rows_per_table, res,
-                   block_rows, span=taps.span)
+                   block_rows, span=taps.span, form=launch)
 
 
 def colormap_generic(mag_l: torch.Tensor, mag_r: torch.Tensor,
                      taps: ResampleTaps, u: torch.Tensor, v: torch.Tensor,
                      cfg: SpectrogramConfig,
-                     rows_per_table: int = 1) -> torch.Tensor:
+                     rows_per_table: int = 1, launch=None) -> torch.Tensor:
     """[rows, B] f32 magnitude planes -> [rows, H] int32 RGBA8888 through a
     generic palette: row n reads the factors u[(n // rows_per_table) % T]
     and v[...] ([T, R*4] f32 each, entries t*4+c), as `colormap_builtin`
     reads its tables.
 
     CPU tensors take the plain version; CUDA tensors take the generic
-    kernel, in the form `tile_form` names."""
+    kernel, in the form `launch` names, as `colormap_builtin`."""
     _check(mag_l, mag_r, taps, u, rows_per_table)
     if v.shape != u.shape:
         raise ValueError(f"u {tuple(u.shape)} and v {tuple(v.shape)} differ")
@@ -509,7 +550,7 @@ def colormap_generic(mag_l: torch.Tensor, mag_r: torch.Tensor,
     u, v = _aligned(u), _aligned(v)
     return _launch(GENERIC_KERNEL, mag_l, mag_r, taps, cfg, res, (u, v),
                    u.data_ptr(), v.data_ptr(), u.shape[0], rows_per_table, res,
-                   span=taps.span)
+                   span=taps.span, form=launch)
 
 
 def colormap_static(mag_l: torch.Tensor, mag_r: torch.Tensor,
@@ -612,7 +653,8 @@ def colormap_rows_fused_plain(rows: torch.Tensor, u_tables: torch.Tensor,
 def colormap_rows_fused(rows: torch.Tensor, u_tables: torch.Tensor,
                         v_tables: torch.Tensor, matrix_t, cfg: SpectrogramConfig,
                         block_rows=None, block_cols=None, precision=None,
-                        interpret: bool = False, packed: bool = False) -> torch.Tensor:
+                        interpret: bool = False, packed: bool = False,
+                        launch=None) -> torch.Tensor:
     """The counterpart of the JAX package's `colormap_rows_fused`, with its
     signature: planar rows [N, 2, B] f32, per-row factor tables `u_tables`,
     `v_tables` [N, R, 4] f32 and the dense transposed resample matrix
@@ -630,7 +672,9 @@ def colormap_rows_fused(rows: torch.Tensor, u_tables: torch.Tensor,
     CPU tensors take the plain version; CUDA tensors take spk_colormap_rows
     (csrc/colormap_rows.cu): at K = 2 taps the generic kernel's row tile on
     the planar rows, whose words equal `colormap_generic`'s on copies of the
-    planes bit for bit, else one pixel per thread over the K taps."""
+    planes bit for bit, in the form `launch` names (as `colormap_generic`;
+    at K > 2 it must be None), else one pixel per thread over the K
+    taps."""
     n, two, b = rows.shape
     taps = matrix_t if isinstance(matrix_t, ResampleTapsK) else None
     matrix_bins = taps.bins if taps is not None else matrix_t.shape[0]
@@ -678,5 +722,6 @@ def colormap_rows_fused(rows: torch.Tensor, u_tables: torch.Tensor,
                 ROWS_KERNEL, rows.data_ptr(), n, b, taps.span, tap_j.data_ptr(),
                 tap_w.data_ptr(), h, k, u_tables.data_ptr(), v_tables.data_ptr(), res,
                 cfg.min_db, cfg.max_db - cfg.min_db, cfg.db_epsilon, 1.0 / (res - 1),
-                out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                out.data_ptr(), int(launch or TILE_RULE),
+                torch.cuda.current_stream().cuda_stream)
     return out if packed else out.view(torch.uint8).view(n, h, 4)

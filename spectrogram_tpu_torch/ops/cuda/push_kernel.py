@@ -37,8 +37,7 @@ KERNEL = sk.PUSH_FUSED_KERNEL
 def push_fused_fits(n_fft: int, window_size: int) -> bool:
     """True where a row's split-real FFT buffer and its two f32 planes fit
     one block's shared memory, as the fused kernel holds them."""
-    need = sk.split_buf_size(n_fft) * 8 + 2 * sk.stft_bins(n_fft, window_size) * 4
-    return need <= sk.MAX_SMEM_BYTES
+    return sk.push_smem_bytes(n_fft, window_size) <= sk.MAX_SMEM_BYTES
 
 
 def push_fused_plain(left: torch.Tensor, right: torch.Tensor,
@@ -55,13 +54,17 @@ def push_fused_plain(left: torch.Tensor, right: torch.Tensor,
 def push_fused(left: torch.Tensor, right: torch.Tensor, hann: torch.Tensor,
                consts: sk.FftConstants, tables: torch.Tensor,
                taps: ck.ResampleTaps, cfg: SpectrogramConfig,
-               emit_mags: bool = False):
+               emit_mags: bool = False, launch=None):
     """[rows, H] int32 RGBA8888 of the [rows, W] f32 window planes, through
     the split-real STFT (hann `split_hann(W)`, N's `fft_constants`) and the
     built-in colormap, row n colored with tables[n % T] ([T, R*4] f32); with
     `emit_mags` (rows, mag_l, mag_r), the planes [rows, stft_bins(N, W)].
 
-    CPU tensors take the plain version; CUDA tensors take spk_push_fused."""
+    CPU tensors take the plain version; CUDA tensors take spk_push_fused
+    under the launch bounds `launch` names (one of
+    `stft_kernel.launch_candidates("push", N, W)`; None the table's).  Where
+    the block does not fit the chain runs at the table's bounds, and
+    `launch` is ignored."""
     n_fft = consts.n_fft
     rows, w = left.shape
     if right.shape != left.shape or hann.shape != (w,) or w > n_fft:
@@ -95,7 +98,7 @@ def push_fused(left: torch.Tensor, right: torch.Tensor, hann: torch.Tensor,
                    taps.w0.data_ptr(), taps.w1.data_ptr(), h, cfg.min_db,
                    cfg.max_db - cfg.min_db, cfg.db_epsilon, 1.0 / (res - 1),
                    out.data_ptr(), *(m.data_ptr() if m is not None else None for m in mags),
-                   rows, w, n_fft)
+                   rows, w, n_fft, sk._choice(launch))
     return (out, *mags) if emit_mags else out
 
 

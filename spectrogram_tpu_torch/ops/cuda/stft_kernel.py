@@ -93,6 +93,14 @@ no fallback between the two, and no cast: a CUDA tensor a kernel cannot take
 raises.  Each launch counts under its kernel and under its FFT body, or
 under "large" for the large-N route (`fft_route`, `split_route`,
 `KernelLibrary.body_launches`).
+
+Each kernel wrapper takes `launch`: None (or 0) launches with the table's
+launch bounds, as `csrc/stft_fft.cuh` picks them from N; a value of
+`LAUNCH_BOUNDS` names other bounds that the kernel instantiates
+(`launch_candidates` lists them by family and N, `launch_rule` names the
+table's pick).  Every choice gives the same bits; the autotuner
+(`utils/autotune.py`) measures them.  The plain versions and the large-N
+route, whose passes have fixed bounds, ignore it.
 """
 
 from __future__ import annotations
@@ -142,6 +150,15 @@ MAX_BUF = MAX_SMEM_BYTES // 8
 WIDE_ROW, WIDE_THREADS = 16384, 1024
 LARGE = "large"                 # the large-N route's body label
 LARGE_SCRATCH_BYTES = 1 << 31   # the route's scratch per row group
+# A launch choice (csrc/stft_fft.cuh kLaunchTable .. kLaunchNarrow): 0 the
+# table's rule, else the launch bounds (threads, blocks per SM) it names.
+LAUNCH_TABLE, LAUNCH_ROWS, LAUNCH_PAIR, LAUNCH_WIDE, LAUNCH_NARROW = range(5)
+LAUNCH_BOUNDS = {LAUNCH_ROWS: (128, 5), LAUNCH_PAIR: (512, 2), LAUNCH_WIDE: (512, 1),
+                 LAUNCH_NARROW: (1024, 1)}
+ROW_BLOCKS = LAUNCH_BOUNDS[LAUNCH_ROWS][1]
+# the launch families: kernel A and the packed all-windows kernels
+# ("packed"), the split-real kernels ("split"), the fused push ("push")
+LAUNCH_FAMILIES = ("packed", "split", "push")
 
 
 def packed_hann(window_size: int) -> np.ndarray:
@@ -297,6 +314,72 @@ def split_route(n_fft: int) -> str:
     """The label the split-real kernels' launches at N count under: "large"
     on the large-N route, else the body of `split_size(N)`."""
     return LARGE if is_large_split(n_fft) else fft_body(split_size(n_fft))
+
+
+def push_smem_bytes(n_fft: int, window_size: int) -> int:
+    """Shared memory of a fused-push block: the split-real row's FFT buffer
+    and its two f32 planes."""
+    return split_buf_size(n_fft) * 8 + 2 * stft_bins(n_fft, window_size) * 4
+
+
+def launch_candidates(family: str, n_fft: int, window_size: int | None = None) -> tuple:
+    """The launch choices the kernels of `family` ("packed", "split" or
+    "push", `LAUNCH_FAMILIES`) instantiate at N, in `LAUNCH_BOUNDS` order;
+    () where the family takes no choice there: the large-N route (fixed
+    bounds), or a fused push whose block does not fit (the wrapper runs the
+    chain).  The C tables refuse every other value (csrc/stft_fft.cuh
+    `with_row_bounds`, `with_split_bounds`; csrc/push_fused.cuh
+    `with_push_bounds`).  "push" needs the window size W."""
+    if family == "packed":
+        if is_large(n_fft):
+            return ()
+        if fft_body(n_fft) == "radix2":       # no (512, 2) form
+            return (LAUNCH_ROWS, LAUNCH_WIDE)
+        return (LAUNCH_ROWS, LAUNCH_PAIR, LAUNCH_WIDE)
+    if family == "split":
+        if is_large_split(n_fft):
+            return ()
+        if not split_packs(n_fft) and fft_body(n_fft) == "radix2":   # N = 2
+            return (LAUNCH_ROWS, LAUNCH_WIDE)
+        return (LAUNCH_ROWS, LAUNCH_WIDE, LAUNCH_NARROW)
+    if family == "push":
+        if push_smem_bytes(n_fft, window_size) > MAX_SMEM_BYTES:
+            return ()
+        return (LAUNCH_ROWS, LAUNCH_WIDE)
+    raise ValueError(f"unknown launch family {family!r}; expected one of {LAUNCH_FAMILIES}")
+
+
+def launch_rule(family: str, n_fft: int, window_size: int | None = None) -> int:
+    """The launch choice the table's rule takes for `family` at N (one of
+    `launch_candidates`), or LAUNCH_TABLE where the family takes none:
+    `row_bounds_rule`, `split_bounds_rule` and `push_bounds_rule` of the C
+    sources."""
+    if not launch_candidates(family, n_fft, window_size):
+        return LAUNCH_TABLE
+    limit = MAX_SMEM_BYTES
+    if family == "packed":
+        smem = fft_buf_size(n_fft) * 8
+        if smem * ROW_BLOCKS <= limit:
+            return LAUNCH_ROWS
+        if fft_body(n_fft) != "radix2" and smem * 2 <= limit:
+            return LAUNCH_PAIR
+        return LAUNCH_WIDE
+    if family == "split":
+        buf = split_buf_size(n_fft)
+        if split_packs(n_fft) and buf >= WIDE_ROW:
+            return LAUNCH_NARROW
+        if buf * 8 * ROW_BLOCKS <= limit:
+            return LAUNCH_ROWS
+        if fft_body(split_size(n_fft)) == "radix2" or buf * 8 * 4 <= limit:
+            return LAUNCH_WIDE
+        return LAUNCH_NARROW
+    smem = push_smem_bytes(n_fft, window_size)
+    return LAUNCH_ROWS if smem * ROW_BLOCKS <= limit else LAUNCH_WIDE
+
+
+def _choice(launch) -> int:
+    """A wrapper's `launch` as the C entries take it (None: the table's)."""
+    return LAUNCH_TABLE if launch is None else int(launch)
 
 
 def check_fft_size(n_fft: int) -> None:
@@ -531,14 +614,15 @@ def _large_planes(kernel: str, consts: FftConstants):
 
 
 def stft_mag_packed(left: torch.Tensor, right: torch.Tensor,
-                    hann: torch.Tensor, consts: FftConstants):
+                    hann: torch.Tensor, consts: FftConstants, launch=None):
     """(mag_l, mag_r) [rows, stft_bins(N, W)] f32 of the [rows, W] f32 or
     int16 window planes, with N's `fft_constants` on the same device and
     hann `packed_hann(W)`, or `packed_hann_i16(W)` for int16.
 
     CPU tensors take the plain version; CUDA tensors take kernel A
-    (stft_packed.cu for power-of-two N, stft_mixed.cu otherwise), or the
-    large-N route."""
+    (stft_packed.cu for power-of-two N, stft_mixed.cu otherwise) under the
+    launch bounds `launch` names (one of `launch_candidates("packed", N)`;
+    None the table's), or the large-N route."""
     n_fft = consts.n_fft
     rows, w = left.shape
     if right.shape != left.shape or hann.shape != (w,) or w > n_fft:
@@ -559,7 +643,7 @@ def stft_mag_packed(left: torch.Tensor, right: torch.Tensor,
     if rows:
         _launch(name, left.device, n_fft, left.data_ptr(), right.data_ptr(),
                 hann.data_ptr(), table.data_ptr(), out_l.data_ptr(),
-                out_r.data_ptr(), rows, w, size)
+                out_r.data_ptr(), rows, w, size, _choice(launch))
     return out_l, out_r
 
 
@@ -576,7 +660,7 @@ def _check_buffers(buf_l, buf_r, hann, n_fft: int, k: int, hop: int) -> None:
 
 def stft_mag_packed_allk(buf_l: torch.Tensor, buf_r: torch.Tensor,
                          hann: torch.Tensor, consts: FftConstants,
-                         k: int, hop: int, emit_carry: bool = False):
+                         k: int, hop: int, emit_carry: bool = False, launch=None):
     """(mag_l, mag_r) [k*S, stft_bins(N, W)] f32 of the k windows buf[s,
     r*hop : r*hop+W] of the [S, L] f32 or int16 sample buffers (L >= W +
     (k-1)*hop), with row r*S + s holding window r of stream s and W =
@@ -586,8 +670,9 @@ def stft_mag_packed_allk(buf_l: torch.Tensor, buf_r: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors take the all-windows
     kernel, which never materializes the windows (and, with `emit_carry`,
-    writes the next carry itself), or at large N the windows framed as the
-    plain version frames them, through the large-N route."""
+    writes the next carry itself), under kernel A's `launch`, or at large N
+    the windows framed as the plain version frames them, through the large-N
+    route."""
     n_fft = consts.n_fft
     _check_buffers(buf_l, buf_r, hann, n_fft, k, hop)
     if buf_l.device.type == "cpu":
@@ -597,11 +682,11 @@ def stft_mag_packed_allk(buf_l: torch.Tensor, buf_r: torch.Tensor,
     if is_large(n_fft):
         return _framed_allk(_large_planes(LARGE_KERNEL, consts), buf_l, buf_r, hann, n_fft,
                             k, hop, emit_carry)
-    return _launch_allk(name, table, buf_l, buf_r, hann, n_fft, k, hop, emit_carry)
+    return _launch_allk(name, table, buf_l, buf_r, hann, n_fft, k, hop, emit_carry, launch)
 
 
 def _launch_allk(name: str, table: torch.Tensor, buf_l, buf_r, hann, n_fft: int,
-                 k: int, hop: int, emit_carry: bool):
+                 k: int, hop: int, emit_carry: bool, launch):
     """Launch all-windows kernel `name` on its FFT `table` (its `_carry`
     form with `emit_carry`, which also takes the next carry in the buffers'
     dtype)."""
@@ -613,9 +698,9 @@ def _launch_allk(name: str, table: torch.Tensor, buf_l, buf_r, hann, n_fft: int,
     c = carry_len(w, hop)
     if emit_carry:
         next_carry = torch.empty((s, 2, c), dtype=buf_l.dtype, device=buf_l.device)
-        args += [next_carry.data_ptr(), s, length, k, hop, w, n_fft, c]
+        args += [next_carry.data_ptr(), s, length, k, hop, w, n_fft, c, _choice(launch)]
     else:
-        args += [s, length, k, hop, w, n_fft]
+        args += [s, length, k, hop, w, n_fft, _choice(launch)]
     if s:
         _launch(name, buf_l.device, n_fft, *args)
     return (out_l, out_r, next_carry) if emit_carry else (out_l, out_r)
@@ -684,12 +769,14 @@ def _framed_tsplit(planes, carry, chunk, hann, n_fft: int):
 
 
 def stft_mag_split(left: torch.Tensor, right: torch.Tensor,
-                   hann: torch.Tensor, consts: FftConstants):
+                   hann: torch.Tensor, consts: FftConstants, launch=None):
     """(mag_l, mag_r) [rows, stft_bins(N, W)] f32 split-real magnitudes of
     the [rows, W] f32 window planes, hann `split_hann(W)`.
 
-    CPU tensors take the plain version; CUDA tensors take spk_stft_split,
-    or the large-N route."""
+    CPU tensors take the plain version; CUDA tensors take spk_stft_split
+    under the launch bounds `launch` names (one of
+    `launch_candidates("split", N)`; None the table's), or the large-N
+    route."""
     n_fft = consts.n_fft
     rows, w = left.shape
     if right.shape != left.shape or hann.shape != (w,) or w > n_fft:
@@ -706,13 +793,13 @@ def stft_mag_split(left: torch.Tensor, right: torch.Tensor,
     if rows:
         _launch(name, left.device, n_fft, left.data_ptr(), right.data_ptr(),
                 hann.data_ptr(), table.data_ptr(), out_l.data_ptr(),
-                out_r.data_ptr(), rows, w, n_fft)
+                out_r.data_ptr(), rows, w, n_fft, _choice(launch))
     return out_l, out_r
 
 
 def stft_mag_split_allk(buf_l: torch.Tensor, buf_r: torch.Tensor,
                         hann: torch.Tensor, consts: FftConstants,
-                        k: int, hop: int, emit_carry: bool = False):
+                        k: int, hop: int, emit_carry: bool = False, launch=None):
     """(mag_l, mag_r) [k*S, stft_bins(N, W)] f32 split-real magnitudes of
     the k windows buf[s, r*hop : r*hop+W] of the [S, L] f32 buffers, row
     r*S + s; hann `split_hann(W)`.  With `emit_carry` also the next carry
@@ -720,8 +807,8 @@ def stft_mag_split_allk(buf_l: torch.Tensor, buf_r: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors take
     spk_stft_split_allk (spk_stft_split_allk_carry with `emit_carry`),
-    which never materializes the windows, or at large N the framed windows
-    through the large-N route."""
+    which never materializes the windows, under `stft_mag_split`'s
+    `launch`, or at large N the framed windows through the large-N route."""
     n_fft = consts.n_fft
     _check_buffers(buf_l, buf_r, hann, n_fft, k, hop)
     if buf_l.device.type == "cpu":
@@ -731,12 +818,12 @@ def stft_mag_split_allk(buf_l: torch.Tensor, buf_r: torch.Tensor,
     if is_large_split(n_fft):
         return _framed_allk(_large_planes(LARGE_SPLIT_KERNEL, consts), buf_l, buf_r, hann,
                             n_fft, k, hop, emit_carry)
-    return _launch_allk(name, table, buf_l, buf_r, hann, n_fft, k, hop, emit_carry)
+    return _launch_allk(name, table, buf_l, buf_r, hann, n_fft, k, hop, emit_carry, launch)
 
 
 def stft_mag_split_carry(carry: torch.Tensor, chunk: torch.Tensor,
                          hann: torch.Tensor, consts: FftConstants,
-                         k: int, hop: int):
+                         k: int, hop: int, launch=None):
     """(mag_l, mag_r, next_carry): the split-real magnitudes [k*S,
     stft_bins(N, W)] f32 of the k windows of each stream's planar carry
     [S, 2, C] followed by its chunk [S, 2, k*hop] (f32, C = W - hop, hann
@@ -746,8 +833,9 @@ def stft_mag_split_carry(carry: torch.Tensor, chunk: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors take
     spk_stft_split_carry, which reads the two operands in place (no
-    concatenation) and writes the next carry itself; at large N the
-    concatenated buffers' windows take the large-N route."""
+    concatenation) and writes the next carry itself, under
+    `stft_mag_split`'s `launch`; at large N the concatenated buffers'
+    windows take the large-N route."""
     n_fft = consts.n_fft
     w = hann.shape[0]
     if carry.ndim != 3 or carry.shape[1] != 2:
@@ -771,7 +859,7 @@ def stft_mag_split_carry(carry: torch.Tensor, chunk: torch.Tensor,
     if s:
         _launch(name, carry.device, n_fft, carry.data_ptr(), chunk.data_ptr(),
                 hann.data_ptr(), table.data_ptr(), out_l.data_ptr(), out_r.data_ptr(),
-                next_carry.data_ptr(), s, c, k, hop, w, n_fft)
+                next_carry.data_ptr(), s, c, k, hop, w, n_fft, _choice(launch))
     return out_l, out_r, next_carry
 
 
@@ -795,14 +883,16 @@ def stft_mag_fused2_split(carry: torch.Tensor, chunk_pl: torch.Tensor,
                                 fft_constants(cfg.padded_size, dev), k, cfg.hop_size)
 
 
-def stft_mag_split_t(x: torch.Tensor, hann: torch.Tensor, consts: FftConstants):
+def stft_mag_split_t(x: torch.Tensor, hann: torch.Tensor, consts: FftConstants,
+                     launch=None):
     """(mag_l, mag_r) [rows, stft_bins(N, n1*m)] f32 split-real magnitudes
     of the windows of the combined transposed operand x [rows, 2, n1, m]
     f32 (x[n, c, j1, t] = sample t*n1 + j1 of channel c), hann
     `split_hann(n1*m)`.
 
-    CPU tensors take the plain version; CUDA tensors take spk_stft_split_t,
-    or at large N the reordered window planes through the large-N route."""
+    CPU tensors take the plain version; CUDA tensors take spk_stft_split_t
+    under `stft_mag_split`'s `launch`, or at large N the reordered window
+    planes through the large-N route."""
     n_fft = consts.n_fft
     if x.ndim != 4 or x.shape[1] != 2:
         raise ValueError(f"expected a [rows, 2, n1, m] operand; got {tuple(x.shape)}")
@@ -820,12 +910,12 @@ def stft_mag_split_t(x: torch.Tensor, hann: torch.Tensor, consts: FftConstants):
     out_l, out_r = _planes(rows, n_fft, n1 * m, x.device)
     if rows:
         _launch(name, x.device, n_fft, x.data_ptr(), hann.data_ptr(), table.data_ptr(),
-                out_l.data_ptr(), out_r.data_ptr(), rows, n1, m, n_fft)
+                out_l.data_ptr(), out_r.data_ptr(), rows, n1, m, n_fft, _choice(launch))
     return out_l, out_r
 
 
 def stft_mag_split_tsplit(carry: torch.Tensor, chunk: torch.Tensor,
-                          hann: torch.Tensor, consts: FftConstants):
+                          hann: torch.Tensor, consts: FftConstants, launch=None):
     """(mag_l, mag_r, next_carry): the split-real magnitudes [rows,
     stft_bins(N, W)] f32 of the windows whose columns are the transposed
     carry [rows, 2, n1, c_cols] followed by the transposed hop chunk [rows,
@@ -833,8 +923,9 @@ def stft_mag_split_tsplit(carry: torch.Tensor, chunk: torch.Tensor,
     the next carry [rows, 2, n1, c_cols] (`split_next_carry`), a new tensor.
 
     CPU tensors take the plain version; CUDA tensors take
-    spk_stft_split_tsplit, which writes the next carry itself; at large N
-    the framed windows take the large-N route."""
+    spk_stft_split_tsplit, which writes the next carry itself, under
+    `stft_mag_split`'s `launch`; at large N the framed windows take the
+    large-N route."""
     n_fft = consts.n_fft
     if carry.ndim != 4 or carry.shape[1] != 2:
         raise ValueError(f"expected a [rows, 2, n1, c_cols] carry; got {tuple(carry.shape)}")
@@ -857,5 +948,5 @@ def stft_mag_split_tsplit(carry: torch.Tensor, chunk: torch.Tensor,
     if rows:
         _launch(name, carry.device, n_fft, carry.data_ptr(), chunk.data_ptr(),
                 hann.data_ptr(), table.data_ptr(), out_l.data_ptr(), out_r.data_ptr(),
-                next_carry.data_ptr(), rows, n1, c_cols, t_cols, n_fft)
+                next_carry.data_ptr(), rows, n1, c_cols, t_cols, n_fft, _choice(launch))
     return out_l, out_r, next_carry

@@ -165,3 +165,11 @@ extern "C" int colormap_host_planar_tile(
 extern "C" int colormap_host_form(int span, int h, int res, int generic) {
   return spk::tile_staged(span, h, generic != 0, res) ? 1 : 0;
 }
+
+// colormap_tile.cuh `tile_launch_form`: the form a launch with `form`
+// (kTileFormRule, kTileFormStaged, kTileFormDirect) takes, or -1 where the
+// launch refuses it.
+extern "C" int colormap_host_launch_form(int span, int h, int res, int generic,
+                                         int form) {
+  return spk::tile_launch_form(span, h, generic != 0, res, form);
+}

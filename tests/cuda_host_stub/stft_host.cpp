@@ -567,3 +567,35 @@ extern "C" int stft_host_builtin(const float* mag_l, const float* mag_r,
   }
   return 0;
 }
+
+// The launch a choice takes (stft_fft.cuh kLaunchTable .. kLaunchNarrow) at
+// n: family 0 the packed rows (`with_row_bounds` over `with_fft_body`, as
+// kernel A and the all-windows kernels launch), 1 the split-real rows
+// (`with_split_bounds` over `with_real_body`), 2 the fused push
+// (push_fused.cuh `with_push_bounds`, its block the row's buffer and two
+// planes of stft_bins(n, w)); consts: the table the family reads (n's
+// `fft_table`, or `split_fft_table`).  out: the bounds' threads and blocks
+// per SM, the threads launched and the pass bound (`group_cap`).  Returns
+// 0, or the C tables' error where they refuse the choice.
+extern "C" int stft_host_launch(int family, int n, int w, int choice,
+                                const float* consts, int* out) {
+  const auto record = [&](auto bounds, int threads) {
+    using B = decltype(bounds);
+    out[0] = B::threads;
+    out[1] = B::blocks;
+    out[2] = threads;
+    out[3] = spk::group_cap<B>();
+    return 0;
+  };
+  if (family == 0) {
+    return spk::with_fft_body(n, consts, [&](auto body) {
+      return spk::with_row_bounds(body, record, choice);
+    });
+  }
+  return spk::with_real_body(n, consts, [&](auto row) {
+    if (family == 1) return spk::with_split_bounds(row, record, choice);
+    const size_t smem = row.buf_size() * sizeof(float2) +
+                        2 * spk::stft_bins(n, w) * sizeof(float);
+    return spk::with_push_bounds(row, smem, record, choice);
+  });
+}

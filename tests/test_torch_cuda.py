@@ -1298,3 +1298,40 @@ def test_mesh_world_one_under_nccl(cuda, tmp_path):
     assert str(got["backend"]) == "nccl" and str(got["sum_device"]) == "cuda"
     assert bool(got["same"]) and int(got["total"]) == 3 * 1024
     assert bool(got["restored"])
+
+
+@pytest.mark.parametrize("stft_packed", [True, False])
+def test_every_launch_candidate_gives_equal_rows(cuda, stft_packed):
+    """BENCH_CONFIG at k=1, 256 streams: the push under every launch shape
+    of its families (`launch_families`: the STFT rows' bounds, the tile's
+    form) gives the table's rows and next carry bit for bit, and the
+    candidate's kernels launch."""
+    kw = dict(chunk_hops=1, store_ring=False, packed_output=True,
+              stft_packed=stft_packed)
+    p = SpectrogramPipeline(BENCH_CONFIG, device=cuda, **kw)
+    s = 256
+    ids = np.arange(s) % len(p.schemes)
+    pcm = torch.from_numpy(testing.chirp_tone(s, 2 * p.chunk_size,
+                                              BENCH_CONFIG.sample_rate, seed=29)).to(cuda)
+    chunks = (pcm[:, : p.chunk_size], pcm[:, p.chunk_size :])
+
+    def run(launch):
+        p.override_launch(launch)
+        state = p.set_palette(p.init_state(s), ids)
+        rows = []
+        for chunk in chunks:
+            state, r = p.push(state, chunk)
+            rows.append(r)
+        return torch.cat(rows, dim=1), state.carry
+
+    want_rows, want_carry = run({})
+    lib = _build.library()
+    families = p.launch_families()
+    assert ("packed" if stft_packed else "split") in families and "tile" in families
+    for family, choices in families.items():
+        for choice in choices:
+            before = dict(lib.launches)
+            rows, carry = run({family: choice})
+            assert torch.equal(rows, want_rows), (family, choice)
+            assert torch.equal(carry, want_carry), (family, choice)
+            assert sum(lib.launches.values()) > sum(before.values())

@@ -13,6 +13,8 @@ call into `build/host/`; `io/sources.py`, `io/registry.py` and
     the native rings against each other, the numpy rings against each other,
     and the port's native ring against its numpy plain version; a
     cross-thread producer/consumer loses and reorders nothing in either;
+    the port's native banks are resident once made (every page written at
+    construction) and left as new;
   * the port's loader: a failed build raises with the compiler's output and
     never falls back; concurrent builds into one directory (per-process
     temporary files, then a rename) leave one loadable library; a `dest`
@@ -23,6 +25,7 @@ call into `build/host/`; `io/sources.py`, `io/registry.py` and
 """
 
 import ctypes
+import gc
 import inspect
 import os
 import pathlib
@@ -32,6 +35,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 from spectrogram_tpu.io import registry as jreg
 from spectrogram_tpu.io import ring as jring
@@ -201,6 +205,60 @@ def test_ring_bank16_ops_equal(seed):
         for st in range(s):
             _same(a.size(st), b.size(st))
     assert a.dropped_total > 0
+
+
+def _rss_bytes() -> int:
+    status = pathlib.Path("/proc/self/status").read_text()
+    return next(int(line.split()[1]) * 1024 for line in status.splitlines()
+                if line.startswith("VmRSS:"))
+
+
+@pytest.mark.parametrize("kind", ["RingBank", "RingBank16"])
+def test_native_bank_resident_once_made(kind):
+    """A native bank writes every page of its rings when it is made, so a
+    serving loop's first hops pay no first-touch page faults: the process's
+    resident set grows by the rings' bytes in the constructor.  The bank is
+    then as new (empty, nothing dropped) and passes frames through unchanged
+    across the capacity's wrap."""
+    cls, dtype, itemsize = {"RingBank": (tring.RingBank, np.float32, 4),
+                            "RingBank16": (tring.RingBank16, np.int16, 2)}[kind]
+    s, cap = 2048, 4096
+    gc.collect()
+    before = _rss_bytes()
+    bank = cls(s, cap, n_threads=2)
+    grown = _rss_bytes() - before
+    assert bank._handle and bank.capacity == cap
+    assert grown >= 0.9 * s * cap * 2 * itemsize, (grown, s * cap * 2 * itemsize)
+    assert bank.min_size() == 0 and bank.dropped_total == 0
+    rng = np.random.default_rng(7)
+    pop = bank.pop_matrix_planar if kind == "RingBank" else bank.pop_matrix_i16_planar
+    for _ in range(3):                                   # 3 x 3000 frames: wraps twice
+        block = (_words(rng, (s, 3000, 2)) if kind == "RingBank16"
+                 else rng.standard_normal((s, 3000, 2)).astype(dtype))
+        bank.push_matrix(block)
+        out, counts = pop(3000)
+        np.testing.assert_array_equal(out, block.transpose(0, 2, 1))
+        assert (counts == 3000).all()
+    assert bank.min_size() == 0 and bank.dropped_total == 0
+
+
+@pytest.mark.parametrize("resident", [False, True], ids=["as_malloc_left_them", "resident"])
+def test_ingest_probe_round_on_the_cpu(resident):
+    """`ingest_probe.paced_round` at a small size on the CPU: every hop is
+    drained in order, nothing is dropped, and each hop's lateness is
+    reported for both kinds of bank."""
+    from spectrogram_tpu_torch import ingest_probe
+    rng = np.random.default_rng(3)
+    s, t = 512, 4
+    hops = _words(rng, (t, s, ingest_probe.HOP_FRAMES, 2))
+    dest = rng.permutation(s).astype(np.uint64)
+    pool = [np.empty((s, 2, ingest_probe.HOP_FRAMES), np.int16) for _ in range(3)]
+    row = ingest_probe.paced_round(hops, dest, pool, 4096, resident, torch.device("cpu"))
+    assert row["rings"] == ("resident" if resident else "as malloc left them")
+    assert row["dropped"] == 0 and row["stalled_at_tick"] is None and not row["errors"]
+    assert len(row["worst_lateness_per_hop_ms"]) == t and row["first_drain_ms"] is not None
+    last = pool[(t - 1) % 3]                        # the last hop, in dest order
+    np.testing.assert_array_equal(last[dest.astype(np.int64)], hops[-1].transpose(0, 2, 1))
 
 
 @pytest.mark.parametrize("side", ["port", "jax"])

@@ -340,6 +340,7 @@ def test_import_leaves_jax_out():
         "spectrogram_tpu_torch.LiveSession, spectrogram_tpu_torch.StreamGroupManager\n"
         "import spectrogram_tpu_torch.parallel.mesh, spectrogram_tpu_torch.parallel.distributed\n"
         "import spectrogram_tpu_torch.parallel.dryrun\n"
+        "import spectrogram_tpu_torch.utils.autotune\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'orbax' or m.startswith('orbax.')"
