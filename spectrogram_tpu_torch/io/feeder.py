@@ -8,6 +8,14 @@ asynchronous queue: a push is enqueued while the previous one still runs,
 and the host->device copy of chunk N+1 overlaps the kernels of chunk N
 (SURVEY.md §7, "hop-tick dispatch cadence with async dispatch depth 2").
 
+While a `torch.profiler` records, each `push` opens `utils.profiling.span`s:
+`spk.feeder.tick` around it, and inside `spk.feeder.copy_in` (the
+defensive host copy), `spk.feeder.upload` (the H2D enqueue),
+`spk.feeder.push` (the pipeline's push), `spk.feeder.upload_wait` (the
+drained push's copy event), `spk.feeder.readback` (the host copy of its
+rows, or the probe's completion wait; `spk.feeder.readback.stage` the
+pinned staging buffer inside) and `spk.feeder.on_rows` (the consumer).
+
 How a host chunk reaches the card: `push` copies it with
 `non_blocking=True` on a side copy stream, the compute stream waits on that
 copy's event, and the device tensor is marked as used by the compute stream
@@ -36,7 +44,7 @@ import torch
 
 from spectrogram_tpu_torch.models.spectrogram import SpectrogramPipeline, StreamState
 from spectrogram_tpu_torch.utils.probe import ThroughputProbe
-from spectrogram_tpu_torch.utils.profiling import LatencyTracker
+from spectrogram_tpu_torch.utils.profiling import LatencyTracker, span
 
 
 def _host_copy(rows: torch.Tensor) -> np.ndarray:
@@ -47,7 +55,8 @@ def _host_copy(rows: torch.Tensor) -> np.ndarray:
     42 MB of a 10,240-stream tick (PERF.md section 6, PR 15)."""
     if not rows.is_cuda:
         return rows.contiguous().numpy()
-    staged = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+    with span("feeder.readback.stage"):
+        staged = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
     staged.copy_(rows)
     return staged.numpy()
 
@@ -203,47 +212,54 @@ class DeviceFeeder:
         rows, copy, start, done = self._inflight.popleft()
         if copy is not None:
             # the ChunkPool contract: this push's host buffer is free again
-            copy[1].synchronize()
+            with span("feeder.upload_wait"):
+                copy[1].synchronize()
             self.h2d.record(copy[0].elapsed_time(copy[1]) * 1e-3)
-        if self.readback == "probe":
-            if done is not None:
-                done.synchronize()   # force completion only
-            host = rows              # stays on the device
-        else:
-            host = _host_copy(rows)  # forces completion
+        with span("feeder.readback"):
+            if self.readback == "probe":
+                if done is not None:
+                    done.synchronize()   # force completion only
+                host = rows              # stays on the device
+            else:
+                host = _host_copy(rows)  # forces completion
         if done is not None:
             self.device_time.record(start.elapsed_time(done) * 1e-3)
         if self.on_rows is not None:
-            self.on_rows(host)
+            with span("feeder.on_rows"):
+                self.on_rows(host)
         return host
 
     def push(self, chunk):
         """Enqueue one chunk (numpy or tensor); returns a completed older
         result once the pipeline is primed (None during the first `depth-1`
         pushes)."""
-        owned = self.copy_chunks and isinstance(chunk, np.ndarray)
-        if owned:
-            chunk = chunk.copy()
-        x, copy = self._to_device(chunk, owned)
-        start = done = None
-        if self.pipeline.device.type == "cuda":
-            compute = torch.cuda.current_stream(self.pipeline.device)
-            start = torch.cuda.Event(enable_timing=True)
-            start.record(compute)
-        if self.planar:
-            self.state, rgba = self.pipeline.push_planar(self.state, x)
-            chunk_len = x.shape[2]
-        else:
-            self.state, rgba = self.pipeline.push(self.state, x)
-            chunk_len = x.shape[1]
-        if start is not None:
-            done = torch.cuda.Event(enable_timing=True)
-            done.record(compute)
-        self._inflight.append((rgba, copy, start, done))
-        self.probe.record_push(x.shape[0], chunk_len, self.pipeline.chunk_hops)
-        if len(self._inflight) > self.depth - 1:
-            return self._drain_one()
-        return None
+        with span("feeder.tick"):
+            owned = self.copy_chunks and isinstance(chunk, np.ndarray)
+            if owned:
+                with span("feeder.copy_in"):
+                    chunk = chunk.copy()
+            with span("feeder.upload"):
+                x, copy = self._to_device(chunk, owned)
+            start = done = None
+            if self.pipeline.device.type == "cuda":
+                compute = torch.cuda.current_stream(self.pipeline.device)
+                start = torch.cuda.Event(enable_timing=True)
+                start.record(compute)
+            with span("feeder.push"):
+                if self.planar:
+                    self.state, rgba = self.pipeline.push_planar(self.state, x)
+                    chunk_len = x.shape[2]
+                else:
+                    self.state, rgba = self.pipeline.push(self.state, x)
+                    chunk_len = x.shape[1]
+            if start is not None:
+                done = torch.cuda.Event(enable_timing=True)
+                done.record(compute)
+            self._inflight.append((rgba, copy, start, done))
+            self.probe.record_push(x.shape[0], chunk_len, self.pipeline.chunk_hops)
+            if len(self._inflight) > self.depth - 1:
+                return self._drain_one()
+            return None
 
     def flush(self) -> list:
         """Force all in-flight pushes (end of stream / checkpoint point)."""

@@ -95,10 +95,20 @@ pipeline's `launch` (`override_launch`, which `autotune=True` calls with
 ("packed", "split", "tile"; `launch_families` lists those its push runs),
 and every launch of its push, `process()` and `render_viewport` takes it;
 every shape gives the same bits.
+
+While a `torch.profiler` records, a push opens a `utils.profiling.span` per
+stage (`spk.push` around it; `spk.wire`, `spk.order.perms`,
+`spk.order.chunk`, `spk.frame`, `spk.stft`, `spk.order.bridge`,
+`spk.colormap`, `spk.order.rows`, `spk.ring`, `spk.state` inside), and
+`render_viewport` opens `spk.render`; with none recording they cost a flag
+read each.  `SpectrogramPipeline.counters` counts the palette-layout
+decisions and the order and ring stages the pushes took, as plain host
+integers.
 """
 
 from __future__ import annotations
 
+import collections
 import copy
 from typing import NamedTuple, Optional
 
@@ -110,6 +120,7 @@ from spectrogram_tpu_torch.ops import colormap as cmap_ops
 from spectrogram_tpu_torch.ops import fft_plan
 from spectrogram_tpu_torch.ops import stft as stft_ops
 from spectrogram_tpu_torch.ops.cuda import colormap_kernel, stft_kernel
+from spectrogram_tpu_torch.utils.profiling import span
 
 # Stream blocks of render_viewport hold at most this many bytes of f32 rows.
 RENDER_BLOCK_BYTES = 1 << 29
@@ -243,6 +254,22 @@ class SpectrogramPipeline:
         bit and its 2 within 2^-17, so it changes nothing here.
       device: where state, constants and kernels live: "cuda" (the default)
         runs the kernels, "cpu" their plain versions.
+
+    `counters` (a `collections.Counter` of host integers) counts each
+    palette-layout decision where it is taken (`set_palette`,
+    `restored_tables_for`, the mesh's sharded layouts): "layout.clustered"
+    (the marker, no sort), "layout.sorted_blocks" (the block sort),
+    "layout.sorted_global" (the length-4 form: the whole-state sort or the
+    mesh's per-shard sort), "layout.unsorted" (the rule refused every order
+    it tried, or the sort is off or cannot take the tables),
+    "layout.generic" (a generic registry's (u, v) pair) and "layout.tests"
+    (each blockwise test), and the pushes that took each gather of the
+    palette order and the ring write: "push.order_chunk",
+    "push.bridge", "push.order_rows", "push.ring".  `last_layout` is
+    {"blocks": row blocks, "uniform": single-palette blocks} of the last
+    order the blockwise test read: the order the pushes run where the rule
+    took one, else the last (most sorted) order it refused; None before
+    any test.
     """
 
     def __init__(
@@ -417,6 +444,8 @@ class SpectrogramPipeline:
         if colormap_backend == "xla":
             self._use_plain_colormap()
         self.launch = {}
+        self.counters = collections.Counter()
+        self.last_layout = None
         if self.autotune and self.device.type == "cuda":
             self.override_launch(self._tuned_launch())
 
@@ -452,6 +481,7 @@ class SpectrogramPipeline:
         kernels, on the same device: what the kernels are held against on
         the card."""
         twin = copy.copy(self)
+        twin.counters = collections.Counter()
         twin._use_plain_stft()
         twin._use_plain_colormap()
         return twin
@@ -729,15 +759,19 @@ class SpectrogramPipeline:
         palette sort where it pays; a generic (u, v) pair is neither marked
         nor sorted, as in JAX."""
         if len(tables) != 1:
+            self.counters["layout.generic" if tables else "layout.unsorted"] += 1
             return tables
         if self._blockwise_auto_decision(layout):
             # already clustered: the marker, and no sort
+            self.counters["layout.clustered"] += 1
             if self.blockwise_palettes == "auto":
                 return tables + (self._bw_marker(),)
             return tables
-        if self.palette_sort:
-            return self._sorted_tables(tables, layout) or tables
-        return tables
+        sorted_tables = self._sorted_tables(tables, layout) if self.palette_sort else None
+        if sorted_tables is None:
+            self.counters["layout.unsorted"] += 1
+            return tables
+        return sorted_tables
 
     def restored_tables_for(self, palette_id) -> tuple:
         """`state_tables_for` the [S] ids with the layout class `set_palette`
@@ -800,10 +834,13 @@ class SpectrogramPipeline:
         s = int(ids.shape[0])
         ts = self._cmap_ts(s * self.chunk_hops)
         nb = s // ts
+        self.counters["layout.tests"] += 1
         if nb == 0:
+            self.last_layout = {"blocks": 0, "uniform": 0}
             return bool(ids.size) and bool((ids == ids.flat[0]).all())
         head = ids[: nb * ts].reshape(nb, ts)
         uniform = (head == head[:, :1]).all(axis=1)
+        self.last_layout = {"blocks": nb, "uniform": int(uniform.sum())}
         return float(uniform.mean()) >= self._BW_AUTO_FRAC
 
     def _state_blockwise(self, state: StreamState) -> bool:
@@ -834,6 +871,7 @@ class SpectrogramPipeline:
             sorted_layout[b0:b1] = layout[b0:b1][p]
         if not self._blockwise_auto_decision(sorted_layout):
             return self._global_sorted_tables(tables, layout, bs)
+        self.counters["layout.sorted_blocks"] += 1
         gp = perm + (np.arange(s, dtype=np.int32) // bs) * bs
         return (tables[0].index_select(0, self._device_index(gp)),
                 self._device_index(perm), self._device_index(inv))
@@ -867,6 +905,7 @@ class SpectrogramPipeline:
             inv[p] = np.arange(b0, b1, dtype=np.int32)
         if not self._blockwise_auto_decision(layout[perm]):
             return None
+        self.counters["layout.sorted_global"] += 1
         return (tables[0].index_select(0, self._device_index(perm)),
                 self._device_index(perm), self._device_index(inv),
                 self._bw_marker())
@@ -1014,7 +1053,8 @@ class SpectrogramPipeline:
             raise ValueError(
                 f"chunk must be [S, {self.chunk_size}, 2]; got {tuple(chunk.shape)}"
             )
-        return self._push_core(state, self._chunk_in(chunk).transpose(1, 2))
+        with span("push"):
+            return self._push_core(state, self._chunk_in(chunk).transpose(1, 2))
 
     def push_planar(self, state: StreamState, chunk_planar: torch.Tensor):
         """As push, with the chunk channels-planar: [S, 2, k*hop]."""
@@ -1023,30 +1063,36 @@ class SpectrogramPipeline:
                 f"planar chunk must be [S, 2, {self.chunk_size}]; got "
                 f"{tuple(chunk_planar.shape)}"
             )
-        return self._push_core(state, self._chunk_in(chunk_planar))
+        with span("push"):
+            return self._push_core(state, self._chunk_in(chunk_planar))
 
     def _chunk_in(self, chunk: torch.Tensor) -> torch.Tensor:
         """Wire-dtype edge: i16_planes pipelines keep int16 words (and take
         nothing else: a silent cast would be lossy); others convert to f32,
         int16 words scaled by 1/32768 on the device (the JAX pipeline's
         `_chunk_f32`)."""
-        chunk = chunk.to(self.device)
-        if self.i16_planes:
-            if chunk.dtype != torch.int16:
-                raise ValueError(
-                    "i16_planes pipelines require int16 chunks (the wire "
-                    f"dtype); got {chunk.dtype}"
-                )
-            return chunk
-        if chunk.dtype == torch.int16:
-            return chunk.to(torch.float32) * (1.0 / 32768.0)
-        return chunk.to(torch.float32)
+        with span("wire"):
+            chunk = chunk.to(self.device)
+            if self.i16_planes:
+                if chunk.dtype != torch.int16:
+                    raise ValueError(
+                        "i16_planes pipelines require int16 chunks (the wire "
+                        f"dtype); got {chunk.dtype}"
+                    )
+                return chunk
+            if chunk.dtype == torch.int16:
+                return chunk.to(torch.float32) * (1.0 / 32768.0)
+            return chunk.to(torch.float32)
 
     def frame_buffers(self, state: StreamState, chunk_pl: torch.Tensor):
         """Split-channel framing of one push: (buf_l, buf_r, new_carry) with
         buf_l/buf_r the [S, C + k*hop] sample planes of carry + chunk (f32,
         or int16 with i16_planes) and new_carry their last C samples, built
         from the sources."""
+        with span("frame"):
+            return self._frame_buffers(state, chunk_pl)
+
+    def _frame_buffers(self, state: StreamState, chunk_pl: torch.Tensor):
         c, t = self.carry_size, self.chunk_size
         buf_l = torch.cat([state.carry[:, 0, :], chunk_pl[:, 0, :]], dim=1)
         buf_r = torch.cat([state.carry[:, 1, :], chunk_pl[:, 1, :]], dim=1)
@@ -1059,9 +1105,10 @@ class SpectrogramPipeline:
     def frame_windows(self, state: StreamState, chunk_pl: torch.Tensor):
         """k=1 framing: (left, right, new_carry) with left/right the [S, W]
         window planes."""
-        buf_l, buf_r, new_carry = self.frame_buffers(state, chunk_pl)
-        w = self.cfg.window_size
-        return buf_l[:, :w].contiguous(), buf_r[:, :w].contiguous(), new_carry
+        with span("frame"):
+            buf_l, buf_r, new_carry = self._frame_buffers(state, chunk_pl)
+            w = self.cfg.window_size
+            return buf_l[:, :w].contiguous(), buf_r[:, :w].contiguous(), new_carry
 
     def _chunk_transposed(self, chunk_pl: torch.Tensor) -> torch.Tensor:
         """[S, 2, T] -> [S, 2, n1, T/n1]: sample t*n1 + j1 at [j1, t]."""
@@ -1073,29 +1120,39 @@ class SpectrogramPipeline:
         """Transposed-carry framing (the JAX `_push_fused_t` glue): (x,
         new_carry) with x the [k*S, 2, n1, m] windows, window-major, of the
         carry + transposed chunk, and new_carry its last C/n1 columns."""
-        n1, m = self.fft_plan.n1, self.fft_plan.m
-        buf_t = torch.cat([state.carry, self._chunk_transposed(chunk_pl)], dim=3)
-        cols = buf_t.shape[3]
-        new_carry = buf_t[..., cols - self.carry_size // n1 :].contiguous()
-        if self.chunk_hops == 1:
-            return buf_t, new_carry                      # cols == m
-        hop_m = self.cfg.hop_size // n1
-        x = torch.cat([buf_t[..., r * hop_m : r * hop_m + m]
-                       for r in range(self.chunk_hops)])
-        return x, new_carry
+        with span("frame"):
+            n1, m = self.fft_plan.n1, self.fft_plan.m
+            buf_t = torch.cat([state.carry, self._chunk_transposed(chunk_pl)], dim=3)
+            cols = buf_t.shape[3]
+            new_carry = buf_t[..., cols - self.carry_size // n1 :].contiguous()
+            if self.chunk_hops == 1:
+                return buf_t, new_carry                      # cols == m
+            hop_m = self.cfg.hop_size // n1
+            x = torch.cat([buf_t[..., r * hop_m : r * hop_m + m]
+                           for r in range(self.chunk_hops)])
+            return x, new_carry
 
     def _framed_stft(self, state: StreamState, chunk_pl: torch.Tensor):
         """Framing and the STFT of one push, by the pipeline's layout:
-        (mag_l, mag_r, new_carry), the planes [k*S, N/2] window-major."""
+        (mag_l, mag_r, new_carry), the planes [k*S, N/2] window-major.
+
+        The `spk.frame` spans hold the framing done on the device before the
+        kernel, the `spk.stft` spans the STFT launches alone; in the tsplit
+        and transposed-carry layouts the kernel reads the carry and the
+        chunk (or the framed windows) itself, so `spk.stft` holds that part
+        of the framing too."""
         k, tw = self.chunk_hops, self.fft_consts
         split = self.launch.get("split")
         if self.tsplit_framing:
-            return self._stft_split_tsplit(
-                state.carry, self._chunk_transposed(chunk_pl).contiguous(),
-                self.split_hann, tw, launch=split)
+            with span("frame"):
+                chunk_t = self._chunk_transposed(chunk_pl).contiguous()
+            with span("stft"):
+                return self._stft_split_tsplit(state.carry, chunk_t, self.split_hann, tw,
+                                               launch=split)
         if self.carry_transposed:
             x, new_carry = self.frame_transposed(state, chunk_pl)
-            return (*self._stft_split_t(x, self.split_hann, tw, launch=split), new_carry)
+            with span("stft"):
+                return (*self._stft_split_t(x, self.split_hann, tw, launch=split), new_carry)
         if not self.stft_packed:
             hann, stft, stft_allk = self.split_hann, self._stft_split, self._stft_split_allk
             launch = split
@@ -1105,10 +1162,12 @@ class SpectrogramPipeline:
             launch = self.launch.get("packed")
         if k == 1:
             left, right, new_carry = self.frame_windows(state, chunk_pl)
-            return (*stft(left, right, hann, tw, launch=launch), new_carry)
+            with span("stft"):
+                return (*stft(left, right, hann, tw, launch=launch), new_carry)
         buf_l, buf_r, new_carry = self.frame_buffers(state, chunk_pl)
-        return (*stft_allk(buf_l, buf_r, hann, tw, k, self.cfg.hop_size, launch=launch),
-                new_carry)
+        with span("stft"):
+            return (*stft_allk(buf_l, buf_r, hann, tw, k, self.cfg.hop_size, launch=launch),
+                    new_carry)
 
     def _push_core(self, state: StreamState, chunk_pl: torch.Tensor):
         if state.carry.dtype != self.carry_dtype:
@@ -1129,34 +1188,43 @@ class SpectrogramPipeline:
             # int16 words cannot carry NaN or inf: nothing to scrub
             chunk_pl = torch.where(torch.isfinite(chunk_pl), chunk_pl, 0.0)
         s, k = chunk_pl.shape[0], self.chunk_hops
-        perms = self._global_perms(state)
+        with span("order.perms"):
+            perms = self._global_perms(state)
         if perms is not None and self.carry_sort_mode and not self.presorted_input:
             # the carry is at rest in sorted order: bring the chunk into it
-            chunk_pl = chunk_pl.index_select(0, perms[0])
+            self.counters["push.order_chunk"] += 1
+            with span("order.chunk"):
+                chunk_pl = chunk_pl.index_select(0, perms[0])
         mag_l, mag_r, new_carry = self._framed_stft(state, chunk_pl)
         cm_l, cm_r = mag_l, mag_r
         if perms is not None and not self.carry_sort_mode:
             # the mag-bridge: the planes come in external order (the ring
             # keeps it); the sorted tables want them sorted
-            rp = self._row_perm(perms[0], s, k)
-            cm_l, cm_r = mag_l.index_select(0, rp), mag_r.index_select(0, rp)
+            self.counters["push.bridge"] += 1
+            with span("order.bridge"):
+                rp = self._row_perm(perms[0], s, k)
+                cm_l, cm_r = mag_l.index_select(0, rp), mag_r.index_select(0, rp)
         # window-major rows r*S + s take table (r*S + s) % S = s
         rows = self._run_colormap(cm_l, cm_r, self.taps,
                                   self._colormap_tables(state.tables),
                                   self._state_blockwise(state))
         if perms is not None and not self.sorted_output:
-            rows = rows.index_select(0, self._row_perm(perms[1], s, k))
+            self.counters["push.order_rows"] += 1
+            with span("order.rows"):
+                rows = rows.index_select(0, self._row_perm(perms[1], s, k))
         if self.store_ring:
+            self.counters["push.ring"] += 1
             self._write_ring(state, mag_l, mag_r)
-        new_state = StreamState(
-            carry=new_carry,
-            ring=state.ring,
-            cursor=(state.cursor + k) % self.viewport_rows,
-            palette_id=state.palette_id,
-            row_count=state.row_count + k,
-            tables=state.tables,
-        )
-        return new_state, self._output(rows.view(k, s, -1).transpose(0, 1))
+        with span("state"):
+            new_state = StreamState(
+                carry=new_carry,
+                ring=state.ring,
+                cursor=(state.cursor + k) % self.viewport_rows,
+                palette_id=state.palette_id,
+                row_count=state.row_count + k,
+                tables=state.tables,
+            )
+            return new_state, self._output(rows.view(k, s, -1).transpose(0, 1))
 
     def _run_colormap(self, mag_l: torch.Tensor, mag_r: torch.Tensor, taps,
                       tables: tuple, blockwise: bool,
@@ -1165,19 +1233,20 @@ class SpectrogramPipeline:
         static_palette pipeline, the generic one for a (u, v) pair, else the
         blockwise colormap for a blockwise state with per-row tables and
         kernel B otherwise (one table is uniform everywhere)."""
-        cfg = self.cfg
-        if self.static_table is not None:
-            return self._colormap_static(mag_l, mag_r, taps, self.static_table, cfg)
-        form = self._tile_launch(taps)
-        if len(tables) == 2:
-            return self._colormap_generic(mag_l, mag_r, taps, *tables, cfg,
-                                          rows_per_table, launch=form)
-        (t,) = tables
-        if blockwise and t.shape[0] > 1:
-            return self._colormap_bw(mag_l, mag_r, taps, t, cfg, rows_per_table,
-                                     block_rows=self._cmap_ts(mag_l.shape[0]),
-                                     launch=form)
-        return self._colormap(mag_l, mag_r, taps, t, cfg, rows_per_table, launch=form)
+        with span("colormap"):
+            cfg = self.cfg
+            if self.static_table is not None:
+                return self._colormap_static(mag_l, mag_r, taps, self.static_table, cfg)
+            form = self._tile_launch(taps)
+            if len(tables) == 2:
+                return self._colormap_generic(mag_l, mag_r, taps, *tables, cfg,
+                                              rows_per_table, launch=form)
+            (t,) = tables
+            if blockwise and t.shape[0] > 1:
+                return self._colormap_bw(mag_l, mag_r, taps, t, cfg, rows_per_table,
+                                         block_rows=self._cmap_ts(mag_l.shape[0]),
+                                         launch=form)
+            return self._colormap(mag_l, mag_r, taps, t, cfg, rows_per_table, launch=form)
 
     def _write_ring(self, state: StreamState, mag_l: torch.Tensor,
                     mag_r: torch.Tensor) -> None:
@@ -1192,9 +1261,10 @@ class SpectrogramPipeline:
                 f"the state's ring has {r} rows; this pipeline keeps "
                 f"{self.viewport_rows} (store_ring={self.store_ring})"
             )
-        rows = torch.stack([mag_l[:, 1:w], mag_r[:, 1:w]], dim=1).to(self.ring_dtype)
-        at = state.cursor.to(torch.int64) + torch.arange(k, device=self.device)
-        state.ring.index_copy_(1, at, rows.view(k, s, 2, -1).transpose(0, 1))
+        with span("ring"):
+            rows = torch.stack([mag_l[:, 1:w], mag_r[:, 1:w]], dim=1).to(self.ring_dtype)
+            at = state.cursor.to(torch.int64) + torch.arange(k, device=self.device)
+            state.ring.index_copy_(1, at, rows.view(k, s, 2, -1).transpose(0, 1))
 
     def _output(self, packed: torch.Tensor) -> torch.Tensor:
         if self.packed_output:
@@ -1219,34 +1289,35 @@ class SpectrogramPipeline:
         sorted state's viewport re-picks per-row tables from its ids."""
         if not self.store_ring:
             raise ValueError("this pipeline keeps no ring (store_ring=False)")
-        ring = state.ring
-        if self._state_perm(state) is not None:
-            tables = self.state_tables_for(state.palette_id)
-            blockwise = self.blockwise_palettes is True
-        else:
-            tables = self._colormap_tables(state.tables)
-            blockwise = self._state_blockwise(state)
-        s, r, _, b = ring.shape
-        out_rows = r if width is None else int(width)
-        j0, j1, w0, w1 = self._time_resample_taps(r, out_rows)
-        cursor = state.cursor.to(torch.int64)
-        i0, i1 = (cursor + j0) % r, (cursor + j1) % r
-        block = max(1, RENDER_BLOCK_BYTES // (out_rows * 2 * b * 4))
-        out = []
-        for s0 in range(0, s, block):
-            rows = ring[s0 : s0 + block]
-            planes = []
-            for c in range(2):
-                x = rows[:, :, c].index_select(1, i0).to(torch.float32)
-                if out_rows != r:
-                    y = rows[:, :, c].index_select(1, i1).to(torch.float32)
-                    x = w0 * x + w1 * y
-                planes.append(x.reshape(-1, b))
-            tab = tuple(t if t.shape[0] == 1 else t[s0 : s0 + block] for t in tables)
-            packed = self._run_colormap(planes[0], planes[1], self.ring_taps, tab,
-                                        blockwise, rows_per_table=out_rows)
-            out.append(packed.view(-1, out_rows, packed.shape[1]))
-        return self._output(torch.cat(out))
+        with span("render"):
+            ring = state.ring
+            if self._state_perm(state) is not None:
+                tables = self.state_tables_for(state.palette_id)
+                blockwise = self.blockwise_palettes is True
+            else:
+                tables = self._colormap_tables(state.tables)
+                blockwise = self._state_blockwise(state)
+            s, r, _, b = ring.shape
+            out_rows = r if width is None else int(width)
+            j0, j1, w0, w1 = self._time_resample_taps(r, out_rows)
+            cursor = state.cursor.to(torch.int64)
+            i0, i1 = (cursor + j0) % r, (cursor + j1) % r
+            block = max(1, RENDER_BLOCK_BYTES // (out_rows * 2 * b * 4))
+            out = []
+            for s0 in range(0, s, block):
+                rows = ring[s0 : s0 + block]
+                planes = []
+                for c in range(2):
+                    x = rows[:, :, c].index_select(1, i0).to(torch.float32)
+                    if out_rows != r:
+                        y = rows[:, :, c].index_select(1, i1).to(torch.float32)
+                        x = w0 * x + w1 * y
+                    planes.append(x.reshape(-1, b))
+                tab = tuple(t if t.shape[0] == 1 else t[s0 : s0 + block] for t in tables)
+                packed = self._run_colormap(planes[0], planes[1], self.ring_taps, tab,
+                                            blockwise, rows_per_table=out_rows)
+                out.append(packed.view(-1, out_rows, packed.shape[1]))
+            return self._output(torch.cat(out))
 
     def _time_resample_taps(self, rows: int, width: int):
         """(j0, j1, w0, w1): column j of the [rows, width] time-resample

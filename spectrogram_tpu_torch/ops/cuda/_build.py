@@ -11,7 +11,9 @@ Nothing here runs at import time: the first kernel launch builds the library.
 `KernelLibrary.launches` counts each kernel's launches, and
 `KernelLibrary.body_launches` the STFT launches by FFT body (radix 2, mixed
 radix, Bluestein, and the large-N route), so that a run can show that its
-main path went through the kernels and bodies.
+main path went through the kernels and bodies; `KernelLibrary.build_s` is
+the seconds nvcc took to build the library the process loaded (0.0 where
+the build was current).
 """
 
 from __future__ import annotations
@@ -168,8 +170,9 @@ class KernelLibrary:
     """The loaded kernel library: one launch function per kernel, each of
     which raises on a refused launch and counts the launches it made."""
 
-    def __init__(self, path: pathlib.Path):
+    def __init__(self, path: pathlib.Path, build_s: float = 0.0):
         self.path = path
+        self.build_s = build_s        # nvcc's wall seconds, 0.0 for a current build
         self._dll = ctypes.CDLL(str(path))
         for name, argtypes in KERNELS.items():
             fn = getattr(self._dll, name)
@@ -201,4 +204,4 @@ class KernelLibrary:
 @functools.lru_cache(maxsize=None)
 def library() -> KernelLibrary:
     """The process's kernel library, built on first use."""
-    return KernelLibrary(build()[0])
+    return KernelLibrary(*build())

@@ -205,15 +205,19 @@ def sharded_layout_tables(pipeline: SpectrogramPipeline, palette_id, n_shards: i
     layout = np.asarray(palette_id, np.int32).reshape(-1)
     pipeline._check_ids(layout)
     tables = pipeline.state_tables_for(pipeline._device_index(layout))
+    counters = pipeline.counters      # as the pipeline's own layout decisions count
     if len(tables) != 1:
+        counters["layout.generic" if tables else "layout.unsorted"] += 1
         return tables
     if pipeline._blockwise_auto_decision(layout):
+        counters["layout.clustered"] += 1
         return tables + ((pipeline._bw_marker(),) if pipeline.blockwise_palettes == "auto" else ())
     s = layout.shape[0]
     if _per_shard_sort_applies(pipeline, tables, s, n_shards):
         st = pipeline._view_sorted_tables(tables, layout, s // n_shards)
         if st is not None:
             return st
+    counters["layout.unsorted"] += 1
     return tables
 
 

@@ -1200,6 +1200,51 @@ def test_feeder_on_the_card_equals_pushes(cuda, depth, wire):
     assert all(x > 0 for x in feeder.h2d.samples + feeder.device_time.samples)
 
 
+
+def test_feeder_spans_on_the_card(cuda):
+    """The feeder's spans on the card under a CPU+CUDA profiler: the
+    copy-event wait and the pinned staging of the readback (which a CPU
+    pipeline has not) inside the tick, the kernels launched under the
+    pipeline's stage spans, and no `spk.` range mirrored onto the device's
+    timeline (the profiler keeps none for these ranges)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spectrogram_tpu_torch.io.feeder import ChunkPool, DeviceFeeder
+
+    s = 512
+    p = SpectrogramPipeline(BENCH_CONFIG, device=cuda, chunk_hops=1, store_ring=False,
+                            packed_output=True, i16_planes=True, presorted_input=True,
+                            sorted_output=True, stream_blocks=256)
+    state = p.set_palette(p.init_state(s), (np.arange(s) // 64) % 2)
+    feeder = DeviceFeeder(p, state, depth=2, planar=True, copy_chunks=False)
+    pool = ChunkPool.for_feeder(feeder, s, dtype=np.int16)
+    for _ in range(len(pool)):
+        pool.next()[...] = 7
+    feeder.push(pool.next())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            feeder.push(pool.next())
+        torch.cuda.synchronize()
+    feeder.flush()
+    spans = {}
+    for e in prof.events():
+        if e.name.startswith("spk.") and e.device_type == torch.autograd.DeviceType.CPU:
+            parent = e.cpu_parent
+            while parent is not None and not parent.name.startswith("spk."):
+                parent = parent.cpu_parent
+            spans[e.name] = parent.name if parent is not None else None
+    assert spans["spk.feeder.upload_wait"] == "spk.feeder.tick"
+    assert spans["spk.feeder.readback"] == "spk.feeder.tick"
+    assert spans["spk.feeder.readback.stage"] == "spk.feeder.readback"
+    assert spans["spk.stft"] == spans["spk.colormap"] == "spk.push"
+    kineto = prof.profiler.kineto_results.events()
+    assert not [k.name() for k in kineto
+                if k.device_type() != torch.autograd.DeviceType.CPU
+                and k.name().startswith("spk.")]
+    assert [k for k in kineto if k.device_type() == torch.autograd.DeviceType.CUDA
+            and "stft" in k.name()]
+
+
 # ------------------------------------- the multi-rate manager and the analyzer
 
 def test_manager_groups_equal_their_pipelines(cuda):
