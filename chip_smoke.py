@@ -37,8 +37,8 @@ Phases, each of which fails the run with a non-zero exit:
      arange(S) % 19, 260 pushes of
      chirp+tone (the ring wraps), process() of the same PCM, and
      render_viewport at R and at width 800.  The launch counts of the
-     all-windows kernel, kernel A (process) and kernel B must rise; the
-     streamed rows must equal process() exactly; rows, ring and next carry
+     all-windows kernel, kernel A (process) and kernel B must rise, the
+     ring write's by one a push; the streamed rows must equal process() exactly; rows, ring and next carry
      must match the same pushes on the plain versions (1 u8 over what the
      image shows, 1 bf16 ulp beyond the STFT bar, exactly); both renders
      within 1 u8 of the plain render of the same state.
@@ -316,10 +316,20 @@ Phases, each of which fails the run with a non-zero exit:
      StreamGroupManager(autotune=True) of BENCH_CONFIG and phase 27's
      44.1 kHz geometry launches each group's own pick.  Only correctness
      fails the run; the times are printed.
+ 30. the ring write (`csrc/ring_write.cu`) at the display cells' shape:
+     2,048 streams, k=8, DEFAULT_CONFIG's 2,399 bins, a bf16 ring of
+     R=2048 rows (40 GB, so offsets pass 2^31 elements), the planes the
+     all-windows kernel makes of chirp+tone with NaN, inf, 3e38 and
+     subnormals set in a few rows: at cursors 0 and R-8 the written rows
+     bit for bit `ring_write_plain`'s on the same planes and every other
+     row untouched.  Device ms (CUDA events, mean of 20) of the kernel and
+     of `ring_write_plain` into that ring and into a 64-row one, beside an
+     ATen cast of the same planes to bf16 (the same bytes, no ring) and
+     its bound.
 
 Then the whole run's seconds.  The second-to-last line is {"kernels": [...]}:
 each kernel's launches on the main paths (phases 5, 9, 12, 15, 18, 21, 22,
-23, 24, 26, 27, 28 and 29; the Bluestein body's row counts every STFT launch at such an N
+23, 24, 26, 27, 28 and 29; the ring write's times are phase 30's; the Bluestein body's row counts every STFT launch at such an N
 below the large-N route), its
 largest error against its plain version, its time, its plain version's, the
 library call's where one computes the same transform, and its bound: the
@@ -350,6 +360,7 @@ from spectrogram_tpu_torch.ops import colormap as cmap_ops
 from spectrogram_tpu_torch.ops.cuda import _build
 from spectrogram_tpu_torch.ops.cuda import colormap_kernel as ck
 from spectrogram_tpu_torch.ops.cuda import push_kernel as pk
+from spectrogram_tpu_torch.ops.cuda import ring_kernel as rk
 from spectrogram_tpu_torch.ops.cuda import stft_kernel as sk
 from spectrogram_tpu_torch.io.feeder import ChunkPool, DeviceFeeder
 from spectrogram_tpu_torch.io.ring import RingBank16
@@ -374,6 +385,8 @@ CMAP_OPS_PER_PIXEL = 50     # kernel B's f32 operations per pixel, from its sour
 # builtin_word's 38 (colormap_common.cuh)
 CMAP_OPS_PER_PIXEL_GENERIC = CMAP_OPS_PER_PIXEL - 38 + 68
 PALETTE_REGISTRY = 4        # smoke-custom + 3 built-ins
+# phase 30: the display cells' ring (portbench's ref2k cells)
+RING_STREAMS, RING_ROWS = 2048, 2048
 # where the blockwise colormap takes kernel B's direct form: N=16,384, span
 # 7,497 bins at H=1024
 LONG_COLORMAP = SpectrogramConfig(window_period=8192 / 48000.0)
@@ -482,6 +495,12 @@ KERNELS = {
     ck.ROWS_KERNEL: dict(
         name="colormap_rows_fused", source="spectrogram_tpu_torch/csrc/colormap_rows.cu",
         replaces="spectrogram_tpu/ops/pallas/colormap_kernel.py:152",
+    ),
+    # no Pallas kernel: XLA's fusion of the ring's
+    # dynamic_update_slice(rows.astype(ring_dtype))
+    rk.KERNEL: dict(
+        name="ring_write", source="spectrogram_tpu_torch/csrc/ring_write.cu",
+        replaces="spectrogram_tpu/models/spectrogram.py:1442",
     ),
 }
 BLUESTEIN = "bluestein"
@@ -923,7 +942,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     tuner_phase(dev, lib, main_launches, power_line)
 
-    log(f"[29] whole run {time.perf_counter() - t_start:.1f} s")
+    # -- 30. the ring write at the display cells' shape ----------------------
+    torch.cuda.empty_cache()
+    ring_phase(dev, stats, ms, plain_ms, bounds, library_ms, power_line)
+
+    log(f"[30] whole run {time.perf_counter() - t_start:.1f} s")
     print(power_line)
     print(json.dumps({"kernels": [
         dict(meta, route="cuda", launches=main_launches[k], max_abs_err=stats[k],
@@ -976,6 +999,9 @@ def display_path(cfg, dev, lib, main_launches: dict) -> dict:
     allk_or_a = sk.KERNEL if n & (n - 1) == 0 else sk.MIXED_KERNEL
     if not all(launches[name] > 0 for name in (sk.ALLK_KERNEL, allk_or_a, ck.KERNEL)):
         fail("the display path did not launch every kernel")
+    if launches.get(rk.KERNEL, 0) != DISPLAY_PUSHES:
+        fail(f"the display path launched the ring write {launches.get(rk.KERNEL, 0)} times "
+             f"in {DISPLAY_PUSHES} pushes")
     if streamed.shape != (s, DISPLAY_PUSHES * K, cfg.viewport_height):
         fail("display rows have the wrong shape")
     for palette, (sel, one) in one_shot.items():
@@ -1029,6 +1055,59 @@ def display_path(cfg, dev, lib, main_launches: dict) -> dict:
     )
     del box, state, pcm, padded
     return timings
+
+
+def ring_phase(dev, stats, ms, plain_ms, bounds, library_ms, power_line: str) -> None:
+    """Phase 30: the ring write at the display cells' shape, bit for bit
+    the plain version on the same planes, and its times."""
+    cfg, s, r = DEFAULT_CONFIG, RING_STREAMS, RING_ROWS
+    p = SpectrogramPipeline(cfg, chunk_hops=K, viewport_rows=r, packed_output=True,
+                            device=dev)
+    b = cfg.num_bins
+    length = cfg.window_size + (K - 1) * cfg.hop_size
+    buf = testing.chirp_tone(s, length, cfg.sample_rate, seed=30)
+    bl, br = (torch.from_numpy(np.ascontiguousarray(buf[..., c])).to(dev) for c in (0, 1))
+    ml, mr = sk.stft_mag_packed_allk(bl, br, p.hann, p.fft_consts, K, cfg.hop_size)
+    del buf, bl, br
+    for plane, shift in ((ml, 0), (mr, 1)):
+        for step, col, value in ((97, 5, float("nan")), (89, 7, float("inf")),
+                                 (83, 9, 3.0e38), (79, 11, 1.0e-40)):
+            plane[shift::step, col] = value
+    ring = torch.full((s, r, 2, b), 7.0, dtype=torch.bfloat16, device=dev)
+    fill = ring[0, 0, 0, 0].view(torch.int16).clone()
+    want = torch.empty((s, K, 2, b), dtype=torch.bfloat16, device=dev)
+    rk.ring_write_plain(want, torch.zeros((), dtype=torch.int32, device=dev), ml, mr, K)
+    for c in (0, r - K):
+        cursor = torch.tensor(c, dtype=torch.int32, device=dev)
+        rk.ring_write(ring, cursor, ml, mr, K)
+        torch.cuda.synchronize()
+        same = torch.equal(ring[:, c:c + K].view(torch.int16), want.view(torch.int16))
+        untouched = all(
+            bool((part.view(torch.int16) == fill).all())
+            for i in range(0, s, 128) for part in (ring[i:i + 128, :c], ring[i:i + 128, c + K:]))
+        log(f"[30] ring_write at cursor {c}: rows {'equal' if same else 'DIFFER from'} "
+            f"ring_write_plain's bit for bit; other rows {'untouched' if untouched else 'CHANGED'}")
+        if not (same and untouched):
+            fail(f"the ring write disagrees with its plain version at cursor {c}")
+        ring[:, c:c + K] = 7.0
+    stats[rk.KERNEL] = 0.0
+    cursor = torch.tensor(r - K, dtype=torch.int32, device=dev)
+    ms[rk.KERNEL] = device_ms(lambda: rk.ring_write(ring, cursor, ml, mr, K))
+    plain_ms[rk.KERNEL] = device_ms(lambda: rk.ring_write_plain(ring, cursor, ml, mr, K))
+    del ring
+    small = torch.zeros((s, 64, 2, b), dtype=torch.bfloat16, device=dev)
+    cursor = torch.tensor(64 - K, dtype=torch.int32, device=dev)
+    small_ms = device_ms(lambda: rk.ring_write(small, cursor, ml, mr, K))
+    small_plain = device_ms(lambda: rk.ring_write_plain(small, cursor, ml, mr, K))
+    del small
+    cast_ms = device_ms(lambda: (ml.to(torch.bfloat16), mr.to(torch.bfloat16)))
+    bounds[rk.KERNEL] = bound(s * K * 2 * b * (4 + 2), 0)
+    library_ms[rk.KERNEL] = None
+    log(f"[30] ring_write, {s} streams, k={K}, {b} bins, bf16 ring of {r} rows: "
+        f"{ms[rk.KERNEL]:.4f} ms device time (plain {plain_ms[rk.KERNEL]:.4f} ms; into a "
+        f"64-row ring {small_ms:.4f} ms, plain {small_plain:.4f} ms; the ATen cast of the same "
+        f"planes to bf16 {cast_ms:.4f} ms; bound {bounds[rk.KERNEL][0]:.4f} ms by "
+        f"{bounds[rk.KERNEL][1]}); card {power_line}")
 
 
 def serving_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign) -> None:

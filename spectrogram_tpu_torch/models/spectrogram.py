@@ -85,8 +85,11 @@ where a row's FFT buffer passes a block's shared memory, e.g. 48 kHz with a
 On a CPU device the kernels run as their plain PyTorch versions; on a CUDA
 device as the hand-written kernels in `csrc/`, unless the caller names JAX's
 golden backend (`stft_backend="xla"`, `colormap_backend="xla"`), which runs
-the plain versions on the card.  There is no fallback from one to the
-other.  Without a `device`, the pipeline runs on the card.
+the plain STFT and colormap on the card.  No backend selects the ring write:
+on the card it always takes its kernel (`csrc/ring_write.cu`), and
+`with_plain_kernels()` is the only pipeline that launches no kernel.  There
+is no fallback from one to the other.  Without a `device`, the pipeline runs
+on the card.
 
 The kernels' launch shapes are fixed tables in the C sources (the STFT
 rows' launch bounds, the colormap tile's staged or direct form).  A
@@ -119,7 +122,7 @@ from spectrogram_tpu_torch.config import SpectrogramConfig
 from spectrogram_tpu_torch.ops import colormap as cmap_ops
 from spectrogram_tpu_torch.ops import fft_plan
 from spectrogram_tpu_torch.ops import stft as stft_ops
-from spectrogram_tpu_torch.ops.cuda import colormap_kernel, stft_kernel
+from spectrogram_tpu_torch.ops.cuda import colormap_kernel, ring_kernel, stft_kernel
 from spectrogram_tpu_torch.utils.profiling import span
 
 # Stream blocks of render_viewport hold at most this many bytes of f32 rows.
@@ -171,9 +174,10 @@ class SpectrogramPipeline:
       chunk_hops: rows per push (k); a chunk is k * hop samples.
       viewport_rows: ring length (default cfg.viewport_rows), rounded up to
         a multiple of chunk_hops so that a push's rows never wrap.
-      ring_dtype: ring storage, a torch floating dtype (JAX's default
-        bfloat16, float16, float32, ...); rows are rounded to it to nearest
-        even, and `render_viewport` reads them back as f32.
+      ring_dtype: ring storage: torch.bfloat16 (JAX's default), float16,
+        float32 or float64, the dtypes the ring kernel takes; any other
+        raises.  Rows are rounded to it to nearest even, and
+        `render_viewport` reads them back as f32.
       lut_resolution: palette table size (default cfg.lut_resolution).
       store_ring: keep the row ring that render_viewport draws.
       stft_backend: "auto", "mxu", "pallas" or "xla", validated as in JAX
@@ -302,8 +306,9 @@ class SpectrogramPipeline:
         device=None,
     ):
         cfg.validate()
-        if not (isinstance(ring_dtype, torch.dtype) and ring_dtype.is_floating_point):
-            raise ValueError(f"ring_dtype must be a torch floating dtype; got {ring_dtype!r}")
+        if ring_dtype not in ring_kernel.RING_DTYPES:
+            raise ValueError("ring_dtype must be torch.bfloat16, float16, float32 or float64 "
+                             f"(the ring kernel's); got {ring_dtype!r}")
         if int(chunk_hops) < 1:
             raise ValueError(f"chunk_hops must be >= 1; got {chunk_hops}")
         if precision_profile not in ("exact", "fast"):
@@ -439,6 +444,7 @@ class SpectrogramPipeline:
         self._colormap_bw = colormap_kernel.colormap_blockwise
         self._colormap_generic = colormap_kernel.colormap_generic
         self._colormap_static = colormap_kernel.colormap_static
+        self._ring_write = ring_kernel.ring_write
         if stft_backend == "xla":
             self._use_plain_stft()
         if colormap_backend == "xla":
@@ -476,6 +482,10 @@ class SpectrogramPipeline:
         self._colormap_generic = lambda *args, launch=None: ck.colormap_generic_plain(*args)
         self._colormap_static = ck.colormap_static_plain
 
+    def _use_plain_ring(self) -> None:
+        """Write the ring with the plain PyTorch version, on this device."""
+        self._ring_write = ring_kernel.ring_write_plain
+
     def with_plain_kernels(self) -> "SpectrogramPipeline":
         """This pipeline with the plain PyTorch versions in place of its
         kernels, on the same device: what the kernels are held against on
@@ -484,6 +494,7 @@ class SpectrogramPipeline:
         twin.counters = collections.Counter()
         twin._use_plain_stft()
         twin._use_plain_colormap()
+        twin._use_plain_ring()
         return twin
 
     def _stft_layout(self, cfg: SpectrogramConfig, stft_backend: str, stft_packed,
@@ -1254,17 +1265,17 @@ class SpectrogramPipeline:
         ring dtype (to nearest even, as JAX's astype), into ring rows cursor
         .. cursor+k-1 of every stream, in place: the ring is the largest
         tensor of the state, and a copy per push would double it."""
-        k, w = self.chunk_hops, self.cfg.window_size
-        s, r = state.ring.shape[:2]
+        r, _, b = state.ring.shape[1:]
         if r != self.viewport_rows:
             raise ValueError(
                 f"the state's ring has {r} rows; this pipeline keeps "
                 f"{self.viewport_rows} (store_ring={self.store_ring})"
             )
+        if b != self.cfg.num_bins:
+            raise ValueError(
+                f"the state's ring has {b} bins; this pipeline keeps {self.cfg.num_bins}")
         with span("ring"):
-            rows = torch.stack([mag_l[:, 1:w], mag_r[:, 1:w]], dim=1).to(self.ring_dtype)
-            at = state.cursor.to(torch.int64) + torch.arange(k, device=self.device)
-            state.ring.index_copy_(1, at, rows.view(k, s, 2, -1).transpose(0, 1))
+            self._ring_write(state.ring, state.cursor, mag_l, mag_r, self.chunk_hops)
 
     def _output(self, packed: torch.Tensor) -> torch.Tensor:
         if self.packed_output:

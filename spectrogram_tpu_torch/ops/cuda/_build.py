@@ -38,6 +38,7 @@ LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # name -> ctypes argtypes of its C entry point (see csrc/*.cu).  The STFT
 # entries, the fused push and the tile colormaps take a launch choice before
 # the stream (the bounds, `stft_kernel.LAUNCH_BOUNDS`, or the tile's form,
@@ -92,6 +93,9 @@ KERNELS = {
     "spk_colormap_rows": (
         _P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _F, _F, _F, _F, _P, _I, _P,
     ),
+    # planes, their row stride, S, k, B; the ring, its dtype code and its
+    # stream and row strides, R; the cursor on the device
+    "spk_ring_write": (_P, _P, _L, _I, _I, _I, _P, _I, _L, _L, _I, _P, _P),
 }
 # the STFT kernels' FFT bodies (csrc/stft_fft.cuh, `stft_kernel.fft_body`),
 # and the large-N route (csrc/stft_large.cu) under its own label

@@ -45,7 +45,11 @@ within 1e-6 of a float64 band product with TF32 allowed.  The CLI's `live`,
 `live --view` and `live --view --multirate` (headless) run on the card,
 launch kernels and write the viewport's PNG.  The stream mesh at world size
 1 runs under NCCL in a rank process: its rows bit for bit the unsharded
-pipeline's.
+pipeline's.  The ring write (`csrc/ring_write.cu`) is held bit for bit to
+its plain version (the ATen cast's rounding) in all four ring dtypes, at
+every cursor, at the display geometry, an odd one and on strided planes;
+a display pipeline's ring bit for bit that of a twin whose ring write alone
+is plain.
 """
 
 import dataclasses
@@ -752,8 +756,13 @@ def test_push_fused_equals_chain(cuda, emit_mags):
 
 def test_xla_backends_run_the_plain_versions_on_card(cuda):
     """stft_backend="xla" and colormap_backend="xla" (JAX's golden path)
-    are the only way a CUDA tensor reaches a plain version: no kernel
-    launches, and the rows equal `with_plain_kernels()`'s exactly."""
+    are the only way a CUDA tensor reaches a plain STFT or colormap: no
+    STFT or colormap kernel launches, and the rows equal
+    `with_plain_kernels()`'s exactly.  No backend selects the ring write
+    (JAX writes its ring with XLA under every backend), so its kernel
+    launches once, and the ring equals the plain twin's bit for bit."""
+    from spectrogram_tpu_torch.ops.cuda import ring_kernel
+
     cfg = SMALL
     kw = dict(chunk_hops=2, viewport_rows=16, packed_output=True, device=cuda)
     xla = SpectrogramPipeline(cfg, stft_backend="xla", colormap_backend="xla", **kw)
@@ -767,10 +776,11 @@ def test_xla_backends_run_the_plain_versions_on_card(cuda):
     before = dict(lib.launches)
     sx, rx = xla.push(sx, chunk)
     torch.cuda.synchronize()
-    assert lib.launches == before
+    assert lib.launches == {**before, ring_kernel.KERNEL: before[ring_kernel.KERNEL] + 1}
     sp, rp = plain.push(sp, chunk)
     torch.testing.assert_close(rx, rp, atol=0, rtol=0)
     torch.testing.assert_close(sx.carry, sp.carry, atol=0, rtol=0)
+    assert torch.equal(sx.ring.view(torch.int16), sp.ring.view(torch.int16))
 
 
 # ------------------------------------------------------ the large-N route
@@ -1380,3 +1390,82 @@ def test_every_launch_candidate_gives_equal_rows(cuda, stft_packed):
             assert torch.equal(rows, want_rows), (family, choice)
             assert torch.equal(carry, want_carry), (family, choice)
             assert sum(lib.launches.values()) > sum(before.values())
+
+
+RING_SHAPES = {
+    # streams, k, W, P (plane width), plane row stride (None: P)
+    "display": (300, 8, DEFAULT_CONFIG.window_size, DEFAULT_CONFIG.padded_size // 2, None),
+    "odd": (37, 1, 202, 256, None),
+    "odd_strided": (37, 1, 202, 256, 263),
+}
+
+
+@pytest.mark.parametrize("ring_dtype", [torch.bfloat16, torch.float16, torch.float32,
+                                        torch.float64])
+@pytest.mark.parametrize("shape", sorted(RING_SHAPES))
+def test_ring_write_equals_plain(cuda, shape, ring_dtype):
+    """The ring kernel writes the plain version's bits (the ATen cast's
+    rounding, NaN, inf, overflow and subnormals included) at every cursor of
+    a 16-row ring, and leaves every other row as it was."""
+    from spectrogram_tpu_torch.ops.cuda import ring_kernel
+
+    s, k, w, p, stride = RING_SHAPES[shape]
+    g = torch.Generator().manual_seed(22)
+    planes = []
+    for _ in range(2):
+        base = torch.rand((k * s, stride or p), generator=g) * 40
+        for step, col, value in ((97, 5, float("nan")), (89, 7, float("inf")),
+                                 (83, 9, 3.0e38), (79, 11, 1.0e-40)):
+            base[::step, col] = value
+        planes.append(base.to(cuda)[:, :p])
+    assert (stride is not None) == (not planes[0].is_contiguous())
+    r = 16
+    bits = {torch.float64: torch.int64, torch.float32: torch.int32}.get(ring_dtype, torch.int16)
+    lib = _build.library()
+    for cursor in range(0, r, k):
+        assert cursor + k <= r           # the pipeline's rows never wrap
+        ring = torch.full((s, r, 2, w - 1), 7.0, dtype=ring_dtype, device=cuda)
+        twin = ring.clone()
+        c = torch.tensor(cursor, dtype=torch.int32, device=cuda)
+        before = lib.launches[ring_kernel.KERNEL]
+        ring_kernel.ring_write(ring, c, *planes, k)
+        torch.cuda.synchronize()
+        assert lib.launches[ring_kernel.KERNEL] == before + 1
+        ring_kernel.ring_write_plain(twin, c, *planes, k)
+        torch.cuda.synchronize()
+        assert torch.equal(ring.view(bits), twin.view(bits)), cursor
+
+
+def test_pipeline_ring_equals_plain_twin(cuda):
+    """Display pushes (DEFAULT_CONFIG, k=8, 256 streams) past the ring's
+    wrap, one ring launch a push: the ring equals bit for bit that of a twin
+    whose ring write alone is plain (the same planes), and lies within one
+    bf16 step of the `with_plain_kernels()` twin's (whose planes come from
+    the plain STFT)."""
+    import copy
+
+    from spectrogram_tpu_torch.ops.cuda import ring_kernel
+
+    p = SpectrogramPipeline(DEFAULT_CONFIG, chunk_hops=8, viewport_rows=16,
+                            packed_output=True, device=cuda)
+    ring_plain = copy.copy(p)
+    ring_plain._use_plain_ring()
+    twins = (ring_plain, p.with_plain_kernels())
+    s = 256
+    ids = np.arange(s) % len(p.schemes)
+    states = [q.set_palette(q.init_state(s), ids) for q in (p, *twins)]
+    pushes = 3
+    pcm = torch.from_numpy(testing.chirp_tone(
+        s, pushes * p.chunk_size, DEFAULT_CONFIG.sample_rate, seed=22)).to(cuda)
+    lib = _build.library()
+    for i in range(pushes):
+        chunk = pcm[:, i * p.chunk_size:(i + 1) * p.chunk_size]
+        before = lib.launches[ring_kernel.KERNEL]
+        for j, q in enumerate((p, *twins)):
+            states[j], _ = q.push(states[j], chunk)
+            torch.cuda.synchronize()
+        assert lib.launches[ring_kernel.KERNEL] == before + 1
+        got, same, plain = (st.ring for st in states)
+        assert torch.equal(got.view(torch.int16), same.view(torch.int16)), i
+        assert testing.bf16_ulps(got.cpu(), plain.cpu(), ATOL) <= 1
+        assert {int(st.cursor) for st in states} == {((i + 1) * 8) % 16}

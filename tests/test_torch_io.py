@@ -224,6 +224,10 @@ def test_native_bank_resident_once_made(kind):
                             "RingBank16": (tring.RingBank16, np.int16, 2)}[kind]
     s, cap = 2048, 4096
     gc.collect()
+    # hand the heap's free pages back first: tests run before this one in
+    # the process may have left freed pages resident, which the bank's
+    # allocation would reuse without growing the resident set
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
     before = _rss_bytes()
     bank = cls(s, cap, n_threads=2)
     grown = _rss_bytes() - before

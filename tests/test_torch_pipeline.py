@@ -173,13 +173,14 @@ def test_set_palette():
     dict(ring_dtype=torch.float16, static_palette=0, i16_planes=True),
 ])
 def test_arguments_outside_the_slice_raise(kwargs):
-    """Every torch floating ring dtype is ported (with static palettes too,
-    tests/test_torch_palettes.py); a ring dtype that is not a floating
-    torch dtype raises ValueError."""
+    """The ring dtypes the ring kernel takes are ported (with static
+    palettes too, tests/test_torch_palettes.py); any other ring dtype, a
+    float8 one included, raises ValueError at construction."""
     p = SpectrogramPipeline(SpectrogramConfig(**SMALL), device="cpu", **kwargs)
     assert p.ring_dtype == kwargs["ring_dtype"]
     assert p.init_state(2).ring.dtype == kwargs["ring_dtype"]
-    for bad in (torch.int16, torch.int32, torch.complex64, "float16", np.float32):
+    for bad in (torch.int16, torch.int32, torch.complex64, "float16", np.float32,
+                torch.float8_e4m3fn, torch.float8_e5m2):
         with pytest.raises(ValueError, match="ring_dtype"):
             SpectrogramPipeline(SpectrogramConfig(**SMALL), device="cpu",
                                 **dict(kwargs, ring_dtype=bad))
