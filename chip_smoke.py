@@ -164,7 +164,8 @@ Phases, each of which fails the run with a non-zero exit:
  23. long windows, against their plain versions at phase 3's bar on 4,096
      window rows: the large-N route's packed kernel (f32, int16 == f32 on
      x/32768; all-windows k=8 over 1,024 streams == window planes bit for
-     bit) at N=32,768 and 48,000, its Bluestein passes at the prime
+     bit) at N=32,768, 48,000 and 65,536 (4,096 rows there: one row group
+     of exactly 2 GiB of scratch), its Bluestein passes at the prime
      N=16,411 (M=33,614) packed and split-real, its split-real kernel at
      N=65,536 (the N/2 pack past a block; all-windows k=8 over 128 streams);
      the split-real pack in shared memory at N=17,640, 32,768 and 48,000
@@ -181,10 +182,16 @@ Phases, each of which fails the run with a non-zero exit:
      == the f32 pipeline's on x/32768): each path's launches under its body
      label and the form kernel B takes (`colormap_kernel.tile_form`: the
      staged tile, or the direct form where the span is wide), kernel B and
-     the generic kernel in the direct form on the N=48,000 planes within 1
-     u8 of their plain versions, streamed == process() exactly, within 1 u8 of
-     with_plain_kernels(), carries exact, ring within 1 bf16 ulp; ms/push
-     beside DEFAULT_CONFIG's in turns.
+     the generic kernel in the direct form on the N=48,000 and N=65,536
+     planes within 1 u8 of their plain versions (the blockwise colormap too
+     on the N=65,536 planes, sorted tables), streamed == process() exactly,
+     within 1 u8 of with_plain_kernels(), carries exact, ring within 1 bf16
+     ulp; the long-window serving deployment (portbench's long4k.k1.device:
+     N=65,536, hop 800, 4,096 streams, k=1, the full serving mode, Zipf(1)
+     palettes, int16 planar chunks through push_planar): each push one
+     large int16 launch, one `large` body, one 2 GiB row group, rows bit for
+     bit an f32 serving pipeline's on x/32768 and within 1 u8 of the plain
+     twin, carries exact; ms/push beside DEFAULT_CONFIG's in turns.
  24. colormap_rows_fused at BENCH_CONFIG, 4,096 rows of [2, 2047], H=1024,
      per-row factors (the 19 built-ins, smoke-custom on every fifth row):
      packed and u8 within 1 u8 of the plain version, bit for bit
@@ -901,6 +908,7 @@ def main() -> int:
         fail(f"N={n} reaches neither the route's Bluestein passes nor the Bluestein pack")
     size_paths(dev, lib, main_launches, LARGE_PATHS, phase=23)
     large_i16_path(dev, lib, main_launches)
+    long_window_path(dev, lib, main_launches)
     size_timing(dev, power_line, LARGE_TIMING, phase=23, phases="23")
 
     # -- 24. colormap_rows_fused at full width, and the functional path --------
@@ -2389,6 +2397,10 @@ LARGE_32K = SpectrogramConfig(sample_rate=48000.0, window_period=16384 / 48000.0
 LARGE_48K = SpectrogramConfig(window_period=0.5)
 LARGE_44K = SpectrogramConfig(sample_rate=44100.0, window_period=0.2)
 LARGE_64K = SpectrogramConfig(sample_rate=48000.0, window_period=32768 / 48000.0)
+# the long-window serving deployment (portbench/configs/serve-long48k.json):
+# LARGE_64K's window at BENCH_CONFIG's hop of 800
+LONG_SERVE = SpectrogramConfig(sample_rate=48000.0, window_period=32768 / 48000.0,
+                               hop_period=800 / 48000.0)
 PRIME_N, PRIME_W = 16411, 8205
 # split-real packs at kWideThreads threads over radix 7: N = 35,280 (44.1 kHz,
 # 0.4 s; N/2 = 17,640 = 4 2 3 3 5 7 7) and N = 16,400 (N/2 = 8200 = 2^3 5^2
@@ -2496,6 +2508,7 @@ def large_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign) -> Non
     # the packed route, and its Bluestein passes (packed and split-real)
     for n, w, sr in ((LARGE_32K.padded_size, LARGE_32K.window_size, 48000.0),
                      (LARGE_48K.padded_size, LARGE_48K.window_size, 48000.0),
+                     (LARGE_64K.padded_size, LARGE_64K.window_size, 48000.0),
                      (PRIME_N, PRIME_W, 48000.0)):
         if not sk.is_large(n):
             fail(f"N={n} does not take the large-N route")
@@ -2507,6 +2520,17 @@ def large_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign) -> Non
                     planes, sk.stft_mag_packed_plain(left, right, hann, n))
         if n == LARGE_48K.padded_size:
             colormap_direct(dev, stats, LARGE_48K, planes)
+        if n == LARGE_64K.padded_size:
+            if sk.large_grouping(n, rows) != (rows, 1, sk.LARGE_SCRATCH_BYTES):
+                fail(f"N={n}: {rows} rows are not one row group of exactly 2 GiB")
+            colormap_direct(dev, stats, LARGE_64K, planes)
+            lp = SpectrogramPipeline(LONG_SERVE, chunk_hops=1, store_ring=False,
+                                     packed_output=True, device=dev)
+            ids = np.sort(np.arange(rows) % 19)
+            tables = lp.builtin_tables.index_select(0, torch.from_numpy(ids).to(dev))
+            _blockwise_check(*planes, lp.taps, tables.contiguous(), LONG_SERVE,
+                             lp._cmap_ts(rows), ids, "sorted", "direct", stats)
+            del lp, tables
         del planes
         i16 = sk.stft_mag_packed(*words, hann16, consts)
         _identity(23, f"stft_large_packed_i16 {label} == f32 on x/32768", i16,
@@ -2690,6 +2714,84 @@ def large_i16_path(dev, lib, main_launches: dict) -> None:
     if not (same and carry_same):
         fail("the int16 pipeline at large N differs from the f32 pipeline on x/32768")
     del rows16, s16, s32, words
+
+
+def long_window_path(dev, lib, main_launches: dict) -> None:
+    """Phase 23's long-window serving deployment, as portbench's
+    long4k.k1.device pushes it: LONG_SERVE at k=1, 4,096 streams, no ring,
+    i16_planes, presorted_input, sorted_output and the palette sort, Zipf(1)
+    palettes over 1,024-stream strata, int16 planar chunks in input_perm
+    order through push_planar.  Each push launches the large int16 kernel
+    once, one `large` body, over one row group of exactly 2 GiB of scratch
+    (the pipeline's counters and `last_stft` agree); rows and carry equal an
+    f32 serving pipeline's on x/32768 bit for bit, the rows lie within 1 u8
+    of the plain twin's and the carry equals it."""
+    cfg, s = LONG_SERVE, STREAMS
+    kw = dict(chunk_hops=1, store_ring=False, packed_output=True, presorted_input=True,
+              sorted_output=True, device=dev)
+    p = SpectrogramPipeline(cfg, i16_planes=True, **kw)
+    p32 = SpectrogramPipeline(cfg, **kw)
+    plain = p.with_plain_kernels()
+    n_pal, stratum = len(p.schemes), min(1024, s)
+    zipf = stratum / np.arange(1, n_pal + 1) / (1 / np.arange(1, n_pal + 1)).sum()
+    counts = np.floor(zipf).astype(np.int64)
+    counts[np.argsort(counts - zipf, kind="stable")[: stratum - counts.sum()]] += 1
+    rng = np.random.default_rng(23)
+    ids = np.concatenate([rng.permutation(np.repeat(np.arange(n_pal), counts))
+                          for _ in range(s // stratum)]).astype(np.int32)
+    state = p.set_palette(p.init_state(s), ids)
+    s32 = p32.set_palette(p32.init_state(s), ids)
+    pstate = state
+    into = p.input_perm(state)
+    if into is None:
+        fail("the long-window serving layout did not take the palette sort")
+        into = np.arange(s)
+    perm = torch.from_numpy(into.astype(np.int64)).to(dev)
+    t = p.chunk_size
+    pcm = testing.chirp_tone(s, PUSHES * t, cfg.sample_rate, seed=24)
+    words = torch.from_numpy(np.round(pcm * 32767.0).astype(np.int16)).to(dev)
+    chunks = [words[:, i * t : (i + 1) * t].index_select(0, perm).transpose(1, 2).contiguous()
+              for i in range(PUSHES)]
+    del pcm, words
+    torch.cuda.synchronize()
+    lib.reset_launches()
+    p.counters.clear()
+    rows = []
+    for c in chunks:
+        state, r = p.push_planar(state, c)
+        rows.append(r)
+    torch.cuda.synchronize()
+    launches = {k_: v for k_, v in lib.launches.items() if v}
+    body = lib.body_launches[sk.LARGE]
+    for k_, v in launches.items():
+        main_launches[k_] = main_launches.get(k_, 0) + v
+    record = {"route": sk.LARGE, "n_fft": cfg.padded_size, "rows": s, "groups": 1,
+              "scratch_bytes": sk.LARGE_SCRATCH_BYTES}
+    log(f"[23] long-window serving (N={cfg.padded_size}, hop {cfg.hop_size}, {s} streams, "
+        f"full serving mode), {PUSHES} pushes: launches {launches}; {sk.LARGE} body launches "
+        f"{body}; counters push.stft_large {p.counters['push.stft_large']}, stft.large_groups "
+        f"{p.counters['stft.large_groups']}; last_stft {p.last_stft}; layout {p.last_layout}")
+    if (launches.get(sk.LARGE_KERNEL_I16) != PUSHES or body != PUSHES
+            or p.counters["push.stft_large"] != PUSHES
+            or p.counters["stft.large_groups"] != PUSHES or p.last_stft != record):
+        fail("the long-window serving push did not take the large int16 route once a push "
+             "in one 2 GiB group")
+    same, worst = True, 0
+    for c, r in zip(chunks, rows):
+        s32, r32 = p32.push_planar(s32, c.to(torch.float32) / 32768.0)
+        pstate, pr = plain.push_planar(pstate, c)
+        same = same and torch.equal(r, r32)
+        worst = max(worst, u8_diff(r, pr, everywhere=False))
+    carry_f32 = torch.equal(state.carry.to(torch.float32) / 32768.0, s32.carry)
+    carry_plain = torch.equal(state.carry, pstate.carry)
+    log(f"[23] long-window serving: rows {'equal' if same else 'DIFFER from'} the f32 serving "
+        f"pipeline's on x/32768, carry {'equal' if carry_f32 else 'DIFFERS'}; against the "
+        f"plain twin rows max u8 diff {worst} (bar 1), carry "
+        f"{'equal' if carry_plain else 'DIFFERS'}")
+    if not (same and carry_f32 and carry_plain) or worst > 1:
+        fail("the long-window serving push disagrees with its f32 or plain twin")
+    del rows, chunks, state, s32, pstate
+    torch.cuda.empty_cache()
 
 
 def rows_fused(dev, lib, main_launches: dict, stats, ms, plain_ms, bounds, library_ms,

@@ -102,11 +102,12 @@ every shape gives the same bits.
 While a `torch.profiler` records, a push opens a `utils.profiling.span` per
 stage (`spk.push` around it; `spk.wire`, `spk.order.perms`,
 `spk.order.chunk`, `spk.frame`, `spk.stft`, `spk.order.bridge`,
-`spk.colormap`, `spk.order.rows`, `spk.ring`, `spk.state` inside), and
+`spk.colormap`, `spk.order.rows`, `spk.ring`, `spk.state` inside; the
+large-N STFT route's `spk.stft.large` around each row-group launch), and
 `render_viewport` opens `spk.render`; with none recording they cost a flag
 read each.  `SpectrogramPipeline.counters` counts the palette-layout
-decisions and the order and ring stages the pushes took, as plain host
-integers.
+decisions and the order, ring and large-N STFT stages the pushes took, as
+plain host integers, and `last_stft` records the last push's STFT route.
 """
 
 from __future__ import annotations
@@ -269,7 +270,14 @@ class SpectrogramPipeline:
     "layout.generic" (a generic registry's (u, v) pair) and "layout.tests"
     (each blockwise test), and the pushes that took each gather of the
     palette order and the ring write: "push.order_chunk",
-    "push.bridge", "push.order_rows", "push.ring".  `last_layout` is
+    "push.bridge", "push.order_rows", "push.ring", and those that took the
+    large-N STFT route, "push.stft_large", with its row-group launches,
+    "stft.large_groups".  `last_stft` records the last push's STFT:
+    {"route", "n_fft", "rows", "groups", "scratch_bytes"}, the route "plain"
+    (the plain versions), "large" or the FFT body its launches count under,
+    the windows it took, and on the large-N route its row groups and the
+    bytes of scratch each group's launch writes over (0 elsewhere); None
+    before any push.  `last_layout` is
     {"blocks": row blocks, "uniform": single-palette blocks} of the last
     order the blockwise test read: the order the pushes run where the rule
     took one, else the last (most sorted) order it refused; None before
@@ -445,6 +453,7 @@ class SpectrogramPipeline:
         self._colormap_generic = colormap_kernel.colormap_generic
         self._colormap_static = colormap_kernel.colormap_static
         self._ring_write = ring_kernel.ring_write
+        self._stft_plain = self.device.type == "cpu"
         if stft_backend == "xla":
             self._use_plain_stft()
         if colormap_backend == "xla":
@@ -452,6 +461,7 @@ class SpectrogramPipeline:
         self.launch = {}
         self.counters = collections.Counter()
         self.last_layout = None
+        self.last_stft = None
         if self.autotune and self.device.type == "cuda":
             self.override_launch(self._tuned_launch())
 
@@ -459,6 +469,7 @@ class SpectrogramPipeline:
         """Run the STFT as its plain PyTorch versions, on this device (they
         take no launch shape)."""
         sk = stft_kernel
+        self._stft_plain = True
         self._stft = lambda left, right, hann, c, launch=None: (
             sk.stft_mag_packed_plain(left, right, hann, c.n_fft))
         self._stft_allk = lambda buf_l, buf_r, hann, c, k, hop, launch=None: (
@@ -1153,6 +1164,7 @@ class SpectrogramPipeline:
         chunk (or the framed windows) itself, so `spk.stft` holds that part
         of the framing too."""
         k, tw = self.chunk_hops, self.fft_consts
+        self._record_stft(chunk_pl.shape[0] * k)
         split = self.launch.get("split")
         if self.tsplit_framing:
             with span("frame"):
@@ -1179,6 +1191,25 @@ class SpectrogramPipeline:
         with span("stft"):
             return (*stft_allk(buf_l, buf_r, hann, tw, k, self.cfg.hop_size, launch=launch),
                     new_carry)
+
+    def _record_stft(self, rows: int) -> None:
+        """Count and record the STFT route a push takes over its `rows`
+        windows (`last_stft`): "plain" for the plain versions, else the
+        label its launches count under (`stft_kernel.fft_route`, or
+        `split_route` for the split-real layouts); on the large-N route the
+        row groups and scratch of `stft_kernel.large_grouping`, the function
+        the route's wrapper launches by."""
+        n = self.fft_consts.n_fft
+        split = self.tsplit_framing or self.carry_transposed or not self.stft_packed
+        route = ("plain" if self._stft_plain
+                 else (stft_kernel.split_route if split else stft_kernel.fft_route)(n))
+        groups = scratch = 0
+        if route == stft_kernel.LARGE:
+            _, groups, scratch = stft_kernel.large_grouping(n, rows, split)
+            self.counters["push.stft_large"] += 1
+            self.counters["stft.large_groups"] += groups
+        self.last_stft = {"route": route, "n_fft": n, "rows": rows, "groups": groups,
+                          "scratch_bytes": scratch}
 
     def _push_core(self, state: StreamState, chunk_pl: torch.Tensor):
         if state.carry.dtype != self.carry_dtype:

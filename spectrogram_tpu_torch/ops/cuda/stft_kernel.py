@@ -33,9 +33,10 @@ butterflies over a scratch in device memory: for a direct N two passes, the
 load fused into the shared-memory stages and the last stage fused into the
 unpack (Bluestein: its load, stages and unpack as passes of their own).  The
 scratch holds each row's whole buffer between the passes, in row groups of
-at most `LARGE_SCRATCH_BYTES`.  All split-real entries share one large split
-kernel and all packed entries one large packed kernel, so the layouts keep
-their equalities at every N.
+at most `LARGE_SCRATCH_BYTES` (`large_grouping`; each group's launch opens
+a `spk.stft.large` span while a profiler records).  All split-real entries
+share one large split kernel and all packed entries one large packed
+kernel, so the layouts keep their equalities at every N.
 
 The all-windows kernel, `stft_mag_packed_allk`, replaces
 `stft_mag_fused2_allk(packed=True)` (and computes what `stft_mag_fused2_buf`
@@ -112,6 +113,7 @@ import numpy as np
 import torch
 
 from spectrogram_tpu_torch.ops.stft import hann_window_np
+from spectrogram_tpu_torch.utils.profiling import span
 
 KERNEL = "spk_stft_packed"
 MIXED_KERNEL = "spk_stft_mixed"
@@ -583,28 +585,40 @@ def _planes(rows: int, n_fft: int, w: int, device) -> tuple:
     return out_l, torch.empty_like(out_l)
 
 
+def large_grouping(n_fft: int, rows: int, split: bool = False) -> tuple[int, int, int]:
+    """(rows a group, groups, scratch bytes) of the large-N route over
+    `rows` window rows at N: the packed rows (`split` False) or the
+    split-real ones, two channels of `split_buf_size(N)` entries a row.
+    The scratch holds one group's FFT buffers, at most LARGE_SCRATCH_BYTES
+    (at least one row), and every group's launch writes it over; (0, 0, 0)
+    for no rows."""
+    if rows <= 0:
+        return 0, 0, 0
+    row_bytes = 2 * split_buf_size(n_fft) * 8 if split else fft_buf_size(n_fft) * 8
+    group = max(1, min(rows, LARGE_SCRATCH_BYTES // row_bytes))
+    return group, -(-rows // group), group * row_bytes
+
+
 def _large_stft(kernel: str, left: torch.Tensor, right: torch.Tensor,
                 hann: torch.Tensor, consts: FftConstants):
     """(mag_l, mag_r) of [rows, W] CUDA window planes on the large-N route:
     `kernel` spk_stft_large_split (f32) or spk_stft_large_packed (f32 or
     int16), over a scratch of at most LARGE_SCRATCH_BYTES, one launch per
-    row group."""
+    row group (`large_grouping`), each inside a `spk.stft.large` span."""
     n_fft = consts.n_fft
     rows, w = left.shape
     name, table = _cuda_kernel(kernel, (left, right), consts, hann=hann)
     out_l, out_r = _planes(rows, n_fft, w, left.device)
     if not rows:
         return out_l, out_r
-    # a split-real row is two channels of split_buf_size(N) entries each
-    row_bytes = (2 * split_buf_size(n_fft) * 8 if kernel in _SPLIT_KERNELS
-                 else fft_buf_size(n_fft) * 8)
-    group = max(1, min(rows, LARGE_SCRATCH_BYTES // row_bytes))
-    scratch = torch.empty(group * row_bytes // 4, dtype=torch.float32, device=left.device)
+    group, _, scratch_bytes = large_grouping(n_fft, rows, kernel in _SPLIT_KERNELS)
+    scratch = torch.empty(scratch_bytes // 4, dtype=torch.float32, device=left.device)
     for r0 in range(0, rows, group):
         r1 = min(r0 + group, rows)
-        _launch(name, left.device, n_fft, left[r0].data_ptr(), right[r0].data_ptr(),
-                hann.data_ptr(), table.data_ptr(), scratch.data_ptr(),
-                out_l[r0].data_ptr(), out_r[r0].data_ptr(), r1 - r0, w, n_fft)
+        with span("stft.large"):
+            _launch(name, left.device, n_fft, left[r0].data_ptr(), right[r0].data_ptr(),
+                    hann.data_ptr(), table.data_ptr(), scratch.data_ptr(),
+                    out_l[r0].data_ptr(), out_r[r0].data_ptr(), r1 - r0, w, n_fft)
     return out_l, out_r
 
 

@@ -49,7 +49,12 @@ pipeline's.  The ring write (`csrc/ring_write.cu`) is held bit for bit to
 its plain version (the ATen cast's rounding) in all four ring dtypes, at
 every cursor, at the display geometry, an odd one and on strided planes;
 a display pipeline's ring bit for bit that of a twin whose ring write alone
-is plain.
+is plain.  At the long-window deployment's geometry (N = 65,536) the packed
+int16 large-N route over 4,096 rows, one row group of exactly 2 GiB of
+scratch, equals bit for bit the same rows in two groups and the f32 route
+on x / 32768, within the STFT bar of the plain version; its serving pushes
+count the route and its groups, record them in `last_stft`, and open a
+`spk.stft.large` span with no device-side range.
 """
 
 import dataclasses
@@ -1469,3 +1474,111 @@ def test_pipeline_ring_equals_plain_twin(cuda):
         assert torch.equal(got.view(torch.int16), same.view(torch.int16)), i
         assert testing.bf16_ulps(got.cpu(), plain.cpu(), ATOL) <= 1
         assert {int(st.cursor) for st in states} == {((i + 1) * 8) % 16}
+
+
+# ------------------------------------- the long-window serving deployment
+
+# serve-long48k's geometry (portbench/configs/serve-long48k.json): 48 kHz,
+# W = 32,768, N = 65,536, hop 800, H = 1,024
+LONG = SpectrogramConfig(sample_rate=48000.0, window_period=32768 / 48000,
+                         hop_period=800 / 48000, viewport_height=1024)
+
+
+def _long_words(rows: int, device) -> tuple:
+    """[rows, W] int16 window planes of the long window: a tone a row and
+    noise, seeded, made on the card."""
+    g = torch.Generator(device=device).manual_seed(23)
+    w = LONG.window_size
+    t = torch.arange(w, device=device, dtype=torch.float32) / LONG.sample_rate
+    out = []
+    for c in range(2):
+        f = 40.0 + 20000.0 * torch.rand((rows, 1), generator=g, device=device)
+        x = 0.5 * torch.sin(2 * np.pi * f * t + c) + 0.01 * torch.randn(
+            (rows, w), generator=g, device=device)
+        out.append(torch.round(torch.clamp(x, -1, 1) * 32767).to(torch.int16))
+    return tuple(out)
+
+
+def test_long_window_route_at_one_2gib_group(cuda, monkeypatch):
+    """The packed int16 large-N route at N = 65,536 over 4,096 rows, the
+    long-window cell's push: one row group whose scratch is exactly
+    LARGE_SCRATCH_BYTES (2 GiB).  Its rows equal bit for bit the same rows
+    launched as two groups of 2,048 and the f32 route's on x / 32768, and
+    lie within the STFT bar of the plain version."""
+    n, w, rows = LONG.padded_size, LONG.window_size, 4096
+    assert sk.is_large(n)
+    assert sk.large_grouping(n, rows) == (rows, 1, sk.LARGE_SCRATCH_BYTES)
+    consts = sk.fft_constants(n, cuda)
+    left, right = _long_words(rows, cuda)
+    hann16 = torch.from_numpy(sk.packed_hann_i16(w)).to(cuda)
+    lib = _build.library()
+    before = lib.launches[sk.LARGE_KERNEL_I16]
+    one = sk.stft_mag_packed(left, right, hann16, consts)
+    torch.cuda.synchronize()
+    assert lib.launches[sk.LARGE_KERNEL_I16] == before + 1
+    monkeypatch.setattr(sk, "LARGE_SCRATCH_BYTES", sk.LARGE_SCRATCH_BYTES // 2)
+    assert sk.large_grouping(n, rows) == (rows // 2, 2, sk.LARGE_SCRATCH_BYTES)
+    two = sk.stft_mag_packed(left, right, hann16, consts)
+    torch.cuda.synchronize()
+    assert lib.launches[sk.LARGE_KERNEL_I16] == before + 3
+    monkeypatch.undo()
+    for a, b in zip(one, two):
+        assert a.shape == (rows, n // 2) and torch.equal(a, b)
+    hann = torch.from_numpy(sk.packed_hann(w)).to(cuda)
+    f32 = [x.to(torch.float32) / 32768.0 for x in (left, right)]
+    for a, b in zip(one, sk.stft_mag_packed(*f32, hann, consts)):
+        assert torch.equal(a, b)
+    del two
+    for r0 in range(0, rows, 1024):       # the plain version a block at a time
+        plain = sk.stft_mag_packed_plain(f32[0][r0:r0 + 1024], f32[1][r0:r0 + 1024], hann, n)
+        for a, b in zip(one, plain):
+            torch.testing.assert_close(a[r0:r0 + 1024], b, atol=ATOL, rtol=RTOL)
+
+
+def _long_serving_pipeline(device, s: int):
+    p = SpectrogramPipeline(LONG, device=device, chunk_hops=1, store_ring=False,
+                            packed_output=True, i16_planes=True, presorted_input=True,
+                            sorted_output=True)
+    return p, p.set_palette(p.init_state(s), np.arange(s) % 2)
+
+
+def test_long_window_serving_push_counts_the_route(cuda):
+    """Serving pushes at the long window (64 streams, sorted into two
+    palettes) on the card: one "push.stft_large" and one row group a push,
+    `last_stft` as `large_grouping` gives it, the `spk.stft.large` span
+    inside `spk.stft` with no range mirrored onto the device's timeline, and
+    rows within 1 u8 of the plain twin's, the next carry exact."""
+    from torch.profiler import ProfilerActivity, profile
+
+    s = 64
+    p, state = _long_serving_pipeline(cuda, s)
+    twin = p.with_plain_kernels()
+    assert p._state_perm(state) is not None
+    left, right = _long_words(s, cuda)
+    chunks = [torch.stack([left, right], 1)[..., i * 800:(i + 1) * 800].contiguous()
+              for i in range(3)]
+    st_k, st_p = state, state
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for c in chunks:
+            st_k, rows = p.push_planar(st_k, c)
+            st_p, plain = twin.push_planar(st_p, c)
+        torch.cuda.synchronize()
+    assert p.counters["push.stft_large"] == 3 and p.counters["stft.large_groups"] == 3
+    assert p.last_stft == {"route": "large", "n_fft": 65536, "rows": s, "groups": 1,
+                           "scratch_bytes": sk.large_grouping(65536, s)[2]}
+    assert twin.last_stft["route"] == "plain" and "push.stft_large" not in twin.counters
+    assert testing.rgba_u8_diff(ck.unpack_rgba(rows), ck.unpack_rgba(plain)) <= 1
+    torch.testing.assert_close(st_k.carry, st_p.carry, atol=0, rtol=0)
+    spans = [e for e in prof.events() if e.name == "spk.stft.large"]
+    assert len(spans) == 3
+    for e in spans:
+        parent = e.cpu_parent
+        while parent is not None and not parent.name.startswith("spk."):
+            parent = parent.cpu_parent
+        assert parent is not None and parent.name == "spk.stft"
+    kineto = prof.profiler.kineto_results.events()
+    assert not [k.name() for k in kineto
+                if k.device_type() != torch.autograd.DeviceType.CPU
+                and k.name().startswith("spk.")]
+    assert [k for k in kineto if k.device_type() == torch.autograd.DeviceType.CUDA
+            and "large_load_local_kernel" in k.name()]
