@@ -2722,8 +2722,9 @@ def long_window_path(dev, lib, main_launches: dict) -> None:
     i16_planes, presorted_input, sorted_output and the palette sort, Zipf(1)
     palettes over 1,024-stream strata, int16 planar chunks in input_perm
     order through push_planar.  Each push launches the large int16 kernel
-    once, one `large` body, over one row group of exactly 2 GiB of scratch
-    (the pipeline's counters and `last_stft` agree); rows and carry equal an
+    once, one `large` body, over one row group of exactly 2 GiB of scratch,
+    its pass 1 on the register passes (the pipeline's counters and
+    `last_stft` agree); rows and carry equal an
     f32 serving pipeline's on x/32768 bit for bit, the rows lie within 1 u8
     of the plain twin's and the carry equals it."""
     cfg, s = LONG_SERVE, STREAMS
@@ -2765,15 +2766,20 @@ def long_window_path(dev, lib, main_launches: dict) -> None:
     body = lib.body_launches[sk.LARGE]
     for k_, v in launches.items():
         main_launches[k_] = main_launches.get(k_, 0) + v
+    passes, threads = sk.large_pass1(cfg.padded_size)
     record = {"route": sk.LARGE, "n_fft": cfg.padded_size, "rows": s, "groups": 1,
-              "scratch_bytes": sk.LARGE_SCRATCH_BYTES}
+              "scratch_bytes": sk.LARGE_SCRATCH_BYTES, "load_passes": passes,
+              "load_threads": threads}
     log(f"[23] long-window serving (N={cfg.padded_size}, hop {cfg.hop_size}, {s} streams, "
         f"full serving mode), {PUSHES} pushes: launches {launches}; {sk.LARGE} body launches "
         f"{body}; counters push.stft_large {p.counters['push.stft_large']}, stft.large_groups "
-        f"{p.counters['stft.large_groups']}; last_stft {p.last_stft}; layout {p.last_layout}")
+        f"{p.counters['stft.large_groups']}, stft.large_load_register "
+        f"{p.counters['stft.large_load_register']}; last_stft {p.last_stft}; layout "
+        f"{p.last_layout}")
     if (launches.get(sk.LARGE_KERNEL_I16) != PUSHES or body != PUSHES
             or p.counters["push.stft_large"] != PUSHES
-            or p.counters["stft.large_groups"] != PUSHES or p.last_stft != record):
+            or p.counters["stft.large_groups"] != PUSHES
+            or p.counters["stft.large_load_register"] != PUSHES or p.last_stft != record):
         fail("the long-window serving push did not take the large int16 route once a push "
              "in one 2 GiB group")
     same, worst = True, 0

@@ -25,31 +25,32 @@
 // grid's y axis.  A direct N takes two kernels: `large_load_local_kernel`
 // (one block per (run, row), blockIdx.x the run, so that a row's G runs,
 // which read the same 32-byte sectors of its window planes G entries apart,
-// are neighbours in the launch order and L2 serves them; 1,024 threads for
-// runs of 128 KB, which hold an SM alone) and `large_last_unpack_kernel` /
-// `large_last_magnitude_kernel` (a thread per butterfly pair of the last
-// stage, templated on its radix), with a `large_pass_kernel` launch for
-// each global stage between them (none at the kernels' span).  Bluestein
-// takes the load (a thread per entry), its DIF stage, the local pass, its
-// DIT stage and the unpack (a thread per bin).  It is one launch of the
-// route, counted once by its wrapper.
+// are neighbours in the launch order and L2 serves them; at most 512
+// threads, `LargeLoadBounds`, a run of 128 KB holding an SM alone) and
+// `large_last_unpack_kernel` / `large_last_magnitude_kernel` (a thread per
+// butterfly pair of the last stage, templated on its radix), with a
+// `large_pass_kernel` launch for each global stage between them (none at
+// the kernels' span).  Bluestein takes the load (a thread per entry), its
+// DIF stage, the local pass, its DIT stage and the unpack (a thread per
+// bin).  It is one launch of the route, counted once by its wrapper.
 //
 // What bounds it on this card (H100).  A direct N reads its samples once,
 // writes and reads the scratch once each (pass 1, pass 2) and writes its
-// planes: at N=48,000 and 4,096 rows 0.79 GB of samples, 1.57 GB written,
-// 1.57 GB read, 0.79 GB of planes, 4.7 GB or 1.41 ms at 3.35 TB/s, against
-// about 11 GB over four passes before, whose load took one 4-byte sample
-// from each 32-byte sector it touched.  Pass 2 runs near that rate (0.83 ms
-// at N=48,000).  Pass 1 does not: it is bound by its shared-memory stages,
-// the engine of the shared-memory kernels (stft_fft.cuh), as the local pass
-// before it was.  Its own costs were the digit reversal of each input's
-// place, a division by a run-time radix per local stage and input (now two
-// table reads, `large_run_slots`, and no division), and its stores into
-// the tile, which conflict across banks (neighbouring inputs land span /
-// r_{local-1} entries apart; measured smaller than the division).  Its
-// samples are read G (2 to 7) entries apart, so each warp's load touches G
-// times the sectors it uses; the row's other runs read the rest from L2.
-// Bluestein's passes each read and write the scratch once.
+// planes: at N=65,536 and 4,096 int16 rows 0.54 GB of samples, 2.15 GB
+// written, 2.15 GB read, 1.07 GB of planes, 5.9 GB or 1.77 ms at 3.35 TB/s.
+// Pass 2 runs near that rate (1.19 ms for its 3.2 GB).  Pass 1 (0.80 ms of
+// bytes) took 3.95 ms: a run's four register passes, one block of 16 warps
+// a SM (the 128 KB tile), a barrier between passes, so no other block
+// hides a pass's latency (the first's reads of the window planes, the
+// others' reads of the run's twiddles from L2).  It was 7.93 ms as one
+// `butterfly_at` sweep of the tile a stage (seven, each through run-time
+// radices and divisions) after a load through two slot tables; the register
+// passes took it to 4.82 ms, reading the run's twiddles contiguous (every
+// G-th entry of the table, copied) to 3.95, and the tile's swizzle took
+// 0.88x the time of bits 6..9 (PERF.md §6).  Its samples are read G (2 to
+// 7) entries apart, so each warp's load touches G times the sectors it
+// uses; the row's other runs read the rest from L2.  Bluestein's passes
+// each read and write the scratch once.
 #include "stft_large.cuh"
 
 namespace {
@@ -108,16 +109,14 @@ __global__ void __launch_bounds__(spk::kStftMaxThreads) large_local_kernel(
 
 // Pass 1 of a direct N: one block per (run, row), the run's inputs straight
 // from the window planes (f32 or int16 stereo-packed; kSplit: f32 split-real,
-// scratch row q = 2 * row + c) into shared memory, the local stages, the run
-// back to the scratch.  kBound threads at most: kWideThreads for runs of
-// kWideRow entries and more (128 KB, one block per SM), else kStftMaxThreads.
-template <class T, bool kSplit, int kBound>
-__global__ void __launch_bounds__(kBound) large_load_local_kernel(
+// scratch row q = 2 * row + c) into the first register pass, the run's
+// other passes through shared memory, the last into the scratch.
+template <class T, bool kSplit>
+__global__ void __launch_bounds__(spk::LargeLoadBounds::threads) large_load_local_kernel(
     spk::LargePlan p, const T* __restrict__ l, const T* __restrict__ r,
     const float* __restrict__ hann, float2* __restrict__ scratch, int rows) {
+  constexpr int kCap = spk::group_cap<spk::LargeLoadBounds>();
   extern __shared__ float2 tile[];
-  int* slots = reinterpret_cast<int*>(tile + p.span);
-  spk::large_run_slots(p, slots);
   const int run = blockIdx.x;
   const int first = spk::large_run_first(p, run);
   const int q_rows = kSplit ? 2 * rows : rows;
@@ -125,11 +124,12 @@ __global__ void __launch_bounds__(kBound) large_load_local_kernel(
     float2* row = scratch + static_cast<size_t>(q) * p.buf_size();
     if constexpr (kSplit) {
       const float* x = ((q & 1) ? r : l) + static_cast<size_t>(q >> 1) * p.w;
-      spk::large_load_local(p, row, run, first, tile, slots,
-                            [&](int i) { return spk::large_real_value(p, x, hann, i); });
+      spk::large_load_local<kCap>(p, row, run, first, tile, [&](int i) {
+        return spk::large_real_value(p, x, hann, i);
+      });
     } else {
       const size_t in = static_cast<size_t>(q) * p.w;
-      spk::large_load_local(p, row, run, first, tile, slots, [&](int i) {
+      spk::large_load_local<kCap>(p, row, run, first, tile, [&](int i) {
         return spk::large_packed_value(p, l + in, r + in, hann, i);
       });
     }
@@ -141,24 +141,17 @@ dim3 runs_grid(const spk::LargePlan& p, int scratch_rows) {
   return dim3(p.passes.n / p.span, scratch_rows < kMaxGridY ? scratch_rows : kMaxGridY);
 }
 
-// Pass 1's launch at its thread bound; 0 or the CUDA error.
+// Pass 1's launch; 0 or the CUDA error.
 template <class T, bool kSplit>
 int launch_load_local(const spk::LargePlan& p, const T* left, const T* right,
                       const float* hann, float2* scratch, int rows, cudaStream_t st) {
-  const size_t smem = spk::large_smem_bytes(p.span, p.run_low, false);
-  const dim3 grid = runs_grid(p, kSplit ? 2 * rows : rows);
-  const auto launch = [&](auto bound, int threads) {
-    const auto kernel = large_load_local_kernel<T, kSplit, decltype(bound)::value>;
-    const int e = spk::allow_smem(kernel, smem);
-    if (e != 0) return e;
-    kernel<<<grid, threads, smem, st>>>(p, left, right, hann, scratch, rows);
-    return static_cast<int>(cudaGetLastError());
-  };
-  if (p.span >= spk::kWideRow) {
-    return launch(std::integral_constant<int, spk::kWideThreads>{}, spk::kWideThreads);
-  }
-  return launch(std::integral_constant<int, spk::kStftMaxThreads>{},
-                spk::stft_threads(p.span));
+  const size_t smem = spk::large_smem_bytes(p.span);
+  const auto kernel = large_load_local_kernel<T, kSplit>;
+  const int e = spk::allow_smem(kernel, smem);
+  if (e != 0) return e;
+  kernel<<<runs_grid(p, kSplit ? 2 * rows : rows), spk::large_load_threads(p), smem, st>>>(
+      p, left, right, hann, scratch, rows);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // A global stage of its own, a thread per butterfly
@@ -245,7 +238,7 @@ int run_route(const spk::LargePlan& p, const T* left, const T* right,
           p, left, right, hann, scratch, rows);
     }
   }
-  const size_t smem = p.span * sizeof(float2);
+  const size_t smem = spk::large_smem_bytes(p.span);
   int e = static_cast<int>(cudaGetLastError());
   if (e == 0 && p.bluestein) e = spk::allow_smem(large_local_kernel, smem);
   if (e == 0) {
@@ -339,4 +332,10 @@ SPK_EXPORT int spk_stft_large_split(const float* left, const float* right,
   }
   return run_route<float, true>(p, left, right, hann, reinterpret_cast<float2*>(scratch),
                                 out_l, out_r, rows, static_cast<cudaStream_t>(stream));
+}
+
+// Pass 1's form at N and w, packed or split-real (`large_pass1_form`):
+// form[0] its register passes over a run, form[1] a block's threads.
+SPK_EXPORT int spk_stft_large_pass1(int n, int w, int split, int* form) {
+  return spk::large_pass1_form(n, w, split != 0, form);
 }

@@ -21,14 +21,22 @@
 //   load + local   one block per run c: run c holds the inputs
 //                  i = first + G m, m < span (G = n / span runs; first =
 //                  unslot(c span), which is c itself where one global stage
-//                  is left), each at its digit-reversed place within the run
-//                  (`large_run_slots`).  The block reads them straight from
-//                  the window planes, G entries apart, into shared memory,
-//                  with the load's arithmetic: the stereo pack (l + i r) *
-//                  hann, one real channel's pack x[2i] h[2i] + i x[2i+1]
-//                  h[2i+1] (N/2 entries, even N), or (x * hann, 0) (odd N);
-//                  zero past the window.  It runs the local DIT stages there
-//                  and writes the run back, contiguous (`large_load_local`)
+//                  is left), in its own plan's digit-reversed order (`runs`:
+//                  span entries, stages r_0 .. r_{local-1}).  The block runs
+//                  that plan's DIT stages as the shared-memory bodies run
+//                  theirs, as register passes (MixedRadixT's `first_pass`
+//                  and `pass`: one or two stages a pass, radices picked by
+//                  `with_radices`), with the full transform's twiddles
+//                  (tw[G t'] for the run's t', read from a copy of every
+//                  G-th entry, `run_tw`): the first pass reads its
+//                  group's inputs straight from the window planes, G entries
+//                  apart, into registers, with the load's arithmetic (the
+//                  stereo pack (l + i r) * hann, one real channel's pack
+//                  x[2i] h[2i] + i x[2i+1] h[2i+1] (N/2 entries, even N), or
+//                  (x * hann, 0) (odd N); nothing read past the window), and
+//                  the last writes the run to the row, contiguous
+//                  (`large_load_local`); between them the run stays in a
+//                  shared-memory tile under the bodies' swizzle (`large_at`)
 //   last + unpack  a thread per butterfly pair (j, len - j) of the last DIT
 //                  stage (radix R, len = n / R): it reads the 2R entries into
 //                  registers, runs both butterflies there, and so holds every
@@ -42,14 +50,15 @@
 // (a thread per entry, in natural order, times the chirp, zero-padded to
 // M), its global DIF stages, the local pass (DIF stages, the pointwise
 // product with the filter's transform, stored in the DIF output order, DIT
-// stages), its global DIT stages, and the result c[k] conj(row[k]) into the
-// same unpacks (`large_unpack`, `large_magnitude`), so packed and
-// split-real rows follow one law at every N.
+// stages, one `butterfly_at` sweep of the tile a stage), its global DIT
+// stages, and the result c[k] conj(row[k]) into the same unpacks
+// (`large_unpack`, `large_magnitude`), so packed and split-real rows follow
+// one law at every N.
 //
-// Every butterfly is the shared-memory bodies' own step (`butterfly`, at
-// `butterfly_at`'s places, with the full transform's twiddles), and the
-// chirp and filter products are theirs, run in their order, so the grouping
-// into passes changes no bit.
+// Every butterfly is the shared-memory bodies' own step (`butterfly` and
+// `twiddled_dft`, at `butterfly_at`'s places, with the full transform's
+// twiddles), and the chirp and filter products are theirs, run in their
+// order, so the grouping into passes changes no bit.
 //
 // Every multiply and add is an _rn intrinsic (stft_fft.cuh), the FFT runs in
 // true f32, and the tables are `fft_table`'s and `split_fft_table`'s
@@ -72,9 +81,12 @@ struct LargePlan {
   MixedRadix passes;      // the stages: size's plan (direct) or M's (Bluestein)
   int local;              // stages 0 .. local-1 run in the shared-memory pass
   int span;               // r_0 ... r_{local-1}: the entries of one local run
-  int run_low;            // direct: B = r_{local-1} ... r_{run_stage} (see
-  int run_stage;          // `large_run_slots`), the least with B^2 >= span
+  MixedRadix runs;        // direct: a run's own plan (n = span, `local` stages)
+  int tile_shift;         // direct: the tile's swizzle (`large_at`)
+  int tile_mask;
   const float2* tw;       // passes.n twiddles exp(-2 pi i t / passes.n)
+  const float2* run_tw;   // direct: every G0-th of them (G0 = n / the kernels' span)
+  int run_step;           // the kernels' span / span: tw[G t] = run_tw[run_step t]
   const float2* chirp;    // Bluestein: [size] c[t] = exp(-i pi t^2 / size)
   const float2* filter;   // Bluestein: [M] F in the DIF output order
   const float2* post;     // pack: [N/2] exp(-2 pi i k / N)
@@ -82,66 +94,84 @@ struct LargePlan {
   __host__ __device__ __forceinline__ int buf_size() const { return passes.n; }
 };
 
-// B and its first stage for local stages 0 .. local-1 of r (span entries):
-// the product of r_{local-1}, r_{local-2}, ... until B^2 >= span.
-static inline int large_run_low(const MixedRadix& r, int local, int span,
-                                int* stage) {
-  int low = 1, s = local - 1;
-  while (s >= 0 && low * low < span) low *= r.radix[s--];
-  *stage = s + 1;
-  return low;
+// Dynamic shared memory of a local pass over runs of `span` entries: the
+// tile.
+__host__ __device__ __forceinline__ size_t large_smem_bytes(int span) {
+  return span * sizeof(float2);
 }
 
-// Dynamic shared memory of a local pass over runs of `span` entries: the
-// tile, and for a direct N the two place tables (B and span / B ints).
-__host__ __device__ __forceinline__ size_t large_smem_bytes(int span, int low,
-                                                            bool bluestein) {
-  return span * sizeof(float2) + (bluestein ? 0 : (low + span / low) * sizeof(int));
+// The local stages of plan r within `max_span` entries and a block's shared
+// memory, leaving at least one global stage: their count, and in *span the
+// entries of a run.
+static inline int large_local_stages(const MixedRadix& r, int max_span, int* span) {
+  int local = 0;
+  *span = 1;
+  while (local + 1 < r.stages) {
+    const int next = *span * r.radix[local];
+    if (next > max_span || large_smem_bytes(next) > kMaxSmemBytes) break;
+    *span = next;
+    ++local;
+  }
+  return local;
 }
 
 // The plan of N over its table `consts` (`fft_table`, or `split_fft_table`
-// with `split`: then an even N runs the N/2-point pack), with as many local
-// stages as fit `max_span` entries and a block's shared memory
-// (`large_smem_bytes`), leaving at least one global stage; false where N <
-// 2, w is not in 1 .. N, or no mixed-radix plan of the transform or of M
-// exists.
+// with `split`: then an even N runs the N/2-point pack; null where only the
+// plan's shape is asked for), with as many local stages as fit `max_span`
+// entries and a block's shared memory, leaving at least one global stage;
+// false where N < 2, w is not in 1 .. N, or no mixed-radix plan of the
+// transform or of M exists.
+//
+// A direct transform's table ends with every G0-th of its twiddles, G0 = n
+// over the span of the kernels' runs (`max_span` kMaxSmemBytes / 8): the
+// twiddles a run reads, copied, so that a warp's reads of them are
+// contiguous where the full table's lie G0 entries apart (a smaller span's
+// run reads every run_step-th of them).  A run's tile takes the swizzle of
+// the body a span that size would take: a power-of-two span from 256 up
+// Radix2's (its low 4 bits XORed with its top 4), any other multiple of 16
+// MixedRadixT's (with bits 6..9); so every pass of a 4^7 run, the first's
+// stores of 16-entry groups included, touches 16 banks a half-warp, where
+// bits 6..9 left those stores conflicting 8 ways.
 static inline bool make_large_plan(int n, int w, const void* consts,
                                    LargePlan* plan,
                                    int max_span = kMaxSmemBytes / 8,
                                    bool split = false) {
   if (n < 2 || w < 1 || w > n) return false;
   const auto* table = static_cast<const float2*>(consts);
+  const auto entry = [&](int k) { return table == nullptr ? nullptr : table + k; };
   plan->n = n;
   plan->w = w;
   plan->pack = split && real_packs(n);
   plan->size = plan->pack ? n / 2 : n;
   plan->tw = table;
-  plan->chirp = plan->filter = plan->post = nullptr;
+  plan->chirp = plan->filter = plan->post = plan->run_tw = nullptr;
+  plan->run_step = 1;
   plan->bluestein = !make_mixed_radix(plan->size, &plan->passes);
   int table_size = plan->size;
   if (plan->bluestein) {
     const int m = bluestein_length(plan->size);
     if (!make_mixed_radix(m, &plan->passes)) return false;
-    plan->chirp = table + m;
-    plan->filter = table + m + plan->size;
+    plan->chirp = entry(m);
+    plan->filter = entry(m + plan->size);
     table_size = 2 * m + plan->size;
   }
-  if (plan->pack) plan->post = table + table_size;
+  if (plan->pack) plan->post = entry(table_size);
   const MixedRadix& r = plan->passes;
-  plan->local = 0;
-  plan->span = 1;
-  while (plan->local + 1 < r.stages) {
-    const int span = plan->span * r.radix[plan->local];
-    int stage;
-    const int low = large_run_low(r, plan->local + 1, span, &stage);
-    if (span > max_span ||
-        large_smem_bytes(span, low, plan->bluestein) > kMaxSmemBytes) {
-      break;
-    }
-    plan->span = span;
-    ++plan->local;
+  plan->local = large_local_stages(r, max_span, &plan->span);
+  if (!plan->bluestein) {
+    int kernel_span;
+    large_local_stages(r, kMaxSmemBytes / 8, &kernel_span);
+    plan->run_tw = entry(table_size + (plan->pack ? plan->size : 0));
+    plan->run_step = kernel_span / plan->span;
   }
-  plan->run_low = large_run_low(r, plan->local, plan->span, &plan->run_stage);
+  plan->runs.n = plan->span;
+  plan->runs.stages = plan->local;
+  for (int s = 0; s < kMaxStages; ++s) plan->runs.radix[s] = s < plan->local ? r.radix[s] : 0;
+  const bool pow2 = (plan->span & (plan->span - 1)) == 0;
+  int log2span = 0;
+  while ((1 << log2span) < plan->span) ++log2span;
+  plan->tile_shift = pow2 && plan->span >= 256 ? log2span - 4 : 6;
+  plan->tile_mask = plan->span % 16 == 0 ? 15 : 0;
   return true;
 }
 
@@ -313,69 +343,226 @@ __device__ __forceinline__ void large_local(const LargePlan& p, float2* row,
   large_local_dit(p, row, run, tile);
 }
 
-// The digits of v, least significant first in radices r_hi, r_{hi-1}, ...,
-// r_lo, reversed: sum_s d_s r_lo ... r_{s-1}, by Horner.
-__device__ __forceinline__ int large_reverse(const LargePlan& p, int v, int hi, int lo) {
-  int pos = 0;
-  for (int s = hi; s >= lo; --s) {
-    const int r = p.passes.radix[s];
-    pos = pos * r + v % r;
-    v /= r;
-  }
-  return pos;
+// Where entry i of a run is kept in its tile (see `make_large_plan`).
+__device__ __forceinline__ int large_at(const LargePlan& p, int i) {
+  return i ^ ((i >> p.tile_shift) & p.tile_mask);
 }
 
-// Input first + G m (m < span, G = n / span) of a direct row sits at
-// slot(first + G m) - run * span within its run: the global stages' digits
-// of that input are first's, so its place is m's digits reversed over the
-// local stages (r_{local-1} least significant in m).  With m = hi B + lo
-// (B = run_low), that is low[lo] + high[hi]: the low digits' reversal
-// (stages local-1 .. run_stage, weights span / B and up) and the high
-// digits' (stages run_stage-1 .. 0).  The block fills the two tables,
-// `slots` = low [B] then high [span / B], once.
-__device__ __forceinline__ void large_run_slots(const LargePlan& p, int* slots) {
-  const int low = p.run_low, high = p.span / p.run_low;
-  for (int i = threadIdx.x; i < low; i += blockDim.x) {
-    slots[i] = large_reverse(p, i, p.local - 1, p.run_stage) * high;
+// The first input of local run `run` of a direct row (the one at its
+// place 0): unslot(run * span), run's digits in the global stages' radices
+// reversed, < n / span.
+__device__ __forceinline__ int large_run_first(const LargePlan& p, int run) {
+  const unsigned long long bits = p.passes.radix_bits();
+  int first = 0;
+  for (int s = p.local; s < p.passes.stages; ++s) {
+    const int r = static_cast<int>(bits >> (3 * s)) & 7;
+    const int q = div_radix(run, r);
+    first = first * r + (run - q * r);
+    run = q;
   }
-  for (int i = threadIdx.x; i < high; i += blockDim.x) {
-    slots[low + i] = large_reverse(p, i, p.run_stage - 1, 0);
+  return first;
+}
+
+// Entry i of a run after a register pass: into the tile, or from the last
+// pass into the row, unswizzled.
+template <bool kLast>
+__device__ __forceinline__ void large_run_put(const LargePlan& p, float2* tile,
+                                              float2* out, int i, float2 v) {
+  if constexpr (kLast) {
+    out[i] = v;
+  } else {
+    tile[large_at(p, i)] = v;
+  }
+}
+
+// The run's stages 0 (radix R1) and 1 (R2; none for R2 = 1) with the load,
+// as MixedRadixT::first_pass runs them: the group of u holds places
+// reverse(u) + d, inputs u + e g of the run (g = span / P groups, e = d's
+// digit reversal), read through z below `reach` (the run's inputs the
+// window reaches; where R1 is even, those of d0 >= R1 / 2 are read only
+// where it reaches u + span / 2).  Its twiddles are the run's (`run_tw`).
+template <int R1, int R2, bool kLast, class Z>
+__device__ __forceinline__ void large_first_pass(const LargePlan& p, float2* tile,
+                                                 float2* out, int reach, const Z& z) {
+  constexpr int kP = R1 * R2;
+  const MixedRadix& runs = p.runs;
+  const unsigned long long bits = runs.radix_bits();
+  const int g = runs.n / kP;
+  const int step = g * p.run_step;
+  for (int u = threadIdx.x; u < g; u += blockDim.x) {
+    float2 x[kP];
+    if constexpr (R1 % 2 == 0) {
+      runs.template load_part<R1, R2, 0, R1 / 2>(x, u, g, reach, z);
+      if (u + runs.n / 2 < reach) {
+        runs.template load_part<R1, R2, R1 / 2, R1>(x, u, g, reach, z);
+      } else {
+#pragma unroll
+        for (int d = 0; d < kP; ++d) {
+          if (d % R1 >= R1 / 2) x[d] = make_float2(0.f, 0.f);
+        }
+      }
+    } else {
+      runs.template load_part<R1, R2, 0, R1>(x, u, g, reach, z);
+    }
+    MixedRadix::lower_stage<R1, R2, false>(x, p.run_tw, 0);
+    if constexpr (R2 > 1) MixedRadix::upper_stage<R1, R2, false>(x, p.run_tw, 0, 1, step);
+    const int base = runs.reverse(u, R2 > 1 ? 2 : 1, bits);
+#pragma unroll
+    for (int d = 0; d < kP; ++d) large_run_put<kLast>(p, tile, out, base + d, x[d]);
   }
   __syncthreads();
 }
 
-// The first input of local run `run` of a direct row (the one at its
-// place 0): unslot(run * span), < n / span.
-__device__ __forceinline__ int large_run_first(const LargePlan& p, int run) {
-  return p.passes.unslot(run * p.span);
+// The run's stages s (radix R1) and s+1 (R2; none for R2 = 1) over every
+// group, len = L_s, as MixedRadixT::pass runs them (DIT), on the run's
+// twiddles (step span / M, M = len P).  Each thread carries its group's
+// (b, p) from one group to its next, so no group costs a division.
+template <int R1, int R2, bool kLast>
+__device__ __forceinline__ void large_run_pass(const LargePlan& p, float2* tile,
+                                               float2* out, int len) {
+  constexpr int kP = R1 * R2;
+  const int m = len * kP;
+  const int step2 = p.span / m * p.run_step;
+  const int db = blockDim.x / len, dp = blockDim.x - db * len;
+  int b = threadIdx.x / len, q = threadIdx.x - b * len;
+  for (int u = threadIdx.x; u < p.span / kP; u += blockDim.x) {
+    const int base = b * m + q;
+    float2 x[kP];
+#pragma unroll
+    for (int d = 0; d < kP; ++d) x[d] = tile[large_at(p, base + d * len)];
+    if constexpr (R2 == 1) {
+      twiddled_dft<R1, false>(x, p.run_tw, q * step2);
+#pragma unroll
+      for (int d = 0; d < kP; ++d) large_run_put<kLast>(p, tile, out, base + d * len, x[d]);
+    } else {
+      MixedRadix::lower_stage<R1, R2, false>(x, p.run_tw, q * step2 * R2);
+#pragma unroll
+      for (int e = 0; e < R1; ++e) {
+        float2 a[R2];
+#pragma unroll
+        for (int t = 0; t < R2; ++t) a[t] = x[e + R1 * t];
+        twiddled_dft<R2, false>(a, p.run_tw, (q + e * len) * step2);
+#pragma unroll
+        for (int t = 0; t < R2; ++t) {
+          large_run_put<kLast>(p, tile, out, base + (e + R1 * t) * len, a[t]);
+        }
+      }
+    }
+    b += db;
+    q += dp;
+    if (q >= len) {
+      q -= len;
+      ++b;
+    }
+  }
+  __syncthreads();
 }
 
 // Pass 1 of a direct row, run `run` (first input `first`,
 // large_run_first): `value(i)` (large_packed_value or large_real_value) of
-// inputs first + G m, m < span, into their places in `tile` (span complex
-// f32 of shared memory; `slots`, large_run_slots), the local DIT stages,
-// and the run back to the row.  Each thread steps m by blockDim.x and
-// carries m's (hi, lo) along, so no input costs a division.  The caller's
-// block runs it together.
-template <class Value>
-__device__ __forceinline__ void large_load_local(const LargePlan& p, float2* row,
-                                                 int run, int first, float2* tile,
-                                                 const int* slots, const Value& value) {
-  const int low = p.run_low, stride = p.passes.n / p.span;
-  const int* high = slots + low;
-  const int step_lo = blockDim.x % low, step_hi = blockDim.x / low;
-  int lo = threadIdx.x % low, hi = threadIdx.x / low;
-  for (int m = threadIdx.x; m < p.span; m += blockDim.x) {
-    tile[slots[lo] + high[hi]] = value(first + stride * m);
-    lo += step_lo;
-    hi += step_hi;
-    if (lo >= low) {
-      lo -= low;
-      ++hi;
-    }
+// inputs first + G m, m < span, through the run's register passes under the
+// pass bound kCap (the first within kFirstGroup entries, as the bodies'
+// `load_transform`), `tile` (span complex f32 of shared memory) between
+// them, the last into run `run` of the row.  The caller's block runs it
+// together.
+template <int kCap, class Value>
+__device__ __forceinline__ void large_load_local(const LargePlan& p, float2* row, int run,
+                                                 int first, float2* tile,
+                                                 const Value& value) {
+  float2* out = row + static_cast<size_t>(run) * p.span;
+  const int stages = p.runs.stages;
+  const int stride = p.passes.n / p.span;
+  if (stages == 0) {
+    if (threadIdx.x == 0) out[0] = value(first);
+    return;
   }
-  __syncthreads();
-  large_local_dit(p, row, run, tile);
+  // the run's inputs first + stride m that hold samples: m < reach (at
+  // least 1, as value() gives zero past the window)
+  const int inputs = p.pack ? (p.w + 1) / 2 : p.w;
+  int reach = (inputs - first + stride - 1) / stride;
+  reach = reach < 1 ? 1 : reach > p.span ? p.span : reach;
+  const auto z = [&](int m) { return value(first + stride * m); };
+  const unsigned long long bits = p.runs.radix_bits();
+  constexpr int kFirst = kCap < kFirstGroup ? kCap : kFirstGroup;
+  int s = MixedRadix::pass_stages<kFirst>(bits, 0, stages);
+  const int r1 = static_cast<int>(bits) & 7;
+  const int r2 = s == 2 ? static_cast<int>(bits >> 3) & 7 : 1;
+  MixedRadix::with_radices<kFirst>(r1, r2, [&](auto a, auto b) {
+    constexpr int A = decltype(a)::value, B = decltype(b)::value;
+    if (s == stages) {
+      large_first_pass<A, B, true>(p, tile, out, reach, z);
+    } else {
+      large_first_pass<A, B, false>(p, tile, out, reach, z);
+    }
+  });
+  int len = r1 * r2;
+  while (s < stages) {
+    const int q = MixedRadix::pass_stages<kCap>(bits, s, stages);
+    const int q1 = static_cast<int>(bits >> (3 * s)) & 7;
+    const int q2 = q == 2 ? static_cast<int>(bits >> (3 * s + 3)) & 7 : 1;
+    s += q;
+    MixedRadix::with_radices<kCap>(q1, q2, [&](auto a, auto b) {
+      constexpr int A = decltype(a)::value, B = decltype(b)::value;
+      if (s == stages) {
+        large_run_pass<A, B, true>(p, tile, out, len);
+      } else {
+        large_run_pass<A, B, false>(p, tile, out, len);
+      }
+    });
+    len *= q1 * q2;
+  }
+}
+
+// The register passes `large_load_local` runs over a run under the pass
+// bound `cap`, and in *groups the most groups one of them runs.
+static inline int large_load_passes(const LargePlan& p, int cap, int* groups) {
+  const int* r = p.passes.radix;
+  const int first = cap < kFirstGroup ? cap : kFirstGroup;
+  int passes = 0, least = p.span;
+  for (int s = 0; s < p.local; ++passes) {
+    const int pair = s + 1 < p.local && r[s] * r[s + 1] <= (s == 0 ? first : cap);
+    const int entries = pair ? r[s] * r[s + 1] : r[s];
+    least = entries < least ? entries : least;
+    s += 1 + pair;
+  }
+  *groups = p.span / least;
+  return passes;
+}
+
+// Pass 1's launch bounds at every span: (kStftMaxThreads, 1), whose 128
+// registers hold the (4 4) pairs (`group_cap`).  At N = 65,536 (runs of
+// 4^7 entries, one block per SM) pass 1 took 0.66-0.69x the time of
+// (kWideThreads, 1), whose 64 registers hold single stages only, seven
+// passes over the tile in place of four (PERF.md §6).
+using LargeLoadBounds = Bounds<kStftMaxThreads, 1>;
+
+// Pass 1's threads: one per group of its widest pass, in whole warps, at
+// most LargeLoadBounds::threads.
+static inline int large_load_threads(const LargePlan& p) {
+  int groups;
+  large_load_passes(p, group_cap<LargeLoadBounds>(), &groups);
+  const int threads = (groups + 31) / 32 * 32;
+  return threads < 32 ? 32 : threads > LargeLoadBounds::threads ? LargeLoadBounds::threads
+                                                                : threads;
+}
+
+// Pass 1's form at N and w (the split-real rows with `split`), as the
+// kernels launch it: form[0] its register passes over a run, form[1] a
+// block's threads; 0 and 0 where N takes Bluestein's passes, which have no
+// pass 1.  0, or cudaErrorInvalidValue where the route does not take N and
+// w.
+static inline int large_pass1_form(int n, int w, bool split, int* form) {
+  LargePlan p;
+  if (!make_large_plan(n, w, nullptr, &p, kMaxSmemBytes / 8, split)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  form[0] = form[1] = 0;
+  if (!p.bluestein) {
+    int groups;
+    form[0] = large_load_passes(p, group_cap<LargeLoadBounds>(), &groups);
+    form[1] = large_load_threads(p);
+  }
+  return 0;
 }
 
 // What pass 2 of a direct row reads of the plan: passed by value, with no

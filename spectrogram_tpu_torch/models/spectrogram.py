@@ -272,12 +272,15 @@ class SpectrogramPipeline:
     palette order and the ring write: "push.order_chunk",
     "push.bridge", "push.order_rows", "push.ring", and those that took the
     large-N STFT route, "push.stft_large", with its row-group launches,
-    "stft.large_groups".  `last_stft` records the last push's STFT:
-    {"route", "n_fft", "rows", "groups", "scratch_bytes"}, the route "plain"
-    (the plain versions), "large" or the FFT body its launches count under,
-    the windows it took, and on the large-N route its row groups and the
-    bytes of scratch each group's launch writes over (0 elsewhere); None
-    before any push.  `last_layout` is
+    "stft.large_groups", and of those the pass-1 launches on the register
+    passes, "stft.large_load_register".  `last_stft` records the last
+    push's STFT: {"route", "n_fft", "rows", "groups", "scratch_bytes",
+    "load_passes", "load_threads"}, the route "plain" (the plain versions),
+    "large" or the FFT body its launches count under, the windows it took,
+    and on the large-N route its row groups, the bytes of scratch each
+    group's launch writes over, and its pass 1's register passes over a run
+    and threads a block (0 elsewhere, and for Bluestein's N, which have no
+    pass 1); None before any push.  `last_layout` is
     {"blocks": row blocks, "uniform": single-palette blocks} of the last
     order the blockwise test read: the order the pushes run where the rule
     took one, else the last (most sorted) order it refused; None before
@@ -1198,18 +1201,24 @@ class SpectrogramPipeline:
         label its launches count under (`stft_kernel.fft_route`, or
         `split_route` for the split-real layouts); on the large-N route the
         row groups and scratch of `stft_kernel.large_grouping`, the function
-        the route's wrapper launches by."""
+        the route's wrapper launches by, and pass 1's register passes and
+        threads (`stft_kernel.large_pass1`), each group's pass-1 launch
+        counted under "stft.large_load_register"."""
         n = self.fft_consts.n_fft
         split = self.tsplit_framing or self.carry_transposed or not self.stft_packed
         route = ("plain" if self._stft_plain
                  else (stft_kernel.split_route if split else stft_kernel.fft_route)(n))
-        groups = scratch = 0
+        groups = scratch = passes = threads = 0
         if route == stft_kernel.LARGE:
             _, groups, scratch = stft_kernel.large_grouping(n, rows, split)
+            passes, threads = stft_kernel.large_pass1(n, split)
             self.counters["push.stft_large"] += 1
             self.counters["stft.large_groups"] += groups
+            if passes:
+                self.counters["stft.large_load_register"] += groups
         self.last_stft = {"route": route, "n_fft": n, "rows": rows, "groups": groups,
-                          "scratch_bytes": scratch}
+                          "scratch_bytes": scratch, "load_passes": passes,
+                          "load_threads": threads}
 
     def _push_core(self, state: StreamState, chunk_pl: torch.Tensor):
         if state.carry.dtype != self.carry_dtype:

@@ -184,6 +184,8 @@ class KernelLibrary:
             fn.restype = ctypes.c_int
         self._dll.spk_error_string.argtypes = (ctypes.c_int,)
         self._dll.spk_error_string.restype = ctypes.c_char_p
+        self._dll.spk_stft_large_pass1.argtypes = (_I, _I, _I, ctypes.POINTER(_I))
+        self._dll.spk_stft_large_pass1.restype = _I
         self.launches = {name: 0 for name in KERNELS}
         self.body_launches = {body: 0 for body in FFT_BODIES}
 
@@ -198,6 +200,18 @@ class KernelLibrary:
         self.launches[name] += 1
         if body is not None:
             self.body_launches[body] += 1
+
+    def large_pass1(self, n_fft: int, window_size: int, split: bool) -> tuple[int, int]:
+        """(register passes over a run, threads a block) of the large-N
+        route's pass 1 at N and W, packed or split-real, as its kernel
+        launches it (`spk_stft_large_pass1`); (0, 0) where N takes
+        Bluestein's passes."""
+        form = (_I * 2)()
+        code = self._dll.spk_stft_large_pass1(n_fft, window_size, int(split), form)
+        if code != 0:
+            msg = self._dll.spk_error_string(code).decode()
+            raise ValueError(f"spk_stft_large_pass1: N={n_fft}, W={window_size}: {msg}")
+        return form[0], form[1]
 
     def reset_launches(self) -> None:
         for counts in (self.launches, self.body_launches):

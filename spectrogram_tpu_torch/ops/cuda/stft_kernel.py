@@ -30,7 +30,8 @@ about 14,500), every packed entry takes the large-N route instead
 (`csrc/stft_large.cu`): the wrapper frames its operand into [rows, W] window
 planes, as the plain version frames it, and the route runs the bodies'
 butterflies over a scratch in device memory: for a direct N two passes, the
-load fused into the shared-memory stages and the last stage fused into the
+load fused into the first of the register passes that run the first stages
+over each run (`large_pass1` reports them) and the last stage fused into the
 unpack (Bluestein: its load, stages and unpack as passes of their own).  The
 scratch holds each row's whole buffer between the passes, in row groups of
 at most `LARGE_SCRATCH_BYTES` (`large_grouping`; each group's launch opens
@@ -392,15 +393,8 @@ def check_fft_size(n_fft: int) -> None:
         raise ValueError(f"the STFT needs an FFT of at least 2 points; got N={n_fft}")
 
 
-def fft_table(n_fft: int) -> np.ndarray:
-    """[T, 2] f32 (re, im): the device table of N's FFT body, each entry
-    computed in float64 and rounded once.  Direct bodies: the N twiddles
-    (`twiddle_table`).  Bluestein: the M twiddles of its inner length, the N
-    chirp entries c[t] = exp(-i pi t^2 / N) with t^2 reduced mod 2N in
-    integers (so the angle stays in [0, 2 pi) at any N), and the M entries of
-    the filter's transform F = DFT_M(b) / M, b[t] = b[M - t] = conj(c[t])
-    for t < N, stored at F[k] -> slot(k) (`digit_reversal(M)`), the order in
-    which the kernel's DIF pass leaves the data's transform."""
+def _body_table(n_fft: int) -> np.ndarray:
+    """[T, 2] f32: the table of N's FFT body (see `fft_table`)."""
     if fft_body(n_fft) != "bluestein":
         return twiddle_table(n_fft)
     m = bluestein_size(n_fft)
@@ -415,30 +409,78 @@ def fft_table(n_fft: int) -> np.ndarray:
     return np.stack([table.real, table.imag], axis=-1).astype(np.float32)
 
 
+def _body_rows(n_fft: int) -> int:
+    """The rows of `_body_table(n_fft)`."""
+    return n_fft if fft_body(n_fft) != "bluestein" else 2 * bluestein_size(n_fft) + n_fft
+
+
+def large_span(n: int) -> int:
+    """The entries of one local run of the large-N route's passes over a
+    direct n-point transform (csrc/stft_large.cuh `large_local_stages` at
+    the kernels' span): the product of the plan's first radices within
+    MAX_BUF entries, leaving at least one stage."""
+    radices, span = mixed_radix_plan(n), 1
+    for r in radices[:-1]:
+        if span * r > MAX_BUF:
+            break
+        span *= r
+    return span
+
+
+def _run_rows(n: int) -> int:
+    """The rows of `_run_twiddles(n)`: the span of its runs, 0 for
+    Bluestein's n."""
+    return 0 if fft_body(n) == "bluestein" else large_span(n)
+
+
+def _run_twiddles(n: int) -> np.ndarray:
+    """[span, 2] f32: every G-th of a direct n's twiddles, G = n /
+    `large_span(n)`, copied (not computed again): the twiddles the large-N
+    route's runs read, contiguous; [0, 2] for Bluestein's n."""
+    if fft_body(n) == "bluestein":
+        return np.zeros((0, 2), np.float32)
+    return np.ascontiguousarray(twiddle_table(n)[:: n // large_span(n)])
+
+
+def fft_table(n_fft: int) -> np.ndarray:
+    """[T, 2] f32 (re, im): the device table of N's FFT body, each entry
+    computed in float64 and rounded once.  Direct bodies: the N twiddles
+    (`twiddle_table`), then every G-th of them again for the large-N
+    route's runs (`_run_twiddles`; the shared-memory bodies read the first
+    N).  Bluestein: the M twiddles of its inner length, the N chirp entries
+    c[t] = exp(-i pi t^2 / N) with t^2 reduced mod 2N in integers (so the
+    angle stays in [0, 2 pi) at any N), and the M entries of the filter's
+    transform F = DFT_M(b) / M, b[t] = b[M - t] = conj(c[t]) for t < N,
+    stored at F[k] -> slot(k) (`digit_reversal(M)`), the order in which the
+    kernel's DIF pass leaves the data's transform."""
+    return np.concatenate([_body_table(n_fft), _run_twiddles(n_fft)])
+
+
 def fft_table_shape(n_fft: int) -> tuple:
     """The shape of `fft_table(n_fft)`."""
-    if fft_body(n_fft) != "bluestein":
-        return (n_fft, 2)
-    return (2 * bluestein_size(n_fft) + n_fft, 2)
+    return (_body_rows(n_fft) + _run_rows(n_fft), 2)
 
 
 def split_fft_table(n_fft: int) -> np.ndarray:
     """[T, 2] f32: the split-real kernels' table of N.  Even N (the N/2-point
-    pack): `fft_table(N/2)`, the table of the body that transforms the pack,
-    followed by the N/2 post-twiddles exp(-2 pi i k / N) of the unpack, each
-    computed in float64 and rounded once.  Odd N: `fft_table(N)`."""
+    pack): the table of the body that transforms the pack, followed by the
+    N/2 post-twiddles exp(-2 pi i k / N) of the unpack, each computed in
+    float64 and rounded once, then the pack's run twiddles (as
+    `fft_table(N/2)` ends).  Odd N: `fft_table(N)`."""
     if not split_packs(n_fft):
         return fft_table(n_fft)
-    post = np.exp(-2j * np.pi * np.arange(n_fft // 2) / n_fft)
+    half = n_fft // 2
+    post = np.exp(-2j * np.pi * np.arange(half) / n_fft)
     post = np.stack([post.real, post.imag], axis=-1).astype(np.float32)
-    return np.concatenate([fft_table(n_fft // 2), post])
+    return np.concatenate([_body_table(half), post, _run_twiddles(half)])
 
 
 def split_table_shape(n_fft: int) -> tuple:
     """The shape of `split_fft_table(n_fft)`."""
     if not split_packs(n_fft):
         return fft_table_shape(n_fft)
-    return (fft_table_shape(n_fft // 2)[0] + n_fft // 2, 2)
+    half = n_fft // 2
+    return (_body_rows(half) + half + _run_rows(half), 2)
 
 
 class FftConstants(NamedTuple):
@@ -597,6 +639,18 @@ def large_grouping(n_fft: int, rows: int, split: bool = False) -> tuple[int, int
     row_bytes = 2 * split_buf_size(n_fft) * 8 if split else fft_buf_size(n_fft) * 8
     group = max(1, min(rows, LARGE_SCRATCH_BYTES // row_bytes))
     return group, -(-rows // group), group * row_bytes
+
+
+@functools.lru_cache(maxsize=None)
+def large_pass1(n_fft: int, split: bool = False) -> tuple[int, int]:
+    """(register passes over a run, threads a block) of the large-N route's
+    pass 1 at N, the packed rows or the split-real ones (`split`), as its
+    kernel launches it (csrc/stft_large.cuh `large_pass1_form`; the form
+    follows from N, not W); (0, 0) where N takes Bluestein's passes.  Asks
+    the kernel library once per (N, split)."""
+    from spectrogram_tpu_torch.ops.cuda import _build
+
+    return _build.library().large_pass1(n_fft, n_fft, split)
 
 
 def _large_stft(kernel: str, left: torch.Tensor, right: torch.Tensor,

@@ -445,8 +445,6 @@ static int host_large(const LargeRows& in, int n, const float* consts, Out out_l
     return 0;
   }
   std::vector<float2> tile(p.span);
-  std::vector<int> slots(p.run_low + p.span / p.run_low);
-  spk::large_run_slots(p, slots.data());
   const size_t bins = spk::stft_bins(n, in.w);
   const spk::LargeLast last = spk::large_last(p);
   return spk::large_passes(p, [&](int kind, int s, int len) {
@@ -455,15 +453,17 @@ static int host_large(const LargeRows& in, int n, const float* consts, Out out_l
       float2* row = scratch.data() + q * m;
       for (int j = 0; j < count; ++j) {
         if (kind == spk::kLargeLoadLocal) {
+          // the pass bound of the kernel's launch bounds
+          constexpr int kCap = spk::group_cap<spk::LargeLoadBounds>();
           const int first = spk::large_run_first(p, j);
           if (in.split) {
             const float* x = in.channel(q);
-            spk::large_load_local(p, row, j, first, tile.data(), slots.data(), [&](int i) {
+            spk::large_load_local<kCap>(p, row, j, first, tile.data(), [&](int i) {
               return spk::large_real_value(p, x, in.hann, i);
             });
           } else {
             const float *l = in.left(q), *r = in.right(q);
-            spk::large_load_local(p, row, j, first, tile.data(), slots.data(), [&](int i) {
+            spk::large_load_local<kCap>(p, row, j, first, tile.data(), [&](int i) {
               return spk::large_packed_value(p, l, r, in.hann, i);
             });
           }
@@ -517,6 +517,11 @@ extern "C" int stft_host_large_writes(int split, int n, int rows, int w,
                                       int* count_l, int* count_r, int max_span) {
   return host_large(LargeRows{split, rows, w, l, r, hann}, n, consts,
                     CountedPlane{count_l}, CountedPlane{count_r}, max_span, true);
+}
+
+// spk_stft_large_pass1: pass 1's register passes and threads at n, w.
+extern "C" int stft_host_large_pass1(int n, int w, int split, int* form) {
+  return spk::large_pass1_form(n, w, split != 0, form);
 }
 
 // spk_push_fused: [rows, w] planes l, r -> out [rows, h] words, row n

@@ -1544,8 +1544,10 @@ def _long_serving_pipeline(device, s: int):
 
 def test_long_window_serving_push_counts_the_route(cuda):
     """Serving pushes at the long window (64 streams, sorted into two
-    palettes) on the card: one "push.stft_large" and one row group a push,
-    `last_stft` as `large_grouping` gives it, the `spk.stft.large` span
+    palettes) on the card: one "push.stft_large", one row group and one
+    pass-1 launch on the register passes ((4 4) pairs at 512 threads or
+    single stages at 1,024) a push, `last_stft` as `large_grouping` and
+    `large_pass1` give it, the `spk.stft.large` span
     inside `spk.stft` with no range mirrored onto the device's timeline, and
     rows within 1 u8 of the plain twin's, the next carry exact."""
     from torch.profiler import ProfilerActivity, profile
@@ -1564,8 +1566,12 @@ def test_long_window_serving_push_counts_the_route(cuda):
             st_p, plain = twin.push_planar(st_p, c)
         torch.cuda.synchronize()
     assert p.counters["push.stft_large"] == 3 and p.counters["stft.large_groups"] == 3
+    assert p.counters["stft.large_load_register"] == 3
+    passes, threads = sk.large_pass1(65536)
+    assert passes in (4, 7) and threads == {4: 512, 7: 1024}[passes]
     assert p.last_stft == {"route": "large", "n_fft": 65536, "rows": s, "groups": 1,
-                           "scratch_bytes": sk.large_grouping(65536, s)[2]}
+                           "scratch_bytes": sk.large_grouping(65536, s)[2],
+                           "load_passes": passes, "load_threads": threads}
     assert twin.last_stft["route"] == "plain" and "push.stft_large" not in twin.counters
     assert testing.rgba_u8_diff(ck.unpack_rgba(rows), ck.unpack_rgba(plain)) <= 1
     torch.testing.assert_close(st_k.carry, st_p.carry, atol=0, rtol=0)

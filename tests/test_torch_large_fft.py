@@ -2,9 +2,10 @@
 block's shared memory.
 
 `spectrogram_tpu_torch/csrc/stft_large.cuh` holds the route's index code
-(for a 7-smooth N two passes: the load fused into the local pass of the
-first radix stages through shared memory, and the last stage fused into the
-unpack, a butterfly pair at a time; for Bluestein the load, its global
+(for a 7-smooth N two passes: the load fused into the first of the
+register passes that run the first radix stages over each run, through
+shared memory between them, and the last stage fused into the unpack, a
+butterfly pair at a time; for Bluestein the load, its global
 stages, the local pass with the filter product, and the unpack; the
 split-real pack's unpack); `tests/cuda_host_stub/` compiles it with g++ and
 runs each pass over every row, one thread per block, as the route's launches
@@ -16,7 +17,8 @@ with radix 7) and the prime 16,411 (Bluestein, M = 33,614), packed and
 split-real; the split-real route at N = 60,000 and 65,536, where even the
 N/2-point pack passes a block; and at N the shared-memory bodies take too
 (4800, 4410, 2204), their bits exactly; the two passes against the unfused
-sequence, bit for bit, and every output bin written exactly once.  Then the
+sequence, bit for bit, and every output bin written exactly once; pass 1's
+form (register passes, threads) as the library reports it.  Then the
 size check, and the pipeline at N = 35,280 against the JAX package's, as
 `tests/test_torch_fft_sizes.py` runs it.  Without a C++ compiler the host
 tests skip.
@@ -62,9 +64,10 @@ def host_lib(tmp_path_factory):
     large = (lib.stft_host_large, lib.stft_host_large_unfused, lib.stft_host_large_writes)
     for fn in large:
         fn.argtypes = (i, i, i, i, p, p, p, p, p, p, i)
+    lib.stft_host_large_pass1.argtypes = (i, i, i, p)
     lib.stft_host_rows.argtypes = (i, i, i, i, p, p, p, p, p, p)
     lib.stft_host_split.argtypes = (i, i, i, i, p, p, p, p, p, p)
-    for fn in (*large, lib.stft_host_rows, lib.stft_host_split):
+    for fn in (*large, lib.stft_host_large_pass1, lib.stft_host_rows, lib.stft_host_split):
         fn.restype = i
     return lib
 
@@ -143,12 +146,14 @@ def test_large_route_gives_the_shared_memory_bodies_bits(host_lib, n_fft, split,
 
 
 # (split, N) of the fused order's checks: the packed route at 2^15 (last
-# stage radix 2), 48,000 (5) and 35,280 (7); the split-real pack at the same
+# stage radix 2), 48,000 (5), 35,280 (7) and 2^16 (4: the long-window
+# serving geometry, runs of 4^7 entries); the split-real pack at the same
 # N (N/2 = 16,384, 24,000, 17,640) and past a block (30,000: radix 5;
 # 32,768: 2); the odd split-real row 33,075 = 3^3 5^2 7^2 (the N-point row,
 # radix 7 last)
-FUSED_CASES = ((False, 32768), (False, 48000), (False, 35280), (True, 32768),
-               (True, 48000), (True, 35280), (True, 60000), (True, 65536), (True, 33075))
+FUSED_CASES = ((False, 32768), (False, 48000), (False, 35280), (False, 65536),
+               (True, 32768), (True, 48000), (True, 35280), (True, 60000), (True, 65536),
+               (True, 33075))
 FUSED_IDS = [f"{'split' if s else 'packed'}-{n}" for s, n in FUSED_CASES]
 
 
@@ -222,6 +227,77 @@ def test_large_split_route_matches_float64(host_lib, n_fft):
                 hann=hann, tail=(tsk.MAX_BUF,), split=True)
     for g, want in zip(got, _reference(left, right, hann, n_fft, split=True)):
         np.testing.assert_allclose(g, want, atol=ATOL, rtol=0)
+
+
+# pass 1's launch bounds, threads and the pass bound their registers leave
+# (csrc/stft_large.cuh `LargeLoadBounds`, csrc/stft_fft.cuh `group_cap`)
+PASS1_THREADS, PASS1_CAP = 512, 25
+
+
+def _pass1_grouping(radices, cap):
+    """The register passes of a run's stages `radices` under the pass bound
+    `cap`, as `MixedRadixT::with_radices` takes them (`pass_stages`: two
+    stages where their radices multiply to at most the bound, the first
+    pass's bound at most 16, as `load_transform`'s)."""
+    passes, s = [], 0
+    while s < len(radices):
+        bound = min(cap, 16) if s == 0 else cap
+        q = 2 if s + 1 < len(radices) and radices[s] * radices[s + 1] <= bound else 1
+        passes.append(radices[s:s + q])
+        s += q
+    return passes
+
+
+@pytest.mark.parametrize("n_fft,want", [(65536, (4, 512)), (48000, (4, 512))])
+def test_large_pass1_form_follows_the_plan(host_lib, n_fft, want):
+    """`spk_stft_large_pass1`'s (register passes, threads) of pass 1, as
+    the stub runs the same header code: the plan's local stages (all but
+    the last, within a block's shared memory: 4^7, runs of 16,384 entries,
+    at N = 65,536; 4-4-4-2-3-5-5, runs of 9,600, at 48,000) grouped as
+    `with_radices` groups them under the bound of the launch ((4 4)(4 4)
+    (4 4)(4); (4 4)(4 2)(3 5)(5)), and a thread per group of the widest
+    pass, at most the launch's 512.  The
+    split-real pack of 65,536 runs the same runs; a Bluestein N has no
+    pass 1, and a window past N is refused."""
+    radices = tsk.mixed_radix_plan(n_fft)
+    local, span = 0, 1
+    while local + 1 < len(radices) and span * radices[local] <= tsk.MAX_BUF:
+        span *= radices[local]
+        local += 1
+    assert span == tsk.large_span(n_fft)
+    passes = _pass1_grouping(radices[:local], PASS1_CAP)
+    groups = span // min(int(np.prod(q)) for q in passes)
+    expect = (len(passes), min(PASS1_THREADS, -(-groups // 32) * 32))
+    assert expect == want
+    form = (ctypes.c_int * 2)()
+    assert host_lib.stft_host_large_pass1(n_fft, n_fft // 2, 0, ctypes.addressof(form)) == 0
+    assert tuple(form) == expect
+    if n_fft == 65536:
+        assert host_lib.stft_host_large_pass1(n_fft, n_fft // 2, 1, ctypes.addressof(form)) == 0
+        assert tuple(form) == expect
+    assert host_lib.stft_host_large_pass1(16411, 8192, 0, ctypes.addressof(form)) == 0
+    assert tuple(form) == (0, 0)
+    assert host_lib.stft_host_large_pass1(n_fft, n_fft + 1, 0, ctypes.addressof(form)) != 0
+
+
+@pytest.mark.parametrize("n_fft", [65536, 48000, 4800, 33075, 16411])
+def test_tables_end_with_the_run_twiddles(n_fft):
+    """A direct transform's table ends with every G-th of its twiddles, G
+    = its length over the span of the route's runs (4 at N = 65,536, 5 at
+    48,000), copied bit for bit: the packed table after N's twiddles, the
+    split-real pack's after its post-twiddles (N/2's runs), an odd N's as
+    the packed one's; Bluestein's tables carry none."""
+    tables = ((tsk.fft_table(n_fft), n_fft), (tsk.split_fft_table(n_fft), tsk.split_size(n_fft)))
+    for table, size in tables:
+        if tsk.fft_body(size) == "bluestein":
+            assert table.shape[0] == 2 * tsk.bluestein_size(size) + n_fft
+            continue
+        span = tsk.large_span(size)
+        assert size % span == 0 and span < size
+        runs = table[-span:]
+        np.testing.assert_array_equal(runs, tsk.twiddle_table(size)[:: size // span])
+        np.testing.assert_array_equal(table[:size], tsk.twiddle_table(size))
+    assert tsk.large_span(65536) == 16384 and tsk.large_span(48000) == 9600
 
 
 def test_check_fft_size_raises_only_below_two():

@@ -8,7 +8,7 @@ rule's (also at the cell's 4,096 streams); and at 2 streams in the same
 mode against the JAX package's pipeline from one state (rows within 1 u8,
 carry exact, the same palette order).  And the large-N route's row
 grouping, the counters and the `last_stft` record the pipeline keeps of
-it."""
+it, pass 1's form among them."""
 
 import collections
 import json
@@ -95,8 +95,9 @@ def test_serving_push_matches_the_reference(ids):
     torch.testing.assert_close(carry, law.next_carry(pool, PUSHES - 1, g, 1), atol=0, rtol=0)
     # the plain STFT on the CPU: its route, and none of the large route's counts
     assert p.last_stft == {"route": "plain", "n_fft": 65536, "rows": s, "groups": 0,
-                           "scratch_bytes": 0}
+                           "scratch_bytes": 0, "load_passes": 0, "load_threads": 0}
     assert p.counters["push.stft_large"] == p.counters["stft.large_groups"] == 0
+    assert p.counters["stft.large_load_register"] == 0
 
 
 def test_serving_push_matches_jax():
@@ -170,10 +171,20 @@ def test_large_grouping_at_a_bluestein_size():
     assert rows * m * 8 <= sk.LARGE_SCRATCH_BYTES < (rows + 1) * m * 8
 
 
-def test_large_route_counters_and_record():
+def test_large_route_counters_and_record(monkeypatch):
     """The record and counters as a pipeline on the card keeps them (the
     kernels' flag set on a CPU pipeline, whose STFT stays plain): one
-    "push.stft_large" a push, its groups under "stft.large_groups"."""
+    "push.stft_large" a push, its groups under "stft.large_groups", and
+    under "stft.large_load_register" where pass 1 runs register passes;
+    pass 1's form as the kernel library reports it (`large_pass1`, asked
+    per (N, split); stood in here, where no library builds)."""
+    asked = []
+
+    def pass1(n_fft, split=False):
+        asked.append((n_fft, split))
+        return (4, 512)
+
+    monkeypatch.setattr(sk, "large_pass1", pass1)
     cfg = SpectrogramConfig(sample_rate=48000.0, window_period=16384 / 48000.0,
                             hop_period=4096 / 48000.0, viewport_height=64)
     p = SpectrogramPipeline(cfg, device="cpu", chunk_hops=2, store_ring=False,
@@ -184,8 +195,13 @@ def test_large_route_counters_and_record():
     for _ in range(2):
         state, _ = p.push_planar(state, torch.zeros(3, 2, p.chunk_size))
     assert p.last_stft == {"route": "large", "n_fft": 32768, "rows": 6, "groups": 1,
-                           "scratch_bytes": 6 * 32768 * 8}
+                           "scratch_bytes": 6 * 32768 * 8, "load_passes": 4,
+                           "load_threads": 512}
     assert p.counters["push.stft_large"] == 2 and p.counters["stft.large_groups"] == 2
+    assert p.counters["stft.large_load_register"] == 2 and set(asked) == {(32768, False)}
+    monkeypatch.setattr(sk, "large_pass1", lambda n_fft, split=False: (0, 0))
+    state, _ = p.push_planar(state, torch.zeros(3, 2, p.chunk_size))
+    assert p.counters["stft.large_groups"] == 3 and p.counters["stft.large_load_register"] == 2
     twin = p.with_plain_kernels()
     twin.push_planar(state, torch.zeros(3, 2, p.chunk_size))
     assert twin.last_stft["route"] == "plain" and twin.counters == collections.Counter()
@@ -199,5 +215,5 @@ def test_small_n_records_its_body():
     p._stft_plain = False
     p.push_planar(p.init_state(2), torch.zeros(2, 2, p.chunk_size))
     assert p.last_stft == {"route": "radix2", "n_fft": 512, "rows": 2, "groups": 0,
-                           "scratch_bytes": 0}
+                           "scratch_bytes": 0, "load_passes": 0, "load_threads": 0}
     assert "push.stft_large" not in p.counters
