@@ -1132,7 +1132,7 @@ def serving_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign) -> N
                             device=dev)
     left, right = windows(cfg, "chirp_tone", rows, dev)
     ml, mr = sk.stft_mag_packed(left, right, p.hann, p.fft_consts)
-    ts = p._cmap_ts(rows)
+    ts = p.palette_layout.block_rows(rows)
     name = ck.BLOCKWISE_KERNEL
     for layout, ids in (("sorted", np.sort(np.arange(rows) % 19)),
                         ("scattered", np.arange(rows) % 19)):
@@ -1170,7 +1170,7 @@ def serving_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign) -> N
     ml, mr = sk.stft_mag_packed(left, right, lp.hann, lp.fft_consts)
     ids = np.sort(np.arange(rows) % 19)
     tables = lp.builtin_tables.index_select(0, torch.from_numpy(ids).to(dev)).contiguous()
-    ts = lp._cmap_ts(rows)
+    ts = lp.palette_layout.block_rows(rows)
     _blockwise_check(ml, mr, lp.taps, tables, LONG_COLORMAP, ts, ids, "sorted", "direct",
                      stats)
     t = device_ms(lambda: ck.colormap_blockwise(ml, mr, lp.taps, tables, LONG_COLORMAP,
@@ -1270,13 +1270,14 @@ def serving_path(s: int, dev, lib, main_launches: dict) -> dict:
                                sorted_output=True, **kw)
     ids = np.arange(s) % len(p.schemes)
     state = p.set_palette(p.init_state(s), ids)
-    blocks = p._push_block_streams(s)
+    blocks = p.palette_layout.sort_block_streams(s)
     # from 12,288 streams: 4096-stream sort blocks, inside which 19 palettes
     # run too short for the colormap's blocks, so the sort is global
-    want = ((4, p._STREAM_BLOCK_SIZE) if s >= p._STREAM_BLOCK_AUTO_MIN else (3, 0))
+    pl = p.palette_layout
+    want = ((4, pl.STREAM_BLOCK_SIZE) if s >= pl.STREAM_BLOCK_AUTO_MIN else (3, 0))
     log(f"[12] {s} streams: tables {[tuple(t.shape) for t in state.tables]}, sort blocks "
-        f"{blocks or 'none'}, blockwise {p._state_blockwise(state)}")
-    if (len(state.tables), blocks) != want or not p._state_blockwise(state):
+        f"{blocks or 'none'}, blockwise {p.palette_layout.blockwise(state.tables)}")
+    if (len(state.tables), blocks) != want or not p.palette_layout.blockwise(state.tables):
         fail(f"the {s}-stream layout did not take the expected palette sort")
     rstate = per_row.set_palette(per_row.init_state(s), ids)
     fstate = full.set_palette(full.init_state(s), ids)
@@ -1324,7 +1325,7 @@ def serving_path(s: int, dev, lib, main_launches: dict) -> dict:
         equal_full &= torch.equal(full_rows[i].index_select(0, out), sorted_rows[i])
         worst = max(worst, testing.rgba_u8_diff(ck.unpack_rgba_device(sorted_rows[i]),
                                                 ck.unpack_rgba_device(pr)))
-    ginv = p._global_perms(state)[1]
+    ginv = p.palette_layout.global_perms(state.tables)[1]
     carry_ok = (torch.equal(state.carry.index_select(0, ginv), rstate.carry)
                 and torch.equal(pstate.carry, state.carry)
                 and torch.equal(fstate.carry.to(torch.float32) / 32768.0, state.carry))
@@ -1781,7 +1782,7 @@ def layout_paths(dev, lib, main_launches: dict) -> None:
                                       **knob)
         ids = np.arange(s) % len(p.schemes)
         state = p.set_palette(p.init_state(s), ids)
-        sorted_state = p._state_perm(state) is not None
+        sorted_state = p.palette_layout.read(state.tables).sorted
         t = p.chunk_size
         pcm = torch.from_numpy(testing.chirp_tone(s, n * t, cfg.sample_rate, seed=18)).to(dev)
         chunks = [pcm[:, i * t : (i + 1) * t] for i in range(n)]
@@ -1842,7 +1843,7 @@ def layout_paths(dev, lib, main_launches: dict) -> None:
             worst_default = max(worst_default, u8_diff(rows[i], dr, everywhere=False))
         carry_ok = torch.equal(plain_state.carry, state.carry)
         if sorted_state:
-            inv = p._global_perms(state)[1]
+            inv = p.palette_layout.global_perms(state.tables)[1]
             carry_ok &= torch.equal(state.carry.index_select(0, inv), rstate.carry)
         ring_ulps = 0.0
         if p.store_ring:
@@ -2529,7 +2530,7 @@ def large_kernels(dev, stats, ms, plain_ms, bounds, library_ms, redesign) -> Non
             ids = np.sort(np.arange(rows) % 19)
             tables = lp.builtin_tables.index_select(0, torch.from_numpy(ids).to(dev))
             _blockwise_check(*planes, lp.taps, tables.contiguous(), LONG_SERVE,
-                             lp._cmap_ts(rows), ids, "sorted", "direct", stats)
+                             lp.palette_layout.block_rows(rows), ids, "sorted", "direct", stats)
             del lp, tables
         del planes
         i16 = sk.stft_mag_packed(*words, hann16, consts)
@@ -3194,7 +3195,7 @@ def serving_loop(dev, lib, main_launches: dict, power_line: str) -> None:
     sf = LOOP_F32_STREAMS
     pf = SpectrogramPipeline(cfg, **kw)
     fstate = pf.set_palette(pf.init_state(sf), np.arange(sf) % len(pf.schemes))
-    if pf._state_perm(fstate) is not None:
+    if pf.palette_layout.read(fstate.tables).sorted:
         fail("phase 26: the 4,096-stream f32 state took the palette sort")
     want, ws = [], fstate
     bankf = RingBank16(sf, capacity=LOOP_CAPACITY)
@@ -3361,10 +3362,12 @@ def multirate_direct(dev, lib, main_launches: dict) -> None:
     launches = _count(lib, main_launches)
     for cfg in groups:
         g = gs[cfg]
+        tables = ("palette-sorted" if g.pipeline.palette_layout.read(g.state.tables).sorted
+                  else "per row")
         log(f"[27] (a) group {cfg.sample_rate:.0f} Hz (W={cfg.window_size}, hop "
             f"{cfg.hop_size}, N={cfg.padded_size}, {sk.fft_route(cfg.padded_size)} body, "
             f"{g.chunk_period * 1e3:.2f} ms cadence): {s} streams, tables "
-            f"{'palette-sorted' if g.pipeline._state_perm(g.state) is not None else 'per row'}")
+            f"{tables}")
     log(f"[27] (a) {len(groups)} groups x {MR_PUSHES} pushes x {s} streams (add_stream x "
         f"{len(groups) * s}: {add_s:.2f} s); launches {launches}; radix-2 body "
         f"{lib.body_launches['radix2']}")
@@ -3427,7 +3430,7 @@ def multirate_sorted_reuse(dev) -> None:
     mgr = StreamGroupManager(group_capacity=s, device=dev, **kw)
     sids = [mgr.add_stream(cfg, palette_id=int(p)) for p in ids]
     g = next(mgr.groups())
-    if not (g.pipeline.carry_sort_mode and g.pipeline._state_perm(g.state) is not None):
+    if not (g.pipeline.carry_sort_mode and g.pipeline.palette_layout.read(g.state.tables).sorted):
         fail("phase 27 (a): the i % 2 group did not take the palette-sorted path")
     hops = [_f32_words(_mr_tones(s, i, g.pipeline.chunk_size, cfg.sample_rate), dev)
             for i in range(3)]
@@ -3438,7 +3441,7 @@ def multirate_sorted_reuse(dev) -> None:
         rs, want = rp.push(rs, x)
         same &= torch.equal(mgr.push_group(cfg, x), want)
     slot = MR_REUSE_SLOT[cfg]
-    crow = int(g.pipeline._global_perms(g.state)[1][slot])
+    crow = int(g.pipeline.palette_layout.global_perms(g.state.tables)[1][slot])
     mgr.remove_stream(sids[slot])
     new_pid = 1 - int(ids[slot])
     sid = mgr.add_stream(cfg, palette_id=new_pid)
@@ -3884,9 +3887,10 @@ def mesh_part_a(mesh, dev, lib) -> dict:
         rs, want = rp.push(rs, chunk)
         same &= torch.equal(r, want)
     same &= torch.equal(st.carry, rs.carry)
-    klass = "per-shard sorted" if p._state_perm(st) is not None else "per row"
+    klass = "per-shard sorted" if p.palette_layout.read(st.tables).sorted else "per row"
+    whole = "sorted" if rp.palette_layout.read(rs.tables).sorted else "per row"
     _rank_log(mesh, f"(a) NCCL world 1, BENCH_CONFIG, {s} streams, tables {klass} (the "
-              f"unsharded state's {'sorted' if rp._state_perm(rs) is not None else 'per row'}); "
+              f"unsharded state's {whole}); "
               f"{MESH_TICKS} shard_map_step pushes: rows and carry "
               f"{'equal' if same else 'DIFFER from'} the unsharded pipeline's bit for bit; "
               f"global_rows summed {total} (want {s * MESH_TICKS}); launches {launches}")
@@ -3936,7 +3940,7 @@ def mesh_part_b(mesh, dev, lib) -> dict:
     p = SpectrogramPipeline(cfg, **full_kw)
     ids = np.arange(s) % len(p.schemes)
     st = pmesh.sharded_set_palette(p, pmesh.sharded_init(p, s, mesh), ids, mesh)
-    sorted_ok = p._tables_perm_global(st.tables)
+    sorted_ok = p.palette_layout.read(st.tables).perm_global
     _rank_log(mesh, f"(b) streams [{lo}, {hi}) of {s}: tables "
               f"{'per-shard sorted (t_sorted, perm, inv, marker), rank-local perm' if sorted_ok else 'NOT sorted'}")
     if not sorted_ok:
@@ -3987,7 +3991,7 @@ def mesh_part_b(mesh, dev, lib) -> dict:
 
     # the two-rank restore: ticks 13-24 from the DCP checkpoint
     r2 = checkpoint.load_sharded(ck_dir, p, mesh)
-    resumed = p._tables_perm_global(r2.tables)
+    resumed = p.palette_layout.read(r2.tables).perm_global
     in_perm = torch.from_numpy(p.input_perm(r2)).to(dev)
     out_perm2 = torch.from_numpy(p.output_perm(r2)).to(dev)
     for t in range(MESH_CHECKPOINT_TICK, MESH_TICKS):
@@ -4011,7 +4015,7 @@ def mesh_part_b(mesh, dev, lib) -> dict:
         restores = {}
         for name, state in (("load_sharded, one process", checkpoint.load_sharded(ck_dir, one)),
                             ("load_state of the gathered npz", checkpoint.load_state(npz, one))):
-            ok = one._state_perm(state) is not None
+            ok = one.palette_layout.read(state.tables).sorted
             in_perm = torch.from_numpy(one.input_perm(state)).to(dev)
             out_perm1 = torch.from_numpy(one.output_perm(state)).to(dev)
             for t in range(MESH_CHECKPOINT_TICK, MESH_TICKS):
@@ -4092,8 +4096,9 @@ def mesh_part_c(mesh, dev, lib) -> dict:
     mgr = StreamGroupManager(group_capacity=s, mesh=mesh, device=dev, **kw)
     rows, gs = drive(mgr, lo, hi, count=True)
     launches = _rank_launches(lib)
-    classes = {cfg.padded_size: ("per-shard sorted" if gs[cfg].pipeline._state_perm(gs[cfg].state)
-                                 is not None else "per row") for cfg in groups}
+    classes = {cfg.padded_size: ("per-shard sorted" if gs[cfg].pipeline.palette_layout.read(
+                                     gs[cfg].state.tables).sorted else "per row")
+               for cfg in groups}
     _rank_log(mesh, f"(c) mesh manager, streams [{lo}, {hi}) of two {s}-slot groups "
               f"(N={BENCH_CONFIG.padded_size}, N={MR_44K.padded_size} on the "
               f"{sk.fft_body(MR_44K.padded_size)} body), tables {classes}: {MR_PUSHES + 2} "

@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from spectrogram_tpu_torch.models.palette_layout import PaletteLayout
 from spectrogram_tpu_torch.models.spectrogram import StreamState, default_device
 
 _FIELDS = ("carry", "ring", "cursor", "palette_id", "row_count")
@@ -40,26 +41,10 @@ def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
 def _tables(tables: tuple, device) -> tuple:
     """The tables tuple on `device`: 2-D tables as f32, 1-D perm, inv and
     marker as int32.  Raises for a layout no pipeline pushes."""
-    arrays = [np.asarray(t) for t in tables]
-    two_d = [a.ndim == 2 for a in arrays]
-    is_marker = [a.ndim == 1 and a.size == 0 for a in arrays]
-    n = len(arrays)
-    ok = n == 0 or (two_d[0] and (
-        (n == 1)
-        or (n == 2 and is_marker[1])
-        or (n == 2 and two_d[1] and arrays[1].shape == arrays[0].shape)
-        or (n in (3, 4) and all(a.ndim == 1 and a.size for a in arrays[1:3])
-            and (n == 3 or is_marker[3]))
-    ))
-    if not ok:
-        raise ValueError(
-            "expected () (static_palette), ([S|1, R*4],), with a blockwise "
-            "marker, a generic (u, v) pair of same-shape [S|1, R*4] tables, or "
-            "a palette-sorted (t_sorted, perm, inv[, marker]) tuple; got "
-            f"shapes {[a.shape for a in arrays]}"
-        )
-    return tuple(_tensor(a, torch.float32 if d else torch.int32, device)
-                 for a, d in zip(arrays, two_d))
+    arrays = tuple(np.asarray(t) for t in tables)
+    PaletteLayout.check(arrays)
+    return tuple(_tensor(a, torch.float32 if a.ndim == 2 else torch.int32, device)
+                 for a in arrays)
 
 
 def state_from_jax(state: dict, device=None,

@@ -195,14 +195,13 @@ class StreamGroupManager:
     def _zero_slot(self, group: StreamGroup, slot: int) -> None:
         """Zero a reused slot's device state: the new tenant must not inherit
         the dead stream's carry samples or retained viewport rows
-        (cross-stream data leakage in a multi-tenant service).  In carry-sort
-        mode the carry is at rest in SORTED stream order — zero the slot's
-        sorted row, not row `slot`.  The carry is replaced (a push never
-        writes one in place); the ring row is zeroed in place, as a push
-        writes the ring.  The slot's host backlog is dropped too."""
+        (cross-stream data leakage in a multi-tenant service).  The slot's
+        row is zeroed in external stream order (a carry-sort state keeps its
+        carry sorted).  The carry is replaced (a push never writes one in
+        place); the ring row is zeroed in place, as a push writes the ring.
+        The slot's host backlog is dropped too."""
         if group.bank is not None:
             group.bank.reset(slot)  # drop the dead tenant's backlog too
-        pipeline = group.pipeline
         st = self._state(group)
         if self.mesh is not None:
             # only the rank that holds the slot has anything to zero
@@ -212,15 +211,10 @@ class StreamGroupManager:
             if not lo <= slot < hi:
                 return
             slot -= lo
-        crow = slot
-        pi = pipeline._state_perm(st)
-        if pi is not None and pipeline.carry_sort_mode:
-            inv = pipeline._global_perm(
-                pi[1], st.palette_id.shape[0], pipeline._tables_perm_global(st.tables),
-            )
-            crow = int(inv[slot])
-        carry = st.carry.index_fill(
-            0, torch.tensor([crow], device=st.carry.device), 0)
+        pl = group.pipeline.palette_layout
+        carry = pl.carry_to_external(st.carry, st.tables).index_fill(
+            0, torch.tensor([slot], device=st.carry.device), 0)
+        carry = pl.carry_from_external(carry, st.tables)
         if st.ring.shape[1]:
             st.ring[slot].zero_()
         self._set_state(group, st._replace(carry=carry))

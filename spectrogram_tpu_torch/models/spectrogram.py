@@ -29,9 +29,8 @@ The multi-tenant serving mode is the JAX package's:
     least half the colormap's row blocks single-palette carries a zero-size
     marker in its tables tuple, and its pushes take the blockwise colormap;
   * `palette_sort`: a scattered layout whose stable argsort passes that test
-    is stored sorted, (t_sorted, perm, inv) with perm/inv relative to the
-    stream blocks of `stream_blocks`, or (t_sorted, perm, inv, marker) with a
-    global perm where only a whole-state sort passes.  Without a ring the
+    is stored sorted, within the sort blocks of `stream_blocks` or, where
+    only that passes, over the whole state.  Without a ring the
     carry lives in sorted order (carry-sort mode): each push permutes the
     chunk into it and unpermutes the rows.  With a ring the magnitude planes
     are permuted into sorted order for the colormap (the mag-bridge) and the
@@ -42,6 +41,9 @@ The multi-tenant serving mode is the JAX package's:
     sorted class;
   * `i16_planes`: carry, chunks and kernel operands stay int16 PCM words,
     half the bytes; rows equal the f32 pipeline's on x/32768 exactly.
+
+The pipeline's `palette_layout` (`models.palette_layout`) reads the tables
+tuple and takes every layout and stream-order decision above.
 
 Palette ids are always concrete here: `set_palette` reads them to the host,
 so every layout decision inspects real ids.  The JAX rules for ids traced
@@ -120,6 +122,7 @@ import numpy as np
 import torch
 
 from spectrogram_tpu_torch.config import SpectrogramConfig
+from spectrogram_tpu_torch.models.palette_layout import PaletteLayout
 from spectrogram_tpu_torch.ops import colormap as cmap_ops
 from spectrogram_tpu_torch.ops import fft_plan
 from spectrogram_tpu_torch.ops import stft as stft_ops
@@ -141,16 +144,8 @@ class StreamState(NamedTuple):
     palette_id: torch.Tensor  # [S] int32 — per-stream palette index
     row_count: torch.Tensor   # [] int32 — rows produced since init
     # Pre-picked kernel tables, refreshed by init_state/set_palette and not
-    # by a push: ([S, R*4],) per stream or ([1, R*4],) for one palette, plus
-    # a zero-size int32 marker for the blockwise colormap; palette-sorted:
-    # (t_sorted [S, R*4], perm [S], inv [S]) or, with a global perm,
-    # (t_sorted, perm, inv, marker).  A generic registry's (u, v), each
-    # [S|1, R*4]; () for a static_palette pipeline.
+    # by a push, in the format `models.palette_layout` reads.
     tables: tuple = ()
-
-
-def _is_marker(t: torch.Tensor) -> bool:
-    return t.ndim == 1 and t.numel() == 0
 
 
 def default_device(device=None) -> torch.device:
@@ -261,12 +256,12 @@ class SpectrogramPipeline:
         runs the kernels, "cpu" their plain versions.
 
     `counters` (a `collections.Counter` of host integers) counts each
-    palette-layout decision where it is taken (`set_palette`,
-    `restored_tables_for`, the mesh's sharded layouts): "layout.clustered"
-    (the marker, no sort), "layout.sorted_blocks" (the block sort),
-    "layout.sorted_global" (the length-4 form: the whole-state sort or the
-    mesh's per-shard sort), "layout.unsorted" (the rule refused every order
-    it tried, or the sort is off or cannot take the tables),
+    palette-layout decision `palette_layout.tables_for` takes (for
+    `set_palette`, `restored_tables_for` and the mesh's sharded layouts):
+    "layout.clustered" (the marker, no sort), "layout.sorted_blocks" (the
+    block sort), "layout.sorted_global" (the length-4 form: the whole-state
+    sort or the mesh's per-shard sort), "layout.unsorted" (the rule refused
+    every order it tried, or the sort is off or cannot take the tables),
     "layout.generic" (a generic registry's (u, v) pair) and "layout.tests"
     (each blockwise test), and the pushes that took each gather of the
     palette order and the ring write: "push.order_chunk",
@@ -436,14 +431,6 @@ class SpectrogramPipeline:
         self.taps = colormap_kernel.resample_taps(full, dev)          # [H] x 4
         self.ring_taps = colormap_kernel.resample_taps(
             cmap_ops.resample_matrix(cfg), dev)                       # [H] x 4
-        # the bin band the JAX colormap's row block is sized for (its banded
-        # plan, or the whole matrix where banding does not pay)
-        segs = colormap_kernel.band_segments(full.T)
-        self._cmap_band = (
-            max(hi - lo for _, _, lo, hi in segs)
-            if colormap_kernel._banded_worthwhile(segs, *full.T.shape)
-            else full.shape[1]
-        )
         self._time_taps = {}
         self._stft = stft_kernel.stft_mag_packed
         self._stft_allk = stft_kernel.stft_mag_packed_allk
@@ -463,8 +450,8 @@ class SpectrogramPipeline:
             self._use_plain_colormap()
         self.launch = {}
         self.counters = collections.Counter()
-        self.last_layout = None
         self.last_stft = None
+        self.palette_layout = PaletteLayout(self, full)
         if self.autotune and self.device.type == "cuda":
             self.override_launch(self._tuned_launch())
 
@@ -506,6 +493,8 @@ class SpectrogramPipeline:
         the card."""
         twin = copy.copy(self)
         twin.counters = collections.Counter()
+        twin.palette_layout = copy.copy(self.palette_layout)
+        twin.palette_layout.counters = twin.counters
         twin._use_plain_stft()
         twin._use_plain_colormap()
         twin._use_plain_ring()
@@ -718,6 +707,12 @@ class SpectrogramPipeline:
         """True when pushes (and so `process()`) take the split-real STFT."""
         return not self.stft_packed or self.carry_is_transposed
 
+    @property
+    def last_layout(self) -> Optional[dict]:
+        """{"blocks", "uniform"} of the last order the blockwise test read
+        (see the class docstring); None before any test."""
+        return self.palette_layout.last_layout
+
     # ------------------------------------------------------------------ state
 
     def init_state(self, n_streams: int, palette_id: int = 1) -> StreamState:
@@ -727,13 +722,11 @@ class SpectrogramPipeline:
         one-palette layout of built-in tables is marked."""
         if self.static_palette_id is not None:
             palette_id = self.static_palette_id    # pinned by construction
-        self._check_ids(np.asarray(palette_id))
+        self.palette_layout.check_ids(np.asarray(palette_id))
         dev = self.device
         pid = torch.full((n_streams,), int(palette_id), dtype=torch.int32, device=dev)
         ring_rows = self.viewport_rows if self.store_ring else 0
-        tables = self.state_tables_for(pid)
-        if self.blockwise_palettes == "auto" and len(tables) == 1 and n_streams:
-            tables += (self._bw_marker(),)     # one palette: every block uniform
+        tables = self.palette_layout.one_palette(pid)
         if self.carry_is_transposed:
             n1 = self.fft_plan.n1
             carry_shape = (n_streams, 2, n1, self.carry_size // n1)
@@ -753,10 +746,11 @@ class SpectrogramPipeline:
         """Runtime palette switch, per stream ([S] ids) or for all streams
         (a scalar id): a state update that re-picks the kernel tables, so a
         push never touches the registry.  A scalar id stores one [1, R*4]
-        table (or one (u, v) pair) that every row reads.  Per-stream ids on
-        built-in tables are sorted (palette_sort) or marked (blockwise
-        "auto") where that pays, and in carry-sort mode the carry follows the
-        new stream order.  A static_palette pipeline raises ValueError."""
+        table (or one (u, v) pair) that every row reads.  Per-stream ids
+        take the layout `palette_layout.tables_for` gives them (sorted or
+        marked where that pays), and in carry-sort mode the carry follows
+        the new stream order.  A static_palette pipeline raises
+        ValueError."""
         if self.static_table is not None:
             raise ValueError(
                 "this pipeline bakes static_palette="
@@ -768,35 +762,14 @@ class SpectrogramPipeline:
             ids = palette_id.detach().cpu().numpy()
         else:
             ids = np.asarray(palette_id)
-        self._check_ids(ids)
+        pl = self.palette_layout
+        pl.check_ids(ids)
         s = state.palette_id.shape[0]
         layout = np.broadcast_to(ids.astype(np.int32), (s,)).copy()
         pid = torch.from_numpy(layout).to(self.device)
-        tables = self.state_tables_for(pid[:1] if ids.ndim == 0 else pid)
-        if ids.ndim:
-            tables = self._layout_tables(tables, layout)
-        return state._replace(palette_id=pid, tables=tables,
-                              carry=self._resorted_carry(state, tables))
-
-    def _layout_tables(self, tables: tuple, layout: np.ndarray) -> tuple:
-        """The layout class of per-stream ids `layout`: per-stream built-in
-        tables get the blockwise marker (already clustered, "auto") or the
-        palette sort where it pays; a generic (u, v) pair is neither marked
-        nor sorted, as in JAX."""
-        if len(tables) != 1:
-            self.counters["layout.generic" if tables else "layout.unsorted"] += 1
-            return tables
-        if self._blockwise_auto_decision(layout):
-            # already clustered: the marker, and no sort
-            self.counters["layout.clustered"] += 1
-            if self.blockwise_palettes == "auto":
-                return tables + (self._bw_marker(),)
-            return tables
-        sorted_tables = self._sorted_tables(tables, layout) if self.palette_sort else None
-        if sorted_tables is None:
-            self.counters["layout.unsorted"] += 1
-            return tables
-        return sorted_tables
+        tables = pl.tables_for(layout) if ids.ndim else pl.tables_of(pid[:1])
+        carry = pl.carry_from_external(pl.carry_to_external(state.carry, state.tables), tables)
+        return state._replace(palette_id=pid, tables=tables, carry=carry)
 
     def restored_tables_for(self, palette_id) -> tuple:
         """`state_tables_for` the [S] ids with the layout class `set_palette`
@@ -806,214 +779,13 @@ class SpectrogramPipeline:
         `restored_tables_for`)."""
         if isinstance(palette_id, torch.Tensor):
             palette_id = palette_id.detach().cpu().numpy()
-        layout = np.asarray(palette_id, np.int32).reshape(-1)
-        self._check_ids(layout)
-        tables = self.state_tables_for(self._device_index(layout))
-        return self._layout_tables(tables, layout)
-
-    def _check_ids(self, ids: np.ndarray) -> None:
-        if ids.size and (ids.min() < 0 or ids.max() >= len(self.schemes)):
-            raise ValueError(
-                f"palette_id out of range 0..{len(self.schemes) - 1}: {ids!r}"
-            )
+        return self.palette_layout.tables_for(palette_id)
 
     def state_tables_for(self, palette_id: torch.Tensor) -> tuple:
         """The kernel-table tuple for [S] (or [1]) palette ids: () for a
         static_palette pipeline, ([S, R*4],) for built-in tables, (u, v)
         for a generic registry."""
-        if self.static_table is not None:
-            return ()
-        idx = palette_id.to(torch.int64)
-        registry = ((self.builtin_tables,) if self.builtin_tables is not None
-                    else self.generic_tables)
-        return tuple(t.index_select(0, idx).contiguous() for t in registry)
-
-    @staticmethod
-    def _colormap_tables(tables: tuple) -> tuple:
-        """A state's colormap operands: its 2-D tables (a sorted tuple's
-        t_sorted; perm, inv and the marker are 1-D)."""
-        return tuple(t for t in tables if t.ndim == 2)
-
-    # --------------------------------------------------------- blockwise auto
-
-    def _bw_marker(self) -> torch.Tensor:
-        """The zero-size 1-D int32 tensor that marks a state for the
-        blockwise colormap (real tables are 2-D, so it is unambiguous)."""
-        return torch.zeros((0,), dtype=torch.int32, device=self.device)
-
-    def _cmap_ts(self, n_rows: int) -> int:
-        """The JAX colormap's row-block size for n_rows rows (its
-        `_auto_blocks` over the band, with the n % block fallback): the
-        granularity at which palette uniformity is counted, and the rows a
-        blockwise CTA covers."""
-        block_rows, _ = colormap_kernel._auto_blocks(self._cmap_band, None, None)
-        return min(block_rows, n_rows) if n_rows % block_rows else block_rows
-
-    # Blockwise economics threshold: engage when at least this fraction of
-    # the colormap's row blocks are single-palette (the JAX package's value).
-    _BW_AUTO_FRAC = 0.5
-
-    def _blockwise_auto_decision(self, ids: np.ndarray) -> bool:
-        """True when >= `_BW_AUTO_FRAC` of the row blocks of this per-stream
-        palette layout are single-palette."""
-        s = int(ids.shape[0])
-        ts = self._cmap_ts(s * self.chunk_hops)
-        nb = s // ts
-        self.counters["layout.tests"] += 1
-        if nb == 0:
-            self.last_layout = {"blocks": 0, "uniform": 0}
-            return bool(ids.size) and bool((ids == ids.flat[0]).all())
-        head = ids[: nb * ts].reshape(nb, ts)
-        uniform = (head == head[:, :1]).all(axis=1)
-        self.last_layout = {"blocks": nb, "uniform": int(uniform.sum())}
-        return float(uniform.mean()) >= self._BW_AUTO_FRAC
-
-    def _state_blockwise(self, state: StreamState) -> bool:
-        """Whether this state's pushes take the blockwise colormap: forced
-        on, palette-sorted (the sort exists to feed it), or marked."""
-        if self.blockwise_palettes is True or self._state_perm(state) is not None:
-            return True
-        return (self.blockwise_palettes == "auto" and bool(state.tables)
-                and _is_marker(state.tables[-1]))
-
-    # ----------------------------------------------------------- palette sort
-
-    def _sorted_tables(self, tables: tuple, layout: np.ndarray):
-        """Stable argsort within each sort block (the stream blocks of
-        `stream_blocks`): (t_sorted, perm, inv) with block-relative perm and
-        inv.  Where that sorted layout fails the blockwise test, the global
-        sort (`_global_sorted_tables`), or None."""
-        s = int(layout.shape[0])
-        bs = self._push_block_streams(s) or s
-        perm = np.empty(s, np.int32)
-        inv = np.empty(s, np.int32)
-        sorted_layout = np.empty_like(layout)
-        for b0 in range(0, s, bs):
-            b1 = min(b0 + bs, s)
-            p = np.argsort(layout[b0:b1], kind="stable").astype(np.int32)
-            perm[b0:b1] = p
-            inv[b0:b1][p] = np.arange(b1 - b0, dtype=np.int32)
-            sorted_layout[b0:b1] = layout[b0:b1][p]
-        if not self._blockwise_auto_decision(sorted_layout):
-            return self._global_sorted_tables(tables, layout, bs)
-        self.counters["layout.sorted_blocks"] += 1
-        gp = perm + (np.arange(s, dtype=np.int32) // bs) * bs
-        return (tables[0].index_select(0, self._device_index(gp)),
-                self._device_index(perm), self._device_index(inv))
-
-    def _global_sorted_tables(self, tables: tuple, layout: np.ndarray, bs: int):
-        """One whole-state stable argsort, (t_sorted, perm, inv, marker)
-        with global perm and inv, where the sort blocks are smaller than the
-        state (so the block sort was tried), in carry-sort mode, and the
-        sorted layout passes the blockwise test; else None."""
-        s = int(layout.shape[0])
-        if (bs >= s or not self.carry_sort_mode
-                or self.blockwise_palettes not in ("auto", True)):
-            return None
-        return self._view_sorted_tables(tables, layout, s)
-
-    def _view_sorted_tables(self, tables: tuple, layout: np.ndarray, view_bs: int):
-        """The length-4 sorted tuple with view blocks of `view_bs` streams:
-        one stable argsort per view block, perm and inv holding global
-        stream indices confined to their block (the JAX pipeline's
-        `_view_sorted_tables`).  view_bs = S is the whole-state global sort;
-        view_bs = S / ranks the per-shard sort of `parallel.mesh`, whose
-        rank-local slices subtract their offset.  None where the
-        view-sorted layout fails the blockwise test."""
-        s = int(layout.shape[0])
-        perm = np.empty(s, np.int32)
-        inv = np.empty(s, np.int32)
-        for b0 in range(0, s, view_bs):
-            b1 = min(b0 + view_bs, s)
-            p = b0 + np.argsort(layout[b0:b1], kind="stable").astype(np.int32)
-            perm[b0:b1] = p
-            inv[p] = np.arange(b0, b1, dtype=np.int32)
-        if not self._blockwise_auto_decision(layout[perm]):
-            return None
-        self.counters["layout.sorted_global"] += 1
-        return (tables[0].index_select(0, self._device_index(perm)),
-                self._device_index(perm), self._device_index(inv),
-                self._bw_marker())
-
-    def _palette_sort_eligible(self, tables: tuple) -> bool:
-        """Whether the palette sort may take a state with these tables: the
-        built-in registry's per-stream 1-tuple, with palette_sort on."""
-        return (self.palette_sort and self.static_table is None
-                and self.builtin_tables is not None and len(tables) == 1)
-
-    def _device_index(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(self.device)
-
-    @staticmethod
-    def _tables_perm(t: tuple):
-        """(perm, inv) of a palette-sorted tables tuple, else None: only
-        sorted tuples have length 3, or 4 with a trailing marker."""
-        if (len(t) in (3, 4) and t[1].ndim == 1 and t[1].numel()
-                and t[2].ndim == 1 and t[2].numel()
-                and (len(t) == 3 or _is_marker(t[3]))):
-            return t[1], t[2]
-        return None
-
-    @staticmethod
-    def _tables_perm_global(t: tuple) -> bool:
-        """True when a sorted tables tuple holds a global permutation (the
-        length-4 form)."""
-        return len(t) == 4 and SpectrogramPipeline._tables_perm(t) is not None
-
-    def _state_perm(self, state: StreamState):
-        return self._tables_perm(state.tables)
-
-    _STREAM_BLOCK_AUTO_MIN = 12288
-    _STREAM_BLOCK_SIZE = 4096
-
-    def _push_block_streams(self, s: int) -> int:
-        """Sort-block size for S streams (0 = one block): "auto" gives
-        4096-stream blocks from 12,288 streams in the k=1 streaming mode
-        without a ring, as the JAX package's stream-blocked push does."""
-        sb = self.stream_blocks
-        if sb == "auto":
-            if (self.chunk_hops == 1 and not self.store_ring
-                    and s >= self._STREAM_BLOCK_AUTO_MIN):
-                return self._STREAM_BLOCK_SIZE
-            return 0
-        return sb if 0 < sb < s else 0
-
-    def _global_perm(self, perm: torch.Tensor, s: int,
-                     glob: bool = False) -> torch.Tensor:
-        """A block-relative perm (or inv) as global stream indices; a
-        global one (`glob`, the length-4 form) as it is."""
-        bs = self._push_block_streams(s) or s
-        if glob or bs >= s:
-            return perm
-        off = torch.arange(s, dtype=torch.int32, device=perm.device) // bs * bs
-        return off + perm
-
-    def _global_perms(self, state: StreamState):
-        """(perm, inv) of a sorted state as global stream indices, or None:
-        sorted[i] = external[perm[i]], external[e] = sorted[inv[e]]."""
-        pi = self._state_perm(state)
-        if pi is None:
-            return None
-        s = state.palette_id.shape[0]
-        glob = self._tables_perm_global(state.tables)
-        return self._global_perm(pi[0], s, glob), self._global_perm(pi[1], s, glob)
-
-    def _resorted_carry(self, prev_state: StreamState,
-                        new_tables: tuple) -> torch.Tensor:
-        """Carry-sort mode: the carry in the stream order of `new_tables`,
-        from the order of the previous state's (back to external order when
-        leaving the sorted class, into the new order when entering or
-        changing it)."""
-        carry = prev_state.carry
-        if not self.carry_sort_mode:
-            return carry
-        old = self._global_perms(prev_state)
-        if old is not None:
-            carry = carry.index_select(0, old[1])
-        new = self._global_perms(prev_state._replace(tables=new_tables))
-        if new is not None:
-            carry = carry.index_select(0, new[0])
-        return carry
+        return self.palette_layout.tables_of(palette_id)
 
     @staticmethod
     def _row_perm(perm: torch.Tensor, s: int, k: int) -> torch.Tensor:
@@ -1033,7 +805,7 @@ class SpectrogramPipeline:
         external order) or the pipeline does not sort its output.  numpy."""
         if not self.sorted_output:
             return None
-        perms = self._global_perms(state)
+        perms = self.palette_layout.global_perms(state.tables)
         return None if perms is None else perms[1].cpu().numpy()
 
     def input_perm(self, state: StreamState):
@@ -1042,7 +814,7 @@ class SpectrogramPipeline:
         None when the state is unsorted (deliver external order).  Query it
         again after every set_palette: the order changes with the layout.
         numpy."""
-        perms = self._global_perms(state)
+        perms = self.palette_layout.global_perms(state.tables)
         return None if perms is None else perms[0].cpu().numpy()
 
     def input_dest(self, state: StreamState):
@@ -1056,13 +828,13 @@ class SpectrogramPipeline:
         """`state` in external stream order with the palette sort dropped
         (the same state when unsorted): per-row tables, and in carry-sort
         mode the carry unpermuted."""
-        perms = self._global_perms(state)
+        pl = self.palette_layout
+        perms = pl.global_perms(state.tables)
         if perms is None:
             return state
-        inv = perms[1]
-        carry = state.carry.index_select(0, inv) if self.carry_sort_mode else state.carry
-        return state._replace(carry=carry,
-                              tables=(state.tables[0].index_select(0, inv),))
+        (t_sorted,) = pl.read(state.tables).colormap
+        return state._replace(carry=pl.carry_to_external(state.carry, state.tables),
+                              tables=(t_sorted.index_select(0, perms[1]),))
 
     # ------------------------------------------------------------------- push
 
@@ -1239,8 +1011,9 @@ class SpectrogramPipeline:
             # int16 words cannot carry NaN or inf: nothing to scrub
             chunk_pl = torch.where(torch.isfinite(chunk_pl), chunk_pl, 0.0)
         s, k = chunk_pl.shape[0], self.chunk_hops
+        pl = self.palette_layout
         with span("order.perms"):
-            perms = self._global_perms(state)
+            perms = pl.global_perms(state.tables)
         if perms is not None and self.carry_sort_mode and not self.presorted_input:
             # the carry is at rest in sorted order: bring the chunk into it
             self.counters["push.order_chunk"] += 1
@@ -1256,9 +1029,8 @@ class SpectrogramPipeline:
                 rp = self._row_perm(perms[0], s, k)
                 cm_l, cm_r = mag_l.index_select(0, rp), mag_r.index_select(0, rp)
         # window-major rows r*S + s take table (r*S + s) % S = s
-        rows = self._run_colormap(cm_l, cm_r, self.taps,
-                                  self._colormap_tables(state.tables),
-                                  self._state_blockwise(state))
+        rows = self._run_colormap(cm_l, cm_r, self.taps, pl.read(state.tables).colormap,
+                                  pl.blockwise(state.tables))
         if perms is not None and not self.sorted_output:
             self.counters["push.order_rows"] += 1
             with span("order.rows"):
@@ -1295,7 +1067,7 @@ class SpectrogramPipeline:
             (t,) = tables
             if blockwise and t.shape[0] > 1:
                 return self._colormap_bw(mag_l, mag_r, taps, t, cfg, rows_per_table,
-                                         block_rows=self._cmap_ts(mag_l.shape[0]),
+                                         block_rows=self.palette_layout.block_rows(mag_l.shape[0]),
                                          launch=form)
             return self._colormap(mag_l, mag_r, taps, t, cfg, rows_per_table, launch=form)
 
@@ -1342,12 +1114,13 @@ class SpectrogramPipeline:
             raise ValueError("this pipeline keeps no ring (store_ring=False)")
         with span("render"):
             ring = state.ring
-            if self._state_perm(state) is not None:
+            pl = self.palette_layout
+            v = pl.read(state.tables)
+            if v.sorted:
                 tables = self.state_tables_for(state.palette_id)
                 blockwise = self.blockwise_palettes is True
             else:
-                tables = self._colormap_tables(state.tables)
-                blockwise = self._state_blockwise(state)
+                tables, blockwise = v.colormap, pl.blockwise(state.tables)
             s, r, _, b = ring.shape
             out_rows = r if width is None else int(width)
             j0, j1, w0, w1 = self._time_resample_taps(r, out_rows)
@@ -1407,7 +1180,7 @@ class SpectrogramPipeline:
         if palette_id is None:
             palette_id = (self.static_palette_id
                           if self.static_palette_id is not None else 1)
-        self._check_ids(np.asarray(palette_id))
+        self.palette_layout.check_ids(np.asarray(palette_id))
         squeeze = pcm.ndim == 2
         if squeeze:
             pcm = pcm[None]

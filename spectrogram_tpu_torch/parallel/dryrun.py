@@ -104,7 +104,7 @@ def rank_main(args) -> None:
         sstate = pmesh.shard_state(spipe.set_palette(spipe.init_state(s_streams), ids), mesh,
                                    spipe)
         # one rank is one shard: JAX's gate declines the per-shard sort there
-        if spipe._tables_perm_global(sstate.tables) != (n > 1):
+        if spipe.palette_layout.read(sstate.tables).perm_global != (n > 1):
             raise AssertionError("the per-shard palette sort did not follow its gate")
         chunk = torch.zeros((s_streams // n, spipe.chunk_size, 2), device=dev)
         if presorted and n > 1:

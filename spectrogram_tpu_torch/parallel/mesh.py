@@ -39,6 +39,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Replicate, Shard
 
+from spectrogram_tpu_torch.models.palette_layout import PaletteLayout
 from spectrogram_tpu_torch.models.spectrogram import SpectrogramPipeline, StreamState
 
 STREAM_AXIS = "streams"
@@ -151,82 +152,13 @@ def local_stream_range(mesh: DeviceMesh, n_streams: int) -> tuple[int, int]:
 
 # ----------------------------------------------------------- per-shard sort
 
-def _per_shard_sort_applies(pipeline: SpectrogramPipeline, tables: tuple, s: int,
-                            n_shards: int) -> bool:
-    """The JAX package's gate of the per-shard sort: more than one shard
-    dividing S, built-in per-stream tables with palette_sort, carry-sort
-    mode, and blockwise palettes "auto" or True."""
-    return (n_shards > 1 and not s % n_shards
-            and pipeline._palette_sort_eligible(tables)
-            and pipeline.carry_sort_mode
-            and pipeline.blockwise_palettes in ("auto", True))
-
-
-def _resort_per_shard(pipeline: SpectrogramPipeline, state: StreamState,
-                      n_shards: int) -> StreamState:
-    """PER-SHARD palette sort of a whole, external-order state about to be
-    split over `n_shards` ranks: one stable argsort per shard slice (perm
-    values global but confined to the slice, `_view_sorted_tables`), so
-    every rank's slice is self-contained.  Where the gate fails, where the
-    layout is already clustered (the marker path needs no gathers) or where
-    the shard-sorted layout fails the blockwise test, the state passes
-    through."""
-    s = int(state.palette_id.shape[0])
-    if not _per_shard_sort_applies(pipeline, state.tables, s, n_shards):
-        return state
-    layout = state.palette_id.cpu().numpy().astype(np.int64)
-    if pipeline._blockwise_auto_decision(layout):
-        return state
-    st = pipeline._view_sorted_tables(state.tables, layout, s // n_shards)
-    if st is None:
-        return state
-    return state._replace(tables=st, carry=state.carry.index_select(0, st[1]))
-
-
-def _local_tables(tables: tuple, lo: int, hi: int, device) -> tuple:
-    """Streams [lo, hi) of a whole state's tables: per-stream tables
-    sliced, uniform tables and the marker as they are, a per-shard sorted
-    tuple's perm and inv made rank-local."""
-    if SpectrogramPipeline._tables_perm(tables) is not None:
-        t, perm, inv, marker = tables
-        return (t[lo:hi].contiguous().to(device), (perm[lo:hi] - lo).to(device),
-                (inv[lo:hi] - lo).to(device), marker.to(device))
-    return tuple(t.to(device) if t.ndim == 1 or t.shape[0] == 1
-                 else t[lo:hi].contiguous().to(device) for t in tables)
-
-
-def sharded_layout_tables(pipeline: SpectrogramPipeline, palette_id, n_shards: int) -> tuple:
-    """The WHOLE batch's kernel tables for [S] palette ids in the layout
-    class the JAX pipeline gives a state sharded over `n_shards` devices
-    (its set_palette on a sharded state, or shard_state after a palette
-    edit): the blockwise marker where the whole layout is clustered
-    ("auto"), else the per-shard sort where its gate and the blockwise test
-    pass, else per-row tables."""
-    layout = np.asarray(palette_id, np.int32).reshape(-1)
-    pipeline._check_ids(layout)
-    tables = pipeline.state_tables_for(pipeline._device_index(layout))
-    counters = pipeline.counters      # as the pipeline's own layout decisions count
-    if len(tables) != 1:
-        counters["layout.generic" if tables else "layout.unsorted"] += 1
-        return tables
-    if pipeline._blockwise_auto_decision(layout):
-        counters["layout.clustered"] += 1
-        return tables + ((pipeline._bw_marker(),) if pipeline.blockwise_palettes == "auto" else ())
-    s = layout.shape[0]
-    if _per_shard_sort_applies(pipeline, tables, s, n_shards):
-        st = pipeline._view_sorted_tables(tables, layout, s // n_shards)
-        if st is not None:
-            return st
-    counters["layout.unsorted"] += 1
-    return tables
-
-
 def sharded_set_palette(pipeline: SpectrogramPipeline, state: StreamState, palette_id,
                         mesh: DeviceMesh) -> StreamState:
     """`set_palette` of a rank's state: a scalar id for every stream, or
     the WHOLE batch's [S] ids (every rank passes the same), laid out as
-    `sharded_layout_tables` decides; in carry-sort mode the rank's carry
-    follows its new stream order."""
+    `palette_layout.tables_for` lays out a state over the mesh's ranks (the
+    blockwise marker, the per-shard sort or per-row tables); in carry-sort
+    mode the rank's carry follows its new stream order."""
     ids = palette_id.cpu().numpy() if isinstance(palette_id, torch.Tensor) else np.asarray(palette_id)
     if ids.ndim == 0 or pipeline.static_table is not None:
         return pipeline.set_palette(state, ids)
@@ -236,10 +168,12 @@ def sharded_set_palette(pipeline: SpectrogramPipeline, state: StreamState, palet
             f"{ids.shape[0]} ids over {mesh.size()} ranks give {hi - lo} streams a "
             f"rank; this rank's state holds {state.palette_id.shape[0]}"
         )
-    tables = _local_tables(sharded_layout_tables(pipeline, ids, mesh.size()), lo, hi,
-                           pipeline.device)
-    return state._replace(palette_id=pipeline._device_index(ids[lo:hi]), tables=tables,
-                          carry=pipeline._resorted_carry(state, tables))
+    pl = pipeline.palette_layout
+    tables = pl.local(pl.tables_for(ids, shards=mesh.size()), lo, hi, pipeline.device)
+    carry = pl.carry_from_external(pl.carry_to_external(state.carry, state.tables), tables)
+    return state._replace(
+        palette_id=torch.as_tensor(ids[lo:hi], dtype=torch.int32, device=pipeline.device),
+        tables=tables, carry=carry)
 
 
 # --------------------------------------------------------------- placement
@@ -251,7 +185,7 @@ def _slice_state(state: StreamState, lo: int, hi: int, device) -> StreamState:
     return StreamState(carry=cut(state.carry), ring=cut(state.ring),
                        cursor=state.cursor.to(device), palette_id=cut(state.palette_id),
                        row_count=state.row_count.to(device),
-                       tables=_local_tables(state.tables, lo, hi, device))
+                       tables=PaletteLayout.local(state.tables, lo, hi, device))
 
 
 def shard_state(state: StreamState, mesh: DeviceMesh,
@@ -259,11 +193,12 @@ def shard_state(state: StreamState, mesh: DeviceMesh,
     """This rank's slice of a whole (unsharded) state, on the pipeline's
     device (the rank's without a pipeline).  Uniform [1, R*4] tables stay
     whole: there is no stream axis to split.  Palette-sorted states are
-    unsorted and, with `pipeline`, re-sorted PER SHARD SLICE where the
-    JAX gate sorts (`_resort_per_shard`); the rank keeps its slice's
-    rank-local perm.  Without `pipeline`, sorted states raise: the stored
+    unsorted and, with `pipeline`, re-sorted PER SHARD SLICE where
+    `palette_layout.tables_for` sorts them over the mesh's ranks (the JAX
+    gate); the rank keeps its slice's rank-local perm.  Other states keep
+    their tables.  Without `pipeline`, sorted states raise: the stored
     permutation indexes across shard slices."""
-    if SpectrogramPipeline._tables_perm(state.tables) is not None:
+    if PaletteLayout.read(state.tables).sorted:
         if pipeline is None:
             raise ValueError(
                 "palette-sorted states cannot be sharded: the stored sort "
@@ -274,7 +209,11 @@ def shard_state(state: StreamState, mesh: DeviceMesh,
             )
         state = pipeline.unsort_state(state)
     if pipeline is not None:
-        state = _resort_per_shard(pipeline, state, mesh.size())
+        pl = pipeline.palette_layout
+        tables = pl.tables_for(state.palette_id.cpu().numpy(), shards=mesh.size())
+        if pl.read(tables).sorted:
+            state = state._replace(tables=tables,
+                                   carry=pl.carry_from_external(state.carry, tables))
     _state_tables_specs(state.tables, mesh.size())
     lo, hi = local_stream_range(mesh, int(state.palette_id.shape[0]))
     device = pipeline.device if pipeline is not None else rank_device()
@@ -309,19 +248,18 @@ def _state_tables_specs(tables: tuple, n_shards: int | None = None) -> tuple:
     zero-size marker replicate.  A per-shard sorted tuple (perm values
     confined to their slice) shards perm and inv too; block-relative
     length-3 sorts and whole-state global sorts cannot be sharded."""
-    if SpectrogramPipeline._tables_perm(tables) is not None:
-        if SpectrogramPipeline._tables_perm_global(tables) and (
-            n_shards is None or _perm_shard_confined(tables[1], n_shards)
-        ):
-            return ((Shard(0),), (Shard(0),), (Shard(0),), (Replicate(),))
+    v = PaletteLayout.read(tables)
+    if v.sorted and not (v.perm_global and (
+            n_shards is None or _perm_shard_confined(v.perm, n_shards))):
         raise ValueError(
             "this palette-sorted state cannot be sharded: the stored sort "
             "permutation indexes across shard slices.  Re-shard through "
             "shard_state(state, mesh, pipeline) — it unsorts and re-sorts "
             "PER SHARD SLICE — or call pipeline.unsort_state first."
         )
-    return tuple((Shard(0),) if t.ndim == 2 and t.shape[0] != 1 else (Replicate(),)
-                 for t in tables)
+    # the tuple's order: colormap tables, perm and inv, marker
+    return (tuple((Shard(0),) if t.shape[0] != 1 else (Replicate(),) for t in v.colormap)
+            + ((Shard(0),),) * (2 * v.sorted) + ((Replicate(),),) * v.marked)
 
 
 # -------------------------------------------------------------------- push
@@ -391,7 +329,7 @@ def gather_state(state: StreamState, mesh: DeviceMesh,
     """The whole state on every rank, in EXTERNAL stream order (a sorted
     slice's carry unsorted first, which needs `pipeline`), with per-row
     tables: the global view of a sharded state."""
-    if SpectrogramPipeline._tables_perm(state.tables) is not None:
+    if PaletteLayout.read(state.tables).sorted:
         if pipeline is None:
             raise ValueError("gathering a palette-sorted state requires pipeline=")
         state = pipeline.unsort_state(state)

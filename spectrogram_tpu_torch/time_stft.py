@@ -127,7 +127,7 @@ COLORMAP_KEYS = (
 # n reading its own copy of built-in palette ids[n], ids "sorted"
 # (sort(arange(rows) % 19): uniform blocks) or "scattered" (arange(rows) %
 # 19: mixed blocks); block_rows None takes the k=1 serving pipeline's
-# (`_cmap_ts`: 128 at BENCH_CONFIG)
+# (`palette_layout.block_rows`: 128 at BENCH_CONFIG)
 BLOCKWISE_KEYS = (
     ("sorted 10240 rows", "bench", 10240, "sorted", None),
     ("scattered 10240 rows", "bench", 10240, "scattered", None),
@@ -236,8 +236,8 @@ def _colormap_worker() -> None:
         ids = np.arange(rows) % 19
         tb = builtin.index_select(0, torch.from_numpy(
             np.sort(ids) if layout == "sorted" else ids).to(dev)).contiguous()
-        br = block_rows or SpectrogramPipeline(cfg, chunk_hops=1, store_ring=False,
-                                               device=dev)._cmap_ts(rows)
+        br = block_rows or SpectrogramPipeline(
+            cfg, chunk_hops=1, store_ring=False, device=dev).palette_layout.block_rows(rows)
         record(f"blockwise {label}",
                lambda: ck.colormap_blockwise(ml, mr, taps, tb, cfg, block_rows=br))
         del ml, mr, tb

@@ -44,6 +44,7 @@ import torch
 
 from spectrogram_tpu_torch.config import SpectrogramConfig
 from spectrogram_tpu_torch.models.convert import state_from_jax, state_to_numpy
+from spectrogram_tpu_torch.models.palette_layout import PaletteLayout
 from spectrogram_tpu_torch.models.spectrogram import SpectrogramPipeline, StreamState
 
 
@@ -97,27 +98,21 @@ def save_state(
             save_state(path, whole, cfg, pipeline)
         torch.distributed.barrier(group=mesh.get_group(pmesh.STREAM_AXIS))
         return
-    host = state_to_numpy(state)
-    carry = host["carry"]
     # Palette-sorted states: checkpoints always persist the EXTERNAL stream
-    # order (portable across palette_sort settings).  In carry-sort mode
-    # (streaming pipelines) the carry is at rest in sorted order — undo the
-    # stored block-relative permutation before writing.
-    perm = SpectrogramPipeline._tables_perm(state.tables)
-    if perm is not None and getattr(pipeline, "carry_sort_mode", None) is None:
+    # order (portable across palette_sort settings); a carry-sort pipeline
+    # keeps a sorted state's carry in sorted order.
+    if pipeline is None and PaletteLayout.read(state.tables).sorted:
         raise ValueError(
             "saving a palette-sorted state requires pipeline= (the carry "
             "order on disk depends on the pipeline's carry_sort_mode)"
         )
-    if perm is not None and pipeline.carry_sort_mode:
-        ginv = pipeline._global_perm(
-            perm[1], carry.shape[0],
-            SpectrogramPipeline._tables_perm_global(state.tables),
-        )
-        carry = carry[ginv.cpu().numpy()]
+    if pipeline is not None:
+        state = state._replace(
+            carry=pipeline.palette_layout.carry_to_external(state.carry, state.tables))
+    host = state_to_numpy(state)
     np.savez_compressed(
         path.with_suffix(".npz"),
-        carry=carry,
+        carry=host["carry"],
         ring=np.asarray(host["ring"], dtype=np.float32),  # bf16 -> f32 container
         cursor=host["cursor"],
         palette_id=host["palette_id"],
@@ -143,19 +138,13 @@ def expected_shapes(pipeline: SpectrogramPipeline, n_streams: int) -> dict:
     else:
         carry = (s, 2, pipeline.carry_size)
     ring_rows = pipeline.viewport_rows if pipeline.store_ring else 0
-    if pipeline.static_table is not None:
-        tables = []
-    else:
-        registry = ((pipeline.builtin_tables,) if pipeline.builtin_tables is not None
-                    else pipeline.generic_tables)
-        tables = [(s, t.shape[1]) for t in registry]
     return {
         "carry": [carry],
         "ring": [(s, ring_rows, 2, pipeline.cfg.num_bins)],
         "cursor": [()],
         "palette_id": [(s,)],
         "row_count": [()],
-        "tables": tables,
+        "tables": [(s, t.shape[1]) for t in pipeline.palette_layout.registry],
     }
 
 
@@ -205,14 +194,6 @@ def load_state(path, pipeline: SpectrogramPipeline) -> StreamState:
     # blockwise-auto marker and the palette-sort class are re-decided from
     # the restored layout
     tables = pipeline.restored_tables_for(palette_id)
-    # carry-sort pipelines keep the carry at rest in sorted order; the
-    # checkpoint stores external order, so re-apply the (deterministic)
-    # permutation the restored tables carry.
-    perm = SpectrogramPipeline._tables_perm(tables)
-    if perm is not None and pipeline.carry_sort_mode:
-        gperm = pipeline._global_perm(
-            perm[0], carry.shape[0], SpectrogramPipeline._tables_perm_global(tables))
-        carry = carry[gperm.cpu().numpy()]
     state = state_from_jax(
         dict(carry=carry, ring=z["ring"], cursor=z["cursor"],
              palette_id=palette_id, row_count=z["row_count"]),
@@ -220,20 +201,21 @@ def load_state(path, pipeline: SpectrogramPipeline) -> StreamState:
     )._replace(tables=tables)
     expected = expected_shapes(pipeline, int(palette_id.shape[0]))
     for name in StreamState._fields:
-        field = getattr(state, name)
-        got = [tuple(t.shape) for t in (field if name == "tables" else (field,))]
-        if name == "tables":
-            # 1-D tables entries track the palette LAYOUT class, not
-            # geometry — the zero-size blockwise-auto marker and the
-            # palette-sort perm/inv vectors — exempt from the shape contract
-            got = [s_ for s_ in got if len(s_) != 1]
+        # the tables' colormap operands only: the marker, perm and inv
+        # follow the palette layout, not the geometry
+        field = (PaletteLayout.read(state.tables).colormap if name == "tables"
+                 else (getattr(state, name),))
+        got = [tuple(t.shape) for t in field]
         if got != expected[name]:
             raise ValueError(
                 f"checkpoint field {name} shape {got} != pipeline "
                 f"expectation {expected[name]}"
             )
     _check_cursor_alignment(state, pipeline, pipeline_meta)
-    return state
+    # the checkpoint stores external order; a carry-sort pipeline keeps a
+    # sorted state's carry in the sorted order of the restored tables
+    return state._replace(
+        carry=pipeline.palette_layout.carry_from_external(state.carry, tables))
 
 
 @contextlib.contextmanager
@@ -259,7 +241,7 @@ def save_sharded(
     import torch.distributed.checkpoint as dcp
 
     path = pathlib.Path(path).resolve()
-    if SpectrogramPipeline._tables_perm(state.tables) is not None:
+    if PaletteLayout.read(state.tables).sorted:
         raise ValueError(
             "palette-sorted states are not saved sharded: save with "
             "save_state, which persists the external carry order, or save "
@@ -293,8 +275,8 @@ def load_sharded(path, pipeline: SpectrogramPipeline, mesh=None) -> StreamState:
     state in one process (no process group needed).  Raises where the
     geometry or a shape differs from the pipeline's.  The tables are
     re-derived from the restored palette ids, in the layout class a state
-    on this mesh takes (`parallel.mesh.sharded_layout_tables`: the
-    blockwise marker, or the per-shard sort), or, unsharded, in the one
+    on this mesh takes (`palette_layout.tables_for` over the mesh's ranks:
+    the blockwise marker, or the per-shard sort), or, unsharded, in the one
     `restored_tables_for` gives."""
     import torch.distributed.checkpoint as dcp
 
@@ -368,18 +350,15 @@ def load_sharded(path, pipeline: SpectrogramPipeline, mesh=None) -> StreamState:
         dtype = pipeline.ring_dtype if name == "ring" else pipeline.carry_dtype
         restored[name] = torch.zeros(local, dtype=dtype, device=dev)
     layout = restored["palette_id"].cpu().numpy()
+    pl = pipeline.palette_layout
     if mesh is not None:
-        tables = pmesh._local_tables(
-            pmesh.sharded_layout_tables(pipeline, layout, mesh.size()), lo, hi, dev)
+        tables = pl.local(pl.tables_for(layout, shards=mesh.size()), lo, hi, dev)
         restored["palette_id"] = restored["palette_id"][lo:hi].contiguous()
     else:
         tables = pipeline.restored_tables_for(layout)
+    # the checkpoint stores external order
+    restored["carry"] = pl.carry_from_external(restored["carry"], tables)
     state = StreamState(**restored, tables=tables)
-    # carry-sort pipelines keep the carry at rest in sorted order; the
-    # checkpoint stores external order
-    perms = pipeline._global_perms(state)
-    if perms is not None and pipeline.carry_sort_mode:
-        state = state._replace(carry=state.carry.index_select(0, perms[0]))
     _check_cursor_alignment(state, pipeline, pipeline_meta)
     return state
 

@@ -391,7 +391,7 @@ def test_dcp_serving_state_resumes_per_shard_sorted(ck_ranks):
     np.testing.assert_array_equal(got["rows2"], got["rows"])
     p = SpectrogramPipeline(tr.CFG, device="cpu", **tr.STREAM_KW)
     st = tck.load_sharded(ck_ranks["out"] / "sorted_dcp", p)
-    assert p._state_perm(st) is not None
+    assert p.palette_layout.read(st.tables).sorted
     _, rows = p.push(st, torch.from_numpy(tr.pcm(44, tr.SORT_STREAMS, p.chunk_size)))
     np.testing.assert_array_equal(rows.numpy(), got["rows"])
 
@@ -414,7 +414,7 @@ def test_dcp_guards(ck_ranks, tmp_path):
     with pytest.raises(ValueError, match="missing field 'ring'"):
         tck.load_sharded(tmp_path / "e", SpectrogramPipeline(tr.CFG, chunk_hops=1, device="cpu"))
     sorted_state = streaming.set_palette(streaming.init_state(256), tr.alternating(256))
-    assert streaming._state_perm(sorted_state) is not None
+    assert streaming.palette_layout.read(sorted_state.tables).sorted
     with pytest.raises(ValueError, match="palette-sorted"):
         tck.save_sharded(tmp_path / "f", sorted_state, tr.CFG, pipeline=streaming)
 

@@ -1555,7 +1555,7 @@ def test_long_window_serving_push_counts_the_route(cuda):
     s = 64
     p, state = _long_serving_pipeline(cuda, s)
     twin = p.with_plain_kernels()
-    assert p._state_perm(state) is not None
+    assert p.palette_layout.read(state.tables).sorted
     left, right = _long_words(s, cuda)
     chunks = [torch.stack([left, right], 1)[..., i * 800:(i + 1) * 800].contiguous()
               for i in range(3)]

@@ -256,5 +256,5 @@ def test_presorted_int16_drain_matches_jax_and_per_row():
         np.testing.assert_array_equal(tr[out], rr.numpy())
         assert testing.rgba_u8_diff(unpack_rgba(tr), unpack_rgba(np.asarray(jr))) <= 1
     np.testing.assert_array_equal(tstate.carry.numpy(), np.asarray(jstate.carry))
-    inv = tp._global_perms(tstate)[1]
+    inv = tp.palette_layout.global_perms(tstate.tables)[1]
     torch.testing.assert_close(tstate.carry.index_select(0, inv), rs.carry, atol=0, rtol=0)

@@ -393,11 +393,11 @@ def test_sorted_state_matches_jax_and_per_row(name):
     s = 256
     ids = np.arange(s) % 2
     js, ts = _start(jp, ids)
-    assert tp._state_perm(ts) is not None and ts.carry.ndim == 4
+    assert tp.palette_layout.read(ts.tables).sorted and ts.carry.ndim == 4
     for a, b in zip(state_to_numpy(ts)["tables"], _np_state(js)["tables"]):
         np.testing.assert_array_equal(a, b)
     rs = per_row.set_palette(per_row.init_state(s), ids)
-    inv = tp._global_perms(ts)[1]
+    inv = tp.palette_layout.global_perms(ts.tables)[1]
     rs = rs._replace(carry=ts.carry.index_select(0, inv))
     fs = full.set_palette(full.init_state(s), ids)._replace(carry=ts.carry)
     perm, out = full.input_perm(fs), torch.from_numpy(full.output_perm(fs))
@@ -439,7 +439,7 @@ def test_transposed_states_carry_across_both_ways(name):
     d = _np_state(js)
     ts = state_from_jax(d, device="cpu")
     assert ts.carry.dtype == torch.float32 and ts.carry.ndim == 4
-    assert (tp._state_perm(ts) is not None) == sort
+    assert (tp.palette_layout.read(ts.tables).sorted) == sort
     back = state_to_numpy(ts)
     for key in ("carry", "ring", "cursor", "palette_id", "row_count"):
         np.testing.assert_array_equal(back[key], np.asarray(d[key], back[key].dtype))

@@ -275,7 +275,7 @@ def test_per_shard_sorted_checkpoint_roundtrip(ranks, tmp_path):
     np.testing.assert_array_equal(got["rows"], want.numpy())
     path = ranks["out"] / "sorted_ck.npz"
     r = load_state(path, p)
-    assert p._state_perm(r) is not None
+    assert p.palette_layout.read(r.tables).sorted
     np.testing.assert_array_equal(p.push(r, _t(pcm))[1].numpy(), want.numpy())
     jp = JaxPipeline(JCFG, **tr.STREAM_KW, **JAX_KERNELS)
     jr = jax_load(path, jp)
@@ -298,8 +298,8 @@ def test_one_rank_mesh_takes_no_per_shard_sort():
     m = pmesh.make_mesh(device="cpu")
     whole = p.set_palette(p.init_state(s_n), ids)
     sh = pmesh.shard_state(whole, m, p)
-    assert p._state_perm(sh) is None and jp._state_perm(jsh) is None
-    assert p._state_perm(pmesh.sharded_set_palette(p, sh, ids, m)) is None
+    assert not p.palette_layout.read(sh.tables).sorted and jp._state_perm(jsh) is None
+    assert not p.palette_layout.read(pmesh.sharded_set_palette(p, sh, ids, m).tables).sorted
     pcm = _t(tr.pcm(9, s_n, p.chunk_size))
     np.testing.assert_array_equal(pmesh.sharded_push(p, m)(sh, pcm)[1].numpy(),
                                   p.push(whole, pcm)[1].numpy())

@@ -180,13 +180,13 @@ def test_slot_reuse_zeroes_state(mode):
     for mgr, a in ((tm, CFG_A), (jm, JCFG_A)):
         sids[mgr] = [mgr.add_stream(a, palette_id=palette(i)) for i in range(cap)]
     g, jg = _group(tm, CFG_A), _group(jm, JCFG_A)
-    sorted_state = g.pipeline._state_perm(g.state) is not None
+    sorted_state = g.pipeline.palette_layout.read(g.state.tables).sorted
     assert sorted_state == (mode == "carry_sort")
     assert sorted_state == (jg.pipeline._state_perm(jg.state) is not None)
     _push_both(tm, jm, CFG_A, JCFG_A, _chunk(tm, CFG_A, seed=6))
     crow = slot
     if sorted_state:
-        inv = g.pipeline._global_perms(g.state)[1]
+        inv = g.pipeline.palette_layout.global_perms(g.state.tables)[1]
         crow = int(inv[slot])
         assert crow != slot
     before = g.state.carry.clone()

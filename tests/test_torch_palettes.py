@@ -162,8 +162,8 @@ def _assert_tables_like_jax(jp, tp, js, ts):
     for a, b in zip(tt, jt):
         np.testing.assert_array_equal(a, b)
     assert len(tt) in (0, 2) and all(t.ndim == 2 for t in tt)
-    assert tp._state_perm(ts) is None and jp._state_perm(js) is None
-    assert tp._state_blockwise(ts) == jp._state_blockwise(js)
+    assert not tp.palette_layout.read(ts.tables).sorted and jp._state_perm(js) is None
+    assert tp.palette_layout.blockwise(ts.tables) == jp._state_blockwise(js)
 
 
 def _padded(p, pcm: np.ndarray) -> np.ndarray:

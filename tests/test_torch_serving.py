@@ -115,8 +115,8 @@ def _assert_same_class(jp, tp, js, ts):
     assert [t.shape for t in tt] == [t.shape for t in jt]
     for a, b in zip(tt, jt):
         np.testing.assert_array_equal(a, b)
-    assert tp._state_blockwise(ts) == jp._state_blockwise(js)
-    assert tp._tables_perm_global(ts.tables) == jp._tables_perm_global(js.tables)
+    assert tp.palette_layout.blockwise(ts.tables) == jp._state_blockwise(js)
+    assert tp.palette_layout.read(ts.tables).perm_global == jp._tables_perm_global(js.tables)
     for name in ("output_perm", "input_perm", "input_dest"):
         want, got = getattr(jp, name)(js), getattr(tp, name)(ts)
         assert (got is None) == (want is None), name
@@ -172,8 +172,8 @@ def test_cmap_ts_equals_jax(geometry):
     jp, tp = _pipelines({}, cfg, jc)
     assert jp.fused_chain
     for n in (1, 4, 100, 128, 256, 600, 2048, 2400, 4096, 10240, 16384, 32768, 81920):
-        assert tp._cmap_ts(n) == jp._cmap_ts(n), n
-    assert tp._cmap_ts(10240) == 128
+        assert tp.palette_layout.block_rows(n) == jp._cmap_ts(n), n
+    assert tp.palette_layout.block_rows(10240) == 128
 
 
 # ----------------------------------------------------------------- decisions
@@ -213,23 +213,29 @@ def carry_sort():
 def test_sorted_pushes_match_jax_and_per_row(layout):
     """Two pushes: the port's sorted pipeline against JAX's, and bit for bit
     against the port's per-row pipeline; the carry at rest in sorted order,
-    carry[inv] the per-row carry."""
+    carry[inv] the per-row carry, which `carry_to_external` gives and
+    `carry_from_external` takes back."""
     s, ids, kw = LAYOUTS[layout]
     jp, tp = _pipelines(kw)
     plain = SpectrogramPipeline(CFG, device="cpu", **dict(STREAMING, **kw),
                                 palette_sort=False, blockwise_palettes=False)
     js, ts = jp.set_palette(jp.init_state(s), ids), tp.set_palette(tp.init_state(s), ids)
     ps = plain.set_palette(plain.init_state(s), ids)
-    assert tp._state_perm(ts) is not None and tp.carry_sort_mode
+    assert tp.palette_layout.read(ts.tables).sorted and tp.carry_sort_mode
     assert len(ps.tables) == 1
     for chunk in _chunks(tp, s, 2, "chirp_tone", seed=3):
         js, ts, tr = _push_both(jp, tp, js, ts, chunk)
         ps, pr = plain.push(ps, torch.from_numpy(np.ascontiguousarray(chunk)))
         torch.testing.assert_close(tr, pr, atol=0, rtol=0)
-    ginv = tp._global_perms(ts)[1].long()
+    pl = tp.palette_layout
+    ginv = pl.global_perms(ts.tables)[1].long()
     torch.testing.assert_close(ts.carry[ginv], ps.carry, atol=0, rtol=0)
+    torch.testing.assert_close(pl.carry_to_external(ts.carry, ts.tables), ps.carry,
+                               atol=0, rtol=0)
+    torch.testing.assert_close(pl.carry_from_external(ps.carry, ts.tables), ts.carry,
+                               atol=0, rtol=0)
     unsorted = tp.unsort_state(ts)
-    assert tp._state_perm(unsorted) is None
+    assert not tp.palette_layout.read(unsorted.tables).sorted
     torch.testing.assert_close(unsorted.carry, ps.carry, atol=0, rtol=0)
     torch.testing.assert_close(unsorted.tables[0], ps.tables[0], atol=0, rtol=0)
 
@@ -245,7 +251,7 @@ def test_ring_mode_mag_bridge_equals_per_row(k):
     tp = SpectrogramPipeline(CFG, **kw)
     plain = SpectrogramPipeline(CFG, palette_sort=False, blockwise_palettes=False, **kw)
     ts, ps = tp.set_palette(tp.init_state(s), ids), plain.set_palette(plain.init_state(s), ids)
-    assert tp._state_perm(ts) is not None and not tp.carry_sort_mode
+    assert tp.palette_layout.read(ts.tables).sorted and not tp.carry_sort_mode
     for chunk in _chunks(tp, s, 3, seed=5):
         c = torch.from_numpy(np.ascontiguousarray(chunk))
         ts, tr = tp.push(ts, c)
@@ -300,7 +306,7 @@ def test_transitions_match_jax(carry_sort):
                  np.arange(s) % 2, 3):
         if isinstance(step, str):
             js, ts = jp.unsort_state(js), tp.unsort_state(ts)
-            assert tp._state_perm(ts) is None
+            assert not tp.palette_layout.read(ts.tables).sorted
         else:
             js, ts = jp.set_palette(js, step), tp.set_palette(ts, step)
         _assert_same_class(jp, tp, js, ts)

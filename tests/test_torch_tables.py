@@ -325,7 +325,7 @@ def test_import_leaves_jax_out():
         "import spectrogram_tpu_torch.ops.cuda.stft_kernel\n"
         "import spectrogram_tpu_torch.ops.log_scale\n"
         "import spectrogram_tpu_torch.ops.resample\n"
-        "import spectrogram_tpu_torch.profile_push\n"
+        "import spectrogram_tpu_torch.models.palette_layout\n"
         "import spectrogram_tpu_torch.io.feeder, spectrogram_tpu_torch.io.registry\n"
         "import spectrogram_tpu_torch.io.ring, spectrogram_tpu_torch.io.sources\n"
         "import spectrogram_tpu_torch.utils.checkpoint\n"

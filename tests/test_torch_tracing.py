@@ -67,7 +67,7 @@ def _pipeline(path: str):
     cfg, kw, s, ids, pushes, _, _ = PATHS[path]
     p = SpectrogramPipeline(cfg, device="cpu", **kw)
     state = p.set_palette(p.init_state(s), ids)
-    assert p._state_perm(state) is not None          # every path runs a sorted state
+    assert p.palette_layout.read(state.tables).sorted   # every path runs a sorted state
     dtype = torch.int16 if p.i16_planes else torch.float32
     pcm = testing.make("noise", s, pushes * p.chunk_size, cfg.sample_rate, seed=4)
     chunks = [torch.from_numpy(np.ascontiguousarray(
@@ -175,7 +175,7 @@ def test_rows_equal_with_profiler_on_and_off(path):
 def _uniform(p, order_ids: np.ndarray) -> dict:
     """The blockwise rule's reading of ids in this order: row blocks of
     the colormap's size, and how many hold one palette."""
-    ts = p._cmap_ts(order_ids.shape[0] * p.chunk_hops)
+    ts = p.palette_layout.block_rows(order_ids.shape[0] * p.chunk_hops)
     nb = order_ids.shape[0] // ts
     head = order_ids[: nb * ts].reshape(nb, ts)
     return {"blocks": nb, "uniform": int((head == head[:, :1]).all(axis=1).sum())}
@@ -207,7 +207,7 @@ def test_layout_counters(layout):
     assert p.counters == {} and p.last_layout is None
     state = p.set_palette(p.init_state(s), ids)
     assert dict(p.counters) == counts
-    bs = p._push_block_streams(s) or s
+    bs = p.palette_layout.sort_block_streams(s) or s
     read = {"external": ids, "blocks": _block_sorted(ids, bs),
             "global": np.sort(ids, kind="stable")}[order]
     assert p.last_layout == _uniform(p, read)
@@ -223,12 +223,22 @@ def test_layout_counters(layout):
     ids=["clustered", "per_shard_sorted", "refused"])
 def test_mesh_layouts_count(ids, counts):
     """The mesh's sharded layout (two shards of 256 streams) counts its
-    decision as the pipeline's own layouts do."""
-    from spectrogram_tpu_torch.parallel.mesh import sharded_layout_tables
-
+    decision as the pipeline's own layouts do; a carry goes into its
+    stream order and back (the per-shard sort's perm confined to each
+    shard)."""
     p = SpectrogramPipeline(SMALL, device="cpu", **STREAMING)
-    sharded_layout_tables(p, ids, 2)
+    pl = p.palette_layout
+    tables = pl.tables_for(ids, shards=2)
     assert dict(p.counters) == counts
+    carry = torch.arange(512 * 2 * 3, dtype=torch.float32).reshape(512, 2, 3)
+    at_rest = pl.carry_from_external(carry, tables)
+    v = pl.read(tables)
+    if v.sorted:
+        assert v.perm_global and bool((v.perm[:256] < 256).all())
+        torch.testing.assert_close(at_rest, carry[v.perm.long()], atol=0, rtol=0)
+    else:
+        assert at_rest is carry
+    torch.testing.assert_close(pl.carry_to_external(at_rest, tables), carry, atol=0, rtol=0)
 
 
 def test_generic_registry_counts_generic():

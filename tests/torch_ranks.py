@@ -27,6 +27,7 @@ if str(REPO) not in sys.path:
 
 from spectrogram_tpu_torch.config import SpectrogramConfig  # noqa: E402
 from spectrogram_tpu_torch.models.multirate import StreamGroupManager  # noqa: E402
+from spectrogram_tpu_torch.models.palette_layout import PaletteLayout  # noqa: E402
 from spectrogram_tpu_torch.models.spectrogram import SpectrogramPipeline  # noqa: E402
 from spectrogram_tpu_torch.parallel import distributed as pdist  # noqa: E402
 from spectrogram_tpu_torch.parallel import mesh as pmesh  # noqa: E402
@@ -93,7 +94,7 @@ def _message(fn) -> str:
 def _global_perm(state, mesh) -> np.ndarray:
     """A per-shard sorted slice's perm in the global view (JAX's form)."""
     lo, _ = pmesh.local_stream_range(mesh, state.palette_id.shape[0] * mesh.size())
-    return _gather(mesh, state.tables[1] + lo)
+    return _gather(mesh, PaletteLayout.read(state.tables).perm + lo)
 
 
 # ----------------------------------------------------------------- mesh
@@ -157,9 +158,9 @@ def unsorts(mesh, out):
     sh = pmesh.shard_state(s, mesh, p)
     sh1, rows = pmesh.sharded_push(p, mesh)(sh, _local(mesh, pcm(5, s_n, p.chunk_size)))
     sh2 = pmesh.sharded_set_palette(p, sh1, ids, mesh)
-    return dict(whole_sorted=p._state_perm(s) is not None, refused=np.array(refused),
-                sharded_sorted=p._state_perm(sh) is not None, rows=_gather(mesh, rows),
-                resorted=p._state_perm(sh2) is not None)
+    return dict(whole_sorted=p.palette_layout.read(s.tables).sorted, refused=np.array(refused),
+                sharded_sorted=p.palette_layout.read(sh.tables).sorted, rows=_gather(mesh, rows),
+                resorted=p.palette_layout.read(sh2.tables).sorted)
 
 
 def resorts(mesh, out):
@@ -167,18 +168,18 @@ def resorts(mesh, out):
     s_n = SORT_STREAMS
     ids, ids2 = alternating(s_n), alternating(s_n, 1)
     sh = pmesh.shard_state(p.set_palette(p.init_state(s_n), ids), mesh, p)
-    res = dict(is_global=p._tables_perm_global(sh.tables), perm=sh.tables[1].numpy(),
+    res = dict(is_global=p.palette_layout.read(sh.tables).perm_global, perm=sh.tables[1].numpy(),
                inv=sh.tables[2].numpy(), carry_at_rest=sh.carry.numpy())
     sh1, rows, g = pmesh.shard_map_step(p, mesh)(sh, _local(mesh, pcm(6, s_n, p.chunk_size)))
     sh4 = pmesh.sharded_set_palette(p, sh1, ids2, mesh)
     res.update(rows=_gather(mesh, rows), global_rows=int(g),
-               resorted=p._tables_perm_global(sh4.tables))
+               resorted=p.palette_layout.read(sh4.tables).perm_global)
     _, rows4 = pmesh.sharded_push(p, mesh)(sh4, _local(mesh, pcm(7, s_n, p.chunk_size)))
     sh5 = pmesh.sharded_set_palette(p, sh4, 3, mesh)
     u = p.unsort_state(sh4)
-    res.update(rows4=_gather(mesh, rows4), uniform_sorted=p._state_perm(sh5) is not None,
+    res.update(rows4=_gather(mesh, rows4), uniform_sorted=p.palette_layout.read(sh5.tables).sorted,
                uniform_carry=_gather(mesh, sh5.carry), unsorted_carry=_gather(mesh, u.carry),
-               unsort_is_plain=p._state_perm(u) is None)
+               unsort_is_plain=not p.palette_layout.read(u.tables).sorted)
     return res
 
 
@@ -190,10 +191,10 @@ def global_sort_refuses(mesh, out):
     shard_refused = _message(lambda: pmesh.shard_state(s, mesh))
     sh = pmesh.shard_state(s, mesh, p)
     gp = _global_perm(sh, mesh)
-    return dict(whole_global=p._tables_perm_global(s.tables),
+    return dict(whole_global=p.palette_layout.read(s.tables).perm_global,
                 whole_perm=s.tables[1].numpy(), specs_refused=np.array(specs_refused),
                 shard_refused=np.array(shard_refused),
-                sharded_global=p._tables_perm_global(sh.tables),
+                sharded_global=p.palette_layout.read(sh.tables).perm_global,
                 confined=pmesh._perm_shard_confined(gp, mesh.size()),
                 whole_confined=pmesh._perm_shard_confined(s.tables[1], mesh.size()))
 
@@ -207,7 +208,7 @@ def sorted_npz_roundtrip(mesh, out):
     r = checkpoint.load_state(path, p)
     rs = pmesh.shard_state(r, mesh, p)
     _, rows = pmesh.sharded_push(p, mesh)(rs, _local(mesh, pcm(8, s_n, p.chunk_size)))
-    return dict(restored_sorted=p._state_perm(r) is not None,
+    return dict(restored_sorted=p.palette_layout.read(r.tables).sorted,
                 confined=pmesh._perm_shard_confined(_global_perm(rs, mesh), mesh.size()),
                 rows=_gather(mesh, rows))
 
@@ -274,7 +275,7 @@ def manager_sorted(mesh, out):
     mgr = StreamGroupManager(group_capacity=s_n, mesh=mesh, device="cpu", **STREAM_KW)
     sids = [mgr.add_stream(CFG, palette_id=int(i)) for i in alternating(s_n)]
     g = next(mgr.groups())
-    res = dict(sorted=g.pipeline._tables_perm_global(g.state.tables))
+    res = dict(sorted=g.pipeline.palette_layout.read(g.state.tables).perm_global)
     hops = [pcm(30 + i, s_n, g.pipeline.chunk_size) for i in range(3)]
     res["rows0"] = _gather(mesh, mgr.push_group(CFG, _local(mesh, hops[0])))
     mgr.remove_stream(sids[300])
@@ -282,7 +283,7 @@ def manager_sorted(mesh, out):
     mgr.set_palette(sids[7], 4)
     for i in (1, 2):
         res[f"rows{i}"] = _gather(mesh, mgr.push_group(CFG, _local(mesh, hops[i])))
-    res["sorted_after"] = g.pipeline._tables_perm_global(g.state.tables)
+    res["sorted_after"] = g.pipeline.palette_layout.read(g.state.tables).perm_global
     return res
 
 
@@ -336,7 +337,7 @@ def dcp_sorted_streaming(mesh, out):
     nxt = _local(mesh, pcm(44, s_n, p.chunk_size))
     _, rows = step(st, nxt)
     _, rows2 = step(st2, nxt)
-    return dict(refused=np.array(refused), sorted=p._tables_perm_global(st2.tables),
+    return dict(refused=np.array(refused), sorted=p.palette_layout.read(st2.tables).perm_global,
                 carry_equal=torch.equal(st.carry, st2.carry), rows=_gather(mesh, rows),
                 rows2=_gather(mesh, rows2))
 
